@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (wire_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # 300-epoch fit, floor from wire_tpu
-    python3 chip_smoke.py --epochs 2000   # the full bench protocol, 25 dB floor
+    python3 chip_smoke.py              # 300-epoch / 300-iteration fits,
+                                       # floors from wire_tpu on the CPU
+    python3 chip_smoke.py --epochs 2000   # the full denoise bench protocol,
+                                          # 25 dB floor
 
-Phases, each printing one JSON line with its wall time:
+It drives two paths of the port: WIRE-300 denoise through fit_pointwise
+(kernel: wire_step) and WIRE-300 CT reconstruction through fit_operator
+(kernels: wire_mlp, and line_sample for the 'auto' = fourier method or
+rotsum for 'rotate').  Phases, each printing one JSON line with its wall
+time:
   device           card name and count, nvidia-smi's name and power limit;
                    TF32 off for matmuls and cuDNN
-  build            nvcc builds every kernel of the main path from csrc/
-  kernel_vs_plain  each kernel against its plain PyTorch version at the
-                   main path's full width, plus a ragged case
-  measure          kernel, plain and library (torch.matmul) times at the
-                   bench shape, and the card's least time for the same work
-  fit              the bench protocol (WIRE-300 denoise, 65,536 coordinates,
-                   full batch) through fit_pointwise, once through the
-                   kernel (launch counts reset just before, read just after)
-                   and once through the plain path, from one init
+  build            nvcc builds every kernel library from csrc/, all at once
+  kernel_vs_plain  each kernel against its plain PyTorch version at its
+                   path's full shape, plus a ragged case
+  measure          kernel (as a host call, and its kernels' device time
+                   from torch.profiler), plain and library times at those
+                   shapes, and the card's least time for the same work
+  fit              the denoise bench protocol (65,536 coordinates, full
+                   batch) through fit_pointwise, once through the kernel
+                   (launch counts reset just before, read just after) and
+                   once through the plain path, from one init
+  fit_ct           the CT protocol (256 x 256 field, 100 angles) through
+                   fit_operator for each Radon method, 'auto' and 'rotate',
+                   once through the kernels (counts reset just before, read
+                   just after) and once through the plain path, from one
+                   init
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -39,9 +51,21 @@ WIRE_TPU_300_EPOCH_PSNR_DB = 26.159610748291016
 PSNR_FLOORS_DB = {300: WIRE_TPU_300_EPOCH_PSNR_DB - 0.2, 2000: 25.0}
 PSNR_AGREE_DB = 0.05
 
+# Best PSNR of the 300-iteration CT fits from wire_tpu on the CPU
+# (fit_operator, fused="never", float32, the CT protocol, this script's
+# seed-0 init moved across), as printed by tools/port_ct_floor.py, by Radon
+# method ('auto' is 'fourier' on the card); the kernel fits must reach them
+# less 0.2 dB, and agree with the plain fits within PSNR_AGREE_DB.
+WIRE_TPU_300_ITER_CT_PSNR_DB = {"auto": 28.474111557006836,
+                                "rotate": 28.00259780883789}
+CT_ITERS = 300
+CT_CONFIG = "WIRE_s12_o8_LR5e3_E2000"
+
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W power limit.
 H100_FP32_TFLOPS = 67.0
 H100_HBM_TBPS = 3.35
+
+KERNEL_LIBRARIES = ("wire_step", "wire_mlp", "rotsum", "line_sample")
 
 # Kernel vs plain: max abs error <= REL_TOL * max |plain| per output tensor.
 # Both sum fp32 products over up to 65,536 rows in different orders (tiles
@@ -89,9 +113,11 @@ def inputs(torch, model, n, seed, device):
     return params, coords, target, gt
 
 
-def matmul_step(torch, w, coords, target, gt, spec):
-    """The step as torch.matmul calls on the stacked layout with the
-    backward written out: the library yardstick (not used by the port)."""
+def matmul_vjp(torch, w, coords, spec, cotangent, want_dcoords=False):
+    """The WIRE forward and backward as torch.matmul calls on the stacked
+    layout with the backward written out, for the output cotangent
+    ``cotangent(y)``: the library yardstick (not used by the port).
+    Returns (y, gw1, gWh, gfW, dcoords or None)."""
     h = w["w1"].shape[1]
     s2 = spec.scale ** 2
     om, om1 = spec.hidden_omega0, spec.first_omega0
@@ -115,9 +141,7 @@ def matmul_step(torch, w, coords, target, gt, spec):
         zs.append(z)
         acts.append(gabor(z[:, :h], z[:, h:], om))
     y = torch.addmm(w["fb"], acts[-1], w["fW"])
-    n, o = target.shape
-    et, eg = y - target, y - gt
-    g = (2.0 / (n * o)) * et
+    g = cotangent(y)
     gfW = torch.cat([acts[-1].t() @ g, g.sum(0, keepdim=True)])
     da = g @ w["fWT"]
     gWh = [torch.empty((0, 2 * h + 1, 2 * h), device=y.device)]
@@ -129,7 +153,349 @@ def matmul_step(torch, w, coords, target, gt, spec):
         da = dz @ w["WhT"][l]
     dz1, _ = gabor_bwd(da, acts[0], z1, torch.zeros_like(z1), om1)
     gw1 = torch.cat([coords.t() @ dz1, dz1.sum(0, keepdim=True)])
-    return y, gw1, torch.cat(gWh), gfW, ((et * et).sum(), (eg * eg).sum())
+    dcoords = dz1 @ w["w1"].t() if want_dcoords else None
+    return y, gw1, torch.cat(gWh), gfW, dcoords
+
+
+def matmul_step(torch, w, coords, target, gt, spec):
+    """The masked-MSE train step through ``matmul_vjp``."""
+    n, o = target.shape
+    y, gw1, gWh, gfW, _ = matmul_vjp(
+        torch, w, coords, spec, lambda y: (2.0 / (n * o)) * (y - target))
+    et, eg = y - target, y - gt
+    return y, gw1, gWh, gfW, ((et * et).sum(), (eg * eg).sum())
+
+
+def vjp(torch, fn, inputs, cot):
+    """{"out": fn(*inputs)} plus "d<i>": the gradient of <fn(...), cot>
+    w.r.t. input i (zeros where unused); fn may return a tuple, then cot is
+    a tuple too and the outputs are "out0", "out1", ..."""
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = cot if isinstance(cot, tuple) else (cot,)
+    grads = torch.autograd.grad(outs, xs, cots, allow_unused=True)
+    res = {(f"out{i}" if len(outs) > 1 else "out"): o.detach()
+           for i, o in enumerate(outs)}
+    for i, (x, g) in enumerate(zip(xs, grads)):
+        res[f"d{i}"] = torch.zeros_like(x) if g is None else g
+    return res
+
+
+def wire_mlp_fn(WM, spec, keys, plain=False):
+    """(coords, *leaves) -> y through the kernel or the plain version."""
+    apply = WM.wire_mlp_plain if plain else WM.wire_mlp
+
+    def fn(coords, *leaves):
+        p = {k: {} for k, _ in keys}
+        for (k, kk), leaf in zip(keys, leaves):
+            p[k][kk] = leaf
+        return apply(p, coords, spec)
+    return fn
+
+
+def rot_grids(torch, S, angles, device):
+    """grid_sample grids (A, S, S, 2) of the rotate() convention for
+    align_corners=True (tools/oracle_sweep.py:_make_rot_grids)."""
+    t = torch.deg2rad(torch.tensor(angles, device=device))
+    cos, sin = torch.cos(t)[:, None, None], torch.sin(t)[:, None, None]
+    ys, xs = torch.meshgrid(torch.arange(S, dtype=torch.float32,
+                                         device=device),
+                            torch.arange(S, dtype=torch.float32,
+                                         device=device), indexing="ij")
+    c = (S - 1) / 2.0
+    x, y = xs - c, ys - c
+    sx = cos * x - sin * y + c
+    sy = sin * x + cos * y + c
+    return torch.stack([2 * sx / (S - 1) - 1, 2 * sy / (S - 1) - 1], -1)
+
+
+def line_positions(torch, P, A, K, device):
+    """The fourier method's slice positions (operators/radon.py) for A
+    angles over [0, 180] and K = P // 2 + 1 frequencies (or fewer)."""
+    import numpy as np
+    th = torch.deg2rad(torch.tensor(
+        np.linspace(0, 180, A, dtype=np.float32),
+        device=device))
+    k = torch.arange(K, dtype=torch.float32, device=device)
+    return (k[None, :] * torch.sin(th)[:, None] + P // 2,
+            k[None, :] * torch.cos(th)[:, None] + P // 2)
+
+
+def bound(flops, nbytes):
+    """(least ms, what bounds it) at the card's fp32 and HBM peaks."""
+    ops_ms = flops / (H100_FP32_TFLOPS * 1e9)
+    bytes_ms = nbytes / (H100_HBM_TBPS * 1e9)
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def line_sample_bytes(torch, gy, gx, ph):
+    """Bytes the gather + scatter pair must move at positions (gy, gx): the
+    distinct plane entries its taps read in both planes (the gather reads
+    no other), the positions, the samples out and their cotangents in, and
+    both (ph, ph) gradient planes out."""
+    y0, x0 = torch.floor(gy).long(), torch.floor(gx).long()
+    taps = torch.cat([((y0 + dy) * ph + x0 + dx).ravel()
+                      for dy in (0, 1) for dx in (0, 1)])
+    ntaps = int(torch.unique(taps).numel())
+    return 4 * (2 * ntaps + 2 * ph * ph + 6 * gy.numel())
+
+
+def kernel_names(name):
+    """The __global__ functions of csrc/<name>.cu and the csrc headers it
+    includes."""
+    import re
+    csrc = os.path.join(ROOT, "wire_tpu_torch", "csrc")
+    with open(os.path.join(csrc, f"{name}.cu")) as f:
+        src = f.read()
+    for inc in re.findall(r'#include "(\w+\.cuh)"', src):
+        with open(os.path.join(csrc, inc)) as f:
+            src += f.read()
+    return set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        src))
+
+
+def kernel_device_ms(torch, fn, iters, names):
+    """Device time per call of ``fn`` spent in the kernels called ``names``
+    (torch.profiler, device-side events), without the host's launch and
+    autograd work around them; None where the profiler saw no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.key for n in names))
+    return us / 1e3 / iters if us else None
+
+
+CT_SPEC_FIELDS = ("in_features", "out_features", "hidden_features",
+                  "hidden_layers", "first_omega0", "hidden_omega0", "scale")
+
+
+def ct_models(get_inr, TCT, cfg):
+    """The CT app's model (kernels) and the same spec with fused='never'
+    (the plain path)."""
+    model = TCT.build_ct_model(cfg, cfg.omega0)
+    plain = get_inr("wire", fused="never", **{
+        f: getattr(model.spec, f) for f in CT_SPEC_FIELDS})
+    return model, plain
+
+
+def ct_kernel_cases(torch, WM, R, LS, model, n, S, A, P, K, seed, device):
+    """For each CT kernel: (kernel fn, plain fn, library fn or None, inputs,
+    cotangent) at one shape: wire_mlp at n coordinates, rotsum at an
+    (S, S) image x A angles, line_sample on (P + 2)^2 planes at A x K
+    positions."""
+    import numpy as np
+    import torch.nn.functional as F
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    spec = model.spec
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    keys = [(k, kk) for k in params for kk in params[k]]
+    coords = t(rng.uniform(-1, 1, (n, 2)))
+    g = t(rng.normal(size=(n, spec.out_features)))
+    cases = {"wire_mlp": (
+        wire_mlp_fn(WM, spec, keys), wire_mlp_fn(WM, spec, keys, plain=True),
+        None, [coords] + [params[k][kk] for k, kk in keys], g)}
+
+    angles = np.linspace(0, 180, A, dtype=np.float32)
+    grids = rot_grids(torch, S, angles, device)
+    cases["rotsum"] = (
+        lambda x: R.rotate_project(x, angles),
+        lambda x: R.rotate_project_plain(x, angles),
+        lambda x: F.grid_sample(x[None, None].expand(A, 1, S, S), grids,
+                                align_corners=True)[:, 0].sum(-2),
+        [t(rng.random((S, S)))], t(rng.normal(size=(A, S))))
+
+    ph = P + 2
+    gy, gx = line_positions(torch, P, A, K, device)
+    grid = torch.stack([2 * gx / (ph - 1) - 1, 2 * gy / (ph - 1) - 1],
+                       -1)[None]
+
+    def line_library(a, b):
+        out = F.grid_sample(torch.stack([a, b])[None], grid,
+                            align_corners=True)
+        return out[0, 0], out[0, 1]
+
+    cases["line_sample"] = (
+        lambda a, b: LS.sample_lines(a, b, gy, gx),
+        lambda a, b: LS.sample_lines_plain(a, b, gy, gx), line_library,
+        [t(rng.normal(size=(ph, ph))), t(rng.normal(size=(ph, ph)))],
+        (t(rng.normal(size=(A, K))), t(rng.normal(size=(A, K)))))
+    return cases, params, keys
+
+
+def ct_kernel_vs_plain(torch, WM, R, LS, model, device):
+    """max abs err per kernel at the CT shape ("full") and a ragged one."""
+    shapes = {"full": dict(n=256 * 256, S=256, A=100, P=1024, K=513),
+              "ragged": dict(n=700, S=96, A=13, P=384, K=193)}
+    errs = {name: {} for name in ("wire_mlp", "rotsum", "line_sample")}
+    for which, shape in shapes.items():
+        cases, _, _ = ct_kernel_cases(torch, WM, R, LS, model, seed=3,
+                                      device=device, **shape)
+        for name, (kfn, pfn, _, xs, cot) in cases.items():
+            got = vjp(torch, kfn, xs, cot)
+            torch.cuda.synchronize()
+            want = vjp(torch, pfn, xs, cot)
+            torch.cuda.synchronize()
+            errs[name][which] = compare(got, want, f"{name} {which}")
+    return errs
+
+
+def ct_measure(torch, WM, R, LS, model, device):
+    """Times at the CT shape of each kernel's forward + backward pair (and
+    of its forward alone), its plain version's pair and a library call's
+    pair, with the card's least time for the pair."""
+    n, S, A, P, K = 256 * 256, 256, 100, 1024, 513
+    cases, params, keys = ct_kernel_cases(torch, WM, R, LS, model, n, S, A,
+                                          P, K, seed=4, device=device)
+    spec = model.spec
+    L, h = spec.hidden_layers, params["first"]["w"].shape[1]
+    d, o = spec.in_features, spec.out_features
+    nweights = sum(v.numel() for sub in params.values() for v in sub.values())
+    gy, gx = line_positions(torch, P, A, K, device)
+    work = {
+        "wire_mlp": (WM.apply_flops(n, d, h, o, L),
+                     4 * (2 * (n * d + n * o + nweights))),
+        "rotsum": (2 * R.sample_flops(A, S), 4 * 2 * (S * S + A * S)),
+        "line_sample": (2 * LS.sample_flops(A, K),
+                        line_sample_bytes(torch, gy, gx, P + 2)),
+    }
+    out = {}
+    for name, (kfn, pfn, lfn, xs, cot) in cases.items():
+        def fwd(fn=kfn, xs=xs):
+            with torch.no_grad():
+                fn(*xs)
+        res = {
+            "ms": cuda_ms(torch, lambda: vjp(torch, kfn, xs, cot), 20),
+            "kernel_ms": kernel_device_ms(
+                torch, lambda: vjp(torch, kfn, xs, cot), 20,
+                kernel_names(name)),
+            "fwd_ms": cuda_ms(torch, fwd, 20),
+            "plain_ms": cuda_ms(torch, lambda: vjp(torch, pfn, xs, cot), 20),
+        }
+        if name == "wire_mlp":
+            w = WM.stack_params(params, L)
+            lib = matmul_vjp(torch, w, xs[0], spec, lambda y: cot,
+                             want_dcoords=True)
+            dp = WM.unstack_grads(*lib[1:4], params, L)
+            got = {"out": lib[0], "d0": lib[4]}
+            got.update({f"d{i + 1}": dp[k][kk]
+                        for i, (k, kk) in enumerate(keys)})
+            res["library_ms"] = cuda_ms(torch, lambda: matmul_vjp(
+                torch, w, xs[0], spec, lambda y: cot, want_dcoords=True), 20)
+            res["library"] = "torch.matmul forward + written-out backward"
+        else:
+            got = vjp(torch, lfn, xs, cot)
+            res["library_ms"] = cuda_ms(torch,
+                                        lambda: vjp(torch, lfn, xs, cot), 20)
+            res["library"] = "F.grid_sample(align_corners=True) + autograd"
+        want = vjp(torch, pfn, xs, cot)
+        res["library_vs_plain_max_abs_err"] = max(
+            float((got[k] - want[k]).abs().max()) for k in want)
+        res["bound_ms"], res["bound_by"] = bound(*work[name])
+        res["gflop"], res["mbytes"] = work[name][0] / 1e9, work[name][1] / 1e6
+        out[name] = res
+    return out
+
+
+def check_ct_launches(launches, method, radon_kernel, iters):
+    """Every CT iteration launched wire_mlp forward and backward and the
+    method's Radon kernel pair once, and nothing else."""
+    for name, counts in launches.items():
+        want = iters if name in ("wire_mlp", radon_kernel) else 0
+        if any(v != want for v in counts.values()):
+            raise AssertionError(
+                f"CT {method}: {name} launched {counts} times in {iters} "
+                f"iterations, expected {want} each")
+
+
+def fit_ct(torch, np, mods, device):
+    """The CT protocol through fit_operator for 'auto' (fourier on the
+    card) and 'rotate': once through the kernels, launch counts reset just
+    before and read just after, and once through the plain path, from one
+    init; returns per method the fit numbers and the launch counts."""
+    WM, R, LS, TR, TCT, M, get_inr, get_config, FitConfig, fit_operator = \
+        mods
+    cfg = get_config(CT_CONFIG)
+    model, plain_model = ct_models(get_inr, TCT, cfg)
+    img = TCT.ct_image(None, 0)
+    H, W = img.shape
+    thetas = np.linspace(0, 180, 100, dtype=np.float32)
+    grid = TCT.C.grid2d(H, W)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=CT_ITERS,
+                        maxpoints=cfg.maxpoints)
+    angles_t = torch.tensor(thetas, device=device)
+    counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
+                "line_sample": LS.launches}
+    out = {}
+    for method in ("auto", "rotate"):
+        resolved = TR._resolve_auto(method, len(thetas), "cuda", False)
+        radon_kernel = {"fourier": "line_sample", "rotate": "rotsum"}[
+            resolved]
+        sino = TCT.make_sinogram(img, thetas, radon_method=method,
+                                 device=device)
+        op = TR.RadonOp(thetas, method=method)
+        if resolved == "fourier":
+            def plain_op(f):
+                return TR._radon_fourier(f, angles_t, sampler="plain")
+        else:
+            plain_op = TR.RadonOp(thetas, method="rotate_xla")
+        t0 = time.time()
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        res = fit_operator(model, params, grid, sino, op, fit_cfg,
+                           gt_field=img, field_shape=(H, W), device=device)
+        launches = {k: dict(c) for k, c in counters.items()}
+        check_ct_launches(launches, method, radon_kernel, CT_ITERS)
+        res_plain = fit_operator(plain_model, params, grid, sino, plain_op,
+                                 fit_cfg, gt_field=img, field_shape=(H, W),
+                                 device=device)
+        if {k: dict(c) for k, c in counters.items()} != launches:
+            raise AssertionError(f"CT {method}: the plain fit launched a "
+                                 f"kernel")
+        for r in (res, res_plain):
+            if not (np.isfinite(r.best_rec).all()
+                    and np.isfinite(r.mse_gt).all()
+                    and np.isfinite(r.mse_noisy).all()
+                    and r.best_rec.shape == (H, W)):
+                raise AssertionError(f"CT {method}: non-finite values or a "
+                                     f"wrong shape")
+        psnr = float(M.psnr_ref(img, res.best_rec))
+        psnr_plain = float(M.psnr_ref(img, res_plain.best_rec))
+        if not abs(psnr - psnr_plain) <= PSNR_AGREE_DB:
+            raise AssertionError(
+                f"CT {method}: kernel fit {psnr:.3f} dB vs plain fit "
+                f"{psnr_plain:.3f} dB differ by more than {PSNR_AGREE_DB} dB")
+        floor = WIRE_TPU_300_ITER_CT_PSNR_DB[method] - 0.2
+        if not psnr >= floor:
+            raise AssertionError(f"CT {method}: kernel fit best PSNR "
+                                 f"{psnr:.3f} dB below the floor {floor} dB")
+        out[method] = dict(
+            radon=resolved, iters=CT_ITERS, launches=launches, psnr_db=psnr,
+            psnr_plain_db=psnr_plain, floor_db=floor,
+            ssim=float(M.ssim(img, res.best_rec, data_range=1.0)),
+            ssim_plain=float(M.ssim(img, res_plain.best_rec,
+                                    data_range=1.0)),
+            ms_per_iter=res.step_ms, plain_ms_per_iter=res_plain.step_ms,
+            fit_wall_s=res.wall_time_s, plain_fit_wall_s=res_plain.wall_time_s,
+            wall_s=time.time() - t0)
+    return out
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
@@ -149,7 +515,8 @@ def cuda_ms(torch, fn, iters, warmup=2):
 def main():
     faulthandler.dump_traceback_later(900, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--epochs", type=int, default=300)
+    ap.add_argument("--epochs", type=int, default=300,
+                    help="denoise fit epochs (floors at 300 and 2000)")
     args = ap.parse_args()
 
     sys.path.insert(0, ROOT)
@@ -161,6 +528,13 @@ def main():
     from wire_tpu_torch.train import metrics as M
     from wire_tpu_torch.train.trainer import FitConfig, fit_pointwise
     from wire_tpu_torch import bench
+    import wire_tpu_torch.ops.line_sample as LS
+    import wire_tpu_torch.ops.rotsum as R
+    import wire_tpu_torch.ops.wire_mlp as WM
+    import wire_tpu_torch.operators.radon as TR
+    from wire_tpu_torch.apps import ct as TCT
+    from wire_tpu_torch.train.presets import get_config
+    from wire_tpu_torch.train.trainer import fit_operator
 
     # ---- device ----------------------------------------------------------
     t0 = time.time()
@@ -181,9 +555,11 @@ def main():
 
     # ---- build -----------------------------------------------------------
     t0 = time.time()
-    so, log = build.build("wire_step")
-    print(log, file=sys.stderr)
-    emit("build", t0, libraries=[os.path.relpath(so, ROOT)],
+    built = build.build_all(KERNEL_LIBRARIES)
+    for name, (so, log) in built.items():
+        print(f"== nvcc {name}\n{log}", file=sys.stderr)
+    emit("build", t0, libraries=[os.path.relpath(so, ROOT)
+                                 for so, _ in built.values()],
          nvcc=build.find_nvcc())
 
     # ---- kernel_vs_plain -------------------------------------------------
@@ -207,9 +583,15 @@ def main():
         torch.cuda.synchronize()
         cases[name] = compare(tensors_of(*got), tensors_of(*want),
                               f"wire_step {name}")
-    emit("kernel_vs_plain", t0, max_abs_err=cases, rel_tol=REL_TOL,
-         why=("max abs err <= rel_tol x max|plain| per tensor: fp32 sums "
-              "over up to 65,536 rows taken in another order"))
+    cfg_ct = get_config(CT_CONFIG)
+    ct_model, _ = ct_models(get_inr, TCT, cfg_ct)
+    errs = {"wire_step": cases}
+    errs.update(ct_kernel_vs_plain(torch, WM, R, LS, ct_model, dev))
+    emit("kernel_vs_plain", t0, max_abs_err=errs, rel_tol=REL_TOL,
+         why=("max abs err <= rel_tol x max|plain| per output tensor: fp32 "
+              "sums over up to 65,536 rows (wire_*), 256 rows (rotsum) "
+              "taken in another order; line_sample's scatter adds with "
+              "atomics in a varying order"))
 
     # ---- measure (bench shape; these launches are not the main path) ------
     t0 = time.time()
@@ -232,20 +614,28 @@ def main():
         "matmul step vs plain")
     library_ms = cuda_ms(torch, lambda: matmul_step(
         torch, w, coords, target, gt, spec), iters=20)
+    kernel_ms = kernel_device_ms(torch, lambda: WS.wire_step(
+        params, coords, target, spec, gt=gt, want_metrics=True,
+        scratch=scratch), 20, kernel_names("wire_step"))
     flops = WS.step_flops(n_full, 2, h, 3, L)
     nweights = sum(v.numel() for sub in params.values() for v in sub.values())
     nbytes = 4 * (n_full * (2 + 3 + 3)          # coords, target, gt
                   + nweights                    # weights in
                   + n_full * 3 + nweights + 2)  # pred, grads, sse out
-    ops_ms = flops / (H100_FP32_TFLOPS * 1e9)
-    bytes_ms = nbytes / (H100_HBM_TBPS * 1e9)
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    emit("measure", t0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-         bound_ms=bound_ms, bound_by=bound_by, step_gflop=flops / 1e9,
-         step_mbytes=nbytes / 1e6, library_vs_plain_max_abs_err=lib_err,
-         achieved_tflops=flops / (ms * 1e9), nvidia_smi=smi)
+    bound_ms, bound_by = bound(flops, nbytes)
     del scratch, lib_out
+    meas = {"wire_step": dict(
+        ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        library_vs_plain_max_abs_err=lib_err,
+        achieved_tflops=flops / (ms * 1e9))}
+    meas.update(ct_measure(torch, WM, R, LS, ct_model, dev))
+    emit("measure", t0, kernels=meas, nvidia_smi=smi,
+         pairs=("ms, plain_ms and library_ms of wire_mlp, rotsum and "
+                "line_sample time the forward and its backward/adjoint "
+                "together through autograd, as a call from the host; "
+                "kernel_ms the device time of the kernels alone in those "
+                "calls; fwd_ms the forward alone"))
 
     # ---- fit (the main path) ---------------------------------------------
     t0 = time.time()
@@ -288,14 +678,40 @@ def main():
          coords_per_s=n_full / (res.step_ms * 1e-3),
          fit_wall_s=res.wall_time_s, plain_fit_wall_s=res_plain.wall_time_s)
 
+    # ---- fit_ct (the CT path) ---------------------------------------------
+    t0 = time.time()
+    ct = fit_ct(torch, np, (WM, R, LS, TR, TCT, M, get_inr, get_config,
+                            FitConfig, fit_operator), dev)
+    emit("fit_ct", t0, methods=ct)
+
+    # launches of each kernel in the path that runs it: wire_step in the
+    # denoise fit, wire_mlp in both CT fits, line_sample in 'auto'
+    # (fourier), rotsum in 'rotate'; a pair counts both directions
+    path_launches = {
+        "wire_step": {"step": launches},
+        "wire_mlp": {k: ct["auto"]["launches"]["wire_mlp"][k]
+                     + ct["rotate"]["launches"]["wire_mlp"][k]
+                     for k in WM.launches},
+        "line_sample": ct["auto"]["launches"]["line_sample"],
+        "rotsum": ct["rotate"]["launches"]["rotsum"]}
+    replaces = {"wire_step": "wire_tpu/ops/pallas/wire_step.py:356",
+                "wire_mlp": "wire_tpu/ops/pallas/wire_mlp.py:296",
+                "rotsum": "wire_tpu/ops/pallas/rotsum.py:259",
+                "line_sample": "wire_tpu/ops/pallas/line_sample.py:144"}
     print(smi)
     print(json.dumps({"kernels": [{
-        "name": "wire_step", "route": "cuda",
-        "source": "wire_tpu_torch/csrc/wire_step.cu",
-        "replaces": "wire_tpu/ops/pallas/wire_step.py:356",
-        "launches": launches, "max_abs_err": cases["full"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}))
+        "name": name, "route": "cuda",
+        "source": f"wire_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": sum(path_launches[name].values()),
+        "launches_by_direction": path_launches[name],
+        "max_abs_err": errs[name]["full"], "ms": meas[name]["ms"],
+        "kernel_ms": meas[name]["kernel_ms"],
+        "plain_ms": meas[name]["plain_ms"],
+        "bound_ms": meas[name]["bound_ms"],
+        "bound_by": meas[name]["bound_by"],
+        "library_ms": meas[name]["library_ms"]} for name in KERNEL_LIBRARIES
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of the port's WIRE-300 fit goes, on one GPU.
+"""Where the time of the port's WIRE-300 fits goes, on one GPU.
 
-Profiles EPOCHS epochs of wire_tpu_torch's fit_pointwise at the bench
-protocol (256 x 256, 65,536 coordinates, WIRE-300, full batch) with
-torch.profiler after a warm-up fit, and prints one JSON line: device time
-per epoch by kernel (sorted, summed over launches), the device's busy time
-per epoch, the wall time per epoch and the device's idle share
-(1 - busy / wall).  Kernels of csrc/wire_step.cu keep their CUDA names
-(paired_gemm_kernel<0|1|2> = forward / hidden backward / first-layer
-backward GEMMs, wgrad_partial_kernel, reduce_chunks_kernel,
-final_loss_kernel, first_forward_kernel); the rest are PyTorch's (weight
-stacking, Adam, best tracking).
+Profiles EPOCHS epochs of wire_tpu_torch's fit_pointwise at the denoise
+bench protocol (256 x 256, 65,536 coordinates, WIRE-300, full batch), or
+with ``--ct METHOD`` EPOCHS iterations of fit_operator at the CT protocol
+(256 x 256 field, 100 angles, WIRE-300 at omega0 = 3, scale 12; METHOD
+'auto' = fourier on the card, or 'rotate'), with torch.profiler after a
+warm-up fit, and prints one JSON line: device time per epoch by kernel
+(sorted, summed over launches; device-side events only, so a kernel is not
+counted again under the operator or autograd Function that launched it),
+the device's busy time per epoch, the wall time per epoch and the device's
+idle share (1 - busy / wall).
+Kernels of csrc/*.cu keep their CUDA names (paired_gemm_kernel<0|1|2> =
+forward / hidden backward / first-layer backward GEMMs,
+wgrad_partial_kernel, reduce_chunks_kernel, final_loss_kernel or
+final_forward_kernel, first_forward_kernel, dcoords_kernel,
+rotsum_*_kernel, line_*_kernel); the rest are PyTorch's (weight stacking,
+FFTs, Adam, best tracking).
 
-    python3 tools/port_step_profile.py [EPOCHS]     # default 20
+    python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate]
+                                                    # default 20, denoise
 """
 import json
 import os
@@ -24,33 +31,72 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+import numpy as np  # noqa: E402
+
 from wire_tpu_torch import bench  # noqa: E402
+from wire_tpu_torch.apps import ct as tct  # noqa: E402
 from wire_tpu_torch.device import resolve  # noqa: E402
-from wire_tpu_torch.train.trainer import FitConfig, fit_pointwise  # noqa
+from wire_tpu_torch.operators.radon import RadonOp  # noqa: E402
+from wire_tpu_torch.signals import coords as C  # noqa: E402
+from wire_tpu_torch.train.presets import get_config  # noqa: E402
+from wire_tpu_torch.train.trainer import (FitConfig, fit_operator,  # noqa
+                                          fit_pointwise)
 
 
-def main():
-    epochs = int(sys.argv[1]) if len(sys.argv) > 1 else 20
-    dev = resolve("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
+def denoise_fit(epochs, dev):
     im, im_noisy, grid, model = bench.setup(256, 256)
     params = model.init(torch.Generator().manual_seed(0), dev)
     target, gt = im_noisy.reshape(-1, 3), im.reshape(-1, 3)
     cfg = FitConfig(learning_rate=5e-3, niters=epochs, maxpoints=256 * 256,
                     scale_lr_by_batch=True)
-    fit_pointwise(model, params, grid, target, cfg, gt=gt, device=dev)
+    return lambda: fit_pointwise(model, params, grid, target, cfg, gt=gt,
+                                 device=dev)
+
+
+def ct_fit(iters, method, dev):
+    cfg = get_config("WIRE_s12_o8_LR5e3_E2000")
+    img = tct.ct_image(None, 0)
+    thetas = np.linspace(0, 180, 100, dtype=np.float32)
+    sino = tct.make_sinogram(img, thetas, radon_method=method, device=dev)
+    model = tct.build_ct_model(cfg, cfg.omega0)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=iters,
+                        maxpoints=cfg.maxpoints)
+    op = RadonOp(thetas, method=method)
+    return lambda: fit_operator(model, params, C.grid2d(*img.shape), sino,
+                                op, fit_cfg, gt_field=img,
+                                field_shape=img.shape, device=dev)
+
+
+def main():
+    args = sys.argv[1:]
+    method = None
+    if "--ct" in args:
+        i = args.index("--ct")
+        method = args[i + 1]
+        del args[i:i + 2]
+    epochs = int(args[0]) if args else 20
+    dev = resolve("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = denoise_fit(epochs, dev) if method is None else \
+        ct_fit(epochs, method, dev)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        fit_pointwise(model, params, grid, target, cfg, gt=gt, device=dev)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
+    # device-side events only (kernels, copies, memsets): an operator's or
+    # an autograd Function's range on the host also carries the device time
+    # of the kernels it launched, which would count them twice
     by_kernel = {}
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
+        us = e.device_time_total if e.device_type == DeviceType.CUDA else 0
         if us > 0:
             by_kernel[e.key] = (by_kernel.get(e.key, 0.0) + us / 1e3 / epochs,
                                 e.count / epochs)
@@ -59,6 +105,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
+        "fit": "denoise" if method is None else f"ct {method}",
         "epochs": epochs, "nvidia_smi": smi,
         "wall_ms_per_epoch": wall_ms / epochs,
         "device_busy_ms_per_epoch": busy if busy else "not measured",

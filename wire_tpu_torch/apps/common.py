@@ -28,23 +28,33 @@ def base_parser(description):
     return p
 
 
-def load_image(path, size=512, seed=0):
-    """An (H, W, 3) image: the .npy array at ``path``, or the procedural
-    natural-statistics stand-in."""
+def load_image(path, size=512, channels=3, seed=0):
+    """An (H, W, 3) image, or (H, W) when ``channels == 1`` (the green
+    channel of a colour file): the .npy array at ``path``, or the
+    procedural natural-statistics stand-in (wire_tpu/apps/common.py:42-51)."""
     if path:
         if not path.endswith(".npy"):
             raise ValueError(f"image {path!r}: only .npy arrays are read "
                              f"(no image library in the port)")
-        return np.load(path).astype(np.float32)
-    return I.natural_image(size, size, 3, seed=seed)
+        im = np.load(path).astype(np.float32)
+        if channels == 1 and im.ndim == 3:
+            im = im[..., 1]
+        return im
+    im = I.natural_image(size, size, channels, seed=seed)
+    return im[..., 0] if channels == 1 else im
 
 
-def build_model(cfg, *, in_features, out_features, omega0, hidden_layers=2):
+def build_model(cfg, *, in_features, out_features, omega0, hidden_layers=2,
+                hidden_features=None):
+    """The preset's model (WIRE only in the port); ``hidden_features``
+    overrides the preset's width, as the CT app does
+    (wire_tpu/apps/common.py:54-81)."""
     return get_inr(
         cfg.nonlin,
         in_features=in_features,
         out_features=out_features,
-        hidden_features=cfg.hidden_features,
+        hidden_features=(hidden_features if hidden_features is not None
+                         else cfg.hidden_features),
         hidden_layers=hidden_layers,
         first_omega0=omega0,
         hidden_omega0=omega0,

@@ -1,0 +1,151 @@
+// WIRE apply and its VJP (forward; backward from an external output
+// cotangent, with dcoords) for the complex-Gabor MLP, as hand-written fp32
+// kernels for Hopper (sm_90a).
+//
+// Replaces: wire_tpu/ops/pallas/wire_mlp.py:wire_mlp_fused (the forward
+// Pallas call and the recompute-backward Pallas call of its custom VJP).
+// Same math and stacked layout as wire_step.cu (see wire_gemm.cuh):
+//   forward:  y = real part of the complex final layer (n, o)
+//   backward: from g = dL/dy (n, o) to every parameter gradient, with
+//             dfinal.bi = 0 (the imaginary output is discarded), and
+//             dcoords = dz1 @ w1^T (n, d), which the step kernel omits.
+//
+// What bounds it: operations.  At the CT shape (n = 65,536 rows, h = 212,
+// L = 2, o = 1) forward + backward are ~142 GFLOP of fp32 multiply-adds
+// (three n x 424 x 424 products per hidden layer) against ~3 MB of inputs
+// and outputs: ~2.1 ms at the card's 67 TFLOP/s fp32 peak.
+//
+// What this design does about it: it is the simple, correct first version,
+// built from the step kernel's pieces (wire_gemm.cuh): the tiled fp32 GEMM
+// with the Gabor forward/backward in its epilogue, the fixed-order
+// per-chunk weight-gradient sums (no float atomics, so results repeat run to
+// run).  Unlike the TPU kernel, the backward does not recompute the forward:
+// the forward keeps its activations (acts, zs, z1: (2L + 1.5) n 2h floats,
+// 0.61 GB at the CT shape) in tensors the caller saves for the backward.
+// Recomputing would cost a third of the pair's FLOPs (~0.7 ms at the bound);
+// writing and reading the saved activations moves ~1.2 GB (~0.4 ms at
+// 3.35 TB/s) and the card has the memory.  Tensor cores are later work.
+//
+// Accuracy: sincosf/expf, no --use_fast_math (wire_gemm.cuh).
+
+#include "wire_gemm.cuh"
+
+using namespace wire_gemm;
+
+namespace {
+
+// Final complex layer, real part: pred = a @ fW + fb.  One warp per row;
+// lanes stride over the 2h inputs and meet in a fixed butterfly.
+__global__ void __launch_bounds__(kThreads) final_forward_kernel(
+    const float* __restrict__ a, const float* __restrict__ fW,
+    const float* __restrict__ fb, float* __restrict__ pred, int n, int h2,
+    int o) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int kWarps = kThreads / 32;
+  for (int it = 0; it < kFinalRowsPerBlock / kWarps; ++it) {
+    const int r = blockIdx.x * kFinalRowsPerBlock + it * kWarps + warp;
+    if (r >= n) break;
+    float acc[kMaxOut];
+#pragma unroll
+    for (int c = 0; c < kMaxOut; ++c) acc[c] = 0.f;
+    for (int k = lane; k < h2; k += 32) {
+      const float av = a[(size_t)r * h2 + k];
+#pragma unroll
+      for (int c = 0; c < kMaxOut; ++c)
+        if (c < o) acc[c] = fmaf(av, fW[(size_t)k * o + c], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxOut; ++c) {
+      if (c >= o) break;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kMaxOut; ++c) {
+        if (c >= o) break;
+        pred[(size_t)r * o + c] = acc[c] + fb[c];
+      }
+    }
+  }
+}
+
+// dcoords[r, k] = sum_j dz1[r, j] w1[k, j], j in order; one thread per
+// (row, input feature).
+__global__ void dcoords_kernel(const float* __restrict__ dz1,
+                               const float* __restrict__ w1,
+                               float* __restrict__ dc, int n, int d, int h) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)n * d) return;
+  const size_t r = idx / d;
+  const int k = (int)(idx % d);
+  const float* row = dz1 + r * h;
+  const float* w = w1 + (size_t)k * h;
+  float s = 0.f;
+  for (int j = 0; j < h; ++j) s = fmaf(row[j], w[j], s);
+  dc[idx] = s;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats needed by the backward's `part` workspace for shapes (n, d, h, o).
+long long wire_mlp_part_floats(int n, int d, int h, int o) {
+  return part_floats(n, d, h, o);
+}
+
+int wire_mlp_max_out() { return kMaxOut; }
+
+const char* wire_mlp_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Forward.  Weights in the stacked layout (ops/wire_step.py:stack_params):
+//   w1 (d, h), b1 (h), Wh (L, 2h, 2h), Bh (L, 2h), fW (2h, o), fb (o).
+// Outputs: pred (n, o) and the activations the backward reads:
+//   acts (L + 1, n, 2h), zs (L, n, 2h), z1 (n, h).
+// Returns the first CUDA error of a launch (0 on success).  Launches on
+// `stream` and does not synchronise.
+int wire_mlp_forward(const float* coords, const float* w1, const float* b1,
+                     const float* Wh, const float* Bh, const float* fW,
+                     const float* fb, float* pred, float* acts, float* zs,
+                     float* z1, int n, int d, int h, int o, int L,
+                     float omega0, float sigma0, float first_omega0,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float s2 = sigma0 * sigma0;
+  WIRE_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
+                            omega0, s2, first_omega0, st));
+  final_forward_kernel<<<ceil_div(n, kFinalRowsPerBlock), kThreads, 0, st>>>(
+      acts + (size_t)L * n * 2 * h, fW, fb, pred, n, 2 * h, o);
+  return cudaGetLastError();
+}
+
+// Backward from g = dL/dpred (n, o), reading the forward's activations.
+//   WhT (L, 2h, 2h) = Wh transposed per layer, fWT (o, 2h) = fW transposed,
+//   w1 (d, h) for dcoords.
+// Outputs: gw1 (d + 1, h) = [dw1; db1]; gWh (L, 2h + 1, 2h) = [dW; dB];
+//   gfW (2h + 1, o) = [dfW; dfb]; dcoords (n, d), or null when the caller
+//   needs no coordinate gradient (dcoords_kernel is then not launched).
+// Scratch: dz (2, n, 2h), dz1 (n, h), part (wire_mlp_part_floats).
+int wire_mlp_backward(const float* coords, const float* g, const float* w1,
+                      const float* WhT, const float* fWT, const float* acts,
+                      const float* zs, const float* z1, float* gw1,
+                      float* gWh, float* gfW, float* dcoords, float* dz,
+                      float* dz1, float* part, int n, int d, int h, int o,
+                      int L, float omega0, float sigma0, float first_omega0,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float s2 = sigma0 * sigma0;
+  WIRE_CHECK(backward(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz,
+                      dz1, part, n, d, h, o, L, omega0, s2, first_omega0,
+                      st));
+  if (dcoords != nullptr)
+    dcoords_kernel<<<ceil_div((long long)n * d, kThreads), kThreads, 0,
+                     st>>>(dz1, w1, dcoords, n, d, h);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -32,147 +32,16 @@
 //
 // Accuracy: sincosf/expf (not the __sinf/__expf intrinsics; phases w*z lie
 // far outside [-pi, pi]).  Build without --use_fast_math.
+//
+// The GEMM, Gabor and weight-gradient kernels and the forward/backward chains
+// live in wire_gemm.cuh, shared with the apply/VJP pair in wire_mlp.cu; this
+// file adds the final layer fused with the loss gradient and SSE sums.
 
-#include <cuda_runtime.h>
+#include "wire_gemm.cuh"
 
-#include <cstddef>
+using namespace wire_gemm;
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTileRows = 64;     // rows of the output tile
-constexpr int kTileUnits = 32;    // complex units per tile -> 64 real columns
-constexpr int kTileK = 16;        // depth of one shared-memory slice
-constexpr int kTileOut = 64;      // weight-gradient output tile edge
-constexpr int kChunkRows = 2048;  // rows summed by one weight-gradient block
-constexpr int kFinalRowsPerBlock = 64;
-constexpr int kMaxOut = 8;
-
-enum Epilogue { kFwdGabor = 0, kBwdGabor = 1, kBwdFirst = 2 };
-
-// out = A (n x K) @ B (K x 2h) for the column pairs (j, h + j) of the units j
-// in this tile, followed by the epilogue:
-//   kFwdGabor: z = out + bias; out0 = z (n x 2h); out1 = Gabor(z) (n x 2h)
-//   kBwdGabor: out is dL/d(layer output act); out0 = dL/dz (n x 2h),
-//              zin = the layer's pre-activation z (n x 2h)
-//   kBwdFirst: as kBwdGabor for the real first layer; zin = z1 (n x h),
-//              out0 = dL/dz1 (n x h)
-template <int kEpi>
-__global__ void __launch_bounds__(kThreads) paired_gemm_kernel(
-    const float* __restrict__ A, const float* __restrict__ B,
-    const float* __restrict__ bias, const float* __restrict__ act,
-    const float* __restrict__ zin, float* __restrict__ out0,
-    float* __restrict__ out1, int n, int K, int h, float omega, float s2) {
-  __shared__ __align__(16) float As[kTileK][kTileRows + 4];
-  __shared__ __align__(16) float Bs[kTileK][2 * kTileUnits];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // units tx*2, tx*2+1 of the tile
-  const int ty = tid / 16;  // rows ty*4 .. ty*4+3 of the tile
-  const int row0 = blockIdx.x * kTileRows;
-  const int unit0 = blockIdx.y * kTileUnits;
-  const int h2 = 2 * h;
-
-  float acc[4][4];  // [row][re u0, re u1, im u0, im u1]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = tid / kTileK + q * (kThreads / kTileK);
-      const int k = tid % kTileK;
-      const int gr = row0 + r, gk = k0 + k;
-      As[k][r] = (gr < n && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = tid / (2 * kTileUnits) + q * (kThreads / (2 * kTileUnits));
-      const int oc = tid % (2 * kTileUnits);
-      const int unit = unit0 + oc % kTileUnits;
-      const int gc = oc < kTileUnits ? unit : h + unit;
-      const int gk = k0 + k;
-      Bs[k][oc] = (unit < h && gk < K) ? B[(size_t)gk * h2 + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float2 br = *reinterpret_cast<const float2*>(&Bs[k][tx * 2]);
-      const float2 bi =
-          *reinterpret_cast<const float2*>(&Bs[k][kTileUnits + tx * 2]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {br.x, br.y, bi.x, bi.y};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= n) continue;
-    const size_t base = (size_t)r * h2;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int j = unit0 + tx * 2 + p;
-      if (j >= h) continue;
-      const float xr = acc[i][p], xi = acc[i][2 + p];
-      if (kEpi == kFwdGabor) {
-        const float zr = xr + bias[j], zi = xi + bias[h + j];
-        out0[base + j] = zr;
-        out0[base + h + j] = zi;
-        const float m = expf(-omega * zi - s2 * (zr * zr + zi * zi));
-        float sn, cs;
-        sincosf(omega * zr, &sn, &cs);
-        out1[base + j] = m * cs;
-        out1[base + h + j] = m * sn;
-      } else {
-        // activation-form Gabor backward (wire_step.py:218-226):
-        //   t1 = dar*ar + dai*ai, t2 = dai*ar - dar*ai
-        //   dzr = -2 s^2 zr t1 + w t2,  dzi = (-w - 2 s^2 zi) t1
-        const float ar = act[base + j], ai = act[base + h + j];
-        const float t1 = xr * ar + xi * ai;
-        const float t2 = xi * ar - xr * ai;
-        if (kEpi == kBwdGabor) {
-          const float zr = zin[base + j], zi = zin[base + h + j];
-          out0[base + j] = (-2.f * s2) * zr * t1 + omega * t2;
-          out0[base + h + j] = (-omega - (2.f * s2) * zi) * t1;
-        } else {
-          const size_t idx = (size_t)r * h + j;
-          out0[idx] = (-2.f * s2) * zin[idx] * t1 + omega * t2;
-        }
-      }
-    }
-  }
-}
-
-// First (real) layer: z1 = c @ w1 + b1, a0 = Gabor(z1); one thread per
-// (row, unit).
-__global__ void first_forward_kernel(const float* __restrict__ c,
-                                     const float* __restrict__ w1,
-                                     const float* __restrict__ b1,
-                                     float* __restrict__ z1,
-                                     float* __restrict__ a0, int n, int d,
-                                     int h, float omega, float s2) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)n * h) return;
-  const size_t r = idx / h;
-  const int j = (int)(idx % h);
-  float z = 0.f;
-  for (int k = 0; k < d; ++k) z = fmaf(c[r * d + k], w1[(size_t)k * h + j], z);
-  z += b1[j];
-  z1[idx] = z;
-  const float m = expf(-s2 * (z * z));
-  float sn, cs;
-  sincosf(omega * z, &sn, &cs);
-  a0[r * 2 * h + j] = m * cs;
-  a0[r * 2 * h + h + j] = m * sn;
-}
 
 // Final layer + loss gradient + masked SSE partials.  One warp per row;
 // lanes stride over the 2h inputs and meet in a fixed butterfly, so the
@@ -239,124 +108,13 @@ __global__ void __launch_bounds__(kThreads) final_loss_kernel(
   }
 }
 
-// Per-chunk partial of [A | 1]^T D: A (n x KA), D (n x NB); the partial of
-// chunk z is a (KA + 1) x NB block whose last row is the column sum of D
-// (the bias gradient).
-__global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(
-    const float* __restrict__ A, const float* __restrict__ D,
-    float* __restrict__ part, int n, int KA, int NB) {
-  __shared__ __align__(16) float As[kTileK][kTileOut];
-  __shared__ __align__(16) float Ds[kTileK][kTileOut];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.x * kTileOut, j0 = blockIdx.y * kTileOut;
-  const int chunk = blockIdx.z;
-  const int r_begin = chunk * kChunkRows;
-  const int r_end = min(n, r_begin + kChunkRows);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int rr = tid / kTileOut + q * (kThreads / kTileOut);
-      const int col = tid % kTileOut;
-      const int gr = r0 + rr;
-      const bool live = gr < r_end;
-      const int gi = i0 + col, gj = j0 + col;
-      float av = 0.f;
-      if (live) av = gi < KA ? A[(size_t)gr * KA + gi] : (gi == KA ? 1.f : 0.f);
-      As[rr][col] = av;
-      Ds[rr][col] = (live && gj < NB) ? D[(size_t)gr * NB + gj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kTileK; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-      const float4 dv = *reinterpret_cast<const float4*>(&Ds[rr][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const size_t block = (size_t)chunk * (KA + 1) * NB;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = i0 + ty * 4 + i;
-    if (gi > KA) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gj = j0 + tx * 4 + j;
-      if (gj < NB) part[block + (size_t)gi * NB + gj] = acc[i][j];
-    }
-  }
-}
-
-// out[e] = sum over c = 0 .. C-1, in that order, of part[c * E + e].
-__global__ void reduce_chunks_kernel(const float* __restrict__ part, int C,
-                                     int E, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-  for (int c = 0; c < C; ++c) s += part[(size_t)c * E + e];
-  out[e] = s;
-}
-
-int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-// [A | 1]^T D summed over all n rows into out ((KA + 1) x NB).
-cudaError_t weight_grad(const float* A, const float* D, float* part,
-                        float* out, int n, int KA, int NB, cudaStream_t st) {
-  const int chunks = ceil_div(n, kChunkRows);
-  const dim3 grid(ceil_div(KA + 1, kTileOut), ceil_div(NB, kTileOut), chunks);
-  wgrad_partial_kernel<<<grid, kThreads, 0, st>>>(A, D, part, n, KA, NB);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int E = (KA + 1) * NB;
-  reduce_chunks_kernel<<<ceil_div(E, kThreads), kThreads, 0, st>>>(
-      part, chunks, E, out);
-  return cudaGetLastError();
-}
-
-template <int kEpi>
-cudaError_t paired_gemm(const float* A, const float* B, const float* bias,
-                        const float* act, const float* zin, float* out0,
-                        float* out1, int n, int K, int h, float omega,
-                        float s2, cudaStream_t st) {
-  const dim3 grid(ceil_div(n, kTileRows), ceil_div(h, kTileUnits));
-  paired_gemm_kernel<kEpi><<<grid, kThreads, 0, st>>>(
-      A, B, bias, act, zin, out0, out1, n, K, h, omega, s2);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-#define WIRE_CHECK(expr)                  \
-  do {                                    \
-    cudaError_t err_ = (expr);            \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)
 
 extern "C" {
 
 // Floats needed by the `part` workspace for shapes (n, d, h, o).
 long long wire_step_part_floats(int n, int d, int h, int o) {
-  const long long chunks = ceil_div(n, kChunkRows);
-  long long e = (long long)(2 * h + 1) * (2 * h);
-  const long long e_first = (long long)(d + 1) * h;
-  const long long e_final = (long long)(2 * h + 1) * o;
-  if (e_first > e) e = e_first;
-  if (e_final > e) e = e_final;
-  long long need = chunks * e;
-  const long long sse = 2LL * ceil_div(n, kFinalRowsPerBlock);
-  return need > sse ? need : sse;
+  return part_floats(n, d, h, o);
 }
 
 int wire_step_max_out() { return kMaxOut; }
@@ -385,55 +143,22 @@ int wire_step_run(const float* coords, const float* target, const float* gt,
                   float two_inv_denom, float omega0, float sigma0,
                   float first_omega0, int want_metrics, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int h2 = 2 * h;
-  const size_t act_sz = (size_t)n * h2;
-  const size_t w_sz = (size_t)h2 * h2;
+  const size_t act_sz = (size_t)n * 2 * h;
   const float s2 = sigma0 * sigma0;
 
-  // ---- forward --------------------------------------------------------
-  first_forward_kernel<<<ceil_div((long long)n * h, kThreads), kThreads, 0,
-                         st>>>(coords, w1, b1, z1, acts, n, d, h,
-                               first_omega0, s2);
-  WIRE_CHECK(cudaGetLastError());
-  for (int l = 0; l < L; ++l) {
-    WIRE_CHECK(paired_gemm<kFwdGabor>(
-        acts + l * act_sz, Wh + l * w_sz, Bh + (size_t)l * h2, nullptr,
-        nullptr, zs + l * act_sz, acts + (l + 1) * act_sz, n, h2, h, omega0,
-        s2, st));
-  }
+  WIRE_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
+                            omega0, s2, first_omega0, st));
   const int final_blocks = ceil_div(n, kFinalRowsPerBlock);
   final_loss_kernel<<<final_blocks, kThreads, 0, st>>>(
       acts + L * act_sz, fW, fb, target, gt ? gt : target, pred, g, part, n,
-      h2, o, nvalid, two_inv_denom);
+      2 * h, o, nvalid, two_inv_denom);
   WIRE_CHECK(cudaGetLastError());
   if (want_metrics) {
     reduce_chunks_kernel<<<1, 32, 0, st>>>(part, final_blocks, 2, sse);
     WIRE_CHECK(cudaGetLastError());
   }
-
-  // ---- backward -------------------------------------------------------
-  WIRE_CHECK(weight_grad(acts + L * act_sz, g, part, gfW, n, h2, o, st));
-  const float* dsrc = g;
-  const float* bt = fWT;
-  int kdim = o;
-  int cur = 0;
-  for (int l = L - 1; l >= 0; --l) {
-    float* dzl = dz + cur * act_sz;
-    WIRE_CHECK(paired_gemm<kBwdGabor>(dsrc, bt, nullptr,
-                                      acts + (l + 1) * act_sz,
-                                      zs + l * act_sz, dzl, nullptr, n, kdim,
-                                      h, omega0, s2, st));
-    WIRE_CHECK(weight_grad(acts + l * act_sz, dzl, part,
-                           gWh + (size_t)l * (h2 + 1) * h2, n, h2, h2, st));
-    dsrc = dzl;
-    bt = WhT + l * w_sz;
-    kdim = h2;
-    cur ^= 1;
-  }
-  WIRE_CHECK(paired_gemm<kBwdFirst>(dsrc, bt, nullptr, acts, z1, dz1, nullptr,
-                                    n, kdim, h, first_omega0, s2, st));
-  WIRE_CHECK(weight_grad(coords, dz1, part, gw1, n, d, h, st));
-  return cudaSuccess;
+  return backward(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz, dz1,
+                  part, n, d, h, o, L, omega0, s2, first_omega0, st);
 }
 
 }  // extern "C"

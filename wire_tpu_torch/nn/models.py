@@ -32,8 +32,8 @@ class INRSpec:
     first_omega0: float = 30.0
     hidden_omega0: float = 30.0
     scale: float = 10.0
-    # 'auto': the family's step kernel (its plain version on CPU tensors);
-    # 'never': autodiff of ``apply``
+    # 'auto': the family's kernels (their plain versions on CPU tensors);
+    # 'never': the plain ``apply`` and autodiff of it
     fused: str = "auto"
 
 
@@ -147,7 +147,8 @@ def wire_init(gen, spec: INRSpec, device="cpu"):
     return params
 
 
-def wire_apply(params, coords, spec: INRSpec):
+def wire_apply_plain(params, coords, spec: INRSpec):
+    """The WIRE forward in plain PyTorch ops (autograd differentiates it)."""
     z = linear(params["first"], coords)
     xr, xi = act.complex_gabor_real_input(z, spec.first_omega0, spec.scale)
     for i in range(spec.hidden_layers):
@@ -155,6 +156,17 @@ def wire_apply(params, coords, spec: INRSpec):
         xr, xi = act.complex_gabor(zr, zi, spec.hidden_omega0, spec.scale)
     yr, _ = complex_linear(params["final"], xr, xi)
     return yr  # the real part
+
+
+def wire_apply(params, coords, spec: INRSpec):
+    """The WIRE forward: the apply/VJP kernel pair (ops/wire_mlp.py) unless
+    ``spec.fused == 'never'``; that module runs the plain body for CPU
+    tensors and the kernels for CUDA tensors
+    (wire_tpu/nn/models.py:202-216)."""
+    if spec.fused == "never":
+        return wire_apply_plain(params, coords, spec)
+    from wire_tpu_torch.ops.wire_mlp import wire_mlp
+    return wire_mlp(params, coords, spec)
 
 
 def wire_step(params, coords, target, spec, *, nvalid=None, denom=None,

@@ -3,15 +3,17 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``wire_tpu_torch/_build/<name>-<hash>.so`` and bound with ``ctypes`` through
 its plain C interface; no source includes PyTorch's headers, so a build
-takes seconds.  The file name carries a hash of the source and the flags, so
-a stale library is never loaded, and the library is written to a temporary
-name and renamed into place, so no lock file is needed and a build cut off
-half-way leaves nothing that a later build would trust.
+takes seconds.  The file name carries a hash of the source, of every
+shared header ``csrc/*.cuh`` and of the flags, so a stale library is never
+loaded, and the library is written to a temporary name and renamed into
+place, so no lock file is needed and a build cut off half-way leaves
+nothing that a later build would trust.
 
 Nothing here runs at import time: a kernel is built at its first launch.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -43,9 +45,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The hashed library path of ``csrc/<name>.cu``: the hash covers the
+    source, every ``csrc/*.cuh`` (so an edited shared header rebuilds every
+    library) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -72,6 +79,16 @@ def build(name: str) -> tuple[str, str]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def build_all(names) -> dict:
+    """Build several sources at once, one nvcc process each, all started
+    together.  Returns {name: (library path, nvcc's output)}; raises the
+    first failure after every build has ended."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names) or 1) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from wire_tpu_torch.nn.models import autodiff_step, wire_apply
+from wire_tpu_torch.nn.models import autodiff_step, wire_apply_plain
 from wire_tpu_torch.ops import build
 
 
@@ -97,7 +97,7 @@ def wire_step_plain(params, coords, target, spec, *, nvalid=None,
                     denom=None, gt=None, want_metrics=False):
     """The plain PyTorch version: autodiff of the WIRE forward with the mask
     and denom, plus the SSE sums, with TF32 off."""
-    return autodiff_step(wire_apply, params, coords, target, spec,
+    return autodiff_step(wire_apply_plain, params, coords, target, spec,
                          nvalid=nvalid, denom=denom, gt=gt,
                          want_metrics=want_metrics)
 
@@ -132,18 +132,18 @@ def _lib():
     return lib
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, who="wire_step"):
     if t.device != device:
-        raise ValueError(f"wire_step: {name} is on {t.device}, "
+        raise ValueError(f"{who}: {name} is on {t.device}, "
                          f"expected {device}")
     if t.dtype != torch.float32:
-        raise TypeError(f"wire_step: {name} has dtype {t.dtype}, "
+        raise TypeError(f"{who}: {name} has dtype {t.dtype}, "
                         f"expected float32")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"wire_step: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"wire_step: {name} is not contiguous")
+        raise ValueError(f"{who}: {name} is not contiguous")
 
 
 def _launch(params, coords, target, spec, nvalid, denom, gt, want_metrics,

@@ -1,6 +1,7 @@
 """Adam fitting of an INR to one signal (port of wire_tpu/train/trainer.py:
-FitConfig, FitResult, track_best, _lr_schedule, make_optimizer and the
-full-batch branch of fit_pointwise).
+FitConfig, FitResult, track_best, _lr_schedule, make_optimizer, the
+full-batch branch of fit_pointwise, and fit_operator with a full-grid
+render).
 
 Loop semantics: Adam as optax's ``scale_by_adam(eps_root=0)`` followed by
 ``scale_by_schedule``, the learning rate decaying by
@@ -10,9 +11,11 @@ MSE vs the target and vs the clean gt from the step's SSE sums; the best
 reconstruction and parameters by MSE kept on the device with masked copies
 (no host sync per epoch).
 
-Only the full-batch protocol is here: one chunk holding every point
-(``maxpoints >= npoints``), which is what the WIRE denoise presets give at
-256 x 256.  The chunked/permutation epochs are a later slice.
+Only the full-batch protocol of fit_pointwise is here: one chunk holding
+every point (``maxpoints >= npoints``), which is what the WIRE denoise
+presets give at 256 x 256.  The chunked/permutation epochs are a later
+slice.  fit_operator renders the whole grid every iteration; its chunked
+render, checkpoint/resume and mesh variant are later slices too.
 """
 from __future__ import annotations
 
@@ -190,3 +193,92 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         best_rec=best_rec.cpu().numpy(), final_rec=rec.cpu().numpy(),
         mse_gt=hist_gt.cpu().numpy(), mse_noisy=hist_noisy.cpu().numpy(),
         best_mse=float(best_mse), wall_time_s=wall, step_ms=step_ms)
+
+
+def fit_operator(model, params, coords, measurement, operator_fn,
+                 cfg: FitConfig, *, gt_field=None, field_shape, track="gt",
+                 device=None, checkpoint=None, render_chunked=False,
+                 mesh=None):
+    """Fit through a differentiable forward operator
+    (wire_tpu/train/trainer.py:1139-1264): every iteration renders the FULL
+    coordinate grid, applies ``operator_fn`` to the field reshaped to
+    ``field_shape`` and takes the MSE against ``measurement``, then one Adam
+    step with the learning rate decayed per iteration.
+
+    coords (N, d), measurement and gt_field (the clean field, for
+    tracking): numpy arrays or tensors.  The best iteration is the one with
+    the least MSE of the field vs gt_field (``track="gt"``) or the least
+    loss (``track="loss"``, or no gt_field); as in the JAX loop, the best
+    field is the one rendered before the step and the best parameters are
+    those after it.  ``mse_gt`` holds the tracked history and
+    ``mse_noisy`` the loss history.  The optimizer's step count runs on
+    over all iterations (the JAX package's scan segments keep it too).
+    ``params`` is not modified.  Runs on ``device`` (default cuda; raises
+    without a card unless device='cpu')."""
+    if render_chunked or checkpoint is not None or mesh is not None:
+        raise NotImplementedError(
+            "fit_operator: render_chunked, checkpoint/resume and the mesh "
+            "variant are not ported yet")
+    if track not in ("gt", "loss"):
+        raise ValueError(f"fit_operator: track={track!r}, expected 'gt' or "
+                         f"'loss'")
+    dev = resolve(device)
+    coords = _as_tensor(coords, dev)
+    measurement = _as_tensor(measurement, dev)
+    track_gt = gt_field is not None and track == "gt"
+    gt_arr = _as_tensor(gt_field, dev) if track_gt else None
+    field_shape = tuple(field_shape)
+
+    params = {k: {kk: v.detach().to(dev, torch.float32).clone()
+                  for kk, v in sub.items()} for k, sub in params.items()}
+    opt = Adam(cfg, params, nchunks=1)
+    keys = opt.keys
+    best_params = {k: {kk: v.clone() for kk, v in sub.items()}
+                   for k, sub in params.items()}
+    best_field = torch.zeros(field_shape, dtype=torch.float32, device=dev)
+    best_loss = torch.tensor(float("inf"), device=dev)
+    hist_loss = torch.empty(cfg.niters, device=dev)
+    hist_tracked = torch.empty(cfg.niters, device=dev)
+
+    on_cuda = dev.type == "cuda"
+    if on_cuda:
+        torch.cuda.synchronize(dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+    t0 = time.time()
+    for it in range(cfg.niters):
+        leaves = [params[k][kk].detach().requires_grad_(True)
+                  for k, kk in keys]
+        p = {k: {} for k in params}
+        for (k, kk), leaf in zip(keys, leaves):
+            p[k][kk] = leaf
+        with torch.enable_grad():
+            field = model.apply(p, coords).reshape(field_shape)
+            est = operator_fn(field)
+            loss = torch.mean((est - measurement) ** 2)
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = {k: {} for k in params}
+        for (k, kk), leaf, gr in zip(keys, leaves, flat):
+            grads[k][kk] = torch.zeros_like(leaf) if gr is None else gr
+        opt.step(params, grads)
+        field = field.detach()
+        loss = loss.detach()
+        tracked = torch.mean((field - gt_arr) ** 2) if track_gt else loss
+        hist_loss[it] = loss
+        hist_tracked[it] = tracked
+        is_best = tracked < best_loss
+        best_loss = torch.where(is_best, tracked, best_loss)
+        best_field, best_params = track_best(is_best, (field, params),
+                                             (best_field, best_params))
+    step_ms = None
+    if on_cuda:
+        ev1.record()
+        torch.cuda.synchronize(dev)
+        step_ms = ev0.elapsed_time(ev1) / max(cfg.niters, 1)
+    wall = time.time() - t0
+    return FitResult(
+        params=params, best_params=best_params,
+        best_rec=best_field.cpu().numpy(), final_rec=None,
+        mse_gt=hist_tracked.cpu().numpy(), mse_noisy=hist_loss.cpu().numpy(),
+        best_mse=float(best_loss), wall_time_s=wall, step_ms=step_ms)
