@@ -6,16 +6,22 @@
     python3 chip_smoke.py --epochs 2000   # the full denoise bench protocol,
                                           # 25 dB floor
 
-It drives two paths of the port: WIRE-300 denoise through fit_pointwise
-(kernel: wire_step) and WIRE-300 CT reconstruction through fit_operator
+It drives four paths of the port: WIRE-300 denoise through fit_pointwise
+(kernel: wire_step), WIRE-300 CT reconstruction through fit_operator
 (kernels: wire_mlp, and line_sample for the 'auto' = fourier method or
-rotsum for 'rotate').  Phases, each printing one JSON line with its wall
-time:
+rotsum for 'rotate'), B-spline denoise through fit_pointwise (preset
+Bspline_s9_5_LR8e3_E4000; kernel: real_step) and B-spline SISR through
+fit_operator (preset Bspline_s9_LR1e3_E2000; kernel: real_mlp's pair).
+Phases, each printing one JSON line with its wall time:
   device           card name and count, nvidia-smi's name and power limit;
                    TF32 off for matmuls and cuDNN
   build            nvcc builds every kernel library from csrc/, all at once
   kernel_vs_plain  each kernel against its plain PyTorch version at its
-                   path's full shape, plus a ragged case
+                   path's full shape, plus a ragged case; real_mlp's
+                   every basis kind, lane segments and row_gamma; wire_mlp
+                   on (b, N, 2) coordinates and without a gradient (equal
+                   output, peak memory of two ping-pong planes); rotsum on
+                   a non-square image
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
                    shapes, and the card's least time for the same work
@@ -28,6 +34,13 @@ time:
                    once through the kernels (counts reset just before, read
                    just after) and once through the plain path, from one
                    init
+  fit_real         B-spline denoise (the 256 x 256 image, 65,536
+                   coordinates, full batch) for 300 epochs, through the
+                   kernel (counts reset just before, read just after), the
+                   plain path (fused="never") and the kernel's plain
+                   version in the same canonical fold, from one init
+  fit_sisr         B-spline SISR (168 x 168 HR, x4 box downsample) for 300
+                   iterations, likewise
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -61,11 +74,32 @@ WIRE_TPU_300_ITER_CT_PSNR_DB = {"auto": 28.474111557006836,
 CT_ITERS = 300
 CT_CONFIG = "WIRE_s12_o8_LR5e3_E2000"
 
+# Best PSNR of the 300-epoch B-spline denoise fit and best -10 log10(MSE)
+# of the 300-iteration B-spline SISR fit from wire_tpu on the CPU
+# (fused="never", float32, this script's seed-0 init moved across), as
+# printed by tools/port_real_floor.py; the kernel fits must reach them less
+# 0.2 dB, and agree with the plain fits within PSNR_AGREE_DB.
+WIRE_TPU_300_REAL_DB = {"denoise": 27.099899291992188,
+                        "sisr": 27.504344125842053}
+REAL_ITERS = 300
+REAL_DENOISE_CONFIG = "Bspline_s9_5_LR8e3_E4000"
+REAL_SISR_CONFIG = "Bspline_s9_LR1e3_E2000"
+
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W power limit.
 H100_FP32_TFLOPS = 67.0
 H100_HBM_TBPS = 3.35
 
-KERNEL_LIBRARIES = ("wire_step", "wire_mlp", "rotsum", "line_sample")
+KERNEL_LIBRARIES = ("wire_step", "wire_mlp", "rotsum", "line_sample",
+                    "real_mlp")
+# the kernels line: name -> (library source, the TPU kernel it replaces)
+KERNELS = {
+    "wire_step": ("wire_step", "wire_tpu/ops/pallas/wire_step.py:356"),
+    "wire_mlp": ("wire_mlp", "wire_tpu/ops/pallas/wire_mlp.py:296"),
+    "rotsum": ("rotsum", "wire_tpu/ops/pallas/rotsum.py:259"),
+    "line_sample": ("line_sample", "wire_tpu/ops/pallas/line_sample.py:144"),
+    "real_step": ("real_mlp", "wire_tpu/ops/pallas/real_mlp.py:689"),
+    "real_mlp": ("real_mlp", "wire_tpu/ops/pallas/real_mlp.py:304"),
+}
 
 # Kernel vs plain: max abs error <= REL_TOL * max |plain| per output tensor.
 # Both sum fp32 products over up to 65,536 rows in different orders (tiles
@@ -243,15 +277,20 @@ def line_sample_bytes(torch, gy, gx, ph):
 
 
 def kernel_names(name):
-    """The __global__ functions of csrc/<name>.cu and the csrc headers it
-    includes."""
+    """The __global__ functions of csrc/<name>.cu and of the csrc headers
+    it includes, directly or through another header."""
     import re
     csrc = os.path.join(ROOT, "wire_tpu_torch", "csrc")
-    with open(os.path.join(csrc, f"{name}.cu")) as f:
-        src = f.read()
-    for inc in re.findall(r'#include "(\w+\.cuh)"', src):
-        with open(os.path.join(csrc, inc)) as f:
-            src += f.read()
+    todo, seen, src = [f"{name}.cu"], set(), ""
+    while todo:
+        fname = todo.pop()
+        if fname in seen:
+            continue
+        seen.add(fname)
+        with open(os.path.join(csrc, fname)) as f:
+            text = f.read()
+        src += text
+        todo += re.findall(r'#include "(\w+\.cuh)"', text)
     return set(re.findall(
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
         src))
@@ -498,6 +537,454 @@ def fit_ct(torch, np, mods, device):
     return out
 
 
+REAL_SPEC_FIELDS = ("in_features", "out_features", "hidden_features",
+                    "hidden_layers", "first_omega0", "hidden_omega0", "scale",
+                    "sidelength", "pos_encode")
+
+
+def real_models(get_inr, TC, cfg, omega0, sidelength):
+    """A B-spline app's model (kernels) and the same spec with
+    fused='never' (the plain path)."""
+    model = TC.build_model(cfg, in_features=2, out_features=3, omega0=omega0,
+                           sidelength=sidelength)
+    plain = get_inr(cfg.nonlin, fused="never", **{
+        f: getattr(model.spec, f) for f in REAL_SPEC_FIELDS})
+    return model, plain
+
+
+def path_canon(torch, MM, model, seed, device):
+    """The canonical weights (ops/real_mlp.py) of a bspline_form model's
+    seeded init, and its kinds."""
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    canon = MM._canon_form(params, model.spec)
+    return canon, ("qspline",) * len(canon["layers"])
+
+
+def random_canon(torch, widths, seed, device):
+    """Canonical weights at ``widths`` (d, w_0 .. w_{L-1}, o) with alpha in
+    [0.5, 2] and beta in [-1, 1], so every basis is used on its support."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    layers = [{"w": t(rng.uniform(-1, 1, (a, b)) / np.sqrt(a)),
+               "alpha": t(rng.uniform(0.5, 2.0, b)),
+               "beta": t(rng.uniform(-1, 1, b))}
+              for a, b in zip(widths[:-2], widths[1:-1])]
+    h, o = widths[-2], widths[-1]
+    return {"layers": layers,
+            "final": {"w": t(rng.uniform(-1, 1, (h, o)) / np.sqrt(h)),
+                      "b": t(rng.uniform(-1, 1, o))}}
+
+
+def real_mlp_fn(RM, L, kinds, row_gamma=None, plain=False):
+    """(coords, *canonical leaves) -> y through the kernels or the plain
+    version."""
+    def fn(coords, *leaves):
+        canon = RM.canon_from_leaves(leaves, L)
+        if plain:
+            return RM.real_mlp_plain(canon, coords, kinds, row_gamma)
+        return RM.real_mlp(canon, coords, kinds, row_gamma)
+    return fn
+
+
+def real_step_tensors(RM, pred, dcanon, sums):
+    out = {"pred": pred, "sse_target": sums[0], "sse_gt": sums[1]}
+    out.update({".".join(map(str, path)): t
+                for path, t in RM.canon_leaves(dcanon)})
+    return out
+
+
+def real_inputs(torch, n, d, o, seed, device):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(a.astype(np.float32), device=device) for a in (
+        rng.uniform(-1, 1, (n, d)), rng.uniform(0, 1, (n, o)),
+        rng.uniform(0, 1, (n, o)), rng.normal(size=(n, o))))
+
+
+def real_kernel_vs_plain(torch, RM, MM, model_a, model_b, device):
+    """max abs err of real_step and real_mlp: at the denoise (step) and SISR
+    (pair, dcoords included) paths' full shapes and ragged ones, each basis
+    kind, lane segments and row_gamma."""
+    errs = {"real_step": {}, "real_mlp": {}}
+    for which, n, nvalid, denom in (("full", 256 * 256, None, None),
+                                    ("ragged", 700, 650, 650 * 3.0 + 1.0)):
+        canon, kinds = path_canon(torch, MM, model_a, 5, device)
+        c, t, gt, _ = real_inputs(torch, n, 2, 3, 6, device)
+        got = RM.real_step(canon, c, t, kinds, nvalid=nvalid, denom=denom,
+                           gt=gt, want_metrics=True)
+        torch.cuda.synchronize()
+        want = RM.real_step_plain(canon, c, t, kinds, nvalid=nvalid,
+                                  denom=denom, gt=gt, want_metrics=True)
+        errs["real_step"][which] = compare(
+            real_step_tensors(RM, *got), real_step_tensors(RM, *want),
+            f"real_step {which}")
+    pair_cases = {"full": (168 * 168, None, None, None),
+                  "ragged": (700, None, None, None)}
+    widths = (2, 48, 40, 3)
+    for kind in ("qspline", "cspline", "sine", "gauss", "relu", "srelu",
+                 "identity"):
+        pair_cases[kind] = (700, widths, (kind, kind), None)
+    pair_cases["segments"] = (700, widths, ((("qspline", 20),
+                                             ("identity", 10),
+                                             ("sine", 10)), "srelu"), None)
+    pair_cases["row_gamma"] = (1000, widths, ("qspline", "gauss"),
+                               ((1.0, 0.5, 0.25, 2.0), 250))
+    for which, (n, w, kinds, row_gamma) in pair_cases.items():
+        if w is None:
+            canon, kinds = path_canon(torch, MM, model_b, 7, device)
+        else:
+            canon = random_canon(torch, w, 8, device)
+        L = len(canon["layers"])
+        c, _, _, g = real_inputs(torch, n, 2, 3, 9, device)
+        xs = [c] + [t for _, t in RM.canon_leaves(canon)]
+        got = vjp(torch, real_mlp_fn(RM, L, kinds, row_gamma), xs, g)
+        torch.cuda.synchronize()
+        want = vjp(torch, real_mlp_fn(RM, L, kinds, row_gamma, plain=True),
+                   xs, g)
+        errs["real_mlp"][which] = compare(got, want, f"real_mlp {which}")
+    step_cases = {"segments_step": (((("qspline", 20), ("identity", 10),
+                                      ("sine", 10)), "relu"))}
+    for which, kinds in step_cases.items():
+        canon = random_canon(torch, widths, 10, device)
+        c, t, gt, _ = real_inputs(torch, 700, 2, 3, 11, device)
+        got = RM.real_step(canon, c, t, kinds, gt=gt, want_metrics=True)
+        want = RM.real_step_plain(canon, c, t, kinds, gt=gt,
+                                  want_metrics=True)
+        errs["real_step"][which] = compare(
+            real_step_tensors(RM, *got), real_step_tensors(RM, *want),
+            f"real_step {which}")
+    return errs
+
+
+def repaired_faults(torch, WM, R, ct_model, device):
+    """The port's repaired faults, kernel against plain: wire_mlp on (b, N,
+    2) coordinates; wire_mlp without a gradient (the pair's output, and a
+    peak of two ping-pong planes); rotsum on a non-square image."""
+    import numpy as np
+    errs = {}
+    spec = ct_model.spec
+    params = ct_model.init(torch.Generator().manual_seed(12), device)
+    keys = [(k, kk) for k in params for kk in params[k]]
+    leaves = [params[k][kk] for k, kk in keys]
+    rng = np.random.default_rng(13)
+    c = torch.tensor(rng.uniform(-1, 1, (4, 50, 2)).astype(np.float32),
+                     device=device)
+    g = torch.tensor(rng.normal(size=(4, 50, 1)).astype(np.float32),
+                     device=device)
+    got = vjp(torch, wire_mlp_fn(WM, spec, keys), [c] + leaves, g)
+    want = vjp(torch, wire_mlp_fn(WM, spec, keys, plain=True), [c] + leaves,
+               g)
+    if got["out"].shape != (4, 50, 1):
+        raise AssertionError(f"wire_mlp (4, 50, 2): output shape "
+                             f"{tuple(got['out'].shape)}")
+    errs["wire_mlp_batched"] = compare(got, want, "wire_mlp (4, 50, 2)")
+
+    n = 256 * 256
+    c = torch.tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+                     device=device)
+    grad_leaves = [t.detach().requires_grad_(True) for t in leaves]
+    p = {k: {} for k, _ in keys}
+    for (k, kk), leaf in zip(keys, grad_leaves):
+        p[k][kk] = leaf
+    with_grad = WM.wire_mlp(p, c, spec).detach()
+    del p, grad_leaves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y = WM.wire_mlp(params, c, spec)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    h = params["first"]["w"].shape[1]
+    pingpong = 2 * n * 2 * h * 4
+    slack = 16 * 2 ** 20
+    if not torch.equal(y, with_grad):
+        raise AssertionError("wire_mlp without a gradient differs from the "
+                             "pair's forward")
+    if not peak <= pingpong + slack:
+        raise AssertionError(f"wire_mlp without a gradient peaked at {peak} "
+                             f"bytes, more than two ping-pong planes "
+                             f"({pingpong}) + {slack}")
+    errs["wire_mlp_nograd_peak_mb"] = peak / 1e6
+    errs["wire_mlp_nograd_pingpong_mb"] = pingpong / 1e6
+
+    angles = np.array([0.0, 7.3, 44.9, 90.0, 121.7, 180.0, -13.4, 315.0],
+                      np.float32)
+    img = torch.tensor(rng.random((96, 128)).astype(np.float32),
+                       device=device)
+    cot = torch.tensor(rng.normal(size=(len(angles), 128)).astype(
+        np.float32), device=device)
+    got = vjp(torch, lambda x: R.rotate_project(x, angles), [img], cot)
+    want = vjp(torch, lambda x: R.rotate_project_plain(x, angles), [img],
+               cot)
+    errs["rotsum_96x128"] = compare(got, want, "rotsum 96 x 128")
+    return errs
+
+
+def real_matmul_vjp(torch, RM, canon, x, kinds, cotangent,
+                    want_dcoords=False):
+    """The canonical forward and its backward as torch.matmul calls with
+    the bases and their derivatives in PyTorch ops, written out, for the
+    output cotangent ``cotangent(y)``: the library yardstick (not used by
+    the port).  Returns (y, dcanon, dcoords or None)."""
+    zs, acts, a = [], [], x
+    for lay, kind in zip(canon["layers"], kinds):
+        z = a @ lay["w"]
+        zs.append(z)
+        a = RM._apply_segments(kind, lay["alpha"] * z + lay["beta"], 0)
+        acts.append(a)
+    y = torch.addmm(canon["final"]["b"], a, canon["final"]["w"])
+    g = cotangent(y)
+    dfinal = {"w": acts[-1].t() @ g, "b": g.sum(0)}
+    da = g @ canon["final"]["w"].t()
+    dlayers = [None] * len(zs)
+    for l in reversed(range(len(zs))):
+        lay = canon["layers"][l]
+        dv = RM._apply_segments(kinds[l], lay["alpha"] * zs[l] + lay["beta"],
+                                1) * da
+        dz = lay["alpha"] * dv
+        a_prev = x if l == 0 else acts[l - 1]
+        dlayers[l] = {"w": a_prev.t() @ dz, "alpha": (zs[l] * dv).sum(0),
+                      "beta": dv.sum(0)}
+        if l > 0 or want_dcoords:
+            da = dz @ lay["w"].t()
+    return y, {"layers": dlayers, "final": dfinal}, (
+        da if want_dcoords else None)
+
+
+def real_matmul_step(torch, RM, canon, x, target, gt, kinds):
+    """The masked-MSE train step through ``real_matmul_vjp``."""
+    n, o = target.shape
+    y, dcanon, _ = real_matmul_vjp(
+        torch, RM, canon, x, kinds, lambda y: (2.0 / (n * o)) * (y - target))
+    et, eg = y - target, y - gt
+    return y, dcanon, ((et * et).sum(), (eg * eg).sum())
+
+
+def real_measure(torch, RM, MM, model_a, model_b, device):
+    """Times of real_step at the denoise shape and of real_mlp's pair
+    (dcoords included) at the SISR shape: the kernel (a host call, and its
+    kernels' device time), the plain version, the matmul yardstick, and
+    the card's least time for the same work."""
+    out = {}
+    n = 256 * 256
+    canon, kinds = path_canon(torch, MM, model_a, 14, device)
+    widths = [2] + [lay["w"].shape[1] for lay in canon["layers"]] + [3]
+    nweights = sum(t.numel() for _, t in RM.canon_leaves(canon))
+    c, t, gt, _ = real_inputs(torch, n, 2, 3, 15, device)
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    scratch = StepScratch()
+
+    def step():
+        return RM.real_step(canon, c, t, kinds, gt=gt, want_metrics=True,
+                            scratch=scratch)
+
+    lib_err = compare(
+        real_step_tensors(RM, *real_matmul_step(torch, RM, canon, c, t, gt,
+                                                kinds)),
+        real_step_tensors(RM, *RM.real_step_plain(canon, c, t, kinds, gt=gt,
+                                                  want_metrics=True)),
+        "real matmul step vs plain")
+    flops = RM.step_flops(n, widths)
+    nbytes = 4 * (n * (2 + 3 + 3) + nweights + n * 3 + nweights + 2)
+    res = {
+        "ms": cuda_ms(torch, step, 20),
+        "kernel_ms": kernel_device_ms(torch, step, 20,
+                                      kernel_names("real_mlp")),
+        "plain_ms": cuda_ms(torch, lambda: RM.real_step_plain(
+            canon, c, t, kinds, gt=gt, want_metrics=True), 20),
+        "library_ms": cuda_ms(torch, lambda: real_matmul_step(
+            torch, RM, canon, c, t, gt, kinds), 20),
+        "library": "torch.matmul step, bases and written-out backward in "
+                   "PyTorch ops",
+        "library_vs_plain_max_abs_err": lib_err}
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
+        if res["kernel_ms"] else None
+    out["real_step"] = res
+    del scratch
+
+    n = 168 * 168
+    canon, kinds = path_canon(torch, MM, model_b, 16, device)
+    L = len(canon["layers"])
+    c, _, _, g = real_inputs(torch, n, 2, 3, 17, device)
+    xs = [c] + [t for _, t in RM.canon_leaves(canon)]
+    kfn = real_mlp_fn(RM, L, kinds)
+    pfn = real_mlp_fn(RM, L, kinds, plain=True)
+
+    def pair():
+        return vjp(torch, kfn, xs, g)
+
+    def fwd():
+        with torch.no_grad():
+            kfn(*xs)
+
+    lib = real_matmul_vjp(torch, RM, canon, c, kinds, lambda y: g,
+                          want_dcoords=True)
+    got = {"out": lib[0], "d0": lib[2]}
+    got.update({f"d{i + 1}": tt for i, (_, tt) in
+                enumerate(RM.canon_leaves(lib[1]))})
+    want = vjp(torch, pfn, xs, g)
+    flops = RM.apply_flops(n, widths)
+    nbytes = 4 * (2 * (n * 2 + n * 3 + nweights))
+    res = {
+        "ms": cuda_ms(torch, pair, 20),
+        "kernel_ms": kernel_device_ms(torch, pair, 20,
+                                      kernel_names("real_mlp")),
+        "fwd_ms": cuda_ms(torch, fwd, 20),
+        "plain_ms": cuda_ms(torch, lambda: vjp(torch, pfn, xs, g), 20),
+        "library_ms": cuda_ms(torch, lambda: real_matmul_vjp(
+            torch, RM, canon, c, kinds, lambda y: g, want_dcoords=True), 20),
+        "library": "torch.matmul forward, bases and written-out backward in "
+                   "PyTorch ops",
+        "library_vs_plain_max_abs_err": max(
+            float((got[k] - want[k]).abs().max()) for k in want)}
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
+        if res["kernel_ms"] else None
+    out["real_mlp"] = res
+    return out
+
+
+def reset_counts(counters):
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+
+
+def read_counts(counters):
+    return {k: dict(c) for k, c in counters.items()}
+
+
+def check_real_launches(launches, what, want):
+    """Every count is zero but the named ones, which are as given."""
+    for name, counts in launches.items():
+        for k, v in counts.items():
+            if v != want.get((name, k), 0):
+                raise AssertionError(
+                    f"{what}: {name} {k} launched {v} times, expected "
+                    f"{want.get((name, k), 0)}")
+
+
+def fit_real(torch, np, mods, counters, device):
+    """B-spline denoise (path A) for REAL_ITERS epochs through fit_pointwise:
+    once through the kernel, counts reset just before and read just after,
+    once through the plain path (the family's own apply, the relu^2 spline,
+    and autograd), and once through the kernel's plain version in the same
+    canonical fold (real_step_plain in place of the kernel), from one
+    init."""
+    TD, TC, M, RM, get_inr, get_config, FitConfig, fit_pointwise = mods
+    cfg = get_config(REAL_DENOISE_CONFIG)
+    im, im_noisy = TD.denoise_images(cfg)
+    H, W, _ = im.shape
+    model, plain = real_models(get_inr, TC, cfg, 7.0, H)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    grid = TD.C.grid2d(H, W)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=REAL_ITERS,
+                        maxpoints=cfg.maxpoints, scale_lr_by_batch=True)
+    reset_counts(counters)
+    res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                        fit_cfg, gt=im.reshape(-1, 3), device=device)
+    launches = read_counts(counters)
+    check_real_launches(launches, "B-spline denoise",
+                        {("real_mlp", "step"): REAL_ITERS})
+    res_plain = fit_pointwise(plain, params, grid, im_noisy.reshape(-1, 3),
+                              fit_cfg, gt=im.reshape(-1, 3), device=device)
+    kernel_step = RM.real_step
+    RM.real_step = lambda canon, x, t, kinds, scratch=None, **kw: \
+        RM.real_step_plain(canon, x, t, kinds, **kw)
+    try:
+        res_canon = fit_pointwise(model, params, grid,
+                                  im_noisy.reshape(-1, 3), fit_cfg,
+                                  gt=im.reshape(-1, 3), device=device)
+    finally:
+        RM.real_step = kernel_step
+    if read_counts(counters) != launches:
+        raise AssertionError("B-spline denoise: a plain fit launched a "
+                             "kernel")
+    for r in (res, res_plain, res_canon):
+        if not (np.isfinite(r.best_rec).all() and np.isfinite(r.mse_gt).all()
+                and r.best_rec.shape == (H * W, 3)):
+            raise AssertionError("B-spline denoise: non-finite values or a "
+                                 "wrong shape")
+    psnr, psnr_plain, psnr_canon = (
+        float(M.psnr_ref(im, r.best_rec.reshape(H, W, 3)))
+        for r in (res, res_plain, res_canon))
+    for what, other in (("plain", psnr_plain),
+                        ("canonical plain", psnr_canon)):
+        if not abs(psnr - other) <= PSNR_AGREE_DB:
+            raise AssertionError(
+                f"B-spline denoise: kernel fit {psnr:.3f} dB vs {what} fit "
+                f"{other:.3f} dB differ by more than {PSNR_AGREE_DB} dB")
+    floor = WIRE_TPU_300_REAL_DB["denoise"] - 0.2
+    if not psnr >= floor:
+        raise AssertionError(f"B-spline denoise: kernel fit best PSNR "
+                             f"{psnr:.3f} dB below the floor {floor} dB")
+    return dict(config=REAL_DENOISE_CONFIG, epochs=REAL_ITERS,
+                launches=launches["real_mlp"], psnr_db=psnr,
+                psnr_plain_db=psnr_plain, psnr_canonical_plain_db=psnr_canon,
+                floor_db=floor, ms_per_step=res.step_ms,
+                plain_ms_per_step=res_plain.step_ms,
+                canonical_plain_ms_per_step=res_canon.step_ms,
+                fit_wall_s=res.wall_time_s,
+                plain_fit_wall_s=res_plain.wall_time_s)
+
+
+def fit_sisr(torch, np, mods, counters, device):
+    """B-spline SISR (path B) for REAL_ITERS iterations through
+    fit_operator, through the kernels and the plain path, from one init."""
+    TS, TC, TF, M, get_inr, get_config, FitConfig, fit_operator = mods
+    cfg = get_config(REAL_SISR_CONFIG)
+    scale = cfg.down_scale
+    im, im_lr = TS.sisr_images(None, 0, scale)
+    H, W, _ = im.shape
+    model, plain = real_models(get_inr, TC, cfg, 8.0, H)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    grid = TS.C.grid2d(H, W)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=REAL_ITERS,
+                        maxpoints=cfg.maxpoints, lr_decay=0.2)
+    op = TF.DownsampleOp(scale)
+    reset_counts(counters)
+    res = fit_operator(model, params, grid, im_lr, op, fit_cfg, gt_field=im,
+                       field_shape=(H, W, 3), track="gt", device=device)
+    launches = read_counts(counters)
+    check_real_launches(launches, "B-spline SISR",
+                        {("real_mlp", "forward"): REAL_ITERS,
+                         ("real_mlp", "backward"): REAL_ITERS})
+    res_plain = fit_operator(plain, params, grid, im_lr, op, fit_cfg,
+                             gt_field=im, field_shape=(H, W, 3), track="gt",
+                             device=device)
+    if read_counts(counters) != launches:
+        raise AssertionError("B-spline SISR: the plain fit launched a "
+                             "kernel")
+    for r in (res, res_plain):
+        if not (np.isfinite(r.best_rec).all() and np.isfinite(r.mse_gt).all()
+                and r.best_rec.shape == (H, W, 3)):
+            raise AssertionError("B-spline SISR: non-finite values or a "
+                                 "wrong shape")
+    db, db_plain = M.mse_db(res.best_mse), M.mse_db(res_plain.best_mse)
+    if not abs(db - db_plain) <= PSNR_AGREE_DB:
+        raise AssertionError(f"B-spline SISR: kernel fit {db:.3f} dB vs "
+                             f"plain fit {db_plain:.3f} dB differ by more "
+                             f"than {PSNR_AGREE_DB} dB")
+    floor = WIRE_TPU_300_REAL_DB["sisr"] - 0.2
+    if not db >= floor:
+        raise AssertionError(f"B-spline SISR: kernel fit best -10 log10(MSE) "
+                             f"{db:.3f} dB below the floor {floor} dB")
+    return dict(config=REAL_SISR_CONFIG, iters=REAL_ITERS,
+                launches=launches["real_mlp"], mse_db=db,
+                mse_db_plain=db_plain, floor_db=floor,
+                ssim=float(M.ssim(im, res.best_rec, data_range=1.0)),
+                ms_per_iter=res.step_ms, plain_ms_per_iter=res_plain.step_ms,
+                fit_wall_s=res.wall_time_s,
+                plain_fit_wall_s=res_plain.wall_time_s)
+
+
 def cuda_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -535,6 +1022,12 @@ def main():
     from wire_tpu_torch.apps import ct as TCT
     from wire_tpu_torch.train.presets import get_config
     from wire_tpu_torch.train.trainer import fit_operator
+    import wire_tpu_torch.ops.real_mlp as RM
+    import wire_tpu_torch.nn.models as MM
+    import wire_tpu_torch.operators.forward as TF
+    from wire_tpu_torch.apps import common as TC
+    from wire_tpu_torch.apps import denoise as TD
+    from wire_tpu_torch.apps import sisr as TS
 
     # ---- device ----------------------------------------------------------
     t0 = time.time()
@@ -587,11 +1080,17 @@ def main():
     ct_model, _ = ct_models(get_inr, TCT, cfg_ct)
     errs = {"wire_step": cases}
     errs.update(ct_kernel_vs_plain(torch, WM, R, LS, ct_model, dev))
+    cfg_a, cfg_b = get_config(REAL_DENOISE_CONFIG), get_config(
+        REAL_SISR_CONFIG)
+    model_a, _ = real_models(get_inr, TC, cfg_a, 7.0, 256)
+    model_b, _ = real_models(get_inr, TC, cfg_b, 8.0, 168)
+    errs.update(real_kernel_vs_plain(torch, RM, MM, model_a, model_b, dev))
+    errs["repaired"] = repaired_faults(torch, WM, R, ct_model, dev)
     emit("kernel_vs_plain", t0, max_abs_err=errs, rel_tol=REL_TOL,
          why=("max abs err <= rel_tol x max|plain| per output tensor: fp32 "
-              "sums over up to 65,536 rows (wire_*), 256 rows (rotsum) "
-              "taken in another order; line_sample's scatter adds with "
-              "atomics in a varying order"))
+              "sums over up to 65,536 rows (wire_*, real_*), 256 rows "
+              "(rotsum) taken in another order; line_sample's scatter adds "
+              "with atomics in a varying order"))
 
     # ---- measure (bench shape; these launches are not the main path) ------
     t0 = time.time()
@@ -630,12 +1129,13 @@ def main():
         library_vs_plain_max_abs_err=lib_err,
         achieved_tflops=flops / (ms * 1e9))}
     meas.update(ct_measure(torch, WM, R, LS, ct_model, dev))
+    meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
     emit("measure", t0, kernels=meas, nvidia_smi=smi,
-         pairs=("ms, plain_ms and library_ms of wire_mlp, rotsum and "
-                "line_sample time the forward and its backward/adjoint "
-                "together through autograd, as a call from the host; "
-                "kernel_ms the device time of the kernels alone in those "
-                "calls; fwd_ms the forward alone"))
+         pairs=("ms, plain_ms and library_ms of wire_mlp, rotsum, "
+                "line_sample and real_mlp time the forward and its "
+                "backward/adjoint together through autograd, as a call from "
+                "the host; kernel_ms the device time of the kernels alone "
+                "in those calls; fwd_ms the forward alone"))
 
     # ---- fit (the main path) ---------------------------------------------
     t0 = time.time()
@@ -684,25 +1184,42 @@ def main():
                             FitConfig, fit_operator), dev)
     emit("fit_ct", t0, methods=ct)
 
+    # ---- fit_real (B-spline denoise, path A) -------------------------------
+    t0 = time.time()
+    counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
+                "line_sample": LS.launches, "real_mlp": RM.launches}
+    ws_before = WS.wire_step.launches
+    real = fit_real(torch, np, (TD, TC, M, RM, get_inr, get_config,
+                                FitConfig, fit_pointwise), counters, dev)
+    emit("fit_real", t0, **real)
+
+    # ---- fit_sisr (B-spline SISR, path B) ----------------------------------
+    t0 = time.time()
+    sisr = fit_sisr(torch, np, (TS, TC, TF, M, get_inr, get_config,
+                                FitConfig, fit_operator), counters, dev)
+    if WS.wire_step.launches != ws_before:
+        raise AssertionError("the B-spline fits launched wire_step")
+    emit("fit_sisr", t0, **sisr)
+
     # launches of each kernel in the path that runs it: wire_step in the
-    # denoise fit, wire_mlp in both CT fits, line_sample in 'auto'
-    # (fourier), rotsum in 'rotate'; a pair counts both directions
+    # WIRE denoise fit, wire_mlp in both CT fits, line_sample in 'auto'
+    # (fourier), rotsum in 'rotate', real_step in the B-spline denoise fit,
+    # real_mlp in the B-spline SISR fit; a pair counts both directions
     path_launches = {
         "wire_step": {"step": launches},
         "wire_mlp": {k: ct["auto"]["launches"]["wire_mlp"][k]
                      + ct["rotate"]["launches"]["wire_mlp"][k]
                      for k in WM.launches},
         "line_sample": ct["auto"]["launches"]["line_sample"],
-        "rotsum": ct["rotate"]["launches"]["rotsum"]}
-    replaces = {"wire_step": "wire_tpu/ops/pallas/wire_step.py:356",
-                "wire_mlp": "wire_tpu/ops/pallas/wire_mlp.py:296",
-                "rotsum": "wire_tpu/ops/pallas/rotsum.py:259",
-                "line_sample": "wire_tpu/ops/pallas/line_sample.py:144"}
+        "rotsum": ct["rotate"]["launches"]["rotsum"],
+        "real_step": {"step": real["launches"]["step"]},
+        "real_mlp": {k: sisr["launches"][k]
+                     for k in ("forward", "backward")}}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"wire_tpu_torch/csrc/{name}.cu",
-        "replaces": replaces[name],
+        "source": f"wire_tpu_torch/csrc/{lib}.cu",
+        "replaces": replaces,
         "launches": sum(path_launches[name].values()),
         "launches_by_direction": path_launches[name],
         "max_abs_err": errs[name]["full"], "ms": meas[name]["ms"],
@@ -710,8 +1227,8 @@ def main():
         "plain_ms": meas[name]["plain_ms"],
         "bound_ms": meas[name]["bound_ms"],
         "bound_by": meas[name]["bound_by"],
-        "library_ms": meas[name]["library_ms"]} for name in KERNEL_LIBRARIES
-    ]}))
+        "library_ms": meas[name]["library_ms"]}
+        for name, (lib, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

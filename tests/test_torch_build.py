@@ -9,7 +9,7 @@ import pytest
 
 from wire_tpu_torch.ops import build
 
-SOURCES = ("wire_step", "wire_mlp", "rotsum", "line_sample")
+SOURCES = ("wire_step", "wire_mlp", "rotsum", "line_sample", "real_mlp")
 
 
 @pytest.fixture
@@ -23,15 +23,17 @@ def csrc(tmp_path, monkeypatch):
 def test_every_kernel_source_is_there():
     for name in SOURCES:
         assert os.path.isfile(os.path.join(build.CSRC_DIR, f"{name}.cu"))
-    assert os.path.isfile(os.path.join(build.CSRC_DIR, "wire_gemm.cuh"))
+    for header in ("wire_gemm.cuh", "gemm_common.cuh"):
+        assert os.path.isfile(os.path.join(build.CSRC_DIR, header))
 
 
+@pytest.mark.parametrize("header", ["wire_gemm.cuh", "gemm_common.cuh"])
 @pytest.mark.parametrize("name", SOURCES)
-def test_library_path_follows_the_shared_header(csrc, name):
+def test_library_path_follows_the_shared_header(csrc, name, header):
     before = build.library_path(name)
     assert before == build.library_path(name)
     assert os.path.basename(before).startswith(f"{name}-")
-    header = csrc / "wire_gemm.cuh"
+    header = csrc / header
     header.write_text(header.read_text() + "\n// edited\n")
     assert build.library_path(name) != before
 
@@ -41,7 +43,7 @@ def test_library_path_follows_source_and_flags(csrc, monkeypatch):
     src = csrc / "rotsum.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert build.library_path("rotsum") != others["rotsum"]
-    for n in ("wire_step", "wire_mlp", "line_sample"):
+    for n in ("wire_step", "wire_mlp", "line_sample", "real_mlp"):
         assert build.library_path(n) == others[n]
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("line_sample") != others["line_sample"]

@@ -1,6 +1,6 @@
-"""The CUDA kernels (wire_step, wire_mlp, rotsum, line_sample) against their
-plain PyTorch versions on the card (marked ``gpu``; skipped where no CUDA
-device is present):
+"""The CUDA kernels (wire_step, wire_mlp, rotsum, line_sample, real_mlp's
+pair and step) against their plain PyTorch versions on the card (marked
+``gpu``; skipped where no CUDA device is present):
 
     python -m pytest tests/test_torch_gpu.py -m gpu -p no:randomly
 """
@@ -159,12 +159,80 @@ def test_wire_mlp_skips_dcoords_for_constant_coords(cuda):
                            want), (k, kk)
 
 
-def test_radon_rotate_refuses_a_non_square_cuda_image(cuda):
+def test_wire_mlp_takes_leading_axes(cuda):
+    """(b, N, d) coordinates give (b, N, o), as wire_tpu's entry does."""
+    from wire_tpu_torch.ops import wire_mlp as WM
+    model, params, c, g = _wire_mlp_case(200, 91, 2, 3, cuda)
+    c3, g3 = c.reshape(4, 50, 2), g.reshape(4, 50, 3)
+    got = _vjp(lambda p, x: WM.wire_mlp(p, x, model.spec), params, c3, g3)
+    want = _vjp(lambda p, x: WM.wire_mlp_plain(p, x, model.spec), params,
+                c3, g3)
+    assert got["y"].shape == (4, 50, 3)
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        assert err <= REL * float(w.abs().max()) + 1e-30, (name, err)
+
+
+def test_wire_mlp_without_grad_keeps_nothing(cuda):
+    """With no input that needs a gradient the forward runs through two
+    ping-pong planes: the same output, and a peak of those planes plus a
+    little, not the backward's saved activations (0.61 GB here)."""
+    from wire_tpu_torch.ops import wire_mlp as WM
+    model, params, c, g = _wire_mlp_case(65536, 300, 2, 1, cuda)
+    h = params["first"]["w"].shape[1]
+    leaves = {k: {kk: v.detach().requires_grad_(True) for kk, v in
+                  sub.items()} for k, sub in params.items()}
+    with_grad = WM.wire_mlp(leaves, c, model.spec).detach()
+    torch.cuda.synchronize()
+    before = dict(WM.launches)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y = WM.wire_mlp(leaves, c, model.spec)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert WM.launches == {"forward": before["forward"] + 1,
+                           "backward": before["backward"]}
+    assert torch.equal(y, with_grad)
+    pingpong = 2 * 65536 * 2 * h * 4
+    slack = 16 * 2 ** 20   # stacked weights (~3 MB), pred, allocator rounding
+    assert peak <= pingpong + slack, (peak, pingpong)
+
+
+def test_radon_rotate_runs_the_kernel_on_a_non_square_cuda_image(cuda):
     from wire_tpu_torch.operators import radon as TR
+    from wire_tpu_torch.ops import rotsum as R
     img = torch.rand((64, 48), device=cuda)
-    with pytest.raises(ValueError, match="rotate_xla"):
-        TR.radon(img, np.linspace(0, 180, 5, dtype=np.float32),
-                 method="rotate")
+    angles = np.linspace(0, 180, 5, dtype=np.float32)
+    before = dict(R.launches)
+    got = TR.radon(img, angles, method="rotate")
+    assert R.launches["forward"] == before["forward"] + 1
+    want = TR.radon(img, angles, method="rotate_xla")
+    assert got.shape == (5, 48)
+    err = float((got - want).abs().max())
+    assert err <= REL * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("H,W", [(96, 128), (128, 96), (33, 70)])
+def test_rotsum_non_square_kernel_matches_plain(cuda, H, W):
+    from wire_tpu_torch.ops import rotsum as R
+    rng = np.random.default_rng(H + W)
+    angles = np.array([0.0, 7.3, 44.9, 90.0, 121.7, 180.0, -13.4, 315.0],
+                      np.float32)
+    img = torch.tensor(rng.random((H, W)).astype(np.float32), device=cuda)
+    cot = torch.tensor(rng.normal(size=(len(angles), W)).astype(np.float32),
+                       device=cuda)
+    out = {}
+    for name, fn in (("kernel", R.rotate_project),
+                     ("plain", R.rotate_project_plain)):
+        x = img.clone().requires_grad_(True)
+        y = fn(x, angles)
+        (gx,) = torch.autograd.grad(y, x, cot)
+        out[name] = (y, gx)
+    for (a, b), what in zip(zip(out["kernel"], out["plain"]),
+                            ("sino", "adjoint")):
+        err = float((a - b).abs().max())
+        assert err <= REL * float(b.abs().max()), (what, err)
 
 
 @pytest.mark.parametrize("S", [32, 96, 256])
@@ -224,3 +292,181 @@ def test_line_sample_kernel_matches_plain(cuda, P, A, K):
     for name, w in want.items():
         err = float((got[name] - w).abs().max())
         assert err <= REL * float(w.abs().max()), (name, err)
+
+
+# ---- real_mlp: the canonical real MLP's pair and step ----------------------
+
+BASES = ("qspline", "cspline", "sine", "gauss", "relu", "srelu", "identity")
+SEGMENTS = (("qspline", 20), ("identity", 10), ("sine", 10))
+
+
+def _canon(widths, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    layers = [{"w": t(rng.uniform(-1, 1, (a, b)) / np.sqrt(a)),
+               "alpha": t(rng.uniform(0.5, 2.0, b)),
+               "beta": t(rng.uniform(-1, 1, b))}
+              for a, b in zip(widths[:-2], widths[1:-1])]
+    h, o = widths[-2], widths[-1]
+    return {"layers": layers,
+            "final": {"w": t(rng.uniform(-1, 1, (h, o)) / np.sqrt(h)),
+                      "b": t(rng.uniform(-1, 1, o))}}
+
+
+def _real_vjp(fn, canon, coords, g):
+    from wire_tpu_torch.ops import real_mlp as RM
+    leaves = [t.detach().requires_grad_(True)
+              for _, t in RM.canon_leaves(canon)]
+    c = coords.detach().requires_grad_(True)
+    y = fn(RM.canon_from_leaves(leaves, len(canon["layers"])), c)
+    grads = torch.autograd.grad(y, leaves + [c], g)
+    out = {"y": y.detach(), "dcoords": grads[-1]}
+    out.update({str(p): gr for (p, _), gr in
+                zip(RM.canon_leaves(canon), grads[:-1])})
+    return out
+
+
+def _assert_rel(got, want):
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        assert err <= REL * float(w.abs().max()) + 1e-30, (name, err)
+
+
+@pytest.mark.parametrize("kind", BASES + ("segments",))
+def test_real_mlp_kernel_matches_plain(cuda, kind):
+    from wire_tpu_torch.ops import real_mlp as RM
+    widths = (2, 48, 40, 3)
+    kinds = (SEGMENTS, "qspline") if kind == "segments" else (kind, kind)
+    canon = _canon(widths, cuda)
+    rng = np.random.default_rng(1)
+    c = torch.tensor(rng.uniform(-1, 1, (700, 2)).astype(np.float32),
+                     device=cuda)
+    g = torch.tensor(rng.normal(size=(700, 3)).astype(np.float32),
+                     device=cuda)
+    before = dict(RM.launches)
+    got = _real_vjp(lambda p, x: RM.real_mlp(p, x, kinds), canon, c, g)
+    torch.cuda.synchronize()
+    assert RM.launches["forward"] == before["forward"] + 1
+    assert RM.launches["backward"] == before["backward"] + 1
+    want = _real_vjp(lambda p, x: RM.real_mlp_plain(p, x, kinds), canon, c,
+                     g)
+    _assert_rel(got, want)
+
+
+@pytest.mark.parametrize("n,widths", [(28224, (2, 256, 256, 256, 3)),
+                                      (4099, (26, 64, 64, 1))])
+def test_real_mlp_kernel_matches_plain_at_path_widths(cuda, n, widths):
+    from wire_tpu_torch.ops import real_mlp as RM
+    kinds = ("qspline",) * (len(widths) - 2)
+    canon = _canon(widths, cuda, seed=2)
+    rng = np.random.default_rng(3)
+    c = torch.tensor(rng.uniform(-1, 1, (n, widths[0])).astype(np.float32),
+                     device=cuda)
+    g = torch.tensor(rng.normal(size=(n, widths[-1])).astype(np.float32),
+                     device=cuda)
+    got = _real_vjp(lambda p, x: RM.real_mlp(p, x, kinds), canon, c, g)
+    want = _real_vjp(lambda p, x: RM.real_mlp_plain(p, x, kinds), canon, c,
+                     g)
+    _assert_rel(got, want)
+
+
+def test_real_mlp_row_gamma_and_scales_match_plain(cuda):
+    from wire_tpu_torch.ops import real_mlp as RM
+    widths = (2, 48, 40, 3)
+    kinds = ("qspline", "cspline")
+    canon = _canon(widths, cuda, seed=4)
+    rng = np.random.default_rng(5)
+    c = torch.tensor(rng.uniform(-1, 1, (300, 2)).astype(np.float32),
+                     device=cuda)
+    g = torch.tensor(rng.normal(size=(3, 300, 3)).astype(np.float32),
+                     device=cuda)
+    inv = (1.0, 0.5, 0.25)
+    got = _real_vjp(lambda p, x: RM.real_mlp_scales(p, x, kinds, inv),
+                    canon, c, g)
+    want = _real_vjp(lambda p, x: RM.real_mlp_plain(
+        p, x.repeat(3, 1), kinds, row_gamma=(inv, 300)).reshape(3, 300, 3),
+        canon, c, g)
+    _assert_rel(got, want)
+
+
+def test_real_mlp_without_grad_equals_the_pair(cuda):
+    from wire_tpu_torch.ops import real_mlp as RM
+    widths = (2, 64, 64, 3)
+    kinds = ("qspline", "sine")
+    canon = _canon(widths, cuda, seed=6)
+    c = torch.rand((1000, 2), device=cuda) * 2 - 1
+    leaves = [t.detach().requires_grad_(True)
+              for _, t in RM.canon_leaves(canon)]
+    with_grad = RM.real_mlp(RM.canon_from_leaves(leaves, 2), c, kinds)
+    with torch.no_grad():
+        without = RM.real_mlp(canon, c.reshape(10, 100, 2), kinds)
+    assert without.shape == (10, 100, 3)
+    assert torch.equal(without.reshape(1000, 3), with_grad.detach())
+
+
+def _step_flat(pred, dcanon, sums):
+    from wire_tpu_torch.ops import real_mlp as RM
+    out = {"pred": pred, "sse_t": sums[0], "sse_g": sums[1]}
+    out.update({str(p): t for p, t in RM.canon_leaves(dcanon)})
+    return out
+
+
+@pytest.mark.parametrize("n,widths,kinds,nvalid,denom", [
+    (700, (2, 48, 40, 3), ("srelu", "gauss"), 650, 650 * 3.0 + 1.0),
+    (700, (2, 48, 40, 3), (SEGMENTS, "relu"), None, None),
+    (4099, (26, 64, 64, 64, 3), ("relu",) * 3, 4000, None),
+    (65536, (2, 256, 256, 256, 3), ("qspline",) * 3, None, None)])
+def test_real_step_kernel_matches_plain(cuda, n, widths, kinds, nvalid,
+                                        denom):
+    from wire_tpu_torch.ops import real_mlp as RM
+    canon = _canon(widths, cuda, seed=7)
+    rng = np.random.default_rng(8)
+    c, t, gt = (torch.tensor(a.astype(np.float32), device=cuda) for a in (
+        rng.uniform(-1, 1, (n, widths[0])), rng.uniform(0, 1, (n, 3)),
+        rng.uniform(0, 1, (n, 3))))
+    before = RM.launches["step"]
+    got = _step_flat(*RM.real_step(canon, c, t, kinds, nvalid=nvalid,
+                                   denom=denom, gt=gt, want_metrics=True))
+    torch.cuda.synchronize()
+    assert RM.launches["step"] == before + 1
+    want = _step_flat(*RM.real_step_plain(canon, c, t, kinds, nvalid=nvalid,
+                                          denom=denom, gt=gt,
+                                          want_metrics=True))
+    _assert_rel(got, want)
+
+
+def test_real_step_is_deterministic_and_reuses_scratch(cuda):
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    widths = (2, 256, 256, 3)
+    canon = _canon(widths, cuda, seed=9)
+    c = torch.rand((5000, 2), device=cuda) * 2 - 1
+    t = torch.rand((5000, 3), device=cuda)
+    scratch = StepScratch()
+    a, b = (_step_flat(*RM.real_step(canon, c, t, ("qspline",) * 2,
+                                     want_metrics=True, scratch=scratch))
+            for _ in range(2))
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_real_family_fits_launch_the_kernels(cuda):
+    """Every real family's step and apply go through the kernels on the
+    card and agree with the plain path."""
+    from wire_tpu_torch.ops import real_mlp as RM
+    c = torch.rand((600, 2), device=cuda) * 2 - 1
+    t = torch.rand((600, 3), device=cuda)
+    for nonlin in ("siren", "gauss", "relu", "posenc", "bspline_form",
+                   "bspline_cubic", "bspline_srelu", "bspline_knots"):
+        kw = dict(hidden_features=64, out_features=3, sidelength=64,
+                  scale=0.5 if nonlin.startswith("bspline") else 2.0)
+        model = get_inr(nonlin, **kw)
+        plain = get_inr(nonlin, fused="never", **kw)
+        params = model.init(torch.Generator().manual_seed(0), cuda)
+        before = RM.launches["step"]
+        got = model.step_grads(params, c, t, want_metrics=True)
+        assert RM.launches["step"] == before + 1, nonlin
+        want = plain.step_grads(params, c, t, want_metrics=True)
+        _assert_rel(_flat(*got), _flat(*want))

@@ -1,6 +1,7 @@
 """The port stands alone: every module of wire_tpu_torch and chip_smoke.py
-imports with jax, optax, wire_tpu, pandas, matplotlib and cv2 blocked, and
-chip_smoke.py refuses to run without a CUDA device."""
+imports with jax, optax, wire_tpu, pandas, matplotlib and cv2 blocked (the
+B-spline slice's modules among them), and chip_smoke.py refuses to run
+without a CUDA device."""
 import os
 import subprocess
 import sys
@@ -22,15 +23,25 @@ for name in names:
     importlib.import_module(name)
 assert not any(k.split(".")[0] in {BLOCKED!r} for k, v in sys.modules.items()
                if v is not None)
+print(" ".join(names))
 print(len(names))
 """
+
+SLICE_MODULES = ("wire_tpu_torch.ops.real_mlp", "wire_tpu_torch.apps.sisr",
+                 "wire_tpu_torch.operators.forward",
+                 "wire_tpu_torch.signals.image", "wire_tpu_torch.ops.resample",
+                 "wire_tpu_torch.train.metrics",
+                 "wire_tpu_torch.nn.activations", "wire_tpu_torch.nn.models")
 
 
 def test_every_module_imports_without_jax_or_wire_tpu():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 25
+    imported = out.stdout.split("\n")[-3].split()
+    for name in SLICE_MODULES:
+        assert name in imported, name
 
 
 def test_chip_smoke_without_cuda_exits_nonzero(tmp_path):

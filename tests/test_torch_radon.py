@@ -106,23 +106,34 @@ def test_rotate_project_refuses_angles_that_require_grad():
     assert angles.grad.abs().max() > 0
 
 
-def test_rotate_on_a_non_square_cuda_image_raises():
-    """'rotate' on the card takes the rotsum kernel, which needs a square
-    image: a non-square one raises and names the plain path instead of
-    silently taking it (a shape-only stand-in for a CUDA tensor: the check
-    comes before any data is read).  On the CPU any shape runs plain."""
-    class CudaImage:
-        device = torch.device("cuda", 0)
-        shape = (16, 12)
-        ndim = 2
-    for method, compat in (("rotate", False), ("auto", True)):
-        with pytest.raises(ValueError, match="rotate_xla"):
-            TR.radon(CudaImage(), ANGLES, method=method,
-                     reference_compat=compat)
-    img = _img(16, 6, W=12)
+@pytest.mark.parametrize("H,W", [(16, 12), (12, 20)])
+def test_rotate_project_plain_on_a_non_square_image_matches_wire_tpu(H, W):
+    """The plain rotate-project (the CUDA kernel's reference on the card)
+    on a non-square image against wire_tpu's rotate path: forward and the
+    adjoint's image gradient.  'rotate' on the CPU is this same plain
+    path, and on the card the kernel takes any H x W image."""
+    img = _img(H, 7, W=W)
+    cot = np.random.RandomState(8).randn(len(ANGLES), W).astype(np.float32)
+    jsino, jvjp = jax.vjp(
+        lambda x: JR.radon(x, jnp.asarray(ANGLES), method="rotate_xla"),
+        jnp.asarray(img))
+    (jgrad,) = jvjp(jnp.asarray(cot))
+    x = torch.tensor(img, requires_grad=True)
+    sino = R.rotate_project(x, ANGLES)
+    (grad,) = torch.autograd.grad(sino, x, torch.tensor(cot))
+    assert sino.shape == (len(ANGLES), W)
+    np.testing.assert_allclose(sino.detach().numpy(), np.asarray(jsino),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), rtol=1e-5,
+                               atol=1e-5)
     got = TR.radon(torch.tensor(img), ANGLES, method="rotate").numpy()
-    want = TR.radon(torch.tensor(img), ANGLES, method="rotate_xla").numpy()
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, sino.detach().numpy())
+    # the kernel's host-side angle parts of a non-square image: the whole
+    # angle, as rotate computes its cos and sin
+    cphi, sphi, k = R.whole_angle_parts(ANGLES)
+    t = torch.tensor(ANGLES) * (np.pi / 180.0)
+    assert np.array_equal(cphi, torch.cos(t).numpy()) and not k.any()
+    assert np.array_equal(sphi, torch.sin(t).numpy())
 
 
 def _line_positions(P, A, K):

@@ -57,7 +57,10 @@ def test_metrics_match():
 
 
 def test_wire_presets_identical():
-    wire = [k for k in JP.ENTRIES if JP.ENTRIES[k]["nonlin"] == "wire"]
+    # the ported families' presets: WIRE's and the B-spline (bspline_form)
+    # ones
+    wire = [k for k in JP.ENTRIES
+            if JP.ENTRIES[k]["nonlin"] in ("wire", "bspline_form")]
     assert sorted(wire) == list(P.list_configs())
     for k in wire:
         assert P.get_config(k).__dict__ == JP.get_config(k).__dict__, k

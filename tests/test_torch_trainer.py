@@ -133,3 +133,44 @@ def test_default_device_is_cuda_and_never_falls_back():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.fit_pointwise(tmodel, params, coords, target,
                         T.FitConfig(niters=1), device=None)
+
+
+def test_bspline_denoise_fit_matches_wire_tpu():
+    """Five full-batch epochs of the B-spline denoise preset
+    (Bspline_s9_5_LR8e3_E4000: bspline_form, scale 1/9.5, lr 8e-3) on a
+    32x32 image from the same bridged init: the port's step is the
+    canonical real step (its plain version on the CPU), wire_tpu's the
+    autodiff of its plain apply.  Histories keep rel 1e-4.  The fields and
+    parameters take the bounds of tests/test_torch_sisr.py's B-spline fit,
+    for its reason (at alpha = 9.5 the spline's relu^2 form rounds where it
+    cancels to zero): fields 3e-4 x their largest entry, parameters atol
+    niters x lr."""
+    from wire_tpu_torch.apps import common as TC
+    from wire_tpu_torch.train.presets import get_config
+    cfg = get_config("Bspline_s9_5_LR8e3_E4000")
+    coords, target, gt = _problem()
+    tmodel = TC.build_model(cfg, in_features=2, out_features=3, omega0=7.0,
+                            hidden_features=64, sidelength=32)
+    tparams = tmodel.init(torch.Generator().manual_seed(0))
+    jparams = jax.tree.map(jnp.asarray, bridge.params_to_numpy(tparams))
+    jmodel = get_inr("bspline_form", fused="never", in_features=2,
+                     out_features=3, hidden_features=64, hidden_layers=2,
+                     scale=cfg.scale)
+    kw = dict(learning_rate=cfg.learning_rate, niters=5, maxpoints=4096,
+              scale_lr_by_batch=True)
+    want = JT.fit_pointwise(jmodel, jparams, coords, target,
+                            JT.FitConfig(**kw), gt=gt, donate=False)
+    got = T.fit_pointwise(tmodel, tparams, coords, target, T.FitConfig(**kw),
+                          gt=gt, device="cpu")
+    np.testing.assert_allclose(got.mse_gt, want.mse_gt, rtol=REL)
+    np.testing.assert_allclose(got.mse_noisy, want.mse_noisy, rtol=REL)
+    for g, w in ((got.best_rec, want.best_rec),
+                 (got.final_rec, want.final_rec)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=0, atol=3e-4 * np.abs(w).max())
+    gp = bridge.params_to_numpy(got.params)
+    for k in gp:
+        for kk in gp[k]:
+            np.testing.assert_allclose(
+                gp[k][kk], np.asarray(want.params[k][kk]), rtol=REL,
+                atol=5 * cfg.learning_rate, err_msg=f"{k}.{kk}")

@@ -128,3 +128,19 @@ def test_apply_flops_counts_the_ct_shape():
     assert flops == 2 * n * (3 * L * 424 * 424 + 424 * (1 + 1 + 1) + d * h
                              + (d + 1) * h + d * h + L * 424 + 1)
     assert 139e9 < flops < 143e9
+
+
+def test_leading_axes_match_wire_tpu():
+    """(b, N, d) coordinates give (b, N, o), as wire_tpu's entry flattens
+    and restores them (wire_mlp.py:413-419); the CUDA wrapper does the
+    same (tests/test_torch_gpu.py)."""
+    kw, _, params, np_params, coords, _ = _case(200, 16, 2, 3, 4)
+    spec_hi = get_inr("wire", fused="never", **kw).spec.replace(
+        gemm_precision="highest")
+    want = np.asarray(wire_mlp_fused(params, jnp.asarray(
+        coords.reshape(4, 50, 2)), spec_hi, interpret=True))
+    got = WM.wire_mlp(bridge.params_from_jax(np_params),
+                      torch.tensor(coords).reshape(4, 50, 2),
+                      tget_inr("wire", **kw).spec)
+    assert got.shape == (4, 50, 3) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=5e-6)

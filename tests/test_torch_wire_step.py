@@ -78,8 +78,11 @@ def _assert_close(got_pred, got_grads, want_pred, want_grads):
                                             (100, 212, 2, 3)])
 def test_plain_matches_pallas_interpret(n, h, layers, out):
     model, tmodel, params, coords, target, _ = _setup(n, h, layers, out)
+    # exact f32 products in the kernel (as tests/test_torch_wire_mlp.py):
+    # the reference side is then not subject to the MXU's default precision
+    spec_hi = model.spec.replace(gemm_precision="highest")
     pred_k, g_k = wire_step_fused(params, jnp.asarray(coords),
-                                  jnp.asarray(target), model.spec,
+                                  jnp.asarray(target), spec_hi,
                                   interpret=True)
     pred, grads = _port(tmodel, params, coords, target)
     _assert_close(pred, grads, pred_k, g_k)

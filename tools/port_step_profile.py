@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the port's WIRE-300 fits goes, on one GPU.
+"""Where the time of the port's fits goes, on one GPU.
 
 Profiles EPOCHS epochs of wire_tpu_torch's fit_pointwise at the denoise
 bench protocol (256 x 256, 65,536 coordinates, WIRE-300, full batch), or
 with ``--ct METHOD`` EPOCHS iterations of fit_operator at the CT protocol
 (256 x 256 field, 100 angles, WIRE-300 at omega0 = 3, scale 12; METHOD
-'auto' = fourier on the card, or 'rotate'), with torch.profiler after a
-warm-up fit, and prints one JSON line: device time per epoch by kernel
+'auto' = fourier on the card, or 'rotate'), or with ``--real denoise`` the
+B-spline denoise fit (preset Bspline_s9_5_LR8e3_E4000, 65,536 coordinates)
+and ``--real sisr`` the B-spline SISR fit (preset Bspline_s9_LR1e3_E2000,
+168 x 168 HR, x4 box downsample), with torch.profiler after a warm-up fit,
+and prints one JSON line: device time per epoch by kernel
 (sorted, summed over launches; device-side events only, so a kernel is not
 counted again under the operator or autograd Function that launched it),
 the device's busy time per epoch, the wall time per epoch and the device's
@@ -15,10 +18,12 @@ Kernels of csrc/*.cu keep their CUDA names (paired_gemm_kernel<0|1|2> =
 forward / hidden backward / first-layer backward GEMMs,
 wgrad_partial_kernel, reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
-rotsum_*_kernel, line_*_kernel); the rest are PyTorch's (weight stacking,
-FFTs, Adam, best tracking).
+rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /
+backward / dcoords GEMMs of the real families, colsum_partial_kernel); the
+rest are PyTorch's (weight stacking, FFTs, Adam, best tracking).
 
-    python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate]
+    python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate |
+                                        --real denoise|sisr]
                                                     # default 20, denoise
 """
 import json
@@ -37,7 +42,10 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import numpy as np  # noqa: E402
 
 from wire_tpu_torch import bench  # noqa: E402
+from wire_tpu_torch.apps import common  # noqa: E402
 from wire_tpu_torch.apps import ct as tct  # noqa: E402
+from wire_tpu_torch.apps import denoise, sisr  # noqa: E402
+from wire_tpu_torch.operators.forward import DownsampleOp  # noqa: E402
 from wire_tpu_torch.device import resolve  # noqa: E402
 from wire_tpu_torch.operators.radon import RadonOp  # noqa: E402
 from wire_tpu_torch.signals import coords as C  # noqa: E402
@@ -71,18 +79,53 @@ def ct_fit(iters, method, dev):
                                 field_shape=img.shape, device=dev)
 
 
+def real_fit(iters, path, dev):
+    if path == "denoise":
+        cfg = get_config("Bspline_s9_5_LR8e3_E4000")
+        im, im_noisy = denoise.denoise_images(cfg)
+        H, W, _ = im.shape
+        model = common.build_model(cfg, in_features=2, out_features=3,
+                                   omega0=7.0, sidelength=H)
+        params = model.init(torch.Generator().manual_seed(0), dev)
+        fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=iters,
+                            maxpoints=cfg.maxpoints, scale_lr_by_batch=True)
+        return lambda: fit_pointwise(model, params, C.grid2d(H, W),
+                                     im_noisy.reshape(-1, 3), fit_cfg,
+                                     gt=im.reshape(-1, 3), device=dev)
+    cfg = get_config("Bspline_s9_LR1e3_E2000")
+    im, im_lr = sisr.sisr_images(None, 0, cfg.down_scale)
+    H, W, _ = im.shape
+    model = common.build_model(cfg, in_features=2, out_features=3,
+                               omega0=8.0, sidelength=H)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=iters,
+                        maxpoints=cfg.maxpoints, lr_decay=0.2)
+    return lambda: fit_operator(model, params, C.grid2d(H, W), im_lr,
+                                DownsampleOp(cfg.down_scale), fit_cfg,
+                                gt_field=im, field_shape=(H, W, 3),
+                                device=dev)
+
+
 def main():
     args = sys.argv[1:]
-    method = None
+    method = real = None
     if "--ct" in args:
         i = args.index("--ct")
         method = args[i + 1]
         del args[i:i + 2]
+    if "--real" in args:
+        i = args.index("--real")
+        real = args[i + 1]
+        del args[i:i + 2]
     epochs = int(args[0]) if args else 20
     dev = resolve("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    run = denoise_fit(epochs, dev) if method is None else \
-        ct_fit(epochs, method, dev)
+    if real is not None:
+        run = real_fit(epochs, real, dev)
+    elif method is not None:
+        run = ct_fit(epochs, method, dev)
+    else:
+        run = denoise_fit(epochs, dev)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -105,7 +148,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "fit": "denoise" if method is None else f"ct {method}",
+        "fit": (f"bspline {real}" if real is not None else
+                "denoise" if method is None else f"ct {method}"),
         "epochs": epochs, "nvidia_smi": smi,
         "wall_ms_per_epoch": wall_ms / epochs,
         "device_busy_ms_per_epoch": busy if busy else "not measured",

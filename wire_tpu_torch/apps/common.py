@@ -45,20 +45,31 @@ def load_image(path, size=512, channels=3, seed=0):
 
 
 def build_model(cfg, *, in_features, out_features, omega0, hidden_layers=2,
-                hidden_features=None):
-    """The preset's model (WIRE only in the port); ``hidden_features``
-    overrides the preset's width, as the CT app does
-    (wire_tpu/apps/common.py:54-81)."""
+                hidden_features=None, sidelength=512):
+    """The preset's model, wired as the config-driven scripts wire it
+    (wire_tpu/apps/common.py:54-81): posenc is relu with pos_encode on;
+    the preset's scale, scale_tensor and scaled_hidden_features, omega0 for
+    both omegas, and ``sidelength`` (posenc's frequency count) go to the
+    factory; ``hidden_features`` overrides the preset's width, as the CT app
+    does.  The mscale families' input widening and detach flag wait for
+    those families."""
+    nonlin, pos_encode = cfg.nonlin, False
+    if nonlin == "posenc":
+        nonlin, pos_encode = "relu", True
     return get_inr(
-        cfg.nonlin,
+        nonlin,
         in_features=in_features,
         out_features=out_features,
         hidden_features=(hidden_features if hidden_features is not None
                          else cfg.hidden_features),
         hidden_layers=hidden_layers,
+        scaled_hidden_features=cfg.scaled_hidden_features,
         first_omega0=omega0,
         hidden_omega0=omega0,
         scale=cfg.scale,
+        scale_tensor=cfg.scale_tensor,
+        pos_encode=pos_encode,
+        sidelength=sidelength,
     )
 
 

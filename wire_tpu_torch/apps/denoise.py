@@ -6,6 +6,7 @@ with LR scaled by min(1, maxpoints/npoints) and 0.1^(t/niters) decay per
 epoch, best image by MSE vs the clean image.
 
     python -m wire_tpu_torch.apps.denoise --config_name WIRE_s8_o7_LR5e3_E2000
+    python -m wire_tpu_torch.apps.denoise --config_name Bspline_s9_5_LR8e3_E4000
 """
 from __future__ import annotations
 
@@ -22,6 +23,16 @@ from wire_tpu_torch.train.presets import get_config
 from wire_tpu_torch.train.trainer import FitConfig, fit_pointwise
 
 
+def denoise_images(cfg, image=None, seed=0):
+    """(im, im_noisy): the clean image (the input halved by area
+    averaging) and its photon + readout noised copy, float32."""
+    im = I.resize_area(common.load_image(image, seed=seed), 0.5)
+    rng = np.random.RandomState(seed)
+    im_noisy = N.measure_np(im, cfg.noise_snr, cfg.tau, rng=rng).astype(
+        np.float32)
+    return im, im_noisy
+
+
 def run(config_name, *, image=None, results_dir="results", seed=0,
         device=None):
     dev = resolve(device)
@@ -31,19 +42,15 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
     A.log(f"Starting image denoise experiment ({config_name}) on {dev}")
 
     omega0 = cfg.omega0 if cfg.omega0 is not None else 7.0
-    im = common.load_image(image, seed=seed)
-    im = I.resize_area(im, 0.5)
+    im, im_noisy = denoise_images(cfg, image, seed)
     H, W, _ = im.shape
-    rng = np.random.RandomState(seed)
-    im_noisy = N.measure_np(im, cfg.noise_snr, cfg.tau, rng=rng).astype(
-        np.float32)
 
     coords = C.grid2d(H, W)
     gt = im.reshape(-1, 3)
     gt_noisy = im_noisy.reshape(-1, 3)
 
     model = common.build_model(cfg, in_features=2, out_features=3,
-                               omega0=omega0)
+                               omega0=omega0, sidelength=H)
     params = model.init(torch.Generator().manual_seed(seed), dev)
     nparams = model.num_params(params)
     A.log(f"Non-linearity: {cfg.nonlin}, LR: {cfg.learning_rate}, "

@@ -1,10 +1,14 @@
 """Weights across the two packages.
 
-``params_from_jax`` takes wire_tpu's WIRE parameter pytree as numpy arrays
-(``first{w,b}``, ``hidden_i{wr,wi,br,bi}``, ``final{wr,wi,br,bi}``, weights
-``(in, out)`` used as ``x @ w``) and returns the same nested dict of float32
-tensors; ``params_to_numpy`` is the reverse, for parameters or gradients.
-The layout is kept as it is at the port's public functions.
+``params_from_jax`` takes a wire_tpu parameter pytree as numpy arrays and
+returns the same two-level nested dict of float32 tensors;
+``params_to_numpy`` is the reverse, for parameters or gradients.  The
+layout is kept as it is at the port's public functions: WIRE's
+``first{w,b}``, ``hidden_i{wr,wi,br,bi}``, ``final{wr,wi,br,bi}``, and the
+canonical real families' (siren, gauss, relu/posenc, the B-splines)
+``{first, hidden_i, final}`` each ``{w, b}`` (the same shape as WIRE's first
+layer, so they carry over unchanged; siren's scaled init is only other
+numbers in that shape), weights ``(in, out)`` used as ``x @ w``.
 """
 from __future__ import annotations
 

@@ -2,18 +2,22 @@
 // exact adjoint, as hand-written fp32 kernels for Hopper (sm_90a).
 //
 // Replaces: wire_tpu/ops/pallas/rotsum.py:rotate_project (the forward Pallas
-// call and the adjoint Pallas call of its custom VJP).  Same math:
-//   sino[a, x] = sum_t bilinear(plane[k_a], R_phi_a (x - c, t - c) + c)
-// with theta_a = 90 k_a + phi_a, |phi_a| <= 45 deg, plane[k] = rot90(img, k)
-// (lattice-exact), c = (S - 1) / 2, zero outside the plane, and
-//   sx = cos(phi) (x - c) - sin(phi) (t - c) + c
-//   sy = sin(phi) (x - c) + cos(phi) (t - c) + c.
-// The host side (ops/rotsum.py) splits the angles and builds and folds the
-// four rot90 planes.  The TPU's padded planes, one-hot MXU selectors and
-// 128-lane column compaction are Mosaic workarounds and do not carry over:
-// here every tap is bounds-checked, so the planes are the (S, S) images.
+// call and the adjoint Pallas call of its custom VJP).  Same math, for an
+// (H, W) image, W output columns x and H integration rows t:
+//   sino[a, x] = sum_t bilinear(plane[k_a], R_phi_a (x - cx, t - cy) + c)
+// with c = (cx, cy) = ((W - 1) / 2, (H - 1) / 2), zero outside the plane,
+//   sx = cos(phi) (x - cx) - sin(phi) (t - cy) + cx
+//   sy = sin(phi) (x - cx) + cos(phi) (t - cy) + cy.
+// A square image takes theta_a = 90 k_a + phi_a, |phi_a| <= 45 deg, and the
+// lattice-exact plane[k] = rot90(img, k), as the TPU kernel does; a
+// non-square image (rot90 would change its shape) takes its one plane and
+// phi_a = theta_a.  The host side (ops/rotsum.py) splits the angles and
+// builds and folds the planes.  The TPU's padded planes, one-hot MXU
+// selectors and 128-lane column compaction are Mosaic workarounds and do
+// not carry over: here every tap is bounds-checked, so the planes are the
+// (H, W) images and nothing outside them is summed.
 //
-// What bounds it: operations, and those are few.  At the CT shape (S = 256,
+// What bounds it: operations, and those are few.  At the CT shape (256^2,
 // A = 100) the forward is 6.6 M bilinear samples (~66 MFLOP) against
 // ~0.4 MB of planes and sinogram, ~1 us at the fp32 peak; in practice the
 // four dependent taps per sample (L1/L2 hits, the planes are 1 MB) set the
@@ -47,11 +51,11 @@ struct Sample {
 
 // Position of the sample of output column x at integration row t.
 __device__ __forceinline__ Sample sample_at(int x, int t, float cphi,
-                                            float sphi, float c) {
-  const float xr = (float)x - c;
-  const float yr = (float)t - c;
-  const float sx = cphi * xr - sphi * yr + c;
-  const float sy = sphi * xr + cphi * yr + c;
+                                            float sphi, float cx, float cy) {
+  const float xr = (float)x - cx;
+  const float yr = (float)t - cy;
+  const float sx = cphi * xr - sphi * yr + cx;
+  const float sy = sphi * xr + cphi * yr + cy;
   const float fx = floorf(sx), fy = floorf(sy);
   Sample s;
   s.x0 = (int)fx;
@@ -61,36 +65,37 @@ __device__ __forceinline__ Sample sample_at(int x, int t, float cphi,
   return s;
 }
 
-__device__ __forceinline__ float tap(const float* __restrict__ plane, int S,
-                                     int y, int x) {
-  return (x >= 0 && x < S && y >= 0 && y < S) ? plane[(size_t)y * S + x]
+__device__ __forceinline__ float tap(const float* __restrict__ plane, int H,
+                                     int W, int y, int x) {
+  return (x >= 0 && x < W && y >= 0 && y < H) ? plane[(size_t)y * W + x]
                                               : 0.f;
 }
 
-// sino (A, S); planes (4, S, S); per-angle cos phi, sin phi, plane index.
+// sino (A, W); planes (P, H, W); per-angle cos phi, sin phi, plane index.
 __global__ void __launch_bounds__(kThreads) rotsum_forward_kernel(
     const float* __restrict__ planes, const float* __restrict__ cphi,
     const float* __restrict__ sphi, const int* __restrict__ kidx,
-    float* __restrict__ sino, int A, int S) {
+    float* __restrict__ sino, int A, int H, int W) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
-  if (warp >= A * S) return;
-  const int a = warp / S, x = warp % S;
-  const float ca = cphi[a], sa = sphi[a], c = 0.5f * (float)(S - 1);
-  const float* plane = planes + (size_t)kidx[a] * S * S;
+  if (warp >= A * W) return;
+  const int a = warp / W, x = warp % W;
+  const float ca = cphi[a], sa = sphi[a];
+  const float cx = 0.5f * (float)(W - 1), cy = 0.5f * (float)(H - 1);
+  const float* plane = planes + (size_t)kidx[a] * H * W;
   float acc = 0.f;
-  for (int t = lane; t < S; t += 32) {
-    const Sample s = sample_at(x, t, ca, sa, c);
-    const float top = tap(plane, S, s.y0, s.x0) * (1.f - s.wx) +
-                      tap(plane, S, s.y0, s.x0 + 1) * s.wx;
-    const float bot = tap(plane, S, s.y0 + 1, s.x0) * (1.f - s.wx) +
-                      tap(plane, S, s.y0 + 1, s.x0 + 1) * s.wx;
+  for (int t = lane; t < H; t += 32) {
+    const Sample s = sample_at(x, t, ca, sa, cx, cy);
+    const float top = tap(plane, H, W, s.y0, s.x0) * (1.f - s.wx) +
+                      tap(plane, H, W, s.y0, s.x0 + 1) * s.wx;
+    const float bot = tap(plane, H, W, s.y0 + 1, s.x0) * (1.f - s.wx) +
+                      tap(plane, H, W, s.y0 + 1, s.x0 + 1) * s.wx;
     acc += top * (1.f - s.wy) + bot * s.wy;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) sino[(size_t)a * S + x] = acc;
+  if (lane == 0) sino[(size_t)a * W + x] = acc;
 }
 
 // Weight of pixel p in the taps x0, x0 + 1 of a sample with fraction w.
@@ -98,35 +103,35 @@ __device__ __forceinline__ float tap_weight(int p, int x0, float w) {
   return p == x0 ? 1.f - w : (p == x0 + 1 ? w : 0.f);
 }
 
-// planes_bar (4, S, S) = the adjoint of the forward applied to cot (A, S).
+// planes_bar (P, H, W) = the adjoint of the forward applied to cot (A, W).
 __global__ void __launch_bounds__(kThreads) rotsum_adjoint_kernel(
     const float* __restrict__ cot, const float* __restrict__ cphi,
     const float* __restrict__ sphi, const int* __restrict__ kidx,
-    float* __restrict__ planes_bar, int A, int S) {
+    float* __restrict__ planes_bar, int A, int P, int H, int W) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)4 * S * S) return;
-  const int v = (int)(idx / ((size_t)S * S));
-  const int py = (int)((idx / S) % S);
-  const int px = (int)(idx % S);
-  const float c = 0.5f * (float)(S - 1);
-  const float dx = (float)px - c, dy = (float)py - c;
+  if (idx >= (size_t)P * H * W) return;
+  const int v = (int)(idx / ((size_t)H * W));
+  const int py = (int)((idx / W) % H);
+  const int px = (int)(idx % W);
+  const float cx = 0.5f * (float)(W - 1), cy = 0.5f * (float)(H - 1);
+  const float dx = (float)px - cx, dy = (float)py - cy;
   float acc = 0.f;
   for (int a = 0; a < A; ++a) {
     if (kidx[a] != v) continue;
     const float ca = cphi[a], sa = sphi[a];
-    // (x, t) with R (x - c, t - c) + c = p; samples within one pixel of p
+    // (x, t) with R (x - cx, t - cy) + c = p; samples within one pixel of p
     // per axis lie within r = |cos| + |sin| of it per axis
-    const float ux = ca * dx + sa * dy + c;
-    const float ut = -sa * dx + ca * dy + c;
+    const float ux = ca * dx + sa * dy + cx;
+    const float ut = -sa * dx + ca * dy + cy;
     const float r = fabsf(ca) + fabsf(sa) + 1e-3f;
     const int x_lo = max(0, (int)ceilf(ux - r));
-    const int x_hi = min(S - 1, (int)floorf(ux + r));
+    const int x_hi = min(W - 1, (int)floorf(ux + r));
     const int t_lo = max(0, (int)ceilf(ut - r));
-    const int t_hi = min(S - 1, (int)floorf(ut + r));
+    const int t_hi = min(H - 1, (int)floorf(ut + r));
     for (int x = x_lo; x <= x_hi; ++x) {
-      const float g = cot[(size_t)a * S + x];
+      const float g = cot[(size_t)a * W + x];
       for (int t = t_lo; t <= t_hi; ++t) {
-        const Sample s = sample_at(x, t, ca, sa, c);
+        const Sample s = sample_at(x, t, ca, sa, cx, cy);
         const float w = tap_weight(px, s.x0, s.wx) *
                         tap_weight(py, s.y0, s.wy);
         acc += g * w;
@@ -146,26 +151,28 @@ const char* rotsum_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// sino (A, S) from planes (4, S, S) and the angle parts cphi, sphi (A)
-// float, kidx (A) int32 in 0..3.  Returns the launch's CUDA error (0 on
-// success); launches on `stream` and does not synchronise.
+// sino (A, W) from planes (P, H, W) and the angle parts cphi, sphi (A)
+// float, kidx (A) int32 in 0 .. P - 1.  Returns the launch's CUDA error (0
+// on success); launches on `stream` and does not synchronise.
 int rotsum_forward(const float* planes, const float* cphi, const float* sphi,
-                   const int* kidx, float* sino, int A, int S, void* stream) {
+                   const int* kidx, float* sino, int A, int P, int H, int W,
+                   void* stream) {
+  (void)P;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long threads = (long long)A * S * 32;
+  const long long threads = (long long)A * W * 32;
   rotsum_forward_kernel<<<ceil_div(threads, kThreads), kThreads, 0, st>>>(
-      planes, cphi, sphi, kidx, sino, A, S);
+      planes, cphi, sphi, kidx, sino, A, H, W);
   return cudaGetLastError();
 }
 
-// planes_bar (4, S, S) from cot (A, S), same angle parts.
+// planes_bar (P, H, W) from cot (A, W), same angle parts.
 int rotsum_adjoint(const float* cot, const float* cphi, const float* sphi,
-                   const int* kidx, float* planes_bar, int A, int S,
-                   void* stream) {
+                   const int* kidx, float* planes_bar, int A, int P, int H,
+                   int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long threads = 4LL * S * S;
+  const long long threads = (long long)P * H * W;
   rotsum_adjoint_kernel<<<ceil_div(threads, kThreads), kThreads, 0, st>>>(
-      cot, cphi, sphi, kidx, planes_bar, A, S);
+      cot, cphi, sphi, kidx, planes_bar, A, P, H, W);
   return cudaGetLastError();
 }
 

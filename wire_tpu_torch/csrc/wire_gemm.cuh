@@ -1,7 +1,8 @@
 // Shared pieces of the WIRE kernels (csrc/wire_step.cu, csrc/wire_mlp.cu):
 // the paired complex GEMM with its Gabor forward/backward epilogues, the real
-// first layer, the fixed-order weight-gradient partial sums, and the forward
-// and backward chains built from them.  See wire_step.cu for the design note.
+// first layer, and the forward and backward chains built from them and from
+// gemm_common.cuh's fixed-order weight-gradient sums.  See wire_step.cu for
+// the design note.
 //
 // The stacked complex layout (ops/wire_step.py:stack_params):
 //   z1 = c @ w1 + b1;  a0 = [e^{-s^2 z1^2} cos(w1 z1) | e^{-s^2 z1^2} sin(w1 z1)]
@@ -16,22 +17,21 @@
 
 #include <cstddef>
 
+#include "gemm_common.cuh"
+
 namespace wire_gemm {
 
-constexpr int kThreads = 256;
+using namespace gemm_common;
+
 constexpr int kTileRows = 64;     // rows of the output tile
 constexpr int kTileUnits = 32;    // complex units per tile -> 64 real columns
-constexpr int kTileK = 16;        // depth of one shared-memory slice
-constexpr int kTileOut = 64;      // weight-gradient output tile edge
-constexpr int kChunkRows = 2048;  // rows summed by one weight-gradient block
-constexpr int kFinalRowsPerBlock = 64;
-constexpr int kMaxOut = 8;
 
 enum Epilogue { kFwdGabor = 0, kBwdGabor = 1, kBwdFirst = 2 };
 
 // out = A (n x K) @ B (K x 2h) for the column pairs (j, h + j) of the units j
 // in this tile, followed by the epilogue:
-//   kFwdGabor: z = out + bias; out0 = z (n x 2h); out1 = Gabor(z) (n x 2h)
+//   kFwdGabor: z = out + bias; out0 = z (n x 2h), or nothing when out0 is
+//              null (a forward that saves nothing); out1 = Gabor(z) (n x 2h)
 //   kBwdGabor: out is dL/d(layer output act); out0 = dL/dz (n x 2h),
 //              zin = the layer's pre-activation z (n x 2h)
 //   kBwdFirst: as kBwdGabor for the real first layer; zin = z1 (n x h),
@@ -103,8 +103,10 @@ __global__ void __launch_bounds__(kThreads) paired_gemm_kernel(
       const float xr = acc[i][p], xi = acc[i][2 + p];
       if (kEpi == kFwdGabor) {
         const float zr = xr + bias[j], zi = xi + bias[h + j];
-        out0[base + j] = zr;
-        out0[base + h + j] = zi;
+        if (out0 != nullptr) {
+          out0[base + j] = zr;
+          out0[base + h + j] = zi;
+        }
         const float m = expf(-omega * zi - s2 * (zr * zr + zi * zi));
         float sn, cs;
         sincosf(omega * zr, &sn, &cs);
@@ -130,8 +132,8 @@ __global__ void __launch_bounds__(kThreads) paired_gemm_kernel(
   }
 }
 
-// First (real) layer: z1 = c @ w1 + b1, a0 = Gabor(z1); one thread per
-// (row, unit).
+// First (real) layer: z1 = c @ w1 + b1 (not stored when z1 is null),
+// a0 = Gabor(z1); one thread per (row, unit).
 __global__ void first_forward_kernel(const float* __restrict__ c,
                                      const float* __restrict__ w1,
                                      const float* __restrict__ b1,
@@ -145,100 +147,12 @@ __global__ void first_forward_kernel(const float* __restrict__ c,
   float z = 0.f;
   for (int k = 0; k < d; ++k) z = fmaf(c[r * d + k], w1[(size_t)k * h + j], z);
   z += b1[j];
-  z1[idx] = z;
+  if (z1 != nullptr) z1[idx] = z;
   const float m = expf(-s2 * (z * z));
   float sn, cs;
   sincosf(omega * z, &sn, &cs);
   a0[r * 2 * h + j] = m * cs;
   a0[r * 2 * h + h + j] = m * sn;
-}
-
-// Per-chunk partial of [A | 1]^T D: A (n x KA), D (n x NB); the partial of
-// chunk z is a (KA + 1) x NB block whose last row is the column sum of D
-// (the bias gradient).
-__global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(
-    const float* __restrict__ A, const float* __restrict__ D,
-    float* __restrict__ part, int n, int KA, int NB) {
-  __shared__ __align__(16) float As[kTileK][kTileOut];
-  __shared__ __align__(16) float Ds[kTileK][kTileOut];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.x * kTileOut, j0 = blockIdx.y * kTileOut;
-  const int chunk = blockIdx.z;
-  const int r_begin = chunk * kChunkRows;
-  const int r_end = min(n, r_begin + kChunkRows);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int rr = tid / kTileOut + q * (kThreads / kTileOut);
-      const int col = tid % kTileOut;
-      const int gr = r0 + rr;
-      const bool live = gr < r_end;
-      const int gi = i0 + col, gj = j0 + col;
-      float av = 0.f;
-      if (live) av = gi < KA ? A[(size_t)gr * KA + gi] : (gi == KA ? 1.f : 0.f);
-      As[rr][col] = av;
-      Ds[rr][col] = (live && gj < NB) ? D[(size_t)gr * NB + gj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kTileK; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-      const float4 dv = *reinterpret_cast<const float4*>(&Ds[rr][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const size_t block = (size_t)chunk * (KA + 1) * NB;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = i0 + ty * 4 + i;
-    if (gi > KA) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gj = j0 + tx * 4 + j;
-      if (gj < NB) part[block + (size_t)gi * NB + gj] = acc[i][j];
-    }
-  }
-}
-
-// out[e] = sum over c = 0 .. C-1, in that order, of part[c * E + e].
-__global__ void reduce_chunks_kernel(const float* __restrict__ part, int C,
-                                     int E, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-  for (int c = 0; c < C; ++c) s += part[(size_t)c * E + e];
-  out[e] = s;
-}
-
-inline int ceil_div(long long a, long long b) {
-  return (int)((a + b - 1) / b);
-}
-
-// [A | 1]^T D summed over all n rows into out ((KA + 1) x NB).
-inline cudaError_t weight_grad(const float* A, const float* D, float* part,
-                        float* out, int n, int KA, int NB, cudaStream_t st) {
-  const int chunks = ceil_div(n, kChunkRows);
-  const dim3 grid(ceil_div(KA + 1, kTileOut), ceil_div(NB, kTileOut), chunks);
-  wgrad_partial_kernel<<<grid, kThreads, 0, st>>>(A, D, part, n, KA, NB);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int E = (KA + 1) * NB;
-  reduce_chunks_kernel<<<ceil_div(E, kThreads), kThreads, 0, st>>>(
-      part, chunks, E, out);
-  return cudaGetLastError();
 }
 
 template <int kEpi>
@@ -252,12 +166,6 @@ cudaError_t paired_gemm(const float* A, const float* B, const float* bias,
   return cudaGetLastError();
 }
 
-
-#define WIRE_CHECK(expr)                  \
-  do {                                    \
-    cudaError_t err_ = (expr);            \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)
 
 // Floats needed by the `part` workspace of weight_grad (and, for the step,
 // the SSE partials of final_loss_kernel) for shapes (n, d, h, o).
@@ -274,25 +182,30 @@ inline long long part_floats(int n, int d, int h, int o) {
 }
 
 // First layer and the L hidden layers: z1 (n, h), acts (L + 1, n, 2h),
-// zs (L, n, 2h).  The final layer is the caller's.
+// zs (L, n, 2h).  The final layer is the caller's.  With `pingpong` (then
+// z1 and zs are null and acts holds two (n, 2h) planes) nothing is kept for
+// a backward: layer l writes plane l % 2, so the last activation is plane
+// L % 2.
 inline cudaError_t forward_hidden(const float* coords, const float* w1,
                                   const float* b1, const float* Wh,
                                   const float* Bh, float* acts, float* zs,
                                   float* z1, int n, int d, int h, int L,
                                   float omega0, float s2, float first_omega0,
-                                  cudaStream_t st) {
+                                  cudaStream_t st, bool pingpong = false) {
   const int h2 = 2 * h;
   const size_t act_sz = (size_t)n * h2;
   const size_t w_sz = (size_t)h2 * h2;
   first_forward_kernel<<<ceil_div((long long)n * h, kThreads), kThreads, 0,
                          st>>>(coords, w1, b1, z1, acts, n, d, h,
                                first_omega0, s2);
-  WIRE_CHECK(cudaGetLastError());
+  GEMM_CHECK(cudaGetLastError());
   for (int l = 0; l < L; ++l) {
-    WIRE_CHECK(paired_gemm<kFwdGabor>(
-        acts + l * act_sz, Wh + l * w_sz, Bh + (size_t)l * h2, nullptr,
-        nullptr, zs + l * act_sz, acts + (l + 1) * act_sz, n, h2, h, omega0,
-        s2, st));
+    const size_t in = pingpong ? l % 2 : l;
+    const size_t out = pingpong ? (l + 1) % 2 : l + 1;
+    GEMM_CHECK(paired_gemm<kFwdGabor>(
+        acts + in * act_sz, Wh + l * w_sz, Bh + (size_t)l * h2, nullptr,
+        nullptr, pingpong ? nullptr : zs + l * act_sz, acts + out * act_sz,
+        n, h2, h, omega0, s2, st));
   }
   return cudaSuccess;
 }
@@ -311,25 +224,25 @@ inline cudaError_t backward(const float* coords, const float* g,
   const int h2 = 2 * h;
   const size_t act_sz = (size_t)n * h2;
   const size_t w_sz = (size_t)h2 * h2;
-  WIRE_CHECK(weight_grad(acts + L * act_sz, g, part, gfW, n, h2, o, st));
+  GEMM_CHECK(weight_grad(acts + L * act_sz, g, part, gfW, n, h2, o, st));
   const float* dsrc = g;
   const float* bt = fWT;
   int kdim = o;
   int cur = 0;
   for (int l = L - 1; l >= 0; --l) {
     float* dzl = dz + cur * act_sz;
-    WIRE_CHECK(paired_gemm<kBwdGabor>(dsrc, bt, nullptr,
+    GEMM_CHECK(paired_gemm<kBwdGabor>(dsrc, bt, nullptr,
                                       acts + (l + 1) * act_sz,
                                       zs + l * act_sz, dzl, nullptr, n, kdim,
                                       h, omega0, s2, st));
-    WIRE_CHECK(weight_grad(acts + l * act_sz, dzl, part,
+    GEMM_CHECK(weight_grad(acts + l * act_sz, dzl, part,
                            gWh + (size_t)l * (h2 + 1) * h2, n, h2, h2, st));
     dsrc = dzl;
     bt = WhT + l * w_sz;
     kdim = h2;
     cur ^= 1;
   }
-  WIRE_CHECK(paired_gemm<kBwdFirst>(dsrc, bt, nullptr, acts, z1, dz1, nullptr,
+  GEMM_CHECK(paired_gemm<kBwdFirst>(dsrc, bt, nullptr, acts, z1, dz1, nullptr,
                                     n, kdim, h, first_omega0, s2, st));
   return weight_grad(coords, dz1, part, gw1, n, d, h, st);
 }

@@ -26,6 +26,10 @@
 // writing and reading the saved activations moves ~1.2 GB (~0.4 ms at
 // 3.35 TB/s) and the card has the memory.  Tensor cores are later work.
 //
+// Without a gradient to take (inference, a render) the forward runs through
+// two ping-pong activation planes and keeps nothing: 2 n 2h floats, 0.22 GB
+// at the CT shape, instead of the 0.61 GB a backward needs.
+//
 // Accuracy: sincosf/expf, no --use_fast_math (wire_gemm.cuh).
 
 #include "wire_gemm.cuh"
@@ -33,43 +37,6 @@
 using namespace wire_gemm;
 
 namespace {
-
-// Final complex layer, real part: pred = a @ fW + fb.  One warp per row;
-// lanes stride over the 2h inputs and meet in a fixed butterfly.
-__global__ void __launch_bounds__(kThreads) final_forward_kernel(
-    const float* __restrict__ a, const float* __restrict__ fW,
-    const float* __restrict__ fb, float* __restrict__ pred, int n, int h2,
-    int o) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kWarps = kThreads / 32;
-  for (int it = 0; it < kFinalRowsPerBlock / kWarps; ++it) {
-    const int r = blockIdx.x * kFinalRowsPerBlock + it * kWarps + warp;
-    if (r >= n) break;
-    float acc[kMaxOut];
-#pragma unroll
-    for (int c = 0; c < kMaxOut; ++c) acc[c] = 0.f;
-    for (int k = lane; k < h2; k += 32) {
-      const float av = a[(size_t)r * h2 + k];
-#pragma unroll
-      for (int c = 0; c < kMaxOut; ++c)
-        if (c < o) acc[c] = fmaf(av, fW[(size_t)k * o + c], acc[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxOut; ++c) {
-      if (c >= o) break;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < kMaxOut; ++c) {
-        if (c >= o) break;
-        pred[(size_t)r * o + c] = acc[c] + fb[c];
-      }
-    }
-  }
-}
 
 // dcoords[r, k] = sum_j dz1[r, j] w1[k, j], j in order; one thread per
 // (row, input feature).
@@ -116,11 +83,28 @@ int wire_mlp_forward(const float* coords, const float* w1, const float* b1,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
-  WIRE_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
+  GEMM_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
                             omega0, s2, first_omega0, st));
-  final_forward_kernel<<<ceil_div(n, kFinalRowsPerBlock), kThreads, 0, st>>>(
-      acts + (size_t)L * n * 2 * h, fW, fb, pred, n, 2 * h, o);
-  return cudaGetLastError();
+  return final_forward(acts + (size_t)L * n * 2 * h, fW, fb, pred, n, 2 * h,
+                       o, st);
+}
+
+// Forward that keeps nothing for a backward (no input needs a gradient):
+// the chain runs through two ping-pong planes, pingpong (2, n, 2h), instead
+// of acts, zs and z1.  Same arguments and result otherwise.
+int wire_mlp_forward_nograd(const float* coords, const float* w1,
+                            const float* b1, const float* Wh, const float* Bh,
+                            const float* fW, const float* fb, float* pred,
+                            float* pingpong, int n, int d, int h, int o,
+                            int L, float omega0, float sigma0,
+                            float first_omega0, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float s2 = sigma0 * sigma0;
+  GEMM_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, pingpong, nullptr,
+                            nullptr, n, d, h, L, omega0, s2, first_omega0,
+                            st, /*pingpong=*/true));
+  return final_forward(pingpong + (size_t)(L % 2) * n * 2 * h, fW, fb, pred,
+                       n, 2 * h, o, st);
 }
 
 // Backward from g = dL/dpred (n, o), reading the forward's activations.
@@ -139,7 +123,7 @@ int wire_mlp_backward(const float* coords, const float* g, const float* w1,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
-  WIRE_CHECK(backward(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz,
+  GEMM_CHECK(backward(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz,
                       dz1, part, n, d, h, o, L, omega0, s2, first_omega0,
                       st));
   if (dcoords != nullptr)

@@ -33,82 +33,15 @@
 // Accuracy: sincosf/expf (not the __sinf/__expf intrinsics; phases w*z lie
 // far outside [-pi, pi]).  Build without --use_fast_math.
 //
-// The GEMM, Gabor and weight-gradient kernels and the forward/backward chains
-// live in wire_gemm.cuh, shared with the apply/VJP pair in wire_mlp.cu; this
-// file adds the final layer fused with the loss gradient and SSE sums.
+// The GEMM and Gabor kernels and the forward/backward chains live in
+// wire_gemm.cuh, shared with the apply/VJP pair in wire_mlp.cu; the
+// weight-gradient sums and the final layer fused with the loss gradient and
+// SSE sums (one warp per row, a fixed butterfly) in gemm_common.cuh, shared
+// with the real-family kernels too.
 
 #include "wire_gemm.cuh"
 
 using namespace wire_gemm;
-
-namespace {
-
-// Final layer + loss gradient + masked SSE partials.  One warp per row;
-// lanes stride over the 2h inputs and meet in a fixed butterfly, so the
-// sums do not depend on scheduling.  sse_part holds (sse_target, sse_gt)
-// per block, summed later in block order.
-__global__ void __launch_bounds__(kThreads) final_loss_kernel(
-    const float* __restrict__ a, const float* __restrict__ fW,
-    const float* __restrict__ fb, const float* __restrict__ t,
-    const float* __restrict__ gt, float* __restrict__ pred,
-    float* __restrict__ g, float* __restrict__ sse_part, int n, int h2,
-    int o, int nvalid, float two_inv_denom) {
-  __shared__ float warp_sse[kThreads / 32][2];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kWarps = kThreads / 32;
-  float st = 0.f, sg = 0.f;
-  for (int it = 0; it < kFinalRowsPerBlock / kWarps; ++it) {
-    const int r = blockIdx.x * kFinalRowsPerBlock + it * kWarps + warp;
-    if (r >= n) break;
-    float acc[kMaxOut];
-#pragma unroll
-    for (int c = 0; c < kMaxOut; ++c) acc[c] = 0.f;
-    for (int k = lane; k < h2; k += 32) {
-      const float av = a[(size_t)r * h2 + k];
-#pragma unroll
-      for (int c = 0; c < kMaxOut; ++c)
-        if (c < o) acc[c] = fmaf(av, fW[(size_t)k * o + c], acc[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxOut; ++c) {
-      if (c >= o) break;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-    }
-    if (lane == 0) {
-      const bool valid = r < nvalid;
-#pragma unroll
-      for (int c = 0; c < kMaxOut; ++c) {
-        if (c >= o) break;
-        const size_t idx = (size_t)r * o + c;
-        const float y = acc[c] + fb[c];
-        pred[idx] = y;
-        const float et = valid ? y - t[idx] : 0.f;
-        const float eg = valid ? y - gt[idx] : 0.f;
-        g[idx] = two_inv_denom * et;
-        st += et * et;
-        sg += eg * eg;
-      }
-    }
-  }
-  if (lane == 0) {
-    warp_sse[warp][0] = st;
-    warp_sse[warp][1] = sg;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s0 = 0.f, s1 = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      s0 += warp_sse[w][0];
-      s1 += warp_sse[w][1];
-    }
-    sse_part[2 * blockIdx.x] = s0;
-    sse_part[2 * blockIdx.x + 1] = s1;
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -146,17 +79,11 @@ int wire_step_run(const float* coords, const float* target, const float* gt,
   const size_t act_sz = (size_t)n * 2 * h;
   const float s2 = sigma0 * sigma0;
 
-  WIRE_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
+  GEMM_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
                             omega0, s2, first_omega0, st));
-  const int final_blocks = ceil_div(n, kFinalRowsPerBlock);
-  final_loss_kernel<<<final_blocks, kThreads, 0, st>>>(
-      acts + L * act_sz, fW, fb, target, gt ? gt : target, pred, g, part, n,
-      2 * h, o, nvalid, two_inv_denom);
-  WIRE_CHECK(cudaGetLastError());
-  if (want_metrics) {
-    reduce_chunks_kernel<<<1, 32, 0, st>>>(part, final_blocks, 2, sse);
-    WIRE_CHECK(cudaGetLastError());
-  }
+  GEMM_CHECK(final_loss(acts + L * act_sz, fW, fb, target, gt, pred, g, sse,
+                        part, n, 2 * h, o, nvalid, two_inv_denom,
+                        want_metrics, st));
   return backward(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz, dz1,
                   part, n, d, h, o, L, omega0, s2, first_omega0, st);
 }

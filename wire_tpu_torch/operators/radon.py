@@ -5,8 +5,7 @@ _radon_shear).
 - ``method='rotate'``: the reference operator's semantics, per-angle
   bilinear rotation (kornia/OpenCV convention, zero padding) then row sum.
   On CUDA it is ``ops/rotsum.py:rotate_project``, the CUDA rotate-project
-  kernels (angles constant, square images: a non-square one raises and
-  names ``rotate_xla``); on the CPU ``rotate_xla``.
+  kernels (angles constant, any H x W image); on the CPU ``rotate_xla``.
 - ``method='rotate_xla'``: the plain gather path (the name is the JAX
   package's), ``sum(rotate(img, a), 0)`` in PyTorch ops; the only path that
   differentiates through the angles.
@@ -79,7 +78,7 @@ def _resolve_auto(method, n_angles, device_type, reference_compat):
 class RadonOp:
     """The Radon forward operator of one set of angles, as a callable
     ``op(field) -> sinogram``.  The angles are constants, kept on the host;
-    the kernel path (rotate on a square image) refuses to differentiate
+    the kernel path (rotate on the card) refuses to differentiate
     through them, ``method='rotate_xla'`` does."""
 
     def __init__(self, angles_degrees, *, method="auto",

@@ -1,5 +1,5 @@
-"""Differentiable bilinear resampling and image rotation (port of
-wire_tpu/ops/resample.py:17-66).
+"""Differentiable bilinear resampling, image rotation and box averages
+(port of wire_tpu/ops/resample.py:17-66 and :90-103).
 
 The rotation follows the kornia/OpenCV convention of the reference's Radon
 operator: rotation by ``angle`` degrees about the pixel centre
@@ -82,3 +82,18 @@ def angles_tensor(angles_degrees, device):
         return angles_degrees.to(device, torch.float32)
     key = tuple(np.asarray(angles_degrees, np.float32).ravel().tolist())
     return _cached_angles(key, torch.device(device))
+
+
+def avg_pool2d(img_nchw, k):
+    """AvgPool2d(k) with stride k as an exact reshape-mean (wire_tpu/ops/
+    resample.py:90-95); H and W must be divisible by k."""
+    N, C, H, W = img_nchw.shape
+    x = img_nchw.reshape(N, C, H // k, k, W // k, k)
+    return x.mean(dim=(3, 5))
+
+
+def area_downsample_hwc(img_hwc, k):
+    """Box-average downsample of (H, W[, C]) by the integer factor k."""
+    H, W = img_hwc.shape[0], img_hwc.shape[1]
+    x = img_hwc.reshape(H // k, k, W // k, k, -1)
+    return x.mean(dim=(1, 3)).reshape(H // k, W // k, *img_hwc.shape[2:])

@@ -2,15 +2,18 @@
 CUDA kernels (``csrc/rotsum.cu``) and their plain PyTorch version.
 
 Replaces wire_tpu/ops/pallas/rotsum.py:rotate_project (forward and adjoint
-Pallas calls).  ``rotate_project(img, angles)`` maps an (S, S) image and
-(A,) angles in degrees to the (A, S) sinogram
+Pallas calls).  ``rotate_project(img, angles)`` maps an (H, W) image and
+(A,) angles in degrees to the (A, W) sinogram
 ``sino[a] = sum_y rotate(img, angles[a])[y]``.
 
-Host side (rotsum.py:_angle_parts, _variant_planes, _fold_variants): each
-angle is split as theta = 90 k + phi with |phi| <= 45 deg; the kernel
-reads the lattice-exact rot90(img, k) plane and rotates by phi only.  The
-TPU planes are zero-padded to a 128-multiple for block slicing; the CUDA
-kernels bounds-check every tap, so the planes here are the (S, S) images.
+Host side (rotsum.py:_angle_parts, _variant_planes, _fold_variants): for a
+square image each angle is split as theta = 90 k + phi with |phi| <= 45
+deg, and the kernel reads the lattice-exact rot90(img, k) plane and
+rotates by phi only.  A non-square image (rot90 would change its shape) is
+one plane rotated by the whole angle, with the plain version's own cos and
+sin.  The TPU planes are zero-padded to a 128-multiple for block slicing;
+the CUDA kernels bounds-check every tap, so the planes here are the
+(H, W) images and no row outside them enters a sum.
 
 The gradient flows to the image through a ``torch.autograd.Function``
 whose backward is the adjoint kernel.  The angles are constants: a tensor
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -40,6 +44,16 @@ def rotate_project_plain(img, angles_degrees):
     image; autograd differentiates it in the image and the angles."""
     angles = angles_tensor(angles_degrees, img.device)
     return torch.sum(rotate(img, angles[:, None, None]), dim=-2)
+
+
+def whole_angle_parts(angles_degrees):
+    """(cos theta, sin theta, 0) as numpy arrays, computed as ``rotate``
+    computes them (float32 radians, torch's cos and sin): the parts of a
+    non-square image's single plane."""
+    t = torch.as_tensor(np.asarray(angles_degrees, np.float32)) * (
+        math.pi / 180.0)
+    return (torch.cos(t).numpy(), torch.sin(t).numpy(),
+            np.zeros(t.shape, np.int32))
 
 
 def angle_parts(angles_degrees):
@@ -80,7 +94,7 @@ _INT = ctypes.c_int
 def _lib():
     lib = build.load("rotsum")
     for fn in (lib.rotsum_forward, lib.rotsum_adjoint):
-        fn.argtypes = [_PTR] * 5 + [_INT, _INT, _PTR]
+        fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_PTR]
         fn.restype = _INT
     lib.rotsum_error_string.argtypes = [_INT]
     lib.rotsum_error_string.restype = ctypes.c_char_p
@@ -88,14 +102,16 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=64)
-def _device_parts(key, device):
-    cphi, sphi, kidx = angle_parts(np.asarray(key, np.float32))
-    return tuple(torch.from_numpy(a).to(device) for a in (cphi, sphi, kidx))
+def _device_parts(key, square, device):
+    parts = angle_parts if square else whole_angle_parts
+    cphi, sphi, kidx = parts(np.asarray(key, np.float32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (cphi, sphi, kidx))
 
 
-def _run(fn, what, ptrs, A, S, device):
+def _run(fn, what, ptrs, A, P, H, W, device):
     lib = _lib()
-    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], A, S,
+    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], A, P, H, W,
                           torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rotsum {what} kernel launch failed: CUDA error "
@@ -107,29 +123,33 @@ class _RotateProject(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, img, cphi, sphi, kidx):
-        S = img.shape[0]
+        H, W = img.shape
         A = cphi.shape[0]
-        planes = variant_planes(img)
-        sino = torch.empty((A, S), dtype=torch.float32, device=img.device)
+        square = H == W
+        planes = variant_planes(img) if square else img[None].contiguous()
+        sino = torch.empty((A, W), dtype=torch.float32, device=img.device)
         _run("rotsum_forward", "forward", (planes, cphi, sphi, kidx, sino),
-             A, S, img.device)
+             A, planes.shape[0], H, W, img.device)
         ctx.save_for_backward(cphi, sphi, kidx)
+        ctx.shape = (planes.shape[0], H, W)
         return sino
 
     @staticmethod
     def backward(ctx, cot):
         cphi, sphi, kidx = ctx.saved_tensors
-        A, S = cot.shape
+        P, H, W = ctx.shape
+        A = cot.shape[0]
         cot = cot.to(torch.float32).contiguous()
-        planes_bar = torch.empty((4, S, S), dtype=torch.float32,
+        planes_bar = torch.empty((P, H, W), dtype=torch.float32,
                                  device=cot.device)
         _run("rotsum_adjoint", "adjoint", (cot, cphi, sphi, kidx, planes_bar),
-             A, S, cot.device)
-        return fold_variants(planes_bar), None, None, None
+             A, P, H, W, cot.device)
+        img_bar = fold_variants(planes_bar) if P == 4 else planes_bar[0]
+        return img_bar, None, None, None
 
 
 def rotate_project(img, angles_degrees):
-    """(S, S) image, (A,) angles in degrees -> (A, S) sinogram, the
+    """(H, W) image, (A,) angles in degrees -> (A, W) sinogram, the
     reference operator ``sum_y rotate(img, angle)[y]``, differentiable in
     the image.  The angles are constants (a sequence, a numpy array or a
     tensor that does not require grad)."""
@@ -146,13 +166,12 @@ def rotate_project(img, angles_degrees):
         return rotate_project_plain(img, np.asarray(key, np.float32))
     if img.device.type != "cuda":
         raise ValueError(f"rotate_project: unsupported device {img.device}")
-    if img.ndim != 2 or img.shape[0] != img.shape[1]:
-        raise ValueError(f"rotate_project: the kernel needs a square image, "
-                         f"got {tuple(img.shape)}; radon(..., method="
-                         f"'rotate_xla') is the plain gather path for any "
-                         f"shape")
+    if img.ndim != 2:
+        raise ValueError(f"rotate_project: the kernel needs an (H, W) "
+                         f"image, got {tuple(img.shape)}")
     if img.dtype != torch.float32:
         raise TypeError(f"rotate_project: image has dtype {img.dtype}, "
                         f"expected float32")
-    cphi, sphi, kidx = _device_parts(key, img.device)
+    cphi, sphi, kidx = _device_parts(key, img.shape[0] == img.shape[1],
+                                     img.device)
     return _RotateProject.apply(img, cphi, sphi, kidx)

@@ -11,9 +11,12 @@ Unlike the TPU kernel, the backward does not recompute the forward: the
 forward's activations (acts (L+1, n, 2h), zs (L, n, 2h), z1 (n, h); 0.61 GB
 at the CT shape n = 65,536, h = 212, L = 2) are saved for it, which costs
 far less device time than a second forward (see ``csrc/wire_mlp.cu``).
+When no input needs a gradient the forward keeps nothing: it runs through
+two ping-pong activation planes (0.22 GB at the CT shape).
 
 ``wire_mlp`` runs the plain version for tensors on the CPU, and for CUDA
-tensors launches the kernels or raises; there is no fallback.
+tensors launches the kernels or raises; there is no fallback.  Leading
+axes of ``coords`` are flattened and restored, as the JAX entry does.
 """
 from __future__ import annotations
 
@@ -54,6 +57,9 @@ def _lib():
     lib.wire_mlp_forward.argtypes = [_PTR] * 11 + [_INT] * 5 + [_FLT] * 3 \
         + [_PTR]
     lib.wire_mlp_forward.restype = _INT
+    lib.wire_mlp_forward_nograd.argtypes = [_PTR] * 9 + [_INT] * 5 \
+        + [_FLT] * 3 + [_PTR]
+    lib.wire_mlp_forward_nograd.restype = _INT
     lib.wire_mlp_backward.argtypes = [_PTR] * 15 + [_INT] * 5 + [_FLT] * 3 \
         + [_PTR]
     lib.wire_mlp_backward.restype = _INT
@@ -73,6 +79,44 @@ def _raise_on(rc, what):
                            f"error {rc} ({msg})")
 
 
+def _stacked(params, coords, spec):
+    """Checks and the stacked weights for a launch: (lib, w, n, d, h, o,
+    L)."""
+    lib = _lib()
+    dev = coords.device
+    n, d = coords.shape
+    h = params["first"]["w"].shape[1]
+    o = params["final"]["br"].shape[0]
+    L = spec.hidden_layers
+    if o > lib.wire_mlp_max_out():
+        raise ValueError(f"wire_mlp kernel supports out_features <= "
+                         f"{lib.wire_mlp_max_out()}, got {o}")
+    _check("coords", coords, (n, d), dev, "wire_mlp")
+    w = stack_params(params, L)
+    for name, shape in (("w1", (d, h)), ("b1", (h,)),
+                        ("Wh", (L, 2 * h, 2 * h)), ("Bh", (L, 2 * h)),
+                        ("fW", (2 * h, o)), ("fb", (o,))):
+        _check(name, w[name], shape, dev, "wire_mlp")
+    return lib, w, n, d, h, o, L
+
+
+def _forward_nograd(params, coords, spec):
+    """The forward alone, keeping nothing for a backward: two ping-pong
+    activation planes (2, n, 2h) instead of acts, zs and z1."""
+    lib, w, n, d, h, o, L = _stacked(params, coords, spec)
+    f32 = dict(dtype=torch.float32, device=coords.device)
+    pred = torch.empty((n, o), **f32)
+    planes = torch.empty((2, n, 2 * h), **f32)
+    _raise_on(lib.wire_mlp_forward_nograd(
+        *[t.data_ptr() for t in (coords, w["w1"], w["b1"], w["Wh"], w["Bh"],
+                                 w["fW"], w["fb"], pred, planes)],
+        n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
+        float(spec.first_omega0),
+        torch.cuda.current_stream(coords.device).cuda_stream), "forward")
+    launches["forward"] += 1
+    return pred
+
+
 class _WireMLP(torch.autograd.Function):
 
     @staticmethod
@@ -80,21 +124,8 @@ class _WireMLP(torch.autograd.Function):
         params = {k: {} for k, _ in keys}
         for (k, kk), leaf in zip(keys, leaves):
             params[k][kk] = leaf
-        lib = _lib()
+        lib, w, n, d, h, o, L = _stacked(params, coords, spec)
         dev = coords.device
-        n, d = coords.shape
-        h = params["first"]["w"].shape[1]
-        o = params["final"]["br"].shape[0]
-        L = spec.hidden_layers
-        if o > lib.wire_mlp_max_out():
-            raise ValueError(f"wire_mlp kernel supports out_features <= "
-                             f"{lib.wire_mlp_max_out()}, got {o}")
-        _check("coords", coords, (n, d), dev, "wire_mlp")
-        w = stack_params(params, L)
-        for name, shape in (("w1", (d, h)), ("b1", (h,)),
-                            ("Wh", (L, 2 * h, 2 * h)), ("Bh", (L, 2 * h)),
-                            ("fW", (2 * h, o)), ("fb", (o,))):
-            _check(name, w[name], shape, dev, "wire_mlp")
         h2 = 2 * h
         f32 = dict(dtype=torch.float32, device=dev)
         pred = torch.empty((n, o), **f32)
@@ -154,12 +185,21 @@ class _WireMLP(torch.autograd.Function):
 
 
 def wire_mlp(params, coords, spec):
-    """The WIRE forward ``y = Re(final(...))``, coords (n, d) -> (n, o),
-    differentiable in the parameters and the coordinates."""
+    """The WIRE forward ``y = Re(final(...))``, coords (..., d) -> (..., o),
+    differentiable in the parameters and the coordinates.  On CUDA the
+    forward/backward pair runs when an input needs a gradient, else a
+    forward that keeps nothing."""
     if coords.device.type == "cpu":
         return wire_mlp_plain(params, coords, spec)
     if coords.device.type != "cuda":
         raise ValueError(f"wire_mlp: unsupported device {coords.device}")
+    lead = coords.shape[:-1]
+    c2 = coords.reshape(-1, coords.shape[-1])
     keys = tuple((k, kk) for k in params for kk in params[k])
     leaves = [params[k][kk] for k, kk in keys]
-    return _WireMLP.apply(coords, spec, keys, *leaves)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in [c2] + leaves):
+        out = _WireMLP.apply(c2, spec, keys, *leaves)
+    else:
+        out = _forward_nograd(params, c2, spec)
+    return out.reshape(*lead, out.shape[-1])

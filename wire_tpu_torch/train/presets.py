@@ -1,7 +1,8 @@
 """Experiment presets (port of wire_tpu/train/presets.py:20-146): the
-WIRE entries of the reference's named experiment configs, with the same
-key-values (a few entries keep a ``name`` that differs from their key, as in
-the reference, so artifact folder names match).
+B-spline (bspline_form) and WIRE entries of the reference's named
+experiment configs, with the same key-values (a few entries keep a
+``name`` that differs from their key, as in the reference, so artifact
+folder names match).
 
 Select presets with ``get_config(name)``; list with ``list_configs()``.
 """
@@ -32,6 +33,19 @@ class ExperimentConfig:
 
 
 ENTRIES = {
+    'Bspline_s9_5_LR8e3_E4000': dict(nonlin='bspline_form', scale=0.10526315789473684, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.008, niters=4000),
+    'Bspline_s9_LR1e3_E2000': dict(nonlin='bspline_form', scale=0.1111111111111111, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.001, down_scale=4, added_noise=False),
+    'Bspline_s9_LR1e3_E1500': dict(nonlin='bspline_form', scale=0.1111111111111111, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.001, niters=1500, down_scale=4, added_noise=False),
+    'Bspline_s16_LR1e3_E2000': dict(nonlin='bspline_form', scale=0.0625, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.001, down_scale=4, added_noise=False),
+    'Bspline_s4_LR8e3_E4000': dict(nonlin='bspline_form', scale=0.25, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.008, niters=4000),
+    'Bspline_s4_LR8e3_E4000_T3e1_SNR2': dict(nonlin='bspline_form', scale=0.25, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.008, niters=4000, added_noise=True),
+    'Bspline_Noise_s9_LR1e3_E2000': dict(nonlin='bspline_form', scale=0.1111111111111111, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.001, down_scale=4, added_noise=True),
+    'Bspline_s9_Ds6_LR1e3_E2000': dict(nonlin='bspline_form', scale=0.1111111111111111, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.001, down_scale=6),
+    'Bspline_s9_Ds8_LR1e3_E2000': dict(nonlin='bspline_form', scale=0.1111111111111111, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.001, down_scale=8),
+    'Bspline_s9_Ds16_LR1e3_E2000': dict(nonlin='bspline_form', scale=0.1111111111111111, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.001, down_scale=16),
+    'Bspline_s9_5_LR8e3_E4000_snr1_tau1e1': dict(nonlin='bspline_form', scale=0.10526315789473684, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.008, niters=4000, tau=10.0, noise_snr=1),
+    'Bspline_s9_5_LR8e3_E4000_snr1_tau0.5e1': dict(nonlin='bspline_form', scale=0.10526315789473684, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.008, niters=4000, tau=5.0, noise_snr=1),
+    'Bspline_s9_5_LR8e3_E4000_snr1_tau0.2e1': dict(nonlin='bspline_form', scale=0.10526315789473684, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.008, niters=4000, tau=2.0, noise_snr=1),
     'WIRE_s8_o7_LR5e3_E2000': dict(nonlin='wire', scale=8.0, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.005, hidden_features=300, omega0=7.0),
     'WIRE_s8_o7_LR1e2_E2000': dict(nonlin='wire', scale=8.0, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.005, hidden_features=300, omega0=7.0, name='WIRE_s8_o7_LR5e3_E2000'),
     'WIRE_s9_o8_LR5e3_E2000': dict(nonlin='wire', scale=9.0, scale_tensor=(0.0,), scaled_hidden_features=0, learning_rate=0.005, omega0=8.0, down_scale=4, added_noise=False),
