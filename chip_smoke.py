@@ -6,19 +6,22 @@
     python3 chip_smoke.py --epochs 2000   # the full denoise bench protocol,
                                           # 25 dB floor
 
-It drives four paths of the port: WIRE-300 denoise through fit_pointwise
+It drives five paths of the port: WIRE-300 denoise through fit_pointwise
 (kernel: wire_step), WIRE-300 CT reconstruction through fit_operator
 (kernels: wire_mlp, and line_sample for the 'auto' = fourier method or
 rotsum for 'rotate'), B-spline denoise through fit_pointwise (preset
-Bspline_s9_5_LR8e3_E4000; kernel: real_step) and B-spline SISR through
-fit_operator (preset Bspline_s9_LR1e3_E2000; kernel: real_mlp's pair).
+Bspline_s9_5_LR8e3_E4000; kernel: real_step), B-spline SISR through
+fit_operator (preset Bspline_s9_LR1e3_E2000; kernel: real_mlp's pair) and
+mscale_2 denoise through fit_pointwise (preset Mscale2_ST8_3_LR8e3_E4000;
+kernel: mscale2_step).
 Phases, each printing one JSON line with its wall time:
   device           card name and count, nvidia-smi's name and power limit;
                    TF32 off for matmuls and cuDNN
   build            nvcc builds every kernel library from csrc/, all at once
   kernel_vs_plain  each kernel against its plain PyTorch version at its
                    path's full shape, plus a ragged case; real_mlp's
-                   every basis kind, lane segments and row_gamma; wire_mlp
+                   every basis kind, lane segments and row_gamma; real_step
+                   at the mscale_hier and mscale_HL folds; wire_mlp
                    on (b, N, 2) coordinates and without a gradient (equal
                    output, peak memory of two ping-pong planes); rotsum on
                    a non-square image
@@ -41,6 +44,10 @@ Phases, each printing one JSON line with its wall time:
                    version in the same canonical fold, from one init
   fit_sisr         B-spline SISR (168 x 168 HR, x4 box downsample) for 300
                    iterations, likewise
+  fit_mscale2      mscale_2 denoise (scales 1/9, 4, 8 on the 256 x 256
+                   image, 65,536 coordinates, full batch) for 300 epochs,
+                   through the kernel (counts reset just before, read just
+                   after) and the plain path (fused="never"), from one init
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -85,12 +92,19 @@ REAL_ITERS = 300
 REAL_DENOISE_CONFIG = "Bspline_s9_5_LR8e3_E4000"
 REAL_SISR_CONFIG = "Bspline_s9_LR1e3_E2000"
 
+# Best PSNR of the 300-epoch mscale_2 denoise fit from wire_tpu on the CPU
+# (fused="never", float32, this script's seed-0 init moved across), as
+# printed by tools/port_mscale_floor.py; the kernel fit must reach it less
+# 0.2 dB, and agree with the plain fit within PSNR_AGREE_DB.
+WIRE_TPU_300_MSCALE2_DB = 26.10752296447754
+MSCALE2_CONFIG = "Mscale2_ST8_3_LR8e3_E4000"
+
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W power limit.
 H100_FP32_TFLOPS = 67.0
 H100_HBM_TBPS = 3.35
 
 KERNEL_LIBRARIES = ("wire_step", "wire_mlp", "rotsum", "line_sample",
-                    "real_mlp")
+                    "real_mlp", "mscale2_step")
 # the kernels line: name -> (library source, the TPU kernel it replaces)
 KERNELS = {
     "wire_step": ("wire_step", "wire_tpu/ops/pallas/wire_step.py:356"),
@@ -99,6 +113,8 @@ KERNELS = {
     "line_sample": ("line_sample", "wire_tpu/ops/pallas/line_sample.py:144"),
     "real_step": ("real_mlp", "wire_tpu/ops/pallas/real_mlp.py:689"),
     "real_mlp": ("real_mlp", "wire_tpu/ops/pallas/real_mlp.py:304"),
+    "mscale2_step": ("mscale2_step",
+                     "wire_tpu/ops/pallas/mscale2_step.py:222"),
 }
 
 # Kernel vs plain: max abs error <= REL_TOL * max |plain| per output tensor.
@@ -113,10 +129,11 @@ def emit(phase, t0, **fields):
 
 
 def tensors_of(pred, grads, sums):
+    """{name: tensor} of a step's outputs, gradients named by their tree
+    path ("first.w", "combiner.freq_0.b", "layers.0.alpha", ...)."""
     out = {"pred": pred, "sse_target": sums[0], "sse_gt": sums[1]}
-    for k, sub in grads.items():
-        for kk, v in sub.items():
-            out[f"{k}.{kk}"] = v
+    out.update({".".join(map(str, path)): v
+                for path, v in tree_leaves(grads)})
     return out
 
 
@@ -216,16 +233,33 @@ def vjp(torch, fn, inputs, cot):
     return res
 
 
-def wire_mlp_fn(WM, spec, keys, plain=False):
-    """(coords, *leaves) -> y through the kernel or the plain version."""
+def wire_mlp_fn(WM, spec, paths, plain=False):
+    """(coords, *leaves) -> y through the kernel or the plain version;
+    ``paths``: the parameter tree's leaf paths."""
     apply = WM.wire_mlp_plain if plain else WM.wire_mlp
 
     def fn(coords, *leaves):
-        p = {k: {} for k, _ in keys}
-        for (k, kk), leaf in zip(keys, leaves):
-            p[k][kk] = leaf
-        return apply(p, coords, spec)
+        return apply(tree_unflatten(paths, leaves), coords, spec)
     return fn
+
+
+def tree_leaves(params):
+    """[(path, tensor)] of a parameter tree (wire_tpu_torch/tree.py)."""
+    from wire_tpu_torch import tree
+    return tree.leaves(params)
+
+
+def tree_unflatten(paths, leaves):
+    from wire_tpu_torch import tree
+    return tree.unflatten(paths, leaves)
+
+
+def leaf_paths(params):
+    return [path for path, _ in tree_leaves(params)]
+
+
+def num_weights(params):
+    return sum(t.numel() for _, t in tree_leaves(params))
 
 
 def rot_grids(torch, S, angles, device):
@@ -343,12 +377,12 @@ def ct_kernel_cases(torch, WM, R, LS, model, n, S, A, P, K, seed, device):
 
     spec = model.spec
     params = model.init(torch.Generator().manual_seed(seed), device)
-    keys = [(k, kk) for k in params for kk in params[k]]
+    keys = leaf_paths(params)
     coords = t(rng.uniform(-1, 1, (n, 2)))
     g = t(rng.normal(size=(n, spec.out_features)))
     cases = {"wire_mlp": (
         wire_mlp_fn(WM, spec, keys), wire_mlp_fn(WM, spec, keys, plain=True),
-        None, [coords] + [params[k][kk] for k, kk in keys], g)}
+        None, [coords] + [t for _, t in tree_leaves(params)], g)}
 
     angles = np.linspace(0, 180, A, dtype=np.float32)
     grids = rot_grids(torch, S, angles, device)
@@ -404,7 +438,7 @@ def ct_measure(torch, WM, R, LS, model, device):
     spec = model.spec
     L, h = spec.hidden_layers, params["first"]["w"].shape[1]
     d, o = spec.in_features, spec.out_features
-    nweights = sum(v.numel() for sub in params.values() for v in sub.values())
+    nweights = num_weights(params)
     gy, gx = line_positions(torch, P, A, K, device)
     work = {
         "wire_mlp": (WM.apply_flops(n, d, h, o, L),
@@ -432,8 +466,8 @@ def ct_measure(torch, WM, R, LS, model, device):
                              want_dcoords=True)
             dp = WM.unstack_grads(*lib[1:4], params, L)
             got = {"out": lib[0], "d0": lib[4]}
-            got.update({f"d{i + 1}": dp[k][kk]
-                        for i, (k, kk) in enumerate(keys)})
+            got.update({f"d{i + 1}": t
+                        for i, (_, t) in enumerate(tree_leaves(dp))})
             res["library_ms"] = cuda_ms(torch, lambda: matmul_vjp(
                 torch, w, xs[0], spec, lambda y: cot, want_dcoords=True), 20)
             res["library"] = "torch.matmul forward + written-out backward"
@@ -667,8 +701,8 @@ def repaired_faults(torch, WM, R, ct_model, device):
     errs = {}
     spec = ct_model.spec
     params = ct_model.init(torch.Generator().manual_seed(12), device)
-    keys = [(k, kk) for k in params for kk in params[k]]
-    leaves = [params[k][kk] for k, kk in keys]
+    keys = leaf_paths(params)
+    leaves = [t for _, t in tree_leaves(params)]
     rng = np.random.default_rng(13)
     c = torch.tensor(rng.uniform(-1, 1, (4, 50, 2)).astype(np.float32),
                      device=device)
@@ -686,11 +720,9 @@ def repaired_faults(torch, WM, R, ct_model, device):
     c = torch.tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32),
                      device=device)
     grad_leaves = [t.detach().requires_grad_(True) for t in leaves]
-    p = {k: {} for k, _ in keys}
-    for (k, kk), leaf in zip(keys, grad_leaves):
-        p[k][kk] = leaf
-    with_grad = WM.wire_mlp(p, c, spec).detach()
-    del p, grad_leaves
+    with_grad = WM.wire_mlp(tree_unflatten(keys, grad_leaves), c,
+                            spec).detach()
+    del grad_leaves
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -985,6 +1017,225 @@ def fit_sisr(torch, np, mods, counters, device):
                 plain_fit_wall_s=res_plain.wall_time_s)
 
 
+MSCALE_SPEC_FIELDS = ("in_features", "out_features", "hidden_features",
+                      "hidden_layers", "scaled_hidden_features", "scale",
+                      "scale_tensor", "detach_split", "combine_type")
+
+
+def mscale2_models(get_inr, TC, cfg):
+    """The mscale_2 denoise app's model (kernels), the same spec with
+    fused='never' (the plain path), and a two-scale twin (the ragged
+    kernel case)."""
+    model = TC.build_model(cfg, in_features=2, out_features=3, omega0=7.0,
+                           sidelength=256)
+    kw = {f: getattr(model.spec, f) for f in MSCALE_SPEC_FIELDS}
+    plain = get_inr(cfg.nonlin, fused="never", **kw)
+    kw["scale_tensor"] = kw["scale_tensor"][:2]
+    return model, plain, get_inr(cfg.nonlin, **kw)
+
+
+def mscale2_fold(torch, MM, model, seed, device):
+    """(canon, combiner, kinds, inv_scales) of a mscale_2 model's seeded
+    init: the trunk's fold and the freq_combine heads."""
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    comb = {k: params["combiner"][k] for k in ("freq_0", "freq_1")}
+    return (MM._canon_mscale2(params, model.spec), comb,
+            MM._mscale2_kinds(model.spec), MM._inv_scales(model.spec))
+
+
+def mscale2_tensors(pred, dcanon, dcomb, sums):
+    return tensors_of(pred, {"trunk": dcanon, "combiner": dcomb}, sums)
+
+
+def mscale2_kernel_vs_plain(torch, MS, MM, models, device):
+    """max abs err of mscale2_step at the path's full shape (n = 65,536,
+    ns = 3) and a ragged one (n = 700, nvalid = 650, denom, ns = 2), every
+    output tensor."""
+    errs = {}
+    for which, model, n, nvalid, denom in (
+            ("full", models[0], 256 * 256, None, None),
+            ("ragged", models[2], 700, 650, 650 * 3.0 + 1.0)):
+        canon, comb, kinds, inv = mscale2_fold(torch, MM, model, 18, device)
+        c, t, gt, _ = real_inputs(torch, n, 2, 3, 19, device)
+        got = MS.mscale2_step(canon, comb, c, t, kinds, inv, nvalid=nvalid,
+                              denom=denom, gt=gt, want_metrics=True)
+        torch.cuda.synchronize()
+        want = MS.mscale2_step_plain(canon, comb, c, t, kinds, inv,
+                                     nvalid=nvalid, denom=denom, gt=gt,
+                                     want_metrics=True)
+        errs[which] = compare(mscale2_tensors(*got), mscale2_tensors(*want),
+                              f"mscale2_step {which}")
+    return errs
+
+
+def multiscale_fold_vs_plain(torch, RM, MM, get_inr, get_config, device):
+    """real_step's kernel against its plain version at the folds of
+    mscale_hier (lane segments 256 qspline + 5 or 261 identity, widths 261
+    and 517; preset MscaleHier_ST1o9_LR8e3_E2000) and mscale_HL (a per-lane
+    alpha over three bands; preset MscaleHL_s1o9_ST4_3_SHF384_LR8e3_E4000),
+    at 4,099 rows with nvalid 4,000."""
+    errs = {}
+    for which, name, canon_of, kinds_of in (
+            ("hier_fold", "MscaleHier_ST1o9_LR8e3_E2000",
+             MM._canon_mscale_hier, MM._hier_kinds),
+            ("hl_fold", "MscaleHL_s1o9_ST4_3_SHF384_LR8e3_E4000",
+             MM._canon_mscale_hl, MM._mscale_hl_kinds)):
+        cfg = get_config(name)
+        model = get_inr(cfg.nonlin, in_features=2, out_features=3,
+                        hidden_features=cfg.hidden_features,
+                        scaled_hidden_features=cfg.scaled_hidden_features,
+                        scale=cfg.scale, scale_tensor=cfg.scale_tensor)
+        params = model.init(torch.Generator().manual_seed(20), device)
+        canon, kinds = canon_of(params, model.spec), kinds_of(model.spec)
+        c, t, gt, _ = real_inputs(torch, 4099, 2, 3, 21, device)
+        got = RM.real_step(canon, c, t, kinds, nvalid=4000, gt=gt,
+                           want_metrics=True)
+        want = RM.real_step_plain(canon, c, t, kinds, nvalid=4000, gt=gt,
+                                  want_metrics=True)
+        errs[which] = compare(real_step_tensors(RM, *got),
+                              real_step_tensors(RM, *want),
+                              f"real_step {which}")
+    return errs
+
+
+def mscale2_matmul_step(torch, RM, canon, comb, x, target, gt, kinds, inv):
+    """The mscale_2 step as torch.matmul calls on the stacked scales, the
+    bases and their derivatives in PyTorch ops and the backward written
+    out: the library yardstick (not used by the port).  Returns (pred,
+    dcanon, dcombiner, (sse_target, sse_gt))."""
+    n, o = target.shape
+    ns = len(inv)
+    X = x.repeat(ns, 1)
+    gam = torch.tensor(inv, device=x.device).repeat_interleave(n)[:, None]
+    zs, acts, a = [], [], X
+    for lay, kind in zip(canon["layers"], kinds):
+        z = a @ lay["w"]
+        zs.append(z)
+        a = RM._apply_segments(kind, gam * (lay["alpha"] * z + lay["beta"]),
+                               0)
+        acts.append(a)
+    ys = torch.addmm(canon["final"]["b"], a, canon["final"]["w"])
+    cat = ys.reshape(ns, n, o).permute(1, 0, 2).reshape(n, ns * o)
+    F0, f0 = comb["freq_0"]["w"], comb["freq_0"]["b"]
+    F1, f1 = comb["freq_1"]["w"], comb["freq_1"]["b"]
+    u0 = torch.addmm(f0, cat, F0)
+    u = torch.relu(u0)
+    y = torch.addmm(f1, u, F1)
+    e = (2.0 / (n * o)) * (y - target)
+    du = (e @ F1.t()) * (u0 > 0)
+    dcomb = {"freq_0": {"w": cat.t() @ du, "b": du.sum(0)},
+             "freq_1": {"w": u.t() @ e, "b": e.sum(0)}}
+    g = (du @ F0.t()).reshape(n, ns, o).permute(1, 0, 2).reshape(ns * n, o)
+    dfinal = {"w": acts[-1].t() @ g, "b": g.sum(0)}
+    da = g @ canon["final"]["w"].t()
+    dlayers = [None] * len(zs)
+    for l in reversed(range(len(zs))):
+        lay = canon["layers"][l]
+        v = gam * (lay["alpha"] * zs[l] + lay["beta"])
+        dv = gam * RM._apply_segments(kinds[l], v, 1) * da
+        dz = lay["alpha"] * dv
+        a_prev = X if l == 0 else acts[l - 1]
+        dlayers[l] = {"w": a_prev.t() @ dz, "alpha": (zs[l] * dv).sum(0),
+                      "beta": dv.sum(0)}
+        if l > 0:
+            da = dz @ lay["w"].t()
+    et, eg = y - target, y - gt
+    return y, {"layers": dlayers, "final": dfinal}, dcomb, (
+        (et * et).sum(), (eg * eg).sum())
+
+
+def mscale2_measure(torch, MS, RM, MM, model, device):
+    """Times of mscale2_step at the path's shape: the kernel (a host call,
+    and its kernels' device time), the plain version, the matmul
+    yardstick, and the card's least time for the same work."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    n = 256 * 256
+    canon, comb, kinds, inv = mscale2_fold(torch, MM, model, 22, device)
+    c, t, gt, _ = real_inputs(torch, n, 2, 3, 23, device)
+    widths = [2] + [lay["w"].shape[1] for lay in canon["layers"]] + [3]
+    nweights = num_weights(canon) + num_weights(comb)
+    scratch = StepScratch()
+
+    def step():
+        return MS.mscale2_step(canon, comb, c, t, kinds, inv, gt=gt,
+                               want_metrics=True, scratch=scratch)
+
+    def plain():
+        return MS.mscale2_step_plain(canon, comb, c, t, kinds, inv, gt=gt,
+                                     want_metrics=True)
+
+    def library():
+        return mscale2_matmul_step(torch, RM, canon, comb, c, t, gt, kinds,
+                                   inv)
+
+    lib_err = compare(mscale2_tensors(*library()), mscale2_tensors(*plain()),
+                      "mscale2 matmul step vs plain")
+    flops = MS.step_flops(n, len(inv), widths)
+    nbytes = 4 * (n * (2 + 3 + 3) + nweights + n * 3 + nweights + 2)
+    res = {
+        "ms": cuda_ms(torch, step, 20),
+        "kernel_ms": kernel_device_ms(torch, step, 20,
+                                      kernel_names("mscale2_step")),
+        "plain_ms": cuda_ms(torch, plain, 10),
+        "library_ms": cuda_ms(torch, library, 10),
+        "library": "torch.matmul step on the stacked scales, bases and "
+                   "written-out backward in PyTorch ops",
+        "library_vs_plain_max_abs_err": lib_err}
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
+        if res["kernel_ms"] else None
+    return res
+
+
+def fit_mscale2(torch, np, mods, counters, device):
+    """mscale_2 denoise for REAL_ITERS epochs through fit_pointwise: once
+    through the kernel, counts reset just before and read just after, and
+    once through the plain path (the family's own apply, the relu^2 spline,
+    and autograd), from one init."""
+    TD, TC, M, get_inr, get_config, FitConfig, fit_pointwise = mods
+    cfg = get_config(MSCALE2_CONFIG)
+    im, im_noisy = TD.denoise_images(cfg)
+    H, W, _ = im.shape
+    model, plain, _ = mscale2_models(get_inr, TC, cfg)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    grid = TD.C.grid2d(H, W)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=REAL_ITERS,
+                        maxpoints=cfg.maxpoints, scale_lr_by_batch=True)
+    reset_counts(counters)
+    res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                        fit_cfg, gt=im.reshape(-1, 3), device=device)
+    launches = read_counts(counters)
+    check_real_launches(launches, "mscale_2 denoise",
+                        {("mscale2_step", "step"): REAL_ITERS})
+    res_plain = fit_pointwise(plain, params, grid, im_noisy.reshape(-1, 3),
+                              fit_cfg, gt=im.reshape(-1, 3), device=device)
+    if read_counts(counters) != launches:
+        raise AssertionError("mscale_2 denoise: the plain fit launched a "
+                             "kernel")
+    for r in (res, res_plain):
+        if not (np.isfinite(r.best_rec).all() and np.isfinite(r.mse_gt).all()
+                and r.best_rec.shape == (H * W, 3)):
+            raise AssertionError("mscale_2 denoise: non-finite values or a "
+                                 "wrong shape")
+    psnr, psnr_plain = (float(M.psnr_ref(im, r.best_rec.reshape(H, W, 3)))
+                        for r in (res, res_plain))
+    if not abs(psnr - psnr_plain) <= PSNR_AGREE_DB:
+        raise AssertionError(
+            f"mscale_2 denoise: kernel fit {psnr:.3f} dB vs plain fit "
+            f"{psnr_plain:.3f} dB differ by more than {PSNR_AGREE_DB} dB")
+    floor = WIRE_TPU_300_MSCALE2_DB - 0.2
+    if not psnr >= floor:
+        raise AssertionError(f"mscale_2 denoise: kernel fit best PSNR "
+                             f"{psnr:.3f} dB below the floor {floor} dB")
+    return dict(config=MSCALE2_CONFIG, epochs=REAL_ITERS,
+                launches=launches["mscale2_step"], psnr_db=psnr,
+                psnr_plain_db=psnr_plain, floor_db=floor,
+                ms_per_step=res.step_ms, plain_ms_per_step=res_plain.step_ms,
+                fit_wall_s=res.wall_time_s,
+                plain_fit_wall_s=res_plain.wall_time_s)
+
+
 def cuda_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -1023,6 +1274,7 @@ def main():
     from wire_tpu_torch.train.presets import get_config
     from wire_tpu_torch.train.trainer import fit_operator
     import wire_tpu_torch.ops.real_mlp as RM
+    import wire_tpu_torch.ops.mscale2_step as MS
     import wire_tpu_torch.nn.models as MM
     import wire_tpu_torch.operators.forward as TF
     from wire_tpu_torch.apps import common as TC
@@ -1085,6 +1337,11 @@ def main():
     model_a, _ = real_models(get_inr, TC, cfg_a, 7.0, 256)
     model_b, _ = real_models(get_inr, TC, cfg_b, 8.0, 168)
     errs.update(real_kernel_vs_plain(torch, RM, MM, model_a, model_b, dev))
+    errs["real_step"].update(multiscale_fold_vs_plain(
+        torch, RM, MM, get_inr, get_config, dev))
+    ms_models = mscale2_models(get_inr, TC, get_config(MSCALE2_CONFIG))
+    errs["mscale2_step"] = mscale2_kernel_vs_plain(torch, MS, MM, ms_models,
+                                                   dev)
     errs["repaired"] = repaired_faults(torch, WM, R, ct_model, dev)
     emit("kernel_vs_plain", t0, max_abs_err=errs, rel_tol=REL_TOL,
          why=("max abs err <= rel_tol x max|plain| per output tensor: fp32 "
@@ -1117,7 +1374,7 @@ def main():
         params, coords, target, spec, gt=gt, want_metrics=True,
         scratch=scratch), 20, kernel_names("wire_step"))
     flops = WS.step_flops(n_full, 2, h, 3, L)
-    nweights = sum(v.numel() for sub in params.values() for v in sub.values())
+    nweights = num_weights(params)
     nbytes = 4 * (n_full * (2 + 3 + 3)          # coords, target, gt
                   + nweights                    # weights in
                   + n_full * 3 + nweights + 2)  # pred, grads, sse out
@@ -1130,6 +1387,8 @@ def main():
         achieved_tflops=flops / (ms * 1e9))}
     meas.update(ct_measure(torch, WM, R, LS, ct_model, dev))
     meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
+    meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
+                                           dev)
     emit("measure", t0, kernels=meas, nvidia_smi=smi,
          pairs=("ms, plain_ms and library_ms of wire_mlp, rotsum, "
                 "line_sample and real_mlp time the forward and its "
@@ -1187,7 +1446,8 @@ def main():
     # ---- fit_real (B-spline denoise, path A) -------------------------------
     t0 = time.time()
     counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
-                "line_sample": LS.launches, "real_mlp": RM.launches}
+                "line_sample": LS.launches, "real_mlp": RM.launches,
+                "mscale2_step": MS.launches}
     ws_before = WS.wire_step.launches
     real = fit_real(torch, np, (TD, TC, M, RM, get_inr, get_config,
                                 FitConfig, fit_pointwise), counters, dev)
@@ -1197,14 +1457,21 @@ def main():
     t0 = time.time()
     sisr = fit_sisr(torch, np, (TS, TC, TF, M, get_inr, get_config,
                                 FitConfig, fit_operator), counters, dev)
+    emit("fit_sisr", t0, **sisr)
+
+    # ---- fit_mscale2 (mscale_2 denoise) ------------------------------------
+    t0 = time.time()
+    mscale = fit_mscale2(torch, np, (TD, TC, M, get_inr, get_config,
+                                     FitConfig, fit_pointwise), counters, dev)
     if WS.wire_step.launches != ws_before:
         raise AssertionError("the B-spline fits launched wire_step")
-    emit("fit_sisr", t0, **sisr)
+    emit("fit_mscale2", t0, **mscale)
 
     # launches of each kernel in the path that runs it: wire_step in the
     # WIRE denoise fit, wire_mlp in both CT fits, line_sample in 'auto'
     # (fourier), rotsum in 'rotate', real_step in the B-spline denoise fit,
-    # real_mlp in the B-spline SISR fit; a pair counts both directions
+    # real_mlp in the B-spline SISR fit, mscale2_step in the mscale_2
+    # denoise fit; a pair counts both directions
     path_launches = {
         "wire_step": {"step": launches},
         "wire_mlp": {k: ct["auto"]["launches"]["wire_mlp"][k]
@@ -1214,7 +1481,8 @@ def main():
         "rotsum": ct["rotate"]["launches"]["rotsum"],
         "real_step": {"step": real["launches"]["step"]},
         "real_mlp": {k: sisr["launches"][k]
-                     for k in ("forward", "backward")}}
+                     for k in ("forward", "backward")},
+        "mscale2_step": {"step": mscale["launches"]["step"]}}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -1,6 +1,6 @@
 """The CUDA kernels (wire_step, wire_mlp, rotsum, line_sample, real_mlp's
-pair and step) against their plain PyTorch versions on the card (marked
-``gpu``; skipped where no CUDA device is present):
+pair and step, mscale2_step) against their plain PyTorch versions on the
+card (marked ``gpu``; skipped where no CUDA device is present):
 
     python -m pytest tests/test_torch_gpu.py -m gpu -p no:randomly
 """
@@ -470,3 +470,93 @@ def test_real_family_fits_launch_the_kernels(cuda):
         assert RM.launches["step"] == before + 1, nonlin
         want = plain.step_grads(params, c, t, want_metrics=True)
         _assert_rel(_flat(*got), _flat(*want))
+
+
+# ---- mscale2_step: every scale's trunk, the combiner, the loss, backward ---
+
+def _comb(ns, o, device, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    return {"freq_0": {"w": t(rng.uniform(-1, 1, (ns * o, 128)) / np.sqrt(
+                ns * o)), "b": t(rng.uniform(-1, 1, 128) / np.sqrt(ns * o))},
+            "freq_1": {"w": t(rng.uniform(-1, 1, (128, o)) / np.sqrt(128)),
+                       "b": t(rng.uniform(-1, 1, o) / np.sqrt(128))}}
+
+
+def _tree_flat(*outs):
+    from wire_tpu_torch import tree
+    return {str(p): t for p, t in tree.leaves(list(outs))}
+
+
+@pytest.mark.parametrize("n,ns,widths,nvalid,denom", [
+    (700, 2, (2, 48, 40, 3), 650, 650 * 3.0 + 1.0),
+    (1100, 3, (2, 64, 64, 64, 1), None, None),
+    (65536, 3, (2, 256, 256, 256, 3), None, None)])
+def test_mscale2_step_kernel_matches_plain(cuda, n, ns, widths, nvalid,
+                                           denom):
+    from wire_tpu_torch.ops import mscale2_step as MS
+    canon = _canon(widths, cuda, seed=10)
+    comb = _comb(ns, widths[-1], cuda, 11)
+    inv = (9.0, 0.25, 0.125)[:ns]
+    kinds = ("qspline",) * (len(widths) - 2)
+    rng = np.random.default_rng(12)
+    o = widths[-1]
+    c, t, gt = (torch.tensor(a.astype(np.float32), device=cuda) for a in (
+        rng.uniform(-1, 1, (n, 2)), rng.uniform(0, 1, (n, o)),
+        rng.uniform(0, 1, (n, o))))
+    before = MS.launches["step"]
+    got = _tree_flat(*MS.mscale2_step(canon, comb, c, t, kinds, inv,
+                                      nvalid=nvalid, denom=denom, gt=gt,
+                                      want_metrics=True))
+    torch.cuda.synchronize()
+    assert MS.launches["step"] == before + 1
+    want = _tree_flat(*MS.mscale2_step_plain(canon, comb, c, t, kinds, inv,
+                                             nvalid=nvalid, denom=denom,
+                                             gt=gt, want_metrics=True))
+    assert got.keys() == want.keys()
+    _assert_rel(got, want)
+
+
+def test_mscale2_step_is_deterministic_and_reuses_scratch(cuda):
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    canon = _canon((2, 128, 128, 3), cuda, seed=13)
+    comb = _comb(3, 3, cuda, 14)
+    c = torch.rand((5000, 2), device=cuda) * 2 - 1
+    t = torch.rand((5000, 3), device=cuda)
+    scratch = StepScratch()
+    a, b = (_tree_flat(*MS.mscale2_step(canon, comb, c, t, ("qspline",) * 2,
+                                        (9.0, 0.25, 0.125),
+                                        want_metrics=True, scratch=scratch))
+            for _ in range(2))
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_multiscale_families_launch_the_kernels(cuda):
+    """mscale_2's step runs mscale2_step; mscale_HL's and mscale_hier's
+    run real_step; each agrees with its family's plain path (scales with
+    gamma <= 2, where the plain path's relu^2 spline rounds little)."""
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import real_mlp as RM
+    c = torch.rand((600, 2), device=cuda) * 2 - 1
+    t = torch.rand((600, 3), device=cuda)
+    cases = {
+        "bspline_mscale_2": (dict(scale_tensor=(0.5, 2.0, 4.0)),
+                             MS.launches),
+        "bspline_mscale_HL": (dict(scale=1.0, scale_tensor=(1.0, 2.0),
+                                   scaled_hidden_features=300), RM.launches),
+        "bspline_mscale_hier": (dict(scale_tensor=(0.5, 2.0, 1.0)),
+                                RM.launches)}
+    for nonlin, (kw, counter) in cases.items():
+        kw = dict(hidden_features=64, out_features=3, **kw)
+        model = get_inr(nonlin, **kw)
+        plain = get_inr(nonlin, fused="never", **kw)
+        params = model.init(torch.Generator().manual_seed(0), cuda)
+        before = counter["step"]
+        got = model.step_grads(params, c, t, want_metrics=True)
+        assert counter["step"] == before + 1, nonlin
+        want = plain.step_grads(params, c, t, want_metrics=True)
+        _assert_rel(_tree_flat(*got), _tree_flat(*want))

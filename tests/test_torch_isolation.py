@@ -1,7 +1,7 @@
 """The port stands alone: every module of wire_tpu_torch and chip_smoke.py
 imports with jax, optax, wire_tpu, pandas, matplotlib and cv2 blocked (the
-B-spline slice's modules among them), and chip_smoke.py refuses to run
-without a CUDA device."""
+B-spline and multiscale slices' modules among them), and chip_smoke.py
+refuses to run without a CUDA device."""
 import os
 import subprocess
 import sys
@@ -31,7 +31,9 @@ SLICE_MODULES = ("wire_tpu_torch.ops.real_mlp", "wire_tpu_torch.apps.sisr",
                  "wire_tpu_torch.operators.forward",
                  "wire_tpu_torch.signals.image", "wire_tpu_torch.ops.resample",
                  "wire_tpu_torch.train.metrics",
-                 "wire_tpu_torch.nn.activations", "wire_tpu_torch.nn.models")
+                 "wire_tpu_torch.nn.activations", "wire_tpu_torch.nn.models",
+                 "wire_tpu_torch.ops.mscale2_step", "wire_tpu_torch.tree",
+                 "wire_tpu_torch.bridge", "wire_tpu_torch.train.trainer")
 
 
 def test_every_module_imports_without_jax_or_wire_tpu():

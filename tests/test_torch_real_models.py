@@ -250,4 +250,6 @@ def test_bspline_presets_match_wire_tpu():
     for name in names + [n for n in JP.ENTRIES if n.startswith("WIRE_")]:
         assert TP.get_config(name) == TP.ExperimentConfig(
             **vars(JP.get_config(name))), name
-    assert len(TP.ENTRIES) == 25
+    # 13 B-spline + 12 WIRE entries; the 60 multiscale ones are checked in
+    # tests/test_torch_mscale_models.py
+    assert len(TP.ENTRIES) == 85

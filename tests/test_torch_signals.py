@@ -57,12 +57,14 @@ def test_metrics_match():
 
 
 def test_wire_presets_identical():
-    # the ported families' presets: WIRE's and the B-spline (bspline_form)
-    # ones
+    # the ported families' presets: WIRE's, the B-spline (bspline_form) and
+    # the multiscale B-spline ones, which are all of the registry's 85
     wire = [k for k in JP.ENTRIES
-            if JP.ENTRIES[k]["nonlin"] in ("wire", "bspline_form")]
-    assert sorted(wire) == list(P.list_configs())
+            if JP.ENTRIES[k]["nonlin"] in (
+                "wire", "bspline_form", "bspline_mscale_2",
+                "bspline_mscale_HL", "bspline_mscale_hier")]
+    assert sorted(wire) == list(P.list_configs()) == sorted(JP.ENTRIES)
     for k in wire:
         assert P.get_config(k).__dict__ == JP.get_config(k).__dict__, k
     with pytest.raises(KeyError):
-        P.get_config("MscaleHL_s1_ST2_SHF256")
+        P.get_config("MscaleHL_s1_ST2_SHF999")

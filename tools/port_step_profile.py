@@ -8,7 +8,9 @@ with ``--ct METHOD`` EPOCHS iterations of fit_operator at the CT protocol
 'auto' = fourier on the card, or 'rotate'), or with ``--real denoise`` the
 B-spline denoise fit (preset Bspline_s9_5_LR8e3_E4000, 65,536 coordinates)
 and ``--real sisr`` the B-spline SISR fit (preset Bspline_s9_LR1e3_E2000,
-168 x 168 HR, x4 box downsample), with torch.profiler after a warm-up fit,
+168 x 168 HR, x4 box downsample), or with ``--mscale2`` the mscale_2
+denoise fit (preset Mscale2_ST8_3_LR8e3_E4000, scales 1/9, 4, 8, 65,536
+coordinates), with torch.profiler after a warm-up fit,
 and prints one JSON line: device time per epoch by kernel
 (sorted, summed over launches; device-side events only, so a kernel is not
 counted again under the operator or autograd Function that launched it),
@@ -19,11 +21,12 @@ forward / hidden backward / first-layer backward GEMMs,
 wgrad_partial_kernel, reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
 rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /
-backward / dcoords GEMMs of the real families, colsum_partial_kernel); the
-rest are PyTorch's (weight stacking, FFTs, Adam, best tracking).
+backward / dcoords GEMMs of the real families, colsum_partial_kernel,
+combiner_kernel of mscale_2); the rest are PyTorch's (weight stacking,
+FFTs, Adam, best tracking).
 
     python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate |
-                                        --real denoise|sisr]
+                                        --real denoise|sisr | --mscale2]
                                                     # default 20, denoise
 """
 import json
@@ -80,8 +83,9 @@ def ct_fit(iters, method, dev):
 
 
 def real_fit(iters, path, dev):
-    if path == "denoise":
-        cfg = get_config("Bspline_s9_5_LR8e3_E4000")
+    if path in ("denoise", "mscale2"):
+        cfg = get_config("Bspline_s9_5_LR8e3_E4000" if path == "denoise"
+                         else "Mscale2_ST8_3_LR8e3_E4000")
         im, im_noisy = denoise.denoise_images(cfg)
         H, W, _ = im.shape
         model = common.build_model(cfg, in_features=2, out_features=3,
@@ -117,6 +121,9 @@ def main():
         i = args.index("--real")
         real = args[i + 1]
         del args[i:i + 2]
+    if "--mscale2" in args:
+        args.remove("--mscale2")
+        real = "mscale2"
     epochs = int(args[0]) if args else 20
     dev = resolve("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -148,7 +155,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "fit": (f"bspline {real}" if real is not None else
+        "fit": ("mscale_2 denoise" if real == "mscale2" else
+                f"bspline {real}" if real is not None else
                 "denoise" if method is None else f"ct {method}"),
         "epochs": epochs, "nvidia_smi": smi,
         "wall_ms_per_epoch": wall_ms / epochs,

@@ -22,6 +22,10 @@ def base_parser(description):
                         "test image)")
     p.add_argument("--results_dir", type=str, default="results")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--reference_compat", action="store_true",
+                   help="reproduce reference defects that affected published "
+                        "numbers (mscale_HL first-layer detach; CT: radon "
+                        "'auto' routes to the reference-exact 'rotate')")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
@@ -45,14 +49,14 @@ def load_image(path, size=512, channels=3, seed=0):
 
 
 def build_model(cfg, *, in_features, out_features, omega0, hidden_layers=2,
-                hidden_features=None, sidelength=512):
+                hidden_features=None, sidelength=512, reference_compat=False):
     """The preset's model, wired as the config-driven scripts wire it
     (wire_tpu/apps/common.py:54-81): posenc is relu with pos_encode on;
     the preset's scale, scale_tensor and scaled_hidden_features, omega0 for
     both omegas, and ``sidelength`` (posenc's frequency count) go to the
     factory; ``hidden_features`` overrides the preset's width, as the CT app
-    does.  The mscale families' input widening and detach flag wait for
-    those families."""
+    does; ``reference_compat`` sets mscale_HL's ``detach_split``.  The
+    input widening of mscale_1_new and repIN waits for those families."""
     nonlin, pos_encode = cfg.nonlin, False
     if nonlin == "posenc":
         nonlin, pos_encode = "relu", True
@@ -70,6 +74,7 @@ def build_model(cfg, *, in_features, out_features, omega0, hidden_layers=2,
         scale_tensor=cfg.scale_tensor,
         pos_encode=pos_encode,
         sidelength=sidelength,
+        detach_split=reference_compat,
     )
 
 

@@ -150,9 +150,6 @@ def main(argv=None):
                         "(CUDA kernel on the card); 'auto' = fast "
                         "self-consistent protocol (reference-exact when "
                         "--reference_compat or --sinogram is given)")
-    p.add_argument("--reference_compat", action="store_true",
-                   help="route radon 'auto' to the reference-exact "
-                        "'rotate' operator")
     p.add_argument("--sinogram", default=None,
                    help="path to a user-supplied sinogram (.npy, or .mat "
                         "with a 'sinogram' key) instead of self-generating; "

@@ -7,6 +7,7 @@ epoch, best image by MSE vs the clean image.
 
     python -m wire_tpu_torch.apps.denoise --config_name WIRE_s8_o7_LR5e3_E2000
     python -m wire_tpu_torch.apps.denoise --config_name Bspline_s9_5_LR8e3_E4000
+    python -m wire_tpu_torch.apps.denoise --config_name Mscale2_ST8_3_LR8e3_E4000
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ def denoise_images(cfg, image=None, seed=0):
 
 
 def run(config_name, *, image=None, results_dir="results", seed=0,
-        device=None):
+        device=None, reference_compat=False):
     dev = resolve(device)
     cfg = get_config(config_name)
     if cfg.tvl:
@@ -50,7 +51,8 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
     gt_noisy = im_noisy.reshape(-1, 3)
 
     model = common.build_model(cfg, in_features=2, out_features=3,
-                               omega0=omega0, sidelength=H)
+                               omega0=omega0, sidelength=H,
+                               reference_compat=reference_compat)
     params = model.init(torch.Generator().manual_seed(seed), dev)
     nparams = model.num_params(params)
     A.log(f"Non-linearity: {cfg.nonlin}, LR: {cfg.learning_rate}, "
@@ -94,7 +96,7 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
 def main(argv=None):
     a = common.base_parser(__doc__).parse_args(argv)
     run(a.config_name, image=a.image, results_dir=a.results_dir, seed=a.seed,
-        device=a.device)
+        device=a.device, reference_compat=a.reference_compat)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,7 @@ def sisr_images(image=None, seed=0, scale=4, size=512):
 
 
 def run(config_name, *, image=None, results_dir="results", seed=0,
-        device=None):
+        device=None, reference_compat=False):
     dev = resolve(device)
     cfg = get_config(config_name)
     A.log(f"Starting SISR experiment ({config_name}) on {dev}")
@@ -54,7 +54,8 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
 
     coords = C.grid2d(H, W)
     model = common.build_model(cfg, in_features=2, out_features=3,
-                               omega0=omega0, sidelength=H)
+                               omega0=omega0, sidelength=H,
+                               reference_compat=reference_compat)
     params = model.init(torch.Generator().manual_seed(seed), dev)
 
     fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=cfg.niters,
@@ -96,7 +97,7 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
 def main(argv=None):
     a = common.base_parser(__doc__).parse_args(argv)
     run(a.config_name, image=a.image, results_dir=a.results_dir, seed=a.seed,
-        device=a.device)
+        device=a.device, reference_compat=a.reference_compat)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Model factory (port of wire_tpu/nn/registry.py:20-78 and get_inr):
-WIRE and the canonical real families (siren, gauss, relu, posenc and the
-B-splines form, cubic, srelu and knots)."""
+WIRE, the canonical real families (siren, gauss, relu, posenc and the
+B-splines form, cubic, srelu and knots) and the multiscale B-splines
+mscale_2, mscale_HL and mscale_hier."""
 from __future__ import annotations
 
 from wire_tpu_torch.nn import models as M
@@ -17,6 +18,9 @@ MODEL_REGISTRY = {
     "bspline_cubic": (M.bspline_plain_init, M.bspline_cubic_apply),
     "bspline_srelu": (M.bspline_plain_init, M.bspline_srelu_apply),
     "bspline_knots": (M.bspline_plain_init, M.bspline_knots_apply),
+    "bspline_mscale_2": (M.mscale2_init, M.mscale2_apply),
+    "bspline_mscale_HL": (M.mscale_hl_init, M.mscale_hl_apply),
+    "bspline_mscale_hier": (M.mscale_hier_init, M.mscale_hier_apply),
 }
 
 # families with a train-step kernel; the rest take autodiff of apply
@@ -30,6 +34,9 @@ STEP_REGISTRY = {
     "bspline_cubic": M.bspline_cubic_step,
     "bspline_srelu": M.bspline_srelu_step,
     "bspline_knots": M.bspline_knots_step,
+    "bspline_mscale_2": M.mscale2_step,
+    "bspline_mscale_HL": M.mscale_hl_step,
+    "bspline_mscale_hier": M.mscale_hier_step,
 }
 
 # default (first_omega0, hidden_omega0, scale) per family, as each
@@ -48,7 +55,8 @@ def get_inr(nonlin: str, **kwargs) -> INR:
     surface (in_features, hidden_features, scaled_hidden_features,
     hidden_layers, out_features, outermost_linear, first_omega0,
     hidden_omega0, scale, scale_tensor, pos_encode, sidelength, fn_samples,
-    use_nyquist, and ``fused``).  ``posenc`` is relu with pos_encode on."""
+    use_nyquist, detach_split, base_split, combine_type and ``fused``).
+    ``posenc`` is relu with pos_encode on."""
     if nonlin not in MODEL_REGISTRY:
         raise KeyError(f"Unknown nonlin {nonlin!r}; available: "
                        f"{sorted(MODEL_REGISTRY)}")

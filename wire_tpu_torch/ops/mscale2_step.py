@@ -1,0 +1,211 @@
+"""The one-pass train step of bspline_mscale_2 under 'freq_combine': the
+hand-written CUDA kernel (``csrc/mscale2_step.cu``) and its plain PyTorch
+version.
+
+Replaces wire_tpu/ops/pallas/mscale2_step.py:mscale2_step_fused.  The ns
+scales share one canonical trunk (ops/real_mlp.py's form, kinds one per
+layer) and differ by gamma_s = inv_scales[s] on every layer's v; the
+combiner ``{freq_0: {w (ns o, 128), b}, freq_1: {w (128, o), b}}`` mixes
+them per coordinate,
+
+    pred = relu(cat(y_1 .. y_ns) F0 + f0) F1 + f1,
+
+and the loss is ``sum_{rows < nvalid} (pred - target)^2 / denom``.
+
+``mscale2_step`` runs the plain version for CPU tensors and for CUDA
+tensors launches the kernel (``launches["step"]``) or raises; there is no
+fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from wire_tpu_torch.nn.models import autodiff_step, mscale2_combine
+from wire_tpu_torch.ops import build
+from wire_tpu_torch.ops import real_mlp as RM
+from wire_tpu_torch.ops.wire_step import StepScratch, _check
+
+# kernel launches of this module, one per mscale2_step on the card; a run
+# resets and reads it
+launches = {"step": 0}
+
+
+def mscale2_step_plain(canon, combiner, coords, target, kinds, inv_scales,
+                       *, nvalid=None, denom=None, gt=None,
+                       want_metrics=False):
+    """The plain step: the canonical trunk over the ns scale blocks stacked
+    along the rows with ``row_gamma = (inv_scales, n)`` (as
+    ``real_mlp_scales``), the combiner, and autodiff under the masked MSE
+    with TF32 off (nn/models.py:autodiff_step), the bases' derivatives the
+    explicit dB.  Returns (pred, dcanon, dcombiner[, (sse_target,
+    sse_gt)]); denom defaults to n o."""
+    n, ns = coords.shape[0], len(inv_scales)
+    row_gamma = (tuple(float(g) for g in inv_scales), n)
+
+    def apply(p, x, _spec):
+        ys = RM.real_mlp_plain(p["trunk"], x.repeat(ns, 1), kinds, row_gamma)
+        return mscale2_combine(p["combiner"], ys.reshape(ns, n, ys.shape[-1]),
+                               "freq_combine")
+
+    out = autodiff_step(apply, {"trunk": canon, "combiner": combiner}, coords,
+                        target, None, nvalid=nvalid, denom=denom, gt=gt,
+                        want_metrics=want_metrics)
+    d = out[1]
+    return (out[0], d["trunk"], d["combiner"]) + tuple(out[2:])
+
+
+def step_flops(n, ns, widths, hidden=128):
+    """One step as the kernel computes it: ns real_step trunks (the forward,
+    the weight gradients and the data gradients but dcoords) and the
+    combiner's forward, weight and data gradients.  156.5 GFLOP at the
+    path's shape (n = 65,536, ns = 3, widths 2, 256 x 3, 3)."""
+    o = widths[-1]
+    return (RM.step_flops(ns * n, widths)
+            + 3 * 2 * n * (ns * o * hidden + hidden * o))
+
+
+# ---- the kernel -------------------------------------------------------------
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLT = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("mscale2_step")
+    lib.mscale2_step_run.argtypes = ([_INT, _INT, _INT, _PTR, _PTR, _PTR,
+                                      _PTR] + [_PTR] * 5 + [_PTR] * 3
+                                     + [_PTR] * 5 + [_PTR] * 2 + [_PTR] * 4
+                                     + [_PTR] * 3 + [_PTR] * 5
+                                     + [_INT, _FLT, _INT, _PTR])
+    lib.mscale2_step_run.restype = _INT
+    lib.mscale2_trunk_part_floats.argtypes = [_INT, _INT, _PTR]
+    lib.mscale2_trunk_part_floats.restype = ctypes.c_longlong
+    lib.mscale2_comb_part_floats.argtypes = [_INT, _INT, _INT]
+    lib.mscale2_comb_part_floats.restype = ctypes.c_longlong
+    for fn in (lib.mscale2_max_cat, lib.mscale2_max_out, lib.mscale2_hidden):
+        fn.argtypes = []
+        fn.restype = _INT
+    lib.mscale2_error_string.argtypes = [_INT]
+    lib.mscale2_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=16)
+def _device_gammas(inv_scales, device):
+    return torch.tensor(inv_scales, dtype=torch.float32, device=device)
+
+
+def _launch(canon, combiner, coords, target, kinds, inv_scales, nvalid,
+            denom, gt, want_metrics, scratch):
+    lib = _lib()
+    who = "mscale2_step"
+    dev = coords.device
+    n, d = coords.shape
+    ns = len(inv_scales)
+    widths, alphas, betas, codes = RM._prepare(canon, coords, kinds, who,
+                                               max_out=lib.mscale2_max_out())
+    L, o, hc = len(kinds), widths[-1], lib.mscale2_hidden()
+    if ns < 1 or ns * o > lib.mscale2_max_cat():
+        raise ValueError(f"{who} kernel supports ns * out_features <= "
+                         f"{lib.mscale2_max_cat()}, got {ns} x {o}")
+    nv = n if nvalid is None else int(nvalid)
+    if not 0 <= nv <= n:
+        raise ValueError(f"{who}: nvalid={nv} outside [0, {n}]")
+    _check("target", target, (n, o), dev, who)
+    if gt is not None:
+        _check("gt", gt, (n, o), dev, who)
+    F0, f0 = combiner["freq_0"]["w"], combiner["freq_0"]["b"].reshape(-1)
+    F1, f1 = combiner["freq_1"]["w"], combiner["freq_1"]["b"].reshape(-1)
+    for name, t, shape in (("freq_0.w", F0, (ns * o, hc)),
+                           ("freq_0.b", f0, (hc,)),
+                           ("freq_1.w", F1, (hc, o)), ("freq_1.b", f1, (o,))):
+        _check(f"combiner.{name}", t, shape, dev, who)
+    scratch = StepScratch() if scratch is None else scratch
+    rows = ns * n
+    x = scratch.get("ms_x", (rows, d), dev)
+    x.view(ns, n, d).copy_(coords)
+    zs = [scratch.get(f"ms_z{l}", (rows, w), dev)
+          for l, w in enumerate(widths[1:-1])]
+    acts = [scratch.get(f"ms_a{l}", (rows, w), dev)
+            for l, w in enumerate(widths[1:-1])]
+    maxw = max(widths[1:-1])
+    ystack = scratch.get("ms_y", (rows, o), dev)
+    dystack = scratch.get("ms_dy", (rows, o), dev)
+    dv = scratch.get("ms_dv", (2, rows * maxw), dev)
+    zdv = scratch.get("ms_zdv", (rows * maxw,), dev)
+    wp = RM._ints(widths)
+    part = scratch.get("ms_part", (lib.mscale2_trunk_part_floats(
+        rows, L, wp),), dev)
+    cpart = scratch.get("ms_cpart", (lib.mscale2_comb_part_floats(
+        n, ns, o),), dev)
+    wat, wft = RM._transposes(canon, alphas)
+    f32 = dict(dtype=torch.float32, device=dev)
+    pred = torch.empty((n, o), **f32)
+    gW = [torch.empty((widths[l] + 1, widths[l + 1]), **f32)
+          for l in range(L)]
+    galpha = [torch.empty((w,), **f32) for w in widths[1:-1]]
+    gWf = torch.empty((widths[-2] + 1, o), **f32)
+    e0 = (ns * o + 1) * hc
+    gcomb = torch.empty((e0 + (hc + 1) * o,), **f32)
+    sse = torch.zeros((2,), **f32)
+    dn = np.float32(n * o if denom is None else denom)
+    two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
+    rc = lib.mscale2_step_run(
+        n, ns, L, wp, x.data_ptr(), target.data_ptr(),
+        None if gt is None else gt.data_ptr(),
+        RM._ptrs([lay["w"] for lay in canon["layers"]]), RM._ptrs(wat),
+        RM._ptrs(alphas), RM._ptrs(betas), RM._ptrs(codes),
+        canon["final"]["w"].data_ptr(), wft.data_ptr(),
+        canon["final"]["b"].reshape(-1).data_ptr(),
+        _device_gammas(tuple(float(g) for g in inv_scales), dev).data_ptr(),
+        F0.data_ptr(), f0.data_ptr(), F1.data_ptr(), f1.data_ptr(),
+        RM._ptrs(zs), RM._ptrs(acts), ystack.data_ptr(), dystack.data_ptr(),
+        pred.data_ptr(), sse.data_ptr(), RM._ptrs(gW), RM._ptrs(galpha),
+        gWf.data_ptr(), gcomb.data_ptr(), cpart.data_ptr(), dv.data_ptr(),
+        zdv.data_ptr(), part.data_ptr(), nv, float(two_inv_denom),
+        int(want_metrics), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {rc} "
+                           f"({lib.mscale2_error_string(rc).decode()})")
+    launches["step"] += 1
+    dcanon = RM._grads_to_canon(canon, widths, gW, galpha, gWf)
+    c0 = ns * o * hc
+    dcombiner = {
+        "freq_0": {"w": gcomb[:c0].view(ns * o, hc),
+                   "b": gcomb[c0:e0].view(combiner["freq_0"]["b"].shape)},
+        "freq_1": {"w": gcomb[e0:e0 + hc * o].view(hc, o),
+                   "b": gcomb[e0 + hc * o:].view(
+                       combiner["freq_1"]["b"].shape)}}
+    if want_metrics:
+        return pred, dcanon, dcombiner, (sse[0], sse[1])
+    return pred, dcanon, dcombiner
+
+
+def mscale2_step(canon, combiner, coords, target, kinds, inv_scales, *,
+                 nvalid=None, denom=None, gt=None, want_metrics=False,
+                 scratch=None):
+    """One mscale_2 train step (``mscale2_step_fused``): returns (pred,
+    dcanon, dcombiner) for ``loss = sum_{rows < nvalid} (pred - target)^2 /
+    denom``, plus ``(sse_target, sse_gt)`` when ``want_metrics`` (gt
+    defaults to target).  canon: the shared trunk; combiner: ``{freq_0,
+    freq_1}``; kinds: one basis kind per trunk layer; inv_scales: gamma per
+    scale.  coords (n, d), target (n, o) float32; nvalid (a Python int)
+    defaults to n and denom to n o; invalid rows must be a tail.  CPU
+    tensors take ``mscale2_step_plain``; CUDA tensors launch the kernel or
+    raise.  ``scratch`` (a StepScratch) keeps the kernel's device buffers
+    across steps."""
+    kinds = RM.norm_kinds(kinds)
+    if coords.device.type == "cpu":
+        return mscale2_step_plain(canon, combiner, coords, target, kinds,
+                                  inv_scales, nvalid=nvalid, denom=denom,
+                                  gt=gt, want_metrics=want_metrics)
+    if coords.device.type != "cuda":
+        raise ValueError(f"mscale2_step: unsupported device {coords.device}")
+    return _launch(canon, combiner, coords, target, kinds, inv_scales,
+                   nvalid, denom, gt, want_metrics, scratch)

@@ -311,19 +311,20 @@ def _device_codes(kinds, widths, device):
                  for k, w in zip(kinds, widths))
 
 
-def _prepare(canon, coords, kinds, who):
+def _prepare(canon, coords, kinds, who, max_out=None):
     """Checks of the canonical weights against coords (n, d) on the card;
-    returns (widths, flat alpha/beta per layer, codes per layer)."""
-    lib = _lib()
+    returns (widths, flat alpha/beta per layer, codes per layer).
+    ``max_out``: the calling kernel's limit on o (default real_mlp's)."""
+    max_out = _lib().real_mlp_max_out() if max_out is None else max_out
     dev = coords.device
     L = len(canon["layers"])
     if L < 1 or len(kinds) != L:
         raise ValueError(f"{who}: {L} layers and {len(kinds)} kinds; need "
                          f"one kind per layer and at least one layer")
     widths = _widths(canon, coords.shape[1])
-    if widths[-1] > lib.real_mlp_max_out():
+    if widths[-1] > max_out:
         raise ValueError(f"{who} kernel supports out_features <= "
-                         f"{lib.real_mlp_max_out()}, got {widths[-1]}")
+                         f"{max_out}, got {widths[-1]}")
     _check("coords", coords, (coords.shape[0], widths[0]), dev, who)
     alphas, betas = [], []
     for l, lay in enumerate(canon["layers"]):

@@ -6,7 +6,10 @@ render).
 Loop semantics: Adam as optax's ``scale_by_adam(eps_root=0)`` followed by
 ``scale_by_schedule``, the learning rate decaying by
 ``lr_decay ** min(floor(step / nchunks) / niters, 1)`` at the pre-increment
-step count, optionally scaled by ``min(1, maxpoints / npoints)``; per-epoch
+step count, optionally scaled by ``min(1, maxpoints / npoints)``; a tuple
+learning rate gives one rate per stage, a leaf's stage being the first
+list index on its path (mscale_hier's ``stages[k]`` and ``heads[k]``);
+per-epoch
 MSE vs the target and vs the clean gt from the step's SSE sums; the best
 reconstruction and parameters by MSE kept on the device with masked copies
 (no host sync per epoch).
@@ -27,13 +30,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from wire_tpu_torch import tree
 from wire_tpu_torch.device import resolve
+from wire_tpu_torch.nn.models import grad_leaves, grads_tree
 from wire_tpu_torch.ops.wire_step import StepScratch
 
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    learning_rate: Any = 5e-3      # float
+    learning_rate: Any = 5e-3      # float, or a tuple: one per stage
     niters: int = 2000             # epochs
     maxpoints: int = 256 * 256     # chunk size
     lr_decay: float = 0.1          # final LR multiplier
@@ -70,11 +75,11 @@ def track_best(is_best, current, best):
 
 
 def lr_schedule(cfg: FitConfig, nchunks: int):
-    """step -> learning rate (a Python float), stepped once per epoch."""
-    if not np.isscalar(cfg.learning_rate):
-        raise NotImplementedError("per-stage learning-rate groups are not "
-                                  "ported yet (WIRE uses one rate)")
-    base = float(cfg.learning_rate)
+    """step -> decay factor (a Python float) of the base rate, stepped once
+    per epoch; the scalar learning rate folded in (a tuple of rates, one per
+    stage, multiplies it instead, as _lr_schedule's base of 1.0)."""
+    base = (float(cfg.learning_rate) if np.isscalar(cfg.learning_rate)
+            else 1.0)
 
     def schedule(step):
         return base * cfg.lr_decay ** min((step // nchunks) / cfg.niters, 1.0)
@@ -82,12 +87,24 @@ def lr_schedule(cfg: FitConfig, nchunks: int):
     return schedule
 
 
+def stage_rates(cfg: FitConfig, paths):
+    """Per leaf, the rate the schedule is multiplied by: 1 for a scalar
+    learning rate, else ``learning_rate[stage]``, the stage the first list
+    index on the leaf's path (0 where there is none)."""
+    if np.isscalar(cfg.learning_rate):
+        return [1.0] * len(paths)
+    lrs = tuple(float(lr) for lr in cfg.learning_rate)
+    return [lrs[tree.stage_of(path)] for path in paths]
+
+
 class Adam:
     """optax ``chain(scale_by_adam(b1, b2, eps, eps_root=0),
-    scale_by_schedule(-lr(step) * batch_scale))`` on a params dict, updated
-    in place:
+    scale_by_schedule(-lr(step) * batch_scale))`` on a parameter tree,
+    updated in place:
         mu = b1 mu + (1-b1) g;  nu = b2 nu + (1-b2) g^2;  k += 1
         p += -lr(k-1) * batch_scale * (mu / (1-b1^k)) / (sqrt(nu / (1-b2^k)) + eps)
+    A tuple learning rate is make_optimizer's ``multi_transform`` of one such
+    chain per stage, each leaf labelled by ``stage_rates``.
     """
 
     def __init__(self, cfg: FitConfig, params, npoints=None, nchunks=1):
@@ -96,15 +113,21 @@ class Adam:
         if cfg.scale_lr_by_batch and npoints is not None:
             self.batch_scale = min(1.0, cfg.maxpoints / npoints)
         self.schedule = lr_schedule(cfg, nchunks)
-        self.keys = [(k, kk) for k in params for kk in params[k]]
-        self.mu = [torch.zeros_like(params[k][kk]) for k, kk in self.keys]
-        self.nu = [torch.zeros_like(params[k][kk]) for k, kk in self.keys]
+        flat = tree.leaves(params)
+        self.paths = [path for path, _ in flat]
+        rates = stage_rates(cfg, self.paths)
+        # leaf indices per distinct rate, one foreach update each
+        self.groups = {}
+        for i, r in enumerate(rates):
+            self.groups.setdefault(r, []).append(i)
+        self.mu = [torch.zeros_like(t) for _, t in flat]
+        self.nu = [torch.zeros_like(t) for _, t in flat]
         self.count = 0
 
     def step(self, params, grads):
         cfg = self.cfg
-        p = [params[k][kk] for k, kk in self.keys]
-        g = [grads[k][kk] for k, kk in self.keys]
+        p = [tree.get(params, path) for path in self.paths]
+        g = [tree.get(grads, path) for path in self.paths]
         torch._foreach_mul_(self.mu, cfg.b1)
         torch._foreach_add_(self.mu, g, alpha=1.0 - cfg.b1)
         torch._foreach_mul_(self.nu, cfg.b2)
@@ -118,7 +141,9 @@ class Adam:
         torch._foreach_add_(denom, cfg.eps)
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(p, upd, alpha=-lr * self.batch_scale)
+        for rate, idx in self.groups.items():
+            torch._foreach_add_([p[i] for i in idx], [upd[i] for i in idx],
+                                alpha=-lr * rate * self.batch_scale)
 
 
 def _as_tensor(x, device):
@@ -148,11 +173,10 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
             f"fit_pointwise: maxpoints={cfg.maxpoints} < npoints={npoints} "
             f"needs the chunked epochs, which are not ported yet")
 
-    params = {k: {kk: v.detach().to(dev, torch.float32).clone()
-                  for kk, v in sub.items()} for k, sub in params.items()}
+    params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
+                      params)
     opt = Adam(cfg, params, npoints=npoints, nchunks=nchunks)
-    best_params = {k: {kk: v.clone() for kk, v in sub.items()}
-                   for k, sub in params.items()}
+    best_params = tree.map(torch.clone, params)
     best_rec = torch.zeros_like(target)
     rec = best_rec
     best_mse = torch.tensor(float("inf"), device=dev)
@@ -229,12 +253,10 @@ def fit_operator(model, params, coords, measurement, operator_fn,
     gt_arr = _as_tensor(gt_field, dev) if track_gt else None
     field_shape = tuple(field_shape)
 
-    params = {k: {kk: v.detach().to(dev, torch.float32).clone()
-                  for kk, v in sub.items()} for k, sub in params.items()}
+    params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
+                      params)
     opt = Adam(cfg, params, nchunks=1)
-    keys = opt.keys
-    best_params = {k: {kk: v.clone() for kk, v in sub.items()}
-                   for k, sub in params.items()}
+    best_params = tree.map(torch.clone, params)
     best_field = torch.zeros(field_shape, dtype=torch.float32, device=dev)
     best_loss = torch.tensor(float("inf"), device=dev)
     hist_loss = torch.empty(cfg.niters, device=dev)
@@ -248,20 +270,13 @@ def fit_operator(model, params, coords, measurement, operator_fn,
         ev0.record()
     t0 = time.time()
     for it in range(cfg.niters):
-        leaves = [params[k][kk].detach().requires_grad_(True)
-                  for k, kk in keys]
-        p = {k: {} for k in params}
-        for (k, kk), leaf in zip(keys, leaves):
-            p[k][kk] = leaf
+        paths, leaves, p = grad_leaves(params)
         with torch.enable_grad():
             field = model.apply(p, coords).reshape(field_shape)
             est = operator_fn(field)
             loss = torch.mean((est - measurement) ** 2)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = {k: {} for k in params}
-        for (k, kk), leaf, gr in zip(keys, leaves, flat):
-            grads[k][kk] = torch.zeros_like(leaf) if gr is None else gr
-        opt.step(params, grads)
+        opt.step(params, grads_tree(paths, leaves, flat))
         field = field.detach()
         loss = loss.detach()
         tracked = torch.mean((field - gt_arr) ** 2) if track_gt else loss

@@ -1,0 +1,74 @@
+"""Paths through parameter trees: nested dicts and lists of tensors, walked
+as ``jax.tree_util`` walks them (dict keys in sorted order, list entries in
+index order), so every family's parameters, whatever their depth (the
+real families' ``{layer: {w, b}}``, mscale_2's combiner with a tensor
+beside ``{w, b}`` dicts, mscale_hier's ``stages[k][i]`` lists), go through
+one walk.
+
+A path is a tuple of dict keys (str) and list indices (int); a leaf is
+anything that is neither a dict nor a list/tuple.
+"""
+from __future__ import annotations
+
+
+def leaves(tree, prefix=()):
+    """[(path, leaf)] in jax.tree_util's order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += leaves(tree[k], prefix + (k,))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += leaves(v, prefix + (i,))
+        return out
+    return [(prefix, tree)]
+
+
+def unflatten(paths, values):
+    """The tree whose leaf at each path is the matching value: str keys
+    build dicts, int keys lists (indices 0 .. k-1, all present)."""
+    paths = list(paths)
+    values = list(values)
+    if not paths:
+        return {}
+    if len(paths) == 1 and paths[0] == ():
+        return values[0]
+    groups = {}
+    for path, v in zip(paths, values):
+        if not path:
+            raise ValueError("a root leaf beside other leaves")
+        groups.setdefault(path[0], []).append((path[1:], v))
+    sub = {k: unflatten([p for p, _ in g], [v for _, v in g])
+           for k, g in groups.items()}
+    if all(isinstance(k, int) for k in sub):
+        if sorted(sub) != list(range(len(sub))):
+            raise ValueError(f"list indices {sorted(sub)} are not 0 .. "
+                             f"{len(sub) - 1}")
+        return [sub[i] for i in range(len(sub))]
+    if any(isinstance(k, int) for k in sub):
+        raise ValueError("a node with both list indices and dict keys")
+    return sub
+
+
+def map(fn, tree):
+    """The tree of ``fn(leaf)``, same structure."""
+    flat = leaves(tree)
+    return unflatten([p for p, _ in flat], [fn(v) for _, v in flat])
+
+
+def get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def stage_of(path):
+    """The first list index on a path, or 0 where there is none: the
+    per-stage learning-rate group of a leaf (wire_tpu/train/trainer.py:
+    make_optimizer's label_tree)."""
+    for k in path:
+        if isinstance(k, int):
+            return k
+    return 0
