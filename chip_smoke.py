@@ -6,14 +6,16 @@
     python3 chip_smoke.py --epochs 2000   # the full denoise bench protocol,
                                           # 25 dB floor
 
-It drives five paths of the port: WIRE-300 denoise through fit_pointwise
+It drives seven paths of the port: WIRE-300 denoise through fit_pointwise
 (kernel: wire_step), WIRE-300 CT reconstruction through fit_operator
 (kernels: wire_mlp, and line_sample for the 'auto' = fourier method or
 rotsum for 'rotate'), B-spline denoise through fit_pointwise (preset
 Bspline_s9_5_LR8e3_E4000; kernel: real_step), B-spline SISR through
-fit_operator (preset Bspline_s9_LR1e3_E2000; kernel: real_mlp's pair) and
+fit_operator (preset Bspline_s9_LR1e3_E2000; kernel: real_mlp's pair),
 mscale_2 denoise through fit_pointwise (preset Mscale2_ST8_3_LR8e3_E4000;
-kernel: mscale2_step).
+kernel: mscale2_step), and the sweep app's MFN denoise (kernel: mfn_step)
+and MFN SISR (kernel: mfn_mlp's pair); then the sweep app itself
+(wire_tpu_torch.apps.sweep), every task for each of its six families.
 Phases, each printing one JSON line with its wall time:
   device           card name and count, nvidia-smi's name and power limit;
                    TF32 off for matmuls and cuDNN
@@ -24,7 +26,12 @@ Phases, each printing one JSON line with its wall time:
                    at the mscale_hier and mscale_HL folds; wire_mlp
                    on (b, N, 2) coordinates and without a gradient (equal
                    output, peak memory of two ping-pong planes); rotsum on
-                   a non-square image
+                   a non-square image; mfn_mlp without dcoords, on (b, N, 2)
+                   coordinates, without a gradient and at the extreme phase
+                   |x w| ~ 8,000; two calls of each MFN kernel bit-equal;
+                   then every kernel the sweep phase launches, for each
+                   family and task at the sweep's own shapes (CT: 262,144
+                   rows; mfn's CT pair with dcoords too)
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
                    shapes, and the card's least time for the same work
@@ -48,6 +55,13 @@ Phases, each printing one JSON line with its wall time:
                    image, 65,536 coordinates, full batch) for 300 epochs,
                    through the kernel (counts reset just before, read just
                    after) and the plain path (fused="never"), from one init
+  fit_mfn          the sweep's MFN denoise (300 wide, 256 x 256, 65,536
+                   coordinates, full batch) for 300 epochs, likewise
+  fit_mfn_sisr     the sweep's MFN SISR (256 wide, 256 x 256 HR, x4 box
+                   downsample) for 300 iterations, likewise
+  sweep            sweep_denoise, sweep_sisr and sweep_ct at the sweep's
+                   sizes, one family per call for 20 iterations: each
+                   call launches its family's kernels and no other
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -99,12 +113,24 @@ REAL_SISR_CONFIG = "Bspline_s9_LR1e3_E2000"
 WIRE_TPU_300_MSCALE2_DB = 26.10752296447754
 MSCALE2_CONFIG = "Mscale2_ST8_3_LR8e3_E4000"
 
+# Best PSNR of the 300-epoch MFN denoise fit and best -10 log10(MSE) of the
+# 300-iteration MFN SISR fit from wire_tpu on the CPU (fused="never",
+# float32, the sweep app's problems, this script's seed-0 init moved across
+# with wire_tpu_torch.bridge), as printed by tools/port_mfn_floor.py; the
+# kernel fits must reach them less 0.2 dB, and agree with the plain fits
+# within PSNR_AGREE_DB.
+WIRE_TPU_300_MFN_DB = {"denoise": 22.19007110595703,
+                       "sisr": 18.832611964689864}
+MFN_ITERS = 300
+# iterations of each family's fit in the sweep phase
+SWEEP_ITERS = 20
+
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W power limit.
 H100_FP32_TFLOPS = 67.0
 H100_HBM_TBPS = 3.35
 
 KERNEL_LIBRARIES = ("wire_step", "wire_mlp", "rotsum", "line_sample",
-                    "real_mlp", "mscale2_step")
+                    "real_mlp", "mscale2_step", "mfn")
 # the kernels line: name -> (library source, the TPU kernel it replaces)
 KERNELS = {
     "wire_step": ("wire_step", "wire_tpu/ops/pallas/wire_step.py:356"),
@@ -115,10 +141,12 @@ KERNELS = {
     "real_mlp": ("real_mlp", "wire_tpu/ops/pallas/real_mlp.py:304"),
     "mscale2_step": ("mscale2_step",
                      "wire_tpu/ops/pallas/mscale2_step.py:222"),
+    "mfn_step": ("mfn", "wire_tpu/ops/pallas/mfn_step.py:421"),
+    "mfn_mlp": ("mfn", "wire_tpu/ops/pallas/mfn_step.py:290"),
 }
 
 # Kernel vs plain: max abs error <= REL_TOL * max |plain| per output tensor.
-# Both sum fp32 products over up to 65,536 rows in different orders (tiles
+# Both sum fp32 products over up to 262,144 rows in different orders (tiles
 # and fixed-order chunk partials vs cuBLAS), so they differ by rounding.
 REL_TOL = 1e-4
 
@@ -1236,6 +1264,541 @@ def fit_mscale2(torch, np, mods, counters, device):
                 plain_fit_wall_s=res_plain.wall_time_s)
 
 
+MFN_SPEC_FIELDS = ("in_features", "out_features", "hidden_features",
+                   "hidden_layers")
+
+
+def mfn_models(get_inr, SW, task, H, W):
+    """The sweep app's MFN model for a task (kernels) and the same spec with
+    fused='never' (the plain path)."""
+    model = SW._build("mfn", task, H, W, 3e1 if task == "denoise" else 1e2)
+    plain = get_inr("mfn", fused="never", **{
+        f: getattr(model.spec, f) for f in MFN_SPEC_FIELDS})
+    return model, plain
+
+
+def mfn_case(torch, get_inr, n, d, h, layers, o, seed, device):
+    """An MFN of the given shape, its seeded init and numpy-seeded inputs:
+    (model, params, coords, target, gt, cotangent)."""
+    import numpy as np
+    model = get_inr("mfn", in_features=d, out_features=o, hidden_features=h,
+                    hidden_layers=layers)
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    rng = np.random.default_rng(seed)
+    arrs = (rng.uniform(-1, 1, (n, d)), rng.uniform(0, 1, (n, o)),
+            rng.uniform(0, 1, (n, o)), rng.normal(size=(n, o)))
+    return (model, params) + tuple(
+        torch.tensor(a.astype(np.float32), device=device) for a in arrs)
+
+
+def mfn_pair_fn(MF, spec, paths, plain=False):
+    """(coords, *leaves) -> y through the kernels or the plain version."""
+    apply = MF.mfn_mlp_plain if plain else MF.mfn_mlp
+
+    def fn(coords, *leaves):
+        return apply(tree_unflatten(paths, leaves), coords, spec)
+    return fn
+
+
+def param_vjp(torch, fn, coords, leaves, cot):
+    """vjp() with constant coordinates (no dcoords, as in every fit)."""
+    xs = [x.detach().requires_grad_(True) for x in leaves]
+    out = fn(coords, *xs)
+    grads = torch.autograd.grad(out, xs, cot, allow_unused=True)
+    res = {"out": out.detach()}
+    res.update({f"d{i + 1}": torch.zeros_like(x) if g is None else g
+                for i, (x, g) in enumerate(zip(xs, grads))})
+    return res
+
+
+def same_bits(torch, a, b, what):
+    for name in b:
+        if not torch.equal(a[name], b[name]):
+            raise AssertionError(f"{what}: two calls differ in {name}")
+
+
+def mfn_kernel_vs_plain(torch, MF, get_inr, device):
+    """max abs err of mfn_step and of the mfn_mlp pair against their plain
+    versions: the step at the denoise sweep's shape (n = 65,536, h = 300,
+    metrics) and a ragged one (n = 700, nvalid 650, denom, d = 3, o = 1,
+    hidden_layers 3); the pair at the SISR sweep's shape (n = 65,536,
+    h = 256) with and without dcoords, on (4, 50, 2) coordinates, without a
+    gradient (equal output, no kept planes) and at the extreme phase
+    |x w| ~ 8,000; two calls of each kernel giving identical bits."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    errs = {"mfn_step": {}, "mfn_mlp": {}}
+    for which, (n, d, h, layers, o, nvalid, denom) in {
+            "full": (256 * 256, 2, 300, 2, 3, None, None),
+            "ragged": (700, 3, 300, 3, 1, 650, 650 * 1.0 + 1.0)}.items():
+        model, params, c, t, gt, _ = mfn_case(torch, get_inr, n, d, h,
+                                              layers, o, 24, device)
+        scratch = StepScratch()
+        got, again = (tensors_of(*MF.mfn_step(
+            params, c, t, model.spec, nvalid=nvalid, denom=denom, gt=gt,
+            want_metrics=True, scratch=scratch)) for _ in range(2))
+        torch.cuda.synchronize()
+        same_bits(torch, got, again, f"mfn_step {which}")
+        want = tensors_of(*MF.mfn_step_plain(params, c, t, model.spec,
+                                             nvalid=nvalid, denom=denom,
+                                             gt=gt, want_metrics=True))
+        errs["mfn_step"][which] = compare(got, want, f"mfn_step {which}")
+
+    model, params, c, _, _, g = mfn_case(torch, get_inr, 256 * 256, 2, 256,
+                                         2, 3, 25, device)
+    spec, keys = model.spec, leaf_paths(params)
+    leaves = [t for _, t in tree_leaves(params)]
+    kfn, pfn = mfn_pair_fn(MF, spec, keys), mfn_pair_fn(MF, spec, keys, True)
+    got, again = (vjp(torch, kfn, [c] + leaves, g) for _ in range(2))
+    torch.cuda.synchronize()
+    same_bits(torch, got, again, "mfn_mlp full")
+    errs["mfn_mlp"]["full"] = compare(got, vjp(torch, pfn, [c] + leaves, g),
+                                      "mfn_mlp full")
+    got = param_vjp(torch, kfn, c, leaves, g)
+    errs["mfn_mlp"]["no_dcoords"] = compare(
+        got, param_vjp(torch, pfn, c, leaves, g), "mfn_mlp without dcoords")
+    with_grad = got["out"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y = MF.mfn_mlp(params, c, spec)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    pingpong = 2 * c.shape[0] * 256 * 4
+    slack = 16 * 2 ** 20
+    if not torch.equal(y, with_grad):
+        raise AssertionError("mfn_mlp without a gradient differs from the "
+                             "pair's forward")
+    if not peak <= pingpong + slack:
+        raise AssertionError(f"mfn_mlp without a gradient peaked at {peak} "
+                             f"bytes, more than two ping-pong planes "
+                             f"({pingpong}) + {slack}")
+    errs["mfn_mlp"]["nograd_peak_mb"] = peak / 1e6
+    errs["mfn_mlp"]["nograd_pingpong_mb"] = pingpong / 1e6
+
+    c3, g3 = c[:200].reshape(4, 50, 2), g[:200].reshape(4, 50, 3)
+    got = vjp(torch, kfn, [c3] + leaves, g3)
+    if got["out"].shape != (4, 50, 3):
+        raise AssertionError(f"mfn_mlp (4, 50, 2): output shape "
+                             f"{tuple(got['out'].shape)}")
+    errs["mfn_mlp"]["batched"] = compare(
+        got, vjp(torch, pfn, [c3] + leaves, g3), "mfn_mlp (4, 50, 2)")
+
+    model, params, c, _, _, g = mfn_case(torch, get_inr, 512, 2, 64, 2, 3,
+                                         26, device)
+    qmax = 0.0
+    for k in params:
+        if k.startswith("gabor_"):
+            w = params[k]["w"]
+            params[k]["w"] = (w * (8000.0 / float((c @ w).abs().max()))
+                              ).contiguous()
+            qmax = max(qmax, float((c @ params[k]["w"]).abs().max()))
+    if not qmax > 7e3:
+        raise AssertionError(f"extreme phase: max |x w| {qmax}")
+    keys, leaves = leaf_paths(params), [t for _, t in tree_leaves(params)]
+    errs["mfn_mlp"]["extreme_phase"] = compare(
+        vjp(torch, mfn_pair_fn(MF, model.spec, keys), [c] + leaves, g),
+        vjp(torch, mfn_pair_fn(MF, model.spec, keys, True), [c] + leaves, g),
+        "mfn_mlp at |x w| ~ 8,000")
+    errs["mfn_mlp"]["extreme_phase_max_q"] = qmax
+    return errs
+
+
+# the sweep's tasks as the app sizes them: (task, field side, out features,
+# tau of _build)
+SWEEP_SHAPES = (("denoise", 256, 3, 3e1), ("sisr", 256, 3, 1e2),
+                ("ct", 512, 1, 1e2))
+# each real sweep family's fold onto the canonical kernels (nn/models.py):
+# the fold and its basis; posenc is relu on encoded coordinates
+SWEEP_REAL_FOLDS = {"siren": ("_canon_siren", "sine"),
+                    "gauss": ("_canon_gauss", "gauss"),
+                    "relu": ("_canon_relu", "relu"),
+                    "posenc": ("_canon_relu", "relu")}
+
+
+def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
+    """max abs err of every kernel the sweep phase launches against its
+    plain version at the sweep's own shapes, each family from the sweep's
+    seed-0 init (SW._build) on the sweep's coordinate grid: denoise (256^2
+    = 65,536 rows, o 3) through the step kernels, with metrics; SISR (256^2
+    HR, o 3) and CT (512^2 = 262,144 rows, o 1) through the pairs as a fit
+    calls them (parameter gradients), mfn's CT pair with dcoords as well.
+    siren, gauss, relu and posenc go through their fold (posenc on its
+    encoded coordinates)."""
+    errs = {name: {} for name in ("wire_step", "wire_mlp", "real_step",
+                                  "real_mlp", "mfn_step", "mfn_mlp")}
+    steps = {"wire": (WS.wire_step, WS.wire_step_plain),
+             "mfn": (MF.mfn_step, MF.mfn_step_plain)}
+    pairs = {"wire": lambda spec, keys, plain: wire_mlp_fn(WM, spec, keys,
+                                                           plain),
+             "mfn": lambda spec, keys, plain: mfn_pair_fn(MF, spec, keys,
+                                                          plain)}
+    for task, side, o, tau in SWEEP_SHAPES:
+        n = side * side
+        rng = np.random.default_rng(40)
+        coords = torch.tensor(SW.C.grid2d(side, side), device=device)
+        t, gt, g = (torch.tensor(a.astype(np.float32), device=device)
+                    for a in (rng.uniform(0, 1, (n, o)),
+                              rng.uniform(0, 1, (n, o)),
+                              rng.normal(size=(n, o))))
+        for nonlin in SW.NONLINS:
+            model = SW._build(nonlin, task, side, side, tau, out_features=o,
+                              posenc_sidelength=100 if task == "ct" else None)
+            spec = model.spec
+            params = model.init(torch.Generator().manual_seed(0), device)
+            what = f"sweep {task} {nonlin}"
+            if nonlin in SWEEP_REAL_FOLDS:
+                fold, kind = SWEEP_REAL_FOLDS[nonlin]
+                canon = getattr(MM, fold)(params, spec)
+                kinds = (kind,) * len(canon["layers"])
+                x = MM._posenc_pre(coords, spec)
+                if task == "denoise":
+                    got = RM.real_step(canon, x, t, kinds, gt=gt,
+                                       want_metrics=True)
+                    torch.cuda.synchronize()
+                    want = RM.real_step_plain(canon, x, t, kinds, gt=gt,
+                                              want_metrics=True)
+                    errs["real_step"][what] = compare(
+                        real_step_tensors(RM, *got),
+                        real_step_tensors(RM, *want), what)
+                    continue
+                L = len(canon["layers"])
+                leaves = [v for _, v in RM.canon_leaves(canon)]
+                got = param_vjp(torch, real_mlp_fn(RM, L, kinds), x, leaves,
+                                g)
+                torch.cuda.synchronize()
+                errs["real_mlp"][what] = compare(got, param_vjp(
+                    torch, real_mlp_fn(RM, L, kinds, plain=True), x, leaves,
+                    g), what)
+                continue
+            lib = "wire" if nonlin == "wire" else "mfn"
+            if task == "denoise":
+                kernel, plain = steps[lib]
+                got = tensors_of(*kernel(params, coords, t, spec, gt=gt,
+                                         want_metrics=True))
+                torch.cuda.synchronize()
+                want = tensors_of(*plain(params, coords, t, spec, gt=gt,
+                                         want_metrics=True))
+                errs[f"{lib}_step"][what] = compare(got, want, what)
+                continue
+            keys = leaf_paths(params)
+            leaves = [v for _, v in tree_leaves(params)]
+            kfn, pfn = pairs[lib](spec, keys, False), pairs[lib](spec, keys,
+                                                                 True)
+            got = param_vjp(torch, kfn, coords, leaves, g)
+            torch.cuda.synchronize()
+            errs[f"{lib}_mlp"][what] = compare(
+                got, param_vjp(torch, pfn, coords, leaves, g), what)
+            if lib == "mfn" and task == "ct":
+                got = vjp(torch, kfn, [coords] + leaves, g)
+                torch.cuda.synchronize()
+                errs["mfn_mlp"][what + " dcoords"] = compare(
+                    got, vjp(torch, pfn, [coords] + leaves, g),
+                    what + " with dcoords")
+    return errs
+
+
+def mfn_matmul_vjp(torch, params, x, cotangent, want_dcoords=False):
+    """The MFN forward as torch.matmul calls with the filters in PyTorch
+    ops, and its backward written out (mfn_step.py:115-153), for the output
+    cotangent ``cotangent(y)``: the library yardstick (not used by the
+    port).  Returns (y, grads, dcoords or None)."""
+    k = sum(1 for name in params if name.startswith("gabor_"))
+
+    def filt(p):
+        q = torch.addmm(p["b"], x, p["w"])
+        nrm = ((x * x).sum(-1, keepdim=True) + (p["mu"] * p["mu"]).sum(-1)
+               - 2.0 * (x @ p["mu"].t()))
+        return torch.exp(-0.5 * p["gamma"] * nrm), torch.sin(q), \
+            torch.cos(q), nrm
+
+    F = [filt(params[f"gabor_{j}"]) for j in range(k)]
+    zs, ls = [F[0][0] * F[0][1]], [None]
+    for j in range(1, k):
+        lin = params[f"linear_{j - 1}"]
+        ls.append(torch.addmm(lin["b"], zs[-1], lin["w"]))
+        zs.append(ls[-1] * F[j][0] * F[j][1])
+    fin = params["final"]
+    y = torch.addmm(fin["b"], zs[-1], fin["w"])
+    g = cotangent(y)
+    grads = {"final": {"w": zs[-1].t() @ g, "b": g.sum(0)}}
+    dc = torch.zeros_like(x) if want_dcoords else None
+
+    def filt_grads(j, dg):
+        nonlocal dc
+        E, S, C, nrm = F[j]
+        p = params[f"gabor_{j}"]
+        es = dg * E
+        dq, ges = es * C, es * S
+        dn = (-0.5 * p["gamma"]) * ges
+        grads[f"gabor_{j}"] = {
+            "w": x.t() @ dq, "b": dq.sum(0),
+            "gamma": -0.5 * (ges * nrm).sum(0),
+            "mu": 2.0 * dn.sum(0)[:, None] * p["mu"] - 2.0 * (dn.t() @ x)}
+        if want_dcoords:
+            dc = (dc + dq @ p["w"].t() + 2.0 * dn.sum(1, keepdim=True) * x
+                  - 2.0 * (dn @ p["mu"]))
+
+    dz = g @ fin["w"].t()
+    for j in range(k - 1, 0, -1):
+        dl = dz * (F[j][0] * F[j][1])
+        filt_grads(j, dz * ls[j])
+        lin = params[f"linear_{j - 1}"]
+        grads[f"linear_{j - 1}"] = {"w": zs[j - 1].t() @ dl, "b": dl.sum(0)}
+        dz = dl @ lin["w"].t()
+    filt_grads(0, dz)
+    return y, grads, dc
+
+
+def mfn_matmul_step(torch, params, x, target, gt):
+    """The masked-MSE train step through ``mfn_matmul_vjp``."""
+    n, o = target.shape
+    y, grads, _ = mfn_matmul_vjp(
+        torch, params, x, lambda y: (2.0 / (n * o)) * (y - target))
+    et, eg = y - target, y - gt
+    return y, grads, ((et * et).sum(), (eg * eg).sum())
+
+
+def mfn_measure(torch, MF, get_inr, device):
+    """Times of mfn_step at the denoise sweep's shape (n = 65,536, h = 300)
+    and of the mfn_mlp pair (dcoords included) at the SISR sweep's shape
+    (n = 65,536, h = 256): the kernel (a host call, and its kernels' device
+    time), the plain version, the matmul yardstick, and the card's least
+    time for the same work."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    out = {}
+    n, d, h, layers, o = 256 * 256, 2, 300, 2, 3
+    model, params, c, t, gt, _ = mfn_case(torch, get_inr, n, d, h, layers, o,
+                                          27, device)
+    spec = model.spec
+    nweights = num_weights(params)
+    scratch = StepScratch()
+
+    def step():
+        return MF.mfn_step(params, c, t, spec, gt=gt, want_metrics=True,
+                           scratch=scratch)
+
+    lib_err = compare(
+        tensors_of(*mfn_matmul_step(torch, params, c, t, gt)),
+        tensors_of(*MF.mfn_step_plain(params, c, t, spec, gt=gt,
+                                      want_metrics=True)),
+        "mfn matmul step vs plain")
+    flops = MF.step_flops(n, d, h, o, layers + 1)
+    nbytes = 4 * (n * (d + o + o) + nweights + n * o + nweights + 2)
+    res = {
+        "ms": cuda_ms(torch, step, 20),
+        "kernel_ms": kernel_device_ms(torch, step, 20, kernel_names("mfn")),
+        "plain_ms": cuda_ms(torch, lambda: MF.mfn_step_plain(
+            params, c, t, spec, gt=gt, want_metrics=True), 10),
+        "library_ms": cuda_ms(torch, lambda: mfn_matmul_step(
+            torch, params, c, t, gt), 10),
+        "library": "torch.matmul step, filters and written-out backward in "
+                   "PyTorch ops",
+        "library_vs_plain_max_abs_err": lib_err}
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
+        if res["kernel_ms"] else None
+    out["mfn_step"] = res
+    del scratch
+
+    h = 256
+    model, params, c, _, _, g = mfn_case(torch, get_inr, n, d, h, layers, o,
+                                         28, device)
+    spec, keys = model.spec, leaf_paths(params)
+    leaves = [t for _, t in tree_leaves(params)]
+    nweights = num_weights(params)
+    kfn, pfn = mfn_pair_fn(MF, spec, keys), mfn_pair_fn(MF, spec, keys, True)
+
+    def pair():
+        return vjp(torch, kfn, [c] + leaves, g)
+
+    def fwd():
+        with torch.no_grad():
+            kfn(c, *leaves)
+
+    lib = mfn_matmul_vjp(torch, params, c, lambda y: g, want_dcoords=True)
+    got = {"out": lib[0], "d0": lib[2]}
+    got.update({f"d{i + 1}": tt for i, (_, tt) in
+                enumerate(tree_leaves(lib[1]))})
+    want = vjp(torch, pfn, [c] + leaves, g)
+    flops = MF.apply_flops(n, d, h, o, layers + 1)
+    nbytes = 4 * (2 * (n * d + n * o + nweights))
+    res = {
+        "ms": cuda_ms(torch, pair, 20),
+        "kernel_ms": kernel_device_ms(torch, pair, 20, kernel_names("mfn")),
+        "fwd_ms": cuda_ms(torch, fwd, 20),
+        "plain_ms": cuda_ms(torch, lambda: vjp(torch, pfn, [c] + leaves, g),
+                            10),
+        "library_ms": cuda_ms(torch, lambda: mfn_matmul_vjp(
+            torch, params, c, lambda y: g, want_dcoords=True), 10),
+        "library": "torch.matmul forward, filters and written-out backward "
+                   "in PyTorch ops",
+        "library_vs_plain_max_abs_err": max(
+            float((got[k] - want[k]).abs().max()) for k in want)}
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
+        if res["kernel_ms"] else None
+    out["mfn_mlp"] = res
+    return out
+
+
+def fit_mfn(torch, np, mods, counters, device):
+    """MFN denoise at the sweep's problem (the 512^2 stand-in halved to
+    256^2, noised with measure_np(snr 2, tau 30), 65,536 coordinates, full
+    batch, lr 5e-2 scaled by batch) for MFN_ITERS epochs through
+    fit_pointwise: once through the kernel, counts reset just before and
+    read just after, and once through the plain path (fused='never'), from
+    one init."""
+    SW, M, get_inr, FitConfig, fit_pointwise = mods
+    im, im_noisy = SW.denoise_images()
+    H, W, _ = im.shape
+    model, plain = mfn_models(get_inr, SW, "denoise", H, W)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    grid = SW.C.grid2d(H, W)
+    fit_cfg = FitConfig(learning_rate=SW._DENOISE_LR["mfn"],
+                        niters=MFN_ITERS, maxpoints=256 * 256,
+                        scale_lr_by_batch=True)
+    reset_counts(counters)
+    res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                        fit_cfg, gt=im.reshape(-1, 3), device=device)
+    launches = read_counts(counters)
+    check_real_launches(launches, "MFN denoise",
+                        {("mfn", "step"): MFN_ITERS})
+    res_plain = fit_pointwise(plain, params, grid, im_noisy.reshape(-1, 3),
+                              fit_cfg, gt=im.reshape(-1, 3), device=device)
+    if read_counts(counters) != launches:
+        raise AssertionError("MFN denoise: the plain fit launched a kernel")
+    for r in (res, res_plain):
+        if not (np.isfinite(r.best_rec).all() and np.isfinite(r.mse_gt).all()
+                and r.best_rec.shape == (H * W, 3)):
+            raise AssertionError("MFN denoise: non-finite values or a wrong "
+                                 "shape")
+    psnr, psnr_plain = (float(M.psnr_ref(im, r.best_rec.reshape(H, W, 3)))
+                        for r in (res, res_plain))
+    if not abs(psnr - psnr_plain) <= PSNR_AGREE_DB:
+        raise AssertionError(
+            f"MFN denoise: kernel fit {psnr:.3f} dB vs plain fit "
+            f"{psnr_plain:.3f} dB differ by more than {PSNR_AGREE_DB} dB")
+    floor = WIRE_TPU_300_MFN_DB["denoise"] - 0.2
+    if not psnr >= floor:
+        raise AssertionError(f"MFN denoise: kernel fit best PSNR "
+                             f"{psnr:.3f} dB below the floor {floor} dB")
+    return dict(epochs=MFN_ITERS, launches=launches["mfn"], psnr_db=psnr,
+                psnr_plain_db=psnr_plain, floor_db=floor,
+                ms_per_step=res.step_ms, plain_ms_per_step=res_plain.step_ms,
+                fit_wall_s=res.wall_time_s,
+                plain_fit_wall_s=res_plain.wall_time_s)
+
+
+def fit_mfn_sisr(torch, np, mods, counters, device):
+    """MFN SISR at the sweep's problem (the 768^2 stand-in shrunk by a third
+    to 256^2 HR, x4 box downsample to 64^2, lr 5e-2 decaying to 0.2x) for
+    MFN_ITERS iterations through fit_operator, through the kernels and the
+    plain path, from one init."""
+    SW, TS, TF, M, get_inr, FitConfig, fit_operator = mods
+    im, im_lr = TS.sisr_images(None, 0, 4, size=768)
+    H, W, _ = im.shape
+    model, plain = mfn_models(get_inr, SW, "sisr", H, W)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    grid = SW.C.grid2d(H, W)
+    fit_cfg = FitConfig(learning_rate=SW._SISR_LR["mfn"], niters=MFN_ITERS,
+                        lr_decay=0.2)
+    op = TF.DownsampleOp(4)
+    reset_counts(counters)
+    res = fit_operator(model, params, grid, im_lr, op, fit_cfg, gt_field=im,
+                       field_shape=(H, W, 3), track="gt", device=device)
+    launches = read_counts(counters)
+    check_real_launches(launches, "MFN SISR",
+                        {("mfn", "forward"): MFN_ITERS,
+                         ("mfn", "backward"): MFN_ITERS})
+    res_plain = fit_operator(plain, params, grid, im_lr, op, fit_cfg,
+                             gt_field=im, field_shape=(H, W, 3), track="gt",
+                             device=device)
+    if read_counts(counters) != launches:
+        raise AssertionError("MFN SISR: the plain fit launched a kernel")
+    for r in (res, res_plain):
+        if not (np.isfinite(r.best_rec).all() and np.isfinite(r.mse_gt).all()
+                and r.best_rec.shape == (H, W, 3)):
+            raise AssertionError("MFN SISR: non-finite values or a wrong "
+                                 "shape")
+    db, db_plain = M.mse_db(res.best_mse), M.mse_db(res_plain.best_mse)
+    if not abs(db - db_plain) <= PSNR_AGREE_DB:
+        raise AssertionError(f"MFN SISR: kernel fit {db:.3f} dB vs plain fit "
+                             f"{db_plain:.3f} dB differ by more than "
+                             f"{PSNR_AGREE_DB} dB")
+    floor = WIRE_TPU_300_MFN_DB["sisr"] - 0.2
+    if not db >= floor:
+        raise AssertionError(f"MFN SISR: kernel fit best -10 log10(MSE) "
+                             f"{db:.3f} dB below the floor {floor} dB")
+    return dict(iters=MFN_ITERS, launches=launches["mfn"], mse_db=db,
+                mse_db_plain=db_plain, floor_db=floor,
+                ssim=float(M.ssim(im, res.best_rec, data_range=1.0)),
+                ms_per_iter=res.step_ms, plain_ms_per_iter=res_plain.step_ms,
+                fit_wall_s=res.wall_time_s,
+                plain_fit_wall_s=res_plain.wall_time_s)
+
+
+def sweep_expected(task, nonlin, iters):
+    """The launches one family's sweep fit of ``iters`` steps must show: its
+    step kernel (denoise) or its pair (SISR, CT; CT adds the fourier
+    operator's gather and scatter, and one gather for the sinogram)."""
+    lib = {"wire": "wire", "mfn": "mfn"}.get(nonlin, "real_mlp")
+    if task == "denoise":
+        return {("wire_step" if lib == "wire" else lib, "step"): iters}
+    pair = "wire_mlp" if lib == "wire" else lib
+    want = {(pair, "forward"): iters, (pair, "backward"): iters}
+    if task == "ct":
+        want.update({("line_sample", "gather"): iters + 1,
+                     ("line_sample", "scatter"): iters})
+    return want
+
+
+def sweep_phase(torch, np, SW, WS, counters, device):
+    """The sweep app's three tasks for each of the six families, one family
+    per call at SWEEP_ITERS iterations, at the sweep's own sizes: the
+    launches of each call (counts reset just before, read just after) must
+    be its family's kernels and nothing else, the three artifact files of
+    each call written, and every metric finite."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, run, metric in (("denoise", SW.sweep_denoise, "Best PSNR"),
+                                  ("sisr", SW.sweep_sisr, "Best MSE"),
+                                  ("ct", SW.sweep_ct, "Best PSNR")):
+            out[task] = {}
+            for nonlin in SW.NONLINS:
+                t0 = time.time()
+                rdir = os.path.join(tmp, task, nonlin)
+                reset_counts(counters)
+                ws0 = WS.wire_step.launches
+                res = run(results_dir=rdir, niters=SWEEP_ITERS,
+                          nonlins=[nonlin], device=device)[nonlin]
+                launches = read_counts(counters)
+                launches["wire_step"] = {
+                    "step": WS.wire_step.launches - ws0}
+                check_real_launches(launches, f"sweep {task} {nonlin}",
+                                    sweep_expected(task, nonlin,
+                                                   SWEEP_ITERS))
+                for suffix in ("_info.mat", "_metrics.mat", "_table.md"):
+                    path = os.path.join(rdir, f"{task}_sweep{suffix}")
+                    if not os.path.isfile(path):
+                        raise AssertionError(f"sweep {task} {nonlin}: "
+                                             f"{path} not written")
+                values = {k: v for k, v in res.items() if k != "rec"}
+                if not (np.isfinite(res["rec"]).all() and all(
+                        np.isfinite(v) for v in values.values())):
+                    raise AssertionError(f"sweep {task} {nonlin}: a "
+                                         f"non-finite metric or field")
+                out[task][nonlin] = dict(
+                    metric=res[metric], step_ms=res.get("Step (ms)"),
+                    launches={k: v for k, v in launches.items()
+                              if any(v.values())},
+                    wall_s=time.time() - t0)
+    return out
+
+
 def cuda_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -1280,6 +1843,8 @@ def main():
     from wire_tpu_torch.apps import common as TC
     from wire_tpu_torch.apps import denoise as TD
     from wire_tpu_torch.apps import sisr as TS
+    from wire_tpu_torch.apps import sweep as SW
+    import wire_tpu_torch.ops.mfn as MF
 
     # ---- device ----------------------------------------------------------
     t0 = time.time()
@@ -1343,9 +1908,14 @@ def main():
     errs["mscale2_step"] = mscale2_kernel_vs_plain(torch, MS, MM, ms_models,
                                                    dev)
     errs["repaired"] = repaired_faults(torch, WM, R, ct_model, dev)
+    errs.update(mfn_kernel_vs_plain(torch, MF, get_inr, dev))
+    for name, cases in sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM,
+                                             MF, dev).items():
+        errs[name].update(cases)
     emit("kernel_vs_plain", t0, max_abs_err=errs, rel_tol=REL_TOL,
          why=("max abs err <= rel_tol x max|plain| per output tensor: fp32 "
-              "sums over up to 65,536 rows (wire_*, real_*), 256 rows "
+              "sums over up to 262,144 rows (wire_*, real_*, mscale2_*, "
+              "mfn_*), 256 rows "
               "(rotsum) taken in another order; line_sample's scatter adds "
               "with atomics in a varying order"))
 
@@ -1389,9 +1959,10 @@ def main():
     meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
                                            dev)
+    meas.update(mfn_measure(torch, MF, get_inr, dev))
     emit("measure", t0, kernels=meas, nvidia_smi=smi,
          pairs=("ms, plain_ms and library_ms of wire_mlp, rotsum, "
-                "line_sample and real_mlp time the forward and its "
+                "line_sample, real_mlp and mfn_mlp time the forward and its "
                 "backward/adjoint together through autograd, as a call from "
                 "the host; kernel_ms the device time of the kernels alone "
                 "in those calls; fwd_ms the forward alone"))
@@ -1447,7 +2018,7 @@ def main():
     t0 = time.time()
     counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
                 "line_sample": LS.launches, "real_mlp": RM.launches,
-                "mscale2_step": MS.launches}
+                "mscale2_step": MS.launches, "mfn": MF.launches}
     ws_before = WS.wire_step.launches
     real = fit_real(torch, np, (TD, TC, M, RM, get_inr, get_config,
                                 FitConfig, fit_pointwise), counters, dev)
@@ -1463,15 +2034,33 @@ def main():
     t0 = time.time()
     mscale = fit_mscale2(torch, np, (TD, TC, M, get_inr, get_config,
                                      FitConfig, fit_pointwise), counters, dev)
-    if WS.wire_step.launches != ws_before:
-        raise AssertionError("the B-spline fits launched wire_step")
     emit("fit_mscale2", t0, **mscale)
+
+    # ---- fit_mfn (MFN denoise, the sweep's problem) -------------------------
+    t0 = time.time()
+    mfn = fit_mfn(torch, np, (SW, M, get_inr, FitConfig, fit_pointwise),
+                  counters, dev)
+    emit("fit_mfn", t0, **mfn)
+
+    # ---- fit_mfn_sisr (MFN SISR, the sweep's problem) -----------------------
+    t0 = time.time()
+    mfn_sisr = fit_mfn_sisr(torch, np, (SW, TS, TF, M, get_inr, FitConfig,
+                                        fit_operator), counters, dev)
+    if WS.wire_step.launches != ws_before:
+        raise AssertionError("the B-spline or MFN fits launched wire_step")
+    emit("fit_mfn_sisr", t0, **mfn_sisr)
+
+    # ---- sweep (the six-family sweep app, every task) -----------------------
+    t0 = time.time()
+    sweep = sweep_phase(torch, np, SW, WS, counters, dev)
+    emit("sweep", t0, iters=SWEEP_ITERS, tasks=sweep)
 
     # launches of each kernel in the path that runs it: wire_step in the
     # WIRE denoise fit, wire_mlp in both CT fits, line_sample in 'auto'
     # (fourier), rotsum in 'rotate', real_step in the B-spline denoise fit,
     # real_mlp in the B-spline SISR fit, mscale2_step in the mscale_2
-    # denoise fit; a pair counts both directions
+    # denoise fit, mfn_step in the MFN denoise fit, mfn_mlp in the MFN SISR
+    # fit; a pair counts both directions
     path_launches = {
         "wire_step": {"step": launches},
         "wire_mlp": {k: ct["auto"]["launches"]["wire_mlp"][k]
@@ -1482,7 +2071,10 @@ def main():
         "real_step": {"step": real["launches"]["step"]},
         "real_mlp": {k: sisr["launches"][k]
                      for k in ("forward", "backward")},
-        "mscale2_step": {"step": mscale["launches"]["step"]}}
+        "mscale2_step": {"step": mscale["launches"]["step"]},
+        "mfn_step": {"step": mfn["launches"]["step"]},
+        "mfn_mlp": {k: mfn_sisr["launches"][k]
+                    for k in ("forward", "backward")}}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -9,7 +9,8 @@ import pytest
 
 from wire_tpu_torch.ops import build
 
-SOURCES = ("wire_step", "wire_mlp", "rotsum", "line_sample", "real_mlp")
+SOURCES = ("wire_step", "wire_mlp", "rotsum", "line_sample", "real_mlp",
+           "mscale2_step", "mfn")
 
 
 @pytest.fixture
@@ -23,7 +24,7 @@ def csrc(tmp_path, monkeypatch):
 def test_every_kernel_source_is_there():
     for name in SOURCES:
         assert os.path.isfile(os.path.join(build.CSRC_DIR, f"{name}.cu"))
-    for header in ("wire_gemm.cuh", "gemm_common.cuh"):
+    for header in ("wire_gemm.cuh", "gemm_common.cuh", "real_chain.cuh"):
         assert os.path.isfile(os.path.join(build.CSRC_DIR, header))
 
 

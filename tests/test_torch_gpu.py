@@ -1,6 +1,8 @@
 """The CUDA kernels (wire_step, wire_mlp, rotsum, line_sample, real_mlp's
-pair and step, mscale2_step) against their plain PyTorch versions on the
-card (marked ``gpu``; skipped where no CUDA device is present):
+pair and step, mscale2_step, mfn's step and pair) against their plain
+PyTorch versions on the card, the sweep app's families launching their
+kernels, and the trainers' step timing leaving the first step out (marked
+``gpu``; skipped where no CUDA device is present):
 
     python -m pytest tests/test_torch_gpu.py -m gpu -p no:randomly
 """
@@ -560,3 +562,166 @@ def test_multiscale_families_launch_the_kernels(cuda):
         assert counter["step"] == before + 1, nonlin
         want = plain.step_grads(params, c, t, want_metrics=True)
         _assert_rel(_tree_flat(*got), _tree_flat(*want))
+
+
+# ---- mfn_step and the mfn_mlp pair: the Gabor MFN -------------------------
+
+def _mfn_case(n, d, hf, layers, out, device, seed=0):
+    model = get_inr("mfn", in_features=d, out_features=out,
+                    hidden_features=hf, hidden_layers=layers)
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    rng = np.random.default_rng(seed)
+    c, t, gt, g = (torch.tensor(a.astype(np.float32), device=device)
+                   for a in (rng.uniform(-1, 1, (n, d)),
+                             rng.uniform(0, 1, (n, out)),
+                             rng.uniform(0, 1, (n, out)),
+                             rng.normal(size=(n, out))))
+    return model, params, c, t, gt, g
+
+
+def _mfn_vjp(fn, params, coords, g):
+    from wire_tpu_torch import tree
+    flat = tree.leaves(params)
+    leaves = [v.detach().requires_grad_(True) for _, v in flat]
+    c = coords.detach().requires_grad_(True)
+    y = fn(tree.unflatten([p for p, _ in flat], leaves), c)
+    grads = torch.autograd.grad(y, leaves + [c], g)
+    out = {"y": y.detach(), "dcoords": grads[-1]}
+    out.update({str(p): gr for (p, _), gr in zip(flat, grads[:-1])})
+    return out
+
+
+@pytest.mark.parametrize("n,d,hf,layers,out,nvalid,denom", [
+    (65536, 2, 300, 2, 3, None, None), (700, 3, 91, 3, 1, 650, 1951.0),
+    (4099, 2, 256, 1, 3, 4000, None)])
+def test_mfn_step_kernel_matches_plain(cuda, n, d, hf, layers, out, nvalid,
+                                       denom):
+    from wire_tpu_torch.ops import mfn as MF
+    model, params, c, t, gt, _ = _mfn_case(n, d, hf, layers, out, cuda)
+    before = MF.launches["step"]
+    got = _tree_flat(*MF.mfn_step(params, c, t, model.spec, nvalid=nvalid,
+                                  denom=denom, gt=gt, want_metrics=True))
+    torch.cuda.synchronize()
+    assert MF.launches["step"] == before + 1
+    want = _tree_flat(*MF.mfn_step_plain(params, c, t, model.spec,
+                                         nvalid=nvalid, denom=denom, gt=gt,
+                                         want_metrics=True))
+    assert got.keys() == want.keys()
+    _assert_rel(got, want)
+
+
+@pytest.mark.parametrize("n,d,hf,layers,out", [
+    (65536, 2, 256, 2, 3), (700, 3, 91, 3, 1), (4099, 2, 300, 0, 1)])
+def test_mfn_mlp_kernel_matches_plain(cuda, n, d, hf, layers, out):
+    from wire_tpu_torch.ops import mfn as MF
+    model, params, c, _, _, g = _mfn_case(n, d, hf, layers, out, cuda)
+    before = dict(MF.launches)
+    got = _mfn_vjp(lambda p, x: MF.mfn_mlp(p, x, model.spec), params, c, g)
+    torch.cuda.synchronize()
+    assert MF.launches["forward"] == before["forward"] + 1
+    assert MF.launches["backward"] == before["backward"] + 1
+    want = _mfn_vjp(lambda p, x: MF.mfn_mlp_plain(p, x, model.spec), params,
+                    c, g)
+    _assert_rel(got, want)
+
+
+def test_mfn_kernels_are_deterministic(cuda):
+    """Two calls of the step and of the pair give identical bits (no float
+    atomics), the step reusing its scratch."""
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    model, params, c, t, gt, g = _mfn_case(5000, 2, 300, 2, 3, cuda)
+    scratch = StepScratch()
+    a, b = (_tree_flat(*MF.mfn_step(params, c, t, model.spec, gt=gt,
+                                    want_metrics=True, scratch=scratch))
+            for _ in range(2))
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    fn = lambda p, x: MF.mfn_mlp(p, x, model.spec)  # noqa: E731
+    a, b = _mfn_vjp(fn, params, c, g), _mfn_vjp(fn, params, c, g)
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_mfn_at_extreme_phase_kernel_matches_plain(cuda):
+    """Every filter's w scaled until max |x w| ~ 8,000 (the JAX package's
+    extreme-phase case): the kernels form the phase as the plain version
+    does, so the bound holds there too."""
+    from wire_tpu_torch.ops import mfn as MF
+    model, params, c, _, _, g = _mfn_case(512, 2, 64, 2, 3, cuda, seed=7)
+    for k in params:
+        if k.startswith("gabor_"):
+            w = params[k]["w"]
+            params[k]["w"] = (w * (8000.0 / float((c @ w).abs().max()))
+                              ).contiguous()
+    got = _mfn_vjp(lambda p, x: MF.mfn_mlp(p, x, model.spec), params, c, g)
+    want = _mfn_vjp(lambda p, x: MF.mfn_mlp_plain(p, x, model.spec), params,
+                    c, g)
+    _assert_rel(got, want)
+
+
+def test_mfn_mlp_leading_axes_and_no_grad(cuda):
+    from wire_tpu_torch.ops import mfn as MF
+    model, params, c, _, _, g = _mfn_case(200, 2, 91, 2, 3, cuda)
+    got = _mfn_vjp(lambda p, x: MF.mfn_mlp(p, x, model.spec), params,
+                   c.reshape(4, 50, 2), g.reshape(4, 50, 3))
+    want = _mfn_vjp(lambda p, x: MF.mfn_mlp_plain(p, x, model.spec), params,
+                    c.reshape(4, 50, 2), g.reshape(4, 50, 3))
+    assert got["y"].shape == (4, 50, 3)
+    _assert_rel(got, want)
+    before = dict(MF.launches)
+    with torch.no_grad():
+        y = MF.mfn_mlp(params, c.reshape(4, 50, 2), model.spec)
+    assert MF.launches["backward"] == before["backward"]
+    assert torch.equal(y, got["y"])
+
+
+def test_sweep_denoise_launches_each_familys_kernel(cuda, tmp_path):
+    """One short sweep denoise run per family on the card: wire takes
+    wire_step, siren, relu, posenc and gauss real_step, mfn mfn_step, one
+    launch per epoch."""
+    from wire_tpu_torch.apps import sweep
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import real_mlp as RM
+    counters = {"wire": lambda: WS.wire_step.launches,
+                "mfn": lambda: MF.launches["step"]}
+    for nonlin in sweep.NONLINS:
+        count = counters.get(nonlin, lambda: RM.launches["step"])
+        before = count()
+        out = sweep.sweep_denoise(results_dir=str(tmp_path / nonlin),
+                                  niters=3, size=64, nonlins=[nonlin])
+        assert count() == before + 3, nonlin
+        assert np.isfinite(out[nonlin]["Best PSNR"]), nonlin
+
+
+@pytest.mark.parametrize("fit", ["pointwise", "operator"])
+def test_step_ms_leaves_the_first_step_out(cuda, fit):
+    """FitResult.step_ms times steps 1 .. n-1 on the card: a 0.3 s host
+    stall in the first step (where a kernel library's build would fall)
+    stays outside it, one in a later step does not."""
+    import time
+    from wire_tpu_torch.train.trainer import (FitConfig, fit_operator,
+                                              fit_pointwise)
+    for stall_at in (0, 2):
+        model, params, coords, target, _ = _case(256, 32, 1, 1, cuda)
+        name = "step_grads" if fit == "pointwise" else "apply"
+        inner, calls = getattr(model, name), []
+
+        def stalled(*a, **k):
+            if len(calls) == stall_at:
+                time.sleep(0.3)
+            calls.append(1)
+            return inner(*a, **k)
+        setattr(model, name, stalled)
+        cfg = FitConfig(niters=5, maxpoints=256)
+        if fit == "pointwise":
+            res = fit_pointwise(model, params, coords, target, cfg,
+                                device=cuda)
+        else:
+            res = fit_operator(model, params, coords, target.reshape(16, 16),
+                               lambda f: f, cfg, field_shape=(16, 16),
+                               track="loss", device=cuda)
+        if stall_at == 0:
+            assert res.step_ms < 30.0, res.step_ms
+        else:
+            assert res.step_ms > 0.3e3 / 4, res.step_ms

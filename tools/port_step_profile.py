@@ -10,7 +10,10 @@ B-spline denoise fit (preset Bspline_s9_5_LR8e3_E4000, 65,536 coordinates)
 and ``--real sisr`` the B-spline SISR fit (preset Bspline_s9_LR1e3_E2000,
 168 x 168 HR, x4 box downsample), or with ``--mscale2`` the mscale_2
 denoise fit (preset Mscale2_ST8_3_LR8e3_E4000, scales 1/9, 4, 8, 65,536
-coordinates), with torch.profiler after a warm-up fit,
+coordinates), or with ``--mfn`` the sweep app's MFN denoise fit (300 wide,
+2 hidden layers, lr 5e-2, 65,536 coordinates) and ``--mfn sisr`` its MFN
+SISR fit (256 wide, 256 x 256 HR, x4 box downsample), with torch.profiler
+after a warm-up fit,
 and prints one JSON line: device time per epoch by kernel
 (sorted, summed over launches; device-side events only, so a kernel is not
 counted again under the operator or autograd Function that launched it),
@@ -22,12 +25,14 @@ wgrad_partial_kernel, reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
 rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /
 backward / dcoords GEMMs of the real families, colsum_partial_kernel,
-combiner_kernel of mscale_2); the rest are PyTorch's (weight stacking,
-FFTs, Adam, best tracking).
+combiner_kernel of mscale_2, filter_forward_kernel,
+mfn_gemm_kernel<0|1|2> = link forward / link backward / last data
+gradient, filter_grad_partial_kernel and filter_grad_finish_kernel of the
+MFN); the rest are PyTorch's (weight stacking, FFTs, Adam, best tracking).
 
     python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate |
-                                        --real denoise|sisr | --mscale2]
-                                                    # default 20, denoise
+                                        --real denoise|sisr | --mscale2 |
+                                        --mfn [sisr]]   # default 20, denoise
 """
 import json
 import os
@@ -110,6 +115,29 @@ def real_fit(iters, path, dev):
                                 device=dev)
 
 
+def mfn_fit(epochs, path, dev):
+    from wire_tpu_torch.apps import sweep
+    if path == "sisr":
+        im, im_lr = sisr.sisr_images(None, 0, 4, size=768)
+        H, W, _ = im.shape
+        model = sweep._build("mfn", "sisr", H, W, 1e2)
+        params = model.init(torch.Generator().manual_seed(0), dev)
+        fit_cfg = FitConfig(learning_rate=sweep._SISR_LR["mfn"],
+                            niters=epochs, lr_decay=0.2)
+        return lambda: fit_operator(model, params, C.grid2d(H, W), im_lr,
+                                    DownsampleOp(4), fit_cfg, gt_field=im,
+                                    field_shape=(H, W, 3), device=dev)
+    im, im_noisy = sweep.denoise_images()
+    H, W, _ = im.shape
+    model = sweep._build("mfn", "denoise", H, W, 3e1)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    fit_cfg = FitConfig(learning_rate=sweep._DENOISE_LR["mfn"], niters=epochs,
+                        maxpoints=256 * 256, scale_lr_by_batch=True)
+    return lambda: fit_pointwise(model, params, C.grid2d(H, W),
+                                 im_noisy.reshape(-1, 3), fit_cfg,
+                                 gt=im.reshape(-1, 3), device=dev)
+
+
 def main():
     args = sys.argv[1:]
     method = real = None
@@ -124,10 +152,19 @@ def main():
     if "--mscale2" in args:
         args.remove("--mscale2")
         real = "mscale2"
+    mfn = None
+    if "--mfn" in args:
+        i = args.index("--mfn")
+        mfn = "denoise"
+        if i + 1 < len(args) and args[i + 1] in ("denoise", "sisr"):
+            mfn = args.pop(i + 1)
+        del args[i]
     epochs = int(args[0]) if args else 20
     dev = resolve("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if real is not None:
+    if mfn is not None:
+        run = mfn_fit(epochs, mfn, dev)
+    elif real is not None:
         run = real_fit(epochs, real, dev)
     elif method is not None:
         run = ct_fit(epochs, method, dev)
@@ -155,7 +192,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "fit": ("mscale_2 denoise" if real == "mscale2" else
+        "fit": (f"mfn {mfn}" if mfn is not None else
+                "mscale_2 denoise" if real == "mscale2" else
                 f"bspline {real}" if real is not None else
                 "denoise" if method is None else f"ct {method}"),
         "epochs": epochs, "nvidia_smi": smi,

@@ -96,26 +96,20 @@ struct Layer {
   int rows_per_block;
 };
 
-// acc = A (n x K) @ B (K x N) for a 64 x 64 tile, then the epilogue:
-//   kFwd:   z = acc; v = gamma (alpha z + beta); out0 = z (skipped when
-//           null), out1 = B(v)                             (n x N each)
-//   kBwd:   acc is da; z = zin; v as above; dv = gamma dB(v) da;
-//           out0 = dv, out1 = z dv                         (n x N each)
-//   kPlain: out0 = acc
-template <int kEpi>
-__global__ void __launch_bounds__(kThreads) real_gemm_kernel(
-    const float* __restrict__ A, const float* __restrict__ B, Layer lay,
-    const float* __restrict__ zin, float* __restrict__ out0,
-    float* __restrict__ out1, int n, int K, int N) {
+// acc = A (n x K) @ B (K x N) over the 64 x 64 output tile at (row0,
+// col0), in fp32 FMAs on the CUDA cores: thread tid = 16 ty + tx holds
+// rows row0 + 4 ty .. + 3 and columns col0 + 4 tx .. + 3; rows, columns
+// and depth past n, N and K are masked.  Every GEMM of real_gemm_kernel and
+// of csrc/mfn.cu runs this loop and then its own epilogue.
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
+                                          const float* __restrict__ B, int n,
+                                          int K, int N, int row0, int col0,
+                                          float (&acc)[4][4]) {
   __shared__ __align__(16) float As[kTileK][kTileRows + 4];
   __shared__ __align__(16) float Bs[kTileK][kTileCols];
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // columns tx*4 .. tx*4+3 of the tile
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3 of the tile
-  const int row0 = blockIdx.x * kTileRows;
-  const int col0 = blockIdx.y * kTileCols;
-
-  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -150,6 +144,24 @@ __global__ void __launch_bounds__(kThreads) real_gemm_kernel(
     }
     __syncthreads();
   }
+}
+
+// acc = A (n x K) @ B (K x N) for a 64 x 64 tile, then the epilogue:
+//   kFwd:   z = acc; v = gamma (alpha z + beta); out0 = z (skipped when
+//           null), out1 = B(v)                             (n x N each)
+//   kBwd:   acc is da; z = zin; v as above; dv = gamma dB(v) da;
+//           out0 = dv, out1 = z dv                         (n x N each)
+//   kPlain: out0 = acc
+template <int kEpi>
+__global__ void __launch_bounds__(kThreads) real_gemm_kernel(
+    const float* __restrict__ A, const float* __restrict__ B, Layer lay,
+    const float* __restrict__ zin, float* __restrict__ out0,
+    float* __restrict__ out1, int n, int K, int N) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int row0 = blockIdx.x * kTileRows;
+  const int col0 = blockIdx.y * kTileCols;
+  float acc[4][4];
+  gemm_tile(A, B, n, K, N, row0, col0, acc);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

@@ -1,12 +1,12 @@
-"""Parameter initializers (port of wire_tpu/nn/init.py:25-82).
+"""Parameter initializers (port of wire_tpu/nn/init.py:25-98).
 
-The same uniform laws as the JAX package (torch.nn.Linear's default,
-U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias, and SIREN's
-scaled weights), drawn from an
-explicit ``torch.Generator``.  The numbers differ from jax.random's for the
-same seed; tests move a JAX init across with ``wire_tpu_torch.bridge``.
-Weights are ``(in, out)``.  Draws are made on the CPU generator and then
-moved, so an init is the same on every device.
+The same laws as the JAX package (torch.nn.Linear's default,
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias, SIREN's scaled
+weights, and MFN's Gabor filters with their Gamma-distributed widths),
+drawn from an explicit ``torch.Generator``.  The numbers differ from
+jax.random's for the same seed; tests move a JAX init across with
+``wire_tpu_torch.bridge``.  Weights are ``(in, out)``.  Draws are made on
+the CPU generator and then moved, so an init is the same on every device.
 """
 from __future__ import annotations
 
@@ -65,3 +65,50 @@ def siren_final_linear_params(gen, in_features, out_features, *, omega0,
     return {"w": uniform(gen, (in_features, out_features), bound, device),
             "b": uniform(gen, (out_features,), 1.0 / math.sqrt(in_features),
                          device)}
+
+
+def gamma(gen: torch.Generator, alpha, shape, device="cpu"):
+    """Gamma(alpha, 1) draws from ``gen`` (torch's own Gamma samplers take
+    no generator): Marsaglia and Tsang's squeeze-free rejection method on
+    the generator's normals and uniforms, in float64, for alpha >= 1; for
+    alpha < 1 a Gamma(alpha + 1) draw times U^(1 / alpha).  Rounds draw
+    one normal and one uniform per missing value until every value is
+    accepted, so the draws are a function of the generator's state."""
+    alpha = float(alpha)
+    if not alpha > 0:
+        raise ValueError(f"gamma: alpha must be > 0, got {alpha}")
+    n = math.prod(shape)
+    a = alpha + 1.0 if alpha < 1.0 else alpha
+    d = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    out = torch.empty((n,), dtype=torch.float64)
+    filled = 0
+    while filled < n:
+        m = n - filled
+        x = torch.randn((m,), generator=gen, dtype=torch.float64)
+        u = torch.rand((m,), generator=gen, dtype=torch.float64)
+        v = (1.0 + c * x) ** 3
+        pos = v > 0
+        logv = torch.log(torch.where(pos, v, torch.ones_like(v)))
+        ok = pos & (torch.log(u) < 0.5 * x * x + d - d * v + d * logv)
+        acc = d * v[ok]
+        out[filled:filled + acc.numel()] = acc
+        filled += acc.numel()
+    if alpha < 1.0:
+        u = torch.rand((n,), generator=gen, dtype=torch.float64)
+        out = out * u ** (1.0 / alpha)
+    return out.to(torch.float32).reshape(shape).to(device)
+
+
+def mfn_gabor_params(gen, in_features, out_features, alpha, beta=1.0,
+                     device="cpu"):
+    """One MFN Gabor filter (wire_tpu/nn/init.py:84-98): mu ~ U(-1, 1)
+    (out, in), gamma ~ Gamma(alpha, beta) (out), w ~ U(+-1/sqrt(in)) * 128
+    * sqrt(gamma) (in, out), b ~ U(-pi, pi) (out)."""
+    mu = uniform(gen, (out_features, in_features), 1.0)
+    g = gamma(gen, alpha, (out_features,)) / beta
+    w = uniform(gen, (in_features, out_features),
+                1.0 / math.sqrt(in_features)) * 128.0 * torch.sqrt(g)[None, :]
+    b = uniform(gen, (out_features,), math.pi)
+    return {"mu": mu.to(device), "gamma": g.to(device), "w": w.to(device),
+            "b": b.to(device)}

@@ -1,15 +1,17 @@
 """The INR families as (init, apply, step) functions over parameter trees
 (port of wire_tpu/nn/models.py: WIRE, :32-246; the canonical real
 families siren, gauss, relu/posenc and the B-splines form, cubic, srelu
-and knots, :311-733; the multiscale B-splines mscale_HL, mscale_2 and
-mscale_hier, :813-1146; the step hooks at :1160-1320).
+and knots, :311-733; the Gabor MFN, :579-631; the multiscale B-splines
+mscale_HL, mscale_2 and mscale_hier, :813-1146; the step hooks at
+:1160-1320).
 
 Parameters are nested dicts and lists of tensors with the JAX package's
 names and layouts (WIRE: ``first{w,b}``, ``hidden_i{wr,wi,br,bi}``,
 ``final{wr,wi,br,bi}``; the real families: ``{first, hidden_i, final}``
 each ``{w, b}``; mscale_2 adds ``combiner{scale_weights, freq_0, freq_1,
-refine_0, refine_1}``; mscale_hier is ``{stages: [[{w, b}, ...], ...],
-heads: [{w, b}, ...]}``; weights ``(in, out)``), walked by
+refine_0, refine_1}``; MFN: ``gabor_i{w,b,mu,gamma}``,
+``linear_i{w,b}``, ``final{w,b}``; mscale_hier is ``{stages: [[{w, b},
+...], ...], heads: [{w, b}, ...]}``; weights ``(in, out)``), walked by
 ``wire_tpu_torch.tree``, so ``wire_tpu_torch.bridge`` moves a JAX init
 across unchanged.  Topology: ``[first nonlinear layer] + hidden_layers x
 [nonlinear layer] + [final linear]``, real output.
@@ -850,3 +852,69 @@ mscale_hl_step = _make_real_step(mscale_hl_apply, _mscale_hl_kinds,
                                  use_ok=_mscale_hl_fusable)
 mscale_hier_step = _make_real_step(mscale_hier_apply, _hier_kinds,
                                    _canon_mscale_hier)
+
+
+# ===========================================================================
+# MFN - Gabor multiplicative filter network (ops/mfn.py)
+# ===========================================================================
+
+def mfn_init(gen, spec: INRSpec, device="cpu"):
+    """k = hidden_layers + 1 Gabor filters with gamma ~ Gamma(6 / k), k - 1
+    linears with w, b ~ U(+-sqrt(1 / h)), and the final linear
+    (wire_tpu/nn/models.py:579-594)."""
+    k = spec.hidden_layers + 1
+    h = spec.hidden_features
+    params = {}
+    for i in range(k):
+        params[f"gabor_{i}"] = winit.mfn_gabor_params(
+            gen, spec.in_features, h, alpha=6.0 / k, device=device)
+    for i in range(k - 1):
+        params[f"linear_{i}"] = winit.linear_params(gen, h, h, device=device)
+    params["final"] = winit.linear_params(gen, h, spec.out_features,
+                                          device=device)
+    return params
+
+
+def mfn_gabor(p, x):
+    """exp(-gamma/2 ||x - mu||^2) sin(x w + b) (wire_tpu/nn/models.py:597-
+    602), the norm in its expanded form |x|^2 + |mu|^2 - 2 x mu^T, in the
+    JAX path's order of operations.  The phase q = x w + b reaches the
+    hundreds at init, where one rounding step is ~3e-5: x w is a matmul
+    here as there (on the CPU both round it as fma(x_1, w_1, x_0 w_0), and
+    csrc/mfn.cu forms it so too), so the three agree on q."""
+    norm = ((x * x).sum(-1, keepdim=True) + (p["mu"] * p["mu"]).sum(-1)
+            - 2.0 * (x @ p["mu"].t()))
+    return torch.exp(-0.5 * p["gamma"] * norm) * torch.sin(x @ p["w"]
+                                                           + p["b"])
+
+
+def mfn_apply_plain(params, coords, spec: INRSpec):
+    """The MFN forward in plain PyTorch ops (autograd differentiates it):
+    z_0 = g_0(x), z_j = (z_{j-1} W_{j-1} + c_{j-1}) g_j(x), y = z_{k-1}
+    W_f + b_f."""
+    k = spec.hidden_layers + 1
+    z = mfn_gabor(params["gabor_0"], coords)
+    for i in range(k - 1):
+        z = linear(params[f"linear_{i}"], z) * mfn_gabor(
+            params[f"gabor_{i + 1}"], coords)
+    return linear(params["final"], z)
+
+
+def mfn_apply(params, coords, spec: INRSpec):
+    """The MFN forward: the apply/VJP kernel pair (ops/mfn.py:mfn_mlp)
+    unless ``spec.fused == 'never'`` (wire_tpu/nn/models.py:605-620); that
+    module runs the plain body for CPU tensors and the kernels for CUDA
+    tensors.  An MFN always ends in a plain linear, so
+    ``outermost_linear`` does not gate it."""
+    if spec.fused == "never":
+        return mfn_apply_plain(params, coords, spec)
+    from wire_tpu_torch.ops.mfn import mfn_mlp
+    return mfn_mlp(params, coords, spec)
+
+
+def mfn_step(params, coords, target, spec, *, nvalid=None, denom=None,
+             gt=None, want_metrics=False, scratch=None):
+    """MFN train-step dispatch to the step kernel (ops/mfn.py:mfn_step)."""
+    from wire_tpu_torch.ops.mfn import mfn_step as step
+    return step(params, coords, target, spec, nvalid=nvalid, denom=denom,
+                gt=gt, want_metrics=want_metrics, scratch=scratch)

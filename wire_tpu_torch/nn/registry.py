@@ -1,7 +1,7 @@
 """Model factory (port of wire_tpu/nn/registry.py:20-78 and get_inr):
 WIRE, the canonical real families (siren, gauss, relu, posenc and the
-B-splines form, cubic, srelu and knots) and the multiscale B-splines
-mscale_2, mscale_HL and mscale_hier."""
+B-splines form, cubic, srelu and knots), the Gabor MFN and the multiscale
+B-splines mscale_2, mscale_HL and mscale_hier."""
 from __future__ import annotations
 
 from wire_tpu_torch.nn import models as M
@@ -14,6 +14,7 @@ MODEL_REGISTRY = {
     "gauss": (M._plain_mlp_init, M.gauss_apply),
     "relu": (M.relu_init, M.relu_apply),
     "posenc": (M.relu_init, M.relu_apply),
+    "mfn": (M.mfn_init, M.mfn_apply),
     "bspline_form": (M.bspline_plain_init, M.bspline_form_apply),
     "bspline_cubic": (M.bspline_plain_init, M.bspline_cubic_apply),
     "bspline_srelu": (M.bspline_plain_init, M.bspline_srelu_apply),
@@ -30,6 +31,7 @@ STEP_REGISTRY = {
     "gauss": M.gauss_step,
     "relu": M.relu_step,
     "posenc": M.relu_step,
+    "mfn": M.mfn_step,
     "bspline_form": M.bspline_form_step,
     "bspline_cubic": M.bspline_cubic_step,
     "bspline_srelu": M.bspline_srelu_step,
@@ -47,6 +49,7 @@ _FAMILY_DEFAULTS = {
     "gauss": dict(scale=10.0),
     "relu": dict(),
     "posenc": dict(),
+    "mfn": dict(),
 }
 
 

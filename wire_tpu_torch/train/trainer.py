@@ -59,8 +59,35 @@ class FitResult:
     mse_noisy: np.ndarray    # per-epoch MSE vs the (noisy) fitting target
     best_mse: float
     wall_time_s: float
-    # device time per epoch from CUDA events (None on the CPU)
+    # device time per epoch from CUDA events, the first epoch left out
+    # (None on the CPU)
     step_ms: Optional[float] = None
+
+
+class _StepClock:
+    """Device ms per step from CUDA events over steps 1 .. n-1 (all n when
+    n == 1): the first step, which builds or loads a kernel library and
+    warms the allocator, stays outside the window.  Nothing on the CPU."""
+
+    def __init__(self, dev, niters):
+        self.on = dev.type == "cuda" and niters > 0
+        self.first = 1 if niters > 1 else 0
+        self.timed = niters - self.first
+        if self.on:
+            self.ev0 = torch.cuda.Event(enable_timing=True)
+            self.ev1 = torch.cuda.Event(enable_timing=True)
+
+    def tick(self, step):
+        """Call at the start of every step."""
+        if self.on and step == self.first:
+            self.ev0.record()
+
+    def ms(self):
+        if not self.on:
+            return None
+        self.ev1.record()
+        self.ev1.synchronize()
+        return self.ev0.elapsed_time(self.ev1) / self.timed
 
 
 def track_best(is_best, current, best):
@@ -185,14 +212,10 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
     inv_nc = 1.0 / (npoints * c)
     scratch = StepScratch()
 
-    on_cuda = dev.type == "cuda"
-    if on_cuda:
-        torch.cuda.synchronize(dev)
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
+    clock = _StepClock(dev, cfg.niters)
     t0 = time.time()
     for epoch in range(cfg.niters):
+        clock.tick(epoch)
         pred, grads, (sse_t, sse_g) = model.step_grads(
             params, coords, target, gt=gt_arr, want_metrics=True,
             scratch=scratch)
@@ -206,11 +229,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         best_mse = torch.where(is_best, mse_gt, best_mse)
         best_rec, best_params = track_best(is_best, (rec, params),
                                            (best_rec, best_params))
-    step_ms = None
-    if on_cuda:
-        ev1.record()
-        torch.cuda.synchronize(dev)
-        step_ms = ev0.elapsed_time(ev1) / max(cfg.niters, 1)
+    step_ms = clock.ms()
     wall = time.time() - t0
     return FitResult(
         params=params, best_params=best_params,
@@ -262,14 +281,10 @@ def fit_operator(model, params, coords, measurement, operator_fn,
     hist_loss = torch.empty(cfg.niters, device=dev)
     hist_tracked = torch.empty(cfg.niters, device=dev)
 
-    on_cuda = dev.type == "cuda"
-    if on_cuda:
-        torch.cuda.synchronize(dev)
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
+    clock = _StepClock(dev, cfg.niters)
     t0 = time.time()
     for it in range(cfg.niters):
+        clock.tick(it)
         paths, leaves, p = grad_leaves(params)
         with torch.enable_grad():
             field = model.apply(p, coords).reshape(field_shape)
@@ -286,11 +301,7 @@ def fit_operator(model, params, coords, measurement, operator_fn,
         best_loss = torch.where(is_best, tracked, best_loss)
         best_field, best_params = track_best(is_best, (field, params),
                                              (best_field, best_params))
-    step_ms = None
-    if on_cuda:
-        ev1.record()
-        torch.cuda.synchronize(dev)
-        step_ms = ev0.elapsed_time(ev1) / max(cfg.niters, 1)
+    step_ms = clock.ms()
     wall = time.time() - t0
     return FitResult(
         params=params, best_params=best_params,
