@@ -6,15 +6,17 @@
     python3 chip_smoke.py --epochs 2000   # the full denoise bench protocol,
                                           # 25 dB floor
 
-It drives seven paths of the port: WIRE-300 denoise through fit_pointwise
+It drives nine paths of the port: WIRE-300 denoise through fit_pointwise
 (kernel: wire_step), WIRE-300 CT reconstruction through fit_operator
 (kernels: wire_mlp, and line_sample for the 'auto' = fourier method or
 rotsum for 'rotate'), B-spline denoise through fit_pointwise (preset
 Bspline_s9_5_LR8e3_E4000; kernel: real_step), B-spline SISR through
 fit_operator (preset Bspline_s9_LR1e3_E2000; kernel: real_mlp's pair),
 mscale_2 denoise through fit_pointwise (preset Mscale2_ST8_3_LR8e3_E4000;
-kernel: mscale2_step), and the sweep app's MFN denoise (kernel: mfn_step)
-and MFN SISR (kernel: mfn_mlp's pair); then the sweep app itself
+kernel: mscale2_step), the sweep app's MFN denoise (kernel: mfn_step)
+and MFN SISR (kernel: mfn_mlp's pair), and WIRE-2D (300 wide) denoise
+through fit_pointwise (kernel: wire2d_step) and CT through fit_operator
+(kernels: wire2d_mlp's pair, line_sample); then the sweep app itself
 (wire_tpu_torch.apps.sweep), every task for each of its six families.
 Phases, each printing one JSON line with its wall time:
   device           card name and count, nvidia-smi's name and power limit;
@@ -31,7 +33,11 @@ Phases, each printing one JSON line with its wall time:
                    |x w| ~ 8,000; two calls of each MFN kernel bit-equal;
                    then every kernel the sweep phase launches, for each
                    family and task at the sweep's own shapes (CT: 262,144
-                   rows; mfn's CT pair with dcoords too)
+                   rows; mfn's CT pair with dcoords too); wire2d_step at
+                   the denoise shape and ragged (L 1 and 3), wire2d_mlp at
+                   the CT shape, with dcoords at the denoise shape, on
+                   (4, 50, 2) coordinates and without a gradient; two
+                   calls of each WIRE-2D kernel bit-equal
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
                    shapes, and the card's least time for the same work
@@ -59,6 +65,12 @@ Phases, each printing one JSON line with its wall time:
                    coordinates, full batch) for 300 epochs, likewise
   fit_mfn_sisr     the sweep's MFN SISR (256 wide, 256 x 256 HR, x4 box
                    downsample) for 300 iterations, likewise
+  fit_wire2d       WIRE-2D denoise at the bench protocol (256 x 256, 65,536
+                   coordinates, full batch, omega0 7, sigma 8) for 300
+                   epochs, likewise
+  fit_wire2d_ct    WIRE-2D CT at the CT protocol ('auto' = fourier, omega0
+                   3, sigma 12) for 300 iterations, likewise, and a render
+                   of the best parameters without a gradient
   sweep            sweep_denoise, sweep_sisr and sweep_ct at the sweep's
                    sizes, one family per call for 20 iterations: each
                    call launches its family's kernels and no other
@@ -122,6 +134,22 @@ MSCALE2_CONFIG = "Mscale2_ST8_3_LR8e3_E4000"
 WIRE_TPU_300_MFN_DB = {"denoise": 22.19007110595703,
                        "sisr": 18.832611964689864}
 MFN_ITERS = 300
+
+# Best PSNR of the 300-epoch WIRE-2D denoise fit and of the 300-iteration
+# WIRE-2D CT fit (fourier, the card's 'auto') from wire_tpu on the CPU
+# (fused="never", float32, this script's seed-0 init moved across with
+# wire_tpu_torch.bridge), as printed by tools/port_wire2d_floor.py; the
+# kernel fits must reach them less 0.2 dB, and agree with the plain fits
+# within PSNR_AGREE_DB.
+WIRE_TPU_300_WIRE2D_DB = {"denoise": 21.629484176635742,
+                          "ct": 26.968250274658203}
+WIRE2D_ITERS = 300
+# WIRE-2D at the width of tools/exp_width256.py's headline configuration
+# (300 hidden features: 150 complex units per head, 2 hidden layers) with
+# the denoise bench's frequencies; the CT path takes CT_CONFIG's
+WIRE2D_DENOISE_KW = dict(in_features=2, out_features=3, hidden_features=300,
+                         hidden_layers=2, first_omega0=7.0, hidden_omega0=7.0,
+                         scale=8.0)
 # iterations of each family's fit in the sweep phase
 SWEEP_ITERS = 20
 
@@ -130,7 +158,7 @@ H100_FP32_TFLOPS = 67.0
 H100_HBM_TBPS = 3.35
 
 KERNEL_LIBRARIES = ("wire_step", "wire_mlp", "rotsum", "line_sample",
-                    "real_mlp", "mscale2_step", "mfn")
+                    "real_mlp", "mscale2_step", "mfn", "wire2d")
 # the kernels line: name -> (library source, the TPU kernel it replaces)
 KERNELS = {
     "wire_step": ("wire_step", "wire_tpu/ops/pallas/wire_step.py:356"),
@@ -143,6 +171,8 @@ KERNELS = {
                      "wire_tpu/ops/pallas/mscale2_step.py:222"),
     "mfn_step": ("mfn", "wire_tpu/ops/pallas/mfn_step.py:421"),
     "mfn_mlp": ("mfn", "wire_tpu/ops/pallas/mfn_step.py:290"),
+    "wire2d_step": ("wire2d", "wire_tpu/ops/pallas/wire2d_step.py:305"),
+    "wire2d_mlp": ("wire2d", "wire_tpu/ops/pallas/wire2d_step.py:549"),
 }
 
 # Kernel vs plain: max abs error <= REL_TOL * max |plain| per output tensor.
@@ -245,6 +275,69 @@ def matmul_step(torch, w, coords, target, gt, spec):
     return y, gw1, gWh, gfW, ((et * et).sum(), (eg * eg).sum())
 
 
+def wire2d_matmul_vjp(torch, W2, params, coords, spec, cotangent,
+                      want_dcoords=False):
+    """The WIRE-2D forward and backward as torch.matmul calls on the
+    stacked layout (ops/wire2d.py:stack_params) with the Gabor-2D backward
+    written out (wire2d_step.py:189-198), for the output cotangent
+    ``cotangent(y)``: the library yardstick (not used by the port).
+    Returns (y, dparams, dcoords or None)."""
+    L = spec.hidden_layers
+    w = W2.stack_params(params, L)
+    h = w["w1"].shape[1] // 2
+    s2 = spec.scale ** 2
+    om, om1 = spec.hidden_omega0, spec.first_omega0
+
+    def gabor(lr, li, orr, oi, omega):
+        m = torch.exp(-omega * li - s2 * (lr * lr + li * li + orr * orr
+                                          + oi * oi))
+        return torch.cat([m * torch.cos(omega * lr),
+                          m * torch.sin(omega * lr)], 1)
+
+    def t12(da, a):
+        dar, dai, ar, ai = da[:, :h], da[:, h:], a[:, :h], a[:, h:]
+        return dar * ar + dai * ai, dai * ar - dar * ai
+
+    z1 = torch.addmm(w["b1"], coords, w["w1"])
+    lr1, or1 = z1[:, :h], z1[:, h:]
+    acts, zs = [gabor(lr1, 0.0, or1, 0.0, om1)], []
+    for l in range(L):
+        z = torch.addmm(w["B2"][l], acts[-1], w["W2"][l])
+        zs.append(z)
+        acts.append(gabor(*z.split(h, 1), om))
+    y = torch.addmm(w["fb"], acts[-1], w["fW"])
+    g = cotangent(y)
+    gfW = torch.cat([acts[-1].t() @ g, g.sum(0, keepdim=True)])
+    da = g @ w["fWT"]
+    gW2 = [None] * L
+    for l in reversed(range(L)):
+        t1, t2 = t12(da, acts[l + 1])
+        lr, li, orr, oi = zs[l].split(h, 1)
+        dz = torch.cat([-2.0 * s2 * lr * t1 + om * t2,
+                        (-om - 2.0 * s2 * li) * t1, -2.0 * s2 * orr * t1,
+                        -2.0 * s2 * oi * t1], 1)
+        gW2[l] = torch.cat([acts[l].t() @ dz, dz.sum(0, keepdim=True)])
+        da = dz @ w["W2T"][l]
+    t1, t2 = t12(da, acts[0])
+    dz1 = torch.cat([-2.0 * s2 * lr1 * t1 + om1 * t2, -2.0 * s2 * or1 * t1],
+                    1)
+    gw1 = torch.cat([coords.t() @ dz1, dz1.sum(0, keepdim=True)])
+    gW2 = torch.stack(gW2) if L else y.new_empty((0, 2 * h + 1, 4 * h))
+    dparams = W2.unstack_grads(gw1, gW2, gfW, params["final"]["bi"], L)
+    return y, dparams, (dz1 @ w["w1"].t() if want_dcoords else None)
+
+
+def wire2d_matmul_step(torch, W2, params, coords, target, gt, spec):
+    """The masked-MSE train step through ``wire2d_matmul_vjp``: (pred,
+    dparams, (sse_target, sse_gt))."""
+    n, o = target.shape
+    y, dparams, _ = wire2d_matmul_vjp(
+        torch, W2, params, coords, spec,
+        lambda y: (2.0 / (n * o)) * (y - target))
+    et, eg = y - target, y - gt
+    return y, dparams, ((et * et).sum(), (eg * eg).sum())
+
+
 def vjp(torch, fn, inputs, cot):
     """{"out": fn(*inputs)} plus "d<i>": the gradient of <fn(...), cot>
     w.r.t. input i (zeros where unused); fn may return a tuple, then cot is
@@ -261,11 +354,10 @@ def vjp(torch, fn, inputs, cot):
     return res
 
 
-def wire_mlp_fn(WM, spec, paths, plain=False):
-    """(coords, *leaves) -> y through the kernel or the plain version;
-    ``paths``: the parameter tree's leaf paths."""
-    apply = WM.wire_mlp_plain if plain else WM.wire_mlp
-
+def pair_fn(apply, spec, paths):
+    """(coords, *leaves) -> apply(params, coords, spec), ``params`` the tree
+    of ``leaves`` at ``paths``: a pair (the kernels or the plain version)
+    as a function of its leaves, for vjp()."""
     def fn(coords, *leaves):
         return apply(tree_unflatten(paths, leaves), coords, spec)
     return fn
@@ -409,7 +501,8 @@ def ct_kernel_cases(torch, WM, R, LS, model, n, S, A, P, K, seed, device):
     coords = t(rng.uniform(-1, 1, (n, 2)))
     g = t(rng.normal(size=(n, spec.out_features)))
     cases = {"wire_mlp": (
-        wire_mlp_fn(WM, spec, keys), wire_mlp_fn(WM, spec, keys, plain=True),
+        pair_fn(WM.wire_mlp, spec, keys),
+        pair_fn(WM.wire_mlp_plain, spec, keys),
         None, [coords] + [t for _, t in tree_leaves(params)], g)}
 
     angles = np.linspace(0, 180, A, dtype=np.float32)
@@ -721,6 +814,29 @@ def real_kernel_vs_plain(torch, RM, MM, model_a, model_b, device):
     return errs
 
 
+def check_nograd(torch, forward, with_grad, pingpong, what):
+    """Runs ``forward()`` (a pair's forward) without a gradient: its output
+    must equal the pair's, ``with_grad``, and its peak memory stay within
+    ``pingpong`` bytes (two ping-pong planes) + 16 MiB.  Returns (peak MB,
+    ping-pong MB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y = forward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    slack = 16 * 2 ** 20
+    if not torch.equal(y, with_grad):
+        raise AssertionError(f"{what} without a gradient differs from the "
+                             f"pair's forward")
+    if not peak <= pingpong + slack:
+        raise AssertionError(f"{what} without a gradient peaked at {peak} "
+                             f"bytes, more than two ping-pong planes "
+                             f"({pingpong}) + {slack}")
+    return peak / 1e6, pingpong / 1e6
+
+
 def repaired_faults(torch, WM, R, ct_model, device):
     """The port's repaired faults, kernel against plain: wire_mlp on (b, N,
     2) coordinates; wire_mlp without a gradient (the pair's output, and a
@@ -736,8 +852,8 @@ def repaired_faults(torch, WM, R, ct_model, device):
                      device=device)
     g = torch.tensor(rng.normal(size=(4, 50, 1)).astype(np.float32),
                      device=device)
-    got = vjp(torch, wire_mlp_fn(WM, spec, keys), [c] + leaves, g)
-    want = vjp(torch, wire_mlp_fn(WM, spec, keys, plain=True), [c] + leaves,
+    got = vjp(torch, pair_fn(WM.wire_mlp, spec, keys), [c] + leaves, g)
+    want = vjp(torch, pair_fn(WM.wire_mlp_plain, spec, keys), [c] + leaves,
                g)
     if got["out"].shape != (4, 50, 1):
         raise AssertionError(f"wire_mlp (4, 50, 2): output shape "
@@ -751,25 +867,10 @@ def repaired_faults(torch, WM, R, ct_model, device):
     with_grad = WM.wire_mlp(tree_unflatten(keys, grad_leaves), c,
                             spec).detach()
     del grad_leaves
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    with torch.no_grad():
-        y = WM.wire_mlp(params, c, spec)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
     h = params["first"]["w"].shape[1]
-    pingpong = 2 * n * 2 * h * 4
-    slack = 16 * 2 ** 20
-    if not torch.equal(y, with_grad):
-        raise AssertionError("wire_mlp without a gradient differs from the "
-                             "pair's forward")
-    if not peak <= pingpong + slack:
-        raise AssertionError(f"wire_mlp without a gradient peaked at {peak} "
-                             f"bytes, more than two ping-pong planes "
-                             f"({pingpong}) + {slack}")
-    errs["wire_mlp_nograd_peak_mb"] = peak / 1e6
-    errs["wire_mlp_nograd_pingpong_mb"] = pingpong / 1e6
+    errs["wire_mlp_nograd_peak_mb"], errs["wire_mlp_nograd_pingpong_mb"] = \
+        check_nograd(torch, lambda: WM.wire_mlp(params, c, spec), with_grad,
+                     2 * n * 2 * h * 4, "wire_mlp")
 
     angles = np.array([0.0, 7.3, 44.9, 90.0, 121.7, 180.0, -13.4, 315.0],
                       np.float32)
@@ -1291,15 +1392,6 @@ def mfn_case(torch, get_inr, n, d, h, layers, o, seed, device):
         torch.tensor(a.astype(np.float32), device=device) for a in arrs)
 
 
-def mfn_pair_fn(MF, spec, paths, plain=False):
-    """(coords, *leaves) -> y through the kernels or the plain version."""
-    apply = MF.mfn_mlp_plain if plain else MF.mfn_mlp
-
-    def fn(coords, *leaves):
-        return apply(tree_unflatten(paths, leaves), coords, spec)
-    return fn
-
-
 def param_vjp(torch, fn, coords, leaves, cot):
     """vjp() with constant coordinates (no dcoords, as in every fit)."""
     xs = [x.detach().requires_grad_(True) for x in leaves]
@@ -1347,7 +1439,8 @@ def mfn_kernel_vs_plain(torch, MF, get_inr, device):
                                          2, 3, 25, device)
     spec, keys = model.spec, leaf_paths(params)
     leaves = [t for _, t in tree_leaves(params)]
-    kfn, pfn = mfn_pair_fn(MF, spec, keys), mfn_pair_fn(MF, spec, keys, True)
+    kfn, pfn = (pair_fn(a, spec, keys)
+                for a in (MF.mfn_mlp, MF.mfn_mlp_plain))
     got, again = (vjp(torch, kfn, [c] + leaves, g) for _ in range(2))
     torch.cuda.synchronize()
     same_bits(torch, got, again, "mfn_mlp full")
@@ -1356,25 +1449,9 @@ def mfn_kernel_vs_plain(torch, MF, get_inr, device):
     got = param_vjp(torch, kfn, c, leaves, g)
     errs["mfn_mlp"]["no_dcoords"] = compare(
         got, param_vjp(torch, pfn, c, leaves, g), "mfn_mlp without dcoords")
-    with_grad = got["out"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    with torch.no_grad():
-        y = MF.mfn_mlp(params, c, spec)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    pingpong = 2 * c.shape[0] * 256 * 4
-    slack = 16 * 2 ** 20
-    if not torch.equal(y, with_grad):
-        raise AssertionError("mfn_mlp without a gradient differs from the "
-                             "pair's forward")
-    if not peak <= pingpong + slack:
-        raise AssertionError(f"mfn_mlp without a gradient peaked at {peak} "
-                             f"bytes, more than two ping-pong planes "
-                             f"({pingpong}) + {slack}")
-    errs["mfn_mlp"]["nograd_peak_mb"] = peak / 1e6
-    errs["mfn_mlp"]["nograd_pingpong_mb"] = pingpong / 1e6
+    errs["mfn_mlp"]["nograd_peak_mb"], errs["mfn_mlp"]["nograd_pingpong_mb"] \
+        = check_nograd(torch, lambda: MF.mfn_mlp(params, c, spec),
+                       got["out"], 2 * c.shape[0] * 256 * 4, "mfn_mlp")
 
     c3, g3 = c[:200].reshape(4, 50, 2), g[:200].reshape(4, 50, 3)
     got = vjp(torch, kfn, [c3] + leaves, g3)
@@ -1397,8 +1474,9 @@ def mfn_kernel_vs_plain(torch, MF, get_inr, device):
         raise AssertionError(f"extreme phase: max |x w| {qmax}")
     keys, leaves = leaf_paths(params), [t for _, t in tree_leaves(params)]
     errs["mfn_mlp"]["extreme_phase"] = compare(
-        vjp(torch, mfn_pair_fn(MF, model.spec, keys), [c] + leaves, g),
-        vjp(torch, mfn_pair_fn(MF, model.spec, keys, True), [c] + leaves, g),
+        vjp(torch, pair_fn(MF.mfn_mlp, model.spec, keys), [c] + leaves, g),
+        vjp(torch, pair_fn(MF.mfn_mlp_plain, model.spec, keys), [c] + leaves,
+            g),
         "mfn_mlp at |x w| ~ 8,000")
     errs["mfn_mlp"]["extreme_phase_max_q"] = qmax
     return errs
@@ -1429,10 +1507,8 @@ def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
                                   "real_mlp", "mfn_step", "mfn_mlp")}
     steps = {"wire": (WS.wire_step, WS.wire_step_plain),
              "mfn": (MF.mfn_step, MF.mfn_step_plain)}
-    pairs = {"wire": lambda spec, keys, plain: wire_mlp_fn(WM, spec, keys,
-                                                           plain),
-             "mfn": lambda spec, keys, plain: mfn_pair_fn(MF, spec, keys,
-                                                          plain)}
+    pairs = {"wire": (WM.wire_mlp, WM.wire_mlp_plain),
+             "mfn": (MF.mfn_mlp, MF.mfn_mlp_plain)}
     for task, side, o, tau in SWEEP_SHAPES:
         n = side * side
         rng = np.random.default_rng(40)
@@ -1483,8 +1559,7 @@ def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
                 continue
             keys = leaf_paths(params)
             leaves = [v for _, v in tree_leaves(params)]
-            kfn, pfn = pairs[lib](spec, keys, False), pairs[lib](spec, keys,
-                                                                 True)
+            kfn, pfn = (pair_fn(a, spec, keys) for a in pairs[lib])
             got = param_vjp(torch, kfn, coords, leaves, g)
             torch.cuda.synchronize()
             errs[f"{lib}_mlp"][what] = compare(
@@ -1608,7 +1683,8 @@ def mfn_measure(torch, MF, get_inr, device):
     spec, keys = model.spec, leaf_paths(params)
     leaves = [t for _, t in tree_leaves(params)]
     nweights = num_weights(params)
-    kfn, pfn = mfn_pair_fn(MF, spec, keys), mfn_pair_fn(MF, spec, keys, True)
+    kfn, pfn = (pair_fn(a, spec, keys)
+                for a in (MF.mfn_mlp, MF.mfn_mlp_plain))
 
     def pair():
         return vjp(torch, kfn, [c] + leaves, g)
@@ -1740,6 +1816,325 @@ def fit_mfn_sisr(torch, np, mods, counters, device):
                 plain_fit_wall_s=res_plain.wall_time_s)
 
 
+def wire2d_case(torch, get_inr, n, layers, o, seed, device, kw=None,
+                lead=()):
+    """A WIRE-2D at the full width (300 hidden features: 150 units per
+    head), its seeded init and numpy-seeded inputs: (model, params, coords,
+    target, gt, cotangent); ``kw`` overrides the denoise model's
+    frequencies and width."""
+    import numpy as np
+    spec_kw = dict(WIRE2D_DENOISE_KW, hidden_layers=layers, out_features=o)
+    spec_kw.update(kw or {})
+    model = get_inr("wire2d", **spec_kw)
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    rng = np.random.default_rng(seed)
+    arrs = (rng.uniform(-1, 1, lead + (n, 2)), rng.uniform(0, 1, (n, o)),
+            rng.uniform(0, 1, (n, o)), rng.normal(size=lead + (n, o)))
+    return (model, params) + tuple(
+        torch.tensor(a.astype(np.float32), device=device) for a in arrs)
+
+
+def wire2d_ct_kw(get_config):
+    """The CT path's WIRE-2D frequencies: preset CT_CONFIG's."""
+    cfg = get_config(CT_CONFIG)
+    return dict(first_omega0=cfg.omega0, hidden_omega0=cfg.omega0,
+                scale=cfg.scale)
+
+
+def wire2d_kernel_vs_plain(torch, W2, get_inr, get_config, device):
+    """max abs err of wire2d_step and of the wire2d_mlp pair against their
+    plain versions: the step at the denoise shape (n = 65,536, o = 3,
+    metrics) and ragged ones (n = 700, nvalid 650, denom, o = 1, L = 1 and
+    3); the pair at the CT shape (o = 1, parameter gradients, as the fit
+    calls it) and at the denoise shape with dcoords, on (4, 50, 2)
+    coordinates, and without a gradient (equal output, a peak within its
+    two ping-pong planes + 16 MiB); two calls of each kernel giving
+    identical bits."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    errs = {"wire2d_step": {}, "wire2d_mlp": {}}
+    for which, (n, layers, o, nvalid, denom) in {
+            "full": (256 * 256, 2, 3, None, None),
+            "ragged_L1": (700, 1, 1, 650, 650 * 1.0 + 1.0),
+            "ragged_L3": (700, 3, 1, 650, 650 * 1.0 + 1.0)}.items():
+        model, params, c, t, gt, _ = wire2d_case(torch, get_inr, n, layers,
+                                                 o, 30, device)
+        scratch = StepScratch()
+        got, again = (tensors_of(*W2.wire2d_step(
+            params, c, t, model.spec, nvalid=nvalid, denom=denom, gt=gt,
+            want_metrics=True, scratch=scratch)) for _ in range(2))
+        torch.cuda.synchronize()
+        same_bits(torch, got, again, f"wire2d_step {which}")
+        want = tensors_of(*W2.wire2d_step_plain(params, c, t, model.spec,
+                                                nvalid=nvalid, denom=denom,
+                                                gt=gt, want_metrics=True))
+        errs["wire2d_step"][which] = compare(got, want,
+                                             f"wire2d_step {which}")
+
+    ct_kw = wire2d_ct_kw(get_config)
+    model, params, c, _, _, g = wire2d_case(torch, get_inr, 256 * 256, 2, 1,
+                                            31, device, ct_kw)
+    spec, keys = model.spec, leaf_paths(params)
+    leaves = [t for _, t in tree_leaves(params)]
+    kfn, pfn = (pair_fn(a, spec, keys)
+                for a in (W2.wire2d_mlp, W2.wire2d_mlp_plain))
+    got, again = (param_vjp(torch, kfn, c, leaves, g) for _ in range(2))
+    torch.cuda.synchronize()
+    same_bits(torch, got, again, "wire2d_mlp full")
+    errs["wire2d_mlp"]["full"] = compare(
+        got, param_vjp(torch, pfn, c, leaves, g), "wire2d_mlp full")
+    errs["wire2d_mlp"]["nograd_peak_mb"], \
+        errs["wire2d_mlp"]["nograd_pingpong_mb"] = check_nograd(
+            torch, lambda: W2.wire2d_mlp(params, c, spec), got["out"],
+            2 * c.shape[0] * 300 * 4, "wire2d_mlp")
+
+    model, params, c, _, _, g = wire2d_case(torch, get_inr, 256 * 256, 2, 3,
+                                            32, device)
+    spec, keys = model.spec, leaf_paths(params)
+    leaves = [t for _, t in tree_leaves(params)]
+    kfn, pfn = (pair_fn(a, spec, keys)
+                for a in (W2.wire2d_mlp, W2.wire2d_mlp_plain))
+    got, again = (vjp(torch, kfn, [c] + leaves, g) for _ in range(2))
+    torch.cuda.synchronize()
+    same_bits(torch, got, again, "wire2d_mlp dcoords")
+    errs["wire2d_mlp"]["dcoords"] = compare(
+        got, vjp(torch, pfn, [c] + leaves, g), "wire2d_mlp with dcoords")
+
+    model, params, c, _, _, g = wire2d_case(torch, get_inr, 50, 2, 1, 33,
+                                            device, ct_kw, lead=(4,))
+    keys, leaves = leaf_paths(params), [t for _, t in tree_leaves(params)]
+    got = vjp(torch, pair_fn(W2.wire2d_mlp, model.spec, keys), [c] + leaves,
+              g)
+    if got["out"].shape != (4, 50, 1):
+        raise AssertionError(f"wire2d_mlp (4, 50, 2): output shape "
+                             f"{tuple(got['out'].shape)}")
+    errs["wire2d_mlp"]["batched"] = compare(
+        got, vjp(torch, pair_fn(W2.wire2d_mlp_plain, model.spec, keys),
+                 [c] + leaves, g), "wire2d_mlp (4, 50, 2)")
+    return errs
+
+
+def wire2d_measure(torch, W2, get_inr, get_config, device):
+    """Times of wire2d_step at the denoise shape (n = 65,536, o = 3) and of
+    the wire2d_mlp pair at the CT shape (o = 1, parameter gradients, as the
+    CT fit calls it): the kernel (a host call, and its kernels' device
+    time), the plain version, the matmul yardstick, and the card's least
+    time for the same work."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    out = {}
+    n, L = 256 * 256, 2
+    model, params, c, t, gt, _ = wire2d_case(torch, get_inr, n, L, 3, 34,
+                                             device)
+    spec = model.spec
+    h, o = params["first_lin"]["w"].shape[1], 3
+    nweights = num_weights(params)
+    scratch = StepScratch()
+
+    def step():
+        return W2.wire2d_step(params, c, t, spec, gt=gt, want_metrics=True,
+                              scratch=scratch)
+
+    lib_err = compare(
+        tensors_of(*wire2d_matmul_step(torch, W2, params, c, t, gt, spec)),
+        tensors_of(*W2.wire2d_step_plain(params, c, t, spec, gt=gt,
+                                         want_metrics=True)),
+        "wire2d matmul step vs plain")
+    flops = W2.step_flops(n, 2, h, o, L)
+    nbytes = 4 * (n * (2 + o + o) + nweights + n * o + nweights + 2)
+    res = {
+        "ms": cuda_ms(torch, step, 20),
+        "kernel_ms": kernel_device_ms(torch, step, 20,
+                                      kernel_names("wire2d")),
+        "plain_ms": cuda_ms(torch, lambda: W2.wire2d_step_plain(
+            params, c, t, spec, gt=gt, want_metrics=True), 10),
+        "library_ms": cuda_ms(torch, lambda: wire2d_matmul_step(
+            torch, W2, params, c, t, gt, spec), 10),
+        "library": "torch.matmul step on the stacked layout, Gabor-2D and "
+                   "written-out backward in PyTorch ops",
+        "library_vs_plain_max_abs_err": lib_err}
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
+        if res["kernel_ms"] else None
+    out["wire2d_step"] = res
+    del scratch
+
+    o = 1
+    model, params, c, _, _, g = wire2d_case(torch, get_inr, n, L, o, 35,
+                                            device, wire2d_ct_kw(get_config))
+    spec, keys = model.spec, leaf_paths(params)
+    leaves = [t for _, t in tree_leaves(params)]
+    nweights = num_weights(params)
+    kfn, pfn = (pair_fn(a, spec, keys)
+                for a in (W2.wire2d_mlp, W2.wire2d_mlp_plain))
+
+    def pair():
+        return param_vjp(torch, kfn, c, leaves, g)
+
+    def fwd():
+        with torch.no_grad():
+            kfn(c, *leaves)
+
+    lib = wire2d_matmul_vjp(torch, W2, params, c, spec, lambda y: g)
+    got = {"out": lib[0]}
+    got.update({f"d{i + 1}": tt for i, (_, tt) in
+                enumerate(tree_leaves(lib[1]))})
+    want = param_vjp(torch, pfn, c, leaves, g)
+    flops = W2.apply_flops(n, 2, h, o, L, dcoords=False)
+    nbytes = 4 * (n * 2 + 2 * (n * o + nweights))
+    res = {
+        "ms": cuda_ms(torch, pair, 20),
+        "kernel_ms": kernel_device_ms(torch, pair, 20,
+                                      kernel_names("wire2d")),
+        "fwd_ms": cuda_ms(torch, fwd, 20),
+        "plain_ms": cuda_ms(torch, lambda: param_vjp(torch, pfn, c, leaves,
+                                                     g), 10),
+        "library_ms": cuda_ms(torch, lambda: wire2d_matmul_vjp(
+            torch, W2, params, c, spec, lambda y: g), 10),
+        "library": "torch.matmul forward on the stacked layout, Gabor-2D "
+                   "and written-out backward in PyTorch ops",
+        "library_vs_plain_max_abs_err": max(
+            float((got[k] - want[k]).abs().max()) for k in want)}
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
+    res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
+        if res["kernel_ms"] else None
+    out["wire2d_mlp"] = res
+    return out
+
+
+def fit_wire2d(torch, np, mods, counters, device):
+    """WIRE-2D denoise (300 wide, omega0 7, sigma 8) at the bench protocol
+    (256 x 256, measure_np(snr 2, tau 30), 65,536 coordinates, full batch,
+    lr 5e-3 scaled by batch) for WIRE2D_ITERS epochs through fit_pointwise:
+    once through the kernel, counts reset just before and read just after,
+    and once through the plain path (fused='never'), from one init."""
+    WS, M, get_inr, FitConfig, fit_pointwise, bench = mods
+    im, im_noisy, grid, _ = bench.setup(256, 256)
+    H, W, _ = im.shape
+    model = get_inr("wire2d", **WIRE2D_DENOISE_KW)
+    plain = get_inr("wire2d", fused="never", **WIRE2D_DENOISE_KW)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    fit_cfg = FitConfig(learning_rate=5e-3, niters=WIRE2D_ITERS,
+                        maxpoints=H * W, scale_lr_by_batch=True)
+    reset_counts(counters)
+    ws0 = WS.wire_step.launches
+    res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                        fit_cfg, gt=im.reshape(-1, 3), device=device)
+    launches = read_counts(counters)
+    launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+    check_real_launches(launches, "WIRE-2D denoise",
+                        {("wire2d", "step"): WIRE2D_ITERS})
+    res_plain = fit_pointwise(plain, params, grid, im_noisy.reshape(-1, 3),
+                              fit_cfg, gt=im.reshape(-1, 3), device=device)
+    if read_counts(counters) != {k: v for k, v in launches.items()
+                                 if k != "wire_step"} \
+            or WS.wire_step.launches != ws0:
+        raise AssertionError("WIRE-2D denoise: the plain fit launched a "
+                             "kernel")
+    for r in (res, res_plain):
+        if not (np.isfinite(r.best_rec).all() and np.isfinite(r.mse_gt).all()
+                and r.best_rec.shape == (H * W, 3)):
+            raise AssertionError("WIRE-2D denoise: non-finite values or a "
+                                 "wrong shape")
+    psnr, psnr_plain = (float(M.psnr_ref(im, r.best_rec.reshape(H, W, 3)))
+                        for r in (res, res_plain))
+    if not abs(psnr - psnr_plain) <= PSNR_AGREE_DB:
+        raise AssertionError(
+            f"WIRE-2D denoise: kernel fit {psnr:.3f} dB vs plain fit "
+            f"{psnr_plain:.3f} dB differ by more than {PSNR_AGREE_DB} dB")
+    floor = WIRE_TPU_300_WIRE2D_DB["denoise"] - 0.2
+    if not psnr >= floor:
+        raise AssertionError(f"WIRE-2D denoise: kernel fit best PSNR "
+                             f"{psnr:.3f} dB below the floor {floor} dB")
+    return dict(epochs=WIRE2D_ITERS, launches=launches["wire2d"],
+                psnr_db=psnr, psnr_plain_db=psnr_plain, floor_db=floor,
+                ms_per_step=res.step_ms, plain_ms_per_step=res_plain.step_ms,
+                fit_wall_s=res.wall_time_s,
+                plain_fit_wall_s=res_plain.wall_time_s)
+
+
+def fit_wire2d_ct(torch, np, mods, counters, device):
+    """WIRE-2D CT (300 wide, preset CT_CONFIG's omega0 3, sigma 12, lr 5e-3)
+    at the CT protocol (256 x 256 field, 100 angles, method 'auto' =
+    fourier on the card) for WIRE2D_ITERS iterations through fit_operator:
+    once through the kernels, counts reset just before and read just after
+    (the pair and line_sample's gather and scatter once per iteration), a
+    render of the best parameters with no gradient (one forward), and once
+    through the plain path, from one init."""
+    WS, TR, TCT, M, get_inr, get_config, FitConfig, fit_operator = mods
+    cfg = get_config(CT_CONFIG)
+    kw = dict(WIRE2D_DENOISE_KW, out_features=1)
+    kw.update(wire2d_ct_kw(get_config))
+    model = get_inr("wire2d", **kw)
+    plain = get_inr("wire2d", fused="never", **kw)
+    img = TCT.ct_image(None, 0)
+    H, W = img.shape
+    thetas = np.linspace(0, 180, 100, dtype=np.float32)
+    grid = TCT.C.grid2d(H, W)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=WIRE2D_ITERS,
+                        maxpoints=cfg.maxpoints)
+    if TR._resolve_auto("auto", len(thetas), "cuda", False) != "fourier":
+        raise AssertionError("WIRE-2D CT: 'auto' is not fourier on the card")
+    sino = TCT.make_sinogram(img, thetas, radon_method="auto", device=device)
+    angles_t = torch.tensor(thetas, device=device)
+    reset_counts(counters)
+    ws0 = WS.wire_step.launches
+    res = fit_operator(model, params, grid, sino,
+                       TR.RadonOp(thetas, method="auto"), fit_cfg,
+                       gt_field=img, field_shape=(H, W), device=device)
+    launches = read_counts(counters)
+    launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+    check_real_launches(launches, "WIRE-2D CT",
+                        {("wire2d", "forward"): WIRE2D_ITERS,
+                         ("wire2d", "backward"): WIRE2D_ITERS,
+                         ("line_sample", "gather"): WIRE2D_ITERS,
+                         ("line_sample", "scatter"): WIRE2D_ITERS})
+    grid_t = torch.tensor(grid, device=device)
+    with torch.no_grad():
+        render = model.apply(res.best_params, grid_t).reshape(H, W)
+    rendered = read_counts(counters)
+    if rendered["wire2d"] != dict(launches["wire2d"],
+                                  forward=WIRE2D_ITERS + 1):
+        raise AssertionError(f"WIRE-2D CT: the render launched "
+                             f"{rendered['wire2d']}, expected one forward")
+    res_plain = fit_operator(
+        plain, params, grid, sino,
+        lambda f: TR._radon_fourier(f, angles_t, sampler="plain"), fit_cfg,
+        gt_field=img, field_shape=(H, W), device=device)
+    if read_counts(counters) != rendered or WS.wire_step.launches != ws0:
+        raise AssertionError("WIRE-2D CT: the plain fit launched a kernel")
+    render = render.cpu().numpy()
+    for r in (res, res_plain):
+        if not (np.isfinite(r.best_rec).all() and np.isfinite(r.mse_gt).all()
+                and np.isfinite(r.mse_noisy).all()
+                and r.best_rec.shape == (H, W)):
+            raise AssertionError("WIRE-2D CT: non-finite values or a wrong "
+                                 "shape")
+    if not (np.isfinite(render).all() and render.shape == (H, W)):
+        raise AssertionError("WIRE-2D CT: the render is non-finite or has a "
+                             "wrong shape")
+    psnr = float(M.psnr_ref(img, res.best_rec))
+    psnr_plain = float(M.psnr_ref(img, res_plain.best_rec))
+    if not abs(psnr - psnr_plain) <= PSNR_AGREE_DB:
+        raise AssertionError(
+            f"WIRE-2D CT: kernel fit {psnr:.3f} dB vs plain fit "
+            f"{psnr_plain:.3f} dB differ by more than {PSNR_AGREE_DB} dB")
+    floor = WIRE_TPU_300_WIRE2D_DB["ct"] - 0.2
+    if not psnr >= floor:
+        raise AssertionError(f"WIRE-2D CT: kernel fit best PSNR {psnr:.3f} "
+                             f"dB below the floor {floor} dB")
+    return dict(iters=WIRE2D_ITERS, radon="fourier",
+                launches=launches["wire2d"],
+                line_sample=launches["line_sample"], psnr_db=psnr,
+                psnr_plain_db=psnr_plain, floor_db=floor,
+                render_psnr_db=float(M.psnr_ref(img, render)),
+                ssim=float(M.ssim(img, res.best_rec, data_range=1.0)),
+                ms_per_iter=res.step_ms, plain_ms_per_iter=res_plain.step_ms,
+                fit_wall_s=res.wall_time_s,
+                plain_fit_wall_s=res_plain.wall_time_s)
+
+
 def sweep_expected(task, nonlin, iters):
     """The launches one family's sweep fit of ``iters`` steps must show: its
     step kernel (denoise) or its pair (SISR, CT; CT adds the fourier
@@ -1845,6 +2240,7 @@ def main():
     from wire_tpu_torch.apps import sisr as TS
     from wire_tpu_torch.apps import sweep as SW
     import wire_tpu_torch.ops.mfn as MF
+    import wire_tpu_torch.ops.wire2d as W2
 
     # ---- device ----------------------------------------------------------
     t0 = time.time()
@@ -1912,10 +2308,11 @@ def main():
     for name, cases in sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM,
                                              MF, dev).items():
         errs[name].update(cases)
+    errs.update(wire2d_kernel_vs_plain(torch, W2, get_inr, get_config, dev))
     emit("kernel_vs_plain", t0, max_abs_err=errs, rel_tol=REL_TOL,
          why=("max abs err <= rel_tol x max|plain| per output tensor: fp32 "
               "sums over up to 262,144 rows (wire_*, real_*, mscale2_*, "
-              "mfn_*), 256 rows "
+              "mfn_*, wire2d_*), 256 rows "
               "(rotsum) taken in another order; line_sample's scatter adds "
               "with atomics in a varying order"))
 
@@ -1960,9 +2357,11 @@ def main():
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
                                            dev)
     meas.update(mfn_measure(torch, MF, get_inr, dev))
+    meas.update(wire2d_measure(torch, W2, get_inr, get_config, dev))
     emit("measure", t0, kernels=meas, nvidia_smi=smi,
          pairs=("ms, plain_ms and library_ms of wire_mlp, rotsum, "
-                "line_sample, real_mlp and mfn_mlp time the forward and its "
+                "line_sample, real_mlp, mfn_mlp and wire2d_mlp time the "
+                "forward and its "
                 "backward/adjoint together through autograd, as a call from "
                 "the host; kernel_ms the device time of the kernels alone "
                 "in those calls; fwd_ms the forward alone"))
@@ -2018,7 +2417,8 @@ def main():
     t0 = time.time()
     counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
                 "line_sample": LS.launches, "real_mlp": RM.launches,
-                "mscale2_step": MS.launches, "mfn": MF.launches}
+                "mscale2_step": MS.launches, "mfn": MF.launches,
+                "wire2d": W2.launches}
     ws_before = WS.wire_step.launches
     real = fit_real(torch, np, (TD, TC, M, RM, get_inr, get_config,
                                 FitConfig, fit_pointwise), counters, dev)
@@ -2050,6 +2450,19 @@ def main():
         raise AssertionError("the B-spline or MFN fits launched wire_step")
     emit("fit_mfn_sisr", t0, **mfn_sisr)
 
+    # ---- fit_wire2d (WIRE-2D denoise through fit_pointwise) ----------------
+    t0 = time.time()
+    w2d = fit_wire2d(torch, np, (WS, M, get_inr, FitConfig, fit_pointwise,
+                                 bench), counters, dev)
+    emit("fit_wire2d", t0, **w2d)
+
+    # ---- fit_wire2d_ct (WIRE-2D CT through fit_operator) -------------------
+    t0 = time.time()
+    w2d_ct = fit_wire2d_ct(torch, np, (WS, TR, TCT, M, get_inr, get_config,
+                                       FitConfig, fit_operator), counters,
+                           dev)
+    emit("fit_wire2d_ct", t0, **w2d_ct)
+
     # ---- sweep (the six-family sweep app, every task) -----------------------
     t0 = time.time()
     sweep = sweep_phase(torch, np, SW, WS, counters, dev)
@@ -2060,7 +2473,8 @@ def main():
     # (fourier), rotsum in 'rotate', real_step in the B-spline denoise fit,
     # real_mlp in the B-spline SISR fit, mscale2_step in the mscale_2
     # denoise fit, mfn_step in the MFN denoise fit, mfn_mlp in the MFN SISR
-    # fit; a pair counts both directions
+    # fit, wire2d_step in the WIRE-2D denoise fit, wire2d_mlp in the
+    # WIRE-2D CT fit; a pair counts both directions
     path_launches = {
         "wire_step": {"step": launches},
         "wire_mlp": {k: ct["auto"]["launches"]["wire_mlp"][k]
@@ -2074,7 +2488,10 @@ def main():
         "mscale2_step": {"step": mscale["launches"]["step"]},
         "mfn_step": {"step": mfn["launches"]["step"]},
         "mfn_mlp": {k: mfn_sisr["launches"][k]
-                    for k in ("forward", "backward")}}
+                    for k in ("forward", "backward")},
+        "wire2d_step": {"step": w2d["launches"]["step"]},
+        "wire2d_mlp": {k: w2d_ct["launches"][k]
+                       for k in ("forward", "backward")}}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

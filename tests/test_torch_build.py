@@ -10,7 +10,7 @@ import pytest
 from wire_tpu_torch.ops import build
 
 SOURCES = ("wire_step", "wire_mlp", "rotsum", "line_sample", "real_mlp",
-           "mscale2_step", "mfn")
+           "mscale2_step", "mfn", "wire2d")
 
 
 @pytest.fixture

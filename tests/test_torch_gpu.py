@@ -1,8 +1,9 @@
 """The CUDA kernels (wire_step, wire_mlp, rotsum, line_sample, real_mlp's
-pair and step, mscale2_step, mfn's step and pair) against their plain
-PyTorch versions on the card, the sweep app's families launching their
-kernels, and the trainers' step timing leaving the first step out (marked
-``gpu``; skipped where no CUDA device is present):
+pair and step, mscale2_step, mfn's step and pair, wire2d's step and pair)
+against their plain PyTorch versions on the card, the sweep app's
+families launching their kernels, and the trainers' step timing leaving
+the first step out (marked ``gpu``; skipped where no CUDA device is
+present):
 
     python -m pytest tests/test_torch_gpu.py -m gpu -p no:randomly
 """
@@ -674,6 +675,144 @@ def test_mfn_mlp_leading_axes_and_no_grad(cuda):
         y = MF.mfn_mlp(params, c.reshape(4, 50, 2), model.spec)
     assert MF.launches["backward"] == before["backward"]
     assert torch.equal(y, got["y"])
+
+
+# ---- wire2d_step and the wire2d_mlp pair: WIRE-2D ------------------------
+
+def _wire2d_case(n, hf, layers, out, device, seed=0, lead=()):
+    model = get_inr("wire2d", in_features=2, out_features=out,
+                    hidden_features=hf, hidden_layers=layers,
+                    first_omega0=7.0, hidden_omega0=7.0, scale=8.0)
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    rng = np.random.default_rng(seed)
+    c, t, gt, g = (torch.tensor(a.astype(np.float32), device=device)
+                   for a in (rng.uniform(-1, 1, lead + (n, 2)),
+                             rng.uniform(0, 1, (n, out)),
+                             rng.uniform(0, 1, (n, out)),
+                             rng.normal(size=lead + (n, out))))
+    return model, params, c, t, gt, g
+
+
+def _wire2d_vjp(fn, params, coords, g, dcoords=True):
+    from wire_tpu_torch import tree
+    flat = tree.leaves(params)
+    leaves = [v.detach().requires_grad_(True) for _, v in flat]
+    c = coords.detach().requires_grad_(dcoords)
+    y = fn(tree.unflatten([p for p, _ in flat], leaves), c)
+    ins = leaves + ([c] if dcoords else [])
+    grads = torch.autograd.grad(y, ins, g, allow_unused=True)
+    out = {"y": y.detach()}
+    out.update({str(i): torch.zeros_like(x) if gr is None else gr
+                for i, (x, gr) in enumerate(zip(ins, grads))})
+    return out
+
+
+@pytest.mark.parametrize("n,hf,layers,out,nvalid,denom", [
+    (65536, 300, 2, 3, None, None), (700, 300, 1, 1, 650, 651.0),
+    (4099, 96, 3, 3, 4000, None)])
+def test_wire2d_step_kernel_matches_plain(cuda, n, hf, layers, out, nvalid,
+                                          denom):
+    from wire_tpu_torch.ops import wire2d as W2
+    model, params, c, t, gt, _ = _wire2d_case(n, hf, layers, out, cuda)
+    before = W2.launches["step"]
+    got = _tree_flat(*W2.wire2d_step(params, c, t, model.spec, nvalid=nvalid,
+                                     denom=denom, gt=gt, want_metrics=True))
+    torch.cuda.synchronize()
+    assert W2.launches["step"] == before + 1
+    want = _tree_flat(*W2.wire2d_step_plain(params, c, t, model.spec,
+                                            nvalid=nvalid, denom=denom,
+                                            gt=gt, want_metrics=True))
+    assert got.keys() == want.keys()
+    _assert_rel(got, want)
+
+
+@pytest.mark.parametrize("n,hf,layers,out,dcoords", [
+    (65536, 300, 2, 1, False), (65536, 300, 2, 3, True),
+    (700, 91, 3, 1, True), (4099, 300, 0, 3, True)])
+def test_wire2d_mlp_kernel_matches_plain(cuda, n, hf, layers, out, dcoords):
+    from wire_tpu_torch.ops import wire2d as W2
+    model, params, c, _, _, g = _wire2d_case(n, hf, layers, out, cuda)
+    before = dict(W2.launches)
+    got = _wire2d_vjp(lambda p, x: W2.wire2d_mlp(p, x, model.spec), params,
+                      c, g, dcoords)
+    torch.cuda.synchronize()
+    assert W2.launches["forward"] == before["forward"] + 1
+    assert W2.launches["backward"] == before["backward"] + 1
+    want = _wire2d_vjp(lambda p, x: W2.wire2d_mlp_plain(p, x, model.spec),
+                       params, c, g, dcoords)
+    _assert_rel(got, want)
+
+
+def test_wire2d_kernels_are_deterministic(cuda):
+    """Two calls of the step and of the pair give identical bits (no float
+    atomics), the step reusing its scratch."""
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    model, params, c, t, gt, g = _wire2d_case(5000, 300, 2, 3, cuda)
+    scratch = StepScratch()
+    a, b = (_tree_flat(*W2.wire2d_step(params, c, t, model.spec, gt=gt,
+                                       want_metrics=True, scratch=scratch))
+            for _ in range(2))
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    fn = lambda p, x: W2.wire2d_mlp(p, x, model.spec)  # noqa: E731
+    a, b = _wire2d_vjp(fn, params, c, g), _wire2d_vjp(fn, params, c, g)
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_wire2d_mlp_leading_axes_and_no_grad(cuda):
+    """(4, 50, 2) coordinates give (4, 50, o) and the plain version's
+    gradients; without a gradient the forward alone runs, equals the pair's
+    and peaks within its two ping-pong planes + 16 MiB."""
+    from wire_tpu_torch.ops import wire2d as W2
+    model, params, c, _, _, g = _wire2d_case(50, 300, 2, 3, cuda, lead=(4,))
+    got = _wire2d_vjp(lambda p, x: W2.wire2d_mlp(p, x, model.spec), params,
+                      c, g)
+    want = _wire2d_vjp(lambda p, x: W2.wire2d_mlp_plain(p, x, model.spec),
+                       params, c, g)
+    assert got["y"].shape == (4, 50, 3)
+    _assert_rel(got, want)
+    model, params, c, _, _, g = _wire2d_case(65536, 300, 2, 1, cuda)
+    with_grad = _wire2d_vjp(lambda p, x: W2.wire2d_mlp(p, x, model.spec),
+                            params, c, g, dcoords=False)["y"]
+    before = dict(W2.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y = W2.wire2d_mlp(params, c, model.spec)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert W2.launches["forward"] == before["forward"] + 1
+    assert W2.launches["backward"] == before["backward"]
+    assert torch.equal(y, with_grad)
+    assert peak <= 2 * 65536 * 300 * 4 + 16 * 2 ** 20, peak
+
+
+@pytest.mark.parametrize("fit", ["pointwise", "operator"])
+def test_wire2d_fits_launch_the_kernels(cuda, fit):
+    """get_inr('wire2d') through fit_pointwise takes one wire2d_step per
+    epoch, through fit_operator one pair per iteration, and nothing of the
+    WIRE kernels."""
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.train.trainer import (FitConfig, fit_operator,
+                                              fit_pointwise)
+    model, params, c, t, _, _ = _wire2d_case(1024, 64, 2, 1, cuda)
+    before, ws = dict(W2.launches), WS.wire_step.launches
+    cfg = FitConfig(niters=4, maxpoints=1024)
+    if fit == "pointwise":
+        res = fit_pointwise(model, params, c, t, cfg, device=cuda)
+        want = dict(before, step=before["step"] + 4)
+    else:
+        res = fit_operator(model, params, c, t.reshape(32, 32),
+                           lambda f: f, cfg, field_shape=(32, 32),
+                           track="loss", device=cuda)
+        want = dict(before, forward=before["forward"] + 4,
+                    backward=before["backward"] + 4)
+    assert W2.launches == want
+    assert WS.wire_step.launches == ws
+    assert np.isfinite(res.best_mse)
 
 
 def test_sweep_denoise_launches_each_familys_kernel(cuda, tmp_path):

@@ -1,7 +1,7 @@
 """The port stands alone: every module of wire_tpu_torch and chip_smoke.py
 imports with jax, optax, wire_tpu, pandas, matplotlib and cv2 blocked (the
-B-spline, multiscale and MFN slices' modules and the sweep app among
-them), and chip_smoke.py refuses to run without a CUDA device."""
+B-spline, multiscale, MFN and WIRE-2D slices' modules and the sweep app
+among them), and chip_smoke.py refuses to run without a CUDA device."""
 import os
 import subprocess
 import sys
@@ -35,7 +35,8 @@ SLICE_MODULES = ("wire_tpu_torch.ops.real_mlp", "wire_tpu_torch.apps.sisr",
                  "wire_tpu_torch.ops.mscale2_step", "wire_tpu_torch.tree",
                  "wire_tpu_torch.bridge", "wire_tpu_torch.train.trainer",
                  "wire_tpu_torch.ops.mfn", "wire_tpu_torch.apps.sweep",
-                 "wire_tpu_torch.nn.init", "wire_tpu_torch.nn.registry")
+                 "wire_tpu_torch.nn.init", "wire_tpu_torch.nn.registry",
+                 "wire_tpu_torch.ops.wire2d")
 
 
 def test_every_module_imports_without_jax_or_wire_tpu():

@@ -4,12 +4,14 @@ same process, on one GPU.
 
 Runs ITERS iterations of the sweep app's MFN SISR fit (host-bound: about
 3.6 ms of device work per iteration) and of its MFN denoise fit
-(device-bound) in three states of one process:
+(device-bound), or with ``--ct`` of the WIRE-300 and WIRE-2D CT fits
+(the CT protocol, 'auto' = fourier; tools/port_step_profile.py's
+``--ct auto`` and ``--wire2d ct``), in three states of one process:
   fresh     after a 5-iteration warm-up fit of each (libraries built and
             loaded, allocator warm);
   profiled  after a torch.profiler session (CPU and CUDA activities) over
-            a 5-iteration MFN SISR fit, as chip_smoke.py's measure phase
-            takes its kernels' device times;
+            a 5-iteration fit of the first kind, as chip_smoke.py's
+            measure phase takes its kernels' device times;
   emptied   the same, after torch.cuda.empty_cache().
 Before each state's fits it times the host's cost of one small PyTorch
 kernel launch (the mean over 2,000 ``torch.add`` calls on a one-element
@@ -22,7 +24,7 @@ instead (the package beside it is the one imported), with every cyclic
 garbage collection of 10 ms or more printed as a JSON line between the
 smoke's phase lines: its generation, length and the objects it freed.
 
-    python3 tools/port_fit_state.py [ITERS]   # default 300
+    python3 tools/port_fit_state.py [ITERS] [--ct]   # default 300
     python3 tools/port_fit_state.py --smoke chip_smoke.py
 """
 import json
@@ -68,32 +70,40 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from port_step_profile import mfn_fit
+    from port_step_profile import ct_fit, mfn_fit, wire2d_fit
     from wire_tpu_torch.device import resolve
 
-    iters = int(sys.argv[1]) if len(sys.argv) > 1 else 300
+    args = sys.argv[1:]
+    ct = "--ct" in args
+    args = [a for a in args if a != "--ct"]
+    iters = int(args[0]) if args else 300
     dev = resolve("cuda")
+    if ct:
+        kinds = {"wire_ct": lambda n: ct_fit(n, "auto", dev),
+                 "wire2d_ct": lambda n: wire2d_fit(n, "ct", dev)}
+    else:
+        kinds = {f"mfn_{path}": lambda n, path=path: mfn_fit(n, path, dev)
+                 for path in ("sisr", "denoise")}
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    fits = {path: mfn_fit(iters, path, dev) for path in ("sisr", "denoise")}
-    for path in fits:
-        mfn_fit(5, path, dev)()
+    fits = {name: build(iters) for name, build in kinds.items()}
+    for build in kinds.values():
+        build(5)()
 
     def state(name):
         out = {"state": name, "iters": iters, "nvidia_smi": smi,
                "launch_us": launch_us(dev)}
-        for path, run in fits.items():
+        for fit, run in fits.items():
             res = run()
-            out[f"mfn_{path}_ms_per_iter"] = res.step_ms
-            out[f"mfn_{path}_wall_ms_per_iter"] = (res.wall_time_s * 1e3
-                                                   / iters)
+            out[f"{fit}_ms_per_iter"] = res.step_ms
+            out[f"{fit}_wall_ms_per_iter"] = res.wall_time_s * 1e3 / iters
         print(json.dumps(out), flush=True)
 
     state("fresh")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        mfn_fit(5, "sisr", dev)()
+        next(iter(kinds.values()))(5)()
         torch.cuda.synchronize()
     state("profiled")
     torch.cuda.empty_cache()

@@ -12,8 +12,11 @@ and ``--real sisr`` the B-spline SISR fit (preset Bspline_s9_LR1e3_E2000,
 denoise fit (preset Mscale2_ST8_3_LR8e3_E4000, scales 1/9, 4, 8, 65,536
 coordinates), or with ``--mfn`` the sweep app's MFN denoise fit (300 wide,
 2 hidden layers, lr 5e-2, 65,536 coordinates) and ``--mfn sisr`` its MFN
-SISR fit (256 wide, 256 x 256 HR, x4 box downsample), with torch.profiler
-after a warm-up fit,
+SISR fit (256 wide, 256 x 256 HR, x4 box downsample), or with
+``--wire2d`` the WIRE-2D denoise fit (300 wide, omega0 7, sigma 8, the
+bench protocol) and ``--wire2d ct`` the WIRE-2D CT fit (omega0 3, sigma 12,
+the CT protocol, 'auto' = fourier), with torch.profiler after a warm-up
+fit,
 and prints one JSON line: device time per epoch by kernel
 (sorted, summed over launches; device-side events only, so a kernel is not
 counted again under the operator or autograd Function that launched it),
@@ -28,11 +31,15 @@ backward / dcoords GEMMs of the real families, colsum_partial_kernel,
 combiner_kernel of mscale_2, filter_forward_kernel,
 mfn_gemm_kernel<0|1|2> = link forward / link backward / last data
 gradient, filter_grad_partial_kernel and filter_grad_finish_kernel of the
-MFN); the rest are PyTorch's (weight stacking, FFTs, Adam, best tracking).
+MFN, gabor2d_first_kernel, gabor2d_fwd_kernel, gabor2d_bwd_kernel<0|1> =
+hidden / first-layer data gradients and gabor2d_dcoords_kernel of
+WIRE-2D); the rest are PyTorch's (weight stacking, FFTs, Adam, best
+tracking).
 
     python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate |
                                         --real denoise|sisr | --mscale2 |
-                                        --mfn [sisr]]   # default 20, denoise
+                                        --mfn [sisr] | --wire2d [ct]]
+                                        # default 20, denoise
 """
 import json
 import os
@@ -55,6 +62,7 @@ from wire_tpu_torch.apps import ct as tct  # noqa: E402
 from wire_tpu_torch.apps import denoise, sisr  # noqa: E402
 from wire_tpu_torch.operators.forward import DownsampleOp  # noqa: E402
 from wire_tpu_torch.device import resolve  # noqa: E402
+from wire_tpu_torch.nn.registry import get_inr  # noqa: E402
 from wire_tpu_torch.operators.radon import RadonOp  # noqa: E402
 from wire_tpu_torch.signals import coords as C  # noqa: E402
 from wire_tpu_torch.train.presets import get_config  # noqa: E402
@@ -138,6 +146,32 @@ def mfn_fit(epochs, path, dev):
                                  gt=im.reshape(-1, 3), device=dev)
 
 
+def wire2d_fit(epochs, path, dev):
+    width = dict(in_features=2, hidden_features=300, hidden_layers=2)
+    if path == "ct":
+        cfg = get_config("WIRE_s12_o8_LR5e3_E2000")
+        img = tct.ct_image(None, 0)
+        thetas = np.linspace(0, 180, 100, dtype=np.float32)
+        sino = tct.make_sinogram(img, thetas, device=dev)
+        model = get_inr("wire2d", out_features=1, first_omega0=cfg.omega0,
+                        hidden_omega0=cfg.omega0, scale=cfg.scale, **width)
+        params = model.init(torch.Generator().manual_seed(0), dev)
+        fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=epochs,
+                            maxpoints=cfg.maxpoints)
+        return lambda: fit_operator(model, params, C.grid2d(*img.shape),
+                                    sino, RadonOp(thetas), fit_cfg,
+                                    gt_field=img, field_shape=img.shape,
+                                    device=dev)
+    im, im_noisy, grid, _ = bench.setup(256, 256)
+    model = get_inr("wire2d", out_features=3, first_omega0=7.0,
+                    hidden_omega0=7.0, scale=8.0, **width)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    cfg = FitConfig(learning_rate=5e-3, niters=epochs, maxpoints=256 * 256,
+                    scale_lr_by_batch=True)
+    return lambda: fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                                 cfg, gt=im.reshape(-1, 3), device=dev)
+
+
 def main():
     args = sys.argv[1:]
     method = real = None
@@ -159,10 +193,19 @@ def main():
         if i + 1 < len(args) and args[i + 1] in ("denoise", "sisr"):
             mfn = args.pop(i + 1)
         del args[i]
+    wire2d = None
+    if "--wire2d" in args:
+        i = args.index("--wire2d")
+        wire2d = "denoise"
+        if i + 1 < len(args) and args[i + 1] in ("denoise", "ct"):
+            wire2d = args.pop(i + 1)
+        del args[i]
     epochs = int(args[0]) if args else 20
     dev = resolve("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if mfn is not None:
+    if wire2d is not None:
+        run = wire2d_fit(epochs, wire2d, dev)
+    elif mfn is not None:
         run = mfn_fit(epochs, mfn, dev)
     elif real is not None:
         run = real_fit(epochs, real, dev)
@@ -192,7 +235,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "fit": (f"mfn {mfn}" if mfn is not None else
+        "fit": (f"wire2d {wire2d}" if wire2d is not None else
+                f"mfn {mfn}" if mfn is not None else
                 "mscale_2 denoise" if real == "mscale2" else
                 f"bspline {real}" if real is not None else
                 "denoise" if method is None else f"ct {method}"),

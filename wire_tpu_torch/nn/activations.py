@@ -26,6 +26,17 @@ def complex_gabor_real_input(z, omega0, sigma0):
     return mag * torch.cos(phase), mag * torch.sin(phase)
 
 
+def complex_gabor2d(lin_r, lin_i, orth_r, orth_i, omega0, sigma0):
+    """WIRE-2D: exp(1j*omega0*lin) * exp(-sigma0^2 (|lin|^2 + |orth|^2)), as
+    (re, im).  exp(1j*omega0*lin) for a complex lin brings the magnitude
+    exp(-omega0*lin_i), taken in the same exp as the Gaussian: e^{-w li}
+    alone can overflow where the Gaussian is 0."""
+    arg = lin_r * lin_r + lin_i * lin_i + orth_r * orth_r + orth_i * orth_i
+    mag = torch.exp(-omega0 * lin_i - (sigma0 * sigma0) * arg)
+    phase = omega0 * lin_r
+    return mag * torch.cos(phase), mag * torch.sin(phase)
+
+
 def sine(z, omega0):
     return torch.sin(omega0 * z)
 

@@ -1,20 +1,22 @@
 """The INR families as (init, apply, step) functions over parameter trees
-(port of wire_tpu/nn/models.py: WIRE, :32-246; the canonical real
-families siren, gauss, relu/posenc and the B-splines form, cubic, srelu
-and knots, :311-733; the Gabor MFN, :579-631; the multiscale B-splines
-mscale_HL, mscale_2 and mscale_hier, :813-1146; the step hooks at
-:1160-1320).
+(port of wire_tpu/nn/models.py: WIRE, :32-246; WIRE-2D, :253-306; the
+canonical real families siren, gauss, relu/posenc and the B-splines form,
+cubic, srelu and knots, :311-733; the Gabor MFN, :579-631; the multiscale
+B-splines mscale_HL, mscale_2 and mscale_hier, :813-1146; the step hooks
+at :1160-1320).
 
 Parameters are nested dicts and lists of tensors with the JAX package's
 names and layouts (WIRE: ``first{w,b}``, ``hidden_i{wr,wi,br,bi}``,
-``final{wr,wi,br,bi}``; the real families: ``{first, hidden_i, final}``
-each ``{w, b}``; mscale_2 adds ``combiner{scale_weights, freq_0, freq_1,
-refine_0, refine_1}``; MFN: ``gabor_i{w,b,mu,gamma}``,
-``linear_i{w,b}``, ``final{w,b}``; mscale_hier is ``{stages: [[{w, b},
-...], ...], heads: [{w, b}, ...]}``; weights ``(in, out)``), walked by
-``wire_tpu_torch.tree``, so ``wire_tpu_torch.bridge`` moves a JAX init
-across unchanged.  Topology: ``[first nonlinear layer] + hidden_layers x
-[nonlinear layer] + [final linear]``, real output.
+``final{wr,wi,br,bi}``; WIRE-2D: ``first_lin``/``first_orth{w,b}``,
+``hidden_i_lin``/``hidden_i_orth{wr,wi,br,bi}``, ``final{wr,wi,br,bi}``;
+the real families: ``{first, hidden_i, final}`` each ``{w, b}``; mscale_2
+adds ``combiner{scale_weights, freq_0, freq_1, refine_0, refine_1}``; MFN:
+``gabor_i{w,b,mu,gamma}``, ``linear_i{w,b}``, ``final{w,b}``; mscale_hier
+is ``{stages: [[{w, b}, ...], ...], heads: [{w, b}, ...]}``; weights
+``(in, out)``), walked by ``wire_tpu_torch.tree``, so
+``wire_tpu_torch.bridge`` moves a JAX init across unchanged.  Topology:
+``[first nonlinear layer] + hidden_layers x [nonlinear layer] + [final
+linear]``, real output.
 
 The real families fold their parameters to the canonical form of
 ``ops/real_mlp.py`` (per layer ``z = a @ w; v = alpha z + beta; a =
@@ -146,8 +148,9 @@ class INR:
         """(pred, dparams) of ``loss = sum_{rows<nvalid}(pred-t)^2 / denom``,
         plus the masked squared-error sums ``(sse_target, sse_gt)`` when
         ``want_metrics`` (gt defaults to target).  Families with a step
-        kernel (WIRE, the canonical real families) run it unless
-        ``spec.fused == 'never'``; the rest use autodiff of ``apply``.
+        kernel (WIRE, WIRE-2D, the MFN, the canonical real families) run it
+        unless ``spec.fused == 'never'``; the rest use autodiff of
+        ``apply``.
         Invalid rows must be a tail; nvalid defaults to n and denom to
         n*c."""
         if self._step is not None and self.spec.fused != "never":
@@ -209,6 +212,66 @@ def wire_step(params, coords, target, spec, *, nvalid=None, denom=None,
               gt=None, want_metrics=False, scratch=None):
     """WIRE train-step dispatch to the step kernel (ops/wire_step.py)."""
     from wire_tpu_torch.ops.wire_step import wire_step as step
+    return step(params, coords, target, spec, nvalid=nvalid, denom=denom,
+                gt=gt, want_metrics=want_metrics, scratch=scratch)
+
+
+# ===========================================================================
+# WIRE-2D - two-head 2-D Gabor (ops/wire2d.py)
+# ===========================================================================
+
+def wire2d_init(gen, spec: INRSpec, device="cpu"):
+    """h = hidden_features / 2 complex units per head: real first linears
+    ``first_lin``/``first_orth``, per hidden layer the complex linears
+    ``hidden_i_lin``/``hidden_i_orth``, the complex final linear
+    (wire_tpu/nn/models.py:253-270)."""
+    h = int(spec.hidden_features / 2)
+    d = spec.in_features
+    params = {"first_lin": winit.linear_params(gen, d, h, device=device),
+              "first_orth": winit.linear_params(gen, d, h, device=device)}
+    for i in range(spec.hidden_layers):
+        for head in ("lin", "orth"):
+            params[f"hidden_{i}_{head}"] = winit.complex_linear_params(
+                gen, h, h, device=device)
+    params["final"] = winit.complex_linear_params(gen, h, spec.out_features,
+                                                  device=device)
+    return params
+
+
+def wire2d_apply_plain(params, coords, spec: INRSpec):
+    """The WIRE-2D forward in plain PyTorch ops (autograd differentiates
+    it), in wire_tpu's order of operations (wire_tpu/nn/models.py:
+    273-295): the first layer's imaginary channels are zeros."""
+    lin = linear(params["first_lin"], coords)
+    orth = linear(params["first_orth"], coords)
+    zeros = torch.zeros_like(lin)
+    xr, xi = act.complex_gabor2d(lin, zeros, orth, zeros, spec.first_omega0,
+                                 spec.scale)
+    for i in range(spec.hidden_layers):
+        lr, li = complex_linear(params[f"hidden_{i}_lin"], xr, xi)
+        orr, ori = complex_linear(params[f"hidden_{i}_orth"], xr, xi)
+        xr, xi = act.complex_gabor2d(lr, li, orr, ori, spec.hidden_omega0,
+                                     spec.scale)
+    yr, _ = complex_linear(params["final"], xr, xi)
+    return yr  # the real part
+
+
+def wire2d_apply(params, coords, spec: INRSpec):
+    """The WIRE-2D forward: the apply/VJP kernel pair
+    (ops/wire2d.py:wire2d_mlp) unless ``spec.fused == 'never'``; that
+    module runs the plain body for CPU tensors and the kernels for CUDA
+    tensors."""
+    if spec.fused == "never":
+        return wire2d_apply_plain(params, coords, spec)
+    from wire_tpu_torch.ops.wire2d import wire2d_mlp
+    return wire2d_mlp(params, coords, spec)
+
+
+def wire2d_step(params, coords, target, spec, *, nvalid=None, denom=None,
+                gt=None, want_metrics=False, scratch=None):
+    """WIRE-2D train-step dispatch to the step kernel
+    (ops/wire2d.py:wire2d_step)."""
+    from wire_tpu_torch.ops.wire2d import wire2d_step as step
     return step(params, coords, target, spec, nvalid=nvalid, denom=denom,
                 gt=gt, want_metrics=want_metrics, scratch=scratch)
 

@@ -1,7 +1,9 @@
 """Model factory (port of wire_tpu/nn/registry.py:20-78 and get_inr):
-WIRE, the canonical real families (siren, gauss, relu, posenc and the
-B-splines form, cubic, srelu and knots), the Gabor MFN and the multiscale
-B-splines mscale_2, mscale_HL and mscale_hier."""
+WIRE, WIRE-2D, the canonical real families (siren, gauss, relu, posenc
+and the B-splines form, cubic, srelu and knots), the Gabor MFN and the
+multiscale B-splines mscale_2, mscale_HL and mscale_hier.  The JAX
+registry's TPU lane guidance (``hidden_gemm_width``, ``LANE_NATIVE``,
+``lane_waste``: 128-lane MXU padding) has no counterpart on the GPU."""
 from __future__ import annotations
 
 from wire_tpu_torch.nn import models as M
@@ -10,6 +12,7 @@ from wire_tpu_torch.nn.models import INR, INRSpec
 # nonlin name -> (init_fn, apply_fn)
 MODEL_REGISTRY = {
     "wire": (M.wire_init, M.wire_apply),
+    "wire2d": (M.wire2d_init, M.wire2d_apply),
     "siren": (M.siren_init, M.siren_apply),
     "gauss": (M._plain_mlp_init, M.gauss_apply),
     "relu": (M.relu_init, M.relu_apply),
@@ -27,6 +30,7 @@ MODEL_REGISTRY = {
 # families with a train-step kernel; the rest take autodiff of apply
 STEP_REGISTRY = {
     "wire": M.wire_step,
+    "wire2d": M.wire2d_step,
     "siren": M.siren_step,
     "gauss": M.gauss_step,
     "relu": M.relu_step,
@@ -45,6 +49,7 @@ STEP_REGISTRY = {
 # reference module's __init__ defaults
 _FAMILY_DEFAULTS = {
     "wire": dict(first_omega0=30.0, hidden_omega0=30.0, scale=10.0),
+    "wire2d": dict(first_omega0=10.0, hidden_omega0=10.0, scale=10.0),
     "siren": dict(first_omega0=30.0, hidden_omega0=30.0, scale=10.0),
     "gauss": dict(scale=10.0),
     "relu": dict(),
