@@ -155,6 +155,7 @@ SWEEP_ITERS = 20
 
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W power limit.
 H100_FP32_TFLOPS = 67.0
+H100_TF32_TFLOPS = 495.0   # dense, tensor cores
 H100_HBM_TBPS = 3.35
 
 KERNEL_LIBRARIES = ("wire_step", "wire_mlp", "rotsum", "line_sample",
@@ -418,6 +419,59 @@ def bound(flops, nbytes):
                                    else "bytes")
 
 
+def bound_3xtf32(flops, nbytes):
+    """(least ms, what bounds it) for fp32 products formed as three TF32
+    tensor-core products each (wire_mlp's hidden layers, csrc/wire_tc.cuh),
+    at the card's dense TF32 and HBM peaks."""
+    ops_ms = 3 * flops / (H100_TF32_TFLOPS * 1e9)
+    bytes_ms = nbytes / (H100_HBM_TBPS * 1e9)
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def sass_hmma(torch, build, name):
+    """HMMA instructions in the SASS of csrc/<name>.cu's built library
+    (cuobjdump -sass), or "not checked" where the toolkit has no
+    cuobjdump."""
+    nvcc = build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.access(cuobjdump, os.X_OK):
+        return "not checked"
+    sass = subprocess.run([cuobjdump, "-sass", build.library_path(name)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return sass.count("HMMA")
+
+
+def kernel_breakdown(torch, fn, iters):
+    """{device kernel name: [ms per call, launches per call]} of every
+    device kernel ``fn`` launches (torch.profiler, device-side events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: [e.device_time_total / 1e3 / iters, e.count / iters]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+# wire_mlp's device kernels by product class: name fragments (csrc/
+# wire_tc.cuh, wire_mlp.cu, wire_gemm.cuh, gemm_common.cuh)
+WIRE_MLP_CLASSES = {
+    "forward_gemms": ("tc_paired_kernel<0",),
+    "data_gradient_gemms": ("tc_paired_kernel<1", "tc_paired_kernel<2"),
+    "weight_gradients": ("tc_wgrad_kernel", "narrow_wgrad_kernel",
+                         "narrow_colsum_kernel", "reduce_chunks_kernel"),
+    "first_final_dcoords": ("first_forward_kernel", "final_forward_kernel",
+                            "dcoords_kernel"),
+}
+
+
 def line_sample_bytes(torch, gy, gx, ph):
     """Bytes the gather + scatter pair must move at positions (gy, gx): the
     distinct plane entries its taps read in both planes (the gather reads
@@ -507,8 +561,10 @@ def ct_kernel_cases(torch, WM, R, LS, model, n, S, A, P, K, seed, device):
 
     angles = np.linspace(0, 180, A, dtype=np.float32)
     grids = rot_grids(torch, S, angles, device)
+    # the angle parts on the device, as operators/radon.py:RadonOp keeps them
+    parts = R.angle_parts_tensor(angles, True, device)
     cases["rotsum"] = (
-        lambda x: R.rotate_project(x, angles),
+        lambda x: R.rotate_project(x, angles, parts=parts),
         lambda x: R.rotate_project_plain(x, angles),
         lambda x: F.grid_sample(x[None, None].expand(A, 1, S, S), grids,
                                 align_corners=True)[:, 0].sum(-2),
@@ -543,16 +599,65 @@ def ct_kernel_vs_plain(torch, WM, R, LS, model, device):
         for name, (kfn, pfn, _, xs, cot) in cases.items():
             got = vjp(torch, kfn, xs, cot)
             torch.cuda.synchronize()
+            if name == "wire_mlp":
+                same_bits(torch, vjp(torch, kfn, xs, cot), got,
+                          f"wire_mlp {which}")
             want = vjp(torch, pfn, xs, cot)
             torch.cuda.synchronize()
             errs[name][which] = compare(got, want, f"{name} {which}")
     return errs
 
 
-def ct_measure(torch, WM, R, LS, model, device):
+# wire_mlp at widths, depths and outputs besides the CT path's, as
+# (hidden_features, complex units h, L, o): h = 5 and 13 give a K (2h) that
+# is not a multiple of 4 or of the tile, 150 a unit count that is not a
+# multiple of 4; and the extreme-phase case, CT's width with omega0 3,
+# sigma 1 and the hidden weights doubled (Gabor phases up to ~30 rad, where
+# fp32 itself is ~1e-5 x max from float64)
+WIRE_MLP_WIDTHS = ((8, 5, 0, 3), (8, 5, 3, 1), (19, 13, 1, 3),
+                   (213, 150, 2, 1), (300, 212, 3, 3))
+
+
+def wire_mlp_widths(torch, WM, get_inr, device):
+    """wire_mlp against its plain version, with dcoords, at n = 700 for
+    each of WIRE_MLP_WIDTHS, and at the extreme phase at n = 4,096."""
+    import numpy as np
+    errs = {}
+    cases = [(hf, L, o, 700, 3.0, 12.0, 1.0, f"h{h} L{L} o{o}")
+             for hf, h, L, o in WIRE_MLP_WIDTHS]
+    cases.append((300, 2, 1, 4096, 3.0, 1.0, 2.0, "extreme_phase"))
+    for hf, L, o, n, omega, scale, wscale, what in cases:
+        model = get_inr("wire", in_features=2, out_features=o,
+                        hidden_features=hf, hidden_layers=L,
+                        first_omega0=omega, hidden_omega0=omega,
+                        scale=scale)
+        params = model.init(torch.Generator().manual_seed(n + L), device)
+        for k in params:
+            if k.startswith("hidden"):
+                for kk in ("wr", "wi"):
+                    params[k][kk] = params[k][kk] * wscale
+        rng = np.random.default_rng(n + L)
+        c = torch.tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+                         device=device)
+        g = torch.tensor(rng.normal(size=(n, o)).astype(np.float32),
+                         device=device)
+        keys = leaf_paths(params)
+        xs = [c] + [t for _, t in tree_leaves(params)]
+        got = vjp(torch, pair_fn(WM.wire_mlp, model.spec, keys), xs, g)
+        torch.cuda.synchronize()
+        want = vjp(torch, pair_fn(WM.wire_mlp_plain, model.spec, keys), xs,
+                   g)
+        errs[what] = compare(got, want, f"wire_mlp {what}")
+    return errs
+
+
+def ct_measure(torch, WM, R, LS, model, device, build):
     """Times at the CT shape of each kernel's forward + backward pair (and
     of its forward alone), its plain version's pair and a library call's
-    pair, with the card's least time for the pair."""
+    pair, with the card's least time for the pair; for wire_mlp its kernel
+    time by product class, its fp32 CUDA-core and 3xTF32 tensor-core bounds
+    and the HMMA instructions of its library; for rotsum the forward and
+    adjoint kernel times and the device kernels a call launches."""
     n, S, A, P, K = 256 * 256, 256, 100, 1024, 513
     cases, params, keys = ct_kernel_cases(torch, WM, R, LS, model, n, S, A,
                                           P, K, seed=4, device=device)
@@ -602,6 +707,28 @@ def ct_measure(torch, WM, R, LS, model, device):
             float((got[k] - want[k]).abs().max()) for k in want)
         res["bound_ms"], res["bound_by"] = bound(*work[name])
         res["gflop"], res["mbytes"] = work[name][0] / 1e9, work[name][1] / 1e6
+        if name in ("wire_mlp", "rotsum"):
+            by = kernel_breakdown(torch, lambda: vjp(torch, kfn, xs, cot), 20)
+            res["device_kernels"] = {k[:120]: v for k, v in by.items()}
+            res["device_kernels_per_call"] = sum(v[1] for v in by.values())
+        if name == "wire_mlp":
+            res["classes_ms"] = {
+                cls: sum(v[0] for k, v in by.items()
+                         if any(f in k for f in frags))
+                for cls, frags in WIRE_MLP_CLASSES.items()}
+            res["bound_fp32_ms"] = res["bound_ms"]
+            res["bound_ms"], res["bound_by"] = bound_3xtf32(*work[name])
+            res["bound_3xtf32_ms"] = res["bound_ms"]
+            res["share_of_fp32_bound"] = res["bound_fp32_ms"] / res[
+                "kernel_ms"]
+            res["share_of_3xtf32_bound"] = res["bound_3xtf32_ms"] / res[
+                "kernel_ms"]
+            res["sass_hmma"] = sass_hmma(torch, build, "wire_mlp")
+        if name == "rotsum":
+            res["forward_kernel_ms"] = sum(
+                v[0] for k, v in by.items() if "rotsum_forward_kernel" in k)
+            res["adjoint_kernel_ms"] = sum(
+                v[0] for k, v in by.items() if "rotsum_adjoint_kernel" in k)
         out[name] = res
     return out
 
@@ -2304,6 +2431,7 @@ def main():
     errs["mscale2_step"] = mscale2_kernel_vs_plain(torch, MS, MM, ms_models,
                                                    dev)
     errs["repaired"] = repaired_faults(torch, WM, R, ct_model, dev)
+    errs["wire_mlp"].update(wire_mlp_widths(torch, WM, get_inr, dev))
     errs.update(mfn_kernel_vs_plain(torch, MF, get_inr, dev))
     for name, cases in sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM,
                                              MF, dev).items():
@@ -2352,12 +2480,18 @@ def main():
         bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
         library_vs_plain_max_abs_err=lib_err,
         achieved_tflops=flops / (ms * 1e9))}
-    meas.update(ct_measure(torch, WM, R, LS, ct_model, dev))
+    meas.update(ct_measure(torch, WM, R, LS, ct_model, dev, build))
     meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
                                            dev)
     meas.update(mfn_measure(torch, MF, get_inr, dev))
     meas.update(wire2d_measure(torch, W2, get_inr, get_config, dev))
+    # each GEMM kernel's least time were its fp32 products formed as
+    # 3xTF32 on the tensor cores, as wire_mlp's are
+    for name, res in meas.items():
+        if name not in ("rotsum", "line_sample"):
+            res.setdefault("bound_3xtf32_ms", bound_3xtf32(
+                res["gflop"] * 1e9, res["mbytes"] * 1e6)[0])
     emit("measure", t0, kernels=meas, nvidia_smi=smi,
          pairs=("ms, plain_ms and library_ms of wire_mlp, rotsum, "
                 "line_sample, real_mlp, mfn_mlp and wire2d_mlp time the "
@@ -2504,7 +2638,10 @@ def main():
         "plain_ms": meas[name]["plain_ms"],
         "bound_ms": meas[name]["bound_ms"],
         "bound_by": meas[name]["bound_by"],
-        "library_ms": meas[name]["library_ms"]}
+        "library_ms": meas[name]["library_ms"],
+        **({"sass_hmma": meas[name]["sass_hmma"],
+            "bound_fp32_ms": meas[name]["bound_fp32_ms"]}
+           if name == "wire_mlp" else {})}
         for name, (lib, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

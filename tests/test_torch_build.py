@@ -24,11 +24,13 @@ def csrc(tmp_path, monkeypatch):
 def test_every_kernel_source_is_there():
     for name in SOURCES:
         assert os.path.isfile(os.path.join(build.CSRC_DIR, f"{name}.cu"))
-    for header in ("wire_gemm.cuh", "gemm_common.cuh", "real_chain.cuh"):
+    for header in ("wire_gemm.cuh", "gemm_common.cuh", "real_chain.cuh",
+                   "wire_tc.cuh"):
         assert os.path.isfile(os.path.join(build.CSRC_DIR, header))
 
 
-@pytest.mark.parametrize("header", ["wire_gemm.cuh", "gemm_common.cuh"])
+@pytest.mark.parametrize("header", ["wire_gemm.cuh", "gemm_common.cuh",
+                                    "wire_tc.cuh"])
 @pytest.mark.parametrize("name", SOURCES)
 def test_library_path_follows_the_shared_header(csrc, name, header):
     before = build.library_path(name)

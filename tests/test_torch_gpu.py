@@ -202,6 +202,164 @@ def test_wire_mlp_without_grad_keeps_nothing(cuda):
     assert peak <= pingpong + slack, (peak, pingpong)
 
 
+def _wire_mlp_scaled_case(n, hf, layers, out, device, omega0=3.0,
+                          scale=12.0, wscale=1.0, seed=0):
+    model = get_inr("wire", in_features=2, out_features=out,
+                    hidden_features=hf, hidden_layers=layers,
+                    first_omega0=omega0, hidden_omega0=omega0, scale=scale)
+    params = model.init(torch.Generator().manual_seed(seed), device)
+    for k in params:
+        if k.startswith("hidden"):
+            for kk in ("wr", "wi"):
+                params[k][kk] = params[k][kk] * wscale
+    rng = np.random.default_rng(seed)
+    coords = torch.tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+                          device=device)
+    g = torch.tensor(rng.normal(size=(n, out)).astype(np.float32),
+                     device=device)
+    return model, params, coords, g
+
+
+def _assert_close_to_plain(got, want):
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        assert err <= REL * float(w.abs().max()) + 1e-30, (name, err)
+
+
+@pytest.mark.parametrize("n,hf,layers,out", [
+    (700, 8, 0, 1), (700, 8, 3, 3), (700, 19, 1, 3), (700, 19, 2, 1),
+    (700, 213, 2, 1), (700, 213, 3, 3), (700, 300, 0, 1), (700, 300, 1, 3),
+    (65536, 300, 2, 1), (65536, 213, 1, 3), (65536, 19, 2, 1)])
+@pytest.mark.parametrize("dcoords", [True, False])
+def test_wire_mlp_tensor_cores_match_plain_at_every_width(
+        cuda, n, hf, layers, out, dcoords):
+    """The 3xTF32 tensor-core pair at h = 5, 13, 150 and 212 complex units
+    (hidden_features 8, 19, 213, 300: K = 2h of 10, 26, 300, 424, ragged
+    against the 16-deep slices and the 32-unit tiles), L 0-3, o 1 and 3, n
+    700 and 65,536, with and without dcoords: within the bound of the plain
+    fp32 version (TF32 off), two calls bit-equal, and the no-grad forward
+    equal to the pair's."""
+    from wire_tpu_torch.ops import wire_mlp as WM
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model, params, c, g = _wire_mlp_scaled_case(n, hf, layers, out, cuda,
+                                                seed=n + layers)
+
+    def run(fn):
+        keys = [(k, kk) for k in params for kk in params[k]]
+        leaves = [params[k][kk].detach().requires_grad_(True)
+                  for k, kk in keys]
+        x = c.detach().requires_grad_(dcoords)
+        p = {k: {} for k in params}
+        for (k, kk), leaf in zip(keys, leaves):
+            p[k][kk] = leaf
+        y = fn(p, x)
+        wrt = leaves + ([x] if dcoords else [])
+        grads = torch.autograd.grad(y, wrt, g, allow_unused=True)
+        grads = [torch.zeros_like(v) if gr is None else gr
+                 for v, gr in zip(wrt, grads)]
+        out_ = {"y": y.detach()}
+        out_.update({f"{k}.{kk}": gr for (k, kk), gr in zip(keys, grads)})
+        if dcoords:
+            out_["dcoords"] = grads[-1]
+        return out_
+
+    got = run(lambda p, x: WM.wire_mlp(p, x, model.spec))
+    again = run(lambda p, x: WM.wire_mlp(p, x, model.spec))
+    torch.cuda.synchronize()
+    for name in got:
+        assert torch.equal(got[name], again[name]), name
+    want = run(lambda p, x: WM.wire_mlp_plain(p, x, model.spec))
+    _assert_close_to_plain(got, want)
+    with torch.no_grad():
+        y = WM.wire_mlp(params, c, model.spec)
+    assert torch.equal(y, got["y"])
+
+
+def test_wire_mlp_at_extreme_phase_matches_plain(cuda):
+    """CT's width with omega0 3, sigma 1 and the hidden weights doubled:
+    Gabor phases up to ~30 rad, where the plain fp32 version itself is
+    ~1e-5 x max from float64; the tensor-core pair stays within the bound
+    of it."""
+    from wire_tpu_torch.ops import wire_mlp as WM
+    model, params, c, g = _wire_mlp_scaled_case(4096, 300, 2, 1, cuda,
+                                                scale=1.0, wscale=2.0,
+                                                seed=5)
+    got = _vjp(lambda p, x: WM.wire_mlp(p, x, model.spec), params, c, g)
+    want = _vjp(lambda p, x: WM.wire_mlp_plain(p, x, model.spec), params, c,
+                g)
+    _assert_close_to_plain(got, want)
+
+
+def _device_kernels(fn, iters=3):
+    """{device kernel name: launches per call} of fn (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("H,W", [(256, 256), (96, 128)])
+def test_rotsum_call_is_one_forward_and_one_adjoint_kernel(cuda, H, W):
+    """Through RadonOp (the CT fit's operator, angle parts held on the
+    device) a call with its gradient launches the forward kernel once, the
+    adjoint kernel once, and no other device kernel."""
+    from wire_tpu_torch.operators import radon as TR
+    from wire_tpu_torch.ops import rotsum as R
+    angles = np.linspace(0, 180, 100, dtype=np.float32)
+    op = TR.RadonOp(angles, method="rotate")
+    rng = np.random.default_rng(H)
+    x = torch.tensor(rng.random((H, W)).astype(np.float32),
+                     device=cuda).requires_grad_(True)
+    cot = torch.tensor(rng.normal(size=(100, W)).astype(np.float32),
+                       device=cuda)
+
+    def call():
+        torch.autograd.grad(op(x), x, cot)
+
+    before = dict(R.launches)
+    kernels = _device_kernels(call)
+    assert R.launches == {"forward": before["forward"] + 4,
+                          "adjoint": before["adjoint"] + 4}
+    assert len(kernels) == 2, kernels
+    assert all(v == 1 for v in kernels.values()), kernels
+    assert any("rotsum_forward_kernel" in k for k in kernels), kernels
+    assert any("rotsum_adjoint_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("H,W", [(256, 256), (97, 97), (96, 128),
+                                 (128, 70)])
+def test_rotsum_adjoint_is_the_transpose(cuda, H, W):
+    """<R x, y> = <x, R^T y> within 1e-5 relative (sums in float64), and
+    the pair against the plain version, square and non-square."""
+    from wire_tpu_torch.ops import rotsum as R
+    rng = np.random.default_rng(H * W)
+    angles = rng.uniform(-200, 400, 37).astype(np.float32)
+    img = torch.tensor(rng.random((H, W)).astype(np.float32), device=cuda)
+    cot = torch.tensor(rng.normal(size=(37, W)).astype(np.float32),
+                       device=cuda)
+    out = {}
+    for name, fn in (("kernel", R.rotate_project),
+                     ("plain", R.rotate_project_plain)):
+        x = img.clone().requires_grad_(True)
+        y = fn(x, angles)
+        (gx,) = torch.autograd.grad(y, x, cot)
+        out[name] = (y.detach(), gx)
+    y, gx = out["kernel"]
+    lhs = float((y.double() * cot.double()).sum())
+    rhs = float((img.double() * gx.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs), (lhs, rhs)
+    for a, b in zip(out["kernel"], out["plain"]):
+        err = float((a - b).abs().max())
+        assert err <= REL * float(b.abs().max()), err
+
+
 def test_radon_rotate_runs_the_kernel_on_a_non_square_cuda_image(cuda):
     from wire_tpu_torch.operators import radon as TR
     from wire_tpu_torch.ops import rotsum as R

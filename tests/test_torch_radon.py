@@ -78,17 +78,28 @@ def test_rotate_project_adjoint(S):
 
 
 def test_angle_split_and_planes_match_wire_tpu():
+    """The kernels' angle split and their rot90 index map (applied in the
+    kernels, never built as planes) against wire_tpu's host-side split,
+    planes and fold: gathering through plane_index gives its planes, and
+    adding back through the same map gives its fold."""
     angles = np.array([0.0, 44.9, 45.0, 45.1, 90.0, 135.0, 200.0, -13.4,
                        315.0, 359.0], np.float32)
     for got, want in zip(R.angle_parts(angles), JROT._angle_parts(angles)):
         np.testing.assert_allclose(got, np.asarray(want), atol=1e-7)
+    parts = R.angle_parts_tensor(angles, True, "cpu").numpy()
+    for got, want in zip(parts, R.angle_parts(angles)):
+        np.testing.assert_array_equal(got, np.asarray(want, np.float32))
     img = _img(16, 4)
-    planes = R.variant_planes(torch.tensor(img)).numpy()
+    index = [R.plane_index(16, k) for k in range(4)]
+    planes = np.stack([img[r.numpy(), c.numpy()] for r, c in index])
     want = np.asarray(JROT._variant_planes(jnp.asarray(img), 16))
     np.testing.assert_array_equal(planes, want)
     stack = np.random.RandomState(5).rand(4, 16, 16).astype(np.float32)
+    fold = torch.zeros(16, 16)
+    for (r, c), plane in zip(index, torch.tensor(stack)):
+        fold.index_put_((r, c), plane, accumulate=True)
     np.testing.assert_allclose(
-        R.fold_variants(torch.tensor(stack)).numpy(),
+        fold.numpy(),
         np.asarray(JROT._fold_variants(jnp.asarray(stack), 16)), rtol=1e-6)
 
 

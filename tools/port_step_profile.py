@@ -23,8 +23,11 @@ counted again under the operator or autograd Function that launched it),
 the device's busy time per epoch, the wall time per epoch and the device's
 idle share (1 - busy / wall).
 Kernels of csrc/*.cu keep their CUDA names (paired_gemm_kernel<0|1|2> =
-forward / hidden backward / first-layer backward GEMMs,
-wgrad_partial_kernel, reduce_chunks_kernel, final_loss_kernel or
+forward / hidden backward / first-layer backward GEMMs of wire_step,
+tc_paired_kernel<0|1|2, ...> the same three on the tensor cores and
+tc_wgrad_kernel, narrow_wgrad_kernel and narrow_colsum_kernel the weight
+gradients of wire_mlp (the CT fits), wgrad_partial_kernel,
+reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
 rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /
 backward / dcoords GEMMs of the real families, colsum_partial_kernel,

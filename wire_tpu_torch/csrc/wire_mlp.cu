@@ -13,26 +13,37 @@
 // What bounds it: operations.  At the CT shape (n = 65,536 rows, h = 212,
 // L = 2, o = 1) forward + backward are ~142 GFLOP of fp32 multiply-adds
 // (three n x 424 x 424 products per hidden layer) against ~3 MB of inputs
-// and outputs: ~2.1 ms at the card's 67 TFLOP/s fp32 peak.
+// and outputs: ~2.1 ms at the card's 67 TFLOP/s fp32 peak on the CUDA
+// cores, ~0.86 ms for the three TF32 products of each of them at the
+// tensor cores' 495 TFLOP/s.
 //
-// What this design does about it: it is the simple, correct first version,
-// built from the step kernel's pieces (wire_gemm.cuh): the tiled fp32 GEMM
-// with the Gabor forward/backward in its epilogue, the fixed-order
-// per-chunk weight-gradient sums (no float atomics, so results repeat run to
-// run).  Unlike the TPU kernel, the backward does not recompute the forward:
-// the forward keeps its activations (acts, zs, z1: (2L + 1.5) n 2h floats,
-// 0.61 GB at the CT shape) in tensors the caller saves for the backward.
-// Recomputing would cost a third of the pair's FLOPs (~0.7 ms at the bound);
-// writing and reading the saved activations moves ~1.2 GB (~0.4 ms at
-// 3.35 TB/s) and the card has the memory.  Tensor cores are later work.
+// What this design does about it: the three products of every hidden
+// layer (forward, data gradient, weight gradient) run on the tensor cores
+// at fp32 accuracy through wire_tc.cuh's 3xTF32 mma.sync loop, with the
+// Gabor forward/backward in the paired products' epilogues and the
+// weight gradients as fixed-order per-chunk partials with the bias
+// gradient summed from the staged dz tiles (no float atomics, so results
+// repeat run to run).  The final layer's data gradient (a K of o) is a
+// paired product on the same loop.  The first layer's forward (a K of
+// d = 2) and the final layer's (o <= kMaxOut columns) stay on
+// wire_gemm.cuh's and gemm_common.cuh's small CUDA-core kernels, and
+// their weight gradients, one operand at most 8 wide, take wire_tc.cuh's
+// memory-bound narrow kernel.  Unlike the TPU kernel, the backward does
+// not recompute the forward: the forward keeps its activations (acts, zs,
+// z1: (2L + 1.5) n 2h floats, 0.61 GB at the CT shape) in tensors the
+// caller saves for the backward.  Recomputing would cost a third of the
+// pair's FLOPs; writing and reading the saved activations moves ~1.2 GB
+// (~0.4 ms at 3.35 TB/s) and the card has the memory.
 //
 // Without a gradient to take (inference, a render) the forward runs through
 // two ping-pong activation planes and keeps nothing: 2 n 2h floats, 0.22 GB
 // at the CT shape, instead of the 0.61 GB a backward needs.
 //
-// Accuracy: sincosf/expf, no --use_fast_math (wire_gemm.cuh).
+// Accuracy: 3xTF32 products (wire_tc.cuh); sincosf/expf, no
+// --use_fast_math.
 
 #include "wire_gemm.cuh"
+#include "wire_tc.cuh"
 
 using namespace wire_gemm;
 
@@ -54,13 +65,86 @@ __global__ void dcoords_kernel(const float* __restrict__ dz1,
   dc[idx] = s;
 }
 
+// First layer and the L hidden layers: z1 (n, h), acts (L + 1, n, 2h),
+// zs (L, n, 2h); the final layer is the caller's.  With `pingpong` (then
+// z1 and zs are null and acts holds two (n, 2h) planes) nothing is kept
+// for a backward: layer l writes plane (l + 1) % 2, so the last activation
+// is plane L % 2.
+cudaError_t forward_chain(const float* coords, const float* w1,
+                          const float* b1, const float* Wh, const float* Bh,
+                          float* acts, float* zs, float* z1, int n, int d,
+                          int h, int L, float omega0, float s2,
+                          float first_omega0, cudaStream_t st,
+                          bool pingpong) {
+  const int h2 = 2 * h;
+  const size_t act_sz = (size_t)n * h2;
+  const size_t w_sz = (size_t)h2 * h2;
+  first_forward_kernel<<<ceil_div((long long)n * h, kThreads), kThreads, 0,
+                         st>>>(coords, w1, b1, z1, acts, n, d, h,
+                               first_omega0, s2);
+  GEMM_CHECK(cudaGetLastError());
+  for (int l = 0; l < L; ++l) {
+    const size_t in = pingpong ? l % 2 : l;
+    const size_t out = pingpong ? (l + 1) % 2 : l + 1;
+    GEMM_CHECK(wire_tc::paired<wire_tc::kFwd>(
+        acts + in * act_sz, Wh + l * w_sz, Bh + (size_t)l * h2, nullptr,
+        nullptr, pingpong ? nullptr : zs + l * act_sz, acts + out * act_sz,
+        n, h2, h, omega0, s2, st));
+  }
+  return cudaSuccess;
+}
+
+// The backward from the output cotangent g (n, o) to every weight gradient:
+//   gfW (2h + 1, o) = [dfW; dfb], gWh (L, 2h + 1, 2h) = [dW; dB] per layer,
+//   gw1 (d + 1, h) = [dw1; db1]; dz1 (n, h) is left holding dL/dz1.
+// Scratch: dz (2, n, 2h), part (wire_mlp_part_floats).
+cudaError_t backward_chain(const float* coords, const float* g,
+                           const float* WhT, const float* fWT,
+                           const float* acts, const float* zs,
+                           const float* z1, float* gw1, float* gWh,
+                           float* gfW, float* dz, float* dz1, float* part,
+                           int n, int d, int h, int o, int L, float omega0,
+                           float s2, float first_omega0, cudaStream_t st) {
+  const int h2 = 2 * h;
+  const size_t act_sz = (size_t)n * h2;
+  const size_t w_sz = (size_t)h2 * h2;
+  GEMM_CHECK(
+      wire_tc::narrow_weight_grad(acts + L * act_sz, g, part, gfW, n, h2, o,
+                                  st));
+  const float* dsrc = g;
+  const float* bt = fWT;
+  int kdim = o;
+  int cur = 0;
+  for (int l = L - 1; l >= 0; --l) {
+    float* dzl = dz + cur * act_sz;
+    GEMM_CHECK(wire_tc::paired<wire_tc::kBwd>(
+        dsrc, bt, nullptr, acts + (l + 1) * act_sz, zs + l * act_sz, dzl,
+        nullptr, n, kdim, h, omega0, s2, st));
+    GEMM_CHECK(wire_tc::weight_grad(acts + l * act_sz, dzl, part,
+                                    gWh + (size_t)l * (h2 + 1) * h2, n, h2,
+                                    h2, st));
+    dsrc = dzl;
+    bt = WhT + l * w_sz;
+    kdim = h2;
+    cur ^= 1;
+  }
+  GEMM_CHECK(wire_tc::paired<wire_tc::kBwdFirst>(
+      dsrc, bt, nullptr, acts, z1, dz1, nullptr, n, kdim, h, first_omega0,
+      s2, st));
+  return wire_tc::narrow_weight_grad(coords, dz1, part, gw1, n, d, h, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Floats needed by the backward's `part` workspace for shapes (n, d, h, o).
 long long wire_mlp_part_floats(int n, int d, int h, int o) {
-  return part_floats(n, d, h, o);
+  const long long hidden = wire_tc::wgrad_part_floats(n, 2 * h, 2 * h);
+  const long long first = wire_tc::narrow_part_floats(n, d, h);
+  const long long final = wire_tc::narrow_part_floats(n, 2 * h, o);
+  long long need = hidden > first ? hidden : first;
+  return need > final ? need : final;
 }
 
 int wire_mlp_max_out() { return kMaxOut; }
@@ -83,8 +167,8 @@ int wire_mlp_forward(const float* coords, const float* w1, const float* b1,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
-  GEMM_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
-                            omega0, s2, first_omega0, st));
+  GEMM_CHECK(forward_chain(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
+                           omega0, s2, first_omega0, st, /*pingpong=*/false));
   return final_forward(acts + (size_t)L * n * 2 * h, fW, fb, pred, n, 2 * h,
                        o, st);
 }
@@ -100,9 +184,9 @@ int wire_mlp_forward_nograd(const float* coords, const float* w1,
                             float first_omega0, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
-  GEMM_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, pingpong, nullptr,
-                            nullptr, n, d, h, L, omega0, s2, first_omega0,
-                            st, /*pingpong=*/true));
+  GEMM_CHECK(forward_chain(coords, w1, b1, Wh, Bh, pingpong, nullptr,
+                           nullptr, n, d, h, L, omega0, s2, first_omega0, st,
+                           /*pingpong=*/true));
   return final_forward(pingpong + (size_t)(L % 2) * n * 2 * h, fW, fb, pred,
                        n, 2 * h, o, st);
 }
@@ -123,9 +207,9 @@ int wire_mlp_backward(const float* coords, const float* g, const float* w1,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
-  GEMM_CHECK(backward(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz,
-                      dz1, part, n, d, h, o, L, omega0, s2, first_omega0,
-                      st));
+  GEMM_CHECK(backward_chain(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW,
+                            dz, dz1, part, n, d, h, o, L, omega0, s2,
+                            first_omega0, st));
   if (dcoords != nullptr)
     dcoords_kernel<<<ceil_div((long long)n * d, kThreads), kThreads, 0,
                      st>>>(dz1, w1, dcoords, n, d, h);

@@ -79,15 +79,28 @@ class RadonOp:
     """The Radon forward operator of one set of angles, as a callable
     ``op(field) -> sinogram``.  The angles are constants, kept on the host;
     the kernel path (rotate on the card) refuses to differentiate
-    through them, ``method='rotate_xla'`` does."""
+    through them, ``method='rotate_xla'`` does.  For that path the
+    operator keeps the kernels' angle parts on the device, made at its
+    first call on a device and shape class, so a call does no host work on
+    the angles."""
 
     def __init__(self, angles_degrees, *, method="auto",
                  reference_compat=False):
         self.angles = np.asarray(angles_degrees, np.float32).ravel()
         self.method = method
         self.reference_compat = reference_compat
+        self._rotsum_parts = {}
 
     def __call__(self, field):
+        if field.device.type == "cuda" and _resolve_auto(
+                self.method, len(self.angles), "cuda",
+                self.reference_compat) == "rotate":
+            key = (field.device, field.shape[-2] == field.shape[-1])
+            parts = self._rotsum_parts.get(key)
+            if parts is None:
+                parts = self._rotsum_parts[key] = rotsum.angle_parts_tensor(
+                    self.angles, key[1], field.device)
+            return rotsum.rotate_project(field, self.angles, parts=parts)
         return radon(field, self.angles, method=self.method,
                      reference_compat=self.reference_compat)
 

@@ -6,14 +6,17 @@ Pallas calls).  ``rotate_project(img, angles)`` maps an (H, W) image and
 (A,) angles in degrees to the (A, W) sinogram
 ``sino[a] = sum_y rotate(img, angles[a])[y]``.
 
-Host side (rotsum.py:_angle_parts, _variant_planes, _fold_variants): for a
-square image each angle is split as theta = 90 k + phi with |phi| <= 45
-deg, and the kernel reads the lattice-exact rot90(img, k) plane and
-rotates by phi only.  A non-square image (rot90 would change its shape) is
-one plane rotated by the whole angle, with the plain version's own cos and
-sin.  The TPU planes are zero-padded to a 128-multiple for block slicing;
-the CUDA kernels bounds-check every tap, so the planes here are the
-(H, W) images and no row outside them enters a sum.
+Host side: for a square image each angle is split as theta = 90 k + phi
+with |phi| <= 45 deg, and the kernels read the lattice-exact
+rot90(img, k) through an index map (``plane_index``) and rotate by phi
+only; no rotated plane is built in device memory, and the adjoint writes
+the image's gradient directly.  A non-square image (rot90 would change its
+shape) takes k = 0 and the whole angle, with the plain version's own cos
+and sin.  The parts (cos phi, sin phi, k) are one (3, A) tensor on the
+device, made once per operator (``angle_parts_tensor``; ``RadonOp`` keeps
+it), so a call is one autograd Function, one forward kernel and one
+adjoint kernel.  The TPU planes are zero-padded to a 128-multiple for
+block slicing; the CUDA kernels bounds-check every tap instead.
 
 The gradient flows to the image through a ``torch.autograd.Function``
 whose backward is the adjoint kernel.  The angles are constants: a tensor
@@ -66,18 +69,24 @@ def angle_parts(angles_degrees):
             (k % 4).astype(np.int32))
 
 
-def variant_planes(img):
-    """The four lattice-exact 90-degree pre-rotations of a square image,
-    (4, S, S): rotate(img, 90 k + phi) == rotate(rot90(img, k), phi)."""
-    return torch.stack([torch.rot90(img, k, dims=(0, 1))
-                        for k in range(4)]).contiguous()
+def angle_parts_tensor(angles_degrees, square, device):
+    """The kernels' angle parts, (3, A) float32 on ``device``: cos phi,
+    sin phi and k (``angle_parts`` for a square image, else
+    ``whole_angle_parts``)."""
+    parts = angle_parts if square else whole_angle_parts
+    cphi, sphi, k = parts(np.asarray(angles_degrees, np.float32).ravel())
+    return torch.from_numpy(np.stack([cphi, sphi, k.astype(np.float32)])).to(
+        device)
 
 
-def fold_variants(planes):
-    """Adjoint of ``variant_planes``: un-rotate each plane and sum."""
-    return (planes[0] + torch.rot90(planes[1], -1, dims=(0, 1))
-            + torch.rot90(planes[2], -2, dims=(0, 1))
-            + torch.rot90(planes[3], -3, dims=(0, 1)))
+def plane_index(S, k):
+    """(rows, cols), each (S, S) int64, with rot90(img, k)[i, j] =
+    img[rows[i, j], cols[i, j]]: the index map the kernels apply to a square
+    image (csrc/rotsum.cu:tap), and, read backwards, the adjoint's."""
+    i, j = np.meshgrid(np.arange(S), np.arange(S), indexing="ij")
+    rows, cols = ((i, j), (j, S - 1 - i), (S - 1 - i, S - 1 - j),
+                  (S - 1 - j, i))[k % 4]
+    return torch.from_numpy(rows.copy()), torch.from_numpy(cols.copy())
 
 
 def sample_flops(A, S):
@@ -94,7 +103,7 @@ _INT = ctypes.c_int
 def _lib():
     lib = build.load("rotsum")
     for fn in (lib.rotsum_forward, lib.rotsum_adjoint):
-        fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_PTR]
+        fn.argtypes = [_PTR] * 3 + [_INT] * 3 + [_PTR]
         fn.restype = _INT
     lib.rotsum_error_string.argtypes = [_INT]
     lib.rotsum_error_string.restype = ctypes.c_char_p
@@ -103,16 +112,14 @@ def _lib():
 
 @functools.lru_cache(maxsize=64)
 def _device_parts(key, square, device):
-    parts = angle_parts if square else whole_angle_parts
-    cphi, sphi, kidx = parts(np.asarray(key, np.float32))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (cphi, sphi, kidx))
+    return angle_parts_tensor(np.asarray(key, np.float32), square, device)
 
 
-def _run(fn, what, ptrs, A, P, H, W, device):
+def _run(what, a, parts, out, A, H, W):
     lib = _lib()
-    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], A, P, H, W,
-                          torch.cuda.current_stream(device).cuda_stream)
+    fn = lib.rotsum_forward if what == "forward" else lib.rotsum_adjoint
+    rc = fn(a.data_ptr(), parts.data_ptr(), out.data_ptr(), A, H, W,
+            torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rotsum {what} kernel launch failed: CUDA error "
                            f"{rc} ({lib.rotsum_error_string(rc).decode()})")
@@ -122,37 +129,33 @@ def _run(fn, what, ptrs, A, P, H, W, device):
 class _RotateProject(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, img, cphi, sphi, kidx):
+    def forward(ctx, img, parts):
         H, W = img.shape
-        A = cphi.shape[0]
-        square = H == W
-        planes = variant_planes(img) if square else img[None].contiguous()
+        A = parts.shape[1]
         sino = torch.empty((A, W), dtype=torch.float32, device=img.device)
-        _run("rotsum_forward", "forward", (planes, cphi, sphi, kidx, sino),
-             A, planes.shape[0], H, W, img.device)
-        ctx.save_for_backward(cphi, sphi, kidx)
-        ctx.shape = (planes.shape[0], H, W)
+        _run("forward", img, parts, sino, A, H, W)
+        ctx.save_for_backward(parts)
+        ctx.shape = (H, W)
         return sino
 
     @staticmethod
     def backward(ctx, cot):
-        cphi, sphi, kidx = ctx.saved_tensors
-        P, H, W = ctx.shape
-        A = cot.shape[0]
+        (parts,) = ctx.saved_tensors
+        H, W = ctx.shape
+        A = parts.shape[1]
         cot = cot.to(torch.float32).contiguous()
-        planes_bar = torch.empty((P, H, W), dtype=torch.float32,
-                                 device=cot.device)
-        _run("rotsum_adjoint", "adjoint", (cot, cphi, sphi, kidx, planes_bar),
-             A, P, H, W, cot.device)
-        img_bar = fold_variants(planes_bar) if P == 4 else planes_bar[0]
-        return img_bar, None, None, None
+        img_bar = torch.empty((H, W), dtype=torch.float32, device=cot.device)
+        _run("adjoint", cot, parts, img_bar, A, H, W)
+        return img_bar, None
 
 
-def rotate_project(img, angles_degrees):
+def rotate_project(img, angles_degrees, parts=None):
     """(H, W) image, (A,) angles in degrees -> (A, W) sinogram, the
     reference operator ``sum_y rotate(img, angle)[y]``, differentiable in
     the image.  The angles are constants (a sequence, a numpy array or a
-    tensor that does not require grad)."""
+    tensor that does not require grad).  ``parts``, the angles'
+    ``angle_parts_tensor`` on the image's device for its squareness, spares
+    a caller that holds them (``RadonOp``) their lookup."""
     if isinstance(angles_degrees, torch.Tensor):
         if angles_degrees.requires_grad:
             raise ValueError(
@@ -161,9 +164,9 @@ def rotate_project(img, angles_degrees):
                 "method='rotate_xla') to differentiate through angles "
                 "(see operators/radon.py).")
         angles_degrees = angles_degrees.detach().cpu().numpy()
-    key = tuple(np.asarray(angles_degrees, np.float32).ravel().tolist())
     if img.device.type == "cpu":
-        return rotate_project_plain(img, np.asarray(key, np.float32))
+        return rotate_project_plain(
+            img, np.asarray(angles_degrees, np.float32).ravel())
     if img.device.type != "cuda":
         raise ValueError(f"rotate_project: unsupported device {img.device}")
     if img.ndim != 2:
@@ -172,6 +175,7 @@ def rotate_project(img, angles_degrees):
     if img.dtype != torch.float32:
         raise TypeError(f"rotate_project: image has dtype {img.dtype}, "
                         f"expected float32")
-    cphi, sphi, kidx = _device_parts(key, img.shape[0] == img.shape[1],
-                                     img.device)
-    return _RotateProject.apply(img, cphi, sphi, kidx)
+    if parts is None:
+        key = tuple(np.asarray(angles_degrees, np.float32).ravel().tolist())
+        parts = _device_parts(key, img.shape[0] == img.shape[1], img.device)
+    return _RotateProject.apply(img.contiguous(), parts)

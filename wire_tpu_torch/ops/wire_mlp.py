@@ -14,6 +14,12 @@ far less device time than a second forward (see ``csrc/wire_mlp.cu``).
 When no input needs a gradient the forward keeps nothing: it runs through
 two ping-pong activation planes (0.22 GB at the CT shape).
 
+The hidden layers' products run on the tensor cores at fp32 accuracy
+(3xTF32, ``csrc/wire_tc.cuh``).  ``tf32_round``, ``matmul_3xtf32_plain``
+and ``paired_tile_columns`` model on the CPU what the kernel does: the
+operand split and the order of its products, and the column pairing of
+its staged tiles.  The tests use them; the main path never does.
+
 ``wire_mlp`` runs the plain version for tensors on the CPU, and for CUDA
 tensors launches the kernels or raises; there is no fallback.  Leading
 axes of ``coords`` are flattened and restored, as the JAX entry does.
@@ -44,6 +50,52 @@ def apply_flops(n, d, h, o, L):
     data = 2 * n * (o * h2 + L * h2 * h2 + d * h)
     weight = 2 * n * ((d + 1) * h + L * (h2 + 1) * h2 + (h2 + 1) * o)
     return fwd + data + weight
+
+
+# complex units of one paired tile of the tensor-core loop
+# (csrc/wire_tc.cuh:kUnits): its re columns, then their im columns
+PAIRED_TILE_UNITS = 32
+
+
+def tf32_round(x):
+    """float32 -> the nearest TF32 value, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: 13 mantissa bits dropped, non-finite
+    values kept."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    finite = (bits & 0x7F800000) != 0x7F800000
+    out = torch.where(finite, (bits + 0x1000) & 0xFFFFE000, bits)
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).view(torch.float32)
+
+
+def matmul_3xtf32_plain(a, b):
+    """a (m, K) @ b (K, N) in float32 as the tensor-core loop forms it:
+    each operand split into big = tf32(x) and small = tf32(x - big), and,
+    per 8-deep slice of K in order, small @ big, big @ small and big @ big
+    added to an fp32 sum (each product of two TF32 values is exact in
+    fp32).  small @ small is dropped."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    asm, bsm = tf32_round(a - ab), tf32_round(b - bb)
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        out += asm[:, s] @ bb[s]
+        out += ab[:, s] @ bsm[s]
+        out += ab[:, s] @ bb[s]
+    return out
+
+
+def paired_tile_columns(h, units=PAIRED_TILE_UNITS):
+    """(tiles, 2 units) int64: the stacked-layout column (of 2h) that each
+    staged column of each paired tile holds, -1 where the tile runs past
+    h.  Tile u stages the re columns of units u*units .. and then their
+    im columns h + u*units ..; so staged columns c and units + c hold a
+    unit's (j, h + j)."""
+    tiles = -(-h // units)
+    unit = torch.arange(tiles)[:, None] * units + torch.arange(units)
+    cols = torch.cat([unit, h + unit], dim=1)
+    return torch.where(torch.cat([unit, unit], dim=1) < h, cols,
+                       torch.full_like(cols, -1))
 
 
 _PTR = ctypes.c_void_p
