@@ -23,7 +23,13 @@ Phases, each printing one JSON line with its wall time:
                    TF32 off for matmuls and cuDNN
   build            nvcc builds every kernel library from csrc/, all at once
   kernel_vs_plain  each kernel against its plain PyTorch version at its
-                   path's full shape, plus a ragged case; real_mlp's
+                   path's full shape, plus a ragged case; wire_step at
+                   h 5, 13, 150, 212, L 1-3, o 1 and 3, n 700 and 65,537
+                   with nvalid and denom; mscale2_step at ns 2 and 3 where
+                   64-row tiles straddle two scales (n 700, 65,537); two
+                   calls of each bit-equal; wire_mlp, real_mlp, mfn_mlp and
+                   wire2d_mlp on a transposed coordinate view, equal to the
+                   contiguous call bit for bit (fault C.7); real_mlp's
                    every basis kind, lane segments and row_gamma; real_step
                    at the mscale_hier and mscale_HL folds; wire_mlp
                    on (b, N, 2) coordinates and without a gradient (equal
@@ -40,7 +46,10 @@ Phases, each printing one JSON line with its wall time:
                    calls of each WIRE-2D kernel bit-equal
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
-                   shapes, and the card's least time for the same work
+                   shapes, and the card's least time for the same work;
+                   for the tensor-core kernels (wire_step, wire_mlp) the
+                   kernel time by product class, the 3xTF32 bound beside
+                   the fp32 one, and the HMMA instructions of the library
   fit              the denoise bench protocol (65,536 coordinates, full
                    batch) through fit_pointwise, once through the kernel
                    (launch counts reset just before, read just after) and
@@ -460,16 +469,49 @@ def kernel_breakdown(torch, fn, iters):
             if e.device_type == DeviceType.CUDA}
 
 
-# wire_mlp's device kernels by product class: name fragments (csrc/
-# wire_tc.cuh, wire_mlp.cu, wire_gemm.cuh, gemm_common.cuh)
-WIRE_MLP_CLASSES = {
-    "forward_gemms": ("tc_paired_kernel<0",),
-    "data_gradient_gemms": ("tc_paired_kernel<1", "tc_paired_kernel<2"),
-    "weight_gradients": ("tc_wgrad_kernel", "narrow_wgrad_kernel",
-                         "narrow_colsum_kernel", "reduce_chunks_kernel"),
-    "first_final_dcoords": ("first_forward_kernel", "final_forward_kernel",
-                            "dcoords_kernel"),
+# the device kernels by product class of the libraries whose hidden-layer
+# products run on the tensor cores: name fragments (csrc/wire_tc.cuh,
+# wire_gemm.cuh, gemm_common.cuh and the libraries' own kernels)
+WIRE_WEIGHT_GRADIENTS = ("tc_wgrad_kernel", "narrow_wgrad_kernel",
+                         "narrow_colsum_kernel", "reduce_chunks_kernel")
+TENSOR_CORE_CLASSES = {
+    "wire_mlp": {
+        "forward_gemms": ("tc_paired_kernel<0",),
+        "data_gradient_gemms": ("tc_paired_kernel<1", "tc_paired_kernel<2"),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS,
+        "first_final_dcoords": ("first_forward_kernel",
+                                "final_forward_kernel", "dcoords_kernel"),
+    },
+    "wire_step": {
+        "forward_gemms": ("tc_paired_kernel<0",),
+        "data_gradient_gemms": ("tc_paired_kernel<1", "tc_paired_kernel<2"),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS,
+        "first_final_loss": ("first_forward_kernel", "final_loss_kernel"),
+    },
 }
+
+
+def tensor_core_fields(torch, build, fn, name, flops, nbytes, kernel_ms):
+    """The measure fields of a library whose hidden-layer products are
+    3xTF32 tensor-core products: its device kernels and their time by
+    product class (TENSOR_CORE_CLASSES), the 3xTF32 bound as bound_ms with
+    the fp32 CUDA-core bound beside it, the shares of both in kernel_ms, and
+    the HMMA instructions of its library."""
+    by = kernel_breakdown(torch, fn, 20)
+    res = {"device_kernels": {k[:120]: v for k, v in by.items()},
+           "device_kernels_per_call": sum(v[1] for v in by.values()),
+           "classes_ms": {
+               cls: sum(v[0] for k, v in by.items()
+                        if any(f in k for f in frags))
+               for cls, frags in TENSOR_CORE_CLASSES[name].items()}}
+    res["bound_fp32_ms"] = bound(flops, nbytes)[0]
+    res["bound_ms"], res["bound_by"] = bound_3xtf32(flops, nbytes)
+    res["bound_3xtf32_ms"] = res["bound_ms"]
+    if kernel_ms:
+        res["share_of_fp32_bound"] = res["bound_fp32_ms"] / kernel_ms
+        res["share_of_3xtf32_bound"] = res["bound_3xtf32_ms"] / kernel_ms
+    res["sass_hmma"] = sass_hmma(torch, build, name)
+    return res
 
 
 def line_sample_bytes(torch, gy, gx, ph):
@@ -651,6 +693,95 @@ def wire_mlp_widths(torch, WM, get_inr, device):
     return errs
 
 
+# wire_step at widths, depths, outputs and row counts besides the main
+# path's, as (hidden_features, complex units h, L, o, n, nvalid, denom):
+# K = 2h of 10, 26, 300 and 424, against the 32-deep slices and 32-unit
+# tiles; n 700 and 65,537 against the 128-row tiles and the weight
+# gradients' 512- and 1,024-row chunks
+WIRE_STEP_WIDTHS = ((8, 5, 1, 3, 700, 650, 1951.0),
+                    (8, 5, 3, 1, 700, None, None),
+                    (19, 13, 2, 3, 700, 600, None),
+                    (213, 150, 1, 1, 700, None, 777.0),
+                    (213, 150, 3, 3, 700, 650, None),
+                    (300, 212, 3, 1, 700, None, None),
+                    (300, 212, 2, 3, 65537, 65000, None),
+                    (19, 13, 1, 1, 65537, None, 70000.0))
+
+
+def wire_step_widths(torch, WS, get_inr, device):
+    """wire_step against its plain version at each of WIRE_STEP_WIDTHS
+    (denoise frequencies, the tail masked by nvalid, denom), two calls
+    bit-equal."""
+    errs = {}
+    for hf, h, L, o, n, nvalid, denom in WIRE_STEP_WIDTHS:
+        what = f"h{h} L{L} o{o} n{n}"
+        model = get_inr("wire", in_features=2, out_features=o,
+                        hidden_features=hf, hidden_layers=L,
+                        first_omega0=7.0, hidden_omega0=7.0, scale=8.0)
+        params, coords, target, gt = inputs(torch, model, n, n + hf + L,
+                                            device)
+        got, again = (tensors_of(*WS.wire_step(
+            params, coords, target, model.spec, nvalid=nvalid, denom=denom,
+            gt=gt, want_metrics=True)) for _ in range(2))
+        torch.cuda.synchronize()
+        same_bits(torch, again, got, f"wire_step {what}")
+        want = WS.wire_step_plain(params, coords, target, model.spec,
+                                  nvalid=nvalid, denom=denom, gt=gt,
+                                  want_metrics=True)
+        errs[what] = compare(got, tensors_of(*want), f"wire_step {what}")
+    return errs
+
+
+def strided_coords(torch, WM, RM, MF, W2, get_inr, ct_model, device):
+    """Fault C.7, repaired: each CUDA MLP pair on a transposed (n, d) view
+    of a (d, n) array gives the contiguous call's output and gradients bit
+    for bit, and without a gradient its output; wire_mlp at the CT model,
+    real_mlp at the B-spline trunk's widths, mfn_mlp at the MFN SISR width,
+    wire2d_mlp at the WIRE-2D width.  Returns the max abs difference per
+    pair (0)."""
+    import numpy as np
+    n = 4096
+    rng = np.random.default_rng(40)
+    strided = torch.tensor(rng.uniform(-1, 1, (2, n)).astype(np.float32),
+                           device=device).t()
+    if strided.is_contiguous():
+        raise AssertionError("C.7: the coordinate view is contiguous")
+    mfn = get_inr("mfn", in_features=2, out_features=3, hidden_features=256,
+                  hidden_layers=2)
+    w2d = get_inr("wire2d", **WIRE2D_DENOISE_KW)
+    kinds = ("qspline",) * 3
+    cases = {
+        "wire_mlp": (WM.wire_mlp, ct_model),
+        "real_mlp": (lambda p, x, spec: RM.real_mlp(p, x, kinds), None),
+        "mfn_mlp": (MF.mfn_mlp, mfn),
+        "wire2d_mlp": (W2.wire2d_mlp, w2d)}
+    errs = {}
+    for name, (apply, model) in cases.items():
+        if model is None:
+            spec, params = None, random_canon(torch, (2, 256, 256, 256, 3),
+                                              41, device)
+        else:
+            spec = model.spec
+            params = model.init(torch.Generator().manual_seed(42), device)
+        paths = leaf_paths(params)
+        leaves = [t for _, t in tree_leaves(params)]
+        fn = pair_fn(apply, spec, paths)
+        with torch.no_grad():
+            o = fn(strided.contiguous(), *leaves).shape[-1]
+        g = torch.tensor(rng.normal(size=(n, o)).astype(np.float32),
+                         device=device)
+        got = vjp(torch, fn, [strided] + leaves, g)
+        want = vjp(torch, fn, [strided.contiguous()] + leaves, g)
+        same_bits(torch, got, want, f"C.7 {name} on a transposed view")
+        with torch.no_grad():
+            if not torch.equal(fn(strided, *leaves), want["out"]):
+                raise AssertionError(f"C.7 {name} without a gradient: the "
+                                     f"transposed view's output differs")
+        errs[f"C7_{name}_strided"] = max(
+            float((got[k] - want[k]).abs().max()) for k in want)
+    return errs
+
+
 def ct_measure(torch, WM, R, LS, model, device, build):
     """Times at the CT shape of each kernel's forward + backward pair (and
     of its forward alone), its plain version's pair and a library call's
@@ -707,24 +838,14 @@ def ct_measure(torch, WM, R, LS, model, device, build):
             float((got[k] - want[k]).abs().max()) for k in want)
         res["bound_ms"], res["bound_by"] = bound(*work[name])
         res["gflop"], res["mbytes"] = work[name][0] / 1e9, work[name][1] / 1e6
-        if name in ("wire_mlp", "rotsum"):
+        if name == "wire_mlp":
+            res.update(tensor_core_fields(
+                torch, build, lambda: vjp(torch, kfn, xs, cot), name,
+                *work[name], res["kernel_ms"]))
+        if name == "rotsum":
             by = kernel_breakdown(torch, lambda: vjp(torch, kfn, xs, cot), 20)
             res["device_kernels"] = {k[:120]: v for k, v in by.items()}
             res["device_kernels_per_call"] = sum(v[1] for v in by.values())
-        if name == "wire_mlp":
-            res["classes_ms"] = {
-                cls: sum(v[0] for k, v in by.items()
-                         if any(f in k for f in frags))
-                for cls, frags in WIRE_MLP_CLASSES.items()}
-            res["bound_fp32_ms"] = res["bound_ms"]
-            res["bound_ms"], res["bound_by"] = bound_3xtf32(*work[name])
-            res["bound_3xtf32_ms"] = res["bound_ms"]
-            res["share_of_fp32_bound"] = res["bound_fp32_ms"] / res[
-                "kernel_ms"]
-            res["share_of_3xtf32_bound"] = res["bound_3xtf32_ms"] / res[
-                "kernel_ms"]
-            res["sass_hmma"] = sass_hmma(torch, build, "wire_mlp")
-        if name == "rotsum":
             res["forward_kernel_ms"] = sum(
                 v[0] for k, v in by.items() if "rotsum_forward_kernel" in k)
             res["adjoint_kernel_ms"] = sum(
@@ -1305,22 +1426,28 @@ def mscale2_tensors(pred, dcanon, dcomb, sums):
 
 def mscale2_kernel_vs_plain(torch, MS, MM, models, device):
     """max abs err of mscale2_step at the path's full shape (n = 65,536,
-    ns = 3) and a ragged one (n = 700, nvalid = 650, denom, ns = 2), every
-    output tensor."""
+    ns = 3) and ragged ones where 64-row tiles straddle two scales (n =
+    700 with nvalid = 650 and denom at ns = 2 and 3; n = 65,537 at ns = 3),
+    every output tensor; two calls bit-equal."""
     errs = {}
     for which, model, n, nvalid, denom in (
             ("full", models[0], 256 * 256, None, None),
-            ("ragged", models[2], 700, 650, 650 * 3.0 + 1.0)):
+            ("ragged", models[2], 700, 650, 650 * 3.0 + 1.0),
+            ("ragged_ns3", models[0], 700, 650, 650 * 3.0 + 1.0),
+            ("n65537_ns3", models[0], 256 * 256 + 1, 65000, None)):
         canon, comb, kinds, inv = mscale2_fold(torch, MM, model, 18, device)
         c, t, gt, _ = real_inputs(torch, n, 2, 3, 19, device)
-        got = MS.mscale2_step(canon, comb, c, t, kinds, inv, nvalid=nvalid,
-                              denom=denom, gt=gt, want_metrics=True)
+        got, again = (mscale2_tensors(*MS.mscale2_step(
+            canon, comb, c, t, kinds, inv, nvalid=nvalid, denom=denom, gt=gt,
+            want_metrics=True)) for _ in range(2))
         torch.cuda.synchronize()
+        same_bits(torch, again, got, f"mscale2_step {which}")
         want = MS.mscale2_step_plain(canon, comb, c, t, kinds, inv,
                                      nvalid=nvalid, denom=denom, gt=gt,
                                      want_metrics=True)
-        errs[which] = compare(mscale2_tensors(*got), mscale2_tensors(*want),
+        errs[which] = compare(got, mscale2_tensors(*want),
                               f"mscale2_step {which}")
+        del want
     return errs
 
 
@@ -2407,15 +2534,17 @@ def main():
     for name, n, nvalid, denom in (("full", n_full, None, None),
                                    ("ragged", 700, 650, 650 * 3.0 + 1.0)):
         params, coords, target, gt = inputs(torch, model, n, 1, dev)
-        got = WS.wire_step(params, coords, target, spec, nvalid=nvalid,
-                           denom=denom, gt=gt, want_metrics=True)
+        got, again = (tensors_of(*WS.wire_step(
+            params, coords, target, spec, nvalid=nvalid, denom=denom, gt=gt,
+            want_metrics=True)) for _ in range(2))
         torch.cuda.synchronize()
+        same_bits(torch, again, got, f"wire_step {name}")
         want = WS.wire_step_plain(params, coords, target, spec,
                                   nvalid=nvalid, denom=denom, gt=gt,
                                   want_metrics=True)
         torch.cuda.synchronize()
-        cases[name] = compare(tensors_of(*got), tensors_of(*want),
-                              f"wire_step {name}")
+        cases[name] = compare(got, tensors_of(*want), f"wire_step {name}")
+    cases.update(wire_step_widths(torch, WS, get_inr, dev))
     cfg_ct = get_config(CT_CONFIG)
     ct_model, _ = ct_models(get_inr, TCT, cfg_ct)
     errs = {"wire_step": cases}
@@ -2431,6 +2560,8 @@ def main():
     errs["mscale2_step"] = mscale2_kernel_vs_plain(torch, MS, MM, ms_models,
                                                    dev)
     errs["repaired"] = repaired_faults(torch, WM, R, ct_model, dev)
+    errs["repaired"].update(strided_coords(torch, WM, RM, MF, W2, get_inr,
+                                           ct_model, dev))
     errs["wire_mlp"].update(wire_mlp_widths(torch, WM, get_inr, dev))
     errs.update(mfn_kernel_vs_plain(torch, MF, get_inr, dev))
     for name, cases in sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM,
@@ -2473,13 +2604,15 @@ def main():
     nbytes = 4 * (n_full * (2 + 3 + 3)          # coords, target, gt
                   + nweights                    # weights in
                   + n_full * 3 + nweights + 2)  # pred, grads, sse out
-    bound_ms, bound_by = bound(flops, nbytes)
-    del scratch, lib_out
     meas = {"wire_step": dict(
-        ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        gflop=flops / 1e9, mbytes=nbytes / 1e6,
         library_vs_plain_max_abs_err=lib_err,
-        achieved_tflops=flops / (ms * 1e9))}
+        achieved_tflops=flops / (kernel_ms * 1e9) if kernel_ms else None,
+        **tensor_core_fields(torch, build, lambda: WS.wire_step(
+            params, coords, target, spec, gt=gt, want_metrics=True,
+            scratch=scratch), "wire_step", flops, nbytes, kernel_ms))}
+    del scratch, lib_out
     meas.update(ct_measure(torch, WM, R, LS, ct_model, dev, build))
     meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
@@ -2641,7 +2774,7 @@ def main():
         "library_ms": meas[name]["library_ms"],
         **({"sass_hmma": meas[name]["sass_hmma"],
             "bound_fp32_ms": meas[name]["bound_fp32_ms"]}
-           if name == "wire_mlp" else {})}
+           if "sass_hmma" in meas[name] else {})}
         for name, (lib, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -30,7 +30,7 @@ def test_every_kernel_source_is_there():
 
 
 @pytest.mark.parametrize("header", ["wire_gemm.cuh", "gemm_common.cuh",
-                                    "wire_tc.cuh"])
+                                    "wire_tc.cuh", "real_chain.cuh"])
 @pytest.mark.parametrize("name", SOURCES)
 def test_library_path_follows_the_shared_header(csrc, name, header):
     before = build.library_path(name)

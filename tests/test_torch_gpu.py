@@ -1022,3 +1022,184 @@ def test_step_ms_leaves_the_first_step_out(cuda, fit):
             assert res.step_ms < 30.0, res.step_ms
         else:
             assert res.step_ms > 0.3e3 / 4, res.step_ms
+
+
+# ---- strided coordinates (fault C.7) ---------------------------------------
+
+def _pair_case(pair, device, n=700):
+    """(fn(params, coords), params, out) of one CUDA MLP pair at n rows."""
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.ops import wire_mlp as WM
+    if pair == "real_mlp":
+        canon = _canon((2, 64, 64, 3), device, seed=30)
+        return (lambda p, x: RM.real_mlp(p, x, ("qspline",) * 2), canon, 3)
+    nonlin, call = {"wire_mlp": ("wire", WM.wire_mlp),
+                    "mfn_mlp": ("mfn", MF.mfn_mlp),
+                    "wire2d_mlp": ("wire2d", W2.wire2d_mlp)}[pair]
+    model = get_inr(nonlin, in_features=2, out_features=3,
+                    hidden_features=64, hidden_layers=2)
+    params = model.init(torch.Generator().manual_seed(31), device)
+    return (lambda p, x: call(p, x, model.spec), params, 3)
+
+
+def _tree_vjp(fn, params, coords, g):
+    """Output, coordinate gradient and every parameter gradient of fn."""
+    from wire_tpu_torch import tree
+    flat = tree.leaves(params)
+    leaves = [v.detach().requires_grad_(True) for _, v in flat]
+    c = coords.detach().requires_grad_(True)
+    y = fn(tree.unflatten([p for p, _ in flat], leaves), c)
+    grads = torch.autograd.grad(y, leaves + [c], g)
+    out = {"y": y.detach(), "dcoords": grads[-1]}
+    out.update({str(p): gr for (p, _), gr in zip(flat, grads[:-1])})
+    return out
+
+
+@pytest.mark.parametrize("pair", ["wire_mlp", "real_mlp", "mfn_mlp",
+                                  "wire2d_mlp"])
+def test_pairs_take_a_transposed_coordinate_view(cuda, pair):
+    """A transposed (n, d) view of a (d, n) array gives the contiguous
+    call's output, coordinate gradient and parameter gradients bit for bit,
+    as the CPU path and wire_tpu take it; without a gradient too."""
+    fn, params, out = _pair_case(pair, cuda)
+    rng = np.random.default_rng(32)
+    base = torch.tensor(rng.uniform(-1, 1, (2, 700)).astype(np.float32),
+                        device=cuda)
+    strided = base.t()
+    assert not strided.is_contiguous()
+    g = torch.tensor(rng.normal(size=(700, out)).astype(np.float32),
+                     device=cuda)
+    got = _tree_vjp(fn, params, strided, g)
+    want = _tree_vjp(fn, params, strided.contiguous(), g)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    with torch.no_grad():
+        assert torch.equal(fn(params, strided), want["y"])
+
+
+# ---- wire_step on the tensor cores ------------------------------------------
+
+def _wire_step_part_need(n, d, h, o):
+    """Floats the step's `part` workspace must hold: the hidden layers'
+    weight-gradient partials over 1,024-row chunks, the first and final
+    layers' over 512-row chunks (csrc/wire_tc.cuh), final_loss's two SSE
+    partials per 64 rows (csrc/gemm_common.cuh)."""
+    def chunks(rows):
+        return -(-n // rows)
+    return max(chunks(1024) * (2 * h + 1) * 2 * h,
+               chunks(512) * (d + 1) * h, chunks(512) * (2 * h + 1) * o,
+               2 * chunks(64))
+
+
+@pytest.mark.parametrize("n,hf,layers,out,nvalid,denom", [
+    (700, 8, 1, 3, 650, 1951.0), (700, 8, 3, 1, None, None),
+    (700, 19, 2, 3, 600, None), (700, 19, 3, 1, None, 701.5),
+    (700, 213, 1, 1, 699, None), (700, 213, 3, 3, None, None),
+    (700, 300, 1, 1, None, None), (700, 300, 3, 3, 650, 2000.0),
+    (65537, 300, 2, 3, 65000, None), (65537, 19, 1, 1, None, None),
+    (65537, 213, 2, 3, None, 196000.0)])
+def test_wire_step_tensor_cores_match_plain_at_every_width(
+        cuda, n, hf, layers, out, nvalid, denom):
+    """wire_step on wire_tc.cuh's 3xTF32 loop at h = 5, 13, 150 and 212
+    complex units (hidden_features 8, 19, 213, 300), L 1-3, o 1 and 3,
+    ragged n (700, 65,537), nvalid and denom: within the bound of the plain
+    version, two calls bit-equal, one launch each, and nothing written past
+    the `part` workspace (a NaN tail behind it stays as it was)."""
+    model, params, c, t, gt = _case(n, hf, layers, out, cuda, seed=n + hf)
+    h = params["first"]["w"].shape[1]
+    lib = WS._lib()
+    need = lib.wire_step_part_floats(n, 2, h, out)
+    assert need >= _wire_step_part_need(n, 2, h, out)
+    tail = 1 << 16
+    big = torch.full((need + tail,), float("nan"), device=cuda)
+    scratch = WS.StepScratch()
+    scratch._bufs["part"] = big[:need]
+    before = WS.wire_step.launches
+    runs = [_flat(*WS.wire_step(params, c, t, model.spec, nvalid=nvalid,
+                                denom=denom, gt=gt, want_metrics=True,
+                                scratch=scratch)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert WS.wire_step.launches == before + 2
+    assert scratch._bufs["part"].data_ptr() == big.data_ptr()
+    assert torch.isnan(big[need:]).all()
+    for name in runs[0]:
+        assert torch.equal(runs[0][name], runs[1][name]), name
+    want = _flat(*WS.wire_step_plain(params, c, t, model.spec, nvalid=nvalid,
+                                     denom=denom, gt=gt, want_metrics=True))
+    _assert_rel(runs[0], want)
+
+
+# ---- mscale2_step across scales ---------------------------------------------
+
+@pytest.mark.parametrize("n,ns,widths,kinds,nvalid,denom", [
+    (700, 3, (2, 256, 256, 256, 3), ("qspline",) * 3, 650,
+     650 * 3.0 + 1.0),
+    (65537, 3, (2, 256, 256, 256, 3), ("qspline",) * 3, 65000, None),
+    (700, 2, (2, 256, 256, 256, 3), ("qspline",) * 3, None, None),
+    (300, 2, (2, 37, 33, 3), ("qspline", "cspline"), 290, None),
+    (1000, 3, (2, 64, 48, 96, 1), ("cspline", "qspline", "gauss"), None,
+     None)])
+def test_mscale2_step_matches_plain_across_scales(
+        cuda, n, ns, widths, kinds, nvalid, denom):
+    """The trunk where its 64-row tiles straddle two scales (n % 64 != 0,
+    so a tile reads two gammas), at ns 2 and 3, at the path's widths and at
+    narrow ones: within the bound of the plain version, two calls
+    bit-equal, and nothing written past the trunk's `part` workspace."""
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    canon = _canon(widths, cuda, seed=n)
+    comb = _comb(ns, widths[-1], cuda, n + 1)
+    inv = (9.0, 0.25, 0.125)[:ns]
+    rng = np.random.default_rng(n + 2)
+    o = widths[-1]
+    c, t, gt = (torch.tensor(a.astype(np.float32), device=cuda) for a in (
+        rng.uniform(-1, 1, (n, 2)), rng.uniform(0, 1, (n, o)),
+        rng.uniform(0, 1, (n, o))))
+    need = MS._lib().mscale2_trunk_part_floats(
+        ns * n, len(widths) - 2, RM._ints(list(widths)))
+    tail = 1 << 16
+    big = torch.full((need + tail,), float("nan"), device=cuda)
+    scratch = StepScratch()
+    scratch._bufs["ms_part"] = big[:need]
+    runs = [_tree_flat(*MS.mscale2_step(canon, comb, c, t, kinds, inv,
+                                        nvalid=nvalid, denom=denom, gt=gt,
+                                        want_metrics=True, scratch=scratch))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert scratch._bufs["ms_part"].data_ptr() == big.data_ptr()
+    assert torch.isnan(big[need:]).all()
+    for name in runs[0]:
+        assert torch.equal(runs[0][name], runs[1][name]), name
+    want = _tree_flat(*MS.mscale2_step_plain(canon, comb, c, t, kinds, inv,
+                                             nvalid=nvalid, denom=denom,
+                                             gt=gt, want_metrics=True))
+    _assert_rel(runs[0], want)
+
+
+def _sass_hmma(name):
+    """HMMA instructions in csrc/<name>.cu's built library."""
+    import os
+    import subprocess
+    from wire_tpu_torch.ops import build
+    build.load(name)
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.access(cuobjdump, os.X_OK):
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build.library_path(name)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return sass.count("HMMA")
+
+
+def test_tensor_cores_run_where_they_were_put(cuda):
+    """wire_step and wire_mlp have tensor-core instructions in their SASS;
+    real_mlp (real_step and the real_mlp pair), mscale2_step and mfn
+    (mfn_step and the mfn_mlp pair) still run on the CUDA cores alone."""
+    for name in ("wire_step", "wire_mlp"):
+        assert _sass_hmma(name) > 0, name
+    for name in ("real_mlp", "mscale2_step", "mfn"):
+        assert _sass_hmma(name) == 0, name

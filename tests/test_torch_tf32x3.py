@@ -11,7 +11,12 @@ the stacked hidden weights W (2h x 2h) and a unit-normal cotangent dz
 (n x 2h) for the weight-gradient class a0^T dz.  Bounds: 3xTF32 within
 2e-6 x max |product| of the float64 product, as plain fp32 is; plain TF32
 (one product of the rounded operands) past 1e-4 x max, the bound every
-MLP kernel of the port is held to."""
+MLP kernel of the port is held to.
+
+The same for mscale2_step's trunk, were its products put on the tensor
+cores: one hidden layer at its K of 256, forward and data gradient with
+their basis epilogues, where gamma (up to 9) multiplies a product's
+error."""
 import numpy as np
 import pytest
 import torch
@@ -21,8 +26,12 @@ import jax
 from wire_tpu.nn import get_inr
 
 from wire_tpu_torch import bridge
+from wire_tpu_torch.apps import common as TC
+from wire_tpu_torch.nn import models as MM
+from wire_tpu_torch.ops import real_mlp as RM
 from wire_tpu_torch.ops import wire_mlp as WM
 from wire_tpu_torch.ops.wire_step import stack_params
+from wire_tpu_torch.train.presets import get_config
 
 N_ROWS = 4096
 
@@ -108,3 +117,57 @@ def test_paired_tile_columns_restore_the_stacked_layout(h):
                     assert (re < 0) == (im < 0)
                     if re >= 0:
                         assert re < h and im == h + re
+
+
+def _trunk_layer(kind, gamma, matmul, dtype, seed=0):
+    """Layer 1 of the mscale_2 denoise trunk (2 -> 256 x 3 -> 3, the
+    preset's seeded init folded to the canonical form) at one scale's
+    gamma, every basis ``kind``: its forward a1 = B(gamma (alpha1 a0 W1 +
+    beta1)) and its data gradient with layer 0's epilogue, dv0 = gamma
+    B'(v0) (dv1 (W1 diag(alpha1))^T), the products by ``matmul`` in
+    ``dtype``.  The inputs a0, v0 and dv1 are float32, formed once."""
+    model = TC.build_model(get_config("Mscale2_ST8_3_LR8e3_E4000"),
+                           in_features=2, out_features=3, omega0=7.0,
+                           sidelength=256)
+    canon = MM._canon_mscale2(
+        model.init(torch.Generator().manual_seed(seed), "cpu"), model.spec)
+    l0, l1 = canon["layers"][:2]
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.uniform(-1, 1, (N_ROWS, 2)).astype(np.float32))
+    v0 = gamma * (l0["alpha"] * (x @ l0["w"]) + l0["beta"])
+    a0 = RM._apply_segments(kind, v0, 0)
+    w, alpha, beta = l1["w"], l1["alpha"], l1["beta"]
+    v1 = gamma * (alpha * (a0 @ w) + beta)
+    da1 = torch.tensor(rng.normal(size=v1.shape).astype(np.float32))
+    dv1 = gamma * RM._apply_segments(kind, v1, 1) * da1
+    wat = (w * alpha[None]).t().contiguous()
+
+    def t(a):
+        return a.to(dtype)
+    z1 = matmul(t(a0), t(w))
+    a1 = RM._apply_segments(kind, gamma * (t(alpha) * z1 + t(beta)), 0)
+    da0 = matmul(t(dv1), t(wat))
+    dv0 = gamma * RM._apply_segments(kind, t(v0), 1) * da0
+    return {"z1": z1, "a1": a1, "da0": da0, "dv0": dv0}
+
+
+@pytest.mark.parametrize("kind,gamma", [("srelu", 9.0), ("qspline", 9.0),
+                                        ("qspline", 0.125)])
+def test_3xtf32_keeps_fp32_accuracy_in_the_real_trunk(kind, gamma):
+    """Each output of the layer within 2e-6 x its max of the float64
+    layer, or within plain fp32's own distance; plain TF32 past 1e-4 on
+    the layer (on its products z1 and da0 in every case here)."""
+    want = _trunk_layer(kind, gamma, torch.matmul, torch.float64)
+
+    def rel(got):
+        return {k: float((got[k].double() - w).abs().max() / w.abs().max())
+                for k, w in want.items()}
+    x3 = rel(_trunk_layer(kind, gamma, WM.matmul_3xtf32_plain,
+                          torch.float32))
+    fp32 = rel(_trunk_layer(kind, gamma, torch.matmul, torch.float32))
+    tf32 = rel(_trunk_layer(
+        kind, gamma, lambda a, b: WM.tf32_round(a) @ WM.tf32_round(b),
+        torch.float32))
+    for k in want:
+        assert x3[k] <= 2e-6 or x3[k] <= fp32[k], (k, x3, fp32)
+    assert max(tf32.values()) > 1e-4, tf32

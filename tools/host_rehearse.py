@@ -2,7 +2,7 @@
 """Run a CUDA source of wire_tpu_torch/csrc on the host, without nvcc or a
 card, at tiny shapes, against its plain PyTorch version.
 
-    python3 tools/host_rehearse.py wire_mlp rotsum   # the rehearsals below
+    python3 tools/host_rehearse.py wire_mlp rotsum wire_step mscale2_step
 
 The source (``csrc/<name>.cu`` and the headers it includes) is rewritten
 into a copy and built by g++ into a host library with a plain C interface,
@@ -366,13 +366,124 @@ def rehearse_rotsum(out_dir):
             assert rel <= 1e-4 and dot <= 1e-5, (rel, dot)
 
 
+def rehearse_wire_step(out_dir):
+    """wire_step (the WIRE train step on wire_tc.cuh's chains) against its
+    plain version at tiny shapes: ragged n (several 512- and 1,024-row
+    chunks of the weight gradients), h not a multiple of 4, L 0-2, o 1-3,
+    nvalid and denom, and two calls bit-equal."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch.nn.registry import get_inr
+    from wire_tpu_torch.ops import wire_step as WS
+
+    WS._lib.cache_clear()
+    with host_library("wire_step", out_dir):
+        for n, hf, L, o, nvalid, denom in (
+                (300, 7, 2, 3, 290, 901.5), (130, 19, 1, 1, None, None),
+                (150, 29, 0, 2, None, None), (261, 300, 1, 3, 200, None),
+                (2100, 7, 1, 3, 2049, 6000.0)):
+            model = get_inr("wire", in_features=2, out_features=o,
+                            hidden_features=hf, hidden_layers=L,
+                            first_omega0=7.0, hidden_omega0=7.0, scale=8.0)
+            params = model.init(torch.Generator().manual_seed(n), "cpu")
+            rng = np.random.default_rng(n)
+            c, t, gt = (torch.tensor(a.astype(np.float32)) for a in (
+                rng.uniform(-1, 1, (n, 2)), rng.uniform(0, 1, (n, o)),
+                rng.uniform(0, 1, (n, o))))
+            outs = [WS._launch(params, c, t, model.spec, nvalid, denom, gt,
+                               True, None) for _ in range(2)]
+            want = WS.wire_step_plain(params, c, t, model.spec,
+                                      nvalid=nvalid, denom=denom, gt=gt,
+                                      want_metrics=True)
+            flat = [_step_tensors(o_) for o_ in outs + [want]]
+            rel = _max_rel(flat[0], flat[2])
+            same = all(torch.equal(a, b) for a, b in zip(flat[0], flat[1]))
+            print(f"wire_step n {n} hf {hf} L {L} o {o} nvalid {nvalid}: "
+                  f"max rel err {rel:.2e}, two calls equal: {same}",
+                  flush=True)
+            assert rel <= 1e-4 and same, (rel, same)
+
+
+def _step_tensors(out):
+    """pred, every gradient leaf (dicts by key, lists in order), and the
+    SSE sums of a step's result tuple."""
+    leaves = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            leaves.append(x.reshape(-1))
+    walk(out)
+    return leaves
+
+
+def rehearse_mscale2_step(out_dir):
+    """mscale2_step (the trunk on real_chain.cuh's chain) against its plain
+    version at tiny shapes where 64-row tiles straddle two scales (n =
+    130, 150, 700 rows per scale), widths that are and are not multiples
+    of 4, the relu^2 spline at gamma 9 and the qspline at 1/8, nvalid and
+    denom, and two calls bit-equal."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import real_mlp as RM
+
+    MS._lib.cache_clear()
+    with host_library("mscale2_step", out_dir):
+        for n, widths, kinds, inv, nvalid, denom in (
+                (130, (2, 40, 40, 3), ("qspline",) * 2, (9.0, 0.25, 0.125),
+                 None, None),
+                (150, (2, 24, 37, 33, 3), ("srelu", "qspline", "srelu"),
+                 (9.0, 0.125), 140, 433.5),
+                (700, (2, 16, 12, 1), ("qspline", "cspline"), (9.0, 4.0),
+                 650, None)):
+            rng = np.random.default_rng(n)
+
+            def t(a):
+                return torch.tensor(np.asarray(a, np.float32))
+            canon = {"layers": [{"w": t(rng.uniform(-1, 1, (a, b))
+                                        / np.sqrt(a)),
+                                 "alpha": t(rng.uniform(0.5, 2.0, b)),
+                                 "beta": t(rng.uniform(-1, 1, b))}
+                                for a, b in zip(widths[:-2], widths[1:-1])],
+                     "final": {"w": t(rng.uniform(-1, 1, widths[-2:])),
+                               "b": t(rng.uniform(-1, 1, widths[-1]))}}
+            o, ns = widths[-1], len(inv)
+            comb = {"freq_0": {"w": t(rng.uniform(-0.5, 0.5, (ns * o, 128))),
+                               "b": t(rng.uniform(-0.5, 0.5, 128))},
+                    "freq_1": {"w": t(rng.uniform(-0.3, 0.3, (128, o))),
+                               "b": t(rng.uniform(-0.5, 0.5, o))}}
+            c, tg, gt = (t(a) for a in (rng.uniform(-1, 1, (n, 2)),
+                                        rng.uniform(0, 1, (n, o)),
+                                        rng.uniform(0, 1, (n, o))))
+            kinds = RM.norm_kinds(kinds)
+            outs = [MS._launch(canon, comb, c, tg, kinds, inv, nvalid, denom,
+                               gt, True, None) for _ in range(2)]
+            want = MS.mscale2_step_plain(canon, comb, c, tg, kinds, inv,
+                                         nvalid=nvalid, denom=denom, gt=gt,
+                                         want_metrics=True)
+            flat = [_step_tensors(o_) for o_ in outs + [want]]
+            rel = _max_rel(flat[0], flat[2])
+            same = all(torch.equal(a, b) for a, b in zip(flat[0], flat[1]))
+            print(f"mscale2_step n {n} widths {widths} ns {ns}: max rel err "
+                  f"{rel:.2e}, two calls equal: {same}", flush=True)
+            assert rel <= 1e-4 and same, (rel, same)
+
+
 def main():
     sys.path.insert(0, ROOT)
-    names = sys.argv[1:] or ["wire_mlp", "rotsum"]
+    rehearsals = {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum,
+                  "wire_step": rehearse_wire_step,
+                  "mscale2_step": rehearse_mscale2_step}
+    names = sys.argv[1:] or list(rehearsals)
     with tempfile.TemporaryDirectory() as d:
         for name in names:
-            {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum}[name](
-                os.path.join(d, name))
+            rehearsals[name](os.path.join(d, name))
 
 
 if __name__ == "__main__":

@@ -22,11 +22,10 @@ and prints one JSON line: device time per epoch by kernel
 counted again under the operator or autograd Function that launched it),
 the device's busy time per epoch, the wall time per epoch and the device's
 idle share (1 - busy / wall).
-Kernels of csrc/*.cu keep their CUDA names (paired_gemm_kernel<0|1|2> =
-forward / hidden backward / first-layer backward GEMMs of wire_step,
-tc_paired_kernel<0|1|2, ...> the same three on the tensor cores and
-tc_wgrad_kernel, narrow_wgrad_kernel and narrow_colsum_kernel the weight
-gradients of wire_mlp (the CT fits), wgrad_partial_kernel,
+Kernels of csrc/*.cu keep their CUDA names (tc_paired_kernel<0|1|2, ...>
+= forward / hidden backward / first-layer backward GEMMs of wire_step and
+wire_mlp on the tensor cores, and tc_wgrad_kernel, narrow_wgrad_kernel and
+narrow_colsum_kernel their weight gradients; wgrad_partial_kernel,
 reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
 rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /

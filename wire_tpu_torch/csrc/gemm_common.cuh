@@ -1,15 +1,16 @@
-// Pieces shared by every MLP kernel of the port (wire_gemm.cuh for WIRE,
-// real_mlp.cu for the canonical real families): the fixed-order weight- and
-// bias-gradient sums, the final linear layer (alone, or fused with the
-// masked-MSE loss gradient and the SSE sums of a train step), and the
-// launch helpers.
+// Pieces shared by every MLP kernel of the port: the fixed-order chunk
+// sums (reduce_chunks, every weight gradient's second pass), the final
+// linear layer (alone, or fused with the masked-MSE loss gradient and the
+// SSE sums of a train step), the launch helpers, and the CUDA-core weight
+// gradient of the kernels not on the tensor cores (real_mlp.cu,
+// mscale2_step.cu, mfn.cu, wire2d.cu).
 //
-// Weight gradients [A | 1]^T D over n rows are written as per-2048-row-chunk
-// partials and summed in chunk order by a second pass: no float atomics, so
-// a result is identical run to run, and the bias gradient is the row of
-// ones.  The final layer uses one warp per row; its lanes stride over the
-// inputs and meet in a fixed butterfly, so its sums do not depend on
-// scheduling either.
+// That weight gradient [A | 1]^T D over n rows is written as
+// per-2048-row-chunk partials and summed in chunk order by a second pass:
+// no float atomics, so a result is identical run to run, and the bias
+// gradient is the row of ones.  The final layer uses one warp per row; its
+// lanes stride over the inputs and meet in a fixed butterfly, so its sums
+// do not depend on scheduling either.
 #pragma once
 
 #include <cuda_runtime.h>

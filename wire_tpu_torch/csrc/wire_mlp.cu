@@ -4,7 +4,8 @@
 //
 // Replaces: wire_tpu/ops/pallas/wire_mlp.py:wire_mlp_fused (the forward
 // Pallas call and the recompute-backward Pallas call of its custom VJP).
-// Same math and stacked layout as wire_step.cu (see wire_gemm.cuh):
+// Same math, stacked layout and chains as wire_step.cu (wire_gemm.cuh's
+// forward_chain and backward_chain, shared by both):
 //   forward:  y = real part of the complex final layer (n, o)
 //   backward: from g = dL/dy (n, o) to every parameter gradient, with
 //             dfinal.bi = 0 (the imaginary output is discarded), and
@@ -43,7 +44,6 @@
 // --use_fast_math.
 
 #include "wire_gemm.cuh"
-#include "wire_tc.cuh"
 
 using namespace wire_gemm;
 
@@ -65,86 +65,13 @@ __global__ void dcoords_kernel(const float* __restrict__ dz1,
   dc[idx] = s;
 }
 
-// First layer and the L hidden layers: z1 (n, h), acts (L + 1, n, 2h),
-// zs (L, n, 2h); the final layer is the caller's.  With `pingpong` (then
-// z1 and zs are null and acts holds two (n, 2h) planes) nothing is kept
-// for a backward: layer l writes plane (l + 1) % 2, so the last activation
-// is plane L % 2.
-cudaError_t forward_chain(const float* coords, const float* w1,
-                          const float* b1, const float* Wh, const float* Bh,
-                          float* acts, float* zs, float* z1, int n, int d,
-                          int h, int L, float omega0, float s2,
-                          float first_omega0, cudaStream_t st,
-                          bool pingpong) {
-  const int h2 = 2 * h;
-  const size_t act_sz = (size_t)n * h2;
-  const size_t w_sz = (size_t)h2 * h2;
-  first_forward_kernel<<<ceil_div((long long)n * h, kThreads), kThreads, 0,
-                         st>>>(coords, w1, b1, z1, acts, n, d, h,
-                               first_omega0, s2);
-  GEMM_CHECK(cudaGetLastError());
-  for (int l = 0; l < L; ++l) {
-    const size_t in = pingpong ? l % 2 : l;
-    const size_t out = pingpong ? (l + 1) % 2 : l + 1;
-    GEMM_CHECK(wire_tc::paired<wire_tc::kFwd>(
-        acts + in * act_sz, Wh + l * w_sz, Bh + (size_t)l * h2, nullptr,
-        nullptr, pingpong ? nullptr : zs + l * act_sz, acts + out * act_sz,
-        n, h2, h, omega0, s2, st));
-  }
-  return cudaSuccess;
-}
-
-// The backward from the output cotangent g (n, o) to every weight gradient:
-//   gfW (2h + 1, o) = [dfW; dfb], gWh (L, 2h + 1, 2h) = [dW; dB] per layer,
-//   gw1 (d + 1, h) = [dw1; db1]; dz1 (n, h) is left holding dL/dz1.
-// Scratch: dz (2, n, 2h), part (wire_mlp_part_floats).
-cudaError_t backward_chain(const float* coords, const float* g,
-                           const float* WhT, const float* fWT,
-                           const float* acts, const float* zs,
-                           const float* z1, float* gw1, float* gWh,
-                           float* gfW, float* dz, float* dz1, float* part,
-                           int n, int d, int h, int o, int L, float omega0,
-                           float s2, float first_omega0, cudaStream_t st) {
-  const int h2 = 2 * h;
-  const size_t act_sz = (size_t)n * h2;
-  const size_t w_sz = (size_t)h2 * h2;
-  GEMM_CHECK(
-      wire_tc::narrow_weight_grad(acts + L * act_sz, g, part, gfW, n, h2, o,
-                                  st));
-  const float* dsrc = g;
-  const float* bt = fWT;
-  int kdim = o;
-  int cur = 0;
-  for (int l = L - 1; l >= 0; --l) {
-    float* dzl = dz + cur * act_sz;
-    GEMM_CHECK(wire_tc::paired<wire_tc::kBwd>(
-        dsrc, bt, nullptr, acts + (l + 1) * act_sz, zs + l * act_sz, dzl,
-        nullptr, n, kdim, h, omega0, s2, st));
-    GEMM_CHECK(wire_tc::weight_grad(acts + l * act_sz, dzl, part,
-                                    gWh + (size_t)l * (h2 + 1) * h2, n, h2,
-                                    h2, st));
-    dsrc = dzl;
-    bt = WhT + l * w_sz;
-    kdim = h2;
-    cur ^= 1;
-  }
-  GEMM_CHECK(wire_tc::paired<wire_tc::kBwdFirst>(
-      dsrc, bt, nullptr, acts, z1, dz1, nullptr, n, kdim, h, first_omega0,
-      s2, st));
-  return wire_tc::narrow_weight_grad(coords, dz1, part, gw1, n, d, h, st);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Floats needed by the backward's `part` workspace for shapes (n, d, h, o).
 long long wire_mlp_part_floats(int n, int d, int h, int o) {
-  const long long hidden = wire_tc::wgrad_part_floats(n, 2 * h, 2 * h);
-  const long long first = wire_tc::narrow_part_floats(n, d, h);
-  const long long final = wire_tc::narrow_part_floats(n, 2 * h, o);
-  long long need = hidden > first ? hidden : first;
-  return need > final ? need : final;
+  return chain_part_floats(n, d, h, o);
 }
 
 int wire_mlp_max_out() { return kMaxOut; }

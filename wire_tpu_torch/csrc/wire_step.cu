@@ -14,30 +14,29 @@
 // What bounds it: at the WIRE-300 shape (n = 65,536 rows, h = 212, L = 2)
 // a step is ~142 GFLOP of fp32 multiply-adds in three (n x 424 x 424)
 // products per hidden layer, against ~10 MB of inputs and outputs; it is
-// bound by operations (~2.1 ms at the card's 67 TFLOP/s fp32 peak).
+// bound by operations: ~2.1 ms at the card's 67 TFLOP/s fp32 peak on the
+// CUDA cores, ~0.86 ms for the three TF32 products of each of them at the
+// tensor cores' 495 TFLOP/s.
 //
-// What this design does about it: it is the simple, correct first version.
-// One shared-memory tiled GEMM (64 x 64 output tile, 16-deep k slices, a
-// 4 x 4 register block per thread, fp32 FMA on the CUDA cores) serves the
-// forward and the data-gradient products; its epilogue applies bias + Gabor
-// (forward) or the Gabor backward (data gradient), so activations are never
-// re-read for a separate elementwise pass.  Each thread owns the column pair
-// (j, h + j) of a complex unit, so zr/zi and dar/dai meet in registers.
-// Weight gradients are A^T dZ over fixed 2048-row chunks written as
-// per-chunk partials and summed in a fixed order by a second pass: no float
-// atomics, so results are identical run to run.  The TPU kernel's
-// sequential grid, VMEM accumulators and two-slot software pipeline do not
-// carry over; live activations go to device scratch owned by the caller.
-// Tensor cores (TF32 wgmma) and pipelined TMA loads are later work.
+// What this design does about it: the step is wire_mlp.cu's forward and
+// backward chains (wire_gemm.cuh) with the final layer, the loss gradient
+// and the SSE sums fused between them (gemm_common.cuh:final_loss, one warp
+// per row, a fixed butterfly).  The three products of every hidden layer
+// run on the tensor cores at fp32 accuracy through wire_tc.cuh's 3xTF32
+// mma.sync loop, the Gabor forward/backward in the paired products'
+// epilogues, so activations are never re-read for a separate elementwise
+// pass; the final layer's data gradient (a K of o) is a paired product on
+// the same loop.  Weight gradients are fixed-order per-chunk partials
+// summed in chunk order by a second pass, the bias gradient summed from the
+// staged dz tiles (the first and final layers' in wire_tc.cuh's narrow
+// kernel): no float atomics, so results are identical run to run.  The
+// TPU kernel's sequential grid, VMEM accumulators and two-slot software
+// pipeline do not carry over; live activations go to device scratch owned
+// by the caller.  The step has no dcoords.
 //
-// Accuracy: sincosf/expf (not the __sinf/__expf intrinsics; phases w*z lie
+// Accuracy: 3xTF32 products (wire_tc.cuh: fp32's own distance from
+// float64); sincosf/expf (not the __sinf/__expf intrinsics; phases w*z lie
 // far outside [-pi, pi]).  Build without --use_fast_math.
-//
-// The GEMM and Gabor kernels and the forward/backward chains live in
-// wire_gemm.cuh, shared with the apply/VJP pair in wire_mlp.cu; the
-// weight-gradient sums and the final layer fused with the loss gradient and
-// SSE sums (one warp per row, a fixed butterfly) in gemm_common.cuh, shared
-// with the real-family kernels too.
 
 #include "wire_gemm.cuh"
 
@@ -45,9 +44,13 @@ using namespace wire_gemm;
 
 extern "C" {
 
-// Floats needed by the `part` workspace for shapes (n, d, h, o).
+// Floats needed by the `part` workspace for shapes (n, d, h, o): the
+// backward chain's chunk partials or final_loss's SSE partials, whichever
+// is larger (they use it one after the other).
 long long wire_step_part_floats(int n, int d, int h, int o) {
-  return part_floats(n, d, h, o);
+  const long long need = chain_part_floats(n, d, h, o);
+  const long long sse = 2LL * final_loss_blocks(n);
+  return need > sse ? need : sse;
 }
 
 int wire_step_max_out() { return kMaxOut; }
@@ -79,13 +82,14 @@ int wire_step_run(const float* coords, const float* target, const float* gt,
   const size_t act_sz = (size_t)n * 2 * h;
   const float s2 = sigma0 * sigma0;
 
-  GEMM_CHECK(forward_hidden(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
-                            omega0, s2, first_omega0, st));
+  GEMM_CHECK(forward_chain(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
+                           omega0, s2, first_omega0, st, /*pingpong=*/false));
   GEMM_CHECK(final_loss(acts + L * act_sz, fW, fb, target, gt, pred, g, sse,
                         part, n, 2 * h, o, nvalid, two_inv_denom,
                         want_metrics, st));
-  return backward(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz, dz1,
-                  part, n, d, h, o, L, omega0, s2, first_omega0, st);
+  return backward_chain(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz,
+                        dz1, part, n, d, h, o, L, omega0, s2, first_omega0,
+                        st);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
-// The tensor-core GEMM loop of the WIRE apply/VJP pair (csrc/wire_mlp.cu):
-// fp32 products on Hopper's tensor cores at fp32 accuracy (3xTF32), for the
-// three product classes of a hidden layer of the stacked complex layout
-// (wire_gemm.cuh):
+// The tensor-core GEMM loop of the WIRE kernels (csrc/wire_mlp.cu and
+// csrc/wire_step.cu, through wire_gemm.cuh's chains): fp32 products on
+// Hopper's tensor cores at fp32 accuracy (3xTF32), for the three product
+// classes of a hidden layer of the stacked complex layout (wire_gemm.cuh):
 //   forward        z = a @ W + b (n x 2h), with the Gabor epilogue
 //   data gradient  da = dz @ W^T (n x 2h), with the activation-form Gabor
 //                  backward epilogue (to dz of the layer below, or to dz1)

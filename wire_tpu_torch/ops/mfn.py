@@ -297,6 +297,7 @@ def mfn_mlp(params, coords, spec):
     elif c2.device.type != "cuda":
         raise ValueError(f"mfn_mlp: unsupported device {c2.device}")
     else:
+        c2 = c2.contiguous()  # a strided view survives the reshape
         flat = tree.leaves(params)
         paths = tuple(p for p, _ in flat)
         leaves = [t for _, t in flat]

@@ -475,6 +475,7 @@ def real_mlp(canon, coords, kinds, row_gamma=None):
     elif c2.device.type != "cuda":
         raise ValueError(f"real_mlp: unsupported device {c2.device}")
     else:
+        c2 = c2.contiguous()  # a strided view survives the reshape
         leaves = [t for _, t in canon_leaves(canon)]
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in [c2] + leaves):

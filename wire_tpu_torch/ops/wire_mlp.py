@@ -76,7 +76,8 @@ def matmul_3xtf32_plain(a, b):
     fp32).  small @ small is dropped."""
     ab, bb = tf32_round(a), tf32_round(b)
     asm, bsm = tf32_round(a - ab), tf32_round(b - bb)
-    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
     for k in range(0, a.shape[1], 8):
         s = slice(k, k + 8)
         out += asm[:, s] @ bb[s]
@@ -246,7 +247,8 @@ def wire_mlp(params, coords, spec):
     if coords.device.type != "cuda":
         raise ValueError(f"wire_mlp: unsupported device {coords.device}")
     lead = coords.shape[:-1]
-    c2 = coords.reshape(-1, coords.shape[-1])
+    # a strided view survives the reshape
+    c2 = coords.reshape(-1, coords.shape[-1]).contiguous()
     keys = tuple((k, kk) for k in params for kk in params[k])
     leaves = [params[k][kk] for k, kk in keys]
     if torch.is_grad_enabled() and any(t.requires_grad

@@ -9,11 +9,12 @@ without dcoords, and optional masked SSE sums against the target and gt.
 Bound on the card: operations.  At the WIRE-300 shape (n = 65,536,
 h = 212, two hidden layers) a step is ~142 GFLOP of fp32 multiply-adds
 (three n x 424 x 424 products per hidden layer) against ~10 MB of inputs and
-outputs.  The first kernel is simple and exact rather than fast: tiled fp32
-GEMMs on the CUDA cores with the Gabor forward/backward fused into their
-epilogues, weight gradients as fixed-order per-chunk partial sums (no float
-atomics), live activations in device scratch (``StepScratch``) reused
-across steps.  See the source note in ``csrc/wire_step.cu``.
+outputs.  The hidden layers' products run on the tensor cores at fp32
+accuracy (3xTF32, ``csrc/wire_tc.cuh``, the chains of ``ops/wire_mlp.py``'s
+pair) with the Gabor forward/backward fused into their epilogues, weight
+gradients as fixed-order per-chunk partial sums (no float atomics), live
+activations in device scratch (``StepScratch``) reused across steps.  See
+the source note in ``csrc/wire_step.cu``.
 
 ``wire_step`` runs the plain version for tensors on the CPU, and for CUDA
 tensors launches the kernel or raises; there is no fallback between them.
