@@ -42,14 +42,17 @@ Phases, each printing one JSON line with its wall time:
                    rows; mfn's CT pair with dcoords too); wire2d_step at
                    the denoise shape and ragged (L 1 and 3), wire2d_mlp at
                    the CT shape, with dcoords at the denoise shape, on
-                   (4, 50, 2) coordinates and without a gradient; two
-                   calls of each WIRE-2D kernel bit-equal
+                   (4, 50, 2) coordinates and without a gradient; both
+                   at h 5, 13, 150, 152, 256, L 0-3, o 1 and 3, n 700 and
+                   65,537 (the step with nvalid and denom, the pair with
+                   dcoords); two calls of each WIRE-2D kernel bit-equal
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
                    shapes, and the card's least time for the same work;
-                   for the tensor-core kernels (wire_step, wire_mlp) the
-                   kernel time by product class, the 3xTF32 bound beside
-                   the fp32 one, and the HMMA instructions of the library
+                   for the tensor-core kernels (wire_step, wire_mlp,
+                   wire2d_step, wire2d_mlp) the kernel time by product
+                   class, the 3xTF32 bound beside the fp32 one, and the
+                   HMMA instructions of the library
   fit              the denoise bench protocol (65,536 coordinates, full
                    batch) through fit_pointwise, once through the kernel
                    (launch counts reset just before, read just after) and
@@ -488,15 +491,31 @@ TENSOR_CORE_CLASSES = {
         "weight_gradients": WIRE_WEIGHT_GRADIENTS,
         "first_final_loss": ("first_forward_kernel", "final_loss_kernel"),
     },
+    "wire2d_step": {
+        "forward_gemms": ("gabor2d_tc_fwd_kernel",),
+        "data_gradient_gemms": ("gabor2d_tc_bwd_kernel",),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS,
+        "first_final_loss": ("gabor2d_first_kernel", "final_loss_kernel"),
+    },
+    "wire2d_mlp": {
+        "forward_gemms": ("gabor2d_tc_fwd_kernel",),
+        "data_gradient_gemms": ("gabor2d_tc_bwd_kernel",),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS,
+        "first_final_dcoords": ("gabor2d_first_kernel",
+                                "final_forward_kernel",
+                                "gabor2d_dcoords_kernel"),
+    },
 }
 
 
-def tensor_core_fields(torch, build, fn, name, flops, nbytes, kernel_ms):
-    """The measure fields of a library whose hidden-layer products are
-    3xTF32 tensor-core products: its device kernels and their time by
-    product class (TENSOR_CORE_CLASSES), the 3xTF32 bound as bound_ms with
-    the fp32 CUDA-core bound beside it, the shares of both in kernel_ms, and
-    the HMMA instructions of its library."""
+def tensor_core_fields(torch, build, fn, name, flops, nbytes, kernel_ms,
+                       lib=None):
+    """The measure fields of kernel ``name`` (of library ``lib``, default
+    ``name``) whose hidden-layer products are 3xTF32 tensor-core products:
+    its device kernels and their time by product class
+    (TENSOR_CORE_CLASSES), the 3xTF32 bound as bound_ms with the fp32
+    CUDA-core bound beside it, the shares of both in kernel_ms, and the HMMA
+    instructions of its library."""
     by = kernel_breakdown(torch, fn, 20)
     res = {"device_kernels": {k[:120]: v for k, v in by.items()},
            "device_kernels_per_call": sum(v[1] for v in by.values()),
@@ -510,7 +529,7 @@ def tensor_core_fields(torch, build, fn, name, flops, nbytes, kernel_ms):
     if kernel_ms:
         res["share_of_fp32_bound"] = res["bound_fp32_ms"] / kernel_ms
         res["share_of_3xtf32_bound"] = res["bound_3xtf32_ms"] / kernel_ms
-    res["sass_hmma"] = sass_hmma(torch, build, name)
+    res["sass_hmma"] = sass_hmma(torch, build, lib or name)
     return res
 
 
@@ -2095,6 +2114,65 @@ def wire2d_ct_kw(get_config):
                 scale=cfg.scale)
 
 
+# wire2d_step and the wire2d_mlp pair at widths, depths, outputs and row
+# counts besides the main path's, as (hidden_features, units per head h,
+# L, o, n, nvalid, denom): h 5, 13, 150, 152 and 256 (odd, even, a
+# multiple of 4) against the 16-unit quad and 32-unit paired tiles, K = 2h
+# and 4h against the 32-deep slices, n 700 and 65,537 against the 128-row
+# tiles and the weight gradients' 512- and 1,024-row chunks; both at the
+# denoise frequencies, the step with nvalid and denom, the pair with
+# dcoords (at the CT frequencies the fp32 plain pair at h 5, L 3 lies
+# 1.0e-4 x max from its float64 run on one weight gradient, a difference
+# of near-equal blocks: tools/port_wire2d_reference.py --widths)
+WIRE2D_WIDTHS = ((10, 5, 0, 3, 700, 650, 1951.0),
+                 (10, 5, 3, 1, 700, None, None),
+                 (26, 13, 2, 3, 700, 600, None),
+                 (300, 150, 1, 1, 700, None, 777.0),
+                 (300, 150, 3, 3, 700, 650, None),
+                 (304, 152, 2, 1, 700, None, None),
+                 (512, 256, 1, 3, 700, 699, None),
+                 (300, 150, 2, 3, 65537, 65000, None),
+                 (304, 152, 1, 1, 65537, None, 70000.0),
+                 (512, 256, 2, 1, 65537, None, None),
+                 (26, 13, 3, 3, 65537, None, None))
+
+
+def wire2d_widths(torch, W2, get_inr, device):
+    """wire2d_step and the wire2d_mlp pair against their plain versions at
+    each of WIRE2D_WIDTHS, two calls of each bit-equal."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    errs = {"wire2d_step": {}, "wire2d_mlp": {}}
+    for hf, h, L, o, n, nvalid, denom in WIRE2D_WIDTHS:
+        what = f"h{h} L{L} o{o} n{n}"
+        seed = n + hf + L
+        model, params, c, t, gt, _ = wire2d_case(
+            torch, get_inr, n, L, o, seed, device, {"hidden_features": hf})
+        scratch = StepScratch()
+        got, again = (tensors_of(*W2.wire2d_step(
+            params, c, t, model.spec, nvalid=nvalid, denom=denom, gt=gt,
+            want_metrics=True, scratch=scratch)) for _ in range(2))
+        torch.cuda.synchronize()
+        same_bits(torch, got, again, f"wire2d_step {what}")
+        want = tensors_of(*W2.wire2d_step_plain(
+            params, c, t, model.spec, nvalid=nvalid, denom=denom, gt=gt,
+            want_metrics=True))
+        errs["wire2d_step"][what] = compare(got, want, f"wire2d_step {what}")
+        del scratch
+
+        model, params, c, _, _, g = wire2d_case(
+            torch, get_inr, n, L, o, seed + 1, device, {"hidden_features": hf})
+        keys, leaves = leaf_paths(params), [v for _, v in
+                                            tree_leaves(params)]
+        kfn = pair_fn(W2.wire2d_mlp, model.spec, keys)
+        got, again = (vjp(torch, kfn, [c] + leaves, g) for _ in range(2))
+        torch.cuda.synchronize()
+        same_bits(torch, got, again, f"wire2d_mlp {what}")
+        errs["wire2d_mlp"][what] = compare(
+            got, vjp(torch, pair_fn(W2.wire2d_mlp_plain, model.spec, keys),
+                     [c] + leaves, g), f"wire2d_mlp {what}")
+    return errs
+
+
 def wire2d_kernel_vs_plain(torch, W2, get_inr, get_config, device):
     """max abs err of wire2d_step and of the wire2d_mlp pair against their
     plain versions: the step at the denoise shape (n = 65,536, o = 3,
@@ -2164,15 +2242,17 @@ def wire2d_kernel_vs_plain(torch, W2, get_inr, get_config, device):
     errs["wire2d_mlp"]["batched"] = compare(
         got, vjp(torch, pair_fn(W2.wire2d_mlp_plain, model.spec, keys),
                  [c] + leaves, g), "wire2d_mlp (4, 50, 2)")
+    for name, cases in wire2d_widths(torch, W2, get_inr, device).items():
+        errs[name].update(cases)
     return errs
 
 
-def wire2d_measure(torch, W2, get_inr, get_config, device):
+def wire2d_measure(torch, W2, get_inr, get_config, device, build):
     """Times of wire2d_step at the denoise shape (n = 65,536, o = 3) and of
     the wire2d_mlp pair at the CT shape (o = 1, parameter gradients, as the
     CT fit calls it): the kernel (a host call, and its kernels' device
-    time), the plain version, the matmul yardstick, and the card's least
-    time for the same work."""
+    time, by product class), the plain version, the matmul yardstick, and
+    the card's least time for the same work (tensor_core_fields)."""
     from wire_tpu_torch.ops.wire_step import StepScratch
     out = {}
     n, L = 256 * 256, 2
@@ -2205,7 +2285,8 @@ def wire2d_measure(torch, W2, get_inr, get_config, device):
         "library": "torch.matmul step on the stacked layout, Gabor-2D and "
                    "written-out backward in PyTorch ops",
         "library_vs_plain_max_abs_err": lib_err}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res.update(tensor_core_fields(torch, build, step, "wire2d_step", flops,
+                                  nbytes, res["kernel_ms"], lib="wire2d"))
     res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
         if res["kernel_ms"] else None
@@ -2248,7 +2329,8 @@ def wire2d_measure(torch, W2, get_inr, get_config, device):
                    "and written-out backward in PyTorch ops",
         "library_vs_plain_max_abs_err": max(
             float((got[k] - want[k]).abs().max()) for k in want)}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res.update(tensor_core_fields(torch, build, pair, "wire2d_mlp", flops,
+                                  nbytes, res["kernel_ms"], lib="wire2d"))
     res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
         if res["kernel_ms"] else None
@@ -2618,7 +2700,7 @@ def main():
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
                                            dev)
     meas.update(mfn_measure(torch, MF, get_inr, dev))
-    meas.update(wire2d_measure(torch, W2, get_inr, get_config, dev))
+    meas.update(wire2d_measure(torch, W2, get_inr, get_config, dev, build))
     # each GEMM kernel's least time were its fp32 products formed as
     # 3xTF32 on the tensor cores, as wire_mlp's are
     for name, res in meas.items():

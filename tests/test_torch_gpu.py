@@ -1180,6 +1180,138 @@ def test_mscale2_step_matches_plain_across_scales(
     _assert_rel(runs[0], want)
 
 
+# ---- wire2d on the tensor cores ---------------------------------------------
+
+# (n, hidden_features, L, o, nvalid, denom): h = 5, 13, 150, 152 and 256
+# units per head (odd, even, a multiple of 4) against the 16-unit quad and
+# 32-unit paired tiles, K = 2h and 4h against the 32-deep slices, L 0-3,
+# n 700 and 65,537 against the 128-row tiles and the weight gradients'
+# 512- and 1,024-row chunks
+WIRE2D_WIDTHS = [
+    (700, 10, 0, 3, 650, 1951.0), (700, 10, 3, 1, None, None),
+    (700, 26, 2, 3, 600, None), (700, 300, 1, 1, None, 777.0),
+    (700, 300, 3, 3, 650, None), (700, 304, 2, 1, None, None),
+    (700, 512, 1, 3, 699, None), (65537, 300, 2, 3, 65000, None),
+    (65537, 304, 1, 1, None, 70000.0), (65537, 512, 2, 1, None, None),
+    (65537, 26, 3, 3, None, None)]
+
+
+def _wire2d_part_need(n, d, h, o):
+    """Floats wire2d's `part` workspace must hold: the hidden layers'
+    weight-gradient partials (2h + 1) x 4h over 1,024-row chunks, the first
+    and final layers' over 512-row chunks (csrc/wire_tc.cuh), final_loss's
+    two SSE partials per 64 rows (csrc/gemm_common.cuh)."""
+    def chunks(rows):
+        return -(-n // rows)
+    return max(chunks(1024) * (2 * h + 1) * 4 * h,
+               chunks(512) * (d + 1) * 2 * h, chunks(512) * (2 * h + 1) * o,
+               2 * chunks(64))
+
+
+def _nan_tailed(shape, device, tail=1 << 12):
+    """A float32 tensor of ``shape`` at the head of a NaN-filled buffer
+    ``tail`` floats longer: (view, buffer)."""
+    numel = int(np.prod(shape))
+    big = torch.full((numel + tail,), float("nan"), device=device)
+    return big[:numel].view(shape), big
+
+
+@pytest.mark.parametrize("n,hf,layers,out,nvalid,denom", WIRE2D_WIDTHS)
+def test_wire2d_step_tensor_cores_match_plain_at_every_width(
+        cuda, n, hf, layers, out, nvalid, denom):
+    """wire2d_step on wire_tc.cuh's 3xTF32 loop at every width of
+    WIRE2D_WIDTHS: within the bound of the plain version, two calls
+    bit-equal, one launch each, and nothing written past any scratch
+    buffer (a NaN tail behind each stays as it was)."""
+    from wire_tpu_torch.ops import wire2d as W2
+    model, params, c, t, gt, _ = _wire2d_case(n, hf, layers, out, cuda,
+                                              seed=n + hf + layers)
+    h, L = hf // 2, layers
+    need = W2._lib().wire2d_part_floats(n, 2, h, out)
+    assert need >= _wire2d_part_need(n, 2, h, out)
+    scratch = WS.StepScratch()
+    bigs = []
+    for name, shape in (
+            ("wire2d_acts", (L + 1, n, 2 * h)),
+            ("wire2d_zs", (max(L, 1), n, 4 * h)),
+            ("wire2d_z1", (n, 2 * h)), ("wire2d_g", (n, out)),
+            ("wire2d_dz", (max(min(L, 2), 1), n, 4 * h)),
+            ("wire2d_dz1", (n, 2 * h)), ("wire2d_part", (need,))):
+        scratch._bufs[name], big = _nan_tailed(shape, cuda)
+        bigs.append((name, big, int(np.prod(shape))))
+    before = W2.launches["step"]
+    runs = [_tree_flat(*W2.wire2d_step(params, c, t, model.spec,
+                                       nvalid=nvalid, denom=denom, gt=gt,
+                                       want_metrics=True, scratch=scratch))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert W2.launches["step"] == before + 2
+    for name, big, numel in bigs:
+        assert scratch._bufs[name].data_ptr() == big.data_ptr(), name
+        assert torch.isnan(big[numel:]).all(), name
+    for name in runs[0]:
+        assert torch.equal(runs[0][name], runs[1][name]), name
+    want = _tree_flat(*W2.wire2d_step_plain(params, c, t, model.spec,
+                                            nvalid=nvalid, denom=denom,
+                                            gt=gt, want_metrics=True))
+    _assert_rel(runs[0], want)
+
+
+@pytest.mark.parametrize("n,hf,layers,out,nvalid,denom", WIRE2D_WIDTHS)
+def test_wire2d_mlp_tensor_cores_match_plain_at_every_width(
+        cuda, n, hf, layers, out, nvalid, denom):
+    """The wire2d_mlp pair at every width of WIRE2D_WIDTHS (with dcoords):
+    through the wrapper within the bound of the plain version; through the
+    C entry points with NaN-tailed scratch and outputs, bit-equal to the
+    wrapper twice over, nothing written past any buffer."""
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops import wire2d as W2
+    model, params, c, _, _, g = _wire2d_case(n, hf, layers, out, cuda,
+                                             seed=n + hf)
+    spec, h, L, d = model.spec, hf // 2, layers, 2
+
+    def fn(p, x):
+        return W2.wire2d_mlp(p, x, spec)
+    got = _wire2d_vjp(fn, params, c, g)
+    torch.cuda.synchronize()
+    _assert_rel(got, _wire2d_vjp(
+        lambda p, x: W2.wire2d_mlp_plain(p, x, spec), params, c, g))
+
+    lib, net = W2._lib(), W2._Net(params, c, spec, "wire2d_mlp")
+    w = net.w
+    paths = [p for p, _ in tree.leaves(params)]
+    for _ in range(2):
+        bigs = []
+
+        def buf(shape):
+            view, big = _nan_tailed(shape, cuda)
+            bigs.append((big, view.numel()))
+            return view
+        pred, acts, zs, z1 = (buf(s) for s in (
+            (n, out), (L + 1, n, 2 * h), (max(L, 1), n, 4 * h), (n, 2 * h)))
+        gw1, gW2, gfW, dc, dz, dz1, part = (buf(s) for s in (
+            (d + 1, 2 * h), (L, 2 * h + 1, 4 * h), (2 * h + 1, out), (n, d),
+            (max(min(L, 2), 1), n, 4 * h), (n, 2 * h),
+            (lib.wire2d_part_floats(n, d, h, out),)))
+        stream = W2._stream(cuda)
+        assert lib.wire2d_forward(*W2._ptrs(
+            [c, w["w1"], w["b1"], w["W2"], w["B2"], w["fW"], w["fb"], pred,
+             acts, zs, z1]), *net.dims, stream) == 0
+        assert lib.wire2d_backward(*W2._ptrs(
+            [c, g, w["w1"], w["W2T"], w["fWT"], acts, zs, z1, gw1, gW2, gfW,
+             dc, dz, dz1, part]), *net.dims, stream) == 0
+        torch.cuda.synchronize()
+        for big, numel in bigs:
+            assert torch.isnan(big[numel:]).all()
+        by_path = dict(tree.leaves(W2.unstack_grads(gw1, gW2, gfW,
+                                                    net.final_bi, L)))
+        direct = {"y": pred}
+        direct.update({str(i): by_path[p] for i, p in enumerate(paths)})
+        direct[str(len(paths))] = dc
+        for name in got:
+            assert torch.equal(direct[name], got[name]), name
+
+
 def _sass_hmma(name):
     """HMMA instructions in csrc/<name>.cu's built library."""
     import os
@@ -1196,10 +1328,11 @@ def _sass_hmma(name):
 
 
 def test_tensor_cores_run_where_they_were_put(cuda):
-    """wire_step and wire_mlp have tensor-core instructions in their SASS;
-    real_mlp (real_step and the real_mlp pair), mscale2_step and mfn
-    (mfn_step and the mfn_mlp pair) still run on the CUDA cores alone."""
-    for name in ("wire_step", "wire_mlp"):
+    """wire_step, wire_mlp and wire2d (wire2d_step and the wire2d_mlp pair)
+    have tensor-core instructions in their SASS; real_mlp (real_step and
+    the real_mlp pair), mscale2_step and mfn (mfn_step and the mfn_mlp
+    pair) still run on the CUDA cores alone."""
+    for name in ("wire_step", "wire_mlp", "wire2d"):
         assert _sass_hmma(name) > 0, name
     for name in ("real_mlp", "mscale2_step", "mfn"):
         assert _sass_hmma(name) == 0, name

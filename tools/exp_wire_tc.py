@@ -55,8 +55,8 @@ VARIANTS = {
                 ("__launch_bounds__(kThreads, 2) tc_wgrad",
                  "__launch_bounds__(kThreads, 3) tc_wgrad")],
     "one_accumulator": [
-        ("warp_k8<kAT, kPaired>(As, Bs, wm, wn, k0, part);",
-         "warp_k8<kAT, kPaired>(As, Bs, wm, wn, k0, acc);"),
+        ("warp_k8<kAT, kMap>(As, Bs, wm, wn, k0, part);",
+         "warp_k8<kAT, kMap>(As, Bs, wm, wn, k0, acc);"),
         ("for (int c = 0; c < 4; ++c) acc[mt][nt][c] += part[mt][nt][c];",
          "for (int c = 0; c < 4; ++c) (void)part[mt][nt][c];")],
 }

@@ -2,7 +2,8 @@
 """Run a CUDA source of wire_tpu_torch/csrc on the host, without nvcc or a
 card, at tiny shapes, against its plain PyTorch version.
 
-    python3 tools/host_rehearse.py wire_mlp rotsum wire_step mscale2_step
+    python3 tools/host_rehearse.py wire_mlp rotsum wire_step mscale2_step \
+        wire2d
 
 The source (``csrc/<name>.cu`` and the headers it includes) is rewritten
 into a copy and built by g++ into a host library with a plain C interface,
@@ -475,11 +476,90 @@ def rehearse_mscale2_step(out_dir):
             assert rel <= 1e-4 and same, (rel, same)
 
 
+def rehearse_wire2d(out_dir):
+    """wire2d_step and the wire2d_mlp pair (csrc/wire2d.cu on wire_tc.cuh's
+    loop: the forward's quad tiles, the data gradients' paired tiles)
+    against their plain versions at tiny shapes: h = 5, 6, 13 and 16 units
+    per head (odd, even, and a multiple of 4: each kernel instance of the
+    copies and epilogue accesses), L 0-3, o 1 and 3, ragged n (several
+    512- and 1,024-row chunks of the weight gradients), the step with
+    nvalid and denom, the pair with and without dcoords and on (4, n/4, 2)
+    coordinates flattened as wire2d_mlp flattens them, the pair's forward
+    without a gradient; two calls of each bit-equal."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.nn.registry import get_inr
+    from wire_tpu_torch.ops import wire2d as W2
+
+    W2._lib.cache_clear()
+    with host_library("wire2d", out_dir):
+        for n, h, L, o, nvalid, denom, dcoords, lead, freq in (
+                (300, 5, 2, 3, 290, 901.5, True, (), (7.0, 8.0)),
+                (130, 13, 1, 1, None, None, False, (), (3.0, 12.0)),
+                (200, 16, 3, 1, 150, None, True, (4,), (3.0, 12.0)),
+                (150, 13, 0, 3, None, 777.0, True, (), (7.0, 8.0)),
+                (261, 6, 2, 1, None, None, False, (3,), (3.0, 12.0)),
+                (2100, 5, 1, 3, 2049, 6000.0, True, (), (7.0, 8.0))):
+            model = get_inr("wire2d", in_features=2, out_features=o,
+                            hidden_features=2 * h, hidden_layers=L,
+                            first_omega0=freq[0], hidden_omega0=freq[0],
+                            scale=freq[1])
+            spec = model.spec
+            params = model.init(torch.Generator().manual_seed(n), "cpu")
+            rng = np.random.default_rng(n)
+            c, t, gt, g = (torch.tensor(a.astype(np.float32)) for a in (
+                rng.uniform(-1, 1, (n, 2)), rng.uniform(0, 1, (n, o)),
+                rng.uniform(0, 1, (n, o)), rng.normal(size=(n, o))))
+            steps = [W2._launch_step(params, c, t, spec, nvalid, denom, gt,
+                                     True, None) for _ in range(2)]
+            want = W2.wire2d_step_plain(params, c, t, spec, nvalid=nvalid,
+                                        denom=denom, gt=gt,
+                                        want_metrics=True)
+            flat = [_step_tensors(o_) for o_ in steps + [want]]
+            rel = _max_rel(flat[0], flat[2])
+            same = all(torch.equal(a, b) for a, b in zip(flat[0], flat[1]))
+            print(f"wire2d_step n {n} h {h} L {L} o {o} nvalid {nvalid} "
+                  f"denom {denom}: max rel err {rel:.2e}, two calls equal: "
+                  f"{same}", flush=True)
+            assert rel <= 1e-4 and same, (rel, same)
+
+            flat_p = tree.leaves(params)
+            paths = tuple(p for p, _ in flat_p)
+            cl = c.reshape(*lead, -1, 2) if lead else c
+            outs = []
+            for fn in ("kernel", "kernel", "plain"):
+                leaves = [v.clone().requires_grad_(True) for _, v in flat_p]
+                x = cl.clone().requires_grad_(dcoords)
+                if fn == "kernel":  # as wire2d_mlp flattens leading axes
+                    y = W2._Wire2dMLP.apply(x.reshape(-1, 2), spec, paths,
+                                            *leaves).reshape(*cl.shape[:-1],
+                                                             o)
+                else:
+                    y = W2.wire2d_mlp_plain(tree.unflatten(paths, leaves),
+                                            x, spec)
+                ins = leaves + ([x] if dcoords else [])
+                grads = torch.autograd.grad(y, ins, g.reshape(y.shape),
+                                            allow_unused=True)
+                outs.append([y.detach()] + [
+                    torch.zeros_like(v) if gr is None else gr
+                    for v, gr in zip(ins, grads)])
+            y0, _, _ = W2._forward(params, c, spec, keep=False)
+            rel = _max_rel(outs[0], outs[2])
+            same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+            nograd = torch.equal(y0, outs[0][0].reshape(n, o))
+            print(f"wire2d_mlp n {n} h {h} L {L} o {o} dcoords {dcoords} "
+                  f"lead {lead}: max rel err {rel:.2e}, two calls equal: "
+                  f"{same}, no-grad forward equal: {nograd}", flush=True)
+            assert rel <= 1e-4 and same and nograd, (rel, same, nograd)
+
+
 def main():
     sys.path.insert(0, ROOT)
     rehearsals = {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum,
                   "wire_step": rehearse_wire_step,
-                  "mscale2_step": rehearse_mscale2_step}
+                  "mscale2_step": rehearse_mscale2_step,
+                  "wire2d": rehearse_wire2d}
     names = sys.argv[1:] or list(rehearsals)
     with tempfile.TemporaryDirectory() as d:
         for name in names:

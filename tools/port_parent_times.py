@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Times of this tree's kernels against an earlier tree's, in one process
-on one GPU, in turns (earlier, this, this, earlier).
+"""Times and outputs of this tree's kernels against an earlier tree's, in
+one process on one GPU, in turns (earlier, this, this, earlier).
 
     python3 tools/port_parent_times.py --parent DIR [--iters 20]
 
 DIR holds an earlier tree (a git archive of it) whose
 wire_tpu_torch/csrc is built into DIR/wire_tpu_torch/_build; both trees'
 libraries keep the same C interface, so this tree's wrappers drive either.
-For wire_step at the WIRE-300 denoise shape and mscale2_step at the
-Mscale2 denoise shape (chip_smoke.py's measure inputs), prints per turn
-the ms of a host call (CUDA events over ITERS calls after two warm-up
-calls), then one JSON line with the mean of each tree's two turns and the
-card's name and power limit.
+At chip_smoke.py's measure inputs: wire_step at the WIRE-300 denoise
+shape, the wire_mlp pair at the CT shape (with dcoords), wire2d_step at
+the WIRE-2D denoise shape, the wire2d_mlp pair at the WIRE-2D CT shape
+(parameter gradients) and mscale2_step at the Mscale2 denoise shape.
+Prints per turn the ms of a host call (CUDA events over ITERS calls after
+two warm-up calls), then one JSON line with the mean of each tree's two
+turns, for each kernel whether its outputs of the two trees' first turns
+are identical bit for bit (else their largest distance over max |earlier|
+per output tensor), and the card's name and power limit.
 """
 import argparse
 import json
@@ -22,6 +26,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as S  # noqa: E402
@@ -30,6 +35,8 @@ from wire_tpu_torch.apps import common as TC  # noqa: E402
 from wire_tpu_torch.nn.registry import get_inr  # noqa: E402
 from wire_tpu_torch.ops import build  # noqa: E402
 from wire_tpu_torch.ops import mscale2_step as MS  # noqa: E402
+from wire_tpu_torch.ops import wire2d as W2  # noqa: E402
+from wire_tpu_torch.ops import wire_mlp as WM  # noqa: E402
 from wire_tpu_torch.ops import wire_step as WS  # noqa: E402
 from wire_tpu_torch.train.presets import get_config  # noqa: E402
 
@@ -37,8 +44,90 @@ from wire_tpu_torch.train.presets import get_config  # noqa: E402
 def use(csrc, build_dir):
     build.CSRC_DIR, build.BUILD_DIR = csrc, build_dir
     build.load.cache_clear()
-    WS._lib.cache_clear()
-    MS._lib.cache_clear()
+    for mod in (WS, WM, W2, MS):
+        mod._lib.cache_clear()
+
+
+def calls(dev):
+    """{name: fn(scratch) -> {output name: tensor}} at the smoke's measure
+    inputs."""
+    wire = get_inr("wire", in_features=2, out_features=3,
+                   hidden_features=300, hidden_layers=2, first_omega0=7.0,
+                   hidden_omega0=7.0, scale=8.0)
+    wp, wc, wt, wg = S.inputs(torch, wire, 256 * 256, 2, dev)
+    cfg = get_config(S.CT_CONFIG)
+    ct = get_inr("wire", in_features=2, out_features=1, hidden_features=300,
+                 hidden_layers=2, first_omega0=cfg.omega0,
+                 hidden_omega0=cfg.omega0, scale=cfg.scale)
+    cp = ct.init(torch.Generator().manual_seed(4), dev)
+    rng = np.random.default_rng(4)
+    cc, cg = (torch.tensor(a.astype(np.float32), device=dev) for a in (
+        rng.uniform(-1, 1, (256 * 256, 2)), rng.normal(size=(256 * 256, 1))))
+    ct_fn = S.pair_fn(WM.wire_mlp, ct.spec, S.leaf_paths(cp))
+    ct_xs = [cc] + [t for _, t in S.tree_leaves(cp)]
+    m2d, p2d, c2d, t2d, g2d, _ = S.wire2d_case(torch, get_inr, 256 * 256, 2,
+                                                3, 34, dev)
+    m2c, p2c, c2c, _, _, gc2 = S.wire2d_case(
+        torch, get_inr, 256 * 256, 2, 1, 35, dev, S.wire2d_ct_kw(get_config))
+    w2_fn = S.pair_fn(W2.wire2d_mlp, m2c.spec, S.leaf_paths(p2c))
+    w2_leaves = [t for _, t in S.tree_leaves(p2c)]
+    ms_model = S.mscale2_models(get_inr, TC, get_config(S.MSCALE2_CONFIG))[0]
+    canon, comb, kinds, inv = S.mscale2_fold(torch, MM, ms_model, 22, dev)
+    mc, mt, mg, _ = S.real_inputs(torch, 256 * 256, 2, 3, 23, dev)
+    return {
+        "wire_step": lambda scratch: S.tensors_of(*WS.wire_step(
+            wp, wc, wt, wire.spec, gt=wg, want_metrics=True,
+            scratch=scratch)),
+        "wire_mlp": lambda scratch: S.vjp(torch, ct_fn, ct_xs, cg),
+        "wire2d_step": lambda scratch: S.tensors_of(*W2.wire2d_step(
+            p2d, c2d, t2d, m2d.spec, gt=g2d, want_metrics=True,
+            scratch=scratch)),
+        "wire2d_mlp": lambda scratch: S.param_vjp(torch, w2_fn, c2c,
+                                                  w2_leaves, gc2),
+        "mscale2_step": lambda scratch: S.mscale2_tensors(*MS.mscale2_step(
+            canon, comb, mc, mt, kinds, inv, gt=mg, want_metrics=True,
+            scratch=scratch))}
+
+
+def distance(got, want):
+    """True where every output is identical bit for bit, else the largest
+    max |got - want| / max |want| over the outputs."""
+    if all(torch.equal(got[k], want[k]) for k in want):
+        return True
+    return max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def compare_trees(trees, iters, names=None):
+    """Times (ms per host call, in turns earlier, this, this, earlier) and
+    the first turns' outputs of trees {"parent": (csrc, build dir), "this":
+    (...)}; prints each turn and returns the JSON summary."""
+    dev = torch.device("cuda", 0)
+    fns = calls(dev)
+    names = names or list(fns)
+    times = {tree: {name: [] for name in names} for tree in trees}
+    outs = {}
+    for tree in ("parent", "this", "this", "parent"):
+        use(*trees[tree])
+        for name in names:
+            scratch = WS.StepScratch()
+            if tree not in outs.get(name, {}):
+                outs.setdefault(name, {})[tree] = fns[name](scratch)
+            ms = S.cuda_ms(torch, lambda: fns[name](scratch), iters)
+            times[tree][name].append(ms)
+            print(f"{tree} {name}: {ms:.4f} ms", flush=True)
+            del scratch
+    return {"ms": {tree: {name: sum(v) / len(v) for name, v in by.items()}
+                   for tree, by in times.items()},
+            "bits_equal_or_distance": {
+                name: distance(o["this"], o["parent"])
+                for name, o in outs.items()}}
+
+
+def smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
 
 
 def main():
@@ -49,40 +138,12 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("port_parent_times.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
     trees = {"parent": (os.path.join(args.parent, "wire_tpu_torch", "csrc"),
                         os.path.join(args.parent, "wire_tpu_torch",
                                      "_build")),
              "this": (build.CSRC_DIR, build.BUILD_DIR)}
-
-    wire = get_inr("wire", in_features=2, out_features=3,
-                   hidden_features=300, hidden_layers=2, first_omega0=7.0,
-                   hidden_omega0=7.0, scale=8.0)
-    wp, wc, wt, wg = S.inputs(torch, wire, 256 * 256, 2, dev)
-    ms_model = S.mscale2_models(get_inr, TC, get_config(S.MSCALE2_CONFIG))[0]
-    canon, comb, kinds, inv = S.mscale2_fold(torch, MM, ms_model, 22, dev)
-    mc, mt, mg, _ = S.real_inputs(torch, 256 * 256, 2, 3, 23, dev)
-    calls = {
-        "wire_step": lambda scratch: WS.wire_step(
-            wp, wc, wt, wire.spec, gt=wg, want_metrics=True,
-            scratch=scratch),
-        "mscale2_step": lambda scratch: MS.mscale2_step(
-            canon, comb, mc, mt, kinds, inv, gt=mg, want_metrics=True,
-            scratch=scratch)}
-    times = {tree: {name: [] for name in calls} for tree in trees}
-    for tree in ("parent", "this", "this", "parent"):
-        use(*trees[tree])
-        for name, call in calls.items():
-            scratch = WS.StepScratch()
-            ms = S.cuda_ms(torch, lambda: call(scratch), args.iters)
-            times[tree][name].append(ms)
-            print(f"{tree} {name}: {ms:.4f} ms", flush=True)
-    print(json.dumps({"nvidia_smi": smi, "iters": args.iters, "ms": {
-        tree: {name: sum(v) / len(v) for name, v in by.items()}
-        for tree, by in times.items()}}))
+    res = compare_trees(trees, args.iters)
+    print(json.dumps({"nvidia_smi": smi(), "iters": args.iters, **res}))
 
 
 if __name__ == "__main__":

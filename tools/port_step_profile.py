@@ -25,7 +25,8 @@ idle share (1 - busy / wall).
 Kernels of csrc/*.cu keep their CUDA names (tc_paired_kernel<0|1|2, ...>
 = forward / hidden backward / first-layer backward GEMMs of wire_step and
 wire_mlp on the tensor cores, and tc_wgrad_kernel, narrow_wgrad_kernel and
-narrow_colsum_kernel their weight gradients; wgrad_partial_kernel,
+narrow_colsum_kernel their and WIRE-2D's weight gradients;
+wgrad_partial_kernel,
 reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
 rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /
@@ -33,9 +34,9 @@ backward / dcoords GEMMs of the real families, colsum_partial_kernel,
 combiner_kernel of mscale_2, filter_forward_kernel,
 mfn_gemm_kernel<0|1|2> = link forward / link backward / last data
 gradient, filter_grad_partial_kernel and filter_grad_finish_kernel of the
-MFN, gabor2d_first_kernel, gabor2d_fwd_kernel, gabor2d_bwd_kernel<0|1> =
-hidden / first-layer data gradients and gabor2d_dcoords_kernel of
-WIRE-2D); the rest are PyTorch's (weight stacking, FFTs, Adam, best
+MFN, gabor2d_first_kernel, gabor2d_tc_fwd_kernel,
+gabor2d_tc_bwd_kernel<0|1> = hidden / first-layer data gradients on the
+tensor cores and gabor2d_dcoords_kernel of WIRE-2D); the rest are PyTorch's (weight stacking, FFTs, Adam, best
 tracking).
 
     python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate |

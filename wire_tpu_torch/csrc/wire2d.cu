@@ -24,37 +24,46 @@
 // d = 2, h = 150 units per head, L = 2, o = 3) a step is 142.3 GFLOP of
 // fp32 multiply-adds, three (n x 300 x 600) products per hidden layer
 // (forward, data gradient, weight gradient), against ~4 MB of inputs and
-// outputs: 2.12 ms at the card's 67 TFLOP/s fp32 peak.  The CT pair
+// outputs: 2.12 ms at the card's 67 TFLOP/s fp32 peak, 0.86 ms for three
+// TF32 products each at the tensor cores' 495 TFLOP/s.  The CT pair
 // (o = 1, no dcoords) is 142.0 GFLOP.
 //
-// What this design does about it: it is the simple, correct first version,
-// on the same CUDA-core GEMM shape as the WIRE kernels (wire_gemm.cuh).
-// - One tiled GEMM loop (64-row tiles, 16-deep k slices, a 4 x 4 register
-//   block per thread, fp32 FMA) with two column gathers.  The forward
-//   gathers the four columns (j, h + j, 2h + j, 3h + j) of one unit into a
-//   thread's registers (16 units per tile), so its epilogue adds B2, keeps
-//   z4 when a backward will want it, and writes the Gabor-2D activation
-//   (n x 2h).  The data gradient dz4 (n x 4h) @ W2^T (4h x 2h) gathers the
-//   column pair (j, h + j) (32 units per tile, as wire_gemm.cuh's
-//   paired_gemm), so dar and dai meet the layer's z4 and a in its epilogue,
-//   which writes dz4 (or, for the first layer, dz1 = [dlr1 | dor1]).
-// - h = 150 stays 150, with masked tiles; the TPU kernel's 128-lane padding
-//   to 256, its two-slot software pipeline, VMEM accumulators and phantom
-//   grid step do not carry over: activations live in device memory
-//   (acts (L + 1) n 2h, zs L n 4h, z1 n 2h floats; 630 MB at the denoise
-//   shape), owned by the caller and reused across steps.
-// - Weight and bias gradients [A | 1]^T dZ are gemm_common.cuh's fixed-order
-//   2048-row chunk partials summed in chunk order; dcoords = dz1 w1^T is one
-//   warp per row with a fixed butterfly.  No float atomics: two calls give
-//   identical bits.  The final layer (alone or fused with the loss gradient
-//   and SSE sums) is gemm_common.cuh's.
+// What this design does about it: the three products of every hidden layer
+// run on wire_tc.cuh's 3xTF32 mma.sync loop (tile_product) at fp32
+// accuracy, as WIRE's do; this file adds only WIRE-2D's column use and
+// epilogues.
+// - The forward z4 = a @ W2 + B2 stages W2's columns through the quad map
+//   (wire_tc.cuh:kQuad, 16 units per 128 x 64 tile), so one thread holds
+//   the four channels (j, h + j, 2h + j, 3h + j) of units j, j + 1; its
+//   epilogue adds B2, keeps z4 when a backward will want it, and writes the
+//   Gabor-2D activation (n x 2h).
+// - The data gradient dz4 (n x 4h) @ W2^T (4h x 2h) (and the top layer's,
+//   g (n x o) @ fWT) stages the column pair (j, h + j) (the paired map, 32
+//   units per tile), so dar and dai meet the layer's z4 and a in its
+//   epilogue, which writes dz4 (or, for the first layer, dz1 = [dlr1 |
+//   dor1]).
+// - h = 150 stays 150: the loop zero-fills ragged tiles in shared memory.
+//   16-byte copies of A need only K % 4 == 0 (true at h = 150: K = 300,
+//   600); B's mapped columns need h % 4 == 0 and take 4-byte copies at 150.
+//   The TPU kernel's 128-lane padding to 256, its two-slot software
+//   pipeline, VMEM accumulators and phantom grid step do not carry over:
+//   activations live in device memory (acts (L + 1) n 2h, zs L n 4h, z1
+//   n 2h floats; 630 MB at the denoise shape), owned by the caller and
+//   reused across steps.
+// - Weight and bias gradients: gW2 = [a^T dz4; colsum(dz4)] on the same
+//   loop (wire_tc.cuh:weight_grad, fixed-order 1,024-row chunk partials),
+//   the first layer's (X = coords, d wide) and the final layer's (D = g, o
+//   wide) in wire_tc.cuh's narrow kernel; dcoords = dz1 w1^T is one warp
+//   per row with a fixed butterfly.  No float atomics: two calls give
+//   identical bits.  The final layer (alone or fused with the loss
+//   gradient and SSE sums) is gemm_common.cuh's.
 // - The pair's backward reads the forward's saved activations instead of
 //   recomputing them as the TPU kernel does (a third of the pair's
 //   operations against ~1.3 GB of reads); a forward with no gradient to
 //   take runs through two ping-pong planes and keeps nothing.
-// Tensor cores (TF32 wgmma) and TMA pipelines are later work.
 //
-// Accuracy: sincosf/expf, never the __sinf/__expf intrinsics (the phases
+// Accuracy: 3xTF32 products (wire_tc.cuh: fp32's own distance from
+// float64); sincosf/expf, never the __sinf/__expf intrinsics (the phases
 // w lr lie far outside [-pi, pi]); build without --use_fast_math.  The
 // magnitude is one expf of -w li - s^2 arg, as the plain version and JAX
 // take it: e^{-w li} alone can overflow where the Gaussian is 0.
@@ -64,92 +73,13 @@
 #include <cstddef>
 
 #include "gemm_common.cuh"
+#include "wire_tc.cuh"
 
 using namespace gemm_common;
 
 namespace {
 
-constexpr int kRows = 64;       // rows of an output tile
-constexpr int kTileCols = 64;   // columns of an output tile (16 per ty row)
-constexpr int kQuadUnits = 16;  // units of a forward tile: 4 columns each
-constexpr int kPairUnits = 32;  // units of a data-gradient tile: 2 columns
-
 enum Epilogue { kBwdHidden = 0, kBwdFirst = 1 };
-
-// Column gathers of the GEMM loop: a thread tx (0 .. 15) owns the four
-// output columns col(tx, 0 .. 3) of its 4 rows; -1 is a masked column.
-// The forward: the four channels [lr, li, or, oi] of unit unit0 + tx of
-// an (n x 4h) product.
-struct QuadCols {
-  int unit0, h;
-  __device__ __forceinline__ int operator()(int tx, int c) const {
-    const int u = unit0 + tx;
-    return u < h ? c * h + u : -1;
-  }
-};
-
-// The data gradient: [re u, re u + 1, im u, im u + 1] for the units
-// u = unit0 + 2 tx, u + 1 of an (n x 2h) product.
-struct PairCols {
-  int unit0, h;
-  __device__ __forceinline__ int operator()(int tx, int c) const {
-    const int u = unit0 + 2 * tx + (c & 1);
-    return u < h ? (c >> 1) * h + u : -1;
-  }
-};
-
-// acc[i][c] = sum_k A[row0 + 4 ty + i, k] B[k, cols(tx, c)] over k < K, for
-// A (n x K) and B (K x ldb) row-major; rows past n and masked columns give
-// zeros.  256 threads: tx = tid % 16, ty = tid / 16.
-template <class Cols>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
-                                          const float* __restrict__ B,
-                                          int n, int K, int ldb, int row0,
-                                          const Cols& cols,
-                                          float (&acc)[4][4]) {
-  __shared__ __align__(16) float As[kTileK][kRows + 4];
-  __shared__ __align__(16) float Bs[kTileK][kTileCols];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  // this thread's B-tile column: (tx', c') = (oc % 16, oc / 16), so
-  // neighbouring threads read neighbouring units
-  const int oc = tid % kTileCols;
-  const int bcol = cols(oc % 16, oc / 16);
-  const int bslot = (oc % 16) * 4 + oc / 16;
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = tid / kTileK + q * (kThreads / kTileK);
-      const int k = tid % kTileK;
-      const int gr = row0 + r, gk = k0 + k;
-      As[k][r] = (gr < n && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = tid / kTileCols + q * (kThreads / kTileCols);
-      const int gk = k0 + k;
-      Bs[k][bslot] =
-          (bcol >= 0 && gk < K) ? B[(size_t)gk * ldb + bcol] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-    }
-    __syncthreads();
-  }
-}
 
 // The Gabor-2D activation of one unit: (ar, ai) from its four channels.
 __device__ __forceinline__ void gabor2d(float lr, float li, float orr,
@@ -190,80 +120,181 @@ __global__ void __launch_bounds__(kThreads) gabor2d_first_kernel(
   gabor2d(lr, 0.f, orr, 0.f, omega, s2, &a0[r * h2 + j], &a0[r * h2 + h + j]);
 }
 
-// Hidden forward: z4 = a @ W2 + B2 (a n x 2h, W2 2h x 4h); z4 kept in zs
-// (n x 4h) unless zs is null; a_out = Gabor-2D(z4) (n x 2h).
-__global__ void __launch_bounds__(kThreads) gabor2d_fwd_kernel(
+// Hidden forward: z4 = a @ W2 + B2 (a n x 2h, W2 2h x 4h) over the quad
+// tile of units unit0 .. unit0 + 15; z4 kept in zs (n x 4h) unless zs is
+// null; a_out = Gabor-2D(z4) (n x 2h).  kVecA, kVecB, kPair:
+// wire_tc.cuh:Access.
+template <bool kVecA, bool kVecB, bool kPair>
+__global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_fwd_kernel(
     const float* __restrict__ a, const float* __restrict__ W2,
     const float* __restrict__ B2, float* __restrict__ zs,
     float* __restrict__ a_out, int n, int h, float omega, float s2) {
-  const int row0 = blockIdx.x * kRows;
-  const QuadCols cols{(int)blockIdx.y * kQuadUnits, h};
-  float acc[4][4];
-  gemm_tile(a, W2, n, 2 * h, 4 * h, row0, cols, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int j = cols.unit0 + tx;
+  using namespace wire_tc;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int unit0 = blockIdx.x * kQuadUnits;
+  const int row0 = blockIdx.y * kBM;
+  float acc[kMT][kNT][4];
+  tile_product<kQuad, kVecA, kVecB>(smem, a, W2, 4 * h, n, 2 * h, row0,
+                                    unit0, h, acc);
+
+  // n8 tile c holds channel c; accumulators 2 hr, 2 hr + 1: row g + 8 hr,
+  // units j, j + 1
+  const int g = lane / 4, t = lane % 4;
+  const int j = unit0 + wn * 8 + 2 * t;
   if (j >= h) return;
+  const bool two = j + 1 < h;
+  float2 b[kNT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= n) break;
-    float z[4];
+  for (int c = 0; c < kNT; ++c) b[c] = load2<kPair>(B2 + c * h + j, two);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) z[c] = acc[i][c] + B2[c * h + j];
-    if (zs != nullptr) {
-      float* zr = zs + (size_t)r * 4 * h;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) zr[c * h + j] = z[c];
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = row0 + wm * (kMT * 16) + mt * 16 + g + hr * 8;
+      if (r >= n) continue;
+      float2 z[kNT];
+#pragma unroll
+      for (int c = 0; c < kNT; ++c)
+        z[c] = make_float2(acc[mt][c][2 * hr] + b[c].x,
+                           acc[mt][c][2 * hr + 1] + b[c].y);
+      if (zs != nullptr) {
+        float* zr = zs + (size_t)r * 4 * h;
+#pragma unroll
+        for (int c = 0; c < kNT; ++c) store2<kPair>(zr + c * h + j, z[c], two);
+      }
+      float2 ar, ai;
+      gabor2d(z[0].x, z[1].x, z[2].x, z[3].x, omega, s2, &ar.x, &ai.x);
+      gabor2d(z[0].y, z[1].y, z[2].y, z[3].y, omega, s2, &ar.y, &ai.y);
+      float* ap = a_out + (size_t)r * 2 * h;
+      store2<kPair>(ap + j, ar, two);
+      store2<kPair>(ap + h + j, ai, two);
     }
-    float* ar = a_out + (size_t)r * 2 * h;
-    gabor2d(z[0], z[1], z[2], z[3], omega, s2, &ar[j], &ar[h + j]);
-  }
 }
 
-// Data gradient: da = D @ Bt (D n x K, Bt K x 2h) for the column pairs
-// (j, h + j), followed by the activation-form Gabor-2D backward with the
-// layer's output act (n x 2h):
+// Data gradient: da = D @ Bt (D n x K, Bt K x 2h) over the paired tile of
+// units unit0 .. unit0 + 31, followed by the activation-form Gabor-2D
+// backward with the layer's output act (n x 2h):
 //   kBwdHidden: zin = the layer's z4 (n x 4h); out = dz4 (n x 4h)
 //   kBwdFirst:  zin = z1 (n x 2h); out = dz1 = [dlr1 | dor1] (n x 2h)
-template <int kEpi>
-__global__ void __launch_bounds__(kThreads) gabor2d_bwd_kernel(
+template <int kEpi, bool kVecA, bool kVecB, bool kPair>
+__global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_bwd_kernel(
     const float* __restrict__ D, const float* __restrict__ Bt,
     const float* __restrict__ act, const float* __restrict__ zin,
     float* __restrict__ out, int n, int K, int h, float omega, float s2) {
-  const int row0 = blockIdx.x * kRows;
-  const PairCols cols{(int)blockIdx.y * kPairUnits, h};
-  float acc[4][4];
-  gemm_tile(D, Bt, n, K, 2 * h, row0, cols, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  using namespace wire_tc;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int unit0 = blockIdx.x * kUnits;
+  const int row0 = blockIdx.y * kBM;
+  float acc[kMT][kNT][4];
+  tile_product<kPaired, kVecA, kVecB>(smem, D, Bt, 2 * h, n, K, row0, unit0,
+                                      h, acc);
+
+  const int g = lane / 4, t = lane % 4;
+  constexpr int kHalf = kNT / 2;
   const float m2s2 = -2.f * s2;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= n) break;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int j = cols.unit0 + 2 * tx + p;
-      if (j >= h) continue;
-      const float dar = acc[i][p], dai = acc[i][2 + p];
-      const float* ap = act + (size_t)r * 2 * h;
-      const float ar = ap[j], ai = ap[h + j];
-      const float t1 = dar * ar + dai * ai;
-      const float t2 = dai * ar - dar * ai;
-      if (kEpi == kBwdHidden) {
-        const float* z = zin + (size_t)r * 4 * h;
-        float* o = out + (size_t)r * 4 * h;
-        o[j] = m2s2 * z[j] * t1 + omega * t2;
-        o[h + j] = (-omega + m2s2 * z[h + j]) * t1;
-        o[2 * h + j] = m2s2 * z[2 * h + j] * t1;
-        o[3 * h + j] = m2s2 * z[3 * h + j] * t1;
-      } else {
-        const float* z = zin + (size_t)r * 2 * h;
-        float* o = out + (size_t)r * 2 * h;
-        o[j] = m2s2 * z[j] * t1 + omega * t2;
-        o[h + j] = m2s2 * z[h + j] * t1;
+    for (int nt = 0; nt < kHalf; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        // n8 tiles nt, nt + kHalf: the re and im of units j, j + 1;
+        // accumulators 2 hr, 2 hr + 1: row g + 8 hr
+        const int r = row0 + wm * (kMT * 16) + mt * 16 + g + hr * 8;
+        const int j = unit0 + wn * (kHalf * 8) + nt * 8 + 2 * t;
+        if (r >= n || j >= h) continue;
+        const bool two = j + 1 < h;
+        const float2 dar = make_float2(acc[mt][nt][2 * hr],
+                                       acc[mt][nt][2 * hr + 1]);
+        const float2 dai = make_float2(acc[mt][nt + kHalf][2 * hr],
+                                       acc[mt][nt + kHalf][2 * hr + 1]);
+        const float* ap = act + (size_t)r * 2 * h;
+        const float2 ar = load2<kPair>(ap + j, two);
+        const float2 ai = load2<kPair>(ap + h + j, two);
+        const float2 t1 = make_float2(dar.x * ar.x + dai.x * ai.x,
+                                      dar.y * ar.y + dai.y * ai.y);
+        const float2 t2 = make_float2(dai.x * ar.x - dar.x * ai.x,
+                                      dai.y * ar.y - dar.y * ai.y);
+        if (kEpi == kBwdHidden) {
+          const float* z = zin + (size_t)r * 4 * h;
+          float* o = out + (size_t)r * 4 * h;
+          const float2 lr = load2<kPair>(z + j, two);
+          const float2 li = load2<kPair>(z + h + j, two);
+          const float2 orr = load2<kPair>(z + 2 * h + j, two);
+          const float2 oi = load2<kPair>(z + 3 * h + j, two);
+          store2<kPair>(o + j,
+                        make_float2(m2s2 * lr.x * t1.x + omega * t2.x,
+                                    m2s2 * lr.y * t1.y + omega * t2.y),
+                        two);
+          store2<kPair>(o + h + j,
+                        make_float2((-omega + m2s2 * li.x) * t1.x,
+                                    (-omega + m2s2 * li.y) * t1.y),
+                        two);
+          store2<kPair>(o + 2 * h + j,
+                        make_float2(m2s2 * orr.x * t1.x, m2s2 * orr.y * t1.y),
+                        two);
+          store2<kPair>(o + 3 * h + j,
+                        make_float2(m2s2 * oi.x * t1.x, m2s2 * oi.y * t1.y),
+                        two);
+        } else {
+          const float* z = zin + (size_t)r * 2 * h;
+          float* o = out + (size_t)r * 2 * h;
+          const float2 lr = load2<kPair>(z + j, two);
+          const float2 orr = load2<kPair>(z + h + j, two);
+          store2<kPair>(o + j,
+                        make_float2(m2s2 * lr.x * t1.x + omega * t2.x,
+                                    m2s2 * lr.y * t1.y + omega * t2.y),
+                        two);
+          store2<kPair>(o + h + j,
+                        make_float2(m2s2 * orr.x * t1.x, m2s2 * orr.y * t1.y),
+                        two);
+        }
       }
-    }
-  }
+}
+
+// The launches of the two: the kernel instance for the shapes' and
+// pointers' accesses, with the loop's dynamic shared memory.
+cudaError_t tc_forward(const float* a, const float* W2, const float* B2,
+                       float* zs, float* a_out, int n, int h, float omega,
+                       float s2, cudaStream_t st) {
+  const dim3 grid(ceil_div(h, wire_tc::kQuadUnits), ceil_div(n, wire_tc::kBM));
+  auto kernel = wire_tc::instance(
+      wire_tc::access(a, W2, 2 * h, h, {B2, zs, a_out}),
+      [](auto va, auto vb, auto pr) {
+        return &gabor2d_tc_fwd_kernel<decltype(va)::value,
+                                      decltype(vb)::value,
+                                      decltype(pr)::value>;
+      });
+  GEMM_CHECK(cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  wire_tc::kSmemBytes));
+  kernel<<<grid, wire_tc::kThreads, wire_tc::kSmemBytes, st>>>(
+      a, W2, B2, zs, a_out, n, h, omega, s2);
+  return cudaGetLastError();
+}
+
+template <int kEpi>
+cudaError_t tc_backward(const float* D, const float* Bt, const float* act,
+                        const float* zin, float* out, int n, int K, int h,
+                        float omega, float s2, cudaStream_t st) {
+  const dim3 grid(ceil_div(h, wire_tc::kUnits), ceil_div(n, wire_tc::kBM));
+  auto kernel = wire_tc::instance(
+      wire_tc::access(D, Bt, K, h, {act, zin, out}),
+      [](auto va, auto vb, auto pr) {
+        return &gabor2d_tc_bwd_kernel<kEpi, decltype(va)::value,
+                                      decltype(vb)::value,
+                                      decltype(pr)::value>;
+      });
+  GEMM_CHECK(cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  wire_tc::kSmemBytes));
+  kernel<<<grid, wire_tc::kThreads, wire_tc::kSmemBytes, st>>>(
+      D, Bt, act, zin, out, n, K, h, omega, s2);
+  return cudaGetLastError();
 }
 
 // dcoords[r, k] = sum_j dz1[r, j] w1[k, j] over the 2h columns: one warp
@@ -320,15 +351,13 @@ cudaError_t forward_hidden(const float* coords, const float* w1,
                          st>>>(coords, w1, b1, z1, acts, n, d, h,
                                first_omega0, s2);
   GEMM_CHECK(cudaGetLastError());
-  const dim3 grid(ceil_div(n, kRows), ceil_div(h, kQuadUnits));
   for (int l = 0; l < L; ++l) {
     const size_t in = pingpong ? l % 2 : l;
     const size_t out = pingpong ? (l + 1) % 2 : l + 1;
-    gabor2d_fwd_kernel<<<grid, kThreads, 0, st>>>(
-        acts + in * act_sz, W2 + l * w_sz, B2 + (size_t)l * 4 * h,
-        pingpong ? nullptr : zs + l * z_sz, acts + out * act_sz, n, h,
-        omega0, s2);
-    GEMM_CHECK(cudaGetLastError());
+    GEMM_CHECK(tc_forward(acts + in * act_sz, W2 + l * w_sz,
+                          B2 + (size_t)l * 4 * h,
+                          pingpong ? nullptr : zs + l * z_sz,
+                          acts + out * act_sz, n, h, omega0, s2, st));
   }
   return cudaSuccess;
 }
@@ -347,46 +376,46 @@ cudaError_t backward(const float* coords, const float* g, const float* W2T,
   const size_t act_sz = (size_t)n * h2;
   const size_t z_sz = (size_t)n * h4;
   const size_t w_sz = (size_t)h4 * h2;
-  const dim3 grid(ceil_div(n, kRows), ceil_div(h, kPairUnits));
-  GEMM_CHECK(weight_grad(acts + L * act_sz, g, part, gfW, n, h2, o, st));
+  GEMM_CHECK(wire_tc::narrow_weight_grad(acts + L * act_sz, g, part, gfW, n,
+                                         h2, o, st));
   const float* dsrc = g;
   const float* bt = fWT;
   int kdim = o;
   int cur = 0;
   for (int l = L - 1; l >= 0; --l) {
     float* dzl = dz + cur * z_sz;
-    gabor2d_bwd_kernel<kBwdHidden><<<grid, kThreads, 0, st>>>(
-        dsrc, bt, acts + (l + 1) * act_sz, zs + l * z_sz, dzl, n, kdim, h,
-        omega0, s2);
-    GEMM_CHECK(cudaGetLastError());
-    GEMM_CHECK(weight_grad(acts + l * act_sz, dzl, part,
-                           gW2 + (size_t)l * (h2 + 1) * h4, n, h2, h4, st));
+    GEMM_CHECK(tc_backward<kBwdHidden>(dsrc, bt, acts + (l + 1) * act_sz,
+                                       zs + l * z_sz, dzl, n, kdim, h, omega0,
+                                       s2, st));
+    GEMM_CHECK(wire_tc::weight_grad(acts + l * act_sz, dzl, part,
+                                    gW2 + (size_t)l * (h2 + 1) * h4, n, h2,
+                                    h4, st));
     dsrc = dzl;
     bt = W2T + l * w_sz;
     kdim = h4;
     cur ^= 1;
   }
-  gabor2d_bwd_kernel<kBwdFirst><<<grid, kThreads, 0, st>>>(
-      dsrc, bt, acts, z1, dz1, n, kdim, h, first_omega0, s2);
-  GEMM_CHECK(cudaGetLastError());
-  return weight_grad(coords, dz1, part, gw1, n, d, h2, st);
+  GEMM_CHECK(tc_backward<kBwdFirst>(dsrc, bt, acts, z1, dz1, n, kdim, h,
+                                    first_omega0, s2, st));
+  return wire_tc::narrow_weight_grad(coords, dz1, part, gw1, n, d, h2, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the `part` workspace (weight-gradient chunk partials, and the
-// step's SSE partials) for shapes (n, d, h, o).
+// Floats of the `part` workspace for shapes (n, d, h, o): the largest of
+// the weight gradients' chunk partials (the hidden layers' 1,024-row
+// chunks, the first and final layers' 512-row ones) and the step's SSE
+// partials (they use it one after the other).
 long long wire2d_part_floats(int n, int d, int h, int o) {
-  long long e = (long long)(2 * h + 1) * 4 * h;
-  const long long e_first = (long long)(d + 1) * 2 * h;
-  const long long e_final = (long long)(2 * h + 1) * o;
-  if (e_first > e) e = e_first;
-  if (e_final > e) e = e_final;
-  const long long need = (long long)ceil_div(n, kChunkRows) * e;
+  long long need = wire_tc::wgrad_part_floats(n, 2 * h, 4 * h);
+  const long long first = wire_tc::narrow_part_floats(n, d, 2 * h);
+  const long long final = wire_tc::narrow_part_floats(n, 2 * h, o);
   const long long sse = 2LL * final_loss_blocks(n);
-  return need > sse ? need : sse;
+  for (const long long e : {first, final, sse})
+    if (e > need) need = e;
+  return need;
 }
 
 int wire2d_max_out() { return kMaxOut; }

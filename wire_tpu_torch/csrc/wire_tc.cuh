@@ -1,10 +1,10 @@
 // The tensor-core GEMM loop of the WIRE kernels (csrc/wire_mlp.cu and
-// csrc/wire_step.cu, through wire_gemm.cuh's chains): fp32 products on
-// Hopper's tensor cores at fp32 accuracy (3xTF32), for the three product
-// classes of a hidden layer of the stacked complex layout (wire_gemm.cuh):
-//   forward        z = a @ W + b (n x 2h), with the Gabor epilogue
-//   data gradient  da = dz @ W^T (n x 2h), with the activation-form Gabor
-//                  backward epilogue (to dz of the layer below, or to dz1)
+// csrc/wire_step.cu, through wire_gemm.cuh's chains) and of WIRE-2D
+// (csrc/wire2d.cu): fp32 products on Hopper's tensor cores at fp32
+// accuracy (3xTF32), for the three product classes of a hidden layer:
+//   forward        z = a @ W + b, with the layer's activation epilogue
+//   data gradient  da = dz @ W^T, with the activation-form backward
+//                  epilogue (to dz of the layer below, or to dz1)
 //   weight grad.   [dW; db] = [a^T dz; colsum(dz)] over n rows, as
 //                  fixed-order per-chunk partials
 //
@@ -18,10 +18,11 @@
 // (ops/wire_mlp.py:matmul_3xtf32_plain models it, tests/test_torch_tf32x3.py
 // holds it there).
 //
-// The loop: mma.sync.aligned.m16n8k8 (tf32 in, fp32 accumulate), 128 x 64
-// block tiles, 4 warps of 64 x 32, 32-deep slices staged through a 3-stage
-// cp.async ring in dynamic shared memory (83 KB, 2 blocks per SM; 16-byte
-// copies where rows and column blocks are 4-float aligned, else 4-byte
+// The loop (tile_product): mma.sync.aligned.m16n8k8 (tf32 in, fp32
+// accumulate), 128 x 64 block tiles, 4 warps of 64 x 32, 32-deep slices
+// staged through a 3-stage cp.async ring in dynamic shared memory (83 KB,
+// 2 blocks per SM; 16-byte copies of A where its rows are 4-float aligned,
+// of B where its mapped column blocks are, each decided apart, else 4-byte
 // ones; out-of-range rows, columns and depth are zero-filled in shared
 // memory, never padded in device memory, so any h, n and K work).  Each
 // slice's products are summed in registers of their own and then added to
@@ -30,13 +31,19 @@
 // shared-memory operands, which the weight gradient's a^T is not, and the
 // 3xTF32 split of a shared-memory operand would double its tiles.
 //
-// The Gabor epilogues need a unit's re and im channels (columns j and h + j)
-// in one thread.  A paired tile stages the re columns of its 32 units in
-// shared-memory columns 0..31 and their im columns in 32..63
-// (ops/wire_mlp.py:paired_tile_columns); warp wn's n8 tiles are re columns
-// wn*16 + {0, 8} and im columns 32 + wn*16 + {0, 8} (tile_col), so the
-// accumulator registers of n8 tiles nt and nt + 2 hold the re and im of
-// the same units.
+// The epilogues need a unit's channels in one thread, so the B columns are
+// staged through a column map (ColMap).  kPaired (WIRE's forward and every
+// data gradient): a unit's re and im (columns j and h + j of 2h); the tile
+// stages the re columns of its 32 units in shared-memory columns 0..31 and
+// their im columns in 32..63 (ops/wire_mlp.py:paired_tile_columns); warp
+// wn's n8 tiles are re columns wn*16 + {0, 8} and im columns 32 + wn*16 +
+// {0, 8} (tile_col), so the accumulator registers of n8 tiles nt and nt + 2
+// hold the re and im of the same units.  kQuad (WIRE-2D's forward): a
+// unit's four channels [lr | li | or | oi] (columns j, h + j, 2h + j and
+// 3h + j of 4h); staged column 16c + u holds channel c of the tile's unit u
+// (ops/wire2d.py:quad_tile_columns), and warp wn's n8 tile nt is channel nt
+// of units wn*8 .. wn*8 + 7, so the accumulator registers of n8 tiles 0..3
+// hold the four channels of the same units.  kPlain: columns in order.
 //
 // The mma and the cp.async ring are the only inline PTX; they and the TF32
 // split each live in one small function (tf32_split, mma_tf32,
@@ -47,6 +54,8 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 #include "gemm_common.cuh"
 
@@ -59,6 +68,7 @@ constexpr int kNT = 4;                  // n8 tiles per warp: 32 columns
 constexpr int kBM = kWarpsM * kMT * 16;  // 128 rows per block tile
 constexpr int kBN = kWarpsN * kNT * 8;   // 64 columns per block tile
 constexpr int kUnits = kBN / 2;          // complex units per paired tile
+constexpr int kQuadUnits = kBN / 4;      // units per quad tile (WIRE-2D)
 constexpr int kBK = 32;                  // depth of one staged slice
 constexpr int kStages = 3;
 constexpr int kLdMK = kBK + 4;  // [m][k] tiles (rows of A): 36 floats
@@ -70,6 +80,7 @@ constexpr int kSmemBytes = kStages * (kStageA + kStageB) * 4;  // dynamic
 constexpr int kChunkRows = 1024;  // rows summed by one weight-grad. block
 
 enum Mode { kFwd = 0, kBwd = 1, kBwdFirst = 2 };
+enum ColMap { kPlain = 0, kPaired = 1, kQuad = 2 };
 
 using gemm_common::ceil_div;
 
@@ -166,11 +177,12 @@ struct StageMK {
 };
 
 // s[k][c] (stride kLd, width C) = X[r0 + k][col(c)] for a row-major X
-// (rows x ldx).  Paired (h > 0, C = kBN): col(c) = c0 + c for c < kUnits,
-// else h + c0 + c - kUnits, live while the unit is < h.  Plain (h = 0):
-// col(c) = c0 + c, live while < ncols.  With kVec, every 4-column block is
-// wholly live or wholly not (the launch checks the alignment).
-template <int C, int kLd, bool kVec>
+// (rows x ldx).  kPaired (C = kBN): col(c) = c0 + c for c < kUnits, else
+// h + c0 + c - kUnits, live while the unit is < h.  kQuad (C = kBN): col(c)
+// = (c / kQuadUnits) h + c0 + c % kQuadUnits, live while the unit is < h.
+// kPlain: col(c) = c0 + c, live while < ncols.  With kVec, every 4-column
+// block is wholly live or wholly not (the launch checks the alignment).
+template <int C, int kLd, bool kVec, int kMap>
 struct StageKN {
   static constexpr int kStep = kVec ? 4 : 1;
   static constexpr int kPerRow = C / kStep;
@@ -187,10 +199,14 @@ struct StageKN {
     first = threadIdx.x / kPerRow;
     const int c = (threadIdx.x % kPerRow) * kStep;
     int gc;
-    if (h > 0) {
+    if (kMap == kPaired) {
       const int u = c < kUnits ? c : c - kUnits;
       col_ok = c0 + u < h;
       gc = (c < kUnits ? 0 : h) + c0 + u;
+    } else if (kMap == kQuad) {
+      const int u = c % kQuadUnits;
+      col_ok = c0 + u < h;
+      gc = (c / kQuadUnits) * h + c0 + u;
     } else {
       gc = c0 + c;
       col_ok = gc < ncols;
@@ -214,20 +230,22 @@ struct StageKN {
 // ---- one 8-deep step of a warp's 64 x 32 tile ----------------------------
 
 // Column (in the staged tile) of the warp's n8 tile nt: paired tiles take
-// the re columns of the warp's 4 kNT units in n8 tiles 0 .. kNT/2 - 1 and
-// their im columns, kUnits further on, in kNT/2 .. kNT - 1; plain tiles
-// the warp's 8 kNT columns in order.
-template <bool kPaired>
+// the re columns of the warp's 16 units in n8 tiles 0 .. kNT/2 - 1 and
+// their im columns, kUnits further on, in kNT/2 .. kNT - 1; quad tiles
+// channel nt of the warp's 8 units; plain tiles the warp's 8 kNT columns
+// in order.
+template <int kMap>
 __device__ __forceinline__ int tile_col(int wn, int nt) {
   constexpr int kHalf = kNT / 2;
-  if (kPaired)
+  if (kMap == kPaired)
     return (nt < kHalf ? 0 : kUnits) + wn * (kHalf * 8) + (nt % kHalf) * 8;
+  if (kMap == kQuad) return nt * kQuadUnits + wn * 8;
   return wn * (kNT * 8) + nt * 8;
 }
 
 // acc += A[rows wm*64 ..][k0 .. k0 + 8) * B[k0 .. k0 + 8)[warp columns].
 // A is s[m][k] (kAT = false) or s[k][m] (kAT = true); B is s[k][n].
-template <bool kAT, bool kPaired>
+template <bool kAT, int kMap>
 __device__ __forceinline__ void warp_k8(const float* As, const float* Bs,
                                         int wm, int wn, int k0,
                                         float (&acc)[kMT][kNT][4]) {
@@ -236,7 +254,7 @@ __device__ __forceinline__ void warp_k8(const float* As, const float* Bs,
   uint32_t bb[kNT][2], bs[kNT][2];
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
-    const int c = tile_col<kPaired>(wn, nt) + g;
+    const int c = tile_col<kMap>(wn, nt) + g;
     tf32_split(Bs[(k0 + t) * kLdKN + c], bb[nt][0], bs[nt][0]);
     tf32_split(Bs[(k0 + t + 4) * kLdKN + c], bb[nt][1], bs[nt][1]);
   }
@@ -275,7 +293,7 @@ __device__ __forceinline__ void warp_k8(const float* As, const float* Bs,
 // register tile, and that tile is added into acc by ordinary fp32 adds,
 // rounded to nearest ("promotion"): 2.7e-6 x max from float64 at the CT
 // shape, plain fp32's 2.6e-6 (tools/exp_wire_tc.py).
-template <bool kAT, bool kPaired>
+template <bool kAT, int kMap>
 __device__ __forceinline__ void slice_product(const float* As,
                                               const float* Bs, int wm, int wn,
                                               float (&acc)[kMT][kNT][4]) {
@@ -288,13 +306,94 @@ __device__ __forceinline__ void slice_product(const float* As,
       for (int c = 0; c < 4; ++c) part[mt][nt][c] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < kBK; k0 += 8)
-    warp_k8<kAT, kPaired>(As, Bs, wm, wn, k0, part);
+    warp_k8<kAT, kMap>(As, Bs, wm, wn, k0, part);
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] += part[mt][nt][c];
+}
+
+// ---- the main loop -------------------------------------------------------
+
+// acc = A (rows row0 .. row0 + kBM of a row-major n x K A) @ the kBN
+// columns of B (K rows of ldb floats) that column map kMap stages for the
+// tile at unit (kPlain: column) c0, left in registers for the caller's
+// epilogue: the cp.async ring's prologue, the slice loop and
+// slice_product.  smem: kSmemBytes of dynamic shared memory.  kVecA,
+// kVecB: 16-byte copies of A (K % 4 == 0, A 16-byte aligned) and of B's
+// mapped columns (h % 4 == 0, B 16-byte aligned).
+template <int kMap, bool kVecA, bool kVecB>
+__device__ __forceinline__ void tile_product(float* smem, const float* A,
+                                             const float* B, int ldb, int n,
+                                             int K, int row0, int c0, int h,
+                                             float (&acc)[kMT][kNT][4]) {
+  float(*As)[kStageA] = reinterpret_cast<float(*)[kStageA]>(smem);
+  float(*Bs)[kStageB] =
+      reinterpret_cast<float(*)[kStageB]>(smem + kStages * kStageA);
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int ktiles = (K + kBK - 1) / kBK;
+
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+
+  const StageMK<kVecA> stage_a(A, row0, n, K);
+  const StageKN<kBN, kLdKN, kVecB, kMap> stage_b(B, ldb, c0, 0, h);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) {
+      stage_a(As[s], s * kBK, K);
+      stage_b(Bs[s], s * kBK, K);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait_ring();
+    __syncthreads();
+    const int nk = kt + kStages - 1;
+    if (nk < ktiles) {
+      const int s = nk % kStages;
+      stage_a(As[s], nk * kBK, K);
+      stage_b(Bs[s], nk * kBK, K);
+    }
+    cp_async_commit();
+    const int s = kt % kStages;
+    slice_product<false, kMap>(As[s], Bs[s], wm, wn, acc);
+  }
+}
+
+// The copy widths and epilogue accesses a launch can take, from its shapes
+// and pointers: vec_a 16-byte copies of A (K % 4 == 0: its rows are then
+// 4-float aligned at any h), vec_b 16-byte copies of B's mapped columns
+// (h % 4 == 0), pair 8-byte epilogue accesses (h even, the epilogue's
+// tensors `epi` 8-byte aligned; vec_b only with pair).
+struct Access {
+  bool vec_a, vec_b, pair;
+};
+
+inline Access access(const float* A, const float* B, int K, int h,
+                     std::initializer_list<const void*> epi) {
+  bool pair = h % 2 == 0;
+  for (const void* p : epi) pair = pair && aligned(p, 8);
+  return {K % 4 == 0 && aligned(A, 16),
+          pair && h % 4 == 0 && aligned(B, 16), pair};
+}
+
+// pick(vec_a, vec_b, pair), each a std::bool_constant: the kernel instance
+// that takes a's accesses.
+template <class Pick>
+auto instance(const Access& a, Pick pick) {
+  using T = std::true_type;
+  using F = std::false_type;
+  if (a.vec_b) return a.vec_a ? pick(T(), T(), T()) : pick(F(), T(), T());
+  if (a.pair) return a.vec_a ? pick(T(), F(), T()) : pick(F(), F(), T());
+  return a.vec_a ? pick(T(), F(), F()) : pick(F(), F(), F());
 }
 
 // ---- the paired GEMM: forward and data gradient --------------------------
@@ -337,57 +436,24 @@ __device__ __forceinline__ void gabor(float zr, float zi, float omega,
 //              layer's output, zin its pre-activation (n x 2h)
 //   kBwdFirst: as kBwd for the real first layer; zin = z1 (n x h), out0 =
 //              dL/dz1 (n x h)
-// kVec: 16-byte copies (K % 4 == 0, h % 4 == 0, A and B 16-byte aligned);
-// kPair: 8-byte epilogue accesses (h even, the epilogue's tensors 8-byte
-// aligned).
-template <int kMode, bool kVec, bool kPair>
+// kVecA, kVecB: 16-byte copies of A and B (Access); kPair: 8-byte
+// epilogue accesses (h even, the epilogue's tensors 8-byte aligned).
+template <int kMode, bool kVecA, bool kVecB, bool kPair>
 __global__ void __launch_bounds__(kThreads, 2) tc_paired_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     const float* __restrict__ bias, const float* __restrict__ act,
     const float* __restrict__ zin, float* __restrict__ out0,
     float* __restrict__ out1, int n, int K, int h, float omega, float s2) {
   extern __shared__ __align__(16) float smem[];
-  float(*As)[kStageA] = reinterpret_cast<float(*)[kStageA]>(smem);
-  float(*Bs)[kStageB] =
-      reinterpret_cast<float(*)[kStageB]>(smem + kStages * kStageA);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int unit0 = blockIdx.x * kUnits;
   const int row0 = blockIdx.y * kBM;
   const int h2 = 2 * h;
-  const int ktiles = (K + kBK - 1) / kBK;
 
   float acc[kMT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
-
-  const StageMK<kVec> stage_a(A, row0, n, K);
-  const StageKN<kBN, kLdKN, kVec> stage_b(B, h2, unit0, 0, h);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) {
-      stage_a(As[s], s * kBK, K);
-      stage_b(Bs[s], s * kBK, K);
-    }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait_ring();
-    __syncthreads();
-    const int nk = kt + kStages - 1;
-    if (nk < ktiles) {
-      const int s = nk % kStages;
-      stage_a(As[s], nk * kBK, K);
-      stage_b(Bs[s], nk * kBK, K);
-    }
-    cp_async_commit();
-    const int s = kt % kStages;
-    slice_product<false, true>(As[s], Bs[s], wm, wn, acc);
-  }
+  tile_product<kPaired, kVecA, kVecB>(smem, A, B, h2, n, K, row0, unit0, h,
+                                      acc);
 
   const int g = lane / 4, t = lane % 4;
   constexpr int kHalf = kNT / 2;
@@ -460,16 +526,12 @@ cudaError_t paired(const float* A, const float* B, const float* bias,
                    float* out1, int n, int K, int h, float omega, float s2,
                    cudaStream_t st) {
   const dim3 grid(ceil_div(h, kUnits), ceil_div(n, kBM));
-  bool pair = h % 2 == 0;
-  for (const void* p : {(const void*)bias, (const void*)act,
-                        (const void*)zin, (const void*)out0,
-                        (const void*)out1})
-    pair = pair && aligned(p, 8);
-  const bool vec = pair && K % 4 == 0 && h % 4 == 0 && aligned(A, 16) &&
-                   aligned(B, 16);
-  auto kernel = vec    ? tc_paired_kernel<kMode, true, true>
-                : pair ? tc_paired_kernel<kMode, false, true>
-                       : tc_paired_kernel<kMode, false, false>;
+  auto kernel = instance(
+      access(A, B, K, h, {bias, act, zin, out0, out1}),
+      [](auto va, auto vb, auto pr) {
+        return &tc_paired_kernel<kMode, decltype(va)::value,
+                                 decltype(vb)::value, decltype(pr)::value>;
+      });
   GEMM_CHECK(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
   kernel<<<grid, kThreads, kSmemBytes, st>>>(A, B, bias, act, zin, out0,
@@ -510,8 +572,8 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
   float colsum = 0.f;
 
-  const StageKN<kBM, kLdKM, kVec> stage_x(X, M, i0, M, 0);
-  const StageKN<kBN, kLdKN, kVec> stage_d(D, N, j0, N, 0);
+  const StageKN<kBM, kLdKM, kVec, kPlain> stage_x(X, M, i0, M, 0);
+  const StageKN<kBN, kLdKN, kVec, kPlain> stage_d(D, N, j0, N, 0);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < ktiles) {
@@ -535,7 +597,7 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
 #pragma unroll
       for (int k = 0; k < kBK; ++k) colsum += Bs[s][k * kLdKN + threadIdx.x];
     }
-    slice_product<true, false>(As[s], Bs[s], wm, wn, acc);
+    slice_product<true, kPlain>(As[s], Bs[s], wm, wn, acc);
   }
 
   const size_t block = (size_t)chunk * (M + 1) * N;
@@ -547,7 +609,7 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int i = i0 + wm * (kMT * 16) + mt * 16 + g + (c / 2) * 8;
-        const int j = j0 + tile_col<false>(wn, nt) + 2 * t + c % 2;
+        const int j = j0 + tile_col<kPlain>(wn, nt) + 2 * t + c % 2;
         if (i < M && j < N) part[block + (size_t)i * N + j] = acc[mt][nt][c];
       }
   if (bias_row && threadIdx.x < kBN && j0 + (int)threadIdx.x < N)

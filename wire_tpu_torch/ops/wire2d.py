@@ -13,7 +13,12 @@ complex linears, ``lin`` and ``orth``, to one input and activates
 
 The kernels read the stacked layout of ``stack_params`` (the TPU kernel's
 ``_pad_params_stacked`` without its 128-lane padding): per hidden layer one
-real GEMM ``[ar | ai] (n, 2h) @ W2 (2h, 4h) = [lr | li | or | oi]``.
+real GEMM ``[ar | ai] (n, 2h) @ W2 (2h, 4h) = [lr | li | or | oi]``.  The
+hidden layers' products run on the tensor cores at fp32 accuracy (3xTF32,
+``csrc/wire_tc.cuh``, as WIRE's); ``quad_tile_columns`` models on the CPU
+how the forward stages a unit's four channels into one thread's registers
+(``ops/wire_mlp.py:paired_tile_columns`` the data gradient's pairs).  The
+tests use it; the main path never does.
 
 ``wire2d_step`` and ``wire2d_mlp`` run the plain versions for tensors on
 the CPU, and for CUDA tensors launch the kernels or raise; there is no
@@ -140,7 +145,30 @@ def apply_flops(n, d, h, o, L, dcoords=True):
     return step_flops(n, d, h, o, L) + (2 * n * 2 * h * d if dcoords else 0)
 
 
+# ---- the forward's column map ----------------------------------------------
+
+# units of one quad tile of the tensor-core loop (csrc/wire_tc.cuh:
+# kQuadUnits): channel c of unit u in staged column QUAD_TILE_UNITS c + u
+QUAD_TILE_UNITS = 16
+
+
+def quad_tile_columns(h, units=QUAD_TILE_UNITS):
+    """(tiles, 4 units) int64: the stacked-layout column (of 4h) that each
+    staged column of each quad tile of the forward holds, -1 where the tile
+    runs past h.  Tile q stages channel c (lr, li, or, oi) of units
+    q*units .. in columns c*units ..; so staged columns u, units + u,
+    2 units + u and 3 units + u hold a unit's (j, h + j, 2h + j, 3h + j)."""
+    tiles = -(-h // units)
+    unit = torch.arange(tiles)[:, None] * units + torch.arange(units)
+    cols = torch.cat([c * h + unit for c in range(4)], dim=1)
+    return torch.where(unit.repeat(1, 4) < h, cols, torch.full_like(cols, -1))
+
+
 # ---- the kernels ------------------------------------------------------------
+
+# in_features the kernels take: the first layer's weight gradient has the
+# coordinates as its narrow operand (csrc/wire_tc.cuh:kNarrowMax)
+MAX_IN = 8
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -194,6 +222,9 @@ class _Net:
         if o > lib.wire2d_max_out():
             raise ValueError(f"{who} kernel supports out_features <= "
                              f"{lib.wire2d_max_out()}, got {o}")
+        if d > MAX_IN:
+            raise ValueError(f"{who} kernel supports in_features <= "
+                             f"{MAX_IN}, got {d}")
         _check("coords", coords, (n, d), dev, who)
         w = stack_params(params, L)
         for name, shape in (("w1", (d, 2 * h)), ("b1", (2 * h,)),
