@@ -26,7 +26,8 @@ Phases, each printing one JSON line with its wall time:
                    path's full shape, plus a ragged case; wire_step at
                    h 5, 13, 150, 212, L 1-3, o 1 and 3, n 700 and 65,537
                    with nvalid and denom; mscale2_step at ns 2 and 3 where
-                   64-row tiles straddle two scales (n 700, 65,537); two
+                   128-row tiles straddle two scales (n 700, 65,537), held
+                   to its plain version run in float64; two
                    calls of each bit-equal; wire_mlp, real_mlp, mfn_mlp and
                    wire2d_mlp on a transposed coordinate view, equal to the
                    contiguous call bit for bit (fault C.7); real_mlp's
@@ -45,12 +46,15 @@ Phases, each printing one JSON line with its wall time:
                    (4, 50, 2) coordinates and without a gradient; both
                    at h 5, 13, 150, 152, 256, L 0-3, o 1 and 3, n 700 and
                    65,537 (the step with nvalid and denom, the pair with
-                   dcoords); two calls of each WIRE-2D kernel bit-equal
+                   dcoords), and the pair at h 5, L 3 at the CT frequencies
+                   held to its plain version run in float64; two calls of
+                   each WIRE-2D kernel bit-equal
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
                    shapes, and the card's least time for the same work;
                    for the tensor-core kernels (wire_step, wire_mlp,
-                   wire2d_step, wire2d_mlp) the kernel time by product
+                   mscale2_step, wire2d_step, wire2d_mlp) the kernel time by
+                   product
                    class, the 3xTF32 bound beside the fp32 one, and the
                    HMMA instructions of the library
   fit              the denoise bench protocol (65,536 coordinates, full
@@ -94,6 +98,7 @@ nothing of JAX or wire_tpu.
 import argparse
 import faulthandler
 import json
+import numbers
 import os
 import subprocess
 import sys
@@ -221,6 +226,44 @@ def compare(got, want, what):
                 f"max|plain| {scale:.3e}")
         worst = max(worst, err)
     return worst
+
+
+def float64_tree(x):
+    """``x`` with every floating tensor and every float in it, through
+    dicts, lists and tuples, cast to float64 (the inverse scales too);
+    strings, ints and None as they are."""
+    if isinstance(x, dict):
+        return {k: float64_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(float64_tree(v) for v in x)
+    if hasattr(x, "is_floating_point"):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, numbers.Real) and not isinstance(x, numbers.Integral):
+        return float(x)
+    return x
+
+
+def compare_float64(got, plain, args, kwargs, what):
+    """Holds the kernel's outputs ``got`` ({name: tensor}) to ``plain(*args,
+    **kwargs)`` run in float64 (float64_tree of every input), with
+    compare(): the reference of mscale2_step and of the wire2d_mlp
+    CT-frequency width case, whose fp32 plain versions lie near or past
+    REL_TOL x max from their own float64 runs (combiner relu units within
+    rounding of 0; differences of near-equal blocks).  Returns (max abs
+    err, the float64 outputs)."""
+    want = plain(*float64_tree(args), **float64_tree(kwargs))
+    for name, w in want.items():
+        if str(w.dtype) != "torch.float64":
+            raise AssertionError(f"{what}: the float64 reference's {name} "
+                                 f"is {w.dtype}")
+    return compare(got, want, what), want
+
+
+def rel_distance(got, want):
+    """max over the outputs of max |got - want| / max |want|."""
+    return max(float((got[k].double() - want[k].double()).abs().max())
+               / max(float(want[k].double().abs().max()), 1e-300)
+               for k in want)
 
 
 def inputs(torch, model, n, seed, device):
@@ -490,6 +533,14 @@ TENSOR_CORE_CLASSES = {
         "data_gradient_gemms": ("tc_paired_kernel<1", "tc_paired_kernel<2"),
         "weight_gradients": WIRE_WEIGHT_GRADIENTS,
         "first_final_loss": ("first_forward_kernel", "final_loss_kernel"),
+    },
+    "mscale2_step": {
+        "forward_gemms": ("real_tc_kernel<0",),
+        "data_gradient_gemms": ("real_tc_kernel<1",),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS + ("colsum_partial_kernel",),
+        "first_top_final_combiner": ("real_narrow_kernel",
+                                     "final_forward_kernel",
+                                     "combiner_kernel"),
     },
     "wire2d_step": {
         "forward_gemms": ("gabor2d_tc_fwd_kernel",),
@@ -1443,12 +1494,23 @@ def mscale2_tensors(pred, dcanon, dcomb, sums):
     return tensors_of(pred, {"trunk": dcanon, "combiner": dcomb}, sums)
 
 
+def mscale2_plain(MS):
+    """mscale2_step_plain's outputs by name (mscale2_tensors)."""
+    def plain(*args, **kwargs):
+        return mscale2_tensors(*MS.mscale2_step_plain(*args, **kwargs))
+    return plain
+
+
 def mscale2_kernel_vs_plain(torch, MS, MM, models, device):
-    """max abs err of mscale2_step at the path's full shape (n = 65,536,
-    ns = 3) and ragged ones where 64-row tiles straddle two scales (n =
-    700 with nvalid = 650 and denom at ns = 2 and 3; n = 65,537 at ns = 3),
-    every output tensor; two calls bit-equal."""
-    errs = {}
+    """max abs err of mscale2_step from its plain version run in float64
+    (compare_float64), every output tensor, at the path's full shape (n =
+    65,536, ns = 3) and ragged ones where 128-row tiles straddle two scales
+    (n = 700 with nvalid = 650 and denom at ns = 2 and 3; n = 65,537 at ns
+    = 3); two calls bit-equal.  Also, not gated: the kernel's distance
+    from the fp32 plain version and the fp32 plain version's from float64
+    (max |a - b| / max |b| over the outputs)."""
+    errs = {"kernel_vs_fp32_plain": {}, "fp32_plain_vs_float64": {}}
+    plain = mscale2_plain(MS)
     for which, model, n, nvalid, denom in (
             ("full", models[0], 256 * 256, None, None),
             ("ragged", models[2], 700, 650, 650 * 3.0 + 1.0),
@@ -1456,17 +1518,18 @@ def mscale2_kernel_vs_plain(torch, MS, MM, models, device):
             ("n65537_ns3", models[0], 256 * 256 + 1, 65000, None)):
         canon, comb, kinds, inv = mscale2_fold(torch, MM, model, 18, device)
         c, t, gt, _ = real_inputs(torch, n, 2, 3, 19, device)
+        kw = dict(nvalid=nvalid, denom=denom, gt=gt, want_metrics=True)
         got, again = (mscale2_tensors(*MS.mscale2_step(
-            canon, comb, c, t, kinds, inv, nvalid=nvalid, denom=denom, gt=gt,
-            want_metrics=True)) for _ in range(2))
+            canon, comb, c, t, kinds, inv, **kw)) for _ in range(2))
         torch.cuda.synchronize()
         same_bits(torch, again, got, f"mscale2_step {which}")
-        want = MS.mscale2_step_plain(canon, comb, c, t, kinds, inv,
-                                     nvalid=nvalid, denom=denom, gt=gt,
-                                     want_metrics=True)
-        errs[which] = compare(got, mscale2_tensors(*want),
-                              f"mscale2_step {which}")
-        del want
+        args = (canon, comb, c, t, kinds, inv)
+        errs[which], want64 = compare_float64(got, plain, args, kw,
+                                              f"mscale2_step {which}")
+        want32 = plain(*args, **kw)
+        errs["kernel_vs_fp32_plain"][which] = rel_distance(got, want32)
+        errs["fp32_plain_vs_float64"][which] = rel_distance(want32, want64)
+        del want32, want64
     return errs
 
 
@@ -1546,10 +1609,11 @@ def mscale2_matmul_step(torch, RM, canon, comb, x, target, gt, kinds, inv):
         (et * et).sum(), (eg * eg).sum())
 
 
-def mscale2_measure(torch, MS, RM, MM, model, device):
+def mscale2_measure(torch, MS, RM, MM, model, device, build):
     """Times of mscale2_step at the path's shape: the kernel (a host call,
-    and its kernels' device time), the plain version, the matmul
-    yardstick, and the card's least time for the same work."""
+    and its kernels' device time, by product class), the plain version, the
+    matmul yardstick, and the card's least time for the same work
+    (tensor_core_fields)."""
     from wire_tpu_torch.ops.wire_step import StepScratch
     n = 256 * 256
     canon, comb, kinds, inv = mscale2_fold(torch, MM, model, 22, device)
@@ -1583,7 +1647,8 @@ def mscale2_measure(torch, MS, RM, MM, model, device):
         "library": "torch.matmul step on the stacked scales, bases and "
                    "written-out backward in PyTorch ops",
         "library_vs_plain_max_abs_err": lib_err}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res.update(tensor_core_fields(torch, build, step, "mscale2_step", flops,
+                                  nbytes, res["kernel_ms"]))
     res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
         if res["kernel_ms"] else None
@@ -2121,9 +2186,7 @@ def wire2d_ct_kw(get_config):
 # and 4h against the 32-deep slices, n 700 and 65,537 against the 128-row
 # tiles and the weight gradients' 512- and 1,024-row chunks; both at the
 # denoise frequencies, the step with nvalid and denom, the pair with
-# dcoords (at the CT frequencies the fp32 plain pair at h 5, L 3 lies
-# 1.0e-4 x max from its float64 run on one weight gradient, a difference
-# of near-equal blocks: tools/port_wire2d_reference.py --widths)
+# dcoords
 WIRE2D_WIDTHS = ((10, 5, 0, 3, 700, 650, 1951.0),
                  (10, 5, 3, 1, 700, None, None),
                  (26, 13, 2, 3, 700, 600, None),
@@ -2135,11 +2198,18 @@ WIRE2D_WIDTHS = ((10, 5, 0, 3, 700, 650, 1951.0),
                  (304, 152, 1, 1, 65537, None, 70000.0),
                  (512, 256, 2, 1, 65537, None, None),
                  (26, 13, 3, 3, 65537, None, None))
+# and the pair at the CT frequencies, (hidden_features, h, L, o, n): there
+# its fp32 plain version lies 8.65e-5 x max from its own float64 run on one
+# weight gradient, a difference of near-equal blocks
+# (tools/port_wire2d_reference.py --widths), so this case is held to the
+# float64 run (compare_float64)
+WIRE2D_CT_WIDTH = (10, 5, 3, 1, 700)
 
 
-def wire2d_widths(torch, W2, get_inr, device):
+def wire2d_widths(torch, W2, get_inr, get_config, device):
     """wire2d_step and the wire2d_mlp pair against their plain versions at
-    each of WIRE2D_WIDTHS, two calls of each bit-equal."""
+    each of WIRE2D_WIDTHS, and the pair against its plain version run in
+    float64 at WIRE2D_CT_WIDTH; two calls of each bit-equal."""
     from wire_tpu_torch.ops.wire_step import StepScratch
     errs = {"wire2d_step": {}, "wire2d_mlp": {}}
     for hf, h, L, o, n, nvalid, denom in WIRE2D_WIDTHS:
@@ -2170,6 +2240,21 @@ def wire2d_widths(torch, W2, get_inr, device):
         errs["wire2d_mlp"][what] = compare(
             got, vjp(torch, pair_fn(W2.wire2d_mlp_plain, model.spec, keys),
                      [c] + leaves, g), f"wire2d_mlp {what}")
+
+    hf, h, L, o, n = WIRE2D_CT_WIDTH
+    what = f"h{h} L{L} o{o} n{n} ct"
+    model, params, c, _, _, g = wire2d_case(
+        torch, get_inr, n, L, o, n + hf + L + 1, device,
+        dict(wire2d_ct_kw(get_config), hidden_features=hf))
+    keys, leaves = leaf_paths(params), [v for _, v in tree_leaves(params)]
+    kfn = pair_fn(W2.wire2d_mlp, model.spec, keys)
+    got, again = (vjp(torch, kfn, [c] + leaves, g) for _ in range(2))
+    torch.cuda.synchronize()
+    same_bits(torch, got, again, f"wire2d_mlp {what}")
+    pfn = pair_fn(W2.wire2d_mlp_plain, model.spec, keys)
+    errs["wire2d_mlp"][what], _ = compare_float64(
+        got, lambda xs, cot: vjp(torch, pfn, xs, cot), ([c] + leaves, g), {},
+        f"wire2d_mlp {what}")
     return errs
 
 
@@ -2242,7 +2327,8 @@ def wire2d_kernel_vs_plain(torch, W2, get_inr, get_config, device):
     errs["wire2d_mlp"]["batched"] = compare(
         got, vjp(torch, pair_fn(W2.wire2d_mlp_plain, model.spec, keys),
                  [c] + leaves, g), "wire2d_mlp (4, 50, 2)")
-    for name, cases in wire2d_widths(torch, W2, get_inr, device).items():
+    for name, cases in wire2d_widths(torch, W2, get_inr, get_config,
+                                     device).items():
         errs[name].update(cases)
     return errs
 
@@ -2655,7 +2741,11 @@ def main():
               "sums over up to 262,144 rows (wire_*, real_*, mscale2_*, "
               "mfn_*, wire2d_*), 256 rows "
               "(rotsum) taken in another order; line_sample's scatter adds "
-              "with atomics in a varying order"))
+              "with atomics in a varying order"),
+         reference=("the plain version in fp32 on the same inputs; for "
+                    "mscale2_step and the wire2d_mlp CT-frequency width case "
+                    "the plain version run in float64 (every input cast), "
+                    "max|plain| its max"))
 
     # ---- measure (bench shape; these launches are not the main path) ------
     t0 = time.time()
@@ -2698,7 +2788,7 @@ def main():
     meas.update(ct_measure(torch, WM, R, LS, ct_model, dev, build))
     meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
-                                           dev)
+                                           dev, build)
     meas.update(mfn_measure(torch, MF, get_inr, dev))
     meas.update(wire2d_measure(torch, W2, get_inr, get_config, dev, build))
     # each GEMM kernel's least time were its fp32 products formed as

@@ -495,6 +495,19 @@ def _assert_rel(got, want):
         assert err <= REL * float(w.abs().max()) + 1e-30, (name, err)
 
 
+def _assert_rel_to_float64(got, plain, *args, **kwargs):
+    """_assert_rel of ``got`` against ``plain(*args, **kwargs)`` run in
+    float64 (every tensor and float input cast, chip_smoke.float64_tree):
+    the reference of mscale2_step and of the wire2d_mlp CT-frequency width
+    case, whose fp32 plain versions lie near or past REL x max from their
+    float64 runs."""
+    from chip_smoke import float64_tree
+    want = plain(*float64_tree(args), **float64_tree(kwargs))
+    for name, w in want.items():
+        assert w.dtype == torch.float64, (name, w.dtype)
+    _assert_rel(got, want)
+
+
 @pytest.mark.parametrize("kind", BASES + ("segments",))
 def test_real_mlp_kernel_matches_plain(cuda, kind):
     from wire_tpu_torch.ops import real_mlp as RM
@@ -673,11 +686,14 @@ def test_mscale2_step_kernel_matches_plain(cuda, n, ns, widths, nvalid,
                                       want_metrics=True))
     torch.cuda.synchronize()
     assert MS.launches["step"] == before + 1
-    want = _tree_flat(*MS.mscale2_step_plain(canon, comb, c, t, kinds, inv,
-                                             nvalid=nvalid, denom=denom,
-                                             gt=gt, want_metrics=True))
-    assert got.keys() == want.keys()
-    _assert_rel(got, want)
+    _assert_rel_to_float64(got, _mscale2_plain, canon, comb, c, t, kinds,
+                           inv, nvalid=nvalid, denom=denom, gt=gt,
+                           want_metrics=True)
+
+
+def _mscale2_plain(*args, **kwargs):
+    from wire_tpu_torch.ops import mscale2_step as MS
+    return _tree_flat(*MS.mscale2_step_plain(*args, **kwargs))
 
 
 def test_mscale2_step_is_deterministic_and_reuses_scratch(cuda):
@@ -837,10 +853,12 @@ def test_mfn_mlp_leading_axes_and_no_grad(cuda):
 
 # ---- wire2d_step and the wire2d_mlp pair: WIRE-2D ------------------------
 
-def _wire2d_case(n, hf, layers, out, device, seed=0, lead=()):
+def _wire2d_case(n, hf, layers, out, device, seed=0, lead=(),
+                 freq=(7.0, 8.0)):
     model = get_inr("wire2d", in_features=2, out_features=out,
                     hidden_features=hf, hidden_layers=layers,
-                    first_omega0=7.0, hidden_omega0=7.0, scale=8.0)
+                    first_omega0=freq[0], hidden_omega0=freq[0],
+                    scale=freq[1])
     params = model.init(torch.Generator().manual_seed(seed), device)
     rng = np.random.default_rng(seed)
     c, t, gt, g = (torch.tensor(a.astype(np.float32), device=device)
@@ -1144,10 +1162,11 @@ def test_wire_step_tensor_cores_match_plain_at_every_width(
      None)])
 def test_mscale2_step_matches_plain_across_scales(
         cuda, n, ns, widths, kinds, nvalid, denom):
-    """The trunk where its 64-row tiles straddle two scales (n % 64 != 0,
-    so a tile reads two gammas), at ns 2 and 3, at the path's widths and at
-    narrow ones: within the bound of the plain version, two calls
-    bit-equal, and nothing written past the trunk's `part` workspace."""
+    """The trunk where its 128-row tiles straddle two scales (n % 128 !=
+    0, so a tile reads two gammas), at ns 2 and 3, at the path's widths and
+    at narrow ones: within the bound of the plain version run in float64,
+    two calls bit-equal, and nothing written past any scratch buffer (a NaN
+    tail behind each stays as it was)."""
     from wire_tpu_torch.ops import mscale2_step as MS
     from wire_tpu_torch.ops import real_mlp as RM
     from wire_tpu_torch.ops.wire_step import StepScratch
@@ -1155,29 +1174,55 @@ def test_mscale2_step_matches_plain_across_scales(
     comb = _comb(ns, widths[-1], cuda, n + 1)
     inv = (9.0, 0.25, 0.125)[:ns]
     rng = np.random.default_rng(n + 2)
-    o = widths[-1]
+    o, L, rows = widths[-1], len(widths) - 2, ns * n
     c, t, gt = (torch.tensor(a.astype(np.float32), device=cuda) for a in (
         rng.uniform(-1, 1, (n, 2)), rng.uniform(0, 1, (n, o)),
         rng.uniform(0, 1, (n, o))))
-    need = MS._lib().mscale2_trunk_part_floats(
-        ns * n, len(widths) - 2, RM._ints(list(widths)))
-    tail = 1 << 16
-    big = torch.full((need + tail,), float("nan"), device=cuda)
+    lib = MS._lib()
+    need = lib.mscale2_trunk_part_floats(rows, L, RM._ints(list(widths)))
+    assert need >= _mscale2_part_need(rows, widths)
+    maxw = max(widths[1:-1])
+    shapes = {"ms_x": (rows, 2), "ms_y": (rows, o), "ms_dy": (rows, o),
+              "ms_dv": (2, rows * maxw), "ms_zdv": (rows * maxw,),
+              "ms_part": (need,),
+              "ms_cpart": (lib.mscale2_comb_part_floats(n, ns, o),)}
+    for l, w in enumerate(widths[1:-1]):
+        shapes[f"ms_z{l}"] = shapes[f"ms_a{l}"] = (rows, w)
     scratch = StepScratch()
-    scratch._bufs["ms_part"] = big[:need]
+    bigs = []
+    for name, shape in shapes.items():
+        scratch._bufs[name], big = _nan_tailed(shape, cuda)
+        bigs.append((name, big, int(np.prod(shape))))
     runs = [_tree_flat(*MS.mscale2_step(canon, comb, c, t, kinds, inv,
                                         nvalid=nvalid, denom=denom, gt=gt,
                                         want_metrics=True, scratch=scratch))
             for _ in range(2)]
     torch.cuda.synchronize()
-    assert scratch._bufs["ms_part"].data_ptr() == big.data_ptr()
-    assert torch.isnan(big[need:]).all()
+    for name, big, numel in bigs:
+        assert scratch._bufs[name].data_ptr() == big.data_ptr(), name
+        assert torch.isnan(big[numel:]).all(), name
     for name in runs[0]:
         assert torch.equal(runs[0][name], runs[1][name]), name
-    want = _tree_flat(*MS.mscale2_step_plain(canon, comb, c, t, kinds, inv,
-                                             nvalid=nvalid, denom=denom,
-                                             gt=gt, want_metrics=True))
-    _assert_rel(runs[0], want)
+    _assert_rel_to_float64(runs[0], _mscale2_plain, canon, comb, c, t, kinds,
+                           inv, nvalid=nvalid, denom=denom, gt=gt,
+                           want_metrics=True)
+
+
+def _mscale2_part_need(rows, widths):
+    """Floats mscale2_step's trunk `part` workspace must hold
+    (csrc/real_tc.cuh): each weight gradient's chunk partials, (in + 1) x
+    out over 512-row chunks where a side is at most 8 wide, else over
+    1,024-row ones; the alpha column sums' over 2,048-row chunks."""
+    def chunks(r):
+        return -(-rows // r)
+    need = 0
+    dims = list(zip(widths[:-2], widths[1:-1])) + [widths[-2:]]
+    for m, w in dims:
+        per = 512 if min(m, w) <= 8 else 1024
+        need = max(need, chunks(per) * (m + 1) * w)
+    for w in widths[1:-1]:
+        need = max(need, chunks(2048) * w)
+    return need
 
 
 # ---- wire2d on the tensor cores ---------------------------------------------
@@ -1257,25 +1302,41 @@ def test_wire2d_step_tensor_cores_match_plain_at_every_width(
     _assert_rel(runs[0], want)
 
 
-@pytest.mark.parametrize("n,hf,layers,out,nvalid,denom", WIRE2D_WIDTHS)
+# the pair at the CT frequencies (omega0 3, sigma 12), h 5, L 3, o 1: its
+# fp32 plain version lies 8.65e-5 x max from its own float64 run, so the
+# case is held to the float64 run
+WIRE2D_CT_FREQ = (3.0, 12.0)
+
+
+@pytest.mark.parametrize("n,hf,layers,out,nvalid,denom,freq", [
+    w + ((7.0, 8.0),) for w in WIRE2D_WIDTHS] + [
+    (700, 10, 3, 1, None, None, WIRE2D_CT_FREQ)])
 def test_wire2d_mlp_tensor_cores_match_plain_at_every_width(
-        cuda, n, hf, layers, out, nvalid, denom):
-    """The wire2d_mlp pair at every width of WIRE2D_WIDTHS (with dcoords):
-    through the wrapper within the bound of the plain version; through the
-    C entry points with NaN-tailed scratch and outputs, bit-equal to the
-    wrapper twice over, nothing written past any buffer."""
+        cuda, n, hf, layers, out, nvalid, denom, freq):
+    """The wire2d_mlp pair at every width of WIRE2D_WIDTHS (with dcoords) at
+    the denoise frequencies, and at h 5, L 3, o 1 at the CT ones: through
+    the wrapper within the bound of the plain version (run in float64 at
+    the CT frequencies); through the C entry points with NaN-tailed
+    scratch and outputs, bit-equal to the wrapper twice over, nothing
+    written past any buffer."""
     from wire_tpu_torch import tree
     from wire_tpu_torch.ops import wire2d as W2
     model, params, c, _, _, g = _wire2d_case(n, hf, layers, out, cuda,
-                                             seed=n + hf)
+                                             seed=n + hf, freq=freq)
     spec, h, L, d = model.spec, hf // 2, layers, 2
 
     def fn(p, x):
         return W2.wire2d_mlp(p, x, spec)
+
+    def plain(p, x, cot):
+        return _wire2d_vjp(lambda pp, xx: W2.wire2d_mlp_plain(pp, xx, spec),
+                           p, x, cot)
     got = _wire2d_vjp(fn, params, c, g)
     torch.cuda.synchronize()
-    _assert_rel(got, _wire2d_vjp(
-        lambda p, x: W2.wire2d_mlp_plain(p, x, spec), params, c, g))
+    if freq == WIRE2D_CT_FREQ:
+        _assert_rel_to_float64(got, plain, params, c, g)
+    else:
+        _assert_rel(got, plain(params, c, g))
 
     lib, net = W2._lib(), W2._Net(params, c, spec, "wire2d_mlp")
     w = net.w
@@ -1328,11 +1389,11 @@ def _sass_hmma(name):
 
 
 def test_tensor_cores_run_where_they_were_put(cuda):
-    """wire_step, wire_mlp and wire2d (wire2d_step and the wire2d_mlp pair)
-    have tensor-core instructions in their SASS; real_mlp (real_step and
-    the real_mlp pair), mscale2_step and mfn (mfn_step and the mfn_mlp
+    """wire_step, wire_mlp, mscale2_step and wire2d (wire2d_step and the
+    wire2d_mlp pair) have tensor-core instructions in their SASS; real_mlp
+    (real_step and the real_mlp pair) and mfn (mfn_step and the mfn_mlp
     pair) still run on the CUDA cores alone."""
-    for name in ("wire_step", "wire_mlp", "wire2d"):
+    for name in ("wire_step", "wire_mlp", "mscale2_step", "wire2d"):
         assert _sass_hmma(name) > 0, name
-    for name in ("real_mlp", "mscale2_step", "mfn"):
+    for name in ("real_mlp", "mfn"):
         assert _sass_hmma(name) == 0, name

@@ -62,6 +62,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(x) __attribute__((aligned(x)))
@@ -424,11 +425,17 @@ def _step_tensors(out):
 
 
 def rehearse_mscale2_step(out_dir):
-    """mscale2_step (the trunk on real_chain.cuh's chain) against its plain
-    version at tiny shapes where 64-row tiles straddle two scales (n =
-    130, 150, 700 rows per scale), widths that are and are not multiples
-    of 4, the relu^2 spline at gamma 9 and the qspline at 1/8, nvalid and
-    denom, and two calls bit-equal."""
+    """mscale2_step (the trunk on real_tc.cuh's chain: wire_tc.cuh's loop
+    with the real epilogues, the narrow first-layer and top data-gradient
+    kernels) against its plain version at tiny shapes where 128-row tiles
+    straddle two scales (n = 130, 150, 700 and 800 rows per scale), widths
+    that are and are not multiples of 4 (each kernel instance of the copies
+    and epilogue accesses), a hidden width of 8 (its products and weight
+    gradient on the narrow kernels), the weight gradients over several
+    1,024-row chunks and the column sums over two 2,048-row ones, the
+    relu^2 spline at gamma 9 and the qspline at 1/8, the sine and gauss
+    bases (out of line in the epilogues), nvalid and denom, and two calls
+    bit-equal."""
     import numpy as np
     import torch
     from wire_tpu_torch.ops import mscale2_step as MS
@@ -442,7 +449,9 @@ def rehearse_mscale2_step(out_dir):
                 (150, (2, 24, 37, 33, 3), ("srelu", "qspline", "srelu"),
                  (9.0, 0.125), 140, 433.5),
                 (700, (2, 16, 12, 1), ("qspline", "cspline"), (9.0, 4.0),
-                 650, None)):
+                 650, None),
+                (800, (2, 64, 8, 48, 3), ("sine", "srelu", "gauss"),
+                 (9.0, 0.25, 0.125), 790, None)):
             rng = np.random.default_rng(n)
 
             def t(a):

@@ -3,6 +3,7 @@
 one process on one GPU, in turns (earlier, this, this, earlier).
 
     python3 tools/port_parent_times.py --parent DIR [--iters 20]
+                                       [--mscale2-fit EPOCHS]
 
 DIR holds an earlier tree (a git archive of it) whose
 wire_tpu_torch/csrc is built into DIR/wire_tpu_torch/_build; both trees'
@@ -15,7 +16,12 @@ Prints per turn the ms of a host call (CUDA events over ITERS calls after
 two warm-up calls), then one JSON line with the mean of each tree's two
 turns, for each kernel whether its outputs of the two trees' first turns
 are identical bit for bit (else their largest distance over max |earlier|
-per output tensor), and the card's name and power limit.
+per output tensor), and the card's name and power limit.  Both trees'
+libraries keep mscale2_step_run's C interface, so this tree's wrapper
+drives either.  ``--mscale2-fit EPOCHS`` adds the Mscale2 denoise fit
+(chip_smoke.py's fit_mscale2 through the kernel: the preset's image, the
+seed-0 init, full batch) for EPOCHS epochs per turn, its ms per step
+(fit_pointwise's step_ms, the first step left out) and best PSNR.
 """
 import argparse
 import json
@@ -89,6 +95,29 @@ def calls(dev):
             scratch=scratch))}
 
 
+def mscale2_fit(dev, epochs):
+    """() -> (ms per step, best PSNR dB) of the Mscale2 denoise fit through
+    the kernel, as chip_smoke.py's fit_mscale2 runs it."""
+    from wire_tpu_torch.apps import denoise as TD
+    from wire_tpu_torch.train import metrics as M
+    from wire_tpu_torch.train.trainer import FitConfig, fit_pointwise
+    cfg = get_config(S.MSCALE2_CONFIG)
+    im, im_noisy = TD.denoise_images(cfg)
+    H, W, _ = im.shape
+    model = S.mscale2_models(get_inr, TC, cfg)[0]
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    grid = TD.C.grid2d(H, W)
+    fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=epochs,
+                        maxpoints=cfg.maxpoints, scale_lr_by_batch=True)
+
+    def fit():
+        res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                            fit_cfg, gt=im.reshape(-1, 3), device=dev)
+        return res.step_ms, float(M.psnr_ref(im, res.best_rec.reshape(H, W,
+                                                                      3)))
+    return fit
+
+
 def distance(got, want):
     """True where every output is identical bit for bit, else the largest
     max |got - want| / max |want| over the outputs."""
@@ -98,17 +127,23 @@ def distance(got, want):
                / max(float(want[k].abs().max()), 1e-30) for k in want)
 
 
-def compare_trees(trees, iters, names=None):
+def compare_trees(trees, iters, names=None, fit_epochs=0):
     """Times (ms per host call, in turns earlier, this, this, earlier) and
     the first turns' outputs of trees {"parent": (csrc, build dir), "this":
-    (...)}; prints each turn and returns the JSON summary."""
+    (...)}, and with fit_epochs the Mscale2 denoise fit's ms per step and
+    best PSNR per turn; prints each turn and returns the JSON summary."""
     dev = torch.device("cuda", 0)
     fns = calls(dev)
     names = names or list(fns)
     times = {tree: {name: [] for name in names} for tree in trees}
     outs = {}
+    fits = {tree: [] for tree in trees}
+    fit = mscale2_fit(dev, fit_epochs) if fit_epochs else None
     for tree in ("parent", "this", "this", "parent"):
         use(*trees[tree])
+        if fit is not None:
+            fits[tree].append(fit())
+            print(f"{tree} mscale2 fit: {fits[tree][-1]}", flush=True)
         for name in names:
             scratch = WS.StepScratch()
             if tree not in outs.get(name, {}):
@@ -117,7 +152,9 @@ def compare_trees(trees, iters, names=None):
             times[tree][name].append(ms)
             print(f"{tree} {name}: {ms:.4f} ms", flush=True)
             del scratch
-    return {"ms": {tree: {name: sum(v) / len(v) for name, v in by.items()}
+    res = {} if fit is None else {"mscale2_fit_ms_per_step_psnr_db": fits}
+    return {**res,
+            "ms": {tree: {name: sum(v) / len(v) for name, v in by.items()}
                    for tree, by in times.items()},
             "bits_equal_or_distance": {
                 name: distance(o["this"], o["parent"])
@@ -134,6 +171,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--mscale2-fit", type=int, default=0, metavar="EPOCHS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_parent_times.py needs a CUDA device")
@@ -142,7 +180,7 @@ def main():
                         os.path.join(args.parent, "wire_tpu_torch",
                                      "_build")),
              "this": (build.CSRC_DIR, build.BUILD_DIR)}
-    res = compare_trees(trees, args.iters)
+    res = compare_trees(trees, args.iters, fit_epochs=args.mscale2_fit)
     print(json.dumps({"nvidia_smi": smi(), "iters": args.iters, **res}))
 
 

@@ -31,7 +31,10 @@ reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
 rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /
 backward / dcoords GEMMs of the real families, colsum_partial_kernel,
-combiner_kernel of mscale_2, filter_forward_kernel,
+real_tc_kernel<0|1, ...> = forward / data-gradient GEMMs of mscale_2's
+trunk on the tensor cores, real_narrow_kernel<0|1> its first-layer
+forward and top data gradient, combiner_kernel of mscale_2,
+filter_forward_kernel,
 mfn_gemm_kernel<0|1|2> = link forward / link backward / last data
 gradient, filter_grad_partial_kernel and filter_grad_finish_kernel of the
 MFN, gabor2d_first_kernel, gabor2d_tc_fwd_kernel,

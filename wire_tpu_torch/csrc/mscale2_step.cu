@@ -19,16 +19,18 @@
 // ns = 3, widths 2 -> 256 x 3 -> 3, combiner 9 -> 128 -> 3) a step is ns
 // real_step trunks of 51.98 GFLOP each plus 0.60 GFLOP of combiner
 // (3 x 2 n (ns o 128 + 128 o)): 156.5 GFLOP against ~5 MB of inputs and
-// outputs, 2.34 ms at the card's 67 TFLOP/s fp32 peak.
+// outputs, 2.34 ms at the card's 67 TFLOP/s fp32 peak, 0.95 ms as 3xTF32
+// products at the tensor cores' 495 TFLOP/s.
 //
-// What this design does about it: it is the simple, correct first version,
-// in three stages on one stream.
+// What this design does about it: three stages on one stream.
 // (a) The trunk forward runs once over the ns n rows stacked scale by scale
-//     (rows [s n, (s + 1) n) hold scale s), with the per-row-block gamma of
-//     real_chain.cuh's forward chain, keeping z and a of every layer
-//     (1.2 GB at the path's shape); gemm_common.cuh's final layer gives
-//     y_stack (ns n x o).  No TPU padding: no o -> 128 row blocks in F0,
-//     no lane-aligned widths.
+//     (rows [s n, (s + 1) n) hold scale s) on real_tc.cuh's chain: the
+//     hidden layers' products on wire_tc.cuh's 3xTF32 mma.sync loop with the
+//     real epilogue in registers and a per-row gamma (a 128-row tile may
+//     straddle two scales), the first layer (K = 2) on the CUDA cores,
+//     keeping z and a of every layer (1.2 GB at the path's shape);
+//     gemm_common.cuh's final layer gives y_stack (ns n x o).  No TPU
+//     padding: no o -> 128 row blocks in F0, no lane-aligned widths.
 // (b) combiner_kernel: one warp per coordinate row, its lanes over the 128
 //     combiner units (four each), sums in a fixed shuffle butterfly.  It
 //     writes pred, the SSE partials and dy_stack (ns n x o), the cotangent
@@ -38,15 +40,15 @@
 //     (warps meet in a fixed order in shared memory), summed in block order
 //     by gemm_common.cuh's reduce_chunks: no float atomics.
 // (c) The trunk backward from dy_stack, with the same gammas and without
-//     dcoords: real_chain.cuh's backward chain, whose fixed-order weight-
-//     gradient partials and column sums run over all ns n rows.
-// Tensor cores and TMA, and keeping the scales' trunks on chip instead of
-// round-tripping z and a through device memory, are later work.
+//     dcoords, on real_tc.cuh's chain: the hidden data gradients on the
+//     tensor-core loop, the top layer's (K = o = 3) on the CUDA cores, the
+//     weight gradients as fixed-order chunk partials over all ns n rows.
+// Keeping the scales' trunks on chip instead of round-tripping z and a
+// through device memory is later work.
 
-#include "real_chain.cuh"
+#include "real_tc.cuh"
 
 using namespace gemm_common;
-using namespace real_chain;
 
 namespace {
 
@@ -242,7 +244,7 @@ const char* mscale2_error_string(int err) {
 
 // Floats of the trunk's `part` workspace for the ns n stacked rows.
 long long mscale2_trunk_part_floats(int rows, int L, const int* widths) {
-  return chain_part_floats(Shape{rows, L, widths});
+  return real_tc::part_floats(real_tc::Shape{rows, L, widths});
 }
 
 // Floats of the combiner's workspace: its per-block gradient partials,
@@ -278,13 +280,13 @@ int mscale2_step_run(int n, int ns, int L, const int* widths, const float* x,
                      int want_metrics, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = ns * n;
-  Shape s{rows, L, widths};
+  real_tc::Shape s{rows, L, widths};
   const int o = s.o();
   if (n < 1 || ns < 1 || ns * o > kMaxCat || o > kCombMaxOut)
     return cudaErrorInvalidValue;
   // (a) every scale's trunk forward, then y_stack
-  GEMM_CHECK(forward_chain(s, x, W, alpha, beta, codes, gammas, n, zs, acts,
-                           st));
+  GEMM_CHECK(real_tc::forward(s, x, W, alpha, beta, codes, gammas, n, zs,
+                              acts, st));
   GEMM_CHECK(final_forward(acts[L - 1], Wf, bf, ystack, rows, s.out(L - 1),
                            o, st));
   // (b) the combiner, the loss and the combiner's backward
@@ -302,9 +304,9 @@ int mscale2_step_run(int n, int ns, int L, const int* widths, const float* x,
     GEMM_CHECK(cudaGetLastError());
   }
   // (c) every scale's trunk backward, its gradients summed over all rows
-  return backward_chain(s, x, dystack, WaT, alpha, beta, codes, WfT, gammas,
-                        n, zs, acts, gW, galpha, gWf, nullptr, dv, zdv, part,
-                        st);
+  return real_tc::backward(s, x, dystack, WaT, alpha, beta, codes, WfT,
+                           gammas, n, zs, acts, gW, galpha, gWf, dv, zdv,
+                           part, st);
 }
 
 }  // extern "C"

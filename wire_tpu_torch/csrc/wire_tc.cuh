@@ -1,6 +1,7 @@
 // The tensor-core GEMM loop of the WIRE kernels (csrc/wire_mlp.cu and
-// csrc/wire_step.cu, through wire_gemm.cuh's chains) and of WIRE-2D
-// (csrc/wire2d.cu): fp32 products on Hopper's tensor cores at fp32
+// csrc/wire_step.cu, through wire_gemm.cuh's chains), of WIRE-2D
+// (csrc/wire2d.cu) and of mscale2_step's real trunk (csrc/real_tc.cuh, the
+// plain column map): fp32 products on Hopper's tensor cores at fp32
 // accuracy (3xTF32), for the three product classes of a hidden layer:
 //   forward        z = a @ W + b, with the layer's activation epilogue
 //   data gradient  da = dz @ W^T, with the activation-form backward
@@ -321,9 +322,10 @@ __device__ __forceinline__ void slice_product(const float* As,
 // columns of B (K rows of ldb floats) that column map kMap stages for the
 // tile at unit (kPlain: column) c0, left in registers for the caller's
 // epilogue: the cp.async ring's prologue, the slice loop and
-// slice_product.  smem: kSmemBytes of dynamic shared memory.  kVecA,
-// kVecB: 16-byte copies of A (K % 4 == 0, A 16-byte aligned) and of B's
-// mapped columns (h % 4 == 0, B 16-byte aligned).
+// slice_product.  h: the units (kPlain: the columns) of B.  smem:
+// kSmemBytes of dynamic shared memory.  kVecA, kVecB: 16-byte copies of A
+// (K % 4 == 0, A 16-byte aligned) and of B's mapped columns (h % 4 == 0,
+// B 16-byte aligned).
 template <int kMap, bool kVecA, bool kVecB>
 __device__ __forceinline__ void tile_product(float* smem, const float* A,
                                              const float* B, int ldb, int n,
@@ -344,7 +346,7 @@ __device__ __forceinline__ void tile_product(float* smem, const float* A,
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 
   const StageMK<kVecA> stage_a(A, row0, n, K);
-  const StageKN<kBN, kLdKN, kVecB, kMap> stage_b(B, ldb, c0, 0, h);
+  const StageKN<kBN, kLdKN, kVecB, kMap> stage_b(B, ldb, c0, h, h);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < ktiles) {
@@ -617,10 +619,13 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
 }
 
 // [X^T D; colsum(D)] over all n rows into out ((M + 1) x N), through the
-// chunk partials in `part` (wgrad_part_floats) summed in chunk order.
+// chunk partials in `part` (wgrad_part_floats) summed in chunk order.  With
+// `colscale` (N), the first M rows come out multiplied by it per column
+// (gemm_common::reduce_chunks), the bias row stays colsum(D).
 inline cudaError_t weight_grad(const float* X, const float* D, float* part,
                                float* out, int n, int M, int N,
-                               cudaStream_t st) {
+                               cudaStream_t st,
+                               const float* colscale = nullptr) {
   const int chunks = ceil_div(n, kChunkRows);
   const dim3 grid(ceil_div(M, kBM), ceil_div(N, kBN), chunks);
   const bool vec =
@@ -630,7 +635,8 @@ inline cudaError_t weight_grad(const float* X, const float* D, float* part,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
   kernel<<<grid, kThreads, kSmemBytes, st>>>(X, D, part, n, M, N);
   GEMM_CHECK(cudaGetLastError());
-  return gemm_common::reduce_chunks(part, chunks, (M + 1) * N, out, st);
+  return gemm_common::reduce_chunks(part, chunks, (M + 1) * N, out, st,
+                                    colscale, N, M);
 }
 
 inline long long wgrad_part_floats(int n, int M, int N) {
@@ -736,10 +742,11 @@ __global__ void narrow_colsum_kernel(const float* __restrict__ D,
 
 // [X^T D; colsum(D)] into out ((M + 1) x N) for a narrow X (M <=
 // kNarrowMax) or D (N <= kNarrowMax), through chunk partials in `part`
-// (narrow_part_floats) summed in chunk order.
+// (narrow_part_floats) summed in chunk order; `colscale` as weight_grad's.
 inline cudaError_t narrow_weight_grad(const float* X, const float* D,
                                       float* part, float* out, int n, int M,
-                                      int N, cudaStream_t st) {
+                                      int N, cudaStream_t st,
+                                      const float* colscale = nullptr) {
   if (M > kNarrowMax && N > kNarrowMax) return cudaErrorInvalidValue;
   const int chunks = ceil_div(n, kNarrowChunkRows);
   const bool wide_x = N <= kNarrowMax && M > N;
@@ -753,7 +760,8 @@ inline cudaError_t narrow_weight_grad(const float* X, const float* D,
     narrow_wgrad_kernel<false><<<grid, block, 0, st>>>(X, D, part, n, M, N);
   }
   GEMM_CHECK(cudaGetLastError());
-  return gemm_common::reduce_chunks(part, chunks, (M + 1) * N, out, st);
+  return gemm_common::reduce_chunks(part, chunks, (M + 1) * N, out, st,
+                                    colscale, N, M);
 }
 
 inline long long narrow_part_floats(int n, int M, int N) {

@@ -14,7 +14,11 @@ and the loss is ``sum_{rows < nvalid} (pred - target)^2 / denom``.
 
 ``mscale2_step`` runs the plain version for CPU tensors and for CUDA
 tensors launches the kernel (``launches["step"]``) or raises; there is no
-fallback.
+fallback.  The kernel's trunk runs on csrc/real_tc.cuh's chain, its hidden
+products on the 3xTF32 tensor-core loop of csrc/wire_tc.cuh with the real
+epilogue in registers; ``epilogue_map`` models which output each register
+of a tile holds and which scale's gamma it takes.  The kernel is held to
+``mscale2_step_plain`` run in float64 (every input cast).
 """
 from __future__ import annotations
 
@@ -66,6 +70,32 @@ def step_flops(n, ns, widths, hidden=128):
     o = widths[-1]
     return (RM.step_flops(ns * n, widths)
             + 3 * 2 * n * (ns * o * hidden + hidden * o))
+
+
+# csrc/wire_tc.cuh's block tile: 128 rows x 64 columns, 2 x 2 warps of
+# 64 x 32, each 4 m16 x 4 n8 mma tiles
+TILE_ROWS, TILE_COLS = 128, 64
+
+
+def epilogue_map(row0, col0, rows_per_block):
+    """(rows, cols, blocks): int64 tensors of shape (128, 4, 4, 4), the
+    stacked-layout row and column that accumulator register c of n8 tile nt
+    of m16 tile mt of thread tid holds (index [tid, mt, nt, c]) in the
+    tensor-core tile at (row0, col0) of csrc/real_tc.cuh:real_tc_kernel
+    (the plain column map: warp wn's n8 tile nt is columns wn*32 + nt*8
+    ..), and the gamma block its epilogue reads for that row, row //
+    rows_per_block.  Rows and columns past the layer's are the caller's to
+    mask, as the kernel does."""
+    tid = torch.arange(128).view(-1, 1, 1, 1)
+    mt = torch.arange(4).view(1, -1, 1, 1)
+    nt = torch.arange(4).view(1, 1, -1, 1)
+    c = torch.arange(4).view(1, 1, 1, -1)
+    warp, lane = tid // 32, tid % 32
+    wm, wn = warp // 2, warp % 2
+    g, t = lane // 4, lane % 4
+    rows = (row0 + wm * 64 + mt * 16 + g + 8 * (c // 2)).expand(128, 4, 4, 4)
+    cols = (col0 + wn * 32 + nt * 8 + 2 * t + c % 2).expand(128, 4, 4, 4)
+    return rows, cols, rows // int(rows_per_block)
 
 
 # ---- the kernel -------------------------------------------------------------

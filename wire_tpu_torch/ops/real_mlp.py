@@ -165,10 +165,11 @@ def basis(v, kind):
 
 # ---- plain versions ---------------------------------------------------------
 
-def _row_gammas(row_gamma, n, device):
+def _row_gammas(row_gamma, n, device, dtype=torch.float32):
+    """(n, 1): each row's gamma, in ``dtype`` (the coordinates', so a float64
+    run takes the gammas in float64 too)."""
     gammas, rows_per_block = row_gamma
-    g = torch.tensor([float(x) for x in gammas], dtype=torch.float32,
-                     device=device)
+    g = torch.tensor([float(x) for x in gammas], dtype=dtype, device=device)
     return g[torch.arange(n, device=device) // int(rows_per_block)][:, None]
 
 
@@ -178,7 +179,7 @@ def real_mlp_plain(canon, coords, kinds, row_gamma=None):
     ``(gammas, rows_per_block)``: rows [k b, (k + 1) b) scale v by
     gammas[k]."""
     gamma = None if row_gamma is None else _row_gammas(
-        row_gamma, coords.shape[0], coords.device)
+        row_gamma, coords.shape[0], coords.device, coords.dtype)
     a = coords
     for lay, kind in zip(canon["layers"], kinds):
         v = lay["alpha"] * (a @ lay["w"]) + lay["beta"]
