@@ -53,8 +53,8 @@ Phases, each printing one JSON line with its wall time:
                    from torch.profiler), plain and library times at those
                    shapes, and the card's least time for the same work;
                    for the tensor-core kernels (wire_step, wire_mlp,
-                   mscale2_step, wire2d_step, wire2d_mlp) the kernel time by
-                   product
+                   mscale2_step, mfn_step, mfn_mlp, wire2d_step,
+                   wire2d_mlp) the kernel time by product
                    class, the 3xTF32 bound beside the fp32 one, and the
                    HMMA instructions of the library
   fit              the denoise bench protocol (65,536 coordinates, full
@@ -541,6 +541,25 @@ TENSOR_CORE_CLASSES = {
         "first_top_final_combiner": ("real_narrow_kernel",
                                      "final_forward_kernel",
                                      "combiner_kernel"),
+    },
+    "mfn_step": {
+        "forward_gemms": ("mfn_tc_kernel<0",),
+        "data_gradient_gemms": ("mfn_tc_kernel<1", "mfn_tc_kernel<2",
+                                "mfn_narrow_kernel"),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS,
+        "filter_gradients": ("filter_grad_partial_kernel",
+                             "filter_grad_finish_kernel"),
+        "first_final_loss": ("filter_forward_kernel", "final_loss_kernel"),
+    },
+    "mfn_mlp": {
+        "forward_gemms": ("mfn_tc_kernel<0",),
+        "data_gradient_gemms": ("mfn_tc_kernel<1", "mfn_tc_kernel<2",
+                                "mfn_narrow_kernel"),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS,
+        "filter_gradients_dcoords": ("filter_grad_partial_kernel",
+                                     "filter_grad_finish_kernel",
+                                     "filter_dcoords_kernel"),
+        "first_final": ("filter_forward_kernel", "final_forward_kernel"),
     },
     "wire2d_step": {
         "forward_gemms": ("gabor2d_tc_fwd_kernel",),
@@ -1747,60 +1766,53 @@ def same_bits(torch, a, b, what):
             raise AssertionError(f"{what}: two calls differ in {name}")
 
 
-def mfn_kernel_vs_plain(torch, MF, get_inr, device):
-    """max abs err of mfn_step and of the mfn_mlp pair against their plain
-    versions: the step at the denoise sweep's shape (n = 65,536, h = 300,
-    metrics) and a ragged one (n = 700, nvalid 650, denom, d = 3, o = 1,
-    hidden_layers 3); the pair at the SISR sweep's shape (n = 65,536,
-    h = 256) with and without dcoords, on (4, 50, 2) coordinates, without a
-    gradient (equal output, no kept planes) and at the extreme phase
-    |x w| ~ 8,000; two calls of each kernel giving identical bits."""
+def mfn_step_plain(MF):
+    """mfn_step_plain's outputs by name (tensors_of)."""
+    def plain(*args, **kwargs):
+        return tensors_of(*MF.mfn_step_plain(*args, **kwargs))
+    return plain
+
+
+def mfn_pair_plain(torch, MF, spec, keys, dcoords=True):
+    """(inputs, cot) -> the plain pair's vjp() (with dcoords) or param_vjp()
+    (without), inputs = [coords] + leaves."""
+    fn = pair_fn(MF.mfn_mlp_plain, spec, keys)
+
+    def plain(inputs, cot):
+        if dcoords:
+            return vjp(torch, fn, inputs, cot)
+        return param_vjp(torch, fn, inputs[0], inputs[1:], cot)
+    return plain
+
+
+def mfn_step_case(torch, MF, params, c, t, spec, **kw):
+    """(kernel thunk, plain, args, kwargs) of one mfn_step case; the
+    kernel's calls share one scratch."""
     from wire_tpu_torch.ops.wire_step import StepScratch
-    errs = {"mfn_step": {}, "mfn_mlp": {}}
-    for which, (n, d, h, layers, o, nvalid, denom) in {
-            "full": (256 * 256, 2, 300, 2, 3, None, None),
-            "ragged": (700, 3, 300, 3, 1, 650, 650 * 1.0 + 1.0)}.items():
-        model, params, c, t, gt, _ = mfn_case(torch, get_inr, n, d, h,
-                                              layers, o, 24, device)
-        scratch = StepScratch()
-        got, again = (tensors_of(*MF.mfn_step(
-            params, c, t, model.spec, nvalid=nvalid, denom=denom, gt=gt,
-            want_metrics=True, scratch=scratch)) for _ in range(2))
-        torch.cuda.synchronize()
-        same_bits(torch, got, again, f"mfn_step {which}")
-        want = tensors_of(*MF.mfn_step_plain(params, c, t, model.spec,
-                                             nvalid=nvalid, denom=denom,
-                                             gt=gt, want_metrics=True))
-        errs["mfn_step"][which] = compare(got, want, f"mfn_step {which}")
+    kw = dict(kw, want_metrics=True)
+    scratch = StepScratch()
+    return (lambda: tensors_of(*MF.mfn_step(params, c, t, spec,
+                                            scratch=scratch, **kw)),
+            mfn_step_plain(MF), (params, c, t, spec), kw)
 
-    model, params, c, _, _, g = mfn_case(torch, get_inr, 256 * 256, 2, 256,
-                                         2, 3, 25, device)
-    spec, keys = model.spec, leaf_paths(params)
-    leaves = [t for _, t in tree_leaves(params)]
-    kfn, pfn = (pair_fn(a, spec, keys)
-                for a in (MF.mfn_mlp, MF.mfn_mlp_plain))
-    got, again = (vjp(torch, kfn, [c] + leaves, g) for _ in range(2))
-    torch.cuda.synchronize()
-    same_bits(torch, got, again, "mfn_mlp full")
-    errs["mfn_mlp"]["full"] = compare(got, vjp(torch, pfn, [c] + leaves, g),
-                                      "mfn_mlp full")
-    got = param_vjp(torch, kfn, c, leaves, g)
-    errs["mfn_mlp"]["no_dcoords"] = compare(
-        got, param_vjp(torch, pfn, c, leaves, g), "mfn_mlp without dcoords")
-    errs["mfn_mlp"]["nograd_peak_mb"], errs["mfn_mlp"]["nograd_pingpong_mb"] \
-        = check_nograd(torch, lambda: MF.mfn_mlp(params, c, spec),
-                       got["out"], 2 * c.shape[0] * 256 * 4, "mfn_mlp")
 
-    c3, g3 = c[:200].reshape(4, 50, 2), g[:200].reshape(4, 50, 3)
-    got = vjp(torch, kfn, [c3] + leaves, g3)
-    if got["out"].shape != (4, 50, 3):
-        raise AssertionError(f"mfn_mlp (4, 50, 2): output shape "
-                             f"{tuple(got['out'].shape)}")
-    errs["mfn_mlp"]["batched"] = compare(
-        got, vjp(torch, pfn, [c3] + leaves, g3), "mfn_mlp (4, 50, 2)")
+def mfn_pair_case(torch, MF, params, c, cot, spec, dcoords=True):
+    """(kernel thunk, plain, args, kwargs) of one mfn_mlp pair case."""
+    keys = leaf_paths(params)
+    inputs = [c] + [t for _, t in tree_leaves(params)]
+    fn = pair_fn(MF.mfn_mlp, spec, keys)
 
-    model, params, c, _, _, g = mfn_case(torch, get_inr, 512, 2, 64, 2, 3,
-                                         26, device)
+    def kernel():
+        if dcoords:
+            return vjp(torch, fn, inputs, cot)
+        return param_vjp(torch, fn, c, inputs[1:], cot)
+    return (kernel, mfn_pair_plain(torch, MF, spec, keys, dcoords),
+            (inputs, cot), {})
+
+
+def mfn_extreme_phase(torch, params, c):
+    """Every filter's w scaled in place until max |x w| ~ 8,000 (the JAX
+    package's extreme-phase case); returns that max."""
     qmax = 0.0
     for k in params:
         if k.startswith("gabor_"):
@@ -1808,15 +1820,108 @@ def mfn_kernel_vs_plain(torch, MF, get_inr, device):
             params[k]["w"] = (w * (8000.0 / float((c @ w).abs().max()))
                               ).contiguous()
             qmax = max(qmax, float((c @ params[k]["w"]).abs().max()))
+    return qmax
+
+
+def mfn_cases(torch, MF, get_inr, device):
+    """{name: (kernel thunk, plain, args, kwargs)} of mfn_kernel_vs_plain:
+    the step at the denoise sweep's shape (n = 65,536, h = 300, metrics)
+    and a ragged one (n = 700, nvalid 650, denom, d = 3, o = 1,
+    hidden_layers 3); the pair at the SISR sweep's shape (n = 65,536,
+    h = 256) with and without dcoords, on (4, 50, 2) coordinates and at
+    the extreme phase |x w| ~ 8,000 (n = 512, h = 64)."""
+    cases = {}
+    for which, (n, d, h, layers, o, nvalid, denom) in {
+            "full": (256 * 256, 2, 300, 2, 3, None, None),
+            "ragged": (700, 3, 300, 3, 1, 650, 650 * 1.0 + 1.0)}.items():
+        model, params, c, t, gt, _ = mfn_case(torch, get_inr, n, d, h,
+                                              layers, o, 24, device)
+        cases[f"mfn_step {which}"] = mfn_step_case(
+            torch, MF, params, c, t, model.spec, nvalid=nvalid, denom=denom,
+            gt=gt)
+    model, params, c, _, _, g = mfn_case(torch, get_inr, 256 * 256, 2, 256,
+                                         2, 3, 25, device)
+    spec = model.spec
+    cases["mfn_mlp full"] = mfn_pair_case(torch, MF, params, c, g, spec)
+    cases["mfn_mlp no_dcoords"] = mfn_pair_case(torch, MF, params, c, g,
+                                                spec, dcoords=False)
+    cases["mfn_mlp batched"] = mfn_pair_case(
+        torch, MF, params, c[:200].reshape(4, 50, 2),
+        g[:200].reshape(4, 50, 3), spec)
+    model, params, c, _, _, g = mfn_case(torch, get_inr, 512, 2, 64, 2, 3,
+                                         26, device)
+    qmax = mfn_extreme_phase(torch, params, c)
     if not qmax > 7e3:
         raise AssertionError(f"extreme phase: max |x w| {qmax}")
-    keys, leaves = leaf_paths(params), [t for _, t in tree_leaves(params)]
-    errs["mfn_mlp"]["extreme_phase"] = compare(
-        vjp(torch, pair_fn(MF.mfn_mlp, model.spec, keys), [c] + leaves, g),
-        vjp(torch, pair_fn(MF.mfn_mlp_plain, model.spec, keys), [c] + leaves,
-            g),
-        "mfn_mlp at |x w| ~ 8,000")
-    errs["mfn_mlp"]["extreme_phase_max_q"] = qmax
+    cases["mfn_mlp extreme_phase"] = mfn_pair_case(torch, MF, params, c, g,
+                                                   model.spec)
+    return cases
+
+
+def sweep_mfn_cases(torch, np, SW, MF, device):
+    """{name: (kernel thunk, plain, args, kwargs)} of the MFN kernels the
+    sweep phase launches, at the sweep's own shapes from the sweep's seed-0
+    init (SW._build) on its coordinate grid: the step at denoise (65,536
+    rows, o 3, metrics), the pair (parameter gradients) at SISR (65,536,
+    o 3) and CT (262,144, o 1), the CT pair with dcoords as well."""
+    cases = {}
+    for task, side, o, tau in SWEEP_SHAPES:
+        n = side * side
+        rng = np.random.default_rng(40)
+        coords = torch.tensor(SW.C.grid2d(side, side), device=device)
+        t, gt, g = (torch.tensor(a.astype(np.float32), device=device)
+                    for a in (rng.uniform(0, 1, (n, o)),
+                              rng.uniform(0, 1, (n, o)),
+                              rng.normal(size=(n, o))))
+        model = SW._build("mfn", task, side, side, tau, out_features=o)
+        params = model.init(torch.Generator().manual_seed(0), device)
+        what = f"sweep {task} mfn"
+        if task == "denoise":
+            cases[what] = mfn_step_case(torch, MF, params, coords, t,
+                                        model.spec, gt=gt)
+            continue
+        cases[what] = mfn_pair_case(torch, MF, params, coords, g, model.spec,
+                                    dcoords=False)
+        if task == "ct":
+            cases[what + " dcoords"] = mfn_pair_case(torch, MF, params,
+                                                     coords, g, model.spec)
+    return cases
+
+
+def mfn_check(case, what):
+    """The case's kernel outputs against its plain version in fp32, with
+    compare(): every MFN case's fp32 plain run lies within 6e-6 x max of
+    its float64 run but the extreme phase's, whose point is q's rounding,
+    which the kernels form as the plain version does
+    (tools/port_mfn_reference.py, PERF.md section 2).  Returns (max abs
+    err, the kernel's outputs)."""
+    kernel, plain, args, kwargs = case
+    got = kernel()
+    return compare(got, plain(*args, **kwargs), what), got
+
+
+def mfn_kernel_vs_plain(torch, MF, get_inr, device):
+    """max abs err of mfn_step and of the mfn_mlp pair against their
+    references (mfn_check) at the cases of mfn_cases; two calls of the full
+    and ragged step and of the full pair giving identical bits; the pair
+    without a gradient (equal output, no kept planes)."""
+    errs = {"mfn_step": {}, "mfn_mlp": {}}
+    outs = {}
+    for what, case in mfn_cases(torch, MF, get_inr, device).items():
+        name, which = what.split(" ")
+        errs[name][which], outs[what] = mfn_check(case, what)
+        torch.cuda.synchronize()
+        if which in ("full", "ragged"):
+            same_bits(torch, case[0](), outs[what], what)
+    if outs["mfn_mlp batched"]["out"].shape != (4, 50, 3):
+        raise AssertionError(f"mfn_mlp (4, 50, 2): output shape "
+                             f"{tuple(outs['mfn_mlp batched']['out'].shape)}")
+    model, params, c, _, _, _ = mfn_case(torch, get_inr, 256 * 256, 2, 256,
+                                         2, 3, 25, device)
+    errs["mfn_mlp"]["nograd_peak_mb"], errs["mfn_mlp"]["nograd_pingpong_mb"] \
+        = check_nograd(torch, lambda: MF.mfn_mlp(params, c, model.spec),
+                       outs["mfn_mlp full"]["out"], 2 * c.shape[0] * 256 * 4,
+                       "mfn_mlp")
     return errs
 
 
@@ -1843,10 +1948,6 @@ def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
     encoded coordinates)."""
     errs = {name: {} for name in ("wire_step", "wire_mlp", "real_step",
                                   "real_mlp", "mfn_step", "mfn_mlp")}
-    steps = {"wire": (WS.wire_step, WS.wire_step_plain),
-             "mfn": (MF.mfn_step, MF.mfn_step_plain)}
-    pairs = {"wire": (WM.wire_mlp, WM.wire_mlp_plain),
-             "mfn": (MF.mfn_mlp, MF.mfn_mlp_plain)}
     for task, side, o, tau in SWEEP_SHAPES:
         n = side * side
         rng = np.random.default_rng(40)
@@ -1856,6 +1957,8 @@ def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
                               rng.uniform(0, 1, (n, o)),
                               rng.normal(size=(n, o))))
         for nonlin in SW.NONLINS:
+            if nonlin == "mfn":  # sweep_mfn_cases below
+                continue
             model = SW._build(nonlin, task, side, side, tau, out_features=o,
                               posenc_sidelength=100 if task == "ct" else None)
             spec = model.spec
@@ -1885,29 +1988,26 @@ def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
                     torch, real_mlp_fn(RM, L, kinds, plain=True), x, leaves,
                     g), what)
                 continue
-            lib = "wire" if nonlin == "wire" else "mfn"
             if task == "denoise":
-                kernel, plain = steps[lib]
-                got = tensors_of(*kernel(params, coords, t, spec, gt=gt,
-                                         want_metrics=True))
+                got = tensors_of(*WS.wire_step(params, coords, t, spec, gt=gt,
+                                               want_metrics=True))
                 torch.cuda.synchronize()
-                want = tensors_of(*plain(params, coords, t, spec, gt=gt,
-                                         want_metrics=True))
-                errs[f"{lib}_step"][what] = compare(got, want, what)
+                want = tensors_of(*WS.wire_step_plain(
+                    params, coords, t, spec, gt=gt, want_metrics=True))
+                errs["wire_step"][what] = compare(got, want, what)
                 continue
             keys = leaf_paths(params)
             leaves = [v for _, v in tree_leaves(params)]
-            kfn, pfn = (pair_fn(a, spec, keys) for a in pairs[lib])
+            kfn, pfn = (pair_fn(a, spec, keys)
+                        for a in (WM.wire_mlp, WM.wire_mlp_plain))
             got = param_vjp(torch, kfn, coords, leaves, g)
             torch.cuda.synchronize()
-            errs[f"{lib}_mlp"][what] = compare(
+            errs["wire_mlp"][what] = compare(
                 got, param_vjp(torch, pfn, coords, leaves, g), what)
-            if lib == "mfn" and task == "ct":
-                got = vjp(torch, kfn, [coords] + leaves, g)
-                torch.cuda.synchronize()
-                errs["mfn_mlp"][what + " dcoords"] = compare(
-                    got, vjp(torch, pfn, [coords] + leaves, g),
-                    what + " with dcoords")
+    for what, case in sweep_mfn_cases(torch, np, SW, MF, device).items():
+        name = "mfn_step" if what == "sweep denoise mfn" else "mfn_mlp"
+        errs[name][what] = mfn_check(case, what)[0]
+        torch.cuda.synchronize()
     return errs
 
 
@@ -1972,12 +2072,12 @@ def mfn_matmul_step(torch, params, x, target, gt):
     return y, grads, ((et * et).sum(), (eg * eg).sum())
 
 
-def mfn_measure(torch, MF, get_inr, device):
+def mfn_measure(torch, MF, get_inr, device, build):
     """Times of mfn_step at the denoise sweep's shape (n = 65,536, h = 300)
     and of the mfn_mlp pair (dcoords included) at the SISR sweep's shape
     (n = 65,536, h = 256): the kernel (a host call, and its kernels' device
-    time), the plain version, the matmul yardstick, and the card's least
-    time for the same work."""
+    time, by product class), the plain version, the matmul yardstick, and
+    the card's least time for the same work (tensor_core_fields)."""
     from wire_tpu_torch.ops.wire_step import StepScratch
     out = {}
     n, d, h, layers, o = 256 * 256, 2, 300, 2, 3
@@ -2008,7 +2108,8 @@ def mfn_measure(torch, MF, get_inr, device):
         "library": "torch.matmul step, filters and written-out backward in "
                    "PyTorch ops",
         "library_vs_plain_max_abs_err": lib_err}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res.update(tensor_core_fields(torch, build, step, "mfn_step", flops,
+                                  nbytes, res["kernel_ms"], lib="mfn"))
     res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
         if res["kernel_ms"] else None
@@ -2050,7 +2151,8 @@ def mfn_measure(torch, MF, get_inr, device):
                    "in PyTorch ops",
         "library_vs_plain_max_abs_err": max(
             float((got[k] - want[k]).abs().max()) for k in want)}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res.update(tensor_core_fields(torch, build, pair, "mfn_mlp", flops,
+                                  nbytes, res["kernel_ms"], lib="mfn"))
     res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
         if res["kernel_ms"] else None
@@ -2789,7 +2891,7 @@ def main():
     meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
                                            dev, build)
-    meas.update(mfn_measure(torch, MF, get_inr, dev))
+    meas.update(mfn_measure(torch, MF, get_inr, dev, build))
     meas.update(wire2d_measure(torch, W2, get_inr, get_config, dev, build))
     # each GEMM kernel's least time were its fp32 products formed as
     # 3xTF32 on the tensor cores, as wire_mlp's are

@@ -851,6 +851,71 @@ def test_mfn_mlp_leading_axes_and_no_grad(cuda):
     assert torch.equal(y, got["y"])
 
 
+# (n, d, hidden_features, L, o, nvalid, denom): h = 6 (the links and their
+# weight gradients on the narrow kernels), 13, 91 (odd), 256, 300 (even, a
+# multiple of 4) and 302 against the 64-column tiles, K = h against the
+# 32-deep slices, k = 1-4 filters, d 1-3, o 1 and 3, n 700 and 65,537
+# against the 128-row tiles and the 512-row filter and 1,024-row weight
+# gradient chunks
+MFN_WIDTHS = [
+    (700, 2, 6, 2, 3, 650, 1951.0), (700, 3, 13, 3, 1, None, None),
+    (700, 1, 91, 1, 3, 600, None), (700, 2, 256, 0, 1, None, 777.0),
+    (700, 2, 302, 2, 3, 699, None), (65537, 2, 300, 2, 3, 65000, None),
+    (65537, 3, 91, 1, 1, None, 196000.0)]
+
+
+def _mfn_part_need(n, h, o):
+    """Floats mfn_step's `part` workspace must hold (csrc/mfn.cu): the
+    links' weight-gradient chunk partials ((h + 1) x h over 1,024-row
+    chunks, 512-row ones where h <= 8), the final layer's ((h + 1) x o over
+    512-row chunks), the nine filter sums per column over 512-row chunks
+    and their totals, and two SSE partials per 64-row block."""
+    def chunks(r):
+        return -(-n // r)
+    return max(chunks(512 if h <= 8 else 1024) * (h + 1) * h,
+               chunks(512) * (h + 1) * o, (chunks(512) + 1) * 9 * h,
+               2 * chunks(64))
+
+
+@pytest.mark.parametrize("n,d,hf,layers,out,nvalid,denom", MFN_WIDTHS)
+def test_mfn_step_tensor_cores_match_plain_at_every_width(
+        cuda, n, d, hf, layers, out, nvalid, denom):
+    """mfn_step with its links on wire_tc.cuh's 3xTF32 loop (the narrow
+    kernel at h = 6): within the bound of the plain version, two calls
+    bit-equal, one launch each, and nothing written past any scratch
+    buffer (a NaN tail behind each stays as it was)."""
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    model, params, c, t, gt, _ = _mfn_case(n, d, hf, layers, out, cuda,
+                                           seed=n + hf)
+    h, k = hf, layers + 1
+    need = MF._lib().mfn_part_floats(n, d, h, out)
+    assert need >= _mfn_part_need(n, h, out)
+    shapes = {"mfn_z": (k, n, h), "mfn_l": (max(k - 1, 1), n, h),
+              "mfn_dl": (2, n, h), "mfn_dg": (n, h), "mfn_g": (n, out),
+              "mfn_part": (need,)}
+    scratch = StepScratch()
+    bigs = []
+    for name, shape in shapes.items():
+        scratch._bufs[name], big = _nan_tailed(shape, cuda)
+        bigs.append((name, big, int(np.prod(shape))))
+    before = MF.launches["step"]
+    runs = [_tree_flat(*MF.mfn_step(params, c, t, model.spec, nvalid=nvalid,
+                                    denom=denom, gt=gt, want_metrics=True,
+                                    scratch=scratch)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert MF.launches["step"] == before + 2
+    for name, big, numel in bigs:
+        assert scratch._bufs[name].data_ptr() == big.data_ptr(), name
+        assert torch.isnan(big[numel:]).all(), name
+    for name in runs[0]:
+        assert torch.equal(runs[0][name], runs[1][name]), name
+    want = _tree_flat(*MF.mfn_step_plain(params, c, t, model.spec,
+                                         nvalid=nvalid, denom=denom, gt=gt,
+                                         want_metrics=True))
+    _assert_rel(runs[0], want)
+
+
 # ---- wire2d_step and the wire2d_mlp pair: WIRE-2D ------------------------
 
 def _wire2d_case(n, hf, layers, out, device, seed=0, lead=(),
@@ -1389,11 +1454,11 @@ def _sass_hmma(name):
 
 
 def test_tensor_cores_run_where_they_were_put(cuda):
-    """wire_step, wire_mlp, mscale2_step and wire2d (wire2d_step and the
-    wire2d_mlp pair) have tensor-core instructions in their SASS; real_mlp
-    (real_step and the real_mlp pair) and mfn (mfn_step and the mfn_mlp
-    pair) still run on the CUDA cores alone."""
-    for name in ("wire_step", "wire_mlp", "mscale2_step", "wire2d"):
+    """wire_step, wire_mlp, mscale2_step, wire2d (wire2d_step and the
+    wire2d_mlp pair) and mfn (mfn_step and the mfn_mlp pair) have
+    tensor-core instructions in their SASS; real_mlp (real_step and the
+    real_mlp pair) still runs on the CUDA cores alone."""
+    for name in ("wire_step", "wire_mlp", "mscale2_step", "wire2d", "mfn"):
         assert _sass_hmma(name) > 0, name
-    for name in ("real_mlp", "mfn"):
+    for name in ("real_mlp",):
         assert _sass_hmma(name) == 0, name

@@ -90,7 +90,7 @@ def test_main_runs_a_family_and_refuses_seeds(tmp_path):
              "--device", "cpu"])
     mets = io.loadmat(str(tmp_path / "r" / "denoise_sweep_metrics.mat"))
     assert "mfn" in mets and "relu" in mets and "wire" not in mets
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="§A item 5"):
         TS.main(["denoise", "--nonlins", "mfn", "--seeds", "2",
                  "--device", "cpu"])
 

@@ -3,7 +3,7 @@
 card, at tiny shapes, against its plain PyTorch version.
 
     python3 tools/host_rehearse.py wire_mlp rotsum wire_step mscale2_step \
-        wire2d
+        wire2d mfn
 
 The source (``csrc/<name>.cu`` and the headers it includes) is rewritten
 into a copy and built by g++ into a host library with a plain C interface,
@@ -113,6 +113,10 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
 }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;
   std::memcpy(&u, &f, 4);
@@ -563,12 +567,87 @@ def rehearse_wire2d(out_dir):
             assert rel <= 1e-4 and same and nograd, (rel, same, nograd)
 
 
+def rehearse_mfn(out_dir):
+    """mfn_step and the mfn_mlp pair (csrc/mfn.cu: the links on
+    wire_tc.cuh's loop with the filter epilogues, the narrow kernel, the
+    512-row filter-gradient chunks) against their plain versions at tiny
+    shapes: h = 13, 16, 10, 20 (odd, a multiple of 4, even: each kernel
+    instance of the copies and epilogue accesses) and h = 6 (the links and
+    their weight gradients on the narrow kernels), k 1-4 filters, d 1-3,
+    o 1-3, ragged n over several 512- and 1,024-row chunks, the step with
+    nvalid and denom, the pair with and without dcoords and on (4, n/4, d)
+    coordinates flattened as mfn_mlp flattens them, the pair's forward
+    without a gradient; two calls of each bit-equal."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.nn.registry import get_inr
+    from wire_tpu_torch.ops import mfn as MF
+
+    MF._lib.cache_clear()
+    with host_library("mfn", out_dir):
+        for n, d, h, L, o, nvalid, denom, dcoords, lead in (
+                (300, 2, 13, 2, 3, 290, 901.5, True, ()),
+                (130, 3, 16, 1, 1, None, None, False, ()),
+                (200, 2, 6, 3, 3, 150, None, True, (4,)),
+                (150, 1, 10, 0, 2, None, 777.0, True, ()),
+                (1100, 2, 20, 2, 3, 1030, None, True, ()),
+                (2100, 3, 13, 1, 1, 2049, 6000.0, False, (3,))):
+            model = get_inr("mfn", in_features=d, out_features=o,
+                            hidden_features=h, hidden_layers=L)
+            spec = model.spec
+            params = model.init(torch.Generator().manual_seed(n), "cpu")
+            rng = np.random.default_rng(n)
+            c, t, gt, g = (torch.tensor(a.astype(np.float32)) for a in (
+                rng.uniform(-1, 1, (n, d)), rng.uniform(0, 1, (n, o)),
+                rng.uniform(0, 1, (n, o)), rng.normal(size=(n, o))))
+            steps = [MF._launch_step(params, c, t, nvalid, denom, gt, True,
+                                     None) for _ in range(2)]
+            want = MF.mfn_step_plain(params, c, t, spec, nvalid=nvalid,
+                                     denom=denom, gt=gt, want_metrics=True)
+            flat = [_step_tensors(o_) for o_ in steps + [want]]
+            rel = _max_rel(flat[0], flat[2])
+            same = all(torch.equal(a, b) for a, b in zip(flat[0], flat[1]))
+            print(f"mfn_step n {n} d {d} h {h} L {L} o {o} nvalid {nvalid} "
+                  f"denom {denom}: max rel err {rel:.2e}, two calls equal: "
+                  f"{same}", flush=True)
+            assert rel <= 1e-4 and same, (rel, same)
+
+            flat_p = tree.leaves(params)
+            paths = tuple(p for p, _ in flat_p)
+            cl = c.reshape(*lead, -1, d) if lead else c
+            outs = []
+            for fn in ("kernel", "kernel", "plain"):
+                leaves = [v.clone().requires_grad_(True) for _, v in flat_p]
+                x = cl.clone().requires_grad_(dcoords)
+                if fn == "kernel":  # as mfn_mlp flattens leading axes
+                    y = MF._MfnMLP.apply(x.reshape(-1, d), paths,
+                                         *leaves).reshape(*cl.shape[:-1], o)
+                else:
+                    y = MF.mfn_mlp_plain(tree.unflatten(paths, leaves), x,
+                                         spec)
+                ins = leaves + ([x] if dcoords else [])
+                grads = torch.autograd.grad(y, ins, g.reshape(y.shape),
+                                            allow_unused=True)
+                outs.append([y.detach()] + [
+                    torch.zeros_like(v) if gr is None else gr
+                    for v, gr in zip(ins, grads)])
+            y0, _, _ = MF._forward(params, c, keep=False)
+            rel = _max_rel(outs[0], outs[2])
+            same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+            nograd = torch.equal(y0, outs[0][0].reshape(n, o))
+            print(f"mfn_mlp n {n} d {d} h {h} L {L} o {o} dcoords {dcoords} "
+                  f"lead {lead}: max rel err {rel:.2e}, two calls equal: "
+                  f"{same}, no-grad forward equal: {nograd}", flush=True)
+            assert rel <= 1e-4 and same and nograd, (rel, same, nograd)
+
+
 def main():
     sys.path.insert(0, ROOT)
     rehearsals = {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum,
                   "wire_step": rehearse_wire_step,
                   "mscale2_step": rehearse_mscale2_step,
-                  "wire2d": rehearse_wire2d}
+                  "wire2d": rehearse_wire2d, "mfn": rehearse_mfn}
     names = sys.argv[1:] or list(rehearsals)
     with tempfile.TemporaryDirectory() as d:
         for name in names:

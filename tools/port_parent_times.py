@@ -4,6 +4,7 @@ one process on one GPU, in turns (earlier, this, this, earlier).
 
     python3 tools/port_parent_times.py --parent DIR [--iters 20]
                                        [--mscale2-fit EPOCHS]
+                                       [--mfn-fit EPOCHS]
 
 DIR holds an earlier tree (a git archive of it) whose
 wire_tpu_torch/csrc is built into DIR/wire_tpu_torch/_build; both trees'
@@ -11,7 +12,9 @@ libraries keep the same C interface, so this tree's wrappers drive either.
 At chip_smoke.py's measure inputs: wire_step at the WIRE-300 denoise
 shape, the wire_mlp pair at the CT shape (with dcoords), wire2d_step at
 the WIRE-2D denoise shape, the wire2d_mlp pair at the WIRE-2D CT shape
-(parameter gradients) and mscale2_step at the Mscale2 denoise shape.
+(parameter gradients), mscale2_step at the Mscale2 denoise shape,
+mfn_step at the MFN denoise shape and the mfn_mlp pair at the MFN SISR
+shape (with dcoords).
 Prints per turn the ms of a host call (CUDA events over ITERS calls after
 two warm-up calls), then one JSON line with the mean of each tree's two
 turns, for each kernel whether its outputs of the two trees' first turns
@@ -21,7 +24,9 @@ libraries keep mscale2_step_run's C interface, so this tree's wrapper
 drives either.  ``--mscale2-fit EPOCHS`` adds the Mscale2 denoise fit
 (chip_smoke.py's fit_mscale2 through the kernel: the preset's image, the
 seed-0 init, full batch) for EPOCHS epochs per turn, its ms per step
-(fit_pointwise's step_ms, the first step left out) and best PSNR.
+(fit_pointwise's step_ms, the first step left out) and best PSNR;
+``--mfn-fit EPOCHS`` the same of the MFN denoise fit (chip_smoke.py's
+fit_mfn: the sweep's image and model, the seed-0 init, full batch).
 """
 import argparse
 import json
@@ -40,6 +45,7 @@ import wire_tpu_torch.nn.models as MM  # noqa: E402
 from wire_tpu_torch.apps import common as TC  # noqa: E402
 from wire_tpu_torch.nn.registry import get_inr  # noqa: E402
 from wire_tpu_torch.ops import build  # noqa: E402
+from wire_tpu_torch.ops import mfn as MF  # noqa: E402
 from wire_tpu_torch.ops import mscale2_step as MS  # noqa: E402
 from wire_tpu_torch.ops import wire2d as W2  # noqa: E402
 from wire_tpu_torch.ops import wire_mlp as WM  # noqa: E402
@@ -50,7 +56,7 @@ from wire_tpu_torch.train.presets import get_config  # noqa: E402
 def use(csrc, build_dir):
     build.CSRC_DIR, build.BUILD_DIR = csrc, build_dir
     build.load.cache_clear()
-    for mod in (WS, WM, W2, MS):
+    for mod in (WS, WM, W2, MS, MF):
         mod._lib.cache_clear()
 
 
@@ -80,6 +86,12 @@ def calls(dev):
     ms_model = S.mscale2_models(get_inr, TC, get_config(S.MSCALE2_CONFIG))[0]
     canon, comb, kinds, inv = S.mscale2_fold(torch, MM, ms_model, 22, dev)
     mc, mt, mg, _ = S.real_inputs(torch, 256 * 256, 2, 3, 23, dev)
+    mfs, mfp, mfc, mft, mfg, _ = S.mfn_case(torch, get_inr, 256 * 256, 2,
+                                            300, 2, 3, 27, dev)
+    mfs2, mfp2, mfc2, _, _, mfg2 = S.mfn_case(torch, get_inr, 256 * 256, 2,
+                                              256, 2, 3, 28, dev)
+    mf_fn = S.pair_fn(MF.mfn_mlp, mfs2.spec, S.leaf_paths(mfp2))
+    mf_xs = [mfc2] + [t for _, t in S.tree_leaves(mfp2)]
     return {
         "wire_step": lambda scratch: S.tensors_of(*WS.wire_step(
             wp, wc, wt, wire.spec, gt=wg, want_metrics=True,
@@ -92,7 +104,11 @@ def calls(dev):
                                                   w2_leaves, gc2),
         "mscale2_step": lambda scratch: S.mscale2_tensors(*MS.mscale2_step(
             canon, comb, mc, mt, kinds, inv, gt=mg, want_metrics=True,
-            scratch=scratch))}
+            scratch=scratch)),
+        "mfn_step": lambda scratch: S.tensors_of(*MF.mfn_step(
+            mfp, mfc, mft, mfs.spec, gt=mfg, want_metrics=True,
+            scratch=scratch)),
+        "mfn_mlp": lambda scratch: S.vjp(torch, mf_fn, mf_xs, mfg2)}
 
 
 def mscale2_fit(dev, epochs):
@@ -118,6 +134,28 @@ def mscale2_fit(dev, epochs):
     return fit
 
 
+def mfn_fit(dev, epochs):
+    """() -> (ms per step, best PSNR dB) of the MFN denoise fit through the
+    kernel, as chip_smoke.py's fit_mfn runs it."""
+    from wire_tpu_torch.apps import sweep as SW
+    from wire_tpu_torch.train import metrics as M
+    from wire_tpu_torch.train.trainer import FitConfig, fit_pointwise
+    im, im_noisy = SW.denoise_images()
+    H, W, _ = im.shape
+    model, _ = S.mfn_models(get_inr, SW, "denoise", H, W)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    grid = SW.C.grid2d(H, W)
+    fit_cfg = FitConfig(learning_rate=SW._DENOISE_LR["mfn"], niters=epochs,
+                        maxpoints=256 * 256, scale_lr_by_batch=True)
+
+    def fit():
+        res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                            fit_cfg, gt=im.reshape(-1, 3), device=dev)
+        return res.step_ms, float(M.psnr_ref(im, res.best_rec.reshape(H, W,
+                                                                      3)))
+    return fit
+
+
 def distance(got, want):
     """True where every output is identical bit for bit, else the largest
     max |got - want| / max |want| over the outputs."""
@@ -127,23 +165,28 @@ def distance(got, want):
                / max(float(want[k].abs().max()), 1e-30) for k in want)
 
 
-def compare_trees(trees, iters, names=None, fit_epochs=0):
+def compare_trees(trees, iters, names=None, fit_epochs=0, mfn_epochs=0):
     """Times (ms per host call, in turns earlier, this, this, earlier) and
     the first turns' outputs of trees {"parent": (csrc, build dir), "this":
-    (...)}, and with fit_epochs the Mscale2 denoise fit's ms per step and
-    best PSNR per turn; prints each turn and returns the JSON summary."""
+    (...)}, and with fit_epochs (mfn_epochs) the Mscale2 (MFN) denoise
+    fit's ms per step and best PSNR per turn; prints each turn and returns
+    the JSON summary."""
     dev = torch.device("cuda", 0)
     fns = calls(dev)
     names = names or list(fns)
     times = {tree: {name: [] for name in names} for tree in trees}
     outs = {}
-    fits = {tree: [] for tree in trees}
-    fit = mscale2_fit(dev, fit_epochs) if fit_epochs else None
+    fitters = {}
+    if fit_epochs:
+        fitters["mscale2"] = mscale2_fit(dev, fit_epochs)
+    if mfn_epochs:
+        fitters["mfn"] = mfn_fit(dev, mfn_epochs)
+    fits = {f: {tree: [] for tree in trees} for f in fitters}
     for tree in ("parent", "this", "this", "parent"):
         use(*trees[tree])
-        if fit is not None:
-            fits[tree].append(fit())
-            print(f"{tree} mscale2 fit: {fits[tree][-1]}", flush=True)
+        for f, fit in fitters.items():
+            fits[f][tree].append(fit())
+            print(f"{tree} {f} fit: {fits[f][tree][-1]}", flush=True)
         for name in names:
             scratch = WS.StepScratch()
             if tree not in outs.get(name, {}):
@@ -152,7 +195,7 @@ def compare_trees(trees, iters, names=None, fit_epochs=0):
             times[tree][name].append(ms)
             print(f"{tree} {name}: {ms:.4f} ms", flush=True)
             del scratch
-    res = {} if fit is None else {"mscale2_fit_ms_per_step_psnr_db": fits}
+    res = {f"{f}_fit_ms_per_step_psnr_db": v for f, v in fits.items()}
     return {**res,
             "ms": {tree: {name: sum(v) / len(v) for name, v in by.items()}
                    for tree, by in times.items()},
@@ -172,6 +215,7 @@ def main():
     ap.add_argument("--parent", required=True)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mscale2-fit", type=int, default=0, metavar="EPOCHS")
+    ap.add_argument("--mfn-fit", type=int, default=0, metavar="EPOCHS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_parent_times.py needs a CUDA device")
@@ -180,7 +224,8 @@ def main():
                         os.path.join(args.parent, "wire_tpu_torch",
                                      "_build")),
              "this": (build.CSRC_DIR, build.BUILD_DIR)}
-    res = compare_trees(trees, args.iters, fit_epochs=args.mscale2_fit)
+    res = compare_trees(trees, args.iters, fit_epochs=args.mscale2_fit,
+                        mfn_epochs=args.mfn_fit)
     print(json.dumps({"nvidia_smi": smi(), "iters": args.iters, **res}))
 
 

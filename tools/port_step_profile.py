@@ -25,7 +25,7 @@ idle share (1 - busy / wall).
 Kernels of csrc/*.cu keep their CUDA names (tc_paired_kernel<0|1|2, ...>
 = forward / hidden backward / first-layer backward GEMMs of wire_step and
 wire_mlp on the tensor cores, and tc_wgrad_kernel, narrow_wgrad_kernel and
-narrow_colsum_kernel their and WIRE-2D's weight gradients;
+narrow_colsum_kernel their, WIRE-2D's, mscale_2's and the MFN's weight gradients;
 wgrad_partial_kernel,
 reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
@@ -35,9 +35,10 @@ real_tc_kernel<0|1, ...> = forward / data-gradient GEMMs of mscale_2's
 trunk on the tensor cores, real_narrow_kernel<0|1> its first-layer
 forward and top data gradient, combiner_kernel of mscale_2,
 filter_forward_kernel,
-mfn_gemm_kernel<0|1|2> = link forward / link backward / last data
-gradient, filter_grad_partial_kernel and filter_grad_finish_kernel of the
-MFN, gabor2d_first_kernel, gabor2d_tc_fwd_kernel,
+mfn_tc_kernel<0|1|2, ...> = link forward / link backward / last data
+gradient on the tensor cores, mfn_narrow_kernel<1> the link backward from
+the final layer (K = o), filter_grad_partial_kernel and
+filter_grad_finish_kernel of the MFN, gabor2d_first_kernel, gabor2d_tc_fwd_kernel,
 gabor2d_tc_bwd_kernel<0|1> = hidden / first-layer data gradients on the
 tensor cores and gabor2d_dcoords_kernel of WIRE-2D); the rest are PyTorch's (weight stacking, FFTs, Adam, best
 tracking).

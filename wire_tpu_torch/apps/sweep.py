@@ -24,7 +24,8 @@ there (line_sample).  ``device="cpu"`` runs the plain PyTorch path.
     python -m wire_tpu_torch.apps.sweep {denoise,sisr,ct} [--nonlins ...]
 
 Only the single-seed sweeps are ported: ``--seeds`` (one family's seeds
-batched in one device program) needs the batched fitters of ROADMAP A.8.
+batched in one device program) needs the batched fitters of ROADMAP.md
+§A item 5.
 """
 from __future__ import annotations
 
@@ -258,7 +259,7 @@ def main(argv=None):
     if a.seeds:
         raise NotImplementedError(
             "sweep --seeds needs fit_pointwise_many / fit_operator_many, "
-            "which are not ported yet (ROADMAP A.8)")
+            "which are not ported yet (ROADMAP.md §A item 5)")
     kw = dict(image=a.image, results_dir=a.results_dir, nonlins=a.nonlins,
               device=a.device)
     if a.niters:

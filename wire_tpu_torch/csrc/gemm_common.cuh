@@ -2,8 +2,7 @@
 // sums (reduce_chunks, every weight gradient's second pass), the final
 // linear layer (alone, or fused with the masked-MSE loss gradient and the
 // SSE sums of a train step), the launch helpers, and the CUDA-core weight
-// gradient of the kernels not on the tensor cores (real_mlp.cu,
-// mscale2_step.cu, mfn.cu).
+// gradient of the kernels not on the tensor cores (real_mlp.cu).
 //
 // That weight gradient [A | 1]^T D over n rows is written as
 // per-2048-row-chunk partials and summed in chunk order by a second pass:

@@ -23,17 +23,38 @@
 // h = 300, k = 3, o = 3) a step is 72.07 GFLOP of fp32 multiply-adds: the
 // two links' forward, weight-gradient and data-gradient products (70.78),
 // the final layer's (0.35) and the filters' d-contractions (0.94), against
-// ~4 MB of inputs and outputs: 1.08 ms at the card's 67 TFLOP/s fp32 peak.
-// The SISR pair (n = 65,536, h = 256, dcoords) is 53.05 GFLOP, 0.79 ms.
+// ~4 MB of inputs and outputs: 1.08 ms at the card's 67 TFLOP/s fp32 peak,
+// 0.44 ms as 3xTF32 products at the tensor cores' 495 TFLOP/s.  The SISR
+// pair (n = 65,536, h = 256, dcoords) is 53.05 GFLOP, 0.32 ms as 3xTF32.
 //
-// What this design does about it: it is the simple, correct first version.
-// - The links run on real_chain.cuh's tiled GEMM loop (64 x 64 output tile,
-//   16-deep k slices, 4 x 4 per thread, fp32 FMA on the CUDA cores; h kept
-//   exact with masked tiles, not the TPU kernel's 128-lane padding of 300
-//   to 384) with MFN epilogues: the forward adds c, forms g_j in place from
-//   the row's d coordinates and the column's w, b, mu and gamma, and writes
-//   l_j and z_j; the backward reads l_j, recomputes g_j and writes dl_j and
-//   dg_j.
+// What this design does about it:
+// - Every link product of depth K > kNarrowK (the links' forward z W and
+//   data gradient dl W^T, K = h) runs wire_tc.cuh:tile_product under the
+//   plain column map (3xTF32 mma.sync at fp32 accuracy; h kept exact with
+//   zero-filled tiles, not the TPU kernel's padding of 300 to 384) in
+//   mfn_tc_kernel, whose epilogue works on the 128 x 64 accumulator tile
+//   in registers: thread (warp, lane) holds rows row0 + wm 64 + mt 16 + g
+//   + 8 hr and columns col0 + wn 32 + nt 8 + 2t + {0, 1}.  The forward
+//   adds c and writes l_j (when kept) and z_j = l_j g_j; the backward
+//   reads l_j per m16 tile before its first use and writes dl_j and dg_j.
+// - g_j needs one expf and one sincosf per output, slow paths included (q
+//   reaches the hundreds).  Inlined at each of a thread's 64 accumulator
+//   registers that code would make the kernel several times longer (a
+//   basis switch inlined so doubled mscale2_step's kernels,
+//   tools/exp_real_tc.py), so each output calls one out-of-line function,
+//   filter_g, with the thread's 8 columns' w, mu, b, gamma and |mu|^2
+//   loaded into registers once and each row's x and |x|^2 once per row (a
+//   loop that is not unrolled, evaluating g into shared memory from a
+//   per-block column table, made the forward link 8% slower:
+//   tools/exp_mfn_tc.py).
+// - The link gradient of j = k - 1 (K = o) and any product with K <=
+//   kNarrowK fill under one k8 slice: mfn_narrow_kernel runs them on the
+//   CUDA cores, a lane per column with its B column and filter in
+//   registers, fp32 FMAs in k order, the same epilogues.
+// - Weight gradients: wire_tc::weight_grad (the tensor cores, fixed-order
+//   1,024-row chunk partials) for the links, wire_tc::narrow_weight_grad
+//   for the final layer (N = o) and for links no wider than kNarrowK; the
+//   bias gradients are their column sums.
 // - Bytes against recompute: the backward recomputes E, S and C from the
 //   coordinates (one expf and one sincosf per element) rather than keeping
 //   E, S, C and nrm from the forward: those are 4 k planes of n h floats
@@ -45,15 +66,16 @@
 //   planes and keeps nothing.
 // - The per-filter sums are column sums over the rows: a filter-gradient
 //   kernel recomputes the filter from dg and x, accumulates the nine sums
-//   (dq, dq x_0..2, ges, ges x_0..2, ges nrm) per 2048-row chunk in a fixed
-//   order, and a finish kernel adds the chunks in chunk order and forms
-//   dw, db, dmu and dgamma.  Weight gradients take gemm_common.cuh's
-//   fixed-order chunk sums, the bias as the ones row.  dcoords is a row
-//   reduction over h: one warp per row, lanes striding over the columns
-//   and meeting in a fixed butterfly, filters added in a fixed order.  No
-//   float atomics: two calls give identical bits.
-// - The final layer and the step's loss and SSE sums are gemm_common.cuh's.
-// Tensor cores (TF32 wgmma) and TMA pipelines are later work.
+//   (dq, dq x_0..2, ges, ges x_0..2, ges nrm) per 512-row chunk in a fixed
+//   order (1,280 blocks at the denoise shape: the card is full);
+//   reduce_chunks adds the chunks in chunk order, a thread per sum and
+//   column, and a finish kernel forms dw, db, dmu and dgamma.  dcoords is
+//   a row reduction over h: one warp per row, lanes striding over the
+//   columns and meeting in a fixed butterfly, filters added in a fixed
+//   order.  No float atomics: two calls give identical bits.
+// - The first filter z_0 = g_0 takes a lane per column with its filter in
+//   registers, rows strided by warp.  The final layer and the step's loss
+//   and SSE sums are gemm_common.cuh's.
 //
 // Accuracy: the phase q reaches the hundreds at init (w = U 128 sqrt(gamma)),
 // so sincosf/expf, never the __sinf/__expf intrinsics; build without
@@ -62,9 +84,11 @@
 // round them (nn/models.py:mfn_gabor: x w a matmul, x_0 w_0 then one fma
 // per further term), so no contraction the compiler picks moves q by a
 // rounding step (~3e-5 at |q| ~ 300, ~5e-4 at the 8,000 of the
-// extreme-phase check) between the two.
+// extreme-phase check) between the two.  The 3xTF32 link products lie as
+// close to float64 as fp32 SGEMMs do (csrc/wire_tc.cuh).
 
-#include "real_chain.cuh"
+#include "gemm_common.cuh"
+#include "wire_tc.cuh"
 
 using namespace gemm_common;
 
@@ -72,6 +96,11 @@ namespace {
 
 constexpr int kMaxIn = 3;  // coordinate dimensions d = 1 .. 3
 constexpr int kSums = 3 + 2 * kMaxIn;  // per-column sums of one filter
+// products of depth at most kNarrowK run on the narrow CUDA-core kernel
+constexpr int kNarrowK = wire_tc::kNarrowMax;
+constexpr int kNarrowRows = 64;  // rows of one block of the lane-per-column
+                                 // kernels
+constexpr int kWarps = kThreads / 32;
 
 // One Gabor filter: w (d x h), b (h), mu (h x d), gamma (h).
 struct Filter {
@@ -80,6 +109,30 @@ struct Filter {
   const float* mu;
   const float* gamma;
 };
+
+// One column's filter: w and mu (0 past d), b, gamma, and |mu|^2 rounded
+// as the plain version rounds it (products, then sums).
+struct Col {
+  float w[kMaxIn], mu[kMaxIn];
+  float b, gamma, mu2;
+};
+
+__device__ __forceinline__ Col load_col(const Filter& f, int d, int h,
+                                        int c) {
+  Col col;
+#pragma unroll
+  for (int k = 0; k < kMaxIn; ++k) {
+    col.w[k] = k < d ? f.w[(size_t)k * h + c] : 0.f;
+    col.mu[k] = k < d ? f.mu[(size_t)c * d + k] : 0.f;
+  }
+  col.mu2 = __fmul_rn(col.mu[0], col.mu[0]);
+#pragma unroll
+  for (int k = 1; k < kMaxIn; ++k)
+    if (k < d) col.mu2 = __fadd_rn(col.mu2, __fmul_rn(col.mu[k], col.mu[k]));
+  col.b = f.b[c];
+  col.gamma = f.gamma[c];
+  return col;
+}
 
 struct Terms {
   float E, S, C, nrm;
@@ -104,112 +157,249 @@ __device__ __forceinline__ Row load_row(const float* __restrict__ x, int r,
   return row;
 }
 
-// E, S, C and nrm of filter f at row `row`, column c, rounded as the plain
+// E, S, C and nrm of a column's filter at a row, rounded as the plain
 // version's ops round them: the contractions x w and x mu^T as a matmul
 // accumulates (x_0 w_0, then one fma per further term), the squared norms
 // as products then sums.
-__device__ __forceinline__ Terms filter_terms(const Filter& f, const Row& row,
-                                              int d, int h, int c) {
-  float q = __fmul_rn(row.x[0], f.w[c]);
-  float m = f.mu[(size_t)c * d];
-  float xm = __fmul_rn(row.x[0], m);
-  float mu2 = __fmul_rn(m, m);
+__device__ __forceinline__ Terms filter_terms(const Col& col, const Row& row,
+                                              int d) {
+  float q = __fmul_rn(row.x[0], col.w[0]);
+  float xm = __fmul_rn(row.x[0], col.mu[0]);
 #pragma unroll
   for (int k = 1; k < kMaxIn; ++k) {
     if (k < d) {
-      q = __fmaf_rn(row.x[k], f.w[(size_t)k * h + c], q);
-      m = f.mu[(size_t)c * d + k];
-      xm = __fmaf_rn(row.x[k], m, xm);
-      mu2 = __fadd_rn(mu2, __fmul_rn(m, m));
+      q = __fmaf_rn(row.x[k], col.w[k], q);
+      xm = __fmaf_rn(row.x[k], col.mu[k], xm);
     }
   }
-  q = __fadd_rn(q, f.b[c]);
+  q = __fadd_rn(q, col.b);
   Terms t;
-  t.nrm = __fsub_rn(__fadd_rn(row.xx, mu2), __fmul_rn(2.f, xm));
-  t.E = expf(__fmul_rn(__fmul_rn(-0.5f, f.gamma[c]), t.nrm));
+  t.nrm = __fsub_rn(__fadd_rn(row.xx, col.mu2), __fmul_rn(2.f, xm));
+  t.E = expf(__fmul_rn(__fmul_rn(-0.5f, col.gamma), t.nrm));
   sincosf(q, &t.S, &t.C);
   return t;
 }
 
-// z_0[r, c] = g_0(x_r)[c], one thread per element.
+// g = E S of a column's filter at a row, out of line: the link epilogues
+// call it at each of a thread's 64 accumulator registers, and one copy of
+// expf's and sincosf's slow paths keeps their kernels short.
+__device__ __noinline__ float filter_g(Col col, Row row, int d) {
+  const Terms t = filter_terms(col, row, d);
+  return t.E * t.S;
+}
+
+// z_0[r, c] = g_0(x_r)[c]: a lane per column, its filter in registers; the
+// block's kNarrowRows rows strided by warp.
 __global__ void __launch_bounds__(kThreads) filter_forward_kernel(
     const float* __restrict__ x, Filter f, float* __restrict__ z, int n,
     int d, int h) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)n * h) return;
-  const int r = (int)(idx / h), c = (int)(idx % h);
-  const Terms t = filter_terms(f, load_row(x, r, d), d, h, c);
-  z[idx] = t.E * t.S;
+  const int c = blockIdx.x * 32 + threadIdx.x % 32;
+  if (c >= h) return;
+  const Col col = load_col(f, d, h, c);
+  const int r_end = min(n, (int)(blockIdx.y + 1) * kNarrowRows);
+  for (int r = blockIdx.y * kNarrowRows + threadIdx.x / 32; r < r_end;
+       r += kWarps) {
+    const Terms t = filter_terms(col, load_row(x, r, d), d);
+    z[(size_t)r * h + c] = t.E * t.S;
+  }
 }
 
-enum MfnEpilogue { kLinkFwd = 0, kLinkBwd = 1, kPlainOut = 2 };
+enum LinkMode { kLinkFwd = 0, kLinkBwd = 1, kPlainOut = 2 };
 
-// acc = A (n x K) @ B (K x N = h) for a 64 x 64 tile, then:
-//   kLinkFwd:  l = acc + bias; out0 = l (skipped when null);
-//              out1 = l g_f(x)                       (z_j)
-//   kLinkBwd:  acc is dz_j; out0 = dz g_f(x) (dl_j); out1 = dz lin (dg_j)
-//   kPlainOut: out0 = acc
-template <int kEpi>
-__global__ void __launch_bounds__(kThreads) mfn_gemm_kernel(
+// One output of acc = A @ B, g the column's filter at the row:
+//   kLinkFwd:  l = acc + bias; o0 = l, o1 = l g            (l_j, z_j)
+//   kLinkBwd:  acc is dz_j; o0 = dz g, o1 = dz lin          (dl_j, dg_j)
+//   kPlainOut: o0 = acc
+template <int kMode>
+__device__ __forceinline__ void link_out(float acc, float g, float bias,
+                                         float lin, float& o0, float& o1) {
+  if (kMode == kLinkFwd) {
+    o0 = acc + bias;
+    o1 = o0 * g;
+  } else if (kMode == kLinkBwd) {
+    o0 = acc * g;
+    o1 = acc * lin;
+  } else {
+    o0 = acc;
+    o1 = 0.f;
+  }
+}
+
+// acc = A (n x K) @ B (K x N = h) over the 128 x 64 tile at (blockIdx.y
+// kBM, blockIdx.x kBN) on the tensor cores, then link_out<kMode> on the
+// registers with filter f at the coordinates x (n x d); bias (kLinkFwd)
+// and lin (kLinkBwd) are the link's c and l_j; out0 may be null in
+// kLinkFwd.  kVecA, kVecB, kPair: wire_tc.cuh:Access.
+template <int kMode, bool kVecA, bool kVecB, bool kPair>
+__global__ void __launch_bounds__(wire_tc::kThreads, 2) mfn_tc_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     const float* __restrict__ x, Filter f, const float* __restrict__ bias,
     const float* __restrict__ lin, float* __restrict__ out0,
     float* __restrict__ out1, int n, int K, int N, int d) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.x * real_chain::kTileRows;
-  const int col0 = blockIdx.y * real_chain::kTileCols;
-  float acc[4][4];
-  real_chain::gemm_tile(A, B, n, K, N, row0, col0, acc);
+  constexpr int kMT = wire_tc::kMT, kNT = wire_tc::kNT;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / wire_tc::kWarpsN, wn = warp % wire_tc::kWarpsN;
+  const int g = lane / 4, t = lane % 4;
+  const int col0 = blockIdx.x * wire_tc::kBN;
+  const int row0 = blockIdx.y * wire_tc::kBM;
+  float acc[kMT][kNT][4];
+  wire_tc::tile_product<wire_tc::kPlain, kVecA, kVecB>(
+      smem, A, B, N, n, K, row0, col0, N, acc);
 
+  // this thread's 8 columns: their bias (forward) and filter
+  float2 cb[kNT];
+  Col cols[kNT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= n) continue;
-    Row row;
-    if (kEpi != kPlainOut) row = load_row(x, r, d);
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int j = col0 + wire_tc::tile_col<wire_tc::kPlain>(wn, nt) + 2 * t;
+    cb[nt] = kMode == kLinkFwd && j < N
+                 ? wire_tc::load2<kPair>(bias + j, j + 1 < N)
+                 : make_float2(0.f, 0.f);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= N) continue;
-      const size_t idx = (size_t)r * N + c;
-      if (kEpi == kPlainOut) {
-        out0[idx] = acc[i][j];
-        continue;
+    for (int i = 0; i < 2; ++i) {
+      cols[nt][i] = Col{};
+      if (kMode != kPlainOut && j + i < N)
+        cols[nt][i] = load_col(f, d, N, j + i);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    // the backward's l_j of m16 tile mt's 16 outputs, all loaded before the
+    // first is used
+    float2 lv[2][kNT];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int r = row0 + wm * (kMT * 16) + mt * 16 + g + hr * 8;
+        const int j =
+            col0 + wire_tc::tile_col<wire_tc::kPlain>(wn, nt) + 2 * t;
+        lv[hr][nt] = kMode == kLinkBwd && r < n && j < N
+                         ? wire_tc::load2<kPair>(lin + (size_t)r * N + j,
+                                                 j + 1 < N)
+                         : make_float2(0.f, 0.f);
       }
-      const Terms t = filter_terms(f, row, d, N, c);
-      const float g = t.E * t.S;
-      if (kEpi == kLinkFwd) {
-        const float l = acc[i][j] + bias[c];
-        if (out0 != nullptr) out0[idx] = l;
-        out1[idx] = l * g;
-      } else {
-        out0[idx] = acc[i][j] * g;
-        out1[idx] = acc[i][j] * lin[idx];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = row0 + wm * (kMT * 16) + mt * 16 + g + hr * 8;
+      if (r >= n) continue;
+      Row row{};
+      if (kMode != kPlainOut) row = load_row(x, r, d);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int j =
+            col0 + wire_tc::tile_col<wire_tc::kPlain>(wn, nt) + 2 * t;
+        if (j >= N) continue;
+        const bool two = j + 1 < N;
+        const size_t idx = (size_t)r * N + j;
+        float2 gg = make_float2(0.f, 0.f);
+        if (kMode != kPlainOut) {
+          gg.x = filter_g(cols[nt][0], row, d);
+          if (two) gg.y = filter_g(cols[nt][1], row, d);
+        }
+        float2 o0, o1;
+        link_out<kMode>(acc[mt][nt][2 * hr], gg.x, cb[nt].x, lv[hr][nt].x,
+                        o0.x, o1.x);
+        link_out<kMode>(acc[mt][nt][2 * hr + 1], gg.y, cb[nt].y,
+                        lv[hr][nt].y, o0.y, o1.y);
+        if (out0 != nullptr) wire_tc::store2<kPair>(out0 + idx, o0, two);
+        if (kMode != kPlainOut) wire_tc::store2<kPair>(out1 + idx, o1, two);
       }
     }
   }
 }
 
-template <int kEpi>
-cudaError_t mfn_gemm(const float* A, const float* B, const float* x,
-                     const Filter& f, const float* bias, const float* lin,
-                     float* out0, float* out1, int n, int K, int N, int d,
-                     cudaStream_t st) {
-  const dim3 grid(ceil_div(n, real_chain::kTileRows),
-                  ceil_div(N, real_chain::kTileCols));
-  mfn_gemm_kernel<kEpi><<<grid, kThreads, 0, st>>>(A, B, x, f, bias, lin,
-                                                   out0, out1, n, K, N, d);
+// acc = A (n x K) @ B (K x N) for a small K (<= kNarrowK), then
+// link_out<kMode>, on the CUDA cores: a warp takes 32 consecutive columns
+// of kNarrowRows rows, one column per lane, and keeps the column's B, bias
+// and filter in registers; fp32 FMAs in k order.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) mfn_narrow_kernel(
+    const float* __restrict__ A, const float* __restrict__ B,
+    const float* __restrict__ x, Filter f, const float* __restrict__ bias,
+    const float* __restrict__ lin, float* __restrict__ out0,
+    float* __restrict__ out1, int n, int K, int N, int d) {
+  const int c = blockIdx.x * 32 + threadIdx.x % 32;
+  if (c >= N) return;
+  float b[kNarrowK];
+#pragma unroll
+  for (int k = 0; k < kNarrowK; ++k)
+    b[k] = k < K ? B[(size_t)k * N + c] : 0.f;
+  Col col{};
+  if (kMode != kPlainOut) col = load_col(f, d, N, c);
+  const float cb = kMode == kLinkFwd ? bias[c] : 0.f;
+  const int r_end = min(n, (int)(blockIdx.y + 1) * kNarrowRows);
+  for (int r = blockIdx.y * kNarrowRows + threadIdx.x / 32; r < r_end;
+       r += kWarps) {
+    const float* a = A + (size_t)r * K;
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < kNarrowK; ++k)
+      if (k < K) acc = fmaf(a[k], b[k], acc);
+    const size_t idx = (size_t)r * N + c;
+    float gg = 0.f;
+    if (kMode != kPlainOut) {
+      const Terms tm = filter_terms(col, load_row(x, r, d), d);
+      gg = tm.E * tm.S;
+    }
+    float o0, o1;
+    link_out<kMode>(acc, gg, cb, kMode == kLinkBwd ? lin[idx] : 0.f, o0,
+                    o1);
+    if (out0 != nullptr) out0[idx] = o0;
+    if (kMode != kPlainOut) out1[idx] = o1;
+  }
+}
+
+// One link product and its epilogue (link_out<kMode>): the narrow kernel
+// for K <= kNarrowK, else the tensor-core kernel instance for the shapes'
+// and pointers' accesses.
+template <int kMode>
+cudaError_t link(const float* A, const float* B, const float* x,
+                 const Filter& f, const float* bias, const float* lin,
+                 float* out0, float* out1, int n, int K, int N, int d,
+                 cudaStream_t st) {
+  if (K <= kNarrowK) {
+    const dim3 grid(ceil_div(N, 32), ceil_div(n, kNarrowRows));
+    mfn_narrow_kernel<kMode><<<grid, kThreads, 0, st>>>(
+        A, B, x, f, bias, lin, out0, out1, n, K, N, d);
+    return cudaGetLastError();
+  }
+  const dim3 grid(ceil_div(N, wire_tc::kBN), ceil_div(n, wire_tc::kBM));
+  auto kernel = wire_tc::instance(
+      wire_tc::access(A, B, K, N, {bias, lin, out0, out1}),
+      [](auto va, auto vb, auto pr) {
+        return &mfn_tc_kernel<kMode, decltype(va)::value,
+                              decltype(vb)::value, decltype(pr)::value>;
+      });
+  GEMM_CHECK(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wire_tc::kSmemBytes));
+  kernel<<<grid, wire_tc::kThreads, wire_tc::kSmemBytes, st>>>(
+      A, B, x, f, bias, lin, out0, out1, n, K, N, d);
   return cudaGetLastError();
+}
+
+// A link's [dW; dc] = [z_{j-1} | 1]^T dl_j ((h + 1) x h) over n rows.
+cudaError_t link_weight_grad(const float* X, const float* D, float* part,
+                             float* out, int n, int h, cudaStream_t st) {
+  if (h <= kNarrowK)
+    return wire_tc::narrow_weight_grad(X, D, part, out, n, h, h, st);
+  return wire_tc::weight_grad(X, D, part, out, n, h, h, st);
 }
 
 constexpr int kCols = 32;                  // columns of one filter-grad block
 constexpr int kGroups = kThreads / kCols;  // row groups of one block
+constexpr int kFilterChunkRows = 512;      // rows of one filter-grad block
+
+inline int filter_chunks(int n) { return ceil_div(n, kFilterChunkRows); }
 
 // Per-chunk partial column sums of filter f's gradient terms from dg
 // (n x h), the cotangent of g_f: part[(chunk * kSums + s) * h + c], s in
 // [dq, dq x_0, dq x_1, dq x_2, ges, ges x_0, ges x_1, ges x_2, ges nrm]
 // (slots past d stay 0).  Thread (c, g) walks rows g, g + 8, ... of the
-// chunk in order; the 8 groups then meet in order in shared memory.
+// chunk in order with its column's filter in registers; the 8 groups then
+// meet in order in shared memory.
 __global__ void __launch_bounds__(kThreads) filter_grad_partial_kernel(
     const float* __restrict__ x, const float* __restrict__ dg, Filter f,
     float* __restrict__ part, int n, int d, int h) {
@@ -217,15 +407,16 @@ __global__ void __launch_bounds__(kThreads) filter_grad_partial_kernel(
   const int cx = threadIdx.x % kCols, g = threadIdx.x / kCols;
   const int c = blockIdx.x * kCols + cx;
   const int chunk = blockIdx.y;
-  const int r_end = min(n, (chunk + 1) * kChunkRows);
+  const int r_end = min(n, (chunk + 1) * kFilterChunkRows);
   float sdq = 0.f, sges = 0.f, sgn = 0.f;
   float sdqx[kMaxIn], sgx[kMaxIn];
 #pragma unroll
   for (int k = 0; k < kMaxIn; ++k) sdqx[k] = sgx[k] = 0.f;
   if (c < h) {
-    for (int r = chunk * kChunkRows + g; r < r_end; r += kGroups) {
+    const Col col = load_col(f, d, h, c);
+    for (int r = chunk * kFilterChunkRows + g; r < r_end; r += kGroups) {
       const Row row = load_row(x, r, d);
-      const Terms t = filter_terms(f, row, d, h, c);
+      const Terms t = filter_terms(col, row, d);
       const float es = dg[(size_t)r * h + c] * t.E;
       const float dq = es * t.C, ges = es * t.S;
       sdq += dq;
@@ -256,11 +447,11 @@ __global__ void __launch_bounds__(kThreads) filter_grad_partial_kernel(
   }
 }
 
-// Filter f's gradients from the chunk partials, added in chunk order:
-// gw (d x h), gb (h), gmu (h x d), ggamma (h).
-__global__ void filter_grad_finish_kernel(const float* __restrict__ part,
-                                          int chunks, Filter f,
-                                          float* __restrict__ gw,
+// Filter f's gradients from its nine column sums (kSums x h, the chunk
+// partials added in chunk order by reduce_chunks): gw (d x h), gb (h),
+// gmu (h x d), ggamma (h).
+__global__ void filter_grad_finish_kernel(const float* __restrict__ sums,
+                                          Filter f, float* __restrict__ gw,
                                           float* __restrict__ gb,
                                           float* __restrict__ gmu,
                                           float* __restrict__ ggamma, int d,
@@ -269,12 +460,7 @@ __global__ void filter_grad_finish_kernel(const float* __restrict__ part,
   if (c >= h) return;
   float s[kSums];
 #pragma unroll
-  for (int q = 0; q < kSums; ++q) s[q] = 0.f;
-  for (int ch = 0; ch < chunks; ++ch) {
-#pragma unroll
-    for (int q = 0; q < kSums; ++q)
-      s[q] += part[((size_t)ch * kSums + q) * h + c];
-  }
+  for (int q = 0; q < kSums; ++q) s[q] = sums[(size_t)q * h + c];
   gb[c] = s[0];
   ggamma[c] = -0.5f * s[2 + 2 * kMaxIn];
   const float hg = -0.5f * f.gamma[c];  // dn = hg ges
@@ -306,16 +492,17 @@ __global__ void __launch_bounds__(kThreads) filter_dcoords_kernel(
 #pragma unroll
     for (int k = 0; k < kMaxIn; ++k) aw[k] = am[k] = 0.f;
     for (int c = lane; c < h; c += 32) {
-      const Terms t = filter_terms(f, row, d, h, c);
+      const Col col = load_col(f, d, h, c);
+      const Terms t = filter_terms(col, row, d);
       const float es = dg[(size_t)r * h + c] * t.E;
       const float dq = es * t.C;
-      const float gg = f.gamma[c] * (es * t.S);
+      const float gg = col.gamma * (es * t.S);
       ag += gg;
 #pragma unroll
       for (int k = 0; k < kMaxIn; ++k) {
         if (k < d) {
-          aw[k] = fmaf(dq, f.w[(size_t)k * h + c], aw[k]);
-          am[k] = fmaf(gg, f.mu[(size_t)c * d + k], am[k]);
+          aw[k] = fmaf(dq, col.w[k], aw[k]);
+          am[k] = fmaf(gg, col.mu[k], am[k]);
         }
       }
     }
@@ -358,12 +545,15 @@ struct Net {
   }
 };
 
-inline int chunks_of(int n) { return ceil_div(n, kChunkRows); }
-
+// Floats of the `part` workspace of the backward and the step: the
+// largest of the link and final weight gradients' chunk partials, the
+// filter sums' (their chunk partials, then the sums) and the step's SSE
+// partials.
 long long part_floats(int n, int h, int o) {
-  long long need = wgrad_part_floats(n, h, h);
-  const long long fin = wgrad_part_floats(n, h, o);
-  const long long filt = (long long)chunks_of(n) * kSums * h;
+  long long need = h <= kNarrowK ? wire_tc::narrow_part_floats(n, h, h)
+                                 : wire_tc::wgrad_part_floats(n, h, h);
+  const long long fin = wire_tc::narrow_part_floats(n, h, o);
+  const long long filt = (filter_chunks(n) + 1LL) * kSums * h;
   const long long sse = 2LL * final_loss_blocks(n);
   need = fin > need ? fin : need;
   need = filt > need ? filt : need;
@@ -376,13 +566,14 @@ long long part_floats(int n, int h, int o) {
 cudaError_t forward_chain(const Net& net, float* const* zs,
                           float* const* ls, cudaStream_t st) {
   const int n = net.n, h = net.h;
-  filter_forward_kernel<<<ceil_div((long long)n * h, kThreads), kThreads, 0,
-                          st>>>(net.x, net.filter(0), zs[0], n, net.d, h);
+  filter_forward_kernel<<<dim3(ceil_div(h, 32), ceil_div(n, kNarrowRows)),
+                          kThreads, 0, st>>>(net.x, net.filter(0), zs[0], n,
+                                             net.d, h);
   GEMM_CHECK(cudaGetLastError());
   for (int j = 1; j < net.k; ++j) {
-    GEMM_CHECK(mfn_gemm<kLinkFwd>(zs[j - 1], net.W[j - 1], net.x,
-                                  net.filter(j), net.c[j - 1], nullptr,
-                                  ls[j], zs[j], n, h, h, net.d, st));
+    GEMM_CHECK(link<kLinkFwd>(zs[j - 1], net.W[j - 1], net.x, net.filter(j),
+                              net.c[j - 1], nullptr, ls[j], zs[j], n, h, h,
+                              net.d, st));
   }
   return cudaSuccess;
 }
@@ -394,13 +585,17 @@ cudaError_t filter_grads(const Net& net, int j, const float* dg,
                          cudaStream_t st) {
   const int n = net.n, d = net.d, h = net.h;
   const Filter f = net.filter(j);
-  const dim3 grid(ceil_div(h, kCols), chunks_of(n));
+  const int chunks = filter_chunks(n);
+  float* sums = part + (size_t)chunks * kSums * h;
+  const dim3 grid(ceil_div(h, kCols), chunks);
   filter_grad_partial_kernel<<<grid, kThreads, 0, st>>>(net.x, dg, f, part,
                                                         n, d, h);
   GEMM_CHECK(cudaGetLastError());
+  // the chunks in chunk order, one thread per sum and column
+  GEMM_CHECK(reduce_chunks(part, chunks, kSums * h, sums, st));
   filter_grad_finish_kernel<<<ceil_div(h, kThreads), kThreads, 0, st>>>(
-      part, chunks_of(n), f, gf[4 * j], gf[4 * j + 1], gf[4 * j + 2],
-      gf[4 * j + 3], d, h);
+      sums, f, gf[4 * j], gf[4 * j + 1], gf[4 * j + 2], gf[4 * j + 3], d,
+      h);
   GEMM_CHECK(cudaGetLastError());
   if (dcoords != nullptr) {
     // filters run k - 1 .. 0: the first writes, the rest add
@@ -423,25 +618,25 @@ cudaError_t backward_chain(const Net& net, const float* g,
                            cudaStream_t st) {
   const int n = net.n, h = net.h, k = net.k;
   const size_t plane = (size_t)n * h;
-  GEMM_CHECK(weight_grad(zs[k - 1], g, part, gWf, n, h, net.o, st));
+  GEMM_CHECK(wire_tc::narrow_weight_grad(zs[k - 1], g, part, gWf, n, h,
+                                         net.o, st));
   const float* src = g;
   const float* bt = net.WfT;
   int kdim = net.o;
   int cur = 0;
   for (int j = k - 1; j >= 1; --j) {
     float* dlj = dl + cur * plane;
-    GEMM_CHECK(mfn_gemm<kLinkBwd>(src, bt, net.x, net.filter(j), nullptr,
-                                  ls[j], dlj, dg, n, kdim, h, net.d, st));
+    GEMM_CHECK(link<kLinkBwd>(src, bt, net.x, net.filter(j), nullptr, ls[j],
+                              dlj, dg, n, kdim, h, net.d, st));
     GEMM_CHECK(filter_grads(net, j, dg, gf, dcoords, part, st));
-    GEMM_CHECK(weight_grad(zs[j - 1], dlj, part, gW[j - 1], n, h, h, st));
+    GEMM_CHECK(link_weight_grad(zs[j - 1], dlj, part, gW[j - 1], n, h, st));
     src = dlj;
     bt = net.WT[j - 1];
     kdim = h;
     cur ^= 1;
   }
-  GEMM_CHECK(mfn_gemm<kPlainOut>(src, bt, nullptr, Filter{}, nullptr,
-                                 nullptr, dg, nullptr, n, kdim, h, net.d,
-                                 st));
+  GEMM_CHECK(link<kPlainOut>(src, bt, nullptr, Filter{}, nullptr, nullptr,
+                             dg, nullptr, n, kdim, h, net.d, st));
   return filter_grads(net, 0, dg, gf, dcoords, part, st);
 }
 

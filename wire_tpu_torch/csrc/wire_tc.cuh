@@ -1,7 +1,8 @@
 // The tensor-core GEMM loop of the WIRE kernels (csrc/wire_mlp.cu and
 // csrc/wire_step.cu, through wire_gemm.cuh's chains), of WIRE-2D
-// (csrc/wire2d.cu) and of mscale2_step's real trunk (csrc/real_tc.cuh, the
-// plain column map): fp32 products on Hopper's tensor cores at fp32
+// (csrc/wire2d.cu), of mscale2_step's real trunk (csrc/real_tc.cuh, the
+// plain column map) and of the MFN's links (csrc/mfn.cu, the plain column
+// map): fp32 products on Hopper's tensor cores at fp32
 // accuracy (3xTF32), for the three product classes of a hidden layer:
 //   forward        z = a @ W + b, with the layer's activation epilogue
 //   data gradient  da = dz @ W^T, with the activation-form backward
