@@ -32,7 +32,10 @@ Phases, each printing one JSON line with its wall time:
                    wire2d_mlp on a transposed coordinate view, equal to the
                    contiguous call bit for bit (fault C.7); real_mlp's
                    every basis kind, lane segments and row_gamma; real_step
-                   at the mscale_hier and mscale_HL folds; wire_mlp
+                   at the mscale_hier and mscale_HL folds; each real case
+                   held to the reference tools/port_real_reference.py
+                   decided (REAL_FLOAT64_CASES), two calls of the real
+                   step and pair bit-equal; wire_mlp
                    on (b, N, 2) coordinates and without a gradient (equal
                    output, peak memory of two ping-pong planes); rotsum on
                    a non-square image; mfn_mlp without dcoords, on (b, N, 2)
@@ -52,11 +55,12 @@ Phases, each printing one JSON line with its wall time:
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
                    shapes, and the card's least time for the same work;
-                   for the tensor-core kernels (wire_step, wire_mlp,
-                   mscale2_step, mfn_step, mfn_mlp, wire2d_step,
-                   wire2d_mlp) the kernel time by product
+                   for the tensor-core kernels (every one but rotsum
+                   and line_sample) the kernel time by product
                    class, the 3xTF32 bound beside the fp32 one, and the
-                   HMMA instructions of the library
+                   HMMA instructions of the library; real_step at the
+                   sweep's siren cell, whose sine bases the epilogues call
+                   out of line
   fit              the denoise bench protocol (65,536 coordinates, full
                    batch) through fit_pointwise, once through the kernel
                    (launch counts reset just before, read just after) and
@@ -567,6 +571,19 @@ TENSOR_CORE_CLASSES = {
         "weight_gradients": WIRE_WEIGHT_GRADIENTS,
         "first_final_loss": ("gabor2d_first_kernel", "final_loss_kernel"),
     },
+    "real_step": {
+        "forward_gemms": ("real_tc_kernel<0",),
+        "data_gradient_gemms": ("real_tc_kernel<1",),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS + ("colsum_partial_kernel",),
+        "first_top_final_loss": ("real_narrow_kernel", "final_loss_kernel"),
+    },
+    "real_mlp": {
+        "forward_gemms": ("real_tc_kernel<0",),
+        "data_gradient_gemms": ("real_tc_kernel<1",),
+        "weight_gradients": WIRE_WEIGHT_GRADIENTS + ("colsum_partial_kernel",),
+        "first_top_final_dcoords": ("real_narrow_kernel",
+                                    "final_forward_kernel", "dcoords_kernel"),
+    },
     "wire2d_mlp": {
         "forward_gemms": ("gabor2d_tc_fwd_kernel",),
         "data_gradient_gemms": ("gabor2d_tc_bwd_kernel",),
@@ -615,11 +632,12 @@ def line_sample_bytes(torch, gy, gx, ph):
     return 4 * (2 * ntaps + 2 * ph * ph + 6 * gy.numel())
 
 
-def kernel_names(name):
+def kernel_names(name, csrc=None):
     """The __global__ functions of csrc/<name>.cu and of the csrc headers
-    it includes, directly or through another header."""
+    it includes, directly or through another header (``csrc``: another
+    tree's source directory)."""
     import re
-    csrc = os.path.join(ROOT, "wire_tpu_torch", "csrc")
+    csrc = csrc or os.path.join(ROOT, "wire_tpu_torch", "csrc")
     todo, seen, src = [f"{name}.cu"], set(), ""
     while todo:
         fname = todo.pop()
@@ -1096,23 +1114,79 @@ def real_inputs(torch, n, d, o, seed, device):
         rng.uniform(0, 1, (n, o)), rng.normal(size=(n, o))))
 
 
-def real_kernel_vs_plain(torch, RM, MM, model_a, model_b, device):
-    """max abs err of real_step and real_mlp: at the denoise (step) and SISR
-    (pair, dcoords included) paths' full shapes and ragged ones, each basis
+# the real cases held to their plain version run in float64, as
+# tools/port_real_reference.py decides them (PERF.md section 6): where the
+# fp32 plain run lies past 2.5e-5 x max of its own float64 run; every
+# other real case keeps the fp32 plain version
+REAL_FLOAT64_CASES = frozenset({
+    "sweep denoise posenc", "sweep sisr relu", "sweep sisr posenc",
+    "sweep ct relu", "sweep ct posenc"})
+# of those, the relu pairs whose fp32 plain run lies past REL_TOL x max of
+# the float64 run itself (1.5e-3 - 3.8e-3 on the card, fault C.9): a few
+# of their 50 - 200 million relu inputs lie within fp32 rounding of 0, and
+# each one decided the other way moves a parameter gradient, a sum of
+# random-signed terms over 65,536 - 262,144 rows, by ~1 / sqrt(rows) of its
+# size.  No fp32 evaluation meets REL_TOL there; the kernel is held to the
+# float64 run on its own relu pattern (relu_pattern_reference)
+REAL_RELU_PATTERN_CASES = frozenset({
+    "sweep sisr relu", "sweep sisr posenc", "sweep ct relu",
+    "sweep ct posenc"})
+
+
+def real_step_plain_fn(RM):
+    """real_step_plain's outputs by name (real_step_tensors)."""
+    def plain(*args, **kwargs):
+        return real_step_tensors(RM, *RM.real_step_plain(*args, **kwargs))
+    return plain
+
+
+def real_step_case(torch, RM, canon, c, t, kinds, **kw):
+    """(kernel thunk, plain, args, kwargs) of one real_step case (metrics
+    on); the kernel's calls share one scratch."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    kw = dict(kw, want_metrics=True)
+    scratch = StepScratch()
+    return (lambda: real_step_tensors(RM, *RM.real_step(
+        canon, c, t, kinds, scratch=scratch, **kw)),
+            real_step_plain_fn(RM), (canon, c, t, kinds), kw)
+
+
+def real_pair_case(torch, RM, canon, c, cot, kinds, row_gamma=None,
+                   dcoords=True):
+    """(kernel thunk, plain, args, kwargs, pattern) of one real_mlp pair
+    case: vjp() over [coords] + the canonical leaves (with dcoords) or
+    param_vjp() (without); pattern(what) its relu_pattern_reference."""
+    L = len(canon["layers"])
+    inputs = [c] + [t for _, t in RM.canon_leaves(canon)]
+
+    def pair(plain):
+        fn = real_mlp_fn(RM, L, kinds, row_gamma, plain=plain)
+
+        def run(inputs, cot):
+            if dcoords:
+                return vjp(torch, fn, inputs, cot)
+            return param_vjp(torch, fn, inputs[0], inputs[1:], cot)
+        return run
+    kernel = pair(False)
+    pattern = dict(canon=canon, x=c, kinds=kinds, cot=cot, dcoords=dcoords)
+    return (lambda: kernel(inputs, cot), pair(True), (inputs, cot), {},
+            lambda what: relu_pattern_reference(torch, RM, pattern, what))
+
+
+def real_cases(torch, RM, MM, model_a, model_b, device):
+    """{name: (kernel thunk, plain, args, kwargs[, pattern])} of
+    real_kernel_vs_plain (pattern: real_pair_case's):
+    real_step at the denoise path's full shape and a ragged one (nvalid,
+    denom), and with lane segments and relu; the real_mlp pair (dcoords
+    included) at the SISR path's full shape and a ragged one, each basis
     kind, lane segments and row_gamma."""
-    errs = {"real_step": {}, "real_mlp": {}}
+    cases = {}
     for which, n, nvalid, denom in (("full", 256 * 256, None, None),
                                     ("ragged", 700, 650, 650 * 3.0 + 1.0)):
         canon, kinds = path_canon(torch, MM, model_a, 5, device)
         c, t, gt, _ = real_inputs(torch, n, 2, 3, 6, device)
-        got = RM.real_step(canon, c, t, kinds, nvalid=nvalid, denom=denom,
-                           gt=gt, want_metrics=True)
-        torch.cuda.synchronize()
-        want = RM.real_step_plain(canon, c, t, kinds, nvalid=nvalid,
-                                  denom=denom, gt=gt, want_metrics=True)
-        errs["real_step"][which] = compare(
-            real_step_tensors(RM, *got), real_step_tensors(RM, *want),
-            f"real_step {which}")
+        cases[f"real_step {which}"] = real_step_case(
+            torch, RM, canon, c, t, kinds, nvalid=nvalid, denom=denom, gt=gt)
     pair_cases = {"full": (168 * 168, None, None, None),
                   "ragged": (700, None, None, None)}
     widths = (2, 48, 40, 3)
@@ -1129,25 +1203,82 @@ def real_kernel_vs_plain(torch, RM, MM, model_a, model_b, device):
             canon, kinds = path_canon(torch, MM, model_b, 7, device)
         else:
             canon = random_canon(torch, w, 8, device)
-        L = len(canon["layers"])
         c, _, _, g = real_inputs(torch, n, 2, 3, 9, device)
-        xs = [c] + [t for _, t in RM.canon_leaves(canon)]
-        got = vjp(torch, real_mlp_fn(RM, L, kinds, row_gamma), xs, g)
+        cases[f"real_mlp {which}"] = real_pair_case(torch, RM, canon, c, g,
+                                                    kinds, row_gamma)
+    canon = random_canon(torch, widths, 10, device)
+    c, t, gt, _ = real_inputs(torch, 700, 2, 3, 11, device)
+    cases["real_step segments_step"] = real_step_case(
+        torch, RM, canon, c, t, ((("qspline", 20), ("identity", 10),
+                                  ("sine", 10)), "relu"), gt=gt)
+    return cases
+
+
+def relu_pattern_reference(torch, RM, pair, what):
+    """The outputs param_vjp gives for a relu pair, from the plain canonical
+    MLP run in float64 on the kernel's own relu pattern: every input cast,
+    each layer's relu B(v) = m v and dB(v) = m with m = [a > 0] of the
+    kernel's activations a (its forward's, which keeps them; the backward
+    decides from the same v).  Checks the pattern against the float64
+    run's: wherever they differ, |v| of the float64 run lies within REL_TOL
+    x its layer's max |v| of the kink.  Returns (the outputs, {"flips": per
+    layer, "flip_v_rel": the largest such |v| / max |v|})."""
+    canon, x, kinds, cot = (pair[k] for k in ("canon", "x", "kinds", "cot"))
+    if pair["dcoords"] or any(k != "relu" for k in kinds):
+        raise AssertionError(f"{what}: the relu pattern reference takes "
+                             f"relu pairs without dcoords")
+    _, _, acts = RM._forward(canon, x, kinds, None, keep=True)
+    masks = [(a > 0).double() for a in acts]
+    leaves = [t.detach().double().requires_grad_(True)
+              for _, t in RM.canon_leaves(canon)]
+    c64 = RM.canon_from_leaves(leaves, len(kinds))
+    a, a_free, flips, worst = x.double(), x.double(), [], 0.0
+    for lay, m in zip(c64["layers"], masks):
+        a = m * (lay["alpha"] * (a @ lay["w"]) + lay["beta"])
+        v = (lay["alpha"] * (a_free @ lay["w"]) + lay["beta"]).detach()
+        differ = (v > 0).double() != m
+        scale = float(v.abs().max())
+        flip_v = float(v[differ].abs().max()) / scale if differ.any() else 0.
+        if not flip_v <= REL_TOL:
+            raise AssertionError(
+                f"{what}: the kernel's relu decision differs from float64's "
+                f"at |v| = {flip_v:.3e} x max|v|, past {REL_TOL}")
+        flips.append(int(differ.sum()))
+        worst = max(worst, flip_v)
+        a_free = torch.relu(v)
+    y = a @ c64["final"]["w"] + c64["final"]["b"]
+    grads = torch.autograd.grad(y, leaves, cot.double())
+    want = {"out": y.detach()}
+    want.update({f"d{i + 1}": g for i, g in enumerate(grads)})
+    return want, {"flips": flips, "flip_v_rel": worst}
+
+
+def real_check(case, what):
+    """The case's kernel outputs against its reference, with compare(): the
+    plain version run in float64 for REAL_FLOAT64_CASES (on the kernel's
+    relu pattern for REAL_RELU_PATTERN_CASES), else in fp32.  Returns (max
+    abs err, the kernel's outputs)."""
+    kernel, plain, args, kwargs = case[:4]
+    got = kernel()
+    if what in REAL_RELU_PATTERN_CASES:
+        return compare(got, case[4](what)[0], what), got
+    if what in REAL_FLOAT64_CASES:
+        return compare_float64(got, plain, args, kwargs, what)[0], got
+    return compare(got, plain(*args, **kwargs), what), got
+
+
+def real_kernel_vs_plain(torch, RM, MM, model_a, model_b, device):
+    """max abs err of real_step and real_mlp against their references
+    (real_check) at the cases of real_cases; two calls of the full and
+    ragged step and of the full and ragged pair giving identical bits."""
+    errs = {"real_step": {}, "real_mlp": {}}
+    for what, case in real_cases(torch, RM, MM, model_a, model_b,
+                                 device).items():
+        name, which = what.split(" ")
+        errs[name][which], got = real_check(case, what)
         torch.cuda.synchronize()
-        want = vjp(torch, real_mlp_fn(RM, L, kinds, row_gamma, plain=True),
-                   xs, g)
-        errs["real_mlp"][which] = compare(got, want, f"real_mlp {which}")
-    step_cases = {"segments_step": (((("qspline", 20), ("identity", 10),
-                                      ("sine", 10)), "relu"))}
-    for which, kinds in step_cases.items():
-        canon = random_canon(torch, widths, 10, device)
-        c, t, gt, _ = real_inputs(torch, 700, 2, 3, 11, device)
-        got = RM.real_step(canon, c, t, kinds, gt=gt, want_metrics=True)
-        want = RM.real_step_plain(canon, c, t, kinds, gt=gt,
-                                  want_metrics=True)
-        errs["real_step"][which] = compare(
-            real_step_tensors(RM, *got), real_step_tensors(RM, *want),
-            f"real_step {which}")
+        if which in ("full", "ragged"):
+            same_bits(torch, case[0](), got, what)
     return errs
 
 
@@ -1262,11 +1393,13 @@ def real_matmul_step(torch, RM, canon, x, target, gt, kinds):
     return y, dcanon, ((et * et).sum(), (eg * eg).sum())
 
 
-def real_measure(torch, RM, MM, model_a, model_b, device):
+def real_measure(torch, SW, RM, MM, model_a, model_b, device, build):
     """Times of real_step at the denoise shape and of real_mlp's pair
     (dcoords included) at the SISR shape: the kernel (a host call, and its
-    kernels' device time), the plain version, the matmul yardstick, and
-    the card's least time for the same work."""
+    kernels' device time, by product class), the plain version, the matmul
+    yardstick, and the card's least time for the same work
+    (tensor_core_fields); and real_step at the sweep's siren cell
+    (siren_step_measure)."""
     out = {}
     n = 256 * 256
     canon, kinds = path_canon(torch, MM, model_a, 14, device)
@@ -1299,7 +1432,8 @@ def real_measure(torch, RM, MM, model_a, model_b, device):
         "library": "torch.matmul step, bases and written-out backward in "
                    "PyTorch ops",
         "library_vs_plain_max_abs_err": lib_err}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res.update(tensor_core_fields(torch, build, step, "real_step", flops,
+                                  nbytes, res["kernel_ms"], lib="real_mlp"))
     res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
         if res["kernel_ms"] else None
@@ -1341,12 +1475,51 @@ def real_measure(torch, RM, MM, model_a, model_b, device):
                    "PyTorch ops",
         "library_vs_plain_max_abs_err": max(
             float((got[k] - want[k]).abs().max()) for k in want)}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res.update(tensor_core_fields(torch, build, pair, "real_mlp", flops,
+                                  nbytes, res["kernel_ms"]))
     res["gflop"], res["mbytes"] = flops / 1e9, nbytes / 1e6
     res["achieved_tflops"] = flops / (res["kernel_ms"] * 1e9) \
         if res["kernel_ms"] else None
     out["real_mlp"] = res
+    out["real_step"]["siren_mixed_codes"] = siren_step_measure(
+        torch, SW, RM, MM, device)
     return out
+
+
+def siren_step_measure(torch, SW, RM, MM, device):
+    """real_step at the sweep's siren denoise cell (65,536 rows, its
+    seed-0 init through the siren fold): every column's basis is sine,
+    which the tensor-core epilogues call out of line (csrc/real_tc.cuh:
+    with_basis), the path the B-spline steps never take.  Its host call,
+    its kernels' device time by product class and its rate."""
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    task, side, o, tau = SWEEP_SHAPES[0]
+    n = side * side
+    model = SW._build("siren", task, side, side, tau, out_features=o)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    canon = MM._canon_siren(params, model.spec)
+    kinds = ("sine",) * len(canon["layers"])
+    c = torch.tensor(SW.C.grid2d(side, side), device=device)
+    _, t, gt, _ = real_inputs(torch, n, 2, o, 41, device)
+    widths = RM._widths(canon, 2)
+    scratch = StepScratch()
+
+    def step():
+        return RM.real_step(canon, c, t, kinds, gt=gt, want_metrics=True,
+                            scratch=scratch)
+    by = kernel_breakdown(torch, step, 20)
+    names = kernel_names("real_mlp")
+    kernel_ms = sum(v[0] for k, v in by.items()
+                    if any(name in k for name in names))
+    flops = RM.step_flops(n, widths)
+    return {"widths": widths, "ms": cuda_ms(torch, step, 20),
+            "kernel_ms": kernel_ms,
+            "classes_ms": {
+                cls: sum(v[0] for k, v in by.items()
+                         if any(f in k for f in frags))
+                for cls, frags in TENSOR_CORE_CLASSES["real_step"].items()},
+            "achieved_tflops": flops / (kernel_ms * 1e9) if kernel_ms
+            else None}
 
 
 def reset_counts(counters):
@@ -1552,13 +1725,14 @@ def mscale2_kernel_vs_plain(torch, MS, MM, models, device):
     return errs
 
 
-def multiscale_fold_vs_plain(torch, RM, MM, get_inr, get_config, device):
-    """real_step's kernel against its plain version at the folds of
-    mscale_hier (lane segments 256 qspline + 5 or 261 identity, widths 261
-    and 517; preset MscaleHier_ST1o9_LR8e3_E2000) and mscale_HL (a per-lane
-    alpha over three bands; preset MscaleHL_s1o9_ST4_3_SHF384_LR8e3_E4000),
-    at 4,099 rows with nvalid 4,000."""
-    errs = {}
+def real_fold_cases(torch, RM, MM, get_inr, get_config, device):
+    """{name: (kernel thunk, plain, args, kwargs)} of real_step at the folds
+    of mscale_hier (lane segments 256 qspline + 5 or 261 identity, widths
+    261 and 517; preset MscaleHier_ST1o9_LR8e3_E2000) and mscale_HL (a
+    per-lane alpha over three bands; preset
+    MscaleHL_s1o9_ST4_3_SHF384_LR8e3_E4000), at 4,099 rows with nvalid
+    4,000."""
+    cases = {}
     for which, name, canon_of, kinds_of in (
             ("hier_fold", "MscaleHier_ST1o9_LR8e3_E2000",
              MM._canon_mscale_hier, MM._hier_kinds),
@@ -1572,14 +1746,17 @@ def multiscale_fold_vs_plain(torch, RM, MM, get_inr, get_config, device):
         params = model.init(torch.Generator().manual_seed(20), device)
         canon, kinds = canon_of(params, model.spec), kinds_of(model.spec)
         c, t, gt, _ = real_inputs(torch, 4099, 2, 3, 21, device)
-        got = RM.real_step(canon, c, t, kinds, nvalid=4000, gt=gt,
-                           want_metrics=True)
-        want = RM.real_step_plain(canon, c, t, kinds, nvalid=4000, gt=gt,
-                                  want_metrics=True)
-        errs[which] = compare(real_step_tensors(RM, *got),
-                              real_step_tensors(RM, *want),
-                              f"real_step {which}")
-    return errs
+        cases[f"real_step {which}"] = real_step_case(
+            torch, RM, canon, c, t, kinds, nvalid=4000, gt=gt)
+    return cases
+
+
+def multiscale_fold_vs_plain(torch, RM, MM, get_inr, get_config, device):
+    """real_step's kernel against its reference (real_check) at the folds
+    of real_fold_cases."""
+    return {what.split(" ")[1]: real_check(case, what)[0]
+            for what, case in real_fold_cases(torch, RM, MM, get_inr,
+                                              get_config, device).items()}
 
 
 def mscale2_matmul_step(torch, RM, canon, comb, x, target, gt, kinds, inv):
@@ -1937,6 +2114,39 @@ SWEEP_REAL_FOLDS = {"siren": ("_canon_siren", "sine"),
                     "posenc": ("_canon_relu", "relu")}
 
 
+def sweep_real_cases(torch, np, SW, RM, MM, device):
+    """{name: (kernel thunk, plain, args, kwargs[, pattern])} of the real
+    kernels the sweep phase launches, at the sweep's own shapes from the sweep's seed-0
+    init (SW._build) on its coordinate grid, each family through its fold
+    (posenc on its encoded coordinates): real_step at denoise (65,536
+    rows, o 3, metrics), the real_mlp pair (parameter gradients) at SISR
+    (65,536, o 3) and CT (262,144, o 1)."""
+    cases = {}
+    for task, side, o, tau in SWEEP_SHAPES:
+        n = side * side
+        rng = np.random.default_rng(40)
+        coords = torch.tensor(SW.C.grid2d(side, side), device=device)
+        t, gt, g = (torch.tensor(a.astype(np.float32), device=device)
+                    for a in (rng.uniform(0, 1, (n, o)),
+                              rng.uniform(0, 1, (n, o)),
+                              rng.normal(size=(n, o))))
+        for nonlin, (fold, kind) in SWEEP_REAL_FOLDS.items():
+            model = SW._build(nonlin, task, side, side, tau, out_features=o,
+                              posenc_sidelength=100 if task == "ct" else None)
+            params = model.init(torch.Generator().manual_seed(0), device)
+            canon = getattr(MM, fold)(params, model.spec)
+            kinds = (kind,) * len(canon["layers"])
+            x = MM._posenc_pre(coords, model.spec)
+            what = f"sweep {task} {nonlin}"
+            if task == "denoise":
+                cases[what] = real_step_case(torch, RM, canon, x, t, kinds,
+                                             gt=gt)
+            else:
+                cases[what] = real_pair_case(torch, RM, canon, x, g, kinds,
+                                             dcoords=False)
+    return cases
+
+
 def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
     """max abs err of every kernel the sweep phase launches against its
     plain version at the sweep's own shapes, each family from the sweep's
@@ -1957,37 +2167,13 @@ def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
                               rng.uniform(0, 1, (n, o)),
                               rng.normal(size=(n, o))))
         for nonlin in SW.NONLINS:
-            if nonlin == "mfn":  # sweep_mfn_cases below
-                continue
+            if nonlin == "mfn" or nonlin in SWEEP_REAL_FOLDS:
+                continue  # sweep_mfn_cases, sweep_real_cases below
             model = SW._build(nonlin, task, side, side, tau, out_features=o,
                               posenc_sidelength=100 if task == "ct" else None)
             spec = model.spec
             params = model.init(torch.Generator().manual_seed(0), device)
             what = f"sweep {task} {nonlin}"
-            if nonlin in SWEEP_REAL_FOLDS:
-                fold, kind = SWEEP_REAL_FOLDS[nonlin]
-                canon = getattr(MM, fold)(params, spec)
-                kinds = (kind,) * len(canon["layers"])
-                x = MM._posenc_pre(coords, spec)
-                if task == "denoise":
-                    got = RM.real_step(canon, x, t, kinds, gt=gt,
-                                       want_metrics=True)
-                    torch.cuda.synchronize()
-                    want = RM.real_step_plain(canon, x, t, kinds, gt=gt,
-                                              want_metrics=True)
-                    errs["real_step"][what] = compare(
-                        real_step_tensors(RM, *got),
-                        real_step_tensors(RM, *want), what)
-                    continue
-                L = len(canon["layers"])
-                leaves = [v for _, v in RM.canon_leaves(canon)]
-                got = param_vjp(torch, real_mlp_fn(RM, L, kinds), x, leaves,
-                                g)
-                torch.cuda.synchronize()
-                errs["real_mlp"][what] = compare(got, param_vjp(
-                    torch, real_mlp_fn(RM, L, kinds, plain=True), x, leaves,
-                    g), what)
-                continue
             if task == "denoise":
                 got = tensors_of(*WS.wire_step(params, coords, t, spec, gt=gt,
                                                want_metrics=True))
@@ -2004,6 +2190,12 @@ def sweep_kernel_vs_plain(torch, np, SW, WS, WM, RM, MM, MF, device):
             torch.cuda.synchronize()
             errs["wire_mlp"][what] = compare(
                 got, param_vjp(torch, pfn, coords, leaves, g), what)
+    for what, case in sweep_real_cases(torch, np, SW, RM, MM,
+                                       device).items():
+        name = "real_step" if what.startswith("sweep denoise") else \
+            "real_mlp"
+        errs[name][what] = real_check(case, what)[0]
+        torch.cuda.synchronize()
     for what, case in sweep_mfn_cases(torch, np, SW, MF, device).items():
         name = "mfn_step" if what == "sweep denoise mfn" else "mfn_mlp"
         errs[name][what] = mfn_check(case, what)[0]
@@ -2845,9 +3037,10 @@ def main():
               "(rotsum) taken in another order; line_sample's scatter adds "
               "with atomics in a varying order"),
          reference=("the plain version in fp32 on the same inputs; for "
-                    "mscale2_step and the wire2d_mlp CT-frequency width case "
-                    "the plain version run in float64 (every input cast), "
-                    "max|plain| its max"))
+                    "mscale2_step, the wire2d_mlp CT-frequency width case "
+                    "and the real cases of REAL_FLOAT64_CASES the plain "
+                    "version run in float64 (every input cast), max|plain| "
+                    "its max"))
 
     # ---- measure (bench shape; these launches are not the main path) ------
     t0 = time.time()
@@ -2888,7 +3081,8 @@ def main():
             scratch=scratch), "wire_step", flops, nbytes, kernel_ms))}
     del scratch, lib_out
     meas.update(ct_measure(torch, WM, R, LS, ct_model, dev, build))
-    meas.update(real_measure(torch, RM, MM, model_a, model_b, dev))
+    meas.update(real_measure(torch, SW, RM, MM, model_a, model_b, dev,
+                             build))
     meas["mscale2_step"] = mscale2_measure(torch, MS, RM, MM, ms_models[0],
                                            dev, build)
     meas.update(mfn_measure(torch, MF, get_inr, dev, build))

@@ -587,11 +587,14 @@ def _step_flat(pred, dcanon, sums):
     return out
 
 
-@pytest.mark.parametrize("n,widths,kinds,nvalid,denom", [
+REAL_STEP_CASES = [
     (700, (2, 48, 40, 3), ("srelu", "gauss"), 650, 650 * 3.0 + 1.0),
     (700, (2, 48, 40, 3), (SEGMENTS, "relu"), None, None),
     (4099, (26, 64, 64, 64, 3), ("relu",) * 3, 4000, None),
-    (65536, (2, 256, 256, 256, 3), ("qspline",) * 3, None, None)])
+    (65536, (2, 256, 256, 256, 3), ("qspline",) * 3, None, None)]
+
+
+@pytest.mark.parametrize("n,widths,kinds,nvalid,denom", REAL_STEP_CASES)
 def test_real_step_kernel_matches_plain(cuda, n, widths, kinds, nvalid,
                                         denom):
     from wire_tpu_torch.ops import real_mlp as RM
@@ -609,6 +612,59 @@ def test_real_step_kernel_matches_plain(cuda, n, widths, kinds, nvalid,
                                           denom=denom, gt=gt,
                                           want_metrics=True))
     _assert_rel(got, want)
+
+
+# (n, widths, kinds, nvalid, denom): d = 26 (posenc's first layer on the
+# tensor cores, its dcoords) and d = 5; hidden widths that are not
+# multiples of 4 (odd, even) against the 64-column tiles, a hidden width
+# of 8 (the narrow kernels); n 700, 4,099 and 65,537 against the 128-row
+# tiles and the 512-, 1,024- and 2,048-row chunks
+REAL_WIDTHS = [
+    (700, (26, 37, 33, 3), ("relu", "qspline"), 650, 1951.0),
+    (700, (26, 64, 64, 64, 3), ("relu",) * 3, None, None),
+    (4099, (2, 254, 250, 3), ("qspline",) * 2, 4000, None),
+    (65537, (2, 255, 3), ("srelu",), 65000, None),
+    (700, (2, 8, 13, 3), ("cspline", "gauss"), None, 777.0),
+    (1000, (5, 20, 2), ("sine",), None, None)]
+
+
+def _real_width_case(n, widths, device):
+    """canon (seeded _canon), coords (n, d), target, gt and a cotangent (n,
+    o), numpy-seeded."""
+    canon = _canon(widths, device, seed=n + widths[1])
+    rng = np.random.default_rng(n)
+    o = widths[-1]
+    return (canon,) + tuple(
+        torch.tensor(a.astype(np.float32), device=device) for a in (
+            rng.uniform(-1, 1, (n, widths[0])), rng.uniform(0, 1, (n, o)),
+            rng.uniform(0, 1, (n, o)), rng.normal(size=(n, o))))
+
+
+@pytest.mark.parametrize("n,widths,kinds,nvalid,denom", REAL_WIDTHS)
+@pytest.mark.parametrize("which", ["step", "pair"])
+def test_real_tensor_cores_match_plain_at_every_width(cuda, which, n, widths,
+                                                      kinds, nvalid, denom):
+    """real_step (nvalid, denom, metrics) and the real_mlp pair (dcoords
+    included) at REAL_WIDTHS against their fp32 plain versions, each
+    through its kernel once (every card-test case's fp32 plain run lies
+    within 1.1e-6 x max of its float64 run: tools/port_real_reference.py)."""
+    from wire_tpu_torch.ops import real_mlp as RM
+    canon, c, t, gt, g = _real_width_case(n, widths, cuda)
+    before = dict(RM.launches)
+    if which == "step":
+        kw = dict(nvalid=nvalid, denom=denom, gt=gt, want_metrics=True)
+        got = _step_flat(*RM.real_step(canon, c, t, kinds, **kw))
+        torch.cuda.synchronize()
+        assert RM.launches["step"] == before["step"] + 1
+        _assert_rel(got, _step_flat(*RM.real_step_plain(canon, c, t, kinds,
+                                                        **kw)))
+        return
+    got = _real_vjp(lambda p, x: RM.real_mlp(p, x, kinds), canon, c, g)
+    torch.cuda.synchronize()
+    assert RM.launches["forward"] == before["forward"] + 1
+    assert RM.launches["backward"] == before["backward"] + 1
+    _assert_rel(got, _real_vjp(lambda p, x: RM.real_mlp_plain(p, x, kinds),
+                               canon, c, g))
 
 
 def test_real_step_is_deterministic_and_reuses_scratch(cuda):
@@ -1455,10 +1511,9 @@ def _sass_hmma(name):
 
 def test_tensor_cores_run_where_they_were_put(cuda):
     """wire_step, wire_mlp, mscale2_step, wire2d (wire2d_step and the
-    wire2d_mlp pair) and mfn (mfn_step and the mfn_mlp pair) have
-    tensor-core instructions in their SASS; real_mlp (real_step and the
-    real_mlp pair) still runs on the CUDA cores alone."""
-    for name in ("wire_step", "wire_mlp", "mscale2_step", "wire2d", "mfn"):
+    wire2d_mlp pair), mfn (mfn_step and the mfn_mlp pair) and real_mlp
+    (real_step and the real_mlp pair) have tensor-core instructions in
+    their SASS: every library with a GEMM runs it on the tensor cores."""
+    for name in ("wire_step", "wire_mlp", "mscale2_step", "wire2d", "mfn",
+                 "real_mlp"):
         assert _sass_hmma(name) > 0, name
-    for name in ("real_mlp",):
-        assert _sass_hmma(name) == 0, name

@@ -3,7 +3,7 @@
 card, at tiny shapes, against its plain PyTorch version.
 
     python3 tools/host_rehearse.py wire_mlp rotsum wire_step mscale2_step \
-        wire2d mfn
+        wire2d mfn real
 
 The source (``csrc/<name>.cu`` and the headers it includes) is rewritten
 into a copy and built by g++ into a host library with a plain C interface,
@@ -642,12 +642,101 @@ def rehearse_mfn(out_dir):
             assert rel <= 1e-4 and same and nograd, (rel, same, nograd)
 
 
+def rehearse_real(out_dir):
+    """real_step and the real_mlp pair (csrc/real_mlp.cu on real_tc.cuh's
+    chain: wire_tc.cuh's loop with the real epilogues, the narrow first-layer
+    and top data-gradient kernels, dcoords) against their plain versions at
+    tiny shapes: widths that are and are not multiples of 4 (each kernel
+    instance of the copies and epilogue accesses), a hidden width of 8 (its
+    products and weight gradients on the narrow kernels), d = 26 (posenc's
+    first layer on the tensor cores, its dcoords), widths 2 -> 2 -> 1 (the
+    step's SSE partials outgrow every other use of the workspace), each
+    basis inlined and the mixed codes of lane segments out of line, relu,
+    a per-row gamma whose blocks straddle 128-row tiles, ragged n over
+    several 512-, 1,024- and 2,048-row chunks, the step with nvalid and
+    denom, the pair with and without dcoords and its forward without a
+    gradient; two calls of each bit-equal."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch.ops import real_mlp as RM
+
+    seg = ((("qspline", 20), ("identity", 10), ("sine", 10)), "srelu")
+    RM._lib.cache_clear()
+    with host_library("real_mlp", out_dir):
+        for n, widths, kinds, nvalid, denom, dcoords, row_gamma in (
+                (300, (2, 48, 40, 3), ("qspline", "qspline"), 290, 901.5,
+                 True, None),
+                (150, (2, 37, 33, 3), ("srelu", "gauss"), None, None, True,
+                 ((1.0, 0.5, 0.25), 50)),
+                (200, (26, 20, 20, 1), ("relu", "relu"), 150, None, True,
+                 None),
+                (260, (2, 8, 12, 2), ("cspline", "sine"), None, 777.0, False,
+                 ((9.0, 0.125), 130)),
+                (700, (2, 48, 40, 3), seg, 650, None, True, None),
+                (2100, (2, 2, 1), ("qspline",), 2049, 6000.0, True, None),
+                (2100, (2, 16, 3), ("identity",), None, None, False, None)):
+            L = len(widths) - 2
+            d, o = widths[0], widths[-1]
+            rng = np.random.default_rng(n + d)
+
+            def t(a):
+                return torch.tensor(np.asarray(a, np.float32))
+            canon = {"layers": [{"w": t(rng.uniform(-1, 1, (a, b))
+                                        / np.sqrt(a)),
+                                 "alpha": t(rng.uniform(0.5, 2.0, b)),
+                                 "beta": t(rng.uniform(-1, 1, b))}
+                                for a, b in zip(widths[:-2], widths[1:-1])],
+                     "final": {"w": t(rng.uniform(-1, 1, widths[-2:])),
+                               "b": t(rng.uniform(-1, 1, o))}}
+            c, tg, gt, g = (t(a) for a in (rng.uniform(-1, 1, (n, d)),
+                                           rng.uniform(0, 1, (n, o)),
+                                           rng.uniform(0, 1, (n, o)),
+                                           rng.normal(size=(n, o))))
+            kinds = RM.norm_kinds(kinds)
+            steps = [RM._launch_step(canon, c, tg, kinds, nvalid, denom, gt,
+                                     True, None) for _ in range(2)]
+            want = RM.real_step_plain(canon, c, tg, kinds, nvalid=nvalid,
+                                      denom=denom, gt=gt, want_metrics=True)
+            flat = [_step_tensors(o_) for o_ in steps + [want]]
+            rel = _max_rel(flat[0], flat[2])
+            same = all(torch.equal(a, b) for a, b in zip(flat[0], flat[1]))
+            print(f"real_step n {n} widths {widths} kinds {kinds} nvalid "
+                  f"{nvalid} denom {denom}: max rel err {rel:.2e}, two calls "
+                  f"equal: {same}", flush=True)
+            assert rel <= 1e-4 and same, (rel, same)
+
+            outs = []
+            for fn in ("kernel", "kernel", "plain"):
+                leaves = [v.clone().requires_grad_(True)
+                          for _, v in RM.canon_leaves(canon)]
+                x = c.clone().requires_grad_(dcoords)
+                if fn == "kernel":
+                    y = RM._RealMLP.apply(x, kinds, row_gamma, *leaves)
+                else:
+                    y = RM.real_mlp_plain(RM.canon_from_leaves(leaves, L), x,
+                                          kinds, row_gamma)
+                ins = leaves + ([x] if dcoords else [])
+                grads = torch.autograd.grad(y, ins, g)
+                outs.append([y.detach()] + list(grads))
+            y0, _, _ = RM._forward(canon, c, kinds, row_gamma, keep=False)
+            rel = _max_rel(outs[0], outs[2])
+            same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+            nograd = torch.equal(y0, outs[0][0])
+            print(f"real_mlp n {n} widths {widths} dcoords {dcoords} "
+                  f"row_gamma {row_gamma}: max rel err {rel:.2e}, two calls "
+                  f"equal: {same}, no-grad forward equal: {nograd}",
+                  flush=True)
+            assert rel <= 1e-4 and same and nograd, (rel, same, nograd)
+    RM._lib.cache_clear()
+
+
 def main():
     sys.path.insert(0, ROOT)
     rehearsals = {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum,
                   "wire_step": rehearse_wire_step,
                   "mscale2_step": rehearse_mscale2_step,
-                  "wire2d": rehearse_wire2d, "mfn": rehearse_mfn}
+                  "wire2d": rehearse_wire2d, "mfn": rehearse_mfn,
+                  "real": rehearse_real}
     names = sys.argv[1:] or list(rehearsals)
     with tempfile.TemporaryDirectory() as d:
         for name in names:

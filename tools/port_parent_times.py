@@ -14,10 +14,12 @@ shape, the wire_mlp pair at the CT shape (with dcoords), wire2d_step at
 the WIRE-2D denoise shape, the wire2d_mlp pair at the WIRE-2D CT shape
 (parameter gradients), mscale2_step at the Mscale2 denoise shape,
 mfn_step at the MFN denoise shape and the mfn_mlp pair at the MFN SISR
-shape (with dcoords).
+shape (with dcoords), real_step at the B-spline denoise shape and the
+real_mlp pair at the B-spline SISR shape (with dcoords).
 Prints per turn the ms of a host call (CUDA events over ITERS calls after
-two warm-up calls), then one JSON line with the mean of each tree's two
-turns, for each kernel whether its outputs of the two trees' first turns
+two warm-up calls) and its kernels' device time (torch.profiler, the
+kernels of that tree's library alone), then one JSON line with the mean
+of each tree's two turns, for each kernel whether its outputs of the two trees' first turns
 are identical bit for bit (else their largest distance over max |earlier|
 per output tensor), and the card's name and power limit.  Both trees'
 libraries keep mscale2_step_run's C interface, so this tree's wrapper
@@ -47,6 +49,7 @@ from wire_tpu_torch.nn.registry import get_inr  # noqa: E402
 from wire_tpu_torch.ops import build  # noqa: E402
 from wire_tpu_torch.ops import mfn as MF  # noqa: E402
 from wire_tpu_torch.ops import mscale2_step as MS  # noqa: E402
+from wire_tpu_torch.ops import real_mlp as RM  # noqa: E402
 from wire_tpu_torch.ops import wire2d as W2  # noqa: E402
 from wire_tpu_torch.ops import wire_mlp as WM  # noqa: E402
 from wire_tpu_torch.ops import wire_step as WS  # noqa: E402
@@ -56,7 +59,7 @@ from wire_tpu_torch.train.presets import get_config  # noqa: E402
 def use(csrc, build_dir):
     build.CSRC_DIR, build.BUILD_DIR = csrc, build_dir
     build.load.cache_clear()
-    for mod in (WS, WM, W2, MS, MF):
+    for mod in (WS, WM, W2, MS, MF, RM):
         mod._lib.cache_clear()
 
 
@@ -92,7 +95,20 @@ def calls(dev):
                                               256, 2, 3, 28, dev)
     mf_fn = S.pair_fn(MF.mfn_mlp, mfs2.spec, S.leaf_paths(mfp2))
     mf_xs = [mfc2] + [t for _, t in S.tree_leaves(mfp2)]
+    model_a, _ = S.real_models(get_inr, TC, get_config(S.REAL_DENOISE_CONFIG),
+                               7.0, 256)
+    model_b, _ = S.real_models(get_inr, TC, get_config(S.REAL_SISR_CONFIG),
+                               8.0, 168)
+    ra, rka = S.path_canon(torch, MM, model_a, 14, dev)
+    rc, rt, rg, _ = S.real_inputs(torch, 256 * 256, 2, 3, 15, dev)
+    rb, rkb = S.path_canon(torch, MM, model_b, 16, dev)
+    rc2, _, _, rg2 = S.real_inputs(torch, 168 * 168, 2, 3, 17, dev)
+    r_fn = S.real_mlp_fn(RM, len(rb["layers"]), rkb)
+    r_xs = [rc2] + [t for _, t in RM.canon_leaves(rb)]
     return {
+        "real_step": lambda scratch: S.real_step_tensors(RM, *RM.real_step(
+            ra, rc, rt, rka, gt=rg, want_metrics=True, scratch=scratch)),
+        "real_mlp": lambda scratch: S.vjp(torch, r_fn, r_xs, rg2),
         "wire_step": lambda scratch: S.tensors_of(*WS.wire_step(
             wp, wc, wt, wire.spec, gt=wg, want_metrics=True,
             scratch=scratch)),
@@ -175,6 +191,7 @@ def compare_trees(trees, iters, names=None, fit_epochs=0, mfn_epochs=0):
     fns = calls(dev)
     names = names or list(fns)
     times = {tree: {name: [] for name in names} for tree in trees}
+    kernel_times = {tree: {name: [] for name in names} for tree in trees}
     outs = {}
     fitters = {}
     if fit_epochs:
@@ -192,13 +209,21 @@ def compare_trees(trees, iters, names=None, fit_epochs=0, mfn_epochs=0):
             if tree not in outs.get(name, {}):
                 outs.setdefault(name, {})[tree] = fns[name](scratch)
             ms = S.cuda_ms(torch, lambda: fns[name](scratch), iters)
+            kms = S.kernel_device_ms(
+                torch, lambda: fns[name](scratch), iters,
+                S.kernel_names(S.KERNELS[name][0], csrc=trees[tree][0]))
             times[tree][name].append(ms)
-            print(f"{tree} {name}: {ms:.4f} ms", flush=True)
+            kernel_times[tree][name].append(kms)
+            print(f"{tree} {name}: {ms:.4f} ms, kernels {kms} ms",
+                  flush=True)
             del scratch
     res = {f"{f}_fit_ms_per_step_psnr_db": v for f, v in fits.items()}
     return {**res,
             "ms": {tree: {name: sum(v) / len(v) for name, v in by.items()}
                    for tree, by in times.items()},
+            "kernel_ms": {tree: {name: sum(v) / len(v) if None not in v
+                                 else None for name, v in by.items()}
+                          for tree, by in kernel_times.items()},
             "bits_equal_or_distance": {
                 name: distance(o["this"], o["parent"])
                 for name, o in outs.items()}}

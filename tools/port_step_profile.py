@@ -25,23 +25,24 @@ idle share (1 - busy / wall).
 Kernels of csrc/*.cu keep their CUDA names (tc_paired_kernel<0|1|2, ...>
 = forward / hidden backward / first-layer backward GEMMs of wire_step and
 wire_mlp on the tensor cores, and tc_wgrad_kernel, narrow_wgrad_kernel and
-narrow_colsum_kernel their, WIRE-2D's, mscale_2's and the MFN's weight gradients;
-wgrad_partial_kernel,
-reduce_chunks_kernel, final_loss_kernel or
+narrow_colsum_kernel their, WIRE-2D's, the real families', mscale_2's and
+the MFN's weight gradients; reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
-rotsum_*_kernel, line_*_kernel, real_gemm_kernel<0|1|2> = forward /
-backward / dcoords GEMMs of the real families, colsum_partial_kernel,
-real_tc_kernel<0|1, ...> = forward / data-gradient GEMMs of mscale_2's
-trunk on the tensor cores, real_narrow_kernel<0|1> its first-layer
-forward and top data gradient, combiner_kernel of mscale_2,
-filter_forward_kernel,
-mfn_tc_kernel<0|1|2, ...> = link forward / link backward / last data
-gradient on the tensor cores, mfn_narrow_kernel<1> the link backward from
-the final layer (K = o), filter_grad_partial_kernel and
-filter_grad_finish_kernel of the MFN, gabor2d_first_kernel, gabor2d_tc_fwd_kernel,
-gabor2d_tc_bwd_kernel<0|1> = hidden / first-layer data gradients on the
-tensor cores and gabor2d_dcoords_kernel of WIRE-2D); the rest are PyTorch's (weight stacking, FFTs, Adam, best
-tracking).
+rotsum_*_kernel, line_*_kernel, real_tc_kernel<0|1, ...> = forward /
+data-gradient GEMMs of the real families' and mscale_2's trunks on the
+tensor cores, real_narrow_kernel<0|1> their first-layer forward and top
+data gradient, colsum_partial_kernel their dalpha sums, dcoords_kernel
+the real pair's coordinate gradient too, combiner_kernel of mscale_2,
+filter_forward_kernel, mfn_tc_kernel<0|1|2, ...> = link forward / link
+backward / last data gradient on the tensor cores, mfn_narrow_kernel<1>
+the link backward from the final layer (K = o), filter_grad_partial_kernel
+and filter_grad_finish_kernel of the MFN, gabor2d_first_kernel,
+gabor2d_tc_fwd_kernel, gabor2d_tc_bwd_kernel<0|1> = hidden / first-layer
+data gradients on the tensor cores and gabor2d_dcoords_kernel of WIRE-2D);
+the rest are PyTorch's (weight stacking, FFTs, Adam, best tracking).  The
+line also sums the fit's kernels by product class, as chip_smoke.py's
+TENSOR_CORE_CLASSES names them for the fit's kernel, the rest under
+"other".
 
     python3 tools/port_step_profile.py [EPOCHS] [--ct auto|rotate |
                                         --real denoise|sisr | --mscale2 |
@@ -238,6 +239,24 @@ def main():
             by_kernel[e.key] = (by_kernel.get(e.key, 0.0) + us / 1e3 / epochs,
                                 e.count / epochs)
     busy = sum(ms for ms, _ in by_kernel.values())
+    import chip_smoke
+    kernel = {"wire2d": "wire2d_step" if wire2d == "denoise"
+              else "wire2d_mlp", "mfn": "mfn_mlp" if mfn == "sisr"
+              else "mfn_step", "real": {"denoise": "real_step",
+                                        "sisr": "real_mlp"}.get(real,
+                                                                 real),
+              "ct": "wire_mlp", "denoise": "wire_step"}[
+        "wire2d" if wire2d is not None else "mfn" if mfn is not None else
+        "real" if real is not None else "ct" if method is not None else
+        "denoise"]
+    frags = chip_smoke.TENSOR_CORE_CLASSES.get(
+        "mscale2_step" if kernel == "mscale2" else kernel, {})
+    classes = {cls: 0.0 for cls in frags}
+    classes["other"] = 0.0
+    for k, (ms, _) in by_kernel.items():
+        cls = next((c for c, fr in frags.items()
+                    if any(f in k for f in fr)), "other")
+        classes[cls] += ms
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -252,6 +271,7 @@ def main():
         "device_busy_ms_per_epoch": busy if busy else "not measured",
         "device_idle_share": 1.0 - busy * epochs / wall_ms if busy
         else "not measured",
+        "classes_ms_per_epoch": classes,
         "kernels_ms_per_epoch": {
             k: {"ms": ms, "launches": n} for k, (ms, n) in sorted(
                 by_kernel.items(), key=lambda kv: -kv[1][0])}}))

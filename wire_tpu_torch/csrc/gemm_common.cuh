@@ -1,15 +1,13 @@
 // Pieces shared by every MLP kernel of the port: the fixed-order chunk
-// sums (reduce_chunks, every weight gradient's second pass), the final
-// linear layer (alone, or fused with the masked-MSE loss gradient and the
-// SSE sums of a train step), the launch helpers, and the CUDA-core weight
-// gradient of the kernels not on the tensor cores (real_mlp.cu).
+// sums (reduce_chunks, the second pass of every weight gradient and column
+// sum), the final linear layer (alone, or fused with the masked-MSE loss
+// gradient and the SSE sums of a train step), and the launch helpers.
 //
-// That weight gradient [A | 1]^T D over n rows is written as
-// per-2048-row-chunk partials and summed in chunk order by a second pass:
-// no float atomics, so a result is identical run to run, and the bias
-// gradient is the row of ones.  The final layer uses one warp per row; its
-// lanes stride over the inputs and meet in a fixed butterfly, so its sums
-// do not depend on scheduling either.
+// A sum over rows is written as per-chunk partials and summed in chunk
+// order by reduce_chunks: no float atomics, so a result is identical run
+// to run.  The final layer uses one warp per row; its lanes stride over the
+// inputs and meet in a fixed butterfly, so its sums do not depend on
+// scheduling either.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,9 +17,7 @@
 namespace gemm_common {
 
 constexpr int kThreads = 256;
-constexpr int kTileK = 16;        // depth of one shared-memory slice
-constexpr int kTileOut = 64;      // weight-gradient output tile edge
-constexpr int kChunkRows = 2048;  // rows summed by one weight-gradient block
+constexpr int kChunkRows = 2048;  // rows summed by one column-sum block
 constexpr int kFinalRowsPerBlock = 64;
 constexpr int kMaxOut = 8;
 
@@ -33,66 +29,6 @@ constexpr int kMaxOut = 8;
 
 inline int ceil_div(long long a, long long b) {
   return (int)((a + b - 1) / b);
-}
-
-// Per-chunk partial of [A | 1]^T D: A (n x KA), D (n x NB); the partial of
-// chunk z is a (KA + 1) x NB block whose last row is the column sum of D
-// (the bias gradient).
-__global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(
-    const float* __restrict__ A, const float* __restrict__ D,
-    float* __restrict__ part, int n, int KA, int NB) {
-  __shared__ __align__(16) float As[kTileK][kTileOut];
-  __shared__ __align__(16) float Ds[kTileK][kTileOut];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.x * kTileOut, j0 = blockIdx.y * kTileOut;
-  const int chunk = blockIdx.z;
-  const int r_begin = chunk * kChunkRows;
-  const int r_end = min(n, r_begin + kChunkRows);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int rr = tid / kTileOut + q * (kThreads / kTileOut);
-      const int col = tid % kTileOut;
-      const int gr = r0 + rr;
-      const bool live = gr < r_end;
-      const int gi = i0 + col, gj = j0 + col;
-      float av = 0.f;
-      if (live) av = gi < KA ? A[(size_t)gr * KA + gi] : (gi == KA ? 1.f : 0.f);
-      As[rr][col] = av;
-      Ds[rr][col] = (live && gj < NB) ? D[(size_t)gr * NB + gj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kTileK; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-      const float4 dv = *reinterpret_cast<const float4*>(&Ds[rr][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const size_t block = (size_t)chunk * (KA + 1) * NB;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = i0 + ty * 4 + i;
-    if (gi > KA) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gj = j0 + tx * 4 + j;
-      if (gj < NB) part[block + (size_t)gi * NB + gj] = acc[i][j];
-    }
-  }
 }
 
 // out[e] = sum over c = 0 .. C-1, in that order, of part[c * E + e]; with a
@@ -118,27 +54,6 @@ inline cudaError_t reduce_chunks(const float* part, int C, int E, float* out,
   reduce_chunks_kernel<<<ceil_div(E, kThreads), kThreads, 0, st>>>(
       part, C, E, out, colscale, NB, scaled_rows);
   return cudaGetLastError();
-}
-
-// [A | 1]^T D summed over all n rows into out ((KA + 1) x NB).  With
-// `colscale` (NB), the first KA rows come out multiplied by it per column:
-// A^T (D diag(colscale)), the bias row stays the plain column sum of D.
-inline cudaError_t weight_grad(const float* A, const float* D, float* part,
-                               float* out, int n, int KA, int NB,
-                               cudaStream_t st,
-                               const float* colscale = nullptr) {
-  const int chunks = ceil_div(n, kChunkRows);
-  const dim3 grid(ceil_div(KA + 1, kTileOut), ceil_div(NB, kTileOut), chunks);
-  wgrad_partial_kernel<<<grid, kThreads, 0, st>>>(A, D, part, n, KA, NB);
-  GEMM_CHECK(cudaGetLastError());
-  return reduce_chunks(part, chunks, (KA + 1) * NB, out, st, colscale, NB,
-                       KA);
-}
-
-// Floats of the `part` workspace that weight_grad needs for an
-// (KA + 1) x NB gradient over n rows.
-inline long long wgrad_part_floats(int n, int KA, int NB) {
-  return (long long)ceil_div(n, kChunkRows) * (KA + 1) * NB;
 }
 
 // Final linear layer: pred = a @ fW + fb, a (n x K), fW (K x o), o <= kMaxOut.

@@ -305,8 +305,8 @@ int mscale2_step_run(int n, int ns, int L, const int* widths, const float* x,
   }
   // (c) every scale's trunk backward, its gradients summed over all rows
   return real_tc::backward(s, x, dystack, WaT, alpha, beta, codes, WfT,
-                           gammas, n, zs, acts, gW, galpha, gWf, dv, zdv,
-                           part, st);
+                           gammas, n, zs, acts, gW, galpha, gWf, nullptr,
+                           dv, zdv, part, st);
 }
 
 }  // extern "C"

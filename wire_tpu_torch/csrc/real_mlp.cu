@@ -26,22 +26,28 @@
 // rows, widths 2 -> 256 -> 256 -> 256, o = 3) a step is 51.98 GFLOP of fp32
 // multiply-adds (forward 17.35, weight gradients 17.35, data gradients of
 // the hidden and final layers 17.28) against ~4 MB of inputs and outputs:
-// 0.776 ms at the card's 67 TFLOP/s fp32 peak.  The SISR pair (n = 28,224)
-// is 22.41 GFLOP with dcoords, 0.335 ms.
+// 0.776 ms at the card's 67 TFLOP/s fp32 peak, 0.315 ms as 3xTF32 products
+// at the tensor cores' 495 TFLOP/s.  The SISR pair (n = 28,224) is 22.41
+// GFLOP with dcoords, 0.335 ms in fp32 and 0.136 ms as 3xTF32.
 //
-// What this design does about it: it is the simple, correct first version.
-// - One shared-memory tiled GEMM (64 x 64 output tile, 16-deep k slices, a
-//   4 x 4 register block per thread, fp32 FMA on the CUDA cores; widths are
-//   exact and ragged tiles masked, no 128-lane padding) serves every
-//   product.  Its forward epilogue applies the affine and the basis and
-//   writes z and a once; its backward epilogue recomputes v from the saved
-//   z and writes dv and z dv.
+// What this design does about it: every chain runs real_tc.cuh's, the one
+// mscale2_step.cu runs for its stacked trunks.
+// - The hidden layers' products and data gradients (K = 256 on the paths;
+//   every K > 8, posenc's first layer at d = 26 too) run wire_tc.cuh's
+//   3xTF32 mma.sync loop on 128 x 64 tiles, each with its epilogue in
+//   registers: the forward applies the affine, the per-row gamma and the
+//   basis and writes z (unless the caller keeps nothing) and a; the data
+//   gradient recomputes v from the saved z and writes dv and z dv.  The
+//   first layer (K = d <= 8) and the top data gradient (K = o) run a narrow
+//   CUDA-core kernel with the same epilogues.
 // - dz = alpha dv is never stored: the next data gradient multiplies dv by
-//   (W diag(alpha))^T, which the wrapper precomputes, and the weight
-//   gradient [a_prev | 1]^T dv comes out of gemm_common.cuh's fixed-order
-//   chunk sums with its first rows scaled by alpha (dW) and its ones-row
-//   unscaled (dbeta).  dalpha is a column sum of z dv in the same fixed
-//   chunk order.  No float atomics: results repeat run to run.
+//   (W diag(alpha))^T, which the wrapper precomputes; the weight gradient
+//   [a_prev | 1]^T dv comes out of wire_tc.cuh's fixed-order chunk partials
+//   (the tensor cores where both sides are wider than 8, else the narrow
+//   CUDA-core kernel) with its first rows scaled by alpha (dW) and its bias
+//   row unscaled (dbeta); dalpha is real_chain.cuh's fixed-order column sum
+//   of z dv; dcoords, where asked for, a fixed-order sum over the first
+//   layer's columns.  No float atomics: results repeat run to run.
 // - The final layer and the step's loss are gemm_common.cuh's (one warp per
 //   row, a fixed butterfly), shared with the WIRE step.
 // - Unlike the TPU kernels, nothing is recomputed: the pair's forward keeps
@@ -50,15 +56,14 @@
 //   activation planes and keeps nothing; the step keeps them in scratch the
 //   caller reuses (403 MB at the denoise shape).  The TPU's two-tile
 //   software pipeline and VMEM accumulators do not carry over.
-// Tensor cores (TF32 wgmma) and TMA pipelines are later work.  The bases,
-// the GEMM and the two chains live in real_chain.cuh, which
-// mscale2_step.cu shares; this file holds the C entry points.
+// This file holds the C entry points.
 //
-// Accuracy: sincosf/expf (not the __sinf/__expf intrinsics: siren's phases
-// are omega0 = 30 times z); the TPU kernel's fast_sincos polynomial was a
-// Mosaic workaround.  Build without --use_fast_math.
+// Accuracy: 3xTF32 products (wire_tc.cuh); sincosf/expf (not the
+// __sinf/__expf intrinsics: siren's phases are omega0 = 30 times z); the
+// TPU kernel's fast_sincos polynomial was a Mosaic workaround.  Build
+// without --use_fast_math.
 
-#include "real_chain.cuh"
+#include "real_tc.cuh"
 
 using namespace gemm_common;
 using namespace real_chain;
@@ -85,9 +90,13 @@ int real_mlp_basis_code(const char* name) {
 }
 
 // Floats of the `part` workspace of the backward and the step, for n rows
-// and widths (L + 2 entries: d, w_0 .. w_{L-1}, o).
+// and widths (L + 2 entries: d, w_0 .. w_{L-1}, o): the backward's weight
+// gradient and column sum partials, or the step's SSE partials where they
+// are more.
 long long real_mlp_part_floats(int n, int L, const int* widths) {
-  return chain_part_floats(Shape{n, L, widths});
+  const long long need = real_tc::part_floats(Shape{n, L, widths});
+  const long long sse = 2LL * final_loss_blocks(n);  // the step's SSE
+  return need > sse ? need : sse;
 }
 
 // Forward of the pair: pred (n x o) = final(chain(x)).  Per layer l: W[l]
@@ -107,14 +116,14 @@ int real_mlp_forward(int n, int L, const int* widths, const float* x,
                      float* const* acts, float* pred, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape s{n, L, widths};
-  GEMM_CHECK(forward_chain(s, x, W, alpha, beta, codes, gammas,
-                           rows_per_block, zs, acts, st));
+  GEMM_CHECK(real_tc::forward(s, x, W, alpha, beta, codes, gammas,
+                              rows_per_block, zs, acts, st));
   return final_forward(acts[L - 1], Wf, bf, pred, n, s.out(L - 1), s.o(),
                        st);
 }
 
 // Backward of the pair from g = dL/dpred (n x o), reading the forward's zs
-// and acts; see backward_chain for the outputs and the scratch.
+// and acts; see real_tc::backward for the outputs and the scratch.
 int real_mlp_backward(int n, int L, const int* widths, const float* x,
                       const float* g, const float* const* WaT,
                       const float* const* alpha, const float* const* beta,
@@ -126,9 +135,9 @@ int real_mlp_backward(int n, int L, const int* widths, const float* x,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape s{n, L, widths};
-  return backward_chain(s, x, g, WaT, alpha, beta, codes, WfT, gammas,
-                        rows_per_block, zs, acts, gW, galpha, gWf, dcoords,
-                        dv, zdv, part, st);
+  return real_tc::backward(s, x, g, WaT, alpha, beta, codes, WfT, gammas,
+                           rows_per_block, zs, acts, gW, galpha, gWf,
+                           dcoords, dv, zdv, part, st);
 }
 
 // One train step: the forward (zs, acts kept in the caller's scratch), the
@@ -147,14 +156,14 @@ int real_step_run(int n, int L, const int* widths, const float* x,
                   float two_inv_denom, int want_metrics, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape s{n, L, widths};
-  GEMM_CHECK(forward_chain(s, x, W, alpha, beta, codes, nullptr, 1, zs, acts,
-                           st));
+  GEMM_CHECK(real_tc::forward(s, x, W, alpha, beta, codes, nullptr, 1, zs,
+                              acts, st));
   GEMM_CHECK(final_loss(acts[L - 1], Wf, bf, t, gt, pred, g, sse, part, n,
                         s.out(L - 1), s.o(), nvalid, two_inv_denom,
                         want_metrics, st));
-  return backward_chain(s, x, g, WaT, alpha, beta, codes, WfT, nullptr, 1,
-                        zs, acts, gW, galpha, gWf, nullptr, dv, zdv, part,
-                        st);
+  return real_tc::backward(s, x, g, WaT, alpha, beta, codes, WfT, nullptr,
+                           1, zs, acts, gW, galpha, gWf, nullptr, dv, zdv,
+                           part, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // The canonical real trunk on wire_tc.cuh's 3xTF32 tensor-core loop: the
-// forward and backward chains of mscale2_step.cu, every scale's trunk in one
-// pass over the ns n rows stacked scale by scale, with a per-row gamma.
+// forward and backward chains of real_mlp.cu (the apply/VJP pair and the
+// one-pass step) and of mscale2_step.cu (every scale's trunk in one pass
+// over the ns n rows stacked scale by scale), with a per-row gamma.
 //
 // Layer l (real_mlp.cu's header comment says what it computes):
 //   z = a_prev W;  v = gamma_row (alpha z + beta);  a = B(v)
@@ -30,6 +31,10 @@
 //   coordinates; the final layer's, D = the output cotangent); both scale
 //   dW's rows by alpha after the chunk sums and give dbeta as their bias
 //   row; dalpha is real_chain.cuh's fixed-order column sum of z dv.
+// - dcoords = dv_0 (W_0 diag alpha_0)^T (n x d), the pair's coordinate
+//   gradient, where asked for: dcoords_kernel on the CUDA cores, a thread per
+//   (row, input feature) summing over the layer's columns in order (d is 2
+//   on the B-spline paths, 26 under posenc).
 // No float atomics: two calls give the same bits.  Accurate expf/sinf/cosf
 // in the bases; build without --use_fast_math.
 #pragma once
@@ -328,6 +333,22 @@ inline long long part_floats(const Shape& s) {
   return need;
 }
 
+// dcoords[r, k] = sum_j dv[r, j] WaT[j, k] over the w columns, j in order:
+// one thread per (row, input feature), fp32 FMAs on the CUDA cores.  WaT =
+// (W_0 diag alpha_0)^T (w x d).  Any d; memory-bound (one read of dv).
+__global__ void __launch_bounds__(gemm_common::kThreads) dcoords_kernel(
+    const float* __restrict__ dv, const float* __restrict__ WaT,
+    float* __restrict__ dc, int n, int d, int w) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)n * d) return;
+  const size_t r = idx / d;
+  const int k = (int)(idx % d);
+  const float* row = dv + r * w;
+  float s = 0.f;
+  for (int j = 0; j < w; ++j) s = fmaf(row[j], WaT[(size_t)j * d + k], s);
+  dc[idx] = s;
+}
+
 // Forward through the L activation layers: zs[l] and acts[l] (n x w_l).
 // The final layer is the caller's.
 inline cudaError_t forward(const Shape& s, const float* x,
@@ -349,7 +370,8 @@ inline cudaError_t forward(const Shape& s, const float* x,
 
 // Backward from g = dL/dy (n x o) through the saved zs and acts:
 //   gWf ((w_{L-1} + 1) x o) = [dWf; dbf];
-//   gW[l] ((in_l + 1) x w_l) = [dW; dbeta];  galpha[l] (w_l).
+//   gW[l] ((in_l + 1) x w_l) = [dW; dbeta];  galpha[l] (w_l);
+//   dcoords (n x d) = dv_0 WaT[0] when not null.
 // WaT[l] = (W_l diag(alpha_l))^T (w_l x in_l), WfT = Wf^T (o x w_{L-1}).
 // Scratch: dv (2, n, max w), zdv (n, max w), part (part_floats).
 inline cudaError_t backward(const Shape& s, const float* x, const float* g,
@@ -360,8 +382,9 @@ inline cudaError_t backward(const Shape& s, const float* x, const float* g,
                             const float* WfT, const float* gammas,
                             int rows_per_block, const float* const* zs,
                             const float* const* acts, float* const* gW,
-                            float* const* galpha, float* gWf, float* dv,
-                            float* zdv, float* part, cudaStream_t st) {
+                            float* const* galpha, float* gWf,
+                            float* dcoords, float* dv, float* zdv,
+                            float* part, cudaStream_t st) {
   const int n = s.n, L = s.L;
   const size_t plane = (size_t)n * s.max_width();
   GEMM_CHECK(weight_grad(acts[L - 1], g, part, gWf, n, s.out(L - 1), s.o(),
@@ -384,6 +407,13 @@ inline cudaError_t backward(const Shape& s, const float* x, const float* g,
     bt = WaT[l];
     kdim = s.out(l);
     cur ^= 1;
+  }
+  if (dcoords != nullptr) {
+    const long long outs = (long long)n * s.in(0);
+    dcoords_kernel<<<ceil_div(outs, gemm_common::kThreads),
+                     gemm_common::kThreads, 0, st>>>(src, bt, dcoords, n,
+                                                     s.in(0), kdim);
+    GEMM_CHECK(cudaGetLastError());
   }
   return cudaSuccess;
 }
