@@ -23,7 +23,8 @@ Phases, each printing one JSON line with its wall time:
                    TF32 off for matmuls and cuDNN
   build            nvcc builds every kernel library from csrc/, all at once
   kernel_vs_plain  each kernel against its plain PyTorch version at its
-                   path's full shape, plus a ragged case; wire_step at
+                   path's full shape, plus a ragged case (line_sample
+                   also at an odd P, 729); wire_step at
                    h 5, 13, 150, 212, L 1-3, o 1 and 3, n 700 and 65,537
                    with nvalid and denom; mscale2_step at ns 2 and 3 where
                    128-row tiles straddle two scales (n 700, 65,537), held
@@ -60,7 +61,8 @@ Phases, each printing one JSON line with its wall time:
                    class, the 3xTF32 bound beside the fp32 one, and the
                    HMMA instructions of the library; real_step at the
                    sweep's siren cell, whose sine bases the epilogues call
-                   out of line
+                   out of line; the whole fourier operator's vjp at the CT
+                   shape with its device launches in order (not gated)
   fit              the denoise bench protocol (65,536 coordinates, full
                    batch) through fit_pointwise, once through the kernel
                    (launch counts reset just before, read just after) and
@@ -458,18 +460,6 @@ def rot_grids(torch, S, angles, device):
     return torch.stack([2 * sx / (S - 1) - 1, 2 * sy / (S - 1) - 1], -1)
 
 
-def line_positions(torch, P, A, K, device):
-    """The fourier method's slice positions (operators/radon.py) for A
-    angles over [0, 180] and K = P // 2 + 1 frequencies (or fewer)."""
-    import numpy as np
-    th = torch.deg2rad(torch.tensor(
-        np.linspace(0, 180, A, dtype=np.float32),
-        device=device))
-    k = torch.arange(K, dtype=torch.float32, device=device)
-    return (k[None, :] * torch.sin(th)[:, None] + P // 2,
-            k[None, :] * torch.cos(th)[:, None] + P // 2)
-
-
 def bound(flops, nbytes):
     """(least ms, what bounds it) at the card's fp32 and HBM peaks."""
     ops_ms = flops / (H100_FP32_TFLOPS * 1e9)
@@ -620,16 +610,19 @@ def tensor_core_fields(torch, build, fn, name, flops, nbytes, kernel_ms,
     return res
 
 
-def line_sample_bytes(torch, gy, gx, ph):
-    """Bytes the gather + scatter pair must move at positions (gy, gx): the
-    distinct plane entries its taps read in both planes (the gather reads
-    no other), the positions, the samples out and their cotangents in, and
-    both (ph, ph) gradient planes out."""
+def line_sample_bytes(torch, gy, gx, p):
+    """Bytes the spectrum gather + scatter pair must move at positions
+    (gy, gx) on a (p, p) spectrum: the distinct taps of the unshifted
+    spectrum and of the centring table its stencils read (the halo wrapped;
+    the scatter reads the table's again, counted once), 8 bytes each; the
+    positions and the un-centring phase; the slice out and its cotangent
+    in, 8 bytes a sample each; and the (p, p) complex gradient out."""
     y0, x0 = torch.floor(gy).long(), torch.floor(gx).long()
-    taps = torch.cat([((y0 + dy) * ph + x0 + dx).ravel()
+    taps = torch.cat([(((y0 + dy) % p) * p + (x0 + dx) % p).ravel()
                       for dy in (0, 1) for dx in (0, 1)])
     ntaps = int(torch.unique(taps).numel())
-    return 4 * (2 * ntaps + 2 * ph * ph + 6 * gy.numel())
+    A, K = gy.shape
+    return 8 * 2 * ntaps + 4 * 2 * A * K + 8 * K + 8 * 2 * A * K + 8 * p * p
 
 
 def kernel_names(name, csrc=None):
@@ -689,8 +682,8 @@ def ct_models(get_inr, TCT, cfg):
 def ct_kernel_cases(torch, WM, R, LS, model, n, S, A, P, K, seed, device):
     """For each CT kernel: (kernel fn, plain fn, library fn or None, inputs,
     cotangent) at one shape: wire_mlp at n coordinates, rotsum at an
-    (S, S) image x A angles, line_sample on (P + 2)^2 planes at A x K
-    positions."""
+    (S, S) image x A angles, line_sample on a (P, P) spectrum at A angles
+    over [0, 180] and K = P // 2 + 1 frequencies."""
     import numpy as np
     import torch.nn.functional as F
     rng = np.random.default_rng(seed)
@@ -719,33 +712,50 @@ def ct_kernel_cases(torch, WM, R, LS, model, n, S, A, P, K, seed, device):
                                 align_corners=True)[:, 0].sum(-2),
         [t(rng.random((S, S)))], t(rng.normal(size=(A, S))))
 
+    # the spectrum gather/scatter pair on a random unshifted (P, P)
+    # spectrum with operators/radon.py's tables, as a function of its
+    # (P, P, 2) real view; the library call is the plain version's
+    # composition with F.grid_sample in the place of the sampler
+    from wire_tpu_torch.operators import radon as TR
+    centre, gy, gx, uncentre = TR._fourier_consts(P, angles, device)
     ph = P + 2
-    gy, gx = line_positions(torch, P, A, K, device)
     grid = torch.stack([2 * gx / (ph - 1) - 1, 2 * gy / (ph - 1) - 1],
                        -1)[None]
 
-    def line_library(a, b):
-        out = F.grid_sample(torch.stack([a, b])[None], grid,
+    def spectrum_fn(sample):
+        def fn(x):
+            return torch.view_as_real(sample(torch.view_as_complex(x),
+                                             centre, gy, gx, uncentre))
+        return fn
+
+    def line_library(z):
+        Fs = torch.fft.fftshift(z) * centre
+        Fh = torch.cat([Fs, Fs[:2]], 0)
+        Fh = torch.cat([Fh, Fh[:, :2]], 1)
+        out = F.grid_sample(torch.stack([Fh.real, Fh.imag])[None], grid,
                             align_corners=True)
-        return out[0, 0], out[0, 1]
+        return torch.complex(out[0, 0], out[0, 1]) * uncentre
 
     cases["line_sample"] = (
-        lambda a, b: LS.sample_lines(a, b, gy, gx),
-        lambda a, b: LS.sample_lines_plain(a, b, gy, gx), line_library,
-        [t(rng.normal(size=(ph, ph))), t(rng.normal(size=(ph, ph)))],
-        (t(rng.normal(size=(A, K))), t(rng.normal(size=(A, K)))))
+        spectrum_fn(LS.sample_spectrum), spectrum_fn(LS.sample_spectrum_plain),
+        spectrum_fn(lambda z, *tables: line_library(z)),
+        [t(rng.normal(size=(P, P, 2)))], t(rng.normal(size=(A, K, 2))))
     return cases, params, keys
 
 
 def ct_kernel_vs_plain(torch, WM, R, LS, model, device):
-    """max abs err per kernel at the CT shape ("full") and a ragged one."""
+    """max abs err per kernel at the CT shape ("full") and a ragged one;
+    line_sample also at an odd P (729, a 168^2 image)."""
     shapes = {"full": dict(n=256 * 256, S=256, A=100, P=1024, K=513),
-              "ragged": dict(n=700, S=96, A=13, P=384, K=193)}
+              "ragged": dict(n=700, S=96, A=13, P=384, K=193),
+              "odd": dict(n=700, S=96, A=100, P=729, K=365)}
     errs = {name: {} for name in ("wire_mlp", "rotsum", "line_sample")}
     for which, shape in shapes.items():
         cases, _, _ = ct_kernel_cases(torch, WM, R, LS, model, seed=3,
                                       device=device, **shape)
         for name, (kfn, pfn, _, xs, cot) in cases.items():
+            if which == "odd" and name != "line_sample":
+                continue
             got = vjp(torch, kfn, xs, cot)
             torch.cuda.synchronize()
             if name == "wire_mlp":
@@ -889,13 +899,48 @@ def strided_coords(torch, WM, RM, MF, W2, get_inr, ct_model, device):
     return errs
 
 
+def fourier_operator(torch, device, iters=20):
+    """The vjp of radon(img, angles, method="fourier") at the CT shape (a
+    256^2 image, 100 angles; P 1,024): ms per call (CUDA events), the
+    device kernels and memsets a call launches by name with their ms and
+    count (torch.profiler), their sum, and the names in the order one call
+    ran them (forward, then backward).  Not gated: the yardstick of what the
+    operator around the line_sample pair costs."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from wire_tpu_torch.operators import radon as TR
+    rng = np.random.default_rng(5)
+    angles = np.linspace(0, 180, 100, dtype=np.float32)
+    img, cot = (torch.tensor(a.astype(np.float32), device=device) for a in (
+        rng.random((256, 256)), rng.normal(size=(100, 256))))
+
+    def call():
+        return vjp(torch, lambda x: TR.radon(x, angles, method="fourier"),
+                   [img], cot)
+    by = kernel_breakdown(torch, call, iters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    order = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA),
+                   key=lambda e: e.time_range.start)
+    return {"fourier_operator_ms": cuda_ms(torch, call, iters),
+            "fourier_operator_launches": sum(v[1] for v in by.values()),
+            "fourier_operator_kernels": {k[:120]: v for k, v in by.items()},
+            "fourier_operator_order": [e.name[:80] for e in order]}
+
+
 def ct_measure(torch, WM, R, LS, model, device, build):
     """Times at the CT shape of each kernel's forward + backward pair (and
     of its forward alone), its plain version's pair and a library call's
     pair, with the card's least time for the pair; for wire_mlp its kernel
     time by product class, its fp32 CUDA-core and 3xTF32 tensor-core bounds
     and the HMMA instructions of its library; for rotsum the forward and
-    adjoint kernel times and the device kernels a call launches."""
+    adjoint kernel times and the device kernels a call launches; for
+    line_sample the whole fourier operator's vjp (fourier_operator)."""
+    import numpy as np
     n, S, A, P, K = 256 * 256, 256, 100, 1024, 513
     cases, params, keys = ct_kernel_cases(torch, WM, R, LS, model, n, S, A,
                                           P, K, seed=4, device=device)
@@ -903,13 +948,15 @@ def ct_measure(torch, WM, R, LS, model, device, build):
     L, h = spec.hidden_layers, params["first"]["w"].shape[1]
     d, o = spec.in_features, spec.out_features
     nweights = num_weights(params)
-    gy, gx = line_positions(torch, P, A, K, device)
+    from wire_tpu_torch.operators import radon as TR
+    _, gy, gx, _ = TR._fourier_consts(
+        P, np.linspace(0, 180, A, dtype=np.float32), device)
     work = {
         "wire_mlp": (WM.apply_flops(n, d, h, o, L),
                      4 * (2 * (n * d + n * o + nweights))),
         "rotsum": (2 * R.sample_flops(A, S), 4 * 2 * (S * S + A * S)),
         "line_sample": (2 * LS.sample_flops(A, K),
-                        line_sample_bytes(torch, gy, gx, P + 2)),
+                        line_sample_bytes(torch, gy, gx, P)),
     }
     out = {}
     for name, (kfn, pfn, lfn, xs, cot) in cases.items():
@@ -957,6 +1004,8 @@ def ct_measure(torch, WM, R, LS, model, device, build):
                 v[0] for k, v in by.items() if "rotsum_forward_kernel" in k)
             res["adjoint_kernel_ms"] = sum(
                 v[0] for k, v in by.items() if "rotsum_adjoint_kernel" in k)
+        if name == "line_sample":
+            res.update(fourier_operator(torch, device))
         out[name] = res
     return out
 

@@ -423,36 +423,51 @@ def test_rotsum_kernel_matches_plain(cuda, S):
 
 
 @pytest.mark.parametrize("P,A,K", [(128, 13, 65), (1024, 100, 513),
-                                   (96, 7, 49)])
+                                   (96, 7, 49), (729, 100, 365)])
 def test_line_sample_kernel_matches_plain(cuda, P, A, K):
+    """The spectrum gather/scatter pair against sample_spectrum_plain on a
+    random unshifted spectrum with operators/radon.py's tables (P 729: odd,
+    a 168^2 image), one launch each way."""
+    from wire_tpu_torch.operators import radon as TR
     from wire_tpu_torch.ops import line_sample as LS
     rng = np.random.default_rng(P)
-    ph = P + 2
-    fre, fim = (torch.tensor(rng.normal(size=(ph, ph)).astype(np.float32),
-                             device=cuda) for _ in range(2))
-    th = np.deg2rad(np.linspace(0, 180, A, dtype=np.float32))
-    k = np.arange(K, dtype=np.float32)
-    gy = torch.tensor(k[None] * np.sin(th)[:, None] + P // 2, device=cuda)
-    gx = torch.tensor(k[None] * np.cos(th)[:, None] + P // 2, device=cuda)
-    cre, cim = (torch.tensor(rng.normal(size=(A, K)).astype(np.float32),
-                             device=cuda) for _ in range(2))
+    angles = np.linspace(0, 180, A, dtype=np.float32)
+    centre, gy, gx, uncentre = TR._fourier_consts(P, angles, cuda)
+    assert gy.shape == (A, K)
+
+    def cplx(shape):
+        return torch.view_as_complex(torch.tensor(
+            rng.normal(size=shape + (2,)).astype(np.float32), device=cuda))
+    F, cot = cplx((P, P)), cplx((A, K))
 
     def run(fn):
-        a = fre.clone().requires_grad_(True)
-        b = fim.clone().requires_grad_(True)
-        sre, sim = fn(a, b, gy, gx)
-        ga, gb = torch.autograd.grad((sre, sim), (a, b), (cre, cim))
-        return {"sre": sre, "sim": sim, "fre_bar": ga, "fim_bar": gb}
+        x = F.clone().requires_grad_(True)
+        y = fn(x, centre, gy, gx, uncentre)
+        (g,) = torch.autograd.grad(y, x, cot)
+        return {"slice": torch.view_as_real(y.detach()),
+                "F_bar": torch.view_as_real(g)}
 
     before = dict(LS.launches)
-    got = run(LS.sample_lines)
+    got = run(LS.sample_spectrum)
     torch.cuda.synchronize()
     assert LS.launches == {"gather": before["gather"] + 1,
                            "scatter": before["scatter"] + 1}
-    want = run(LS.sample_lines_plain)
+    want = run(LS.sample_spectrum_plain)
+    assert LS.launches == {"gather": before["gather"] + 1,
+                           "scatter": before["scatter"] + 1}
     for name, w in want.items():
         err = float((got[name] - w).abs().max())
         assert err <= REL * float(w.abs().max()), (name, err)
+
+
+def test_fourier_operator_refuses_angles_that_require_grad(cuda):
+    # draws nothing from torch's generator, so later tests that do see the
+    # same inputs as without this test
+    from wire_tpu_torch.operators import radon as TR
+    img = torch.zeros((32, 32), device=cuda)
+    angles = torch.linspace(0, 180, 30, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="constant"):
+        TR.radon(img, angles, method="fourier")
 
 
 # ---- real_mlp: the canonical real MLP's pair and step ----------------------

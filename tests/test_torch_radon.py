@@ -164,7 +164,7 @@ def test_sample_lines_matches_xla_sampler_and_its_adjoint():
     cot = [rng.randn(A, K).astype(np.float32) for _ in range(2)]
     a = torch.tensor(fre, requires_grad=True)
     b = torch.tensor(fim, requires_grad=True)
-    got = LS.sample_lines(a, b, torch.tensor(gy), torch.tensor(gx))
+    got = LS.sample_lines_plain(a, b, torch.tensor(gy), torch.tensor(gx))
     want, vjp = jax.vjp(
         lambda p, q: JLS.sample_lines_xla(p, q, jnp.asarray(gy),
                                           jnp.asarray(gx)),
@@ -183,8 +183,8 @@ def test_sample_lines_reads_the_nyquist_halo():
     f = np.arange((P + 2) ** 2, dtype=np.float32).reshape(P + 2, P + 2)
     gy = np.array([[P, 4.0]], np.float32)
     gx = np.array([[4.5, P]], np.float32)
-    got = LS.sample_lines(torch.tensor(f), torch.tensor(f),
-                          torch.tensor(gy), torch.tensor(gx))[0].numpy()
+    got = LS.sample_lines_plain(torch.tensor(f), torch.tensor(f),
+                                torch.tensor(gy), torch.tensor(gx))[0].numpy()
     np.testing.assert_allclose(got, [[f[P, 4] * 0.5 + f[P, 5] * 0.5,
                                       f[4, P]]])
 

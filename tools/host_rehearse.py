@@ -2,8 +2,8 @@
 """Run a CUDA source of wire_tpu_torch/csrc on the host, without nvcc or a
 card, at tiny shapes, against its plain PyTorch version.
 
-    python3 tools/host_rehearse.py wire_mlp rotsum wire_step mscale2_step \
-        wire2d mfn real
+    python3 tools/host_rehearse.py wire_mlp rotsum line_sample wire_step \
+        mscale2_step wire2d mfn real
 
 The source (``csrc/<name>.cu`` and the headers it includes) is rewritten
 into a copy and built by g++ into a host library with a plain C interface,
@@ -52,6 +52,7 @@ STUB = r"""
 #include <cstdint>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <tuple>
 #include <vector>
@@ -82,6 +83,25 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
+// global-memory atomics: one mutex over every thread of the launch
+inline std::mutex stub_atomic_mutex;
+inline float atomicAdd(float* p, float v) {
+  std::lock_guard<std::mutex> lock(stub_atomic_mutex);
+  const float old = *p;
+  *p = old + v;
+  return old;
+}
+inline float2 atomicAdd(float2* p, float2 v) {
+  std::lock_guard<std::mutex> lock(stub_atomic_mutex);
+  const float2 old = *p;
+  p->x = old.x + v.x;
+  p->y = old.y + v.y;
+  return old;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "host stub"; }
 
 struct StubBlock {
@@ -370,6 +390,71 @@ def rehearse_rotsum(out_dir):
             print(f"rotsum {H} x {W}: max rel err {rel:.2e}, dot-product "
                   f"test {dot:.1e}", flush=True)
             assert rel <= 1e-4 and dot <= 1e-5, (rel, dot)
+
+
+# (P, A) of the line_sample rehearsal: even and odd P, K = P // 2 + 1
+LINE_SAMPLE_CASES = ((8, 5), (9, 4), (16, 7), (27, 6))
+
+
+def line_sample_case(P, A, seed):
+    """The inputs of the spectrum gather/scatter pair at P: a random
+    unshifted complex spectrum, operators/radon.py's tables for A angles
+    over [0, 180] (at 0 and 90 degrees the even-P samples reach the Nyquist
+    line, position P) with a last row of positions on lines P and P + 1
+    put in by hand, and a random complex cotangent."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch.operators import radon as TR
+
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(0, 180, A, dtype=np.float32)
+    centre, gy, gx, uncentre = TR._fourier_consts(P, angles, "cpu")
+    K = gy.shape[1]
+    edge = torch.tensor(rng.uniform(0, P + 1, (2, K)).astype(np.float32))
+    edge[0, :3] = torch.tensor([P, P + 0.5, P - 0.25])
+    edge[1, 3:5] = torch.tensor([P + 0.75, P])
+    gy = torch.cat([gy, edge[:1]]).contiguous()
+    gx = torch.cat([gx, edge[1:]]).contiguous()
+
+    def cplx(shape):
+        return torch.complex(*(torch.tensor(rng.normal(size=shape).astype(
+            np.float32)) for _ in range(2)))
+    return cplx((P, P)), centre, gy, gx, uncentre, cplx(tuple(gy.shape))
+
+
+def line_sample_vs_plain(P, A, seed):
+    """Max over the slice and the spectrum's gradient of max |kernel -
+    plain| / max |plain|, the kernels run through the wrapper's C interface
+    (``_SampleSpectrum``; inside host_library("line_sample", ...))."""
+    import torch
+    from wire_tpu_torch.ops import line_sample as LS
+
+    F, centre, gy, gx, uncentre, cot = line_sample_case(P, A, seed)
+    outs = []
+    for fn in (LS._SampleSpectrum.apply, LS.sample_spectrum_plain):
+        x = F.clone().requires_grad_(True)
+        y = fn(x, centre, gy, gx, uncentre)
+        (g,) = torch.autograd.grad(y, x, cot)
+        outs.append((torch.view_as_real(y.detach()), torch.view_as_real(g)))
+    return _max_rel(outs[0], outs[1])
+
+
+def rehearse_line_sample(out_dir):
+    from wire_tpu_torch.ops import line_sample as LS
+
+    LS._lib.cache_clear()
+    try:
+        with host_library("line_sample", out_dir):
+            for P, A in LINE_SAMPLE_CASES:
+                before = dict(LS.launches)
+                rel = line_sample_vs_plain(P, A, P)
+                ran = {k: LS.launches[k] - before[k] for k in before}
+                print(f"line_sample P {P} A {A}: max rel err {rel:.2e}, "
+                      f"launches {ran}", flush=True)
+                assert rel <= 1e-5 and ran == {"gather": 1, "scatter": 1}, (
+                    rel, ran)
+    finally:
+        LS._lib.cache_clear()
 
 
 def rehearse_wire_step(out_dir):
@@ -733,6 +818,7 @@ def rehearse_real(out_dir):
 def main():
     sys.path.insert(0, ROOT)
     rehearsals = {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum,
+                  "line_sample": rehearse_line_sample,
                   "wire_step": rehearse_wire_step,
                   "mscale2_step": rehearse_mscale2_step,
                   "wire2d": rehearse_wire2d, "mfn": rehearse_mfn,

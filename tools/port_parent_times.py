@@ -5,6 +5,7 @@ one process on one GPU, in turns (earlier, this, this, earlier).
     python3 tools/port_parent_times.py --parent DIR [--iters 20]
                                        [--mscale2-fit EPOCHS]
                                        [--mfn-fit EPOCHS]
+    python3 tools/port_parent_times.py --parent DIR --ct TURNS
 
 DIR holds an earlier tree (a git archive of it) whose
 wire_tpu_torch/csrc is built into DIR/wire_tpu_torch/_build; both trees'
@@ -29,6 +30,14 @@ seed-0 init, full batch) for EPOCHS epochs per turn, its ms per step
 (fit_pointwise's step_ms, the first step left out) and best PSNR;
 ``--mfn-fit EPOCHS`` the same of the MFN denoise fit (chip_smoke.py's
 fit_mfn: the sweep's image and model, the seed-0 init, full batch).
+
+``--ct TURNS`` times the CT path instead, TURNS times per tree in turns
+(earlier, this, this, earlier, earlier, this, ...), one process a turn
+(``tools/port_ct_turn.py``, which imports that tree's own wire_tpu_torch
+and chip_smoke.py, since the line_sample wrappers of the trees differ):
+row 4's call and its kernels, the fourier operator's vjp and its device
+launches, and the CT auto and WIRE-2D CT fits' ms per iteration; prints
+each turn's JSON line, then one line with each tree's median of each.
 """
 import argparse
 import json
@@ -235,15 +244,42 @@ def smi():
                           text=True, check=True).stdout.strip()
 
 
+def ct_turns(trees, turns):
+    """{tree: {field: median over TURNS turns}} of tools/port_ct_turn.py
+    run on each tree root of ``trees`` in turns."""
+    import statistics
+    runs = {tree: [] for tree in trees}
+    for i in range(turns):
+        for tree in (("parent", "this") if i % 2 == 0 else
+                     ("this", "parent")):
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "tools",
+                                              "port_ct_turn.py"),
+                 trees[tree]], capture_output=True, text=True, check=True)
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps({"turn": i, "tree": tree, **line}), flush=True)
+            runs[tree].append(line)
+    return {tree: {k: statistics.median(r[k] for r in rs)
+                   for k in rs[0] if isinstance(rs[0][k], (int, float))}
+            for tree, rs in runs.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mscale2-fit", type=int, default=0, metavar="EPOCHS")
     ap.add_argument("--mfn-fit", type=int, default=0, metavar="EPOCHS")
+    ap.add_argument("--ct", type=int, default=0, metavar="TURNS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_parent_times.py needs a CUDA device")
+    if args.ct:
+        medians = ct_turns({"parent": os.path.abspath(args.parent),
+                            "this": ROOT}, args.ct)
+        print(json.dumps({"nvidia_smi": smi(), "turns": args.ct,
+                          "median": medians}))
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     trees = {"parent": (os.path.join(args.parent, "wire_tpu_torch", "csrc"),
                         os.path.join(args.parent, "wire_tpu_torch",

@@ -28,7 +28,7 @@ wire_mlp on the tensor cores, and tc_wgrad_kernel, narrow_wgrad_kernel and
 narrow_colsum_kernel their, WIRE-2D's, the real families', mscale_2's and
 the MFN's weight gradients; reduce_chunks_kernel, final_loss_kernel or
 final_forward_kernel, first_forward_kernel, dcoords_kernel,
-rotsum_*_kernel, line_*_kernel, real_tc_kernel<0|1, ...> = forward /
+rotsum_*_kernel, spectrum_*_kernel, real_tc_kernel<0|1, ...> = forward /
 data-gradient GEMMs of the real families' and mscale_2's trunks on the
 tensor cores, real_narrow_kernel<0|1> their first-layer forward and top
 data gradient, colsum_partial_kernel their dalpha sums, dcoords_kernel

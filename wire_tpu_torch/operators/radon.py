@@ -10,9 +10,12 @@ _radon_shear).
   package's), ``sum(rotate(img, a), 0)`` in PyTorch ops; the only path that
   differentiates through the angles.
 - ``method='fourier'``: projection-slice theorem: one oversampled 2-D FFT
-  of the image, bilinear samples of the spectrum along each angle's
-  central slice (``ops/line_sample.py:sample_lines``, the CUDA kernels for
-  CUDA tensors), one small inverse FFT per angle.
+  of the image, bilinear samples of the centred, fftshifted spectrum along
+  each angle's central slice, one small inverse FFT per angle.  On CUDA
+  the samples are one gather kernel on the unshifted spectrum that folds
+  in the shift, the centring phase, the periodic halo and the un-centring,
+  and its backward one scatter kernel (``ops/line_sample.py:
+  sample_spectrum``): no PyTorch kernel runs between the FFTs.
 - ``method='shear'``: FFT three-shear rotation, plain PyTorch (the JAX
   package has no kernel for it either).
 
@@ -189,29 +192,20 @@ def _radon_fourier(img, angles_degrees, oversample=4, sampler="auto"):
     bilinear with ``oversample``x zero padding, so it differs from
     rotate/shear to interpolation error.
 
-    sampler='auto' samples through ``sample_lines`` (the CUDA kernels for
-    CUDA tensors); 'plain' through its plain version on any device (the
-    JAX package's sampler='xla')."""
+    sampler='auto' samples through ``sample_spectrum`` (the CUDA gather and
+    scatter kernels for CUDA tensors); 'plain' through its plain version on
+    any device (the JAX package's sampler='xla')."""
     H, W = img.shape
     S = max(H, W)
     P = _fft_size(oversample * S)
     pad, _, px0 = _pad_center(img, P)
     centre, gy, gx, uncentre = _fourier_consts(P, angles_degrees, img.device)
+    sample = {"auto": LS.sample_spectrum,
+              "plain": LS.sample_spectrum_plain}[sampler]
 
-    # full 2-D DFT, fftshift-ed (slice coordinates need no mod-P wrap)
-    Fs = torch.fft.fftshift(torch.fft.fftn(pad)) * centre
-
-    # two periodic halo lines on the high side: a sample on the Nyquist
-    # line (position P) reads lines P and P + 1, which alias to 0 and 1
-    Fh = torch.cat([Fs, Fs[:2]], 0)
-    Fh = torch.cat([Fh, Fh[:, :2]], 1)
-
-    sample = {"auto": LS.sample_lines,
-              "plain": LS.sample_lines_plain}[sampler]
-    sre, sim = sample(torch.real(Fh), torch.imag(Fh), gy, gx)
-
-    # back to the spatial projection; undo the centring phase along x
-    slice_hat = torch.complex(sre, sim) * uncentre
+    # the slice of the full 2-D DFT, fftshift-ed and phase-centred, with the
+    # x centring phase undone; then back to the spatial projection
+    slice_hat = sample(torch.fft.fftn(pad), centre, gy, gx, uncentre)
     proj = torch.fft.irfft(slice_hat, n=P, dim=1)
     return proj[:, px0:px0 + W]
 

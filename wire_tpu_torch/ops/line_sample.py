@@ -1,23 +1,30 @@
-"""Bilinear sampling of a 2-D spectrum along radial lines, the hot gather
+"""Bilinear sampling of the 2-D spectrum along radial lines, the hot gather
 and scatter of the Fourier-slice Radon operator: the hand-written CUDA
 kernels (``csrc/line_sample.cu``) and their plain PyTorch version.
 
 Replaces wire_tpu/ops/pallas/line_sample.py:sample_lines (gather and
-scatter Pallas calls); ``sample_lines_plain`` is the port of
-``sample_lines_xla``, the JAX package's fallback and oracle.
+scatter Pallas calls) together with the plane-building of
+wire_tpu/operators/radon.py:_radon_fourier around them;
+``sample_lines_plain`` is the port of ``sample_lines_xla``, the JAX
+package's fallback and oracle.
 
-Contract (established by operators/radon.py): ``fre``, ``fim`` are the real
-and imaginary (Ph, Ph) planes of the fftshifted spectrum with 2 periodic
-halo lines on the high side (Ph = P + 2; the TPU's 128-line halo was a lane
-artifact); ``gy``, ``gx`` are (A, K) float positions with
-0 <= floor(g) and floor(g) + 1 <= Ph - 1.  The result is the (A, K) re and
-im samples; the gradient flows to the planes through a
-``torch.autograd.Function`` whose backward is the scatter kernel.  The
-positions are constants.
+Contract (established by operators/radon.py): ``F`` is the unshifted (P, P)
+complex64 spectrum, as ``torch.fft.fftn`` gives it; ``centre`` the (P, P)
+centring phase of the fftshifted frame; ``gy``, ``gx`` the (A, K) float32
+slice positions in that frame, 0 <= floor(g) and floor(g) + 1 <= P + 1; and
+``uncentre`` the (1, K) un-centring phase.  ``sample_spectrum`` returns the
+(A, K) complex64 slice ``uncentre * bilinear(fftshift(F) * centre)``, where
+a tap on line P or P + 1 (a sample on the Nyquist line) reads line 0 or 1:
+the periodic halo.  On CUDA tensors the gather kernel does all of that in
+one launch, the shift and the halo as index arithmetic mod P; the gradient
+flows to ``F`` through a ``torch.autograd.Function`` whose backward is the
+scatter kernel.  The tables are constants.
 
-``sample_lines`` runs the plain version for tensors on the CPU, and for
-CUDA tensors launches the kernels or raises; there is no fallback.  The
-scatter adds with float atomics, so its last bits vary from run to run.
+``sample_spectrum`` runs the plain version (``sample_spectrum_plain``, the
+shift, the phase, the two halo lines and ``sample_lines_plain`` written
+out) for tensors on the CPU, and for CUDA tensors launches the kernels or
+raises; there is no fallback.  The scatter adds with atomics, so its last
+bits vary from run to run.
 """
 from __future__ import annotations
 
@@ -33,8 +40,8 @@ launches = {"gather": 0, "scatter": 0}
 
 
 def sample_lines_plain(fre, fim, gy, gx):
-    """Bilinear samples of both planes at (gy, gx) by indexing; autograd's
-    backward is the scatter-add."""
+    """Bilinear samples of both (Ph, Ph) planes at (gy, gx) by indexing;
+    autograd's backward is the scatter-add."""
     y0 = torch.floor(gy)
     x0 = torch.floor(gx)
     wy = gy - y0
@@ -52,10 +59,24 @@ def sample_lines_plain(fre, fim, gy, gx):
     return bil(fre), bil(fim)
 
 
+def sample_spectrum_plain(F, centre, gy, gx, uncentre):
+    """The slice of the unshifted spectrum ``F`` in PyTorch ops: fftshift,
+    the centring phase, two periodic halo lines on the high side (a sample
+    on the Nyquist line, position P, reads lines P and P + 1, which alias to
+    0 and 1), the bilinear samples of the re and im planes and the
+    un-centring phase; autograd gives the adjoint."""
+    Fs = torch.fft.fftshift(F) * centre
+    Fh = torch.cat([Fs, Fs[:2]], 0)
+    Fh = torch.cat([Fh, Fh[:, :2]], 1)
+    sre, sim = sample_lines_plain(torch.real(Fh), torch.imag(Fh), gy, gx)
+    return torch.complex(sre, sim) * uncentre
+
+
 def sample_flops(A, K):
-    """fp32 operations of one direction: per sample and plane, 4 weighted
-    taps (4 products, 3 sums) and the 2 x 2 weights."""
-    return 2 * 9 * A * K
+    """fp32 operations of one direction: per sample, 4 taps, each a complex
+    product with the centring phase (6) and a weighted complex sum (4), the
+    2 x 2 weights (4) and the product with the un-centring phase (6)."""
+    return 50 * A * K
 
 
 _PTR = ctypes.c_void_p
@@ -65,17 +86,17 @@ _INT = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("line_sample")
-    for fn in (lib.line_sample_gather, lib.line_sample_scatter):
-        fn.argtypes = [_PTR] * 6 + [_INT, _INT, _PTR]
+    for fn in (lib.spectrum_gather, lib.spectrum_scatter):
+        fn.argtypes = [_PTR] * 6 + [_INT] * 3 + [_PTR]
         fn.restype = _INT
     lib.line_sample_error_string.argtypes = [_INT]
     lib.line_sample_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _run(fn, what, ptrs, n, ph, device):
+def _run(fn, what, ptrs, n, k, p, device):
     lib = _lib()
-    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], n, ph,
+    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], n, k, p,
                           torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -84,58 +105,63 @@ def _run(fn, what, ptrs, n, ph, device):
     launches[what] += 1
 
 
-class _SampleLines(torch.autograd.Function):
+class _SampleSpectrum(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, fre, fim, gy, gx):
-        ph = fre.shape[0]
-        sre = torch.empty(gy.shape, dtype=torch.float32, device=gy.device)
-        sim = torch.empty_like(sre)
-        _run("line_sample_gather", "gather", (fre, fim, gy, gx, sre, sim),
-             gy.numel(), ph, gy.device)
-        ctx.save_for_backward(gy, gx)
-        ctx.ph = ph
-        return sre, sim
+    def forward(ctx, F, centre, gy, gx, uncentre):
+        out = torch.empty(gy.shape, dtype=torch.complex64, device=F.device)
+        _run("spectrum_gather", "gather", (F, centre, gy, gx, uncentre, out),
+             gy.numel(), gy.shape[1], F.shape[0], F.device)
+        # the tables are constants of the operator: kept as they are, not
+        # saved for autograd's version checks
+        ctx.tables = (centre, gy, gx, uncentre)
+        return out
 
     @staticmethod
-    def backward(ctx, gre, gim):
-        gy, gx = ctx.saved_tensors
-        ph = ctx.ph
-        gre = gre.to(torch.float32).contiguous()
-        gim = gim.to(torch.float32).contiguous()
-        fre_bar = torch.empty((ph, ph), dtype=torch.float32, device=gy.device)
-        fim_bar = torch.empty_like(fre_bar)
-        _run("line_sample_scatter", "scatter",
-             (gre, gim, gy, gx, fre_bar, fim_bar), gy.numel(), ph, gy.device)
-        return fre_bar, fim_bar, None, None
+    def backward(ctx, cot):
+        centre, gy, gx, uncentre = ctx.tables
+        cot = cot.contiguous()  # irfft's backward hands a contiguous one
+        f_bar = torch.empty(centre.shape, dtype=torch.complex64,
+                            device=cot.device)
+        _run("spectrum_scatter", "scatter",
+             (cot, centre, gy, gx, uncentre, f_bar), gy.numel(),
+             gy.shape[1], centre.shape[0], cot.device)
+        return f_bar, None, None, None, None
 
 
-def _check(name, t, device):
-    if t.device != device:
-        raise ValueError(f"sample_lines: {name} is on {t.device}, expected "
-                         f"{device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"sample_lines: {name} has dtype {t.dtype}, "
-                        f"expected float32")
+def _check(F, centre, gy, gx, uncentre):
+    P = F.shape[0] if F.ndim == 2 else -1
+    A, K = gy.shape if gy.ndim == 2 else (-1, -1)
+    for name, t, dtype, shape in (
+            ("F", F, torch.complex64, (P, P)),
+            ("centre", centre, torch.complex64, (P, P)),
+            ("gy", gy, torch.float32, (A, K)),
+            ("gx", gx, torch.float32, (A, K)),
+            ("uncentre", uncentre, torch.complex64, (1, K))):
+        if t.device != F.device:
+            raise ValueError(f"sample_spectrum: {name} is on {t.device}, "
+                             f"expected {F.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"sample_spectrum: {name} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if P < 1 or A < 1 or tuple(t.shape) != shape:
+            raise ValueError(f"sample_spectrum: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape} (F square, "
+                             f"positions (A, K))")
+        if not t.is_contiguous():
+            raise ValueError(f"sample_spectrum: {name} is not contiguous")
+        if t is not F and t.requires_grad:
+            raise ValueError(f"sample_spectrum treats {name} as a constant "
+                             f"(method='rotate_xla' differentiates through "
+                             f"the angles)")
 
 
-def sample_lines(fre, fim, gy, gx):
-    """(Ph, Ph) re/im planes, (A, K) positions -> (A, K) re/im bilinear
-    samples, differentiable in the planes."""
-    if fre.device.type == "cpu":
-        return sample_lines_plain(fre, fim, gy, gx)
-    if fre.device.type != "cuda":
-        raise ValueError(f"sample_lines: unsupported device {fre.device}")
-    for name, t in (("fre", fre), ("fim", fim), ("gy", gy), ("gx", gx)):
-        _check(name, t, fre.device)
-    if fre.ndim != 2 or fre.shape[0] != fre.shape[1] or \
-            fim.shape != fre.shape:
-        raise ValueError(f"sample_lines: planes must be square and alike, "
-                         f"got {tuple(fre.shape)} and {tuple(fim.shape)}")
-    if gy.shape != gx.shape:
-        raise ValueError(f"sample_lines: positions {tuple(gy.shape)} and "
-                         f"{tuple(gx.shape)} differ")
-    if gy.requires_grad or gx.requires_grad:
-        raise ValueError("sample_lines treats the positions as constants")
-    return _SampleLines.apply(fre.contiguous(), fim.contiguous(),
-                              gy.contiguous(), gx.contiguous())
+def sample_spectrum(F, centre, gy, gx, uncentre):
+    """(P, P) unshifted complex spectrum -> (A, K) complex slice,
+    differentiable in F (see the module's contract)."""
+    if F.device.type == "cpu":
+        return sample_spectrum_plain(F, centre, gy, gx, uncentre)
+    if F.device.type != "cuda":
+        raise ValueError(f"sample_spectrum: unsupported device {F.device}")
+    _check(F, centre, gy, gx, uncentre)
+    return _SampleSpectrum.apply(F, centre, gy, gx, uncentre)
