@@ -1,9 +1,11 @@
 """The CUDA kernels (wire_step, wire_mlp, rotsum, line_sample, real_mlp's
 pair and step, mscale2_step, mfn's step and pair, wire2d's step and pair)
-against their plain PyTorch versions on the card, the sweep app's
-families launching their kernels, and the trainers' step timing leaving
-the first step out (marked ``gpu``; skipped where no CUDA device is
-present):
+against their plain PyTorch versions on the card, the sweep app's and the
+occupancy app's fits launching their kernels, every family with a step
+hook stepping through its kernel and the two without launching none, and
+the trainers' step timing leaving the first step out (marked ``gpu``;
+skipped where no CUDA device is present; every input drawn from a seeded
+generator):
 
     python -m pytest tests/test_torch_gpu.py -m gpu -p no:randomly
 """
@@ -18,6 +20,13 @@ pytestmark = pytest.mark.gpu
 
 # max abs err <= REL x max |plain| per output: fp32 sums in another order
 REL = 1e-4
+
+
+def _rand(shape, seed, device):
+    """U[0, 1) floats from a seeded CPU generator, moved to ``device``: a
+    test's inputs do not depend on what earlier tests drew."""
+    return torch.rand(shape, generator=torch.Generator().manual_seed(
+        seed)).to(device)
 
 
 @pytest.fixture
@@ -85,6 +94,58 @@ def test_wrapper_checks_inputs(cuda):
         WS.wire_step(params, c, t.cpu(), model.spec)
     with pytest.raises(ValueError, match="nvalid"):
         WS.wire_step(params, c, t, model.spec, nvalid=65)
+
+
+def test_wire_step_at_the_occupancy_chunks_matches_plain(cuda):
+    """wire_step at d 3 (the occupancy app: h 212, L 3, o 1) on the two
+    chunks of one epoch (200,000 rows each, the second with 62,144 valid
+    rows over a tail of sentinel rows) and a ragged n: the kernel against
+    its reference (chip_smoke.occupancy_check: the plain step in float64 on
+    the kernel's own pre-activations, fault C.10); and the sentinel rows
+    add nothing: the kernel on the valid rows alone gives the second
+    chunk's gradients and sums."""
+    import chip_smoke as S
+    from wire_tpu_torch.apps import occupancy as O
+    cases = S.occupancy_cases(torch, WS, O, cuda)
+    for what, case in cases.items():
+        before = WS.wire_step.launches
+        S.occupancy_check(torch, case, what)
+        assert WS.wire_step.launches == before + 1
+    params, c, t, spec = cases["wire_step occ_chunk1"][2]
+    kw = cases["wire_step occ_chunk1"][3]
+    nv = kw["nvalid"]
+    assert nv == 62144 and c.shape == (200000, 3)
+    chunk = S.tensors_of(*WS.wire_step(params, c, t, spec, **kw))
+    valid = S.tensors_of(*WS.wire_step(
+        params, c[:nv].contiguous(), t[:nv].contiguous(), spec,
+        denom=kw["denom"], gt=t[:nv].contiguous(), want_metrics=True))
+    chunk["pred"] = chunk["pred"][:nv]
+    _assert_rel(chunk, valid)
+
+
+def test_occupancy_app_launches_wire_step_twice_an_epoch(cuda, tmp_path):
+    """Two epochs of the occupancy app at its full width (64^3, two
+    200,000-row chunks an epoch): wire_step launches 2 x epochs times, no
+    other kernel of the port launches, and wire.mat and wire.dae are
+    written."""
+    import os
+    from wire_tpu_torch.apps import occupancy as O
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.ops import wire_mlp as WM
+    others = (WM.launches, RM.launches, MS.launches, MF.launches,
+              W2.launches)
+    before = [dict(c) for c in others]
+    ws0 = WS.wire_step.launches
+    out = O.run(results_dir=str(tmp_path), niters=2)
+    assert WS.wire_step.launches == ws0 + 4
+    assert [dict(c) for c in others] == before
+    assert sorted(os.listdir(tmp_path / "occupancy")) == ["wire.dae",
+                                                           "wire.mat"]
+    assert out["result"].time_array.shape == (2,)
+    assert np.isfinite(out["result"].best_rec).all()
 
 
 # ---- wire_mlp, rotsum, line_sample: kernel vs plain on the card ----------
@@ -363,7 +424,7 @@ def test_rotsum_adjoint_is_the_transpose(cuda, H, W):
 def test_radon_rotate_runs_the_kernel_on_a_non_square_cuda_image(cuda):
     from wire_tpu_torch.operators import radon as TR
     from wire_tpu_torch.ops import rotsum as R
-    img = torch.rand((64, 48), device=cuda)
+    img = _rand((64, 48), 21, cuda)
     angles = np.linspace(0, 180, 5, dtype=np.float32)
     before = dict(R.launches)
     got = TR.radon(img, angles, method="rotate")
@@ -585,7 +646,7 @@ def test_real_mlp_without_grad_equals_the_pair(cuda):
     widths = (2, 64, 64, 3)
     kinds = ("qspline", "sine")
     canon = _canon(widths, cuda, seed=6)
-    c = torch.rand((1000, 2), device=cuda) * 2 - 1
+    c = _rand((1000, 2), 22, cuda) * 2 - 1
     leaves = [t.detach().requires_grad_(True)
               for _, t in RM.canon_leaves(canon)]
     with_grad = RM.real_mlp(RM.canon_from_leaves(leaves, 2), c, kinds)
@@ -687,8 +748,8 @@ def test_real_step_is_deterministic_and_reuses_scratch(cuda):
     from wire_tpu_torch.ops.wire_step import StepScratch
     widths = (2, 256, 256, 3)
     canon = _canon(widths, cuda, seed=9)
-    c = torch.rand((5000, 2), device=cuda) * 2 - 1
-    t = torch.rand((5000, 3), device=cuda)
+    c = _rand((5000, 2), 23, cuda) * 2 - 1
+    t = _rand((5000, 3), 24, cuda)
     scratch = StepScratch()
     a, b = (_step_flat(*RM.real_step(canon, c, t, ("qspline",) * 2,
                                      want_metrics=True, scratch=scratch))
@@ -697,24 +758,94 @@ def test_real_step_is_deterministic_and_reuses_scratch(cuda):
         assert torch.equal(a[name], b[name]), name
 
 
-def test_real_family_fits_launch_the_kernels(cuda):
-    """Every real family's step and apply go through the kernels on the
-    card and agree with the plain path."""
+REAL_STEP_FAMILIES = ("siren", "gauss", "relu", "posenc", "bspline_form",
+                      "bspline_cubic", "bspline_srelu", "bspline_knots",
+                      "bspline_mscale_1", "bspline_mscale_1_new",
+                      "bspline_mscale_repIN")
+
+
+def _family_kw(nonlin):
+    """The factory keywords of test_real_family_fits_launch_the_kernels (and
+    of tools/port_unseeded_trace.py, which traced its inputs): mscale_1
+    folds to an identity first layer 2 -> 32 at scales (1, 2); _1_new and
+    repIN tile the coordinates to 2 x 2 x 16 = 64 inputs."""
+    kw = dict(hidden_features=64, out_features=3, sidelength=64,
+              scale=0.5 if nonlin.startswith("bspline") else 2.0)
+    if nonlin.startswith("bspline_mscale"):
+        kw.update(scale_tensor=(1.0, 2.0), scaled_hidden_features=16)
+    if nonlin in ("bspline_mscale_1_new", "bspline_mscale_repIN"):
+        kw["in_features"] = 2 * 2 * 16
+    return kw
+
+
+@pytest.mark.parametrize("nonlin", REAL_STEP_FAMILIES)
+def test_real_family_fits_launch_the_kernels(cuda, nonlin):
+    """Every real family with a step hook steps through the kernel on the
+    card and agrees with its reference, on seeded inputs: the family's
+    plain path, but for relu and posenc the plain canonical step in float64
+    on the kernel's own relu pattern (chip_smoke.
+    relu_pattern_step_reference; C.9's reference: at 600 rows a relu unit
+    within fp32 rounding of its kink, decided the other way, moves a
+    gradient by up to 56 x the bound; tools/port_unseeded_trace.py found
+    posenc failing so on 5 of 301 inputs), with the family's native
+    gradients equal to the canonical ones it folds to."""
+    import chip_smoke as S
+    from wire_tpu_torch.nn import models as MM
     from wire_tpu_torch.ops import real_mlp as RM
-    c = torch.rand((600, 2), device=cuda) * 2 - 1
-    t = torch.rand((600, 3), device=cuda)
-    for nonlin in ("siren", "gauss", "relu", "posenc", "bspline_form",
-                   "bspline_cubic", "bspline_srelu", "bspline_knots"):
-        kw = dict(hidden_features=64, out_features=3, sidelength=64,
-                  scale=0.5 if nonlin.startswith("bspline") else 2.0)
-        model = get_inr(nonlin, **kw)
-        plain = get_inr(nonlin, fused="never", **kw)
-        params = model.init(torch.Generator().manual_seed(0), cuda)
-        before = RM.launches["step"]
-        got = model.step_grads(params, c, t, want_metrics=True)
-        assert RM.launches["step"] == before + 1, nonlin
+    c = _rand((600, 2), 25, cuda) * 2 - 1
+    t = _rand((600, 3), 26, cuda)
+    kw = _family_kw(nonlin)
+    model = get_inr(nonlin, **kw)
+    plain = get_inr(nonlin, fused="never", **kw)
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    before = RM.launches["step"]
+    got = model.step_grads(params, c, t, want_metrics=True)
+    assert RM.launches["step"] == before + 1, nonlin
+    if nonlin not in ("relu", "posenc"):
         want = plain.step_grads(params, c, t, want_metrics=True)
-        _assert_rel(_flat(*got), _flat(*want))
+        _assert_rel(_tree_flat(*got), _tree_flat(*want))
+        return
+    spec = model.spec
+    canon = MM._canon_relu(params, spec)
+    x = MM._posenc_pre(c, spec)
+    kinds = ("relu",) * len(canon["layers"])
+    scratch = WS.StepScratch()
+    got_c = S.real_step_tensors(RM, *RM.real_step(
+        canon, x, t, kinds, want_metrics=True, scratch=scratch))
+    acts = [scratch._bufs[f"real_a{l}"] for l in range(len(kinds))]
+    want_c, _ = S.relu_pattern_step_reference(torch, RM, canon, x, t, kinds,
+                                              {}, acts, nonlin)
+    _assert_rel(got_c, want_c)
+    names = ["first"] + [f"hidden_{i}" for i in range(spec.hidden_layers)]
+    assert torch.equal(got[0], got_c["pred"])
+    for i, name in enumerate(names):
+        assert torch.equal(got[1][name]["w"], got_c[f"layers.{i}.w"])
+        assert torch.equal(got[1][name]["b"], got_c[f"layers.{i}.beta"])
+    for k in ("w", "b"):
+        assert torch.equal(got[1]["final"][k], got_c[f"final.{k}"])
+
+
+@pytest.mark.parametrize("nonlin", ["realgabor", "bspline_sig"])
+def test_autodiff_families_launch_no_kernel(cuda, nonlin):
+    """realgabor and bspline_sig have no step hook: their step and apply
+    are autodiff of plain PyTorch ops and launch no kernel of the port."""
+    from wire_tpu_torch.ops import real_mlp as RM
+    c = _rand((600, 2), 31, cuda) * 2 - 1
+    t = _rand((600, 3), 32, cuda)
+    model = get_inr(nonlin, hidden_features=64, out_features=3, scale=2.0)
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    before = (dict(RM.launches), WS.wire_step.launches)
+    pred, grads, sums = model.step_grads(params, c, t, want_metrics=True)
+    model.apply(params, c)
+    torch.cuda.synchronize()
+    assert (dict(RM.launches), WS.wire_step.launches) == before
+    assert torch.isfinite(pred).all() and all(
+        torch.isfinite(g).all() for _, g in _leaves(grads))
+
+
+def _leaves(t):
+    from wire_tpu_torch import tree
+    return tree.leaves(t)
 
 
 # ---- mscale2_step: every scale's trunk, the combiner, the loss, backward ---
@@ -772,8 +903,8 @@ def test_mscale2_step_is_deterministic_and_reuses_scratch(cuda):
     from wire_tpu_torch.ops.wire_step import StepScratch
     canon = _canon((2, 128, 128, 3), cuda, seed=13)
     comb = _comb(3, 3, cuda, 14)
-    c = torch.rand((5000, 2), device=cuda) * 2 - 1
-    t = torch.rand((5000, 3), device=cuda)
+    c = _rand((5000, 2), 27, cuda) * 2 - 1
+    t = _rand((5000, 3), 28, cuda)
     scratch = StepScratch()
     a, b = (_tree_flat(*MS.mscale2_step(canon, comb, c, t, ("qspline",) * 2,
                                         (9.0, 0.25, 0.125),
@@ -789,8 +920,8 @@ def test_multiscale_families_launch_the_kernels(cuda):
     gamma <= 2, where the plain path's relu^2 spline rounds little)."""
     from wire_tpu_torch.ops import mscale2_step as MS
     from wire_tpu_torch.ops import real_mlp as RM
-    c = torch.rand((600, 2), device=cuda) * 2 - 1
-    t = torch.rand((600, 3), device=cuda)
+    c = _rand((600, 2), 29, cuda) * 2 - 1
+    t = _rand((600, 3), 30, cuda)
     cases = {
         "bspline_mscale_2": (dict(scale_tensor=(0.5, 2.0, 4.0)),
                              MS.launches),

@@ -110,7 +110,7 @@ def test_factory_defaults_aliases_and_unknown():
               "hidden_layers", "in_features", "out_features"):
         assert getattr(m.spec, f) == getattr(jm.spec, f), f
     with pytest.raises(KeyError):
-        tget_inr("realgabor")     # a family not ported yet
+        tget_inr("not_a_family")  # no family of either registry
 
 
 def test_step_grads_never_is_autodiff_and_auto_is_the_step():

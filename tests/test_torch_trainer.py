@@ -115,12 +115,34 @@ def test_track_best_is_a_masked_copy():
 
 
 def test_chunked_epochs_are_refused():
+    """The chunked epochs, once refused, now run: a CPU fit of 256 points
+    in chunks of 100 (three chunks an epoch, 44 sentinel rows in the
+    last) takes every point exactly once an epoch, each chunk's valid rows
+    a prefix of its rows, and writes every point of the reconstruction."""
     coords, target, gt = _problem(16, 16)
     tmodel = tget_inr("wire", out_features=3, hidden_features=16)
     params = tmodel.init(torch.Generator().manual_seed(0))
-    cfg = T.FitConfig(niters=1, maxpoints=100)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        T.fit_pointwise(tmodel, params, coords, target, cfg, device="cpu")
+    seen = []
+    step_grads = tmodel.step_grads
+
+    def spy(p, rows, t, **kw):
+        seen.append((rows[:kw["nvalid"]].clone(), rows.shape[0]))
+        return step_grads(p, rows, t, **kw)
+
+    tmodel.step_grads = spy
+    cfg = T.FitConfig(niters=2, maxpoints=100)
+    res = T.fit_pointwise(tmodel, params, coords, target, cfg, gt=gt,
+                          device="cpu")
+    assert len(seen) == 6 and {n for _, n in seen} == {100}
+    want = np.sort(coords.view(np.dtype((np.void, 8))).ravel())
+    for epoch in range(2):
+        rows = torch.cat([r for r, _ in seen[3 * epoch:3 * epoch + 3]])
+        got = np.sort(np.ascontiguousarray(rows.numpy()).view(
+            np.dtype((np.void, 8))).ravel())
+        assert (got == want).all(), epoch
+    assert np.isfinite(res.final_rec).all() and np.isfinite(res.mse_gt).all()
+    assert res.final_rec.shape == (256, 3)
+    assert (res.final_rec != 0).any(axis=1).all()
 
 
 def test_default_device_is_cuda_and_never_falls_back():

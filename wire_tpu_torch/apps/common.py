@@ -55,11 +55,15 @@ def build_model(cfg, *, in_features, out_features, omega0, hidden_layers=2,
     the preset's scale, scale_tensor and scaled_hidden_features, omega0 for
     both omegas, and ``sidelength`` (posenc's frequency count) go to the
     factory; ``hidden_features`` overrides the preset's width, as the CT app
-    does; ``reference_compat`` sets mscale_HL's ``detach_split``.  The
-    input widening of mscale_1_new and repIN waits for those families."""
+    does; ``reference_compat`` sets mscale_HL's ``detach_split``;
+    mscale_1_new and repIN widen ``in_features`` to in_features x scales x
+    scaled_hidden_features (wire_tpu/apps/common.py:63-65)."""
     nonlin, pos_encode = cfg.nonlin, False
     if nonlin == "posenc":
         nonlin, pos_encode = "relu", True
+    if nonlin in ("bspline_mscale_1_new", "bspline_mscale_repIN"):
+        in_features = (in_features * len(cfg.scale_tensor)
+                       * cfg.scaled_hidden_features)
     return get_inr(
         nonlin,
         in_features=in_features,

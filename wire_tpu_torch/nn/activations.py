@@ -1,4 +1,5 @@
-"""INR activations (port of wire_tpu/nn/activations.py:26-152).
+"""INR activations (port of wire_tpu/nn/activations.py:26-152, with
+``bspline_sigmoid`` at :109).
 
 Complex quantities are explicit ``(re, im)`` pairs of real tensors.  The
 real activations are plain PyTorch ops that autograd differentiates; the
@@ -83,6 +84,18 @@ def bspline_srelu(z, sigma0):
     s = sigma0 * z
     v = torch.relu(1.0 - s) * torch.relu(s)
     return v * v
+
+
+def bspline_sigmoid(z, first_coord_negative, omega0, sigma0):
+    """The sigmoid-pair B-spline bump: sigmoid(s z - s w) where the first
+    input coordinate is negative, sigmoid(-s z - s w) elsewhere (s =
+    sigma0, w = omega0), selected per element; ``first_coord_negative`` a
+    bool tensor that broadcasts against z's batch dimensions."""
+    scale_in = sigma0 * z
+    shift = sigma0 * omega0
+    neg = torch.sigmoid(scale_in - shift)
+    pos = torch.sigmoid(-scale_in - shift)
+    return torch.where(first_coord_negative, neg, pos)
 
 
 def bspline_deboor(z, knots, degree=2):

@@ -1,14 +1,17 @@
 """The INR families as (init, apply, step) functions over parameter trees
 (port of wire_tpu/nn/models.py: WIRE, :32-246; WIRE-2D, :253-306; the
-canonical real families siren, gauss, relu/posenc and the B-splines form,
-cubic, srelu and knots, :311-733; the Gabor MFN, :579-631; the multiscale
-B-splines mscale_HL, mscale_2 and mscale_hier, :813-1146; the step hooks
-at :1160-1320).
+real Gabor realgabor, :448-490; the canonical real families siren, gauss,
+relu/posenc and the B-splines form, cubic, srelu, sig and knots,
+:311-733; the Gabor MFN, :579-631; the multiscale B-splines mscale_1,
+mscale_1_new/repIN, mscale_HL, mscale_2 and mscale_hier, :735-1146; the
+step hooks at :1160-1320).
 
 Parameters are nested dicts and lists of tensors with the JAX package's
 names and layouts (WIRE: ``first{w,b}``, ``hidden_i{wr,wi,br,bi}``,
 ``final{wr,wi,br,bi}``; WIRE-2D: ``first_lin``/``first_orth{w,b}``,
 ``hidden_i_lin``/``hidden_i_orth{wr,wi,br,bi}``, ``final{wr,wi,br,bi}``;
+realgabor: ``{first, hidden_i}`` each ``{freqs, scale}`` of ``{w, b}``,
+``final{w,b}``; mscale_1: ``first``, ``trunk_in``, ``hidden_i``, ``final``;
 the real families: ``{first, hidden_i, final}`` each ``{w, b}``; mscale_2
 adds ``combiner{scale_weights, freq_0, freq_1, refine_0, refine_1}``; MFN:
 ``gabor_i{w,b,mu,gamma}``, ``linear_i{w,b}``, ``final{w,b}``; mscale_hier
@@ -274,6 +277,48 @@ def wire2d_step(params, coords, target, spec, *, nvalid=None, denom=None,
     from wire_tpu_torch.ops.wire2d import wire2d_step as step
     return step(params, coords, target, spec, nvalid=nvalid, denom=denom,
                 gt=gt, want_metrics=want_metrics, scratch=scratch)
+
+
+# ===========================================================================
+# realgabor - the real Gabor layer, cos(omega0 freqs(x)) exp(-(sigma0
+# scale(x))^2), with two linears per layer and real parameters; no kernel,
+# it trains by autodiff of its apply (wire_tpu/nn/models.py:440-490)
+# ===========================================================================
+
+def realgabor_init(gen, spec: INRSpec, device="cpu"):
+    h = spec.hidden_features
+
+    def pair(nin, nout):
+        return {"freqs": winit.linear_params(gen, nin, nout, device=device),
+                "scale": winit.linear_params(gen, nin, nout, device=device)}
+
+    params = {"first": pair(spec.in_features, h)}
+    for i in range(spec.hidden_layers):
+        params[f"hidden_{i}"] = pair(h, h)
+    if spec.outermost_linear:
+        params["final"] = winit.linear_params(gen, h, spec.out_features,
+                                              device=device)
+    else:
+        params["final"] = pair(h, spec.out_features)
+    return params
+
+
+def _real_gabor_layer(p, x, omega0, sigma0):
+    omega = omega0 * linear(p["freqs"], x)
+    s = sigma0 * linear(p["scale"], x)
+    return torch.cos(omega) * torch.exp(-(s * s))
+
+
+def realgabor_apply(params, coords, spec: INRSpec):
+    x = _real_gabor_layer(params["first"], coords, spec.first_omega0,
+                          spec.scale)
+    for i in range(spec.hidden_layers):
+        x = _real_gabor_layer(params[f"hidden_{i}"], x, spec.hidden_omega0,
+                              spec.scale)
+    if spec.outermost_linear:
+        return linear(params["final"], x)
+    return _real_gabor_layer(params["final"], x, spec.hidden_omega0,
+                             spec.scale)
 
 
 # ===========================================================================
@@ -556,6 +601,16 @@ def bspline_srelu_apply(params, coords, spec: INRSpec):
                   lambda p, x: act.bspline_srelu(linear(p, x), spec.scale))
 
 
+def bspline_sig_apply(params, coords, spec: INRSpec):
+    """The sigmoid-pair bump on every layer, its branch chosen per row by
+    the sign of the row's first coordinate (wire_tpu/nn/models.py:706); no
+    kernel, it trains by autodiff of this apply."""
+    neg = coords[..., :1] < 0
+    return _chain(params, coords, spec,
+                  lambda p, x: act.bspline_sigmoid(
+                      linear(p, x), neg, spec.first_omega0, spec.scale))
+
+
 _DEBOOR_KNOTS = (-1.5, -1.5, -1.5, -0.5, 0.5, 1.5, 1.5, 1.5)
 
 
@@ -604,6 +659,108 @@ bspline_knots_step = _make_real_step(bspline_knots_apply,
 def _full(width, value, like):
     return torch.full((width,), float(value), dtype=like.dtype,
                       device=like.device)
+
+
+# ---- mscale_1: one shared first linear applied at every scale -------------
+
+def mscale1_init(gen, spec: INRSpec, device="cpu"):
+    """first d -> shf, trunk_in ns shf -> h, max(L - 2, 0) hidden layers,
+    final h -> o (wire_tpu/nn/models.py:735-756)."""
+    shf, hf = spec.scaled_hidden_features, spec.hidden_features
+    ns = len(spec.scale_tensor)
+    params = {"first": winit.linear_params(gen, spec.in_features, shf,
+                                           device=device),
+              "trunk_in": winit.linear_params(gen, shf * ns, hf,
+                                              device=device)}
+    for i in range(max(spec.hidden_layers - 2, 0)):
+        params[f"hidden_{i}"] = winit.linear_params(gen, hf, hf,
+                                                    device=device)
+    params["final"] = winit.linear_params(gen, hf, spec.out_features,
+                                          device=device)
+    return params
+
+
+def _mscale1_names(spec):
+    return ["trunk_in"] + [f"hidden_{i}"
+                           for i in range(max(spec.hidden_layers - 2, 0))]
+
+
+def mscale1_apply(params, coords, spec: INRSpec):
+    """The first linear at every scale s (on s x), concatenated raw (no
+    basis, as the reference leaves it), then 'pre'-mode quadratic-spline
+    layers (wire_tpu/nn/models.py:759-772).  The apply has no kernel path,
+    as in the JAX package; the step folds to real_step."""
+    x = torch.cat([linear(params["first"], s * coords)
+                   for s in spec.scale_tensor], dim=-1)
+    for nm in _mscale1_names(spec):
+        x = _bspline_layer(params[nm], x, spec.scale, "pre")
+    if spec.outermost_linear:
+        return linear(params["final"], x)
+    return _bspline_layer(params["final"], x, spec.scale, "pre")
+
+
+def _canon_mscale1(params, spec):
+    """mscale_1 as one canonical chain (wire_tpu/nn/models.py:1205): layer
+    0 an identity-basis linear [s_1 W | s_2 W | ...] with beta [b | b |
+    ...], the trunk 'pre'-mode layers (alpha = sigma, beta = b)."""
+    W, b = params["first"]["w"], params["first"]["b"]
+    w0 = torch.cat([s * W for s in spec.scale_tensor], dim=1)
+    b0 = torch.cat([b] * len(spec.scale_tensor))
+    canon = _canon_uniform(params, spec, spec.scale, lambda bb: bb,
+                           names=_mscale1_names(spec))
+    canon["layers"].insert(0, {"w": w0, "alpha": _full(w0.shape[1], 1.0, W),
+                               "beta": b0})
+    return canon
+
+
+def _mscale1_kinds(spec):
+    return ("identity",) + ("qspline",) * len(_mscale1_names(spec))
+
+
+# ---- mscale_1_new / mscale_repIN: the scaled coordinates tiled wide --------
+
+def mscale_repin_init(gen, spec: INRSpec, device="cpu"):
+    return _plain_mlp_init(gen, spec, device)
+
+
+def repin_expand(coords, spec):
+    """Coordinates (..., N, d) tiled per scale into in_features = d ns r
+    lanes (r = in_features // (d ns)), in the reference's flattening: the
+    (B, ns, N, d r) stack of scaled, tiled coordinates is moved scale-major
+    and read back as (B, N, ns d r) rows, so a row holds ns consecutive
+    (scale, point) entries (wire_tpu/nn/models.py:774-792)."""
+    squeeze = coords.dim() == 2
+    if squeeze:
+        coords = coords[None]
+    B, N, d = coords.shape
+    ns = len(spec.scale_tensor)
+    repeat = spec.in_features // (d * ns)
+    scales = torch.tensor(spec.scale_tensor, dtype=coords.dtype,
+                          device=coords.device)
+    scaled = scales[None, :, None, None] * coords[:, None]
+    tiled = scaled.repeat(1, 1, 1, repeat)
+    x = tiled.permute(1, 0, 2, 3).reshape(B, -1, ns * d * repeat)
+    return x[0] if squeeze else x
+
+
+def _canon_repin(params, spec):
+    # 'post' mode: B(s (x W + b)) = B(s (x W) + s b)
+    s = spec.scale
+    return _canon_uniform(params, spec, s, lambda b: s * b)
+
+
+def _repin_apply_wide(params, x, spec):
+    """The family's MLP on the already tiled input ``x``: the real_mlp
+    pair unless fused is off ('post'-mode quadratic splines)."""
+    if _use_fused(spec):
+        return _fused_real(x, ("qspline",) * _n_act_layers(spec),
+                           _canon_repin(params, spec))
+    return _chain(params, x, spec,
+                  lambda p, z: _bspline_layer(p, z, spec.scale, "post"))
+
+
+def mscale_repin_apply(params, coords, spec: INRSpec):
+    return _repin_apply_wide(params, repin_expand(coords, spec), spec)
 
 
 # ---- mscale_HL: one wide first layer, its lanes in scale bands -------------
@@ -910,6 +1067,13 @@ def mscale_hier_apply(params, coords, spec: INRSpec):
     return out
 
 
+mscale1_step = _make_real_step(mscale1_apply, _mscale1_kinds,
+                               _canon_mscale1)
+# the tiling is the step's parameter-free input transform; the autodiff
+# fallback takes the apply on the raw coordinates
+mscale_repin_step = _make_real_step(mscale_repin_apply,
+                                    _uniform_kinds("qspline"), _canon_repin,
+                                    pre=repin_expand)
 mscale_hl_step = _make_real_step(mscale_hl_apply, _mscale_hl_kinds,
                                  _canon_mscale_hl,
                                  use_ok=_mscale_hl_fusable)

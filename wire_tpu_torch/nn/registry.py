@@ -1,7 +1,10 @@
 """Model factory (port of wire_tpu/nn/registry.py:20-78 and get_inr):
-WIRE, WIRE-2D, the canonical real families (siren, gauss, relu, posenc
-and the B-splines form, cubic, srelu and knots), the Gabor MFN and the
-multiscale B-splines mscale_2, mscale_HL and mscale_hier.  The JAX
+all 19 of the JAX registry's names.  WIRE, WIRE-2D, the real Gabor
+realgabor, the canonical real families (siren, gauss, relu, posenc and
+the B-splines form, cubic, srelu, sig and knots), the Gabor MFN and the
+multiscale B-splines mscale_1, mscale_1_new, mscale_repIN, mscale_2,
+mscale_HL and mscale_hier; realgabor and bspline_sig have no step hook
+and train by autodiff of their apply, as in the JAX package.  The JAX
 registry's TPU lane guidance (``hidden_gemm_width``, ``LANE_NATIVE``,
 ``lane_waste``: 128-lane MXU padding) has no counterpart on the GPU."""
 from __future__ import annotations
@@ -12,6 +15,7 @@ from wire_tpu_torch.nn.models import INR, INRSpec
 # nonlin name -> (init_fn, apply_fn)
 MODEL_REGISTRY = {
     "wire": (M.wire_init, M.wire_apply),
+    "realgabor": (M.realgabor_init, M.realgabor_apply),
     "wire2d": (M.wire2d_init, M.wire2d_apply),
     "siren": (M.siren_init, M.siren_apply),
     "gauss": (M._plain_mlp_init, M.gauss_apply),
@@ -21,7 +25,11 @@ MODEL_REGISTRY = {
     "bspline_form": (M.bspline_plain_init, M.bspline_form_apply),
     "bspline_cubic": (M.bspline_plain_init, M.bspline_cubic_apply),
     "bspline_srelu": (M.bspline_plain_init, M.bspline_srelu_apply),
+    "bspline_sig": (M.bspline_plain_init, M.bspline_sig_apply),
     "bspline_knots": (M.bspline_plain_init, M.bspline_knots_apply),
+    "bspline_mscale_1": (M.mscale1_init, M.mscale1_apply),
+    "bspline_mscale_1_new": (M.mscale_repin_init, M.mscale_repin_apply),
+    "bspline_mscale_repIN": (M.mscale_repin_init, M.mscale_repin_apply),
     "bspline_mscale_2": (M.mscale2_init, M.mscale2_apply),
     "bspline_mscale_HL": (M.mscale_hl_init, M.mscale_hl_apply),
     "bspline_mscale_hier": (M.mscale_hier_init, M.mscale_hier_apply),
@@ -40,6 +48,9 @@ STEP_REGISTRY = {
     "bspline_cubic": M.bspline_cubic_step,
     "bspline_srelu": M.bspline_srelu_step,
     "bspline_knots": M.bspline_knots_step,
+    "bspline_mscale_1": M.mscale1_step,
+    "bspline_mscale_1_new": M.mscale_repin_step,
+    "bspline_mscale_repIN": M.mscale_repin_step,
     "bspline_mscale_2": M.mscale2_step,
     "bspline_mscale_HL": M.mscale_hl_step,
     "bspline_mscale_hier": M.mscale_hier_step,
@@ -49,6 +60,7 @@ STEP_REGISTRY = {
 # reference module's __init__ defaults
 _FAMILY_DEFAULTS = {
     "wire": dict(first_omega0=30.0, hidden_omega0=30.0, scale=10.0),
+    "realgabor": dict(first_omega0=10.0, hidden_omega0=10.0, scale=10.0),
     "wire2d": dict(first_omega0=10.0, hidden_omega0=10.0, scale=10.0),
     "siren": dict(first_omega0=30.0, hidden_omega0=30.0, scale=10.0),
     "gauss": dict(scale=10.0),

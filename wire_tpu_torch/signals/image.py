@@ -1,6 +1,6 @@
 """Host-side image plumbing (port of wire_tpu/signals/image.py): the
 normalization, cv2's INTER_AREA and INTER_LINEAR resizes, and the
-procedural test images.  numpy only (the GPU machine has no cv2): each
+procedural test images and occupancy volume.  numpy only (the GPU machine has no cv2): each
 resize is cv2's own per-axis weight table applied separably as two small
 matrices, so a 512^2 image at fx = 1/3 gives cv2's 171^2, not a box
 average's 170^2."""
@@ -147,3 +147,19 @@ def natural_image(H=512, W=512, channels=3, seed=0, beta=1.2):
         m = (((x / W - cx) ** 2 + (y / H - cy) ** 2) < r * r)
         im[m] += rng.uniform(-0.25, 0.25, channels).astype(np.float32)
     return normalize(im, True)
+
+
+def synthetic_volume(N=64, seed=0):
+    """A blobby occupancy volume in {0, 1}: five Gaussian blobs with
+    centres and widths drawn from ``seed``, thresholded at 0.6
+    (wire_tpu/signals/image.py:182)."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.mgrid[-1:1:N * 1j, -1:1:N * 1j, -1:1:N * 1j].astype(
+        np.float32)
+    f = np.zeros((N, N, N), np.float32)
+    for _ in range(5):
+        cx, cy, cz = rng.uniform(-0.5, 0.5, 3)
+        s = rng.uniform(0.15, 0.4)
+        f += np.exp(-((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2)
+                    / (2 * s * s))
+    return (f > 0.6).astype(np.float32)

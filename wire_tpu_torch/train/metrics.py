@@ -7,10 +7,13 @@ unbiased covariance, win//2 border crop, channel mean), computed in float64
 because E[x^2]-mu^2 cancels in float32 on smooth images.  MS-SSIM follows
 pytorch_msssim's defaults (11-tap Gaussian, sigma 1.5, valid filtering, 5
 scales with the standard weights, 2x2 average pooling between them).
+IoU (``iou``) takes tensors on their device, so a fit's per-epoch metric
+costs no host sync, or numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def psnr_ref(x, xhat):
@@ -133,3 +136,21 @@ def ms_ssim(x, y, data_range=1.0, win_size=11, sigma=1.5,
             x3, y3 = _pool2(x3), _pool2(y3)
     vals = np.asarray(mcs + [max(s, 0.0)])
     return float(np.prod(vals ** np.asarray(weights)))
+
+
+def iou(preds, gt, thres=None):
+    """Intersection over union of the nonzero entries, ``preds``
+    thresholded to {0, 1} at ``thres`` first when given, without touching
+    the caller's array (wire_tpu/train/metrics.py:221).  Tensors give a
+    float32 0-d tensor on their device, numpy arrays a float."""
+    if isinstance(preds, torch.Tensor):
+        p = preds >= thres if thres is not None else preds != 0
+        g = torch.as_tensor(gt, device=preds.device) != 0
+        inter = torch.logical_and(p, g).sum()
+        union = torch.logical_or(p, g).sum()
+        return inter.to(torch.float32) / union.to(torch.float32)
+    preds, gt = np.asarray(preds), np.asarray(gt)
+    p = preds >= thres if thres is not None else preds != 0
+    g = gt != 0
+    return float(np.float32(np.count_nonzero(p & g))
+                 / np.float32(np.count_nonzero(p | g)))

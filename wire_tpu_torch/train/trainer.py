@@ -1,7 +1,7 @@
 """Adam fitting of an INR to one signal (port of wire_tpu/train/trainer.py:
-FitConfig, FitResult, track_best, _lr_schedule, make_optimizer, the
-full-batch branch of fit_pointwise, and fit_operator with a full-grid
-render).
+FitConfig, FitResult, track_best, _lr_schedule, make_optimizer,
+fit_pointwise with its full-batch, chunked per-point and block-permuted
+epochs, and fit_operator with a full-grid render).
 
 Loop semantics: Adam as optax's ``scale_by_adam(eps_root=0)`` followed by
 ``scale_by_schedule``, the learning rate decaying by
@@ -14,18 +14,22 @@ MSE vs the target and vs the clean gt from the step's SSE sums; the best
 reconstruction and parameters by MSE kept on the device with masked copies
 (no host sync per epoch).
 
-Only the full-batch protocol of fit_pointwise is here: one chunk holding
-every point (``maxpoints >= npoints``), which is what the WIRE denoise
-presets give at 256 x 256.  The chunked/permutation epochs are a later
-slice.  fit_operator renders the whole grid every iteration; its chunked
-render, checkpoint/resume and mesh variant are later slices too.
+fit_pointwise takes one full batch when ``maxpoints >= npoints`` (the
+WIRE denoise presets at 256 x 256); otherwise every epoch draws a fresh
+permutation of the points (or of contiguous ``block_perm``-point blocks)
+from a torch.Generator seeded with ``cfg.seed`` on the fit's device, pads
+it with tail sentinels to ``nchunks x maxpoints`` and takes one step per
+chunk, the sentinel rows masked through the step's ``nvalid``.  TV
+regularization, checkpoint/resume and the sharded fit are later slices.
+fit_operator renders the whole grid every iteration; its chunked render,
+checkpoint/resume and mesh variant are later slices too.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
+import inspect
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from wire_tpu_torch import tree
 from wire_tpu_torch.device import resolve
 from wire_tpu_torch.nn.models import grad_leaves, grads_tree
 from wire_tpu_torch.ops.wire_step import StepScratch
+from wire_tpu_torch.signals.coords import GridSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +52,16 @@ class FitConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    # seeds the chunked epochs' permutations
+    seed: int = 0
+    # sort the indices within each chunk of an epoch's permutation: the
+    # chunks hold the same points, only their order (and so the float
+    # summation order) changes; the sentinels stay a tail
+    sort_chunks: bool = False
+    # permute contiguous blocks of this many points instead of single
+    # points (0 = off, the per-point permutation); needs npoints divisible
+    # by it
+    block_perm: int = 0
 
 
 @dataclasses.dataclass
@@ -62,6 +77,8 @@ class FitResult:
     # device time per epoch from CUDA events, the first epoch left out
     # (None on the CPU)
     step_ms: Optional[float] = None
+    # per-epoch values of fit_pointwise's epoch_metric (None without one)
+    time_array: Optional[np.ndarray] = None
 
 
 class _StepClock:
@@ -179,63 +196,169 @@ def _as_tensor(x, device):
     return x.to(device, torch.float32).contiguous()
 
 
+def _two_arg_metric(epoch_metric):
+    """Whether ``epoch_metric`` takes (rec, target): two positional
+    parameters without defaults (wire_tpu/train/trainer.py:940-962); a
+    callable whose signature cannot be read takes rec alone."""
+    try:
+        params = inspect.signature(epoch_metric).parameters.values()
+    except (ValueError, TypeError):
+        return False
+    required = [p for p in params
+                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+                and p.default is inspect.Parameter.empty]
+    return len(required) >= 2
+
+
+def _chunking(cfg: FitConfig, npoints):
+    """(U, mp, nchunks, npad): block size (1 per point), rows per chunk,
+    chunks per epoch and sentinel rows in the last chunk
+    (wire_tpu/train/trainer.py:371-388)."""
+    U = int(cfg.block_perm or 0)
+    if U > 1:
+        if npoints % U:
+            raise ValueError(f"block_perm={U} requires npoints ({npoints}) "
+                             f"divisible by the block size")
+        nunits = npoints // U
+        mpu = max(min(cfg.maxpoints // U, nunits), 1)
+        nchunks = -(-nunits // mpu)
+        return U, mpu * U, nchunks, (nchunks * mpu - nunits) * U
+    mp = min(cfg.maxpoints, npoints)
+    nchunks = -(-npoints // mp)
+    return 1, mp, nchunks, nchunks * mp - npoints
+
+
 def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
-                  gt=None, device=None):
+                  gt=None, track="gt", epoch_metric: Optional[Callable] = None,
+                  permutation: Optional[Callable] = None, device=None):
     """Fit an INR pointwise to ``target`` sampled at ``coords``.
 
-    coords (N, d), target (N, c), gt optional clean (N, c): numpy arrays
-    or tensors.  The best epoch is the one with the least MSE vs gt (vs
-    the target when gt is None).  ``params`` is not modified.  Runs on ``device``
+    coords (N, d) (numpy array or tensor) or a ``GridSpec``, whose rows
+    are computed on the device; target (N, c), gt optional clean (N, c).
+    The best epoch is the one with the least MSE vs gt (``track="gt"``;
+    vs the target when gt is None) or vs the target (``track="noisy"``).
+    ``epoch_metric(rec)``, or ``epoch_metric(rec, target)`` when it takes
+    two required positional parameters, is evaluated on the device after
+    every epoch; its history comes back in ``time_array``.
+    ``permutation(n)`` gives each chunked epoch's permutation of range(n)
+    (n = npoints, or npoints / block_perm blocks); by default a fresh
+    ``torch.randperm`` from a generator seeded with ``cfg.seed`` on the
+    fit's device.  ``params`` is not modified.  Runs on ``device``
     (default cuda; raises without a card unless device='cpu')."""
+    if track not in ("gt", "noisy"):
+        raise ValueError(f"fit_pointwise: track={track!r}, expected 'gt' or "
+                         f"'noisy'")
     dev = resolve(device)
-    coords = _as_tensor(coords, dev)
+    grid = coords if isinstance(coords, GridSpec) else None
+    if grid is None:
+        coords = _as_tensor(coords, dev)
     target = _as_tensor(target, dev)
     gt_arr = target if gt is None else _as_tensor(gt, dev)
     npoints, c = target.shape
-    mp = min(cfg.maxpoints, npoints)
-    nchunks = math.ceil(npoints / mp)
-    npad = nchunks * mp - npoints
-    if nchunks != 1 or npad != 0:
-        raise NotImplementedError(
-            f"fit_pointwise: maxpoints={cfg.maxpoints} < npoints={npoints} "
-            f"needs the chunked epochs, which are not ported yet")
+    U, mp, nchunks, npad = _chunking(cfg, npoints)
+    full_batch = nchunks == 1 and npad == 0
+    if grid is not None and full_batch:
+        coords = grid.rows(torch.arange(npoints, device=dev))
+    metric_two = epoch_metric is not None and _two_arg_metric(epoch_metric)
+    if permutation is None and not full_batch:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(cfg.seed))
+
+        def permutation(n):
+            return torch.randperm(n, generator=gen, device=dev)
 
     params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
                       params)
     opt = Adam(cfg, params, npoints=npoints, nchunks=nchunks)
     best_params = tree.map(torch.clone, params)
     best_rec = torch.zeros_like(target)
-    rec = best_rec
+    rec = best_rec if full_batch else torch.zeros_like(target)
     best_mse = torch.tensor(float("inf"), device=dev)
     hist_gt = torch.empty(cfg.niters, device=dev)
     hist_noisy = torch.empty(cfg.niters, device=dev)
+    hist_metric = (torch.empty(cfg.niters, device=dev)
+                   if epoch_metric is not None else None)
     inv_nc = 1.0 / (npoints * c)
     scratch = StepScratch()
+
+    def chunk_step(idx, nvalid, rows_of):
+        """One step on a chunk: ``idx`` the chunk's point (or block)
+        indices, sentinels a tail, ``nvalid`` its valid points; the valid
+        rows of the prediction are written into rec."""
+        safe = idx.clamp(max=npoints // U - 1)
+        rows, t, g = rows_of(safe)
+        pred, grads, sums = model.step_grads(
+            params, rows, t, nvalid=nvalid,
+            denom=float(np.float32(nvalid) * np.float32(c)), gt=g,
+            want_metrics=True, scratch=scratch)
+        opt.step(params, grads)
+        nv = nvalid // U
+        rec.view(npoints // U, U * c).index_copy_(
+            0, idx[:nv], pred.reshape(-1, U * c)[:nv])
+        return sums
+
+    if U > 1:
+        t_u, g_u = target.view(-1, U * c), gt_arr.view(-1, U * c)
+        c_u = None if grid is not None else coords.view(npoints // U, -1)
+        lane = torch.arange(U, device=dev)
+
+        def rows_of(safe):
+            if grid is not None:
+                rows = grid.rows((safe[:, None] * U + lane).reshape(-1))
+            else:
+                rows = c_u[safe].reshape(mp, -1)
+            return rows, t_u[safe].reshape(mp, c), g_u[safe].reshape(mp, c)
+    else:
+        def rows_of(safe):
+            rows = grid.rows(safe) if grid is not None else coords[safe]
+            return rows, target[safe], gt_arr[safe]
 
     clock = _StepClock(dev, cfg.niters)
     t0 = time.time()
     for epoch in range(cfg.niters):
         clock.tick(epoch)
-        pred, grads, (sse_t, sse_g) = model.step_grads(
-            params, coords, target, gt=gt_arr, want_metrics=True,
-            scratch=scratch)
-        opt.step(params, grads)
-        rec = pred
+        if full_batch:
+            pred, grads, (sse_t, sse_g) = model.step_grads(
+                params, coords, target, gt=gt_arr, want_metrics=True,
+                scratch=scratch)
+            opt.step(params, grads)
+            rec = pred
+        else:
+            # sentinels (npoints / U) pad the tail; sorting keeps them there
+            perm = permutation(npoints // U).to(dev)
+            if npad:
+                perm = torch.cat([perm, perm.new_full((npad // U,),
+                                                      npoints // U)])
+            perm = perm.view(nchunks, mp // U)
+            if cfg.sort_chunks:
+                perm = torch.sort(perm, dim=1).values
+            sse_t = sse_g = 0.0
+            for k in range(nchunks):
+                nvalid = mp - (npad if k == nchunks - 1 else 0)
+                st, sg = chunk_step(perm[k], nvalid, rows_of)
+                sse_t = sse_t + st
+                sse_g = sse_g + sg
         mse_noisy = sse_t * inv_nc
         mse_gt = sse_g * inv_nc
         hist_gt[epoch] = mse_gt
         hist_noisy[epoch] = mse_noisy
-        is_best = mse_gt < best_mse
-        best_mse = torch.where(is_best, mse_gt, best_mse)
+        tracked = mse_gt if track == "gt" else mse_noisy
+        is_best = tracked < best_mse
+        best_mse = torch.where(is_best, tracked, best_mse)
         best_rec, best_params = track_best(is_best, (rec, params),
                                            (best_rec, best_params))
+        if epoch_metric is not None:
+            hist_metric[epoch] = (epoch_metric(rec, target) if metric_two
+                                  else epoch_metric(rec))
     step_ms = clock.ms()
     wall = time.time() - t0
     return FitResult(
         params=params, best_params=best_params,
         best_rec=best_rec.cpu().numpy(), final_rec=rec.cpu().numpy(),
         mse_gt=hist_gt.cpu().numpy(), mse_noisy=hist_noisy.cpu().numpy(),
-        best_mse=float(best_mse), wall_time_s=wall, step_ms=step_ms)
+        best_mse=float(best_mse), wall_time_s=wall, step_ms=step_ms,
+        time_array=(None if hist_metric is None
+                    else hist_metric.cpu().numpy()))
 
 
 def fit_operator(model, params, coords, measurement, operator_fn,
