@@ -23,7 +23,11 @@ WIRE 300 wide at d = 3 with 3 hidden layers, two 200,000-row chunks an
 epoch through fit_pointwise's permuted epochs; kernel: wire_step) and
 denoise fits of the registry's newest families (bspline_mscale_1, _1_new
 and _repIN through real_step; realgabor and bspline_sig by autodiff, no
-kernel).
+kernel); then the multi-frame SR app (wire_tpu_torch.apps.multi_sr: a
+192^2 image, x4, 4 frames, WIRE 256 wide = 181 complex units through
+fit_frames on (4, 36,864, 2) frame grids; kernel: wire_mlp's pair; five
+more families through their pairs) and the fit state (three fits
+stopped after their second checkpoint and resumed, the chunked render).
 Phases, each printing one JSON line with its wall time:
   device           card name and count, nvidia-smi's name and power limit;
                    TF32 off for matmuls and cuDNN
@@ -64,6 +68,10 @@ Phases, each printing one JSON line with its wall time:
                    ragged n 70,001; real_step at the mscale_1 fold (an
                    identity first layer 2 -> 512) and the repIN fold (K =
                    1,024), the real_mlp pair at the repIN fold; two calls
+                   of each bit-equal; the multi-SR pairs (wire_mlp at h
+                   181 on the app's (4, 36,864, 2) frame grids and on a
+                   ragged (3, 4,097, 2) with dcoords, real_mlp at the
+                   app's gauss and posenc, mfn_mlp at its mfn), two calls
                    of each bit-equal
   measure          kernel (as a host call, and its kernels' device time
                    from torch.profiler), plain and library times at those
@@ -79,6 +87,10 @@ Phases, each printing one JSON line with its wall time:
                    wire_step at the occupancy chunk, real_step at the
                    mscale_1 and repIN folds, the real_mlp pair at the
                    repIN fold
+  measure_multi_sr row 2 (the wire_mlp pair) at the multi-SR batch: host
+                   and kernel ms, plain and library ms, the 3xTF32 and
+                   fp32 bounds, time by product class; at 512^2 x 4
+                   frames (1,048,576 rows) host and kernel ms
   fit              the denoise bench protocol (65,536 coordinates, full
                    batch) through fit_pointwise, once through the kernel
                    (launch counts reset just before, read just after) and
@@ -126,12 +138,32 @@ Phases, each printing one JSON line with its wall time:
                    each through real_step (once an epoch) and the plain
                    path; realgabor and bspline_sig for 20 epochs, no
                    kernel launched
+  fit_multi_sr     the multi-SR app at its defaults for 300 iterations
+                   with the known motion through the kernels (one wire_mlp
+                   forward and backward an iteration, one forward more for
+                   the render, nothing else; the .mat written), through
+                   the plain path from one init and frame order (within
+                   0.05 dB), and with register_burst's motion (its warps'
+                   errors); both at or above wire_tpu's CPU fits less 0.2
+                   dB; siren, gauss, relu, posenc and mfn for 20
+                   iterations, each through its own pair alone; a
+                   profiled 20-iteration fit's device idle share
+  fit_resume       the multi-SR fit (60 iterations, scan_segment 20), the
+                   occupancy app (12 epochs, 4) and WIRE CT rotate (30
+                   iterations, 10), each stopped just after its second
+                   save and resumed: history, parameters and best
+                   parameters bit-equal to the uninterrupted fit's; a
+                   foreign checkpoint refused; WIRE CT rotate rendered in
+                   4 chunks of 16,384 rows against the whole grid (loss
+                   within 1e-5 relative, lower peak memory, each chunk's
+                   forward twice and backward once an iteration)
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
 nothing of JAX or wire_tpu.
 """
 import argparse
+import dataclasses
 import faulthandler
 import json
 import numbers
@@ -3663,6 +3695,478 @@ def sweep_phase(torch, np, SW, WS, counters, device):
     return out
 
 
+# ---- the multi-frame SR slice -------------------------------------------
+
+# Best PSNR of the 300-iteration multi-SR fits at the app's defaults (192^2,
+# x4, 4 frames, WIRE 256 wide = 181 complex units, omega0 10, sigma 5,
+# lr 5e-3 without decay) from wire_tpu on the CPU (fused="never", float32,
+# its motion module's cv2-free branches, this script's seed-0 init moved
+# across with wire_tpu_torch.bridge), with the known motion (oracle) and
+# with register_burst's, as printed by tools/port_multisr_floor.py; the
+# kernel fits must reach them less 0.2 dB, and the oracle kernel fit agree
+# with the plain fit within PSNR_AGREE_DB.
+WIRE_TPU_300_MULTISR_DB = {"oracle": 15.790024757385254,
+                           "estim": 15.256376266479492}
+MULTISR_ITERS = 300
+# iterations of each other family's multi-SR fit
+MULTISR_OTHER_ITERS = 20
+MULTISR_NONLINS = ("siren", "gauss", "relu", "posenc", "mfn")
+# the multi-SR cases held to their plain version run in float64, and of
+# those the relu pairs held to it on the kernel's own relu pattern (fault
+# C.9's check), as tools/port_multisr_reference.py decides them (PERF.md
+# section 2): the posenc pair's fp32 plain run lies 8.0e-5 x max from
+# float64 and the kernel 9.3e-4, a relu input near its kink decided the
+# other way (on an NVIDIA H100 80GB HBM3 at 700 W); every other multi-SR
+# case keeps the fp32 plain version (its fp32 plain run within 8.7e-6 x
+# max of float64)
+MULTISR_FLOAT64_CASES = frozenset({"multisr posenc"})
+MULTISR_RELU_PATTERN_CASES = frozenset({"multisr posenc"})
+# the resume checks: (epochs or iterations, scan_segment) of each fit
+RESUME_SHAPES = {"multi_sr": (60, 20), "occupancy": (12, 4),
+                 "ct_rotate": (30, 10)}
+# the chunked render: rows per chunk (4 chunks of the CT field), iterations
+# and the loss histories' agreement with the whole-grid render
+RENDER_CHUNK_ROWS = 16384
+RENDER_ITERS = 20
+RENDER_REL_TOL = 1e-5
+# the reference protocol's frame side (4 frames of 512^2 = 1,048,576 rows a
+# step), where measure_multi_sr times row 2 once more
+MULTISR_BIG_SIDE = 512
+
+
+def wire_pair_case(torch, WM, params, spec, c, cot, dcoords=True):
+    """(kernel thunk, plain, args, kwargs) of one wire_mlp pair case:
+    vjp() over [coords] + the leaves (with dcoords) or param_vjp()
+    (without)."""
+    keys = leaf_paths(params)
+    inputs = [c] + [t for _, t in tree_leaves(params)]
+
+    def pair(apply):
+        fn = pair_fn(apply, spec, keys)
+
+        def run(inputs, cot):
+            if dcoords:
+                return vjp(torch, fn, inputs, cot)
+            return param_vjp(torch, fn, inputs[0], inputs[1:], cot)
+        return run
+    kernel = pair(WM.wire_mlp)
+    return (lambda: kernel(inputs, cot), pair(WM.wire_mlp_plain),
+            (inputs, cot), {})
+
+
+def multisr_cases(torch, np, TMS, WM, RM, MM, MF, device):
+    """{name: (kernel thunk, plain, args, kwargs[, pattern])} of the pairs
+    the multi-SR fits launch, each at the app's seed-0 init: wire_mlp on
+    the app's (4, 36,864, 2) frame grids without dcoords, as the fit calls
+    it, and on a ragged (3, 4,097, 2) with dcoords; the real_mlp pair at
+    the app's gauss and posenc models (through their folds, posenc on its
+    encoded coordinates) and the mfn_mlp pair at the app's mfn, on the
+    frame grids without dcoords.  Cotangents unit normal."""
+    cases = {}
+    rng = np.random.default_rng(50)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    prob = TMS.setup()
+    coords = t(prob["ds"].coords)
+    g = t(rng.normal(size=coords.shape[:-1] + (3,)))
+    model = prob["model"]
+    params = model.init(torch.Generator().manual_seed(0), device)
+    cases["multisr wire"] = wire_pair_case(torch, WM, params, model.spec,
+                                           coords, g, dcoords=False)
+    cases["multisr wire ragged"] = wire_pair_case(
+        torch, WM, params, model.spec, t(rng.uniform(-1, 1, (3, 4097, 2))),
+        t(rng.normal(size=(3, 4097, 3))))
+    for nonlin, fold, kind in (("gauss", "_canon_gauss", "gauss"),
+                               ("posenc", "_canon_relu", "relu")):
+        m = TMS.setup(nonlin)["model"]
+        p = m.init(torch.Generator().manual_seed(0), device)
+        canon = getattr(MM, fold)(p, m.spec)
+        kinds = (kind,) * len(canon["layers"])
+        x = MM._posenc_pre(coords, m.spec)
+        case = real_pair_case(torch, RM, canon, x, g, kinds,
+                              dcoords=False)[:4]
+        if kind == "relu":
+            # the relu pattern reference on the flattened rows
+            flat = dict(canon=canon, x=x.reshape(-1, x.shape[-1]),
+                        kinds=kinds, cot=g.reshape(-1, 3), dcoords=False)
+            case += (lambda what, flat=flat: relu_pattern_reference(
+                torch, RM, flat, what),)
+        cases[f"multisr {nonlin}"] = case
+    m = TMS.setup("mfn")["model"]
+    p = m.init(torch.Generator().manual_seed(0), device)
+    cases["multisr mfn"] = mfn_pair_case(torch, MF, p, coords, g, m.spec,
+                                         dcoords=False)
+    return cases
+
+
+def multisr_check(case, what):
+    """The case's kernel outputs against the reference
+    tools/port_multisr_reference.py decided: the plain version run in
+    float64 for MULTISR_FLOAT64_CASES (on the kernel's relu pattern for
+    MULTISR_RELU_PATTERN_CASES), else in fp32.  Returns (max abs err, the
+    kernel's outputs)."""
+    kernel, plain, args, kwargs = case[:4]
+    got = kernel()
+    if what in MULTISR_RELU_PATTERN_CASES:
+        want = case[4](what)[0]
+        flat = dict(got, out=got["out"].reshape(want["out"].shape))
+        return compare(flat, want, what), got
+    if what in MULTISR_FLOAT64_CASES:
+        return compare_float64(got, plain, args, kwargs, what)[0], got
+    return compare(got, plain(*args, **kwargs), what), got
+
+
+def multisr_kernel_vs_plain(torch, np, TMS, WM, RM, MM, MF, device):
+    """max abs err of each multisr_cases case against its reference
+    (multisr_check), two calls of each giving identical bits."""
+    errs = {"wire_mlp": {}, "real_mlp": {}, "mfn_mlp": {}}
+    lib = {"wire": "wire_mlp", "gauss": "real_mlp", "posenc": "real_mlp",
+           "mfn": "mfn_mlp"}
+    for what, case in multisr_cases(torch, np, TMS, WM, RM, MM, MF,
+                                    device).items():
+        err, got = multisr_check(case, what)
+        torch.cuda.synchronize()
+        same_bits(torch, case[0](), got, what)
+        errs[lib[what.split(" ")[1]]][what] = err
+    return errs
+
+
+def measure_multi_sr(torch, np, TMS, WM, device, build):
+    """Row 2 (the wire_mlp pair) at the multi-SR batch, as the fit calls it
+    (the app's (4, 36,864, 2) frame grids, parameter gradients, no
+    dcoords): host-call ms, its kernels' device ms, the plain version's
+    ms, the library yardstick's (torch.matmul forward + written-out
+    backward), the 3xTF32 and fp32 bounds from apply_flops less the dcoords
+    product, the time by product class; then at the reference protocol's
+    512^2 x 4 frames (1,048,576 rows) ms and kernel_ms alone."""
+    prob = TMS.setup()
+    model = prob["model"]
+    spec = model.spec
+    params = model.init(torch.Generator().manual_seed(0), device)
+    rng = np.random.default_rng(51)
+    coords = torch.tensor(prob["ds"].coords, device=device)
+    b, n1, d = coords.shape
+    n = b * n1
+    o, L, h = spec.out_features, spec.hidden_layers, \
+        params["first"]["w"].shape[1]
+    g = torch.tensor(rng.normal(size=(b, n1, o)).astype(np.float32),
+                     device=device)
+    keys = leaf_paths(params)
+    leaves = [v for _, v in tree_leaves(params)]
+    kfn, pfn = (pair_fn(a, spec, keys) for a in (WM.wire_mlp,
+                                                 WM.wire_mlp_plain))
+
+    def call(fn=kfn, c=coords, cot=g):
+        return param_vjp(torch, fn, c, leaves, cot)
+    flops = WM.apply_flops(n, d, h, o, L) - 2 * n * d * h
+    nweights = num_weights(params)
+    nbytes = 4 * (n * d + 2 * n * o + 2 * nweights)
+    res = {"rows": n, "complex_units": h, "gflop": flops / 1e9,
+           "mbytes": nbytes / 1e6,
+           "ms": cuda_ms(torch, call, 20),
+           "kernel_ms": kernel_device_ms(torch, call, 20,
+                                         kernel_names("wire_mlp")),
+           "plain_ms": cuda_ms(torch, lambda: call(pfn), 10)}
+    w = WM.stack_params(params, L)
+    c2, g2 = coords.reshape(-1, d), g.reshape(-1, o)
+    lib = matmul_vjp(torch, w, c2, spec, lambda y: g2)
+    dp = WM.unstack_grads(*lib[1:4], params, L)
+    got = {"out": lib[0].reshape(b, n1, o)}
+    got.update({f"d{i + 1}": v for i, (_, v) in enumerate(tree_leaves(dp))})
+    want = call(pfn)
+    res["library_vs_plain_max_abs_err"] = max(
+        float((got[k] - want[k]).abs().max()) for k in want)
+    res["library_ms"] = cuda_ms(torch, lambda: matmul_vjp(
+        torch, w, c2, spec, lambda y: g2), 10)
+    res["library"] = "torch.matmul forward + written-out backward"
+    del lib, dp, got, want
+    res["achieved_tflops"] = (flops / (res["kernel_ms"] * 1e9)
+                              if res["kernel_ms"] else None)
+    res.update(tensor_core_fields(torch, build, call, "wire_mlp", flops,
+                                  nbytes, res["kernel_ms"]))
+    nbig = 4 * MULTISR_BIG_SIDE ** 2
+    big = torch.tensor(rng.uniform(-1, 1, (4, nbig // 4, 2)).astype(
+        np.float32), device=device)
+    gbig = torch.tensor(rng.normal(size=(4, nbig // 4, o)).astype(
+        np.float32), device=device)
+    torch.cuda.reset_peak_memory_stats()
+    res["at_512"] = {
+        "rows": nbig,
+        "gflop": (WM.apply_flops(nbig, d, h, o, L) - 2 * nbig * d * h) / 1e9,
+        "ms": cuda_ms(torch, lambda: call(c=big, cot=gbig), 5),
+        "kernel_ms": kernel_device_ms(torch, lambda: call(c=big, cot=gbig),
+                                      5, kernel_names("wire_mlp")),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+    res["at_512"]["bound_3xtf32_ms"] = bound_3xtf32(
+        res["at_512"]["gflop"] * 1e9, 0)[0]
+    del big, gbig
+    torch.cuda.empty_cache()
+    return res
+
+
+MULTISR_PAIR = {"wire": "wire_mlp", "siren": "real_mlp", "gauss": "real_mlp",
+                "relu": "real_mlp", "posenc": "real_mlp", "mfn": "mfn"}
+
+
+def fit_multi_sr(torch, np, mods, counters, device):
+    """The multi-SR app (wire_tpu_torch.apps.multi_sr.run at its defaults:
+    192^2, x4, 4 frames, WIRE 256 wide = 181 complex units) for
+    MULTISR_ITERS iterations with the known motion, through the kernels
+    (counts reset just before and read just after: one wire_mlp forward and
+    one backward an iteration, one forward more for the no-grad render of
+    the best parameters, no other kernel; the .mat written) and through
+    the plain path (fused='never'), from one init and one frame order: the
+    kernel fit's best PSNR at or above wire_tpu's CPU fit less 0.2 dB and
+    within PSNR_AGREE_DB of the plain fit's.  The same with
+    register_burst's motion: its warps' errors against the known motion,
+    and the floor.  Then siren, gauss, relu, posenc and mfn for
+    MULTISR_OTHER_ITERS iterations each, each launching its own pair once
+    an iteration (and once more for the render) and nothing else; and a
+    profiled 20-iteration WIRE fit's device idle share."""
+    import tempfile
+    TMS, WS, fit_frames = mods
+    out = {}
+
+    def app_run(tmp, nonlin, iters, **kw):
+        reset_counts(counters)
+        ws0 = WS.wire_step.launches
+        app = TMS.run(nonlin, results_dir=tmp, niters=iters, device=device,
+                      **kw)
+        launches = read_counts(counters)
+        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        res = app["result"]
+        if not (np.isfinite(res.mse_gt).all()
+                and res.mse_gt.shape == (iters,)
+                and np.isfinite(app["psnr"]) and os.path.isfile(app["mat"])):
+            raise AssertionError(f"multi-SR {nonlin}: non-finite values, a "
+                                 f"wrong shape or no .mat")
+        return app, launches
+
+    def pair_launches(nonlin, iters):
+        lib = MULTISR_PAIR[nonlin]
+        return {(lib, "forward"): iters + 1, (lib, "backward"): iters}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        app, launches = app_run(tmp, "wire", MULTISR_ITERS)
+        check_real_launches(launches, "multi-SR wire",
+                            pair_launches("wire", MULTISR_ITERS))
+        plain, after = app_run(os.path.join(tmp, "plain"), "wire",
+                               MULTISR_ITERS, fused="never")
+        check_real_launches(after, "multi-SR wire plain", {})
+        if not abs(app["psnr"] - plain["psnr"]) <= PSNR_AGREE_DB:
+            raise AssertionError(
+                f"multi-SR: kernel fit {app['psnr']:.3f} dB vs plain fit "
+                f"{plain['psnr']:.3f} dB differ by more than "
+                f"{PSNR_AGREE_DB} dB")
+        est, est_launches = app_run(os.path.join(tmp, "estim"), "wire",
+                                    MULTISR_ITERS, use_gt_registration=False)
+        check_real_launches(est_launches, "multi-SR wire estim",
+                            pair_launches("wire", MULTISR_ITERS))
+        floors = {k: v - 0.2 for k, v in WIRE_TPU_300_MULTISR_DB.items()}
+        for tag, a in (("oracle", app), ("estim", est)):
+            if not a["psnr"] >= floors[tag]:
+                raise AssertionError(
+                    f"multi-SR {tag}: kernel fit best PSNR {a['psnr']:.4f} "
+                    f"dB below the floor {floors[tag]:.4f} dB")
+        out.update(
+            iters=MULTISR_ITERS,
+            launches=launches["wire_mlp"],
+            estim_launches=est_launches["wire_mlp"],
+            psnr_db=app["psnr"], psnr_plain_db=plain["psnr"],
+            psnr_estim_db=est["psnr"], floors_db=floors,
+            ssim=app["ssim"], psnr_interp_db=app["psnr_interp"],
+            psnr_interp_estim_db=est["psnr_interp"],
+            registration=est["registration"],
+            ms_per_iter=app["result"].step_ms,
+            plain_ms_per_iter=plain["result"].step_ms,
+            estim_ms_per_iter=est["result"].step_ms,
+            fit_wall_s=app["result"].wall_time_s,
+            plain_fit_wall_s=plain["result"].wall_time_s)
+        others = {}
+        for nonlin in MULTISR_NONLINS:
+            a, launches = app_run(os.path.join(tmp, nonlin), nonlin,
+                                  MULTISR_OTHER_ITERS)
+            check_real_launches(launches, f"multi-SR {nonlin}",
+                                pair_launches(nonlin, MULTISR_OTHER_ITERS))
+            others[nonlin] = dict(
+                launches=launches[MULTISR_PAIR[nonlin]], psnr_db=a["psnr"],
+                ms_per_iter=a["result"].step_ms)
+        out["others"] = others
+    prob = TMS.setup(niters=20)
+    ds, model = prob["ds"], prob["model"]
+    params = model.init(torch.Generator().manual_seed(0), device)
+    busy, wall, idle = profiled_idle(torch, lambda: fit_frames(
+        model, params, ds.coords, ds.pixels, ds.masks, prob["cfg"],
+        hr_shape=prob["im"].shape, scale=4, device=device), 20)
+    out.update(profiled_busy_ms_per_iter=busy,
+               profiled_wall_ms_per_iter=wall, device_idle_share=idle)
+    return out
+
+
+class ResumeStop(Exception):
+    """Raised just after a fit's second save: the fit is stopped there."""
+
+
+def same_fit(torch, np, a, b, what):
+    """Two FitResults equal bit for bit: histories, best loss, parameters,
+    best parameters and fields."""
+    for f in ("mse_gt", "mse_noisy", "best_rec", "final_rec", "time_array"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(x, y)):
+            raise AssertionError(f"{what}: the resumed fit's {f} differs")
+    if a.best_mse != b.best_mse:
+        raise AssertionError(f"{what}: the resumed fit's best loss differs")
+    for name in ("params", "best_params"):
+        pa, pb = tree_leaves(getattr(a, name)), tree_leaves(getattr(b, name))
+        for (path, x), (_, y) in zip(pa, pb):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: the resumed fit's {name} "
+                                     f"{path} differs")
+
+
+def resumed_fit(torch, np, T, fit, what, tmp):
+    """Runs ``fit(None)`` uninterrupted, then ``fit(spec)`` stopped by
+    ResumeStop just after its second save, then ``fit(spec)`` again, which
+    resumes from the file: the two results must be equal bit for bit
+    (same_fit).  Returns the epochs the file held and the fits' wall
+    times."""
+    t0 = time.time()
+    ref = fit(None)
+    t_ref = time.time() - t0
+    spec = T.CheckpointSpec(path=os.path.join(tmp, f"{what}.npz"))
+    orig, calls = T._save_fit_state, [0]
+
+    def save(*a, **k):
+        orig(*a, **k)
+        calls[0] += 1
+        if calls[0] == 2:
+            raise ResumeStop
+
+    T._save_fit_state = save
+    try:
+        fit(spec)
+        raise AssertionError(f"{what}: the fit ran past its second save")
+    except ResumeStop:
+        pass
+    finally:
+        T._save_fit_state = orig
+    with np.load(spec.path) as z:
+        stopped_at = int(z["done"])
+    t0 = time.time()
+    res = fit(spec)
+    t_res = time.time() - t0
+    same_fit(torch, np, ref, res, what)
+    return dict(stopped_at=stopped_at, epochs=len(ref.mse_gt),
+                uninterrupted_wall_s=t_ref, resumed_wall_s=t_res), ref
+
+
+def fit_resume(torch, np, mods, counters, device):
+    """Checkpoint/resume and the chunked render on the card.  Each fit of
+    RESUME_SHAPES (the multi-SR app's WIRE fit through fit_frames, the
+    occupancy app's chunked fit through fit_pointwise, WIRE CT with the
+    rotate method through fit_operator; each with its scan_segment) is
+    stopped just after its second save and resumed: history, parameters
+    and best parameters equal the uninterrupted fit's bit for bit
+    (resumed_fit).  A checkpoint of the CT fit is refused by a fit of
+    another measurement.  Then WIRE CT rotate for RENDER_ITERS iterations
+    rendered in RENDER_CHUNK_ROWS-row chunks against the whole-grid render,
+    counts reset just before each and read just after: loss histories
+    within RENDER_REL_TOL relative, less peak memory, and the launches the
+    recompute implies (each chunk's forward twice, its backward once;
+    rotsum's pair once an iteration)."""
+    import tempfile
+    T, TMS, O, TCT, TR, get_config, WS = mods
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        iters, seg = RESUME_SHAPES["multi_sr"]
+        prob = TMS.setup(niters=iters)
+        ds, model = prob["ds"], prob["model"]
+        params = model.init(torch.Generator().manual_seed(0), device)
+        cfg = dataclasses.replace(prob["cfg"], scan_segment=seg)
+        out["multi_sr"], _ = resumed_fit(torch, np, T, lambda ck: T.fit_frames(
+            model, params, ds.coords, ds.pixels, ds.masks, cfg,
+            hr_shape=prob["im"].shape, scale=4, checkpoint=ck, device=device),
+            "multi_sr", tmp)
+        iters, seg = RESUME_SHAPES["occupancy"]
+        out["occupancy"], _ = resumed_fit(torch, np, T, lambda ck: O.run(
+            results_dir=os.path.join(tmp, "occ"), niters=iters,
+            scan_segment=seg, checkpoint_path=None if ck is None else ck.path,
+            device=device)["result"], "occupancy", tmp)
+        iters, seg = RESUME_SHAPES["ct_rotate"]
+        ccfg = get_config(CT_CONFIG)
+        ct_model = TCT.build_ct_model(ccfg, ccfg.omega0)
+        img = TCT.ct_image(None, 0)
+        H, W = img.shape
+        thetas = np.linspace(0, 180, 100, dtype=np.float32)
+        grid = TCT.C.grid2d(H, W)
+        sino = TCT.make_sinogram(img, thetas, radon_method="rotate",
+                                 device=device)
+        op = TR.RadonOp(thetas, method="rotate")
+        ct_params = ct_model.init(torch.Generator().manual_seed(0), device)
+        T_cfg = T.FitConfig(learning_rate=ccfg.learning_rate, niters=iters,
+                            maxpoints=ccfg.maxpoints, scan_segment=seg)
+
+        def ct_fit(ck, meas=sino, cfg=T_cfg, **kw):
+            return T.fit_operator(ct_model, ct_params, grid, meas, op, cfg,
+                                  gt_field=img, field_shape=(H, W),
+                                  checkpoint=ck, device=device, **kw)
+        out["ct_rotate"], _ = resumed_fit(torch, np, T, ct_fit, "ct_rotate",
+                                          tmp)
+        try:
+            ct_fit(T.CheckpointSpec(path=os.path.join(tmp, "ct_rotate.npz")),
+                   meas=sino * 1.01)
+            raise AssertionError("fit_resume: a foreign checkpoint was "
+                                 "resumed")
+        except ValueError as e:
+            if "DIFFERENT fit" not in str(e):
+                raise
+        out["foreign_checkpoint"] = "refused"
+
+        rcfg = dataclasses.replace(T_cfg, niters=RENDER_ITERS,
+                                   maxpoints=RENDER_CHUNK_ROWS)
+        render = {}
+        for name, chunked in (("whole", False), ("chunked", True)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts(counters)
+            ws0 = WS.wire_step.launches
+            r = ct_fit(None, cfg=rcfg, render_chunked=chunked)
+            launches = read_counts(counters)
+            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            nchunks = -(-H * W // RENDER_CHUNK_ROWS) if chunked else 1
+            want = {("wire_mlp", "forward"): RENDER_ITERS * nchunks * (
+                        2 if chunked else 1),
+                    ("wire_mlp", "backward"): RENDER_ITERS * nchunks,
+                    ("rotsum", "forward"): RENDER_ITERS,
+                    ("rotsum", "adjoint"): RENDER_ITERS}
+            check_real_launches(launches, f"render {name}", want)
+            render[name] = dict(
+                chunks=nchunks, launches={k: launches[k] for k in (
+                    "wire_mlp", "rotsum")},
+                peak_allocated_mb=(torch.cuda.max_memory_allocated() - base)
+                / 2**20, ms_per_iter=r.step_ms, result=r)
+        whole, chunked = render["whole"].pop("result"), \
+            render["chunked"].pop("result")
+        rel = float(np.max(np.abs(chunked.mse_noisy / whole.mse_noisy - 1)))
+        if not rel <= RENDER_REL_TOL:
+            raise AssertionError(f"render_chunked: loss history {rel:.3e} "
+                                 f"relative from the whole render's")
+        if not (render["chunked"]["peak_allocated_mb"]
+                < render["whole"]["peak_allocated_mb"]):
+            raise AssertionError(f"render_chunked: peak memory not lower: "
+                                 f"{render}")
+        render["loss_rel_apart"] = rel
+        render["best_rec_max_abs_apart"] = float(
+            np.abs(chunked.best_rec - whole.best_rec).max())
+        out["render_chunked"] = render
+    return out
+
+
 def cuda_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -3678,7 +4182,7 @@ def cuda_ms(torch, fn, iters, warmup=2):
 
 
 def main():
-    faulthandler.dump_traceback_later(900, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--epochs", type=int, default=300,
                     help="denoise fit epochs (floors at 300 and 2000)")
@@ -3711,6 +4215,8 @@ def main():
     import wire_tpu_torch.ops.mfn as MF
     import wire_tpu_torch.ops.wire2d as W2
     from wire_tpu_torch.apps import occupancy as TO
+    from wire_tpu_torch.apps import multi_sr as TMS
+    import wire_tpu_torch.train.trainer as T
 
     # ---- device ----------------------------------------------------------
     t0 = time.time()
@@ -3789,11 +4295,14 @@ def main():
     for name, cases in slice_real_vs_plain(torch, RM, MM, TC, get_inr,
                                            get_config, dev).items():
         errs[name].update(cases)
+    for name, cases in multisr_kernel_vs_plain(torch, np, TMS, WM, RM, MM, MF,
+                                               dev).items():
+        errs[name].update(cases)
     emit("kernel_vs_plain", t0, max_abs_err=errs, rel_tol=REL_TOL,
          occupancy_kernel_vs_fp32_plain=occ_fp32,
          why=("max abs err <= rel_tol x max|plain| per output tensor: fp32 "
               "sums over up to 262,144 rows (wire_*, real_*, mscale2_*, "
-              "mfn_*, wire2d_*), 256 rows "
+              "mfn_*, wire2d_*; the multi-SR pairs over 147,456), 256 rows "
               "(rotsum) taken in another order; line_sample's scatter adds "
               "with atomics in a varying order"),
          reference=("the plain version in fp32 on the same inputs; for "
@@ -3801,7 +4310,9 @@ def main():
                     "the real cases of REAL_FLOAT64_CASES the plain "
                     "version run in float64 (every input cast), max|plain| "
                     "its max; for OCC_STATE_CASES the float64 run on the "
-                    "kernel's own pre-activations"))
+                    "kernel's own pre-activations; the multi-SR cases as "
+                    "MULTISR_FLOAT64_CASES and MULTISR_RELU_PATTERN_CASES "
+                    "say"))
 
     # ---- measure (bench shape; these launches are not the main path) ------
     t0 = time.time()
@@ -3867,6 +4378,11 @@ def main():
     emit("measure_slice", t0, kernels=slice_measure(
         torch, WS, RM, MM, TO, TC, get_inr, get_config, dev, build),
          nvidia_smi=smi)
+
+    # ---- measure_multi_sr (row 2 at the multi-SR batch) -----------------
+    t0 = time.time()
+    meas_msr = measure_multi_sr(torch, np, TMS, WM, dev, build)
+    emit("measure_multi_sr", t0, wire_mlp=meas_msr, nvidia_smi=smi)
 
     # ---- fit (the main path) ---------------------------------------------
     t0 = time.time()
@@ -3982,6 +4498,18 @@ def main():
     emit("fit_families", t0, iters=FAMILIES_ITERS, preset=FAMILIES_PRESET,
          families=fam)
 
+    # ---- fit_multi_sr (the multi-SR app: wire_mlp on warped frame grids) ---
+    t0 = time.time()
+    msr = fit_multi_sr(torch, np, (TMS, WS, T.fit_frames), counters, dev)
+    emit("fit_multi_sr", t0, **msr)
+
+    # ---- fit_resume (checkpoint/resume of the three trainers, the chunked
+    # render) ---------------------------------------------------------------
+    t0 = time.time()
+    resume = fit_resume(torch, np, (T, TMS, TO, TCT, TR, get_config, WS),
+                        counters, dev)
+    emit("fit_resume", t0, **resume)
+
     # launches of each kernel in the paths that run it: wire_step in the
     # WIRE denoise fit and the occupancy fits, real_step also in the
     # families' fits, wire_mlp in both CT fits, line_sample in 'auto'
@@ -3996,20 +4524,35 @@ def main():
                       **{f"occupancy_{k}_step": v["launches"]
                          for k, v in occ[f"epochs_{OCC_BLOCK_EPOCHS}"]
                          .items()}},
-        "wire_mlp": {k: ct["auto"]["launches"]["wire_mlp"][k]
-                     + ct["rotate"]["launches"]["wire_mlp"][k]
-                     for k in WM.launches},
+        "wire_mlp": {**{k: ct["auto"]["launches"]["wire_mlp"][k]
+                        + ct["rotate"]["launches"]["wire_mlp"][k]
+                        for k in WM.launches},
+                     **{f"multi_sr_{k}": msr["launches"][k]
+                        + msr["estim_launches"][k] for k in WM.launches},
+                     **{f"render_chunked_{k}": v for k, v in resume[
+                         "render_chunked"]["chunked"]["launches"][
+                             "wire_mlp"].items()}},
         "line_sample": ct["auto"]["launches"]["line_sample"],
-        "rotsum": ct["rotate"]["launches"]["rotsum"],
+        "rotsum": {**ct["rotate"]["launches"]["rotsum"],
+                   **{f"render_chunked_{k}": v for k, v in resume[
+                       "render_chunked"]["chunked"]["launches"][
+                           "rotsum"].items()}},
         "real_step": {"step": real["launches"]["step"],
                       **{f"{k}_step": fam[k]["launches"]
                          for k in STEP_FAMILIES}},
-        "real_mlp": {k: sisr["launches"][k]
-                     for k in ("forward", "backward")},
+        "real_mlp": {**{k: sisr["launches"][k]
+                        for k in ("forward", "backward")},
+                     **{f"multi_sr_{k}": sum(
+                         msr["others"][nl]["launches"][k]
+                         for nl in MULTISR_NONLINS
+                         if MULTISR_PAIR[nl] == "real_mlp")
+                        for k in ("forward", "backward")}},
         "mscale2_step": {"step": mscale["launches"]["step"]},
         "mfn_step": {"step": mfn["launches"]["step"]},
-        "mfn_mlp": {k: mfn_sisr["launches"][k]
-                    for k in ("forward", "backward")},
+        "mfn_mlp": {**{k: mfn_sisr["launches"][k]
+                       for k in ("forward", "backward")},
+                    **{f"multi_sr_{k}": msr["others"]["mfn"]["launches"][k]
+                       for k in ("forward", "backward")}},
         "wire2d_step": {"step": w2d["launches"]["step"]},
         "wire2d_mlp": {k: w2d_ct["launches"][k]
                        for k in ("forward", "backward")}}
@@ -4028,7 +4571,10 @@ def main():
         "library_ms": meas[name]["library_ms"],
         **({"sass_hmma": meas[name]["sass_hmma"],
             "bound_fp32_ms": meas[name]["bound_fp32_ms"]}
-           if "sass_hmma" in meas[name] else {})}
+           if "sass_hmma" in meas[name] else {}),
+        **({"multi_sr": {k: meas_msr[k] for k in (
+            "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_fp32_ms", "at_512")}} if name == "wire_mlp" else {})}
         for name, (lib, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

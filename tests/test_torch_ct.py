@@ -88,9 +88,7 @@ def test_fit_operator_matches_wire_tpu(method, track):
         torch.Generator().manual_seed(0))["first"]["w"])
 
 
-@pytest.mark.parametrize("kw", [dict(render_chunked=True),
-                                dict(checkpoint="ckpt.npz"),
-                                dict(mesh=2)])
+@pytest.mark.parametrize("kw", [dict(mesh=2)])
 def test_fit_operator_refuses_what_is_not_ported(kw):
     img, thetas = _problem()
     tmodel = tget_inr("wire", **KW)

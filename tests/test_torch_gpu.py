@@ -1663,3 +1663,75 @@ def test_tensor_cores_run_where_they_were_put(cuda):
     for name in ("wire_step", "wire_mlp", "mscale2_step", "wire2d", "mfn",
                  "real_mlp"):
         assert _sass_hmma(name) > 0, name
+
+
+# ---- the multi-frame SR slice ----------------------------------------------
+
+def _multisr_wire_case(device, seed=60):
+    """The multi-SR app's WIRE (256 wide: 181 complex units, L 2, o 3,
+    omega0 10, sigma 5) at its seed-0 init, seeded coordinates in [-1, 1]
+    shaped as its batch of four 192^2 frame grids (4, 36,864, 2) and a unit
+    normal cotangent."""
+    model = get_inr("wire", in_features=2, out_features=3,
+                    hidden_features=256, hidden_layers=2, first_omega0=10.0,
+                    hidden_omega0=10.0, scale=5.0)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    rng = np.random.default_rng(seed)
+    c = torch.tensor(rng.uniform(-1, 1, (4, 36864, 2)).astype(np.float32),
+                     device=device)
+    g = torch.tensor(rng.normal(size=(4, 36864, 3)).astype(np.float32),
+                     device=device)
+    return params, model.spec, c, g
+
+
+def test_wire_mlp_at_the_multi_sr_batch_matches_plain(cuda):
+    """wire_mlp at h = 181 (a paired tile of 21 units after five of 32;
+    K = 362 columns, 8-byte rows) on (4, 36,864, 2) coordinates without
+    dcoords, as fit_frames calls it: one forward and one backward launch,
+    every output within REL x max of the plain version (the reference
+    tools/port_multisr_reference.py decided), two calls bit-equal."""
+    import chip_smoke as S
+    from wire_tpu_torch.ops import wire_mlp as WM
+    params, spec, c, g = _multisr_wire_case(cuda)
+    assert params["first"]["w"].shape == (2, 181)
+    kernel, plain, args, kw = S.wire_pair_case(torch, WM, params, spec, c, g,
+                                               dcoords=False)
+    before = dict(WM.launches)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert WM.launches == {"forward": before["forward"] + 1,
+                           "backward": before["backward"] + 1}
+    assert got["out"].shape == (4, 36864, 3)
+    S.same_bits(torch, kernel(), got, "wire_mlp multi-SR")
+    if "test wire_mlp multisr" in S.MULTISR_FLOAT64_CASES:
+        _assert_rel_to_float64(got, plain, *args, **kw)
+    else:
+        _assert_rel(got, plain(*args, **kw))
+
+
+def test_resumed_fit_frames_is_bit_equal_on_the_card(cuda, tmp_path):
+    """The multi-SR app's WIRE fit (its 181 complex units, 4 frames of a
+    64^2 image at x4) through fit_frames for 9 iterations, saved every 3:
+    stopped by an exception just after the second save and resumed, its
+    history, parameters and best parameters equal the uninterrupted fit's
+    bit for bit; a checkpoint of other frames is refused."""
+    import dataclasses
+    import chip_smoke as S
+    from wire_tpu_torch.apps import multi_sr as TMS
+    from wire_tpu_torch.train import trainer as T
+    prob = TMS.setup(size=64, niters=9)
+    ds, model = prob["ds"], prob["model"]
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    cfg = dataclasses.replace(prob["cfg"], scan_segment=3)
+
+    def fit(ck, pixels=ds.pixels):
+        return T.fit_frames(model, params, ds.coords, pixels, ds.masks, cfg,
+                            hr_shape=(64, 64, 3), scale=4, checkpoint=ck,
+                            device=cuda)
+
+    info, ref = S.resumed_fit(torch, np, T, fit, "frames", str(tmp_path))
+    assert info["stopped_at"] == 6 and info["epochs"] == 9
+    assert np.isfinite(ref.mse_gt).all()
+    with pytest.raises(ValueError, match="DIFFERENT fit"):
+        fit(T.CheckpointSpec(path=str(tmp_path / "frames.npz")),
+            pixels=ds.pixels * 0.5)

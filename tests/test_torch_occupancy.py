@@ -130,9 +130,6 @@ def test_app_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="A.7"):
         TO.run(results_dir=str(tmp_path), size=8, niters=1, mesh=2,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TO.run(results_dir=str(tmp_path), size=8, niters=1,
-               checkpoint_path=str(tmp_path / "c"), device="cpu")
     with pytest.raises(NotImplementedError, match="A.7"):
         TO.main(["--mesh", "2", "--results_dir", str(tmp_path)])
     if not torch.cuda.is_available():

@@ -13,13 +13,14 @@ voxels make two chunks an epoch, the second with 62,144 valid rows.
     python -m wire_tpu_torch.apps.occupancy                 # WIRE, 64^3
     python -m wire_tpu_torch.apps.occupancy --block_perm 512
 
-``mesh`` (a sharded fit) and ``checkpoint_path`` are not ported yet and
-raise; the JAX package's ``scan_segment`` bounds a TPU program's length
-and has no counterpart here.
+``checkpoint_path`` saves the fit's state every ``checkpoint_every``
+segments of ``scan_segment`` epochs (250 by default) and resumes from it;
+``mesh`` (a sharded fit) is not ported yet and raises.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -29,7 +30,8 @@ from wire_tpu_torch.device import resolve
 from wire_tpu_torch.nn.registry import get_inr
 from wire_tpu_torch.signals import coords as C, image as I, volume as V
 from wire_tpu_torch.train import artifacts as A, metrics as M
-from wire_tpu_torch.train.trainer import FitConfig, fit_pointwise
+from wire_tpu_torch.train.trainer import (CheckpointSpec, FitConfig,
+                                          fit_pointwise)
 
 _LR = {"wire": 5e-3, "siren": 2e-3, "mfn": 5e-2, "relu": 1e-3,
        "posenc": 1e-3, "gauss": 2e-3}
@@ -94,14 +96,12 @@ def setup(nonlin="wire", *, volume_mat=None, seed=0, niters=200, size=64,
 def run(nonlin="wire", *, volume_mat=None, results_dir="results", seed=0,
         niters=200, size=64, scale=1.0, maxpoints=int(2e5), hidden_layers=3,
         hidden_features=300, mcubes_thres=0.5, mesh=None,
-        checkpoint_path=None, lr_decay=0.2, block_perm=0, device=None):
+        scan_segment=None, checkpoint_path=None, checkpoint_every=1,
+        lr_decay=0.2, block_perm=0, device=None):
     if mesh is not None:
         raise NotImplementedError(
             "occupancy: the sharded fit (mesh) is not ported yet "
             "(ROADMAP §A.7)")
-    if checkpoint_path:
-        raise NotImplementedError(
-            "occupancy: checkpoint/resume is not ported yet (ROADMAP §A.6)")
     dev = resolve(device)
     A.log(f"Running {nonlin} occupancy on {dev}")
     im, grid, target, model, fit_cfg = setup(
@@ -113,9 +113,14 @@ def run(nonlin="wire", *, volume_mat=None, results_dir="results", seed=0,
     A.log(f"volume shape {im.shape}")
     params = model.init(torch.Generator().manual_seed(seed), dev)
     nparams = model.num_params(params)
+    if scan_segment is not None:
+        fit_cfg = dataclasses.replace(fit_cfg, scan_segment=scan_segment)
+    ckpt = (CheckpointSpec(path=checkpoint_path, every=checkpoint_every)
+            if checkpoint_path else None)
 
     res = fit_pointwise(model, params, grid, target, fit_cfg, track="noisy",
-                        epoch_metric=iou_metric(mcubes_thres), device=dev)
+                        epoch_metric=iou_metric(mcubes_thres),
+                        checkpoint=ckpt, device=dev)
     best = res.best_rec.reshape(H, W, T)
     best_iou, psnr = best_metrics(im, best, mcubes_thres)
     A.log(f"IoU: {best_iou}")

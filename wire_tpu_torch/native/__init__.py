@@ -1,13 +1,16 @@
 """Host-side native code, built on demand with g++ and bound with ctypes
-(port of wire_tpu/native/__init__.py:27-167 for the marching cubes):
+(port of wire_tpu/native/__init__.py:27-167):
 
 - ``marching_cubes(volume, iso)``: the iso-surface of a float volume
   (``marching_cubes.cpp``, a copy of wire_tpu's);
+- ``rigid_register(ref, moving, ...)``: Gauss-Newton rigid registration of
+  two frames (``registration.cpp``, a copy of wire_tpu's);
 - ``export_mesh``, ``export_obj``, ``export_dae``: plain-Python mesh
   writers (.obj and a minimal COLLADA .dae).
 
-The library is compiled at first use into ``wire_tpu_torch/_build/``
-under a name that carries a hash of the source and the flags, written to a
+Each source is compiled at first use into its own library in
+``wire_tpu_torch/_build/``, under a name that carries a hash of the source
+and the flags (wire_tpu's: ``-O3 -march=native -std=c++17``), written to a
 temporary name and renamed into place.  This is host code: nothing here
 runs on the GPU.
 """
@@ -24,24 +27,25 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-_SOURCE = os.path.join(_HERE, "marching_cubes.cpp")
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 
-def _compile():
-    with open(_SOURCE, "rb") as f:
+def _compile(name):
+    """The path of ``<name>.cpp``'s library, built if it is not there."""
+    source = os.path.join(_HERE, f"{name}.cpp")
+    with open(source, "rb") as f:
         digest = hashlib.sha256(" ".join(_FLAGS).encode() + b"\0" + f.read())
-    so = os.path.join(_BUILD, f"marching_cubes-{digest.hexdigest()[:16]}.so")
+    so = os.path.join(_BUILD, f"{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
     os.close(fd)
     try:
-        proc = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SOURCE],
+        proc = subprocess.run(["g++", *_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed for marching_cubes.cpp "
+            raise RuntimeError(f"g++ failed for {name}.cpp "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so)
     finally:
@@ -52,7 +56,7 @@ def _compile():
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = ctypes.CDLL(_compile())
+    lib = ctypes.CDLL(_compile("marching_cubes"))
     lib.mc_run.restype = ctypes.c_int
     lib.mc_run.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
@@ -89,6 +93,39 @@ def marching_cubes(volume, iso):
              else np.zeros((0, 3), np.int32))
     lib.mc_free(verts_p, tris_p)
     return verts, faces
+
+
+@functools.lru_cache(maxsize=None)
+def _registration_lib():
+    lib = ctypes.CDLL(_compile("registration"))
+    lib.rigid_register.restype = ctypes.c_int
+    lib.rigid_register.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_float)]
+    return lib
+
+
+def rigid_register(ref, moving, max_iters=100, eps=1e-6, init_warp=None):
+    """The 2 x 3 Euclidean warp W aligning ``moving`` onto ``ref``
+    (moving(W [x y 1]^T) ~ ref(x, y)), refined from ``init_warp`` (the
+    identity by default) by Gauss-Newton; raises on singular normal
+    equations."""
+    ref = np.ascontiguousarray(ref, np.float32)
+    moving = np.ascontiguousarray(moving, np.float32)
+    if ref.shape != moving.shape or ref.ndim != 2:
+        raise ValueError(f"rigid_register: two 2-D frames of one shape, got "
+                         f"{ref.shape} and {moving.shape}")
+    h, w = ref.shape
+    warp = (np.eye(2, 3, dtype=np.float32) if init_warp is None
+            else np.array(init_warp, np.float32, order="C"))
+    f32p = ctypes.POINTER(ctypes.c_float)
+    rc = _registration_lib().rigid_register(
+        ref.ctypes.data_as(f32p), moving.ctypes.data_as(f32p), h, w,
+        max_iters, ctypes.c_float(eps), warp.ctypes.data_as(f32p))
+    if rc != 0:
+        raise RuntimeError("rigid_register: singular normal equations")
+    return warp
 
 
 def export_mesh(vertices, faces, path):

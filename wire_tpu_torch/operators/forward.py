@@ -1,8 +1,9 @@
 """Differentiable forward operators from an INR's output field to a task's
-measurement domain (port of wire_tpu/operators/forward.py:20-52):
+measurement domain (port of wire_tpu/operators/forward.py:20-59):
 
 - identity     denoise / representation
 - sisr_op      SISR: HR render -> AvgPool2d(scale)
+- multi_sr_op  multi-frame SR: a batch of renders -> AvgPool2d(scale)
 
 The CT sinogram operator is ``operators/radon.py:RadonOp``.
 """
@@ -37,3 +38,10 @@ class DownsampleOp:
 
     def __eq__(self, other):
         return isinstance(other, DownsampleOp) and other.scale == self.scale
+
+
+def multi_sr_op(frames_bhwc, scale):
+    """(B, H, W, C) fields rendered at warped coordinates -> (B, H/s, W/s,
+    C) by an exact box average."""
+    lr = avg_pool2d(frames_bhwc.permute(0, 3, 1, 2), scale)
+    return lr.permute(0, 2, 3, 1)

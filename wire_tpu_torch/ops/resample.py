@@ -1,5 +1,5 @@
 """Differentiable bilinear resampling, image rotation and box averages
-(port of wire_tpu/ops/resample.py:17-66 and :90-103).
+(port of wire_tpu/ops/resample.py:17-103).
 
 The rotation follows the kornia/OpenCV convention of the reference's Radon
 operator: rotation by ``angle`` degrees about the pixel centre
@@ -66,6 +66,22 @@ def rotate(img, angle_degrees):
     sx = cos * xs - sin * ys + cx
     sy = sin * xs + cos * ys + cy
     return bilinear_sample(img, sx, sy)
+
+
+def grid_sample(img, grid, align_corners=True):
+    """``torch.nn.functional.grid_sample`` of one image, written out as
+    wire_tpu's: img (H, W[, C]), grid (..., 2) normalized (x, y) in
+    [-1, 1]; bilinear, zero padding."""
+    H, W = img.shape[0], img.shape[1]
+    gx = grid[..., 0]
+    gy = grid[..., 1]
+    if align_corners:
+        xs = (gx + 1) * (W - 1) / 2
+        ys = (gy + 1) * (H - 1) / 2
+    else:
+        xs = ((gx + 1) * W - 1) / 2
+        ys = ((gy + 1) * H - 1) / 2
+    return bilinear_sample(img, xs, ys)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,7 +1,9 @@
 """Run artifacts (port of wire_tpu/train/artifacts.py): timestamped
-logging, unique run folders, .mat export, and the markdown metrics table,
-written by hand (no pandas/tabulate).  The reconstruction PNG is not written
-yet (no image library on the GPU machine)."""
+logging, unique run folders, .mat export, the markdown metrics table,
+written by hand (no pandas/tabulate), and .npz parameter files.  The
+reconstruction PNG is not written yet (no image library on the GPU
+machine), nor is the orbax checkpoint pair, which wraps a JAX library
+(ROADMAP section A, item 8)."""
 from __future__ import annotations
 
 import os
@@ -9,6 +11,8 @@ import re
 from datetime import datetime
 
 import numpy as np
+
+from wire_tpu_torch import tree
 
 
 def log(message):
@@ -63,3 +67,28 @@ def tabulate_results(mat_file, path):
                      + " | ".join(_cell(values[k]) for k in keys) + " |")
     with open(os.path.join(path, "metrics_table.md"), "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def _key(path):
+    return "/".join(str(k) for k in path)
+
+
+def save_params(path, params):
+    """A flat .npz of a parameter tree, one array per leaf under its tree
+    path joined by '/' (wire_tpu's keys: a file of either package loads in
+    the other)."""
+    np.savez(path, **{_key(p): np.asarray(v.detach().cpu().numpy()
+                                          if hasattr(v, "detach") else v)
+                      for p, v in tree.leaves(params)})
+
+
+def load_params(path, like, device="cpu"):
+    """The parameters of a ``save_params`` file in the structure of
+    ``like``, as float32 tensors on ``device``."""
+    import torch
+    with np.load(path) as data:
+        flat = tree.leaves(like)
+        values = [torch.tensor(np.asarray(data[_key(p)], np.float32)
+                               .reshape(tuple(v.shape)), device=device)
+                  for p, v in flat]
+    return tree.unflatten([p for p, _ in flat], values)

@@ -1,7 +1,8 @@
 """Adam fitting of an INR to one signal (port of wire_tpu/train/trainer.py:
-FitConfig, FitResult, track_best, _lr_schedule, make_optimizer,
-fit_pointwise with its full-batch, chunked per-point and block-permuted
-epochs, and fit_operator with a full-grid render).
+FitConfig, CheckpointSpec, the fit fingerprint and fit-state files,
+FitResult, track_best, _lr_schedule, make_optimizer, fit_pointwise with its
+full-batch, chunked per-point and block-permuted epochs, fit_frames and
+fit_operator with a full-grid or chunked render).
 
 Loop semantics: Adam as optax's ``scale_by_adam(eps_root=0)`` followed by
 ``scale_by_schedule``, the learning rate decaying by
@@ -19,24 +20,35 @@ WIRE denoise presets at 256 x 256); otherwise every epoch draws a fresh
 permutation of the points (or of contiguous ``block_perm``-point blocks)
 from a torch.Generator seeded with ``cfg.seed`` on the fit's device, pads
 it with tail sentinels to ``nchunks x maxpoints`` and takes one step per
-chunk, the sentinel rows masked through the step's ``nvalid``.  TV
-regularization, checkpoint/resume and the sharded fit are later slices.
-fit_operator renders the whole grid every iteration; its chunked render,
-checkpoint/resume and mesh variant are later slices too.
+chunk, the sentinel rows masked through the step's ``nvalid``.
+fit_frames (multi-frame SR) renders a batch of frames' warped HR grids per
+step, box-downsamples them and takes the masked MSE against the LR frames.
+fit_operator renders the whole grid every iteration, in one piece or
+(``render_chunked``) in ``maxpoints``-row chunks recomputed in the
+backward.  The three take a ``CheckpointSpec``: the whole state of the
+loop is saved every ``every x scan_segment`` epochs or iterations and at
+the end, and a resumed fit reproduces the uninterrupted one bit for bit
+wherever its kernels are bit-equal on repeat calls.  TV regularization and
+the sharded fits are later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
+import os
 import time
+from functools import partial
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from wire_tpu_torch import tree
 from wire_tpu_torch.device import resolve
 from wire_tpu_torch.nn.models import grad_leaves, grads_tree
+from wire_tpu_torch.operators.forward import multi_sr_op
 from wire_tpu_torch.ops.wire_step import StepScratch
 from wire_tpu_torch.signals.coords import GridSpec
 
@@ -62,6 +74,211 @@ class FitConfig:
     # points (0 = off, the per-point permutation); needs npoints divisible
     # by it
     block_perm: int = 0
+    # epochs (or iterations) per segment: a checkpoint is written every
+    # CheckpointSpec.every segments; nothing else reads it, and the fit
+    # fingerprint leaves it out (wire_tpu's bound on a TPU program's length)
+    scan_segment: int = 250
+
+
+@dataclasses.dataclass
+class CheckpointSpec:
+    """Mid-fit checkpoint/resume: the fit writes its whole state (parameters,
+    Adam's moments and step count, best-so-far tracking, the reconstruction
+    buffers, the permutation generator's state, the history so far) to
+    ``path`` every ``every`` segments of ``FitConfig.scan_segment`` epochs
+    and at the end, and with ``resume`` starts from the file when it
+    exists."""
+    path: str
+    every: int = 1       # segments between saves
+    resume: bool = True  # load an existing checkpoint before fitting
+
+
+def _fit_fingerprint(cfg, model, *arrays):
+    """Digest of (config, architecture, input data) written into fit-state
+    files, so that resuming a checkpoint written by another fit (another
+    config, model, data or epoch metric at the same path) is refused.
+    ``scan_segment`` is left out: it only places the saves."""
+    h = hashlib.md5()
+    if isinstance(cfg, FitConfig):
+        cfg = dataclasses.replace(cfg, scan_segment=0)
+    h.update(repr(cfg).encode())
+    h.update(repr(getattr(model, "spec", model)).encode())
+    for a in arrays:
+        _digest_value(h, a)
+    return h.hexdigest()
+
+
+def _host_array(a):
+    """A numpy view of a tensor (copied to the host) or of an array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _digest_value(h, a):
+    """wire_tpu's digest (wire_tpu/train/trainer.py:121-202): None, scalars,
+    strings and dataclasses by repr; sequences item by item; partials by
+    their function and bound arguments; functions by qualname, code
+    constants and names, and closure cells; other callables by type and
+    qualname; arrays by shape, dtype, sum and a strided sample of up to
+    4,096 values (tensors, wherever they lie, copied to the host for it);
+    operator objects by type and their public attributes (private ones are
+    caches, such as RadonOp's rotsum tables)."""
+    if a is None:
+        h.update(b"none")
+        return
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        h.update(repr(a).encode())
+        return
+    if isinstance(a, (str, int, float, bool, bytes)):
+        h.update(repr(a).encode())
+        return
+    if isinstance(a, (tuple, list)):
+        for v in a:
+            _digest_value(h, v)
+        return
+    if isinstance(a, partial):
+        h.update(b"functools.partial")
+        _digest_value(h, a.func)
+        _digest_value(h, tuple(a.args))
+        for k in sorted(a.keywords):
+            h.update(k.encode())
+            _digest_value(h, a.keywords[k])
+        return
+    is_array = isinstance(a, (np.ndarray, torch.Tensor))
+    if callable(a) and not is_array and not hasattr(a, "spec") \
+            and getattr(a, "__closure__", "no") != "no":
+        # functions and lambdas; not co_code, which changes with every
+        # CPython minor version
+        h.update(getattr(a, "__qualname__", repr(type(a))).encode())
+        code = getattr(a, "__code__", None)
+        if code is not None:
+            h.update(repr((code.co_argcount, code.co_names,
+                           code.co_varnames)).encode())
+            for const in code.co_consts:
+                if isinstance(const, (int, float, str, bool, bytes,
+                                      type(None))):
+                    h.update(repr(const).encode())
+        for cell in (a.__closure__ or ()):
+            try:
+                _digest_value(h, cell.cell_contents)
+            except ValueError:  # empty cell
+                h.update(b"emptycell")
+        return
+    if callable(a) and not is_array and not hasattr(a, "spec") \
+            and not hasattr(a, "__dict__"):
+        h.update(repr(type(a)).encode())
+        h.update(getattr(a, "__qualname__", "").encode())
+        return
+    if is_array:
+        arr = _host_array(a)
+        h.update(str(tuple(arr.shape)).encode())
+        h.update(str(arr.dtype).encode())
+        if arr.size:
+            h.update(np.float64(arr.sum(dtype=np.float64)).tobytes())
+            flat = arr.reshape(-1)
+            stride = max(1, flat.size // 4096)
+            h.update(np.ascontiguousarray(
+                flat[::stride][:4096].astype(np.float64)).tobytes())
+        return
+    h.update(str(getattr(a, "shape", ())).encode())
+    h.update(type(a).__name__.encode())
+    if getattr(a, "__dict__", None) is not None:
+        for k in sorted(vars(a)):
+            if k.startswith("_"):
+                continue
+            h.update(k.encode())
+            v = vars(a)[k]
+            if isinstance(v, (np.ndarray, torch.Tensor)):
+                _digest_value(h, v)
+            else:
+                h.update(repr(v).encode())
+
+
+def _state_key(path):
+    return "state/" + "/".join(str(k) for k in path)
+
+
+def _save_fit_state(path, state, hists, done, fingerprint=None):
+    """Write ``state`` (a tree of tensors, arrays and numbers), the
+    histories ``hists`` (a tuple of arrays over the first ``done`` epochs)
+    and ``done`` to ``path`` as an .npz: to ``path + '.tmp.npz'`` first,
+    then renamed over it, so a kill mid-save leaves the old file."""
+    payload = {"done": np.int64(done), "nhist": np.int64(len(hists))}
+    if fingerprint is not None:
+        payload["fingerprint"] = np.str_(fingerprint)
+    for p, leaf in tree.leaves(state):
+        payload[_state_key(p)] = _host_array(leaf)
+    for k, arr in enumerate(hists):
+        payload[f"hist_{k}"] = _host_array(arr)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+
+
+def _load_fit_state(path, template, fingerprint=None):
+    """(state, hists, done) from a file of ``_save_fit_state``: the state
+    has ``template``'s structure, each tensor on its template's device and
+    dtype, each Python number its type.  Raises ValueError when the file's
+    fingerprint is not ``fingerprint``."""
+    with np.load(path) as z:
+        if fingerprint is not None:
+            saved = str(z["fingerprint"]) if "fingerprint" in z else None
+            if saved != fingerprint:
+                raise ValueError(
+                    f"checkpoint {path!r} was written by a DIFFERENT fit "
+                    "(another config, model, input data or epoch metric); "
+                    "resuming it would corrupt this run.  Delete the file "
+                    "or point CheckpointSpec.path elsewhere.")
+        flat = tree.leaves(template)
+        values = []
+        for p, leaf in flat:
+            arr = z[_state_key(p)]
+            if isinstance(leaf, torch.Tensor):
+                values.append(torch.from_numpy(np.array(arr)).to(
+                    leaf.device, leaf.dtype))
+            elif isinstance(leaf, (int, float)):
+                values.append(type(leaf)(arr))
+            else:
+                values.append(np.array(arr))
+        hists = tuple(np.array(z[f"hist_{k}"])
+                      for k in range(int(z["nhist"])))
+        done = int(z["done"])
+    return tree.unflatten([p for p, _ in flat], values), hists, done
+
+
+class _Checkpointer:
+    """When to save and what to resume from, for a loop of ``niters``
+    epochs or iterations: a segment ends every ``scan_segment`` epochs from
+    the start and at the last; every ``every``-th segment of this call and
+    the last are saved (wire_tpu/train/trainer.py:416-431)."""
+
+    def __init__(self, spec, cfg, fingerprint):
+        self.spec = spec
+        self.cfg = cfg
+        self.fp = fingerprint
+        self.seg = min(cfg.niters, max(cfg.scan_segment, 1))
+        self.nseg = 0
+
+    def resume(self, template):
+        """(state, hists, done), or None without a file to resume."""
+        if self.spec is None or not self.spec.resume or \
+                not os.path.exists(self.spec.path):
+            return None
+        return _load_fit_state(self.spec.path, template, self.fp)
+
+    def after(self, done, state_fn, hists_fn):
+        """Call after each epoch with the epochs done so far; saves
+        ``state_fn()`` and ``hists_fn()`` at the boundaries."""
+        if self.spec is None:
+            return
+        if done % self.seg and done < self.cfg.niters:
+            return
+        self.nseg += 1
+        if self.nseg % max(self.spec.every, 1) == 0 or \
+                done >= self.cfg.niters:
+            _save_fit_state(self.spec.path, state_fn(), hists_fn(), done,
+                            self.fp)
 
 
 @dataclasses.dataclass
@@ -189,6 +406,14 @@ class Adam:
             torch._foreach_add_([p[i] for i in idx], [upd[i] for i in idx],
                                 alpha=-lr * rate * self.batch_scale)
 
+    def state(self):
+        """The moments and the step count, for a fit-state file."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    def load_state(self, state):
+        self.mu, self.nu, self.count = (list(state["mu"]), list(state["nu"]),
+                                        state["count"])
+
 
 def _as_tensor(x, device):
     if not isinstance(x, torch.Tensor):
@@ -230,7 +455,8 @@ def _chunking(cfg: FitConfig, npoints):
 
 def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
                   gt=None, track="gt", epoch_metric: Optional[Callable] = None,
-                  permutation: Optional[Callable] = None, device=None):
+                  permutation: Optional[Callable] = None,
+                  checkpoint: Optional[CheckpointSpec] = None, device=None):
     """Fit an INR pointwise to ``target`` sampled at ``coords``.
 
     coords (N, d) (numpy array or tensor) or a ``GridSpec``, whose rows
@@ -243,11 +469,16 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
     ``permutation(n)`` gives each chunked epoch's permutation of range(n)
     (n = npoints, or npoints / block_perm blocks); by default a fresh
     ``torch.randperm`` from a generator seeded with ``cfg.seed`` on the
-    fit's device.  ``params`` is not modified.  Runs on ``device``
-    (default cuda; raises without a card unless device='cpu')."""
+    fit's device.  ``checkpoint`` saves and resumes the fit's state (the
+    generator's too; a caller's ``permutation`` keeps its own).  ``params``
+    is not modified.  Runs on ``device`` (default cuda; raises without a
+    card unless device='cpu')."""
     if track not in ("gt", "noisy"):
         raise ValueError(f"fit_pointwise: track={track!r}, expected 'gt' or "
                          f"'noisy'")
+    ckpt = _Checkpointer(checkpoint, cfg, None if checkpoint is None else
+                         _fit_fingerprint(cfg, model, coords, target, gt,
+                                          epoch_metric))
     dev = resolve(device)
     grid = coords if isinstance(coords, GridSpec) else None
     if grid is None:
@@ -260,6 +491,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
     if grid is not None and full_batch:
         coords = grid.rows(torch.arange(npoints, device=dev))
     metric_two = epoch_metric is not None and _two_arg_metric(epoch_metric)
+    gen = None
     if permutation is None and not full_batch:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(cfg.seed))
@@ -280,6 +512,31 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
                    if epoch_metric is not None else None)
     inv_nc = 1.0 / (npoints * c)
     scratch = StepScratch()
+
+    def state():
+        out = {"params": params, "opt": opt.state(), "rec": rec,
+               "best_rec": best_rec, "best_mse": best_mse,
+               "best_params": best_params}
+        if gen is not None:
+            out["gen"] = gen.get_state()
+        return out
+
+    def hists(done):
+        out = (hist_gt[:done], hist_noisy[:done])
+        return out + ((hist_metric[:done],) if hist_metric is not None
+                      else ())
+
+    start = 0
+    resumed = ckpt.resume(state())
+    if resumed is not None:
+        st, hs, start = resumed
+        params, rec, best_rec = st["params"], st["rec"], st["best_rec"]
+        best_mse, best_params = st["best_mse"], st["best_params"]
+        opt.load_state(st["opt"])
+        if gen is not None:
+            gen.set_state(st["gen"])
+        for h, saved in zip((hist_gt, hist_noisy, hist_metric), hs):
+            h[:start] = torch.from_numpy(saved).to(dev)
 
     def chunk_step(idx, nvalid, rows_of):
         """One step on a chunk: ``idx`` the chunk's point (or block)
@@ -313,10 +570,10 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
             rows = grid.rows(safe) if grid is not None else coords[safe]
             return rows, target[safe], gt_arr[safe]
 
-    clock = _StepClock(dev, cfg.niters)
+    clock = _StepClock(dev, cfg.niters - start)
     t0 = time.time()
-    for epoch in range(cfg.niters):
-        clock.tick(epoch)
+    for epoch in range(start, cfg.niters):
+        clock.tick(epoch - start)
         if full_batch:
             pred, grads, (sse_t, sse_g) = model.step_grads(
                 params, coords, target, gt=gt_arr, want_metrics=True,
@@ -350,6 +607,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         if epoch_metric is not None:
             hist_metric[epoch] = (epoch_metric(rec, target) if metric_two
                                   else epoch_metric(rec))
+        ckpt.after(epoch + 1, state, lambda: hists(epoch + 1))
     step_ms = clock.ms()
     wall = time.time() - t0
     return FitResult(
@@ -361,10 +619,117 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
                     else hist_metric.cpu().numpy()))
 
 
+def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
+               cfg: FitConfig, *, hr_shape, scale, batch_size=4,
+               gt_image=None, permutation: Optional[Callable] = None,
+               checkpoint: Optional[CheckpointSpec] = None, device=None):
+    """Multi-frame SR fitting (wire_tpu/train/trainer.py:605-721): each step
+    renders the INR at a batch of frames' warped HR grids, box-downsamples
+    the renders by ``scale`` and takes the masked MSE against the LR
+    frames, normalized as wire_tpu's
+    ``sum(err^2) / (h*w*C * max(valid frames, 1))``, then one Adam step
+    (the learning rate stepped per epoch of ``nbatches`` steps).
+
+    frame_coords (n, H*W, 2), frame_pixels and frame_masks (n, h*w, C),
+    hr_shape (H, W, C): numpy arrays or tensors.  Every epoch takes a new
+    frame order, ``permutation(n)`` (by default a ``torch.randperm`` from a
+    generator seeded with ``cfg.seed`` on the fit's device), padded to
+    ``nbatches x bs`` with the sentinel n, whose frames are clamped to n - 1
+    and masked out.  The best parameters are those after the step whose
+    pre-step loss is the least so far; ``mse_gt`` and ``mse_noisy`` both
+    hold each epoch's sum of its batches' losses; ``best_rec`` and
+    ``final_rec`` are None.  ``gt_image`` only enters the checkpoint's
+    fingerprint.  ``params`` is not modified.  Runs on ``device`` (default
+    cuda; raises without a card unless device='cpu')."""
+    ckpt = _Checkpointer(checkpoint, cfg, None if checkpoint is None else
+                         _fit_fingerprint(cfg, model, frame_coords,
+                                          frame_pixels, frame_masks,
+                                          gt_image))
+    dev = resolve(device)
+    fc = _as_tensor(frame_coords, dev)
+    fp = _as_tensor(frame_pixels, dev)
+    fm = _as_tensor(frame_masks, dev)
+    nframes = fc.shape[0]
+    H, W, C = hr_shape
+    bs = min(batch_size, nframes)
+    nbatches = -(-nframes // bs)
+    npad = nbatches * bs - nframes
+    # err.size / bs of the JAX loss: the elements of one LR frame
+    per_frame = float(fp.shape[1] * fp.shape[2])
+    gen = None
+    if permutation is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(cfg.seed))
+
+        def permutation(n):
+            return torch.randperm(n, generator=gen, device=dev)
+
+    params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
+                      params)
+    opt = Adam(cfg, params, nchunks=nbatches)
+    best_params = tree.map(torch.clone, params)
+    best_loss = torch.tensor(float("inf"), device=dev)
+    hist = torch.empty(cfg.niters, device=dev)
+
+    def state():
+        out = {"params": params, "opt": opt.state(), "best_loss": best_loss,
+               "best_params": best_params}
+        if gen is not None:
+            out["gen"] = gen.get_state()
+        return out
+
+    start = 0
+    resumed = ckpt.resume(state())
+    if resumed is not None:
+        st, (saved,), start = resumed
+        params, best_loss = st["params"], st["best_loss"]
+        best_params = st["best_params"]
+        opt.load_state(st["opt"])
+        if gen is not None:
+            gen.set_state(st["gen"])
+        hist[:start] = torch.from_numpy(saved).to(dev)
+
+    clock = _StepClock(dev, cfg.niters - start)
+    t0 = time.time()
+    for epoch in range(start, cfg.niters):
+        clock.tick(epoch - start)
+        order = permutation(nframes).to(dev)
+        if npad:
+            order = torch.cat([order, order.new_full((npad,), nframes)])
+        losses = []
+        for fidx in order.view(nbatches, bs):
+            valid = (fidx < nframes).to(torch.float32)
+            safe = fidx.clamp(max=nframes - 1)
+            paths, leaves, p = grad_leaves(params)
+            with torch.enable_grad():
+                rend = model.apply(p, fc[safe])
+                lr = multi_sr_op(rend.reshape(bs, H, W, C), scale)
+                m = fm[safe] * valid[:, None, None]
+                err = (lr.reshape(bs, -1, C) - fp[safe]) * m
+                loss = torch.sum(err ** 2) / (
+                    per_frame * torch.clamp(valid.sum(), min=1))
+                flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+            opt.step(params, grads_tree(paths, leaves, flat))
+            loss = loss.detach()
+            is_best = loss < best_loss
+            best_loss = torch.where(is_best, loss, best_loss)
+            best_params = track_best(is_best, params, best_params)
+            losses.append(loss)
+        hist[epoch] = torch.stack(losses).sum()
+        ckpt.after(epoch + 1, state, lambda: (hist[:epoch + 1],))
+    step_ms = clock.ms()
+    wall = time.time() - t0
+    mse_hist = hist.cpu().numpy()
+    return FitResult(
+        params=params, best_params=best_params, best_rec=None,
+        final_rec=None, mse_gt=mse_hist, mse_noisy=mse_hist,
+        best_mse=float(best_loss), wall_time_s=wall, step_ms=step_ms)
+
+
 def fit_operator(model, params, coords, measurement, operator_fn,
                  cfg: FitConfig, *, gt_field=None, field_shape, track="gt",
-                 device=None, checkpoint=None, render_chunked=False,
-                 mesh=None):
+                 device=None, checkpoint: Optional[CheckpointSpec] = None,
+                 render_chunked=False, mesh=None):
     """Fit through a differentiable forward operator
     (wire_tpu/train/trainer.py:1139-1264): every iteration renders the FULL
     coordinate grid, applies ``operator_fn`` to the field reshaped to
@@ -378,22 +743,43 @@ def fit_operator(model, params, coords, measurement, operator_fn,
     field is the one rendered before the step and the best parameters are
     those after it.  ``mse_gt`` holds the tracked history and
     ``mse_noisy`` the loss history.  The optimizer's step count runs on
-    over all iterations (the JAX package's scan segments keep it too).
-    ``params`` is not modified.  Runs on ``device`` (default cuda; raises
-    without a card unless device='cpu')."""
-    if render_chunked or checkpoint is not None or mesh is not None:
+    over all iterations.  ``render_chunked`` renders the grid in
+    ``cfg.maxpoints``-row chunks (the tail padded with zero rows), each
+    under ``torch.utils.checkpoint`` so that the backward recomputes it and
+    only one chunk's activations are live.  ``checkpoint`` saves and
+    resumes the fit's state.  ``params`` is not modified.  Runs on
+    ``device`` (default cuda; raises without a card unless
+    device='cpu')."""
+    if mesh is not None:
         raise NotImplementedError(
-            "fit_operator: render_chunked, checkpoint/resume and the mesh "
-            "variant are not ported yet")
+            "fit_operator: the mesh variant is not ported yet (ROADMAP "
+            "§A.7)")
     if track not in ("gt", "loss"):
         raise ValueError(f"fit_operator: track={track!r}, expected 'gt' or "
                          f"'loss'")
+    ckpt = _Checkpointer(checkpoint, cfg, None if checkpoint is None else
+                         _fit_fingerprint(cfg, model, coords, measurement,
+                                          gt_field, operator_fn))
     dev = resolve(device)
     coords = _as_tensor(coords, dev)
     measurement = _as_tensor(measurement, dev)
     track_gt = gt_field is not None and track == "gt"
     gt_arr = _as_tensor(gt_field, dev) if track_gt else None
     field_shape = tuple(field_shape)
+    npoints = coords.shape[0]
+    mp = min(cfg.maxpoints, npoints)
+    n_render = -(-npoints // mp) if render_chunked else 1
+    if n_render > 1:
+        chunks = torch.nn.functional.pad(
+            coords, (0, 0, 0, n_render * mp - npoints)).split(mp)
+
+    def render(p):
+        if n_render == 1:
+            return model.apply(p, coords).reshape(field_shape)
+        rows = [torch.utils.checkpoint.checkpoint(
+            lambda c: model.apply(p, c), c, use_reentrant=False,
+            preserve_rng_state=False) for c in chunks]
+        return torch.cat(rows)[:npoints].reshape(field_shape)
 
     params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
                       params)
@@ -404,13 +790,27 @@ def fit_operator(model, params, coords, measurement, operator_fn,
     hist_loss = torch.empty(cfg.niters, device=dev)
     hist_tracked = torch.empty(cfg.niters, device=dev)
 
-    clock = _StepClock(dev, cfg.niters)
+    def state():
+        return {"params": params, "opt": opt.state(), "best_loss": best_loss,
+                "best_field": best_field, "best_params": best_params}
+
+    start = 0
+    resumed = ckpt.resume(state())
+    if resumed is not None:
+        st, (saved_loss, saved_tracked), start = resumed
+        params, best_loss = st["params"], st["best_loss"]
+        best_field, best_params = st["best_field"], st["best_params"]
+        opt.load_state(st["opt"])
+        hist_loss[:start] = torch.from_numpy(saved_loss).to(dev)
+        hist_tracked[:start] = torch.from_numpy(saved_tracked).to(dev)
+
+    clock = _StepClock(dev, cfg.niters - start)
     t0 = time.time()
-    for it in range(cfg.niters):
-        clock.tick(it)
+    for it in range(start, cfg.niters):
+        clock.tick(it - start)
         paths, leaves, p = grad_leaves(params)
         with torch.enable_grad():
-            field = model.apply(p, coords).reshape(field_shape)
+            field = render(p)
             est = operator_fn(field)
             loss = torch.mean((est - measurement) ** 2)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -424,6 +824,8 @@ def fit_operator(model, params, coords, measurement, operator_fn,
         best_loss = torch.where(is_best, tracked, best_loss)
         best_field, best_params = track_best(is_best, (field, params),
                                              (best_field, best_params))
+        ckpt.after(it + 1, state,
+                   lambda: (hist_loss[:it + 1], hist_tracked[:it + 1]))
     step_ms = clock.ms()
     wall = time.time() - t0
     return FitResult(
