@@ -711,19 +711,21 @@ def tensor_core_fields(torch, build, fn, name, flops, nbytes, kernel_ms,
     return res
 
 
-def line_sample_bytes(torch, gy, gx, p):
+def line_sample_bytes(torch, gy, gx, p, replicas=1):
     """Bytes the spectrum gather + scatter pair must move at positions
-    (gy, gx) on a (p, p) spectrum: the distinct taps of the unshifted
-    spectrum and of the centring table its stencils read (the halo wrapped;
-    the scatter reads the table's again, counted once), 8 bytes each; the
-    positions and the un-centring phase; the slice out and its cotangent
-    in, 8 bytes a sample each; and the (p, p) complex gradient out."""
+    (gy, gx) on ``replicas`` (p, p) spectra.  Each spectrum's own: the
+    distinct taps its stencils read (the halo wrapped), 8 bytes each; the
+    slice out and its cotangent in, 8 bytes a sample each; and the (p, p)
+    complex gradient out.  Once for all spectra: the centring table's taps
+    (the scatter reads them again, counted once), the positions and the
+    un-centring phase."""
     y0, x0 = torch.floor(gy).long(), torch.floor(gx).long()
     taps = torch.cat([(((y0 + dy) % p) * p + (x0 + dx) % p).ravel()
                       for dy in (0, 1) for dx in (0, 1)])
     ntaps = int(torch.unique(taps).numel())
     A, K = gy.shape
-    return 8 * 2 * ntaps + 4 * 2 * A * K + 8 * K + 8 * 2 * A * K + 8 * p * p
+    own = 8 * ntaps + 8 * 2 * A * K + 8 * p * p
+    return replicas * own + 8 * ntaps + 4 * 2 * A * K + 8 * K
 
 
 def kernel_names(name, csrc=None):
@@ -4167,6 +4169,533 @@ def fit_resume(torch, np, mods, counters, device):
     return out
 
 
+# ---- the batched multi-fit slice ------------------------------------------
+
+# replicas of the batched kernels' checks, and of the CT, SISR and chunked
+# denoise fits; the WIRE-300 denoise fit's replicas and epochs; the chunked
+# denoise fit's chunk (4 chunks of the 65,536 points) and epochs; the
+# iterations of the operator and frame fits; the multi-SR fits' replicas
+MANY_M = 3
+MANY_DENOISE_M = 4
+MANY_DENOISE_EPOCHS = 50
+MANY_CHUNK_POINTS = 16384
+MANY_CHUNK_EPOCHS = 10
+MANY_ITERS = 20
+MANY_MULTISR_M = 2
+# CT 'auto' (fourier) replicas against their serial fits: loss histories
+# within this relative distance (the batched FFTs and the scatter's atomics
+# round apart from the serial fit's), best PSNR within PSNR_AGREE_DB
+MANY_FOURIER_REL = 1e-4
+# timing repeats of the batched kernels and of their M unbatched calls
+MANY_TIMING_ITERS = 10
+# the batched kernels' shapes: WIRE-300's rows (the denoise and CT grids,
+# 256^2), a ragged step's rows per replica, a ragged pair's, the rotsum
+# image side (the sweep's CT, 512^2), the fourier spectrum's P at the CT
+# grid, and one multi-SR frame's rows (192^2)
+MANY_SHAPES = dict(rows=256 * 256, ragged_step=700, ragged_pair=4097,
+                   side=512, P=1024, frame_rows=192 * 192)
+
+
+def model_stack(torch, model, seeds, device):
+    """A replica stack of ``model``'s inits, one per seed."""
+    from wire_tpu_torch import tree
+    return tree.stack([model.init(torch.Generator().manual_seed(s), device)
+                       for s in seeds])
+
+
+def replica_case(torch, many, singles, plains, what, scatter=()):
+    """Holds a batched call's outputs ``many`` ({name: (M, ...) tensor})
+    replica by replica: bit-equal to the unbatched kernel's ``singles[r]``
+    (the names in ``scatter``, added with atomics, within REL_TOL of it
+    instead) and within REL_TOL x max|plain| of the plain version's
+    ``plains[r]``.  Returns the worst abs error against the plain version."""
+    worst = 0.0
+    for r, (one, want) in enumerate(zip(singles, plains)):
+        mine = {k: v[r] for k, v in many.items()}
+        for k in one:
+            if k in scatter:
+                compare({k: mine[k]}, {k: one[k]},
+                        f"{what} replica {r} vs the unbatched kernel")
+            elif not torch.equal(mine[k], one[k]):
+                raise AssertionError(f"{what}: replica {r}'s {k} differs "
+                                     f"from the unbatched kernel's")
+        worst = max(worst, compare(mine, want, f"{what} replica {r}"))
+    return worst
+
+
+def once_each(torch, counter, before, what):
+    """A batched call advanced each of its kernel's counts by exactly one."""
+    now = counter() if callable(counter) else dict(counter)
+    want = ({k: v + 1 for k, v in before.items()} if isinstance(before, dict)
+            else before + 1)
+    if now != want:
+        raise AssertionError(f"{what}: launches went {before} -> {now}, "
+                             f"expected one launch for all replicas")
+
+
+def many_step_case(torch, WS, spec, ps, coords, target, gt, nvalid, denom,
+                   what):
+    """wire_step_many against the unbatched kernel and the plain step per
+    replica; (kernel thunk, serial thunk, max abs err)."""
+    from wire_tpu_torch import tree
+    M = tree.replicas(ps)
+    kw = dict(nvalid=nvalid, denom=denom, want_metrics=True)
+
+    def rep(x, r):
+        return tree.replica(x, r, M)
+
+    def kernel():
+        return tensors_of(*WS.wire_step_many(ps, coords, target, spec,
+                                             gt=gt, **kw))
+
+    def serial():
+        return [tensors_of(*WS.wire_step(
+            tree.index(ps, r), rep(coords, r), rep(target, r), spec,
+            gt=rep(gt, r), **kw)) for r in range(M)]
+
+    before = WS.wire_step.launches
+    got = kernel()
+    once_each(torch, lambda: WS.wire_step.launches, before, what)
+    again = kernel()
+    torch.cuda.synchronize()
+    same_bits(torch, again, got, what)
+    plains = [tensors_of(*WS.wire_step_plain(
+        tree.index(ps, r), rep(coords, r), rep(target, r), spec,
+        gt=rep(gt, r), **kw)) for r in range(M)]
+    return kernel, serial, replica_case(torch, got, serial(), plains, what)
+
+
+def param_pair(torch, apply, params, spec, coords, cot):
+    """{"out", "<leaf path>": ...} of ``apply``'s forward and its gradient
+    in the parameters (no coordinate gradient) against ``cot``."""
+    keys = leaf_paths(params)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for _, t in tree_leaves(params)]
+    y = apply(tree_unflatten(keys, leaves), coords, spec)
+    grads = torch.autograd.grad(y, leaves, cot, allow_unused=True)
+    out = {"out": y.detach()}
+    for k, leaf, g in zip(keys, leaves, grads):
+        out[".".join(map(str, k))] = torch.zeros_like(leaf) if g is None \
+            else g
+    return out
+
+
+def many_pair_case(torch, WM, spec, ps, coords, cot, what):
+    """wire_mlp_many's pair against the unbatched pair and the plain
+    version per replica; (kernel thunk, serial thunk, max abs err)."""
+    from wire_tpu_torch import tree
+    M = tree.replicas(ps)
+
+    def kernel():
+        return param_pair(torch, WM.wire_mlp_many, ps, spec, coords, cot)
+
+    def serial():
+        return [param_pair(torch, WM.wire_mlp, tree.index(ps, r), spec,
+                           tree.replica(coords, r, M), cot[r])
+                for r in range(M)]
+
+    before = dict(WM.launches)
+    got = kernel()
+    once_each(torch, WM.launches, before, what)
+    again = kernel()
+    torch.cuda.synchronize()
+    same_bits(torch, again, got, what)
+    plains = [param_pair(torch, WM.wire_mlp_plain, tree.index(ps, r), spec,
+                         tree.replica(coords, r, M), cot[r])
+              for r in range(M)]
+    return kernel, serial, replica_case(torch, got, serial(), plains, what)
+
+
+def many_radon_case(torch, mod, fn, plain, x, cot, names, what,
+                    scatter=()):
+    """A Radon kernel pair (rotsum, line_sample) on an (M, ...) stack
+    against the unbatched pair and the plain version per replica; ``fn``
+    and ``plain`` map an input with its gradient to the output, ``names``
+    names the output and the input's gradient.  (kernel thunk, serial
+    thunk, max abs err)."""
+    def run(f, xin, c):
+        xin = xin.detach().clone().requires_grad_(True)
+        y = f(xin)
+        (g,) = torch.autograd.grad(y, xin, c)
+        if y.is_complex():
+            y, g = torch.view_as_real(y), torch.view_as_real(g)
+        return {names[0]: y.detach(), names[1]: g}
+
+    def kernel():
+        return run(fn, x, cot)
+
+    def serial():
+        return [run(fn, x[r], cot[r]) for r in range(x.shape[0])]
+
+    before = dict(mod.launches)
+    got = kernel()
+    once_each(torch, mod.launches, before, what)
+    again = kernel()
+    torch.cuda.synchronize()
+    same_bits(torch, again, {k: v for k, v in got.items()
+                             if k not in scatter}, what)
+    plains = [run(plain, x[r], cot[r]) for r in range(x.shape[0])]
+    return kernel, serial, replica_case(torch, got, serial(), plains, what,
+                                        scatter=scatter)
+
+
+def many_kernel_vs_plain(torch, np, mods, device):
+    """Each kernel with a replica axis at MANY_M replicas of distinct
+    weights: wire_step at WIRE-300's full shape (65,536 rows, h 212, shared
+    coordinates and targets) and a ragged one (700 rows per replica, nvalid
+    650 over a sentinel tail, denom), the wire_mlp pair at the CT shape
+    (shared coordinates), on per-replica coordinates (4,097 rows) and at
+    the multi-SR batch ((M, 4, 36,864, 2), h 181), rotsum on a stack of
+    512^2 images at 100 angles and line_sample at the CT shape (P 1,024,
+    100 angles): one launch per call for all replicas (a pair one a
+    direction), two calls bit-equal, each replica bit-equal to the
+    unbatched kernel on its inputs (line_sample's scatter within REL_TOL of
+    it) and within REL_TOL of the plain version.  Then each batched call's
+    time against the M unbatched calls', with the batched call's least
+    time (each replica's work and bytes, the shared inputs once).  Shapes from MANY_SHAPES.  Returns ({kernel:
+    {case: max abs err}}, {kernel: times})."""
+    WS, WM, R, LS, TR, TCT, TMS, get_inr, get_config = mods
+    from wire_tpu_torch import tree
+    sh = MANY_SHAPES
+    rng = np.random.default_rng(19)
+    seeds = range(11, 11 + MANY_M)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def rows(lead):
+        """coordinates in [-1, 1), targets and gt in [0, 1)"""
+        return (t(rng.uniform(-1, 1, lead + (2,))),
+                t(rng.uniform(0, 1, lead + (3,))),
+                t(rng.uniform(0, 1, lead + (3,))))
+
+    errs = {k: {} for k in ("wire_step", "wire_mlp", "rotsum",
+                            "line_sample")}
+    thunks = {}
+    wire300 = get_inr("wire", in_features=2, out_features=3,
+                      hidden_features=300, hidden_layers=2, first_omega0=7.0,
+                      hidden_omega0=7.0, scale=8.0)
+    ps = model_stack(torch, wire300, seeds, device)
+    step_weights = num_weights(tree.index(ps, 0))
+    n = sh["rows"]
+    side = int(round(n ** 0.5))
+    kern, ser, errs["wire_step"]["many_full"] = many_step_case(
+        torch, WS, wire300.spec, ps, *rows((n,)), None, None,
+        "wire_step_many full")
+    thunks["wire_step"] = (kern, ser)
+    errs["wire_step"]["many_ragged"] = many_step_case(
+        torch, WS, wire300.spec, ps, *rows((MANY_M, sh["ragged_step"])),
+        sh["ragged_step"] - 50, (sh["ragged_step"] - 50) * 3.0 + 1.0,
+        "wire_step_many ragged")[2]
+
+    ct_model, _ = ct_models(get_inr, TCT, get_config(CT_CONFIG))
+    ps = model_stack(torch, ct_model, seeds, device)
+    pair_weights = num_weights(tree.index(ps, 0))
+    spec = ct_model.spec
+    kern, ser, errs["wire_mlp"]["many_ct"] = many_pair_case(
+        torch, WM, spec, ps, t(TCT.C.grid2d(side, side)),
+        t(rng.normal(size=(MANY_M, n, 1))), "wire_mlp_many CT")
+    thunks["wire_mlp"] = (kern, ser)
+    errs["wire_mlp"]["many_ragged"] = many_pair_case(
+        torch, WM, spec, ps,
+        t(rng.uniform(-1, 1, (MANY_M, sh["ragged_pair"], 2))),
+        t(rng.normal(size=(MANY_M, sh["ragged_pair"], 1))),
+        "wire_mlp_many ragged")[2]
+    msr = TMS.setup(niters=1)["model"]
+    ps = model_stack(torch, msr, seeds, device)
+    frames = (MANY_M, 4, sh["frame_rows"])
+    errs["wire_mlp"]["many_multi_sr"] = many_pair_case(
+        torch, WM, msr.spec, ps, t(rng.uniform(-1, 1, frames + (2,))),
+        t(rng.normal(size=frames + (3,))), "wire_mlp_many multi-SR")[2]
+
+    S, A = sh["side"], 100
+    angles = np.linspace(0, 180, A, dtype=np.float32)
+    parts = R.angle_parts_tensor(angles, True, device)
+    kern, ser, errs["rotsum"]["many_512"] = many_radon_case(
+        torch, R, lambda x: R.rotate_project(x, angles, parts=parts),
+        lambda x: R.rotate_project_plain(x, angles),
+        t(rng.random((MANY_M, S, S))), t(rng.normal(size=(MANY_M, A, S))),
+        ("sino", "img_bar"), "rotsum stack 512")
+    thunks["rotsum"] = (kern, ser)
+
+    P = sh["P"]
+    centre, gy, gx, uncentre = TR._fourier_consts(P, angles, device)
+
+    def cplx(shape):
+        return torch.view_as_complex(t(rng.normal(size=shape + (2,))))
+    kern, ser, errs["line_sample"]["many_ct"] = many_radon_case(
+        torch, LS, lambda x: LS.sample_spectrum(x, centre, gy, gx, uncentre),
+        lambda x: LS.sample_spectrum_plain(x, centre, gy, gx, uncentre),
+        cplx((MANY_M, P, P)), cplx((MANY_M,) + tuple(gy.shape)),
+        ("slice", "F_bar"), "line_sample stack CT", scatter=("F_bar",))
+    thunks["line_sample"] = (kern, ser)
+
+    # the least time of the batched call: M x each replica's operations and
+    # its own bytes, the inputs the replicas share (wire_step's coordinates,
+    # target and gt, wire_mlp's coordinates, line_sample's tables) once
+    h, M = 212, MANY_M
+    work = {
+        "wire_step": bound_3xtf32(
+            M * WS.step_flops(n, 2, h, 3, 2),
+            4 * (n * 8 + M * (n * 3 + 2 * step_weights + 2))),
+        "wire_mlp": bound_3xtf32(
+            M * (WM.apply_flops(n, 2, h, 1, 2) - 2 * n * 2 * h),
+            4 * (n * 2 + M * (2 * n + 2 * pair_weights))),
+        "rotsum": bound(M * 2 * R.sample_flops(A, S),
+                        M * 4 * 2 * (S * S + A * S)),
+        "line_sample": bound(M * 2 * LS.sample_flops(A, gy.shape[1]),
+                             line_sample_bytes(torch, gy, gx, P, M)),
+    }
+    times = {}
+    for name, (kernel, serial) in thunks.items():
+        bound_ms, by = work[name]
+        times[name] = dict(
+            replicas=MANY_M, ms=cuda_ms(torch, kernel, MANY_TIMING_ITERS),
+            serial_ms=cuda_ms(torch, serial, MANY_TIMING_ITERS),
+            bound_ms=bound_ms, bound_by=by,
+            shape={"wire_step": f"WIRE-300 denoise, {n} rows",
+                   "wire_mlp": f"CT, {n} rows, no dcoords",
+                   "rotsum": f"{S}^2, {A} angles",
+                   "line_sample": f"P {P}, {A} angles"}[name])
+    return errs, times
+
+
+def many_vs_serial(np, many, serials, what, exact=True):
+    """Replica r of a batched fit against the serial fit ``serials[r]`` (at
+    seed + r from replica r's init): with ``exact`` the histories, the best
+    MSE, the best and final reconstructions (where there are) and the
+    final and best parameters bit for bit, else the loss histories within
+    MANY_FOURIER_REL relative."""
+    from wire_tpu_torch import tree
+    for r, one in enumerate(serials):
+        if not exact:
+            h, w = many.mse_noisy[:, r], one.mse_noisy
+            rel = float(np.max(np.abs(h - w) / np.abs(w)))
+            if not rel <= MANY_FOURIER_REL:
+                raise AssertionError(f"{what}: replica {r}'s loss history "
+                                     f"{rel:.2e} from the serial fit's")
+            continue
+        pairs = [(many.mse_gt[:, r], one.mse_gt),
+                 (many.mse_noisy[:, r], one.mse_noisy),
+                 (many.best_mse[r], np.float32(one.best_mse))]
+        for name in ("best_rec", "final_rec"):
+            if getattr(one, name) is not None:
+                pairs.append((getattr(many, name)[r], getattr(one, name)))
+        for params in ("params", "best_params"):
+            mine = tree.leaves(tree.index(getattr(many, params), r))
+            for (_, a), (_, b) in zip(mine, tree.leaves(getattr(one,
+                                                                params))):
+                pairs.append((a.cpu().numpy(), b.cpu().numpy()))
+        for i, (a, b) in enumerate(pairs):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"{what}: replica {r} differs from the "
+                                     f"serial fit at seed + {r} (item {i})")
+
+
+def fit_many(torch, np, mods, counters, device):
+    """The batched fits, each against its M serial fits (counts reset just
+    before and read just after the batched fit; peak device memory of each
+    over the replicas; ms per epoch or iteration of the batched fit and of
+    the serial fits added up): WIRE-300 denoise at full batch (bit-equal;
+    one wire_step launch an epoch), the chunked WIRE denoise (4 chunks an
+    epoch, each replica its own permutations; one launch a chunk), CT
+    rotate (bit-equal; one wire_mlp and one rotsum pair an iteration), CT
+    'auto' = fourier (loss within MANY_FOURIER_REL, best PSNR within
+    PSNR_AGREE_DB; one line_sample pair an iteration), the sweep's WIRE
+    SISR (bit-equal), the multi-SR app's WIRE on one burst and on a burst
+    per replica (bit-equal); then ``sweep --seeds 2`` of each task through
+    ``main`` at SWEEP_ITERS, launching WIRE's kernels and nothing else,
+    and a non-WIRE family's --seeds refused on the card."""
+    import dataclasses
+    import tempfile
+    (T, WS, TR, TCT, TMS, TS, SW, TF, M, get_inr, get_config, bench,
+     tree) = mods
+    out = {}
+
+    def run(name, want, many_fn, serial_fns, iters, m, compare_fn):
+        t0 = time.time()
+        reset_counts(counters)
+        ws0 = WS.wire_step.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        many = many_fn()
+        peak_many = torch.cuda.max_memory_allocated()
+        launches = read_counts(counters)
+        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        check_real_launches(launches, f"fit_many {name}", want)
+        serials, peak_one = [], 0
+        for fn in serial_fns:
+            torch.cuda.reset_peak_memory_stats()
+            serials.append(fn())
+            peak_one = max(peak_one, torch.cuda.max_memory_allocated())
+        extra = compare_fn(many, serials) or {}
+        for r in (many, *serials):
+            if not (np.isfinite(r.mse_noisy).all()
+                    and np.isfinite(r.best_mse).all()):
+                raise AssertionError(f"fit_many {name}: non-finite values")
+        out[name] = dict(
+            replicas=m, iters=iters,
+            launches={k: v for k, v in launches.items() if any(v.values())},
+            launches_per_iter={f"{k}.{kk}": v / iters
+                               for k, c in launches.items()
+                               for kk, v in c.items() if v},
+            ms_per_iter=many.step_ms,
+            serial_ms_per_iter=sum(s.step_ms for s in serials),
+            peak_mb_per_replica=peak_many / m / 2 ** 20,
+            serial_peak_mb=peak_one / 2 ** 20,
+            wall_s=time.time() - t0, **extra)
+
+    def exact(name):
+        return lambda many, serials: many_vs_serial(np, many, serials, name)
+
+    # WIRE-300 denoise, full batch, and chunked
+    im, im_noisy, grid, model = bench.setup(256, 256)
+    target, gt = im_noisy.reshape(-1, 3), im.reshape(-1, 3)
+    for name, m, cfg in (
+            ("denoise", MANY_DENOISE_M, T.FitConfig(
+                learning_rate=5e-3, niters=MANY_DENOISE_EPOCHS,
+                maxpoints=256 * 256, scale_lr_by_batch=True)),
+            ("denoise_chunked", MANY_M, T.FitConfig(
+                learning_rate=5e-3, niters=MANY_CHUNK_EPOCHS,
+                maxpoints=MANY_CHUNK_POINTS, scale_lr_by_batch=True,
+                seed=3))):
+        ps = model_stack(torch, model, range(m), device)
+        steps = cfg.niters * (256 * 256 // min(cfg.maxpoints, 256 * 256))
+        run(name, {("wire_step", "step"): steps},
+            lambda: T.fit_pointwise_many(model, ps, grid, target, cfg, gt=gt,
+                                         device=device),
+            [lambda r=r: T.fit_pointwise(
+                model, tree.index(ps, r), grid, target,
+                dataclasses.replace(cfg, seed=cfg.seed + r), gt=gt,
+                device=device) for r in range(m)], cfg.niters, m,
+            exact(name))
+
+    # CT rotate and 'auto' (fourier)
+    ct_cfg = get_config(CT_CONFIG)
+    ct_model, _ = ct_models(get_inr, TCT, ct_cfg)
+    img = TCT.ct_image(None, 0)
+    H, W = img.shape
+    thetas = np.linspace(0, 180, 100, dtype=np.float32)
+    ps = model_stack(torch, ct_model, range(MANY_M), device)
+    cfg = T.FitConfig(learning_rate=ct_cfg.learning_rate, niters=MANY_ITERS,
+                      maxpoints=ct_cfg.maxpoints)
+    for method, radon_kernel in (("rotate", ("rotsum", "adjoint")),
+                                 ("auto", ("line_sample", "scatter"))):
+        sino = TCT.make_sinogram(img, thetas, radon_method=method,
+                                 device=device)
+        op = TR.RadonOp(thetas, method=method)
+        fwd = {"rotsum": "forward", "line_sample": "gather"}[radon_kernel[0]]
+
+        def fourier_check(many, serials):
+            many_vs_serial(np, many, serials, "CT auto", exact=False)
+            psnrs = [float(M.psnr_ref(img, many.best_rec[r]))
+                     for r in range(MANY_M)]
+            serial = [float(M.psnr_ref(img, s.best_rec)) for s in serials]
+            if not max(abs(a - b) for a, b in zip(psnrs, serial)) \
+                    <= PSNR_AGREE_DB:
+                raise AssertionError(f"fit_many CT auto: best PSNRs {psnrs} "
+                                     f"vs serial {serial}")
+            return {"psnr_db": psnrs, "serial_psnr_db": serial}
+
+        run(f"ct_{method}",
+            {("wire_mlp", "forward"): MANY_ITERS,
+             ("wire_mlp", "backward"): MANY_ITERS,
+             (radon_kernel[0], fwd): MANY_ITERS,
+             radon_kernel: MANY_ITERS},
+            lambda: T.fit_operator_many(ct_model, ps, TCT.C.grid2d(H, W),
+                                        sino, op, cfg, gt_field=img,
+                                        field_shape=(H, W), device=device),
+            [lambda r=r: T.fit_operator(
+                ct_model, tree.index(ps, r), TCT.C.grid2d(H, W), sino, op,
+                cfg, gt_field=img, field_shape=(H, W), device=device)
+             for r in range(MANY_M)], MANY_ITERS, MANY_M,
+            exact("ct_rotate") if method == "rotate" else fourier_check)
+
+    # the sweep's WIRE SISR (256 wide, 768^2 stand-in -> 256^2 HR, x4)
+    im_hr, im_lr = TS.sisr_images(None, 0, 4, size=768)
+    H, W, _ = im_hr.shape
+    model = SW._build("wire", "sisr", H, W, tau=1e2)
+    ps = SW.seed_inits(model, MANY_M, 0, device)
+    cfg = T.FitConfig(learning_rate=SW._SISR_LR["wire"], niters=MANY_ITERS,
+                      lr_decay=0.2)
+    run("sisr", {("wire_mlp", "forward"): MANY_ITERS,
+                 ("wire_mlp", "backward"): MANY_ITERS},
+        lambda: T.fit_operator_many(model, ps, TCT.C.grid2d(H, W), im_lr,
+                                    TF.DownsampleOp(4), cfg, gt_field=im_hr,
+                                    field_shape=(H, W, 3), device=device),
+        [lambda r=r: T.fit_operator(
+            model, tree.index(ps, r), TCT.C.grid2d(H, W), im_lr,
+            TF.DownsampleOp(4), cfg, gt_field=im_hr, field_shape=(H, W, 3),
+            device=device) for r in range(MANY_M)], MANY_ITERS, MANY_M,
+        exact("sisr"))
+
+    # the multi-SR app's WIRE: one burst for every replica, and one each
+    probs = [TMS.setup(seed=s, niters=MANY_ITERS)
+             for s in range(MANY_MULTISR_M)]
+    model, cfg = probs[0]["model"], probs[0]["cfg"]
+    ps = model_stack(torch, model, range(MANY_MULTISR_M), device)
+    hr = probs[0]["im"].shape
+    fkw = dict(hr_shape=hr, scale=4, batch_size=4, device=device)
+    for name, batched in (("multi_sr", False), ("multi_sr_bursts", True)):
+        ds = [p["ds"] for p in probs]
+        frames = ((np.stack([d.coords for d in ds]),
+                   np.stack([d.pixels for d in ds]),
+                   np.stack([d.masks for d in ds])) if batched
+                  else (ds[0].coords, ds[0].pixels, ds[0].masks))
+        run(name, {("wire_mlp", "forward"): MANY_ITERS,
+                   ("wire_mlp", "backward"): MANY_ITERS},
+            lambda: T.fit_frames_many(model, ps, *frames, cfg,
+                                      batched_frames=batched, **fkw),
+            [lambda r=r: T.fit_frames(
+                model, tree.index(ps, r),
+                *(ds[r if batched else 0].coords,
+                  ds[r if batched else 0].pixels,
+                  ds[r if batched else 0].masks),
+                dataclasses.replace(cfg, seed=cfg.seed + r), **fkw)
+             for r in range(MANY_MULTISR_M)], MANY_ITERS, MANY_MULTISR_M,
+            exact(name))
+
+    # sweep --seeds 2 of each task through main
+    out["sweep_seeds"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task in ("denoise", "sisr", "ct"):
+            t0 = time.time()
+            reset_counts(counters)
+            ws0 = WS.wire_step.launches
+            res = SW.main([task, "--seeds", "2", "--nonlins", "wire",
+                           "--niters", str(SWEEP_ITERS), "--results_dir",
+                           os.path.join(tmp, task)])
+            launches = read_counts(counters)
+            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            check_real_launches(launches, f"sweep --seeds {task}",
+                                sweep_expected(task, "wire", SWEEP_ITERS))
+            key = "mse_db" if task == "sisr" else "psnrs"
+            if not (len(res[key]) == 2 and np.isfinite(res[key]).all()
+                    and np.isfinite(res["recs"]).all()):
+                raise AssertionError(f"sweep --seeds {task}: results "
+                                     f"{res[key]}")
+            out["sweep_seeds"][task] = dict(
+                metric=res[key], step_ms=res["step_ms"],
+                launches={k: v for k, v in launches.items()
+                          if any(v.values())},
+                wall_s=time.time() - t0)
+        reset_counts(counters)
+        ws0 = WS.wire_step.launches
+        try:
+            SW.main(["denoise", "--seeds", "2", "--nonlins", "mfn",
+                     "--niters", "1", "--results_dir", tmp])
+        except NotImplementedError as e:
+            if "§A item 5b" not in str(e):
+                raise
+        else:
+            raise AssertionError("sweep --seeds of mfn ran on the card")
+        launches = read_counts(counters)
+        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        check_real_launches(launches, "sweep --seeds mfn refused", {})
+        out["sweep_seeds"]["mfn_refused"] = True
+    return out
+
+
 def cuda_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -4510,6 +5039,23 @@ def main():
                         counters, dev)
     emit("fit_resume", t0, **resume)
 
+    # ---- many_kernel_vs_plain (the replica axis of rows 1-4) ---------------
+    t0 = time.time()
+    many_errs, many_times = many_kernel_vs_plain(
+        torch, np, (WS, WM, R, LS, TR, TCT, TMS, get_inr, get_config), dev)
+    emit("many_kernel_vs_plain", t0, replicas=MANY_M, max_abs_err=many_errs,
+         rel_tol=REL_TOL, times=many_times, nvidia_smi=smi,
+         why=("each replica bit-equal to the unbatched kernel on its inputs "
+              "(line_sample's scatter, atomics, within rel_tol of it); "
+              "each within rel_tol x max|plain| of the plain version"))
+
+    # ---- fit_many (the batched fits against their serial fits) -------------
+    t0 = time.time()
+    from wire_tpu_torch import tree as TT
+    many = fit_many(torch, np, (T, WS, TR, TCT, TMS, TS, SW, TF, M, get_inr,
+                                get_config, bench, TT), counters, dev)
+    emit("fit_many", t0, fits=many, nvidia_smi=smi)
+
     # launches of each kernel in the paths that run it: wire_step in the
     # WIRE denoise fit and the occupancy fits, real_step also in the
     # families' fits, wire_mlp in both CT fits, line_sample in 'auto'
@@ -4521,6 +5067,12 @@ def main():
     path_launches = {
         "wire_step": {"step": launches,
                       "occupancy_step": occ["launches"]["step"],
+                      "many_denoise_step": many["denoise"]["launches"][
+                          "wire_step"]["step"],
+                      "many_denoise_chunked_step": many["denoise_chunked"][
+                          "launches"]["wire_step"]["step"],
+                      "seeds_denoise_step": many["sweep_seeds"]["denoise"][
+                          "launches"]["wire_step"]["step"],
                       **{f"occupancy_{k}_step": v["launches"]
                          for k, v in occ[f"epochs_{OCC_BLOCK_EPOCHS}"]
                          .items()}},
@@ -4531,9 +5083,24 @@ def main():
                         + msr["estim_launches"][k] for k in WM.launches},
                      **{f"render_chunked_{k}": v for k, v in resume[
                          "render_chunked"]["chunked"]["launches"][
-                             "wire_mlp"].items()}},
-        "line_sample": ct["auto"]["launches"]["line_sample"],
+                             "wire_mlp"].items()},
+                     **{f"many_{fit}_{k}": v
+                        for fit in ("ct_rotate", "ct_auto", "sisr",
+                                    "multi_sr", "multi_sr_bursts")
+                        for k, v in many[fit]["launches"][
+                            "wire_mlp"].items()},
+                     **{f"seeds_{task}_{k}": v for task in ("sisr", "ct")
+                        for k, v in many["sweep_seeds"][task]["launches"][
+                            "wire_mlp"].items()}},
+        "line_sample": {**ct["auto"]["launches"]["line_sample"],
+                        **{f"many_ct_auto_{k}": v for k, v in many[
+                            "ct_auto"]["launches"]["line_sample"].items()},
+                        **{f"seeds_ct_{k}": v for k, v in many[
+                            "sweep_seeds"]["ct"]["launches"][
+                                "line_sample"].items()}},
         "rotsum": {**ct["rotate"]["launches"]["rotsum"],
+                   **{f"many_ct_rotate_{k}": v for k, v in many[
+                       "ct_rotate"]["launches"]["rotsum"].items()},
                    **{f"render_chunked_{k}": v for k, v in resume[
                        "render_chunked"]["chunked"]["launches"][
                            "rotsum"].items()}},
@@ -4574,7 +5141,10 @@ def main():
            if "sass_hmma" in meas[name] else {}),
         **({"multi_sr": {k: meas_msr[k] for k in (
             "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_fp32_ms", "at_512")}} if name == "wire_mlp" else {})}
+            "bound_fp32_ms", "at_512")}} if name == "wire_mlp" else {}),
+        **({"replica_axis": dict(many_times[name],
+                                 max_abs_err=many_errs[name])}
+           if name in many_times else {})}
         for name, (lib, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

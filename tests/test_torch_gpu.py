@@ -1735,3 +1735,95 @@ def test_resumed_fit_frames_is_bit_equal_on_the_card(cuda, tmp_path):
     with pytest.raises(ValueError, match="DIFFERENT fit"):
         fit(T.CheckpointSpec(path=str(tmp_path / "frames.npz")),
             pixels=ds.pixels * 0.5)
+
+
+# ---- the replica axis (the batched multi-fit) ------------------------------
+
+def test_replica_kernels_are_the_unbatched_kernels(cuda, monkeypatch):
+    """wire_step, the wire_mlp pair, rotsum and line_sample with a replica
+    axis (chip_smoke.py's many_kernel_vs_plain at smaller shapes): one
+    launch per call for all replicas, two calls bit-equal, each replica
+    bit-equal to the unbatched kernel on its inputs (line_sample's scatter
+    within REL of it) and within REL of the plain version."""
+    import chip_smoke as S
+    from wire_tpu_torch.apps import ct as TCT
+    from wire_tpu_torch.apps import multi_sr as TMS
+    from wire_tpu_torch.operators import radon as TR
+    from wire_tpu_torch.ops import line_sample as LS
+    from wire_tpu_torch.ops import rotsum as R
+    from wire_tpu_torch.ops import wire_mlp as WM
+    from wire_tpu_torch.train.presets import get_config
+    monkeypatch.setattr(S, "MANY_SHAPES", dict(
+        rows=96 * 96, ragged_step=300, ragged_pair=1100, side=97, P=128,
+        frame_rows=48 * 48))
+    errs, times = S.many_kernel_vs_plain(
+        torch, np, (WS, WM, R, LS, TR, TCT, TMS, get_inr, get_config), cuda)
+    assert set(errs) == {"wire_step", "wire_mlp", "rotsum", "line_sample"}
+    assert all(t["ms"] > 0 for t in times.values())
+
+
+def test_batched_fits_are_the_serial_fits(cuda):
+    """A 3-replica WIRE denoise (full batch and chunked) and SISR fit on
+    the card: replica r bit-equal to the serial fit at seed + r, one
+    wire_step launch a step or one wire_mlp pair an iteration for all
+    replicas."""
+    import dataclasses
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.operators.forward import DownsampleOp
+    from wire_tpu_torch.ops import wire_mlp as WM
+    from wire_tpu_torch.signals import coords as C
+    from wire_tpu_torch.train import trainer as T
+    import chip_smoke as S
+    model = get_inr("wire", in_features=2, out_features=3,
+                    hidden_features=64, hidden_layers=2, first_omega0=7.0,
+                    hidden_omega0=7.0, scale=8.0)
+    ps = S.model_stack(torch, model, range(3), cuda)
+    rng = np.random.default_rng(0)
+    im = rng.random((64 * 64, 3)).astype(np.float32)
+    noisy = im + 0.1 * rng.normal(size=im.shape).astype(np.float32)
+    for maxpoints, steps in ((64 * 64, 5), (1024, 20)):
+        cfg = T.FitConfig(learning_rate=5e-3, niters=5, maxpoints=maxpoints,
+                          seed=2)
+        before = WS.wire_step.launches
+        many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), noisy, cfg,
+                                    gt=im, device=cuda)
+        assert WS.wire_step.launches == before + steps
+        S.many_vs_serial(np, many, [T.fit_pointwise(
+            model, tree.index(ps, r), C.grid2d(64, 64), noisy,
+            dataclasses.replace(cfg, seed=2 + r), gt=im, device=cuda)
+            for r in range(3)], f"denoise maxpoints {maxpoints}")
+    lr = torch.nn.functional.avg_pool2d(
+        torch.tensor(im.reshape(64, 64, 3)).permute(2, 0, 1), 4).permute(
+            1, 2, 0).numpy()
+    cfg = T.FitConfig(learning_rate=5e-3, niters=5)
+    before = dict(WM.launches)
+    many = T.fit_operator_many(model, ps, C.grid2d(64, 64), lr,
+                               DownsampleOp(4), cfg,
+                               gt_field=im.reshape(64, 64, 3),
+                               field_shape=(64, 64, 3), device=cuda)
+    assert WM.launches == {k: v + 5 for k, v in before.items()}
+    S.many_vs_serial(np, many, [T.fit_operator(
+        model, tree.index(ps, r), C.grid2d(64, 64), lr, DownsampleOp(4),
+        cfg, gt_field=im.reshape(64, 64, 3), field_shape=(64, 64, 3),
+        device=cuda) for r in range(3)], "sisr")
+
+
+def test_seeds_of_a_family_without_replica_kernels_are_refused(cuda,
+                                                               tmp_path):
+    """sweep --seeds runs WIRE's replica kernels on the card; a family
+    whose kernels have no replica axis yet raises, naming its ROADMAP item,
+    before any kernel launches."""
+    from wire_tpu_torch.apps import sweep
+    for nonlin, item in (("mfn", "5b"), ("siren", "5b")):
+        before = WS.wire_step.launches
+        with pytest.raises(NotImplementedError, match=f"§A item {item}"):
+            sweep.main(["denoise", "--seeds", "2", "--nonlins", nonlin,
+                        "--niters", "1", "--results_dir", str(tmp_path)])
+        assert WS.wire_step.launches == before
+    model = get_inr("wire2d", in_features=2, out_features=3,
+                    hidden_features=16, hidden_layers=1)
+    from wire_tpu_torch import tree
+    ps = tree.stack([model.init(torch.Generator().manual_seed(s), cuda)
+                     for s in range(2)])
+    with pytest.raises(NotImplementedError, match="§A item 5c"):
+        model.apply_many(ps, torch.zeros(10, 2, device=cuda))

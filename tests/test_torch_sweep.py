@@ -2,9 +2,11 @@
 wire_tpu's (wire_tpu/apps/sweep.py): the same families, expected-metric
 and learning-rate tables, and the same model spec for every (nonlin,
 task); the three sweeps run on the CPU (device="cpu", the plain path) at a
-tiny size and write their artifacts; ``--seeds`` waits for the batched
-fitters.  Everything compared here is exact: tables, spec fields and the
-artifact files' keys."""
+tiny size and write their artifacts; ``--seeds`` runs one family's seeds
+through the batched fitters (on the CPU here; tests/test_torch_many.py
+holds them to wire_tpu's, tests/test_torch_gpu.py refuses a non-WIRE
+family's on the card).  Everything compared here is exact: tables, spec
+fields and the artifact files' keys."""
 import os
 
 import numpy as np
@@ -90,9 +92,14 @@ def test_main_runs_a_family_and_refuses_seeds(tmp_path):
              "--device", "cpu"])
     mets = io.loadmat(str(tmp_path / "r" / "denoise_sweep_metrics.mat"))
     assert "mfn" in mets and "relu" in mets and "wire" not in mets
-    with pytest.raises(NotImplementedError, match="§A item 5"):
-        TS.main(["denoise", "--nonlins", "mfn", "--seeds", "2",
-                 "--device", "cpu"])
+    # --seeds: the first family's seeds batched in one fit, one result a
+    # replica (the plain path on the CPU, any family)
+    seeds = TS.main(["denoise", "--nonlins", "mfn", "--seeds", "2",
+                     "--niters", "1", "--image", img, "--downscale", "1",
+                     "--device", "cpu"])
+    assert len(seeds["psnrs"]) == 2 and np.isfinite(seeds["psnrs"]).all()
+    assert seeds["recs"].shape == (2, 32 * 32, 3)
+    assert seeds["psnrs"][0] != seeds["psnrs"][1]   # independent inits
 
 
 def test_default_device_is_the_card():

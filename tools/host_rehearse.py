@@ -3,7 +3,7 @@
 card, at tiny shapes, against its plain PyTorch version.
 
     python3 tools/host_rehearse.py wire_mlp rotsum line_sample wire_step \
-        mscale2_step wire2d mfn real
+        mscale2_step wire2d mfn real many
 
 The source (``csrc/<name>.cu`` and the headers it includes) is rewritten
 into a copy and built by g++ into a host library with a plain C interface,
@@ -340,7 +340,7 @@ def rehearse_wire_mlp(out_dir):
                           for k, kk in keys]
                 x = c.clone().requires_grad_(True)
                 if fn == "kernel":
-                    y = WM._WireMLP.apply(x, spec, keys, *leaves)
+                    y = WM._WireMLP.apply(x, spec, keys, None, *leaves)
                 else:
                     p = {k: {} for k in params}
                     for (k, kk), leaf in zip(keys, leaves):
@@ -815,6 +815,156 @@ def rehearse_real(out_dir):
     RM._lib.cache_clear()
 
 
+def _bits(got, want, what):
+    """Raise unless the tensor lists are equal bit for bit."""
+    import torch
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not torch.equal(g, w)]
+    assert len(got) == len(want) and not bad, (what, bad)
+
+
+def rehearse_many(out_dir):
+    """The replica axis of wire_step, the wire_mlp pair, rotsum and
+    line_sample (the batched multi-fit): M replicas with distinct weights in
+    one call, each replica's outputs bit-equal to an unbatched call of the
+    same host library on its own inputs (line_sample's scatter within 1e-5
+    of it: its atomics add in any order) and within 1e-4 of the plain
+    version; coordinates and targets shared and per replica, ragged n
+    across the 512- and 1,024-row chunks, h not a multiple of 4, L 0-2."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.nn.registry import get_inr
+    from wire_tpu_torch.ops import line_sample as LS
+    from wire_tpu_torch.ops import rotsum as R
+    from wire_tpu_torch.ops import wire_mlp as WM
+    from wire_tpu_torch.ops import wire_step as WS
+
+    def model_stack(n, hf, L, o, M):
+        model = get_inr("wire", in_features=2, out_features=o,
+                        hidden_features=hf, hidden_layers=L, first_omega0=7.0,
+                        hidden_omega0=7.0, scale=8.0)
+        return model, tree.stack([model.init(
+            torch.Generator().manual_seed(n + r), "cpu") for r in range(M)])
+
+    def rand(rng, shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    WS._lib.cache_clear()
+    with host_library("wire_step", os.path.join(out_dir, "ws")):
+        for n, hf, L, o, M, nvalid, shared in (
+                (300, 7, 2, 3, 3, 290, False), (130, 19, 1, 1, 2, None, True),
+                (150, 11, 0, 2, 2, 140, True),
+                (1100, 7, 1, 2, 2, 1030, False)):
+            model, ps = model_stack(n, hf, L, o, M)
+            rng = np.random.default_rng(n)
+            lead = () if shared else (M,)
+            c = rand(rng, lead + (n, 2))
+            t, gt = rand(rng, lead + (n, o), 0, 1), rand(rng, lead + (n, o),
+                                                          0, 1)
+            got = _step_tensors(WS._launch(ps, c, t, model.spec, nvalid,
+                                           None, gt, True, None, reps=M))
+            for r in range(M):
+                pick = (lambda x: x) if shared else (lambda x: x[r])
+                one = WS._launch(tree.index(ps, r), pick(c), pick(t),
+                                 model.spec, nvalid, None, pick(gt), True,
+                                 None)
+                want = _step_tensors(one)
+                mine = [x.reshape(M, -1)[r] for x in got]
+                _bits(mine, want, f"wire_step replica {r}")
+                plain = _step_tensors(WS.wire_step_plain(
+                    tree.index(ps, r), pick(c), pick(t), model.spec,
+                    nvalid=nvalid, gt=pick(gt), want_metrics=True))
+                rel = _max_rel(mine, plain)
+                assert rel <= 1e-4, rel
+            print(f"wire_step_many n {n} hf {hf} L {L} o {o} M {M} shared "
+                  f"{shared}: replicas bit-equal to single calls, max rel "
+                  f"err to plain {rel:.2e}", flush=True)
+    WS._lib.cache_clear()
+
+    WM._lib.cache_clear()
+    with host_library("wire_mlp", os.path.join(out_dir, "wm")):
+        for n, hf, L, o, M, shared in ((300, 7, 2, 1, 3, True),
+                                       (130, 19, 1, 3, 2, False),
+                                       (150, 11, 0, 2, 2, False),
+                                       (1100, 7, 1, 1, 2, True)):
+            model, ps = model_stack(n, hf, L, o, M)
+            spec = model.spec
+            rng = np.random.default_rng(n)
+            c = rand(rng, (n, 2) if shared else (M, n, 2))
+            g = rand(rng, (M, n, o))
+            keys = tuple(p for p, _ in tree.leaves(ps))
+
+            def pair(params, coords, cot, reps):
+                leaves = [tree.get(params, k).clone().requires_grad_(True)
+                          for k in keys]
+                y = WM._WireMLP.apply(coords, spec, keys, reps, *leaves)
+                grads = torch.autograd.grad(y, leaves, cot)
+                with torch.no_grad():
+                    y0 = WM._forward_nograd(params, coords, spec, reps)
+                return [y.detach(), y0] + list(grads)
+
+            got = pair(ps, c, g, M)
+            for r in range(M):
+                cr = c if shared else c[r]
+                want = pair(tree.index(ps, r), cr, g[r], None)
+                _bits([x[r] for x in got], want, f"wire_mlp replica {r}")
+            print(f"wire_mlp_many n {n} hf {hf} L {L} o {o} M {M} shared "
+                  f"{shared}: replicas bit-equal to single calls (forward, "
+                  f"no-grad forward, every gradient)", flush=True)
+    WM._lib.cache_clear()
+
+    R._lib.cache_clear()
+    angles = np.array([0.0, 44.9, 90.0, 121.7, 200.0], np.float32)
+    with host_library("rotsum", os.path.join(out_dir, "rs")):
+        for H, W, M in ((17, 17, 3), (16, 22, 2)):
+            rng = np.random.default_rng(H * W)
+            img = rand(rng, (M, H, W), 0, 1)
+            cot = rand(rng, (M, len(angles), W))
+            parts = R.angle_parts_tensor(angles, H == W, "cpu")
+
+            def proj(x, cot):
+                x = x.clone().requires_grad_(True)
+                y = R._RotateProject.apply(x, parts)
+                (gx,) = torch.autograd.grad(y, x, cot)
+                return [y.detach(), gx]
+
+            got = proj(img, cot)
+            for r in range(M):
+                _bits([x[r] for x in got], proj(img[r], cot[r]),
+                      f"rotsum replica {r}")
+            print(f"rotsum M {M} {H} x {W}: replicas bit-equal to single "
+                  f"calls", flush=True)
+    R._lib.cache_clear()
+
+    LS._lib.cache_clear()
+    with host_library("line_sample", os.path.join(out_dir, "ls")):
+        for P, A, M in ((8, 5, 3), (9, 4, 2)):
+            cases = [line_sample_case(P, A, P + r) for r in range(M)]
+            _, centre, gy, gx, uncentre, _ = cases[0]
+            F = torch.stack([cs[0] for cs in cases])
+            cot = torch.stack([cs[5] for cs in cases])
+
+            def sample(f, cot):
+                f = f.clone().requires_grad_(True)
+                y = LS._SampleSpectrum.apply(f, centre, gy, gx, uncentre)
+                (g,) = torch.autograd.grad(y, f, cot)
+                return torch.view_as_real(y.detach()), torch.view_as_real(g)
+
+            y, g = sample(F, cot)
+            for r in range(M):
+                y1, g1 = sample(F[r], cot[r])
+                _bits([y[r]], [y1], f"line_sample gather replica {r}")
+                rel = _max_rel([g[r]], [g1])
+                assert rel <= 1e-5, rel
+                yp = torch.view_as_real(LS.sample_spectrum_plain(
+                    F[r], centre, gy, gx, uncentre))
+                assert _max_rel([y[r]], [yp]) <= 1e-5
+            print(f"line_sample M {M} P {P} A {A}: gathers bit-equal to "
+                  f"single calls, scatters within {rel:.1e}", flush=True)
+    LS._lib.cache_clear()
+
+
 def main():
     sys.path.insert(0, ROOT)
     rehearsals = {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum,
@@ -822,7 +972,7 @@ def main():
                   "wire_step": rehearse_wire_step,
                   "mscale2_step": rehearse_mscale2_step,
                   "wire2d": rehearse_wire2d, "mfn": rehearse_mfn,
-                  "real": rehearse_real}
+                  "real": rehearse_real, "many": rehearse_many}
     names = sys.argv[1:] or list(rehearsals)
     with tempfile.TemporaryDirectory() as d:
         for name in names:

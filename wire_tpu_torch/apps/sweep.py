@@ -22,10 +22,19 @@ and the mfn_mlp pair; CT's 'auto' Radon operator is the fourier method
 there (line_sample).  ``device="cpu"`` runs the plain PyTorch path.
 
     python -m wire_tpu_torch.apps.sweep {denoise,sisr,ct} [--nonlins ...]
+    python -m wire_tpu_torch.apps.sweep {denoise,sisr,ct} --seeds N \
+        --nonlins wire
 
-Only the single-seed sweeps are ported: ``--seeds`` (one family's seeds
-batched in one device program) needs the batched fitters of ROADMAP.md
-§A item 5.
+``--seeds N`` fits N seeds of ONE family (the first of --nonlins) at once
+through the batched fitters (``fit_pointwise_many``, ``fit_operator_many``):
+the replicas' inits are independent draws split from ``seed0`` (one
+generator seeded ``seed0`` draws N child seeds, one per init, as
+``jax.random.split`` does in wire_tpu, so replica 0 is not the single-seed
+sweep's init) and replica r's fit seed is ``seed0 + r``.  On the card only
+WIRE has replica kernels (denoise through wire_step, SISR and CT through
+the wire_mlp pair, CT's 'auto' operator through line_sample); another
+family's ``--seeds`` raises there (ROADMAP.md §A items 5b, 5c) and runs its
+plain path with ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from wire_tpu_torch import tree
 from wire_tpu_torch.apps import common
 from wire_tpu_torch.apps import ct as TCT
 from wire_tpu_torch.apps import sisr as TS
@@ -45,7 +55,8 @@ from wire_tpu_torch.operators.radon import RadonOp
 from wire_tpu_torch.signals import coords as C, image as I, noise as N
 from wire_tpu_torch.train import artifacts as A, metrics as M
 from wire_tpu_torch.train.trainer import (FitConfig, fit_operator,
-                                          fit_pointwise)
+                                          fit_operator_many, fit_pointwise,
+                                          fit_pointwise_many)
 
 NONLINS = ["wire", "siren", "mfn", "relu", "posenc", "gauss"]
 
@@ -222,6 +233,102 @@ def sweep_sisr(image=None, results_dir="results", seed=0, niters=2000,
     return results
 
 
+def seed_inits(model, n_seeds, seed0, device):
+    """The replica-stacked inits of a seeds sweep: independent draws split
+    from ``seed0`` (one generator seeded ``seed0`` draws ``n_seeds`` child
+    seeds, each seeding one init; wire_tpu splits ``key(seed0)``), stacked
+    on a leading replica axis."""
+    gen = torch.Generator().manual_seed(int(seed0))
+    seeds = torch.randint(0, 2 ** 62, (n_seeds,), generator=gen).tolist()
+    return tree.stack([model.init(torch.Generator().manual_seed(s), device)
+                       for s in seeds])
+
+
+def _log_seeds(task, nonlin, n_seeds, values, res):
+    A.log(f"{task} {nonlin} x{n_seeds} seeds: "
+          + " ".join(f"{v:.2f}" for v in values)
+          + f" ({res.wall_time_s:.1f}s total)")
+
+
+def sweep_denoise_seeds(nonlin, n_seeds, image=None, results_dir="results",
+                        seed0=0, niters=2000, tau=3e1, noise_snr=2, size=512,
+                        downscale=0.5, device=None):
+    """Multi-seed denoise fits of ONE family at once
+    (``fit_pointwise_many``; wire_tpu/apps/sweep.py:88-117): N independent
+    split inits (``seed_inits``) fitted to the same noisy image, replica r
+    with fit seed ``seed0 + r``.  Returns the per-seed PSNRs (reference
+    formula), the wall time, the fit's ms per epoch and the best
+    reconstructions (N, H*W, 3)."""
+    dev = resolve(device)
+    im, im_noisy = denoise_images(image, seed0, tau, noise_snr, size,
+                                  downscale)
+    H, W, _ = im.shape
+    model = _build(nonlin, "denoise", H, W, tau)
+    cfg = FitConfig(learning_rate=_DENOISE_LR[nonlin], niters=niters,
+                    maxpoints=256 * 256, scale_lr_by_batch=True, seed=seed0)
+    res = fit_pointwise_many(model, seed_inits(model, n_seeds, seed0, dev),
+                             C.grid2d(H, W), im_noisy.reshape(-1, 3), cfg,
+                             gt=im.reshape(-1, 3), track="gt", device=dev)
+    psnrs = [float(M.psnr_ref(im, res.best_rec[r].reshape(H, W, 3)))
+             for r in range(n_seeds)]
+    _log_seeds("denoise", nonlin, n_seeds, psnrs, res)
+    return {"psnrs": psnrs, "wall_s": res.wall_time_s,
+            "step_ms": res.step_ms, "recs": res.best_rec}
+
+
+def sweep_ct_seeds(nonlin, n_seeds, image=None, results_dir="results",
+                   seed0=0, niters=5000, nmeas=100, size=512, device=None):
+    """Multi-seed CT fits of ONE family at once (``fit_operator_many``;
+    wire_tpu/apps/sweep.py:120-149): N independent split inits fitted to the
+    same sinogram through one ``RadonOp`` call on the N fields an iteration
+    (measured and fitted through one operator, 'auto': fourier on the card,
+    rotate on the CPU).  Returns the per-seed PSNRs, the wall time, the
+    fit's ms per iteration and the best reconstructions (N, H, W)."""
+    dev = resolve(device)
+    img = common.load_image(image, size=size, channels=1, seed=seed0)
+    if img.ndim == 3:
+        img = img[..., 0]
+    img = I.normalize(img, True).astype(np.float32)
+    H, W = img.shape
+    thetas = np.linspace(0, 180, nmeas, dtype=np.float32)
+    sinogram = TCT.make_sinogram(img, thetas, device=dev)
+    model = _build(nonlin, "ct", H, W, tau=1e2, out_features=1,
+                   posenc_sidelength=nmeas)
+    cfg = FitConfig(learning_rate=_CT_LR[nonlin], niters=niters, seed=seed0)
+    res = fit_operator_many(model, seed_inits(model, n_seeds, seed0, dev),
+                            C.grid2d(H, W), sinogram, RadonOp(thetas), cfg,
+                            gt_field=img, field_shape=(H, W), track="gt",
+                            device=dev)
+    psnrs = [float(M.psnr_ref(img, res.best_rec[r])) for r in range(n_seeds)]
+    _log_seeds("ct", nonlin, n_seeds, psnrs, res)
+    return {"psnrs": psnrs, "wall_s": res.wall_time_s,
+            "step_ms": res.step_ms, "recs": res.best_rec}
+
+
+def sweep_sisr_seeds(nonlin, n_seeds, image=None, results_dir="results",
+                     seed0=0, niters=2000, scale=4, size=768, device=None):
+    """Multi-seed SISR fits of ONE family at once (``fit_operator_many``;
+    wire_tpu/apps/sweep.py:152-174): N independent split inits fitted to
+    the same LR image through one ``DownsampleOp`` call on the N fields an
+    iteration.  Returns the per-seed best MSE in dB (vs the clean HR
+    image), the wall time, the fit's ms per iteration and the best
+    reconstructions (N, H, W, 3)."""
+    dev = resolve(device)
+    im, im_lr = TS.sisr_images(image, seed0, scale, size=size)
+    H, W, _ = im.shape
+    model = _build(nonlin, "sisr", H, W, tau=1e2)
+    cfg = FitConfig(learning_rate=_SISR_LR[nonlin], niters=niters,
+                    lr_decay=0.2, seed=seed0)
+    res = fit_operator_many(model, seed_inits(model, n_seeds, seed0, dev),
+                            C.grid2d(H, W), im_lr, DownsampleOp(scale), cfg,
+                            gt_field=im, field_shape=(H, W, 3), track="gt",
+                            device=dev)
+    mse_db = [float(M.mse_db(res.best_mse[r])) for r in range(n_seeds)]
+    _log_seeds("sisr", nonlin, n_seeds, mse_db, res)
+    return {"mse_db": mse_db, "wall_s": res.wall_time_s,
+            "step_ms": res.step_ms, "recs": res.best_rec}
+
+
 def _save_sweep(results, results_dir, name):
     """<name>_info.mat (each family's reconstruction), <name>_metrics.mat
     and <name>_table.md under results_dir."""
@@ -250,16 +357,20 @@ def main(argv=None):
     p.add_argument("--nonlins", nargs="+", default=NONLINS)
     p.add_argument("--downscale", type=float, default=None)
     p.add_argument("--seeds", type=int, default=0,
-                   help="run this many seeds of ONE family batched in one "
-                        "device program (not ported yet)")
+                   help="run this many seeds of ONE family (the first of "
+                        "--nonlins) batched in one fit")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
     a = p.parse_args(argv)
     if a.seeds:
-        raise NotImplementedError(
-            "sweep --seeds needs fit_pointwise_many / fit_operator_many, "
-            "which are not ported yet (ROADMAP.md §A item 5)")
+        kw = dict(image=a.image, results_dir=a.results_dir, device=a.device)
+        if a.niters:
+            kw["niters"] = a.niters
+        if a.task == "denoise" and a.downscale is not None:
+            kw["downscale"] = a.downscale
+        return {"denoise": sweep_denoise_seeds, "ct": sweep_ct_seeds,
+                "sisr": sweep_sisr_seeds}[a.task](a.nonlins[0], a.seeds, **kw)
     kw = dict(image=a.image, results_dir=a.results_dir, nonlins=a.nonlins,
               device=a.device)
     if a.niters:

@@ -13,6 +13,10 @@ other numbers in that shape); mscale_HL's ``trunk_in`` beside them;
 mscale_2's ``combiner`` with its ``scale_weights`` tensor beside the
 ``{w, b}`` heads; mscale_hier's ``{stages: [[{w, b}, ...], ...], heads:
 [{w, b}, ...]}``.  Weights are ``(in, out)``, used as ``x @ w``.
+
+Both map leaves, so a replica-stacked tree (a leading replica axis on every
+leaf, as ``jax.vmap`` of an init or ``tree.stack`` gives it) crosses
+unchanged.
 """
 from __future__ import annotations
 

@@ -8,6 +8,13 @@
 // to run.  The final layer uses one warp per row; its lanes stride over the
 // inputs and meet in a fixed butterfly, so its sums do not depend on
 // scheduling either.
+//
+// Replicas (the batched multi-fit): M independent models of one shape run in
+// one launch, the replica in a grid axis of its own (blockIdx.y here), each
+// tensor of replica r at r times its own size past the tensor's start (the
+// caller stacks them so), a target shared by the replicas at offset 0.
+// Each replica's blocks do exactly what an unbatched launch does, so its
+// results are bit-equal to one; M = 1 is the unbatched launch itself.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,34 +40,45 @@ inline int ceil_div(long long a, long long b) {
 
 // out[e] = sum over c = 0 .. C-1, in that order, of part[c * E + e]; with a
 // column scale, entries e of the first `scaled_rows` rows of an (E / NB) x
-// NB block are then multiplied by colscale[e % NB].
+// NB block are then multiplied by colscale[e % NB].  Replica blockIdx.y
+// reads the C x E partials and writes the E sums that follow its
+// predecessors'; the column scale is shared.
 __global__ void reduce_chunks_kernel(const float* __restrict__ part, int C,
                                      int E, float* __restrict__ out,
                                      const float* __restrict__ colscale,
                                      int NB, int scaled_rows) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
+  part += (size_t)blockIdx.y * C * E;
+  out += (size_t)blockIdx.y * E;
   float s = 0.f;
   for (int c = 0; c < C; ++c) s += part[(size_t)c * E + e];
   if (colscale != nullptr && e / NB < scaled_rows) s *= colscale[e % NB];
   out[e] = s;
 }
 
-// Sum C partials of E floats each, in chunk order, into out.
+// Sum C partials of E floats each, in chunk order, into out; for `reps`
+// replicas, part holds reps x C x E and out reps x E.
 inline cudaError_t reduce_chunks(const float* part, int C, int E, float* out,
                                  cudaStream_t st,
                                  const float* colscale = nullptr, int NB = 1,
-                                 int scaled_rows = 0) {
-  reduce_chunks_kernel<<<ceil_div(E, kThreads), kThreads, 0, st>>>(
-      part, C, E, out, colscale, NB, scaled_rows);
+                                 int scaled_rows = 0, int reps = 1) {
+  reduce_chunks_kernel<<<dim3(ceil_div(E, kThreads), reps), kThreads, 0,
+                         st>>>(part, C, E, out, colscale, NB, scaled_rows);
   return cudaGetLastError();
 }
 
-// Final linear layer: pred = a @ fW + fb, a (n x K), fW (K x o), o <= kMaxOut.
+// Final linear layer: pred = a @ fW + fb, a (n x K), fW (K x o), o <= kMaxOut;
+// replica blockIdx.y.
 __global__ void __launch_bounds__(kThreads) final_forward_kernel(
     const float* __restrict__ a, const float* __restrict__ fW,
     const float* __restrict__ fb, float* __restrict__ pred, int n, int K,
     int o) {
+  const size_t rep = blockIdx.y;
+  a += rep * n * K;
+  fW += rep * K * o;
+  fb += rep * o;
+  pred += rep * n * o;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   constexpr int kWarps = kThreads / 32;
   for (int it = 0; it < kFinalRowsPerBlock / kWarps; ++it) {
@@ -96,13 +114,25 @@ __global__ void __launch_bounds__(kThreads) final_forward_kernel(
 //   pred = a @ fW + fb;  g = two_inv_denom * mask * (pred - t),
 //   mask = row < nvalid; sse_part holds (sum (mask (pred - t))^2,
 //   sum (mask (pred - gt))^2) per block, summed later in block order.
+// Replica blockIdx.y; t and gt are shared by the replicas when t_shared.
 __global__ void __launch_bounds__(kThreads) final_loss_kernel(
     const float* __restrict__ a, const float* __restrict__ fW,
     const float* __restrict__ fb, const float* __restrict__ t,
     const float* __restrict__ gt, float* __restrict__ pred,
     float* __restrict__ g, float* __restrict__ sse_part, int n, int K,
-    int o, int nvalid, float two_inv_denom) {
+    int o, int nvalid, float two_inv_denom, int t_shared) {
   __shared__ float warp_sse[kThreads / 32][2];
+  const size_t rep = blockIdx.y;
+  a += rep * n * K;
+  fW += rep * K * o;
+  fb += rep * o;
+  if (!t_shared) {
+    t += rep * n * o;
+    gt += rep * n * o;
+  }
+  pred += rep * n * o;
+  g += rep * n * o;
+  sse_part += rep * 2 * gridDim.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   constexpr int kWarps = kThreads / 32;
   float st = 0.f, sg = 0.f;
@@ -159,9 +189,9 @@ __global__ void __launch_bounds__(kThreads) final_loss_kernel(
 
 inline cudaError_t final_forward(const float* a, const float* fW,
                                  const float* fb, float* pred, int n, int K,
-                                 int o, cudaStream_t st) {
-  final_forward_kernel<<<ceil_div(n, kFinalRowsPerBlock), kThreads, 0, st>>>(
-      a, fW, fb, pred, n, K, o);
+                                 int o, cudaStream_t st, int reps = 1) {
+  final_forward_kernel<<<dim3(ceil_div(n, kFinalRowsPerBlock), reps),
+                         kThreads, 0, st>>>(a, fW, fb, pred, n, K, o);
   return cudaGetLastError();
 }
 
@@ -170,20 +200,23 @@ inline int final_loss_blocks(int n) { return ceil_div(n, kFinalRowsPerBlock); }
 
 // The step's final layer and loss: pred, g (n x o); with want_metrics the
 // SSE sums (2) from `part` (2 x final_loss_blocks(n) floats of scratch).
+// For `reps` replicas every tensor but t and gt (shared when t_shared)
+// holds reps of its own, and part reps x 2 x final_loss_blocks(n).
 inline cudaError_t final_loss(const float* a, const float* fW,
                               const float* fb, const float* t,
                               const float* gt, float* pred, float* g,
                               float* sse, float* part, int n, int K, int o,
                               int nvalid, float two_inv_denom,
-                              int want_metrics, cudaStream_t st) {
+                              int want_metrics, cudaStream_t st,
+                              int reps = 1, int t_shared = 0) {
   const int blocks = final_loss_blocks(n);
-  final_loss_kernel<<<blocks, kThreads, 0, st>>>(
+  final_loss_kernel<<<dim3(blocks, reps), kThreads, 0, st>>>(
       a, fW, fb, t, gt ? gt : t, pred, g, part, n, K, o, nvalid,
-      two_inv_denom);
+      two_inv_denom, t_shared);
   GEMM_CHECK(cudaGetLastError());
   if (want_metrics) {
-    reduce_chunks_kernel<<<1, 32, 0, st>>>(part, blocks, 2, sse, nullptr, 1,
-                                           0);
+    reduce_chunks_kernel<<<dim3(1, reps), 32, 0, st>>>(part, blocks, 2, sse,
+                                                       nullptr, 1, 0);
     GEMM_CHECK(cudaGetLastError());
   }
   return cudaSuccess;

@@ -52,7 +52,12 @@
 //   gradient, vary from run to run; the deterministic gather form would need
 //   the inverse of the caller's line geometry, which these kernels do not
 //   know.  The halo taps fold into lines 0 and 1 through the same atomics;
-// - one cudaMemsetAsync zeroes the gradient plane before the scatter.
+// - one cudaMemsetAsync zeroes the gradient plane before the scatter;
+// - replicas (the batched multi-fit's CT, wire_tpu vmapping these Pallas
+//   calls): `reps` spectra of one P share the tables, replica r in
+//   blockIdx.y reading and writing r times a plane's (a slice's) size past
+//   the start.  Its gather is bit-equal to an unbatched call; its scatter,
+//   like an unbatched one, adds in a varying order.
 
 #include <cuda_runtime.h>
 
@@ -118,6 +123,8 @@ __global__ void __launch_bounds__(kThreads) spectrum_gather_kernel(
     int k, int p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  f += (size_t)blockIdx.y * p * p;
+  out += (size_t)blockIdx.y * n;
   const Stencil s = stencil_at(gy[i], gx[i], p);
   float2 v[2][2];
 #pragma unroll
@@ -143,6 +150,8 @@ __global__ void __launch_bounds__(kThreads) spectrum_scatter_kernel(
     int k, int p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  cot += (size_t)blockIdx.y * n;
+  f_bar += (size_t)blockIdx.y * p * p;
   const Stencil s = stencil_at(gy[i], gx[i], p);
   const float2 g = cmul_conj(cot[i], uncentre[i % k]);
   const float ux = 1.f - s.wx, uy = 1.f - s.wy;
@@ -167,30 +176,31 @@ const char* line_sample_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out (n = A k, complex64) = the slice of the unshifted (p, p) spectrum f
-// at positions gy, gx (n), with the centring table centre (p, p) and the
-// un-centring phase uncentre (k).  Returns the launch's CUDA error (0 on
-// success); launches on `stream` and does not synchronise.
+// out (reps, n = A k, complex64) = the slices of the unshifted (reps, p, p)
+// spectra f at positions gy, gx (n), with the centring table centre (p, p)
+// and the un-centring phase uncentre (k).  Returns the launch's CUDA error
+// (0 on success); launches on `stream` and does not synchronise.
 int spectrum_gather(const float2* f, const float2* centre, const float* gy,
                     const float* gx, const float2* uncentre, float2* out,
-                    int n, int k, int p, void* stream) {
+                    int n, int k, int p, int reps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  spectrum_gather_kernel<<<ceil_div(n, kThreads), kThreads, 0, st>>>(
-      f, centre, gy, gx, uncentre, out, n, k, p);
+  spectrum_gather_kernel<<<dim3(ceil_div(n, kThreads), reps), kThreads, 0,
+                           st>>>(f, centre, gy, gx, uncentre, out, n, k, p);
   return cudaGetLastError();
 }
 
-// f_bar (p, p, complex64) = the adjoint applied to cot (n); the plane is
-// zeroed here first.
+// f_bar (reps, p, p, complex64) = the adjoint applied to cot (reps, n);
+// the planes are zeroed here first.
 int spectrum_scatter(const float2* cot, const float2* centre, const float* gy,
                      const float* gx, const float2* uncentre, float2* f_bar,
-                     int n, int k, int p, void* stream) {
+                     int n, int k, int p, int reps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      cudaMemsetAsync(f_bar, 0, (size_t)p * p * sizeof(float2), st);
+  const cudaError_t err = cudaMemsetAsync(
+      f_bar, 0, (size_t)reps * p * p * sizeof(float2), st);
   if (err != cudaSuccess) return err;
-  spectrum_scatter_kernel<<<ceil_div(n, kThreads), kThreads, 0, st>>>(
-      cot, centre, gy, gx, uncentre, f_bar, n, k, p);
+  spectrum_scatter_kernel<<<dim3(ceil_div(n, kThreads), reps), kThreads, 0,
+                            st>>>(cot, centre, gy, gx, uncentre, f_bar, n, k,
+                                  p);
   return cudaGetLastError();
 }
 

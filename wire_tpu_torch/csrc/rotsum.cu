@@ -40,6 +40,10 @@
 //   memory.  No float atomics: the result is identical run to run, and it
 //   is the exact transpose of the forward because both compute each
 //   sample's position and weights with the same device function.
+// - replicas (the batched multi-fit's CT, wire_tpu vmapping this Pallas
+//   call): `reps` images of one shape share the angle parts, replica r in
+//   blockIdx.z reading and writing r times an image's (a sinogram's) size
+//   past the start; its results are bit-equal to an unbatched call.
 
 #include <cuda_runtime.h>
 
@@ -99,6 +103,8 @@ __global__ void __launch_bounds__(kCols * kSegs) rotsum_forward_kernel(
     const float* __restrict__ img, const float* __restrict__ parts,
     float* __restrict__ sino, int A, int H, int W) {
   __shared__ float partial[kSegs][kCols];
+  img += (size_t)blockIdx.z * H * W;
+  sino += (size_t)blockIdx.z * A * W;
   const int lx = threadIdx.x, seg = threadIdx.y;
   const int a = blockIdx.y;
   const int x = blockIdx.x * kCols + lx;
@@ -140,6 +146,8 @@ __global__ void __launch_bounds__(kAdjTile * kAdjTile) rotsum_adjoint_kernel(
     float* __restrict__ img_bar, int A, int H, int W) {
   __shared__ float sc[kPartChunk], ss[kPartChunk];
   __shared__ int sk[kPartChunk];
+  cot += (size_t)blockIdx.z * A * W;
+  img_bar += (size_t)blockIdx.z * H * W;
   const int tid = threadIdx.y * kAdjTile + threadIdx.x;
   const int q = blockIdx.x * kAdjTile + threadIdx.x;  // image column
   const int p = blockIdx.y * kAdjTile + threadIdx.y;  // image row
@@ -204,24 +212,24 @@ const char* rotsum_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// sino (A, W) from img (H, W) and the angle parts (3, A) float: cos phi,
-// sin phi, k in 0..3 (k = 0 unless H = W).  Returns the launch's CUDA error
-// (0 on success); launches on `stream` and does not synchronise.
+// sino (reps, A, W) from img (reps, H, W) and the angle parts (3, A) float:
+// cos phi, sin phi, k in 0..3 (k = 0 unless H = W).  Returns the launch's
+// CUDA error (0 on success); launches on `stream` and does not synchronise.
 int rotsum_forward(const float* img, const float* parts, float* sino, int A,
-                   int H, int W, void* stream) {
+                   int H, int W, int reps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + kCols - 1) / kCols, A);
+  const dim3 grid((W + kCols - 1) / kCols, A, reps);
   rotsum_forward_kernel<<<grid, dim3(kCols, kSegs), 0, st>>>(img, parts,
                                                              sino, A, H, W);
   return cudaGetLastError();
 }
 
-// img_bar (H, W) from cot (A, W), same angle parts.
+// img_bar (reps, H, W) from cot (reps, A, W), same angle parts.
 int rotsum_adjoint(const float* cot, const float* parts, float* img_bar,
-                   int A, int H, int W, void* stream) {
+                   int A, int H, int W, int reps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((W + kAdjTile - 1) / kAdjTile,
-                  (H + kAdjTile - 1) / kAdjTile);
+                  (H + kAdjTile - 1) / kAdjTile, reps);
   rotsum_adjoint_kernel<<<grid, dim3(kAdjTile, kAdjTile), 0, st>>>(
       cot, parts, img_bar, A, H, W);
   return cudaGetLastError();

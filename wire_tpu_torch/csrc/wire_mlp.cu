@@ -42,6 +42,14 @@
 //
 // Accuracy: 3xTF32 products (wire_tc.cuh); sincosf/expf, no
 // --use_fast_math.
+//
+// Replicas (wire_tpu's fit_operator_many and fit_frames_many, which vmap
+// this pair): each entry point takes `reps` models of one shape, each on
+// its own weights and its own or the shared coordinates, through the same
+// launches with a replica grid axis (wire_gemm.cuh's layouts).  A
+// replica's results are bit-equal to an unbatched call on its inputs;
+// reps = 1 is that call.  The replica backward computes no dcoords (the
+// batched fits' coordinates are constants).
 
 #include "wire_gemm.cuh"
 
@@ -69,7 +77,8 @@ __global__ void dcoords_kernel(const float* __restrict__ dz1,
 
 extern "C" {
 
-// Floats needed by the backward's `part` workspace for shapes (n, d, h, o).
+// Floats needed by the backward's `part` workspace for shapes (n, d, h, o),
+// per replica.
 long long wire_mlp_part_floats(int n, int d, int h, int o) {
   return chain_part_floats(n, d, h, o);
 }
@@ -84,6 +93,8 @@ const char* wire_mlp_error_string(int err) {
 //   w1 (d, h), b1 (h), Wh (L, 2h, 2h), Bh (L, 2h), fW (2h, o), fb (o).
 // Outputs: pred (n, o) and the activations the backward reads:
 //   acts (L + 1, n, 2h), zs (L, n, 2h), z1 (n, h).
+// For reps replicas each holds reps (wire_gemm.cuh's layouts; pred (reps,
+// n, o)); coords_shared: one (n, d) coordinate set for all.
 // Returns the first CUDA error of a launch (0 on success).  Launches on
 // `stream` and does not synchronise.
 int wire_mlp_forward(const float* coords, const float* w1, const float* b1,
@@ -91,31 +102,33 @@ int wire_mlp_forward(const float* coords, const float* w1, const float* b1,
                      const float* fb, float* pred, float* acts, float* zs,
                      float* z1, int n, int d, int h, int o, int L,
                      float omega0, float sigma0, float first_omega0,
-                     void* stream) {
+                     int reps, int coords_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
   GEMM_CHECK(forward_chain(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
-                           omega0, s2, first_omega0, st, /*pingpong=*/false));
-  return final_forward(acts + (size_t)L * n * 2 * h, fW, fb, pred, n, 2 * h,
-                       o, st);
+                           omega0, s2, first_omega0, st, /*pingpong=*/false,
+                           reps, coords_shared));
+  return final_forward(acts + (size_t)L * reps * n * 2 * h, fW, fb, pred, n,
+                       2 * h, o, st, reps);
 }
 
 // Forward that keeps nothing for a backward (no input needs a gradient):
-// the chain runs through two ping-pong planes, pingpong (2, n, 2h), instead
-// of acts, zs and z1.  Same arguments and result otherwise.
+// the chain runs through two ping-pong planes, pingpong (2, reps, n, 2h),
+// instead of acts, zs and z1.  Same arguments and result otherwise.
 int wire_mlp_forward_nograd(const float* coords, const float* w1,
                             const float* b1, const float* Wh, const float* Bh,
                             const float* fW, const float* fb, float* pred,
                             float* pingpong, int n, int d, int h, int o,
                             int L, float omega0, float sigma0,
-                            float first_omega0, void* stream) {
+                            float first_omega0, int reps, int coords_shared,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
   GEMM_CHECK(forward_chain(coords, w1, b1, Wh, Bh, pingpong, nullptr,
                            nullptr, n, d, h, L, omega0, s2, first_omega0, st,
-                           /*pingpong=*/true));
-  return final_forward(pingpong + (size_t)(L % 2) * n * 2 * h, fW, fb, pred,
-                       n, 2 * h, o, st);
+                           /*pingpong=*/true, reps, coords_shared));
+  return final_forward(pingpong + (size_t)(L % 2) * reps * n * 2 * h, fW,
+                       fb, pred, n, 2 * h, o, st, reps);
 }
 
 // Backward from g = dL/dpred (n, o), reading the forward's activations.
@@ -125,18 +138,21 @@ int wire_mlp_forward_nograd(const float* coords, const float* w1,
 //   gfW (2h + 1, o) = [dfW; dfb]; dcoords (n, d), or null when the caller
 //   needs no coordinate gradient (dcoords_kernel is then not launched).
 // Scratch: dz (2, n, 2h), dz1 (n, h), part (wire_mlp_part_floats).
+// For reps replicas each holds reps (wire_gemm.cuh's layouts; g (reps, n,
+// o), part reps x wire_mlp_part_floats); dcoords must then be null.
 int wire_mlp_backward(const float* coords, const float* g, const float* w1,
                       const float* WhT, const float* fWT, const float* acts,
                       const float* zs, const float* z1, float* gw1,
                       float* gWh, float* gfW, float* dcoords, float* dz,
                       float* dz1, float* part, int n, int d, int h, int o,
                       int L, float omega0, float sigma0, float first_omega0,
-                      void* stream) {
+                      int reps, int coords_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
+  if (dcoords != nullptr && reps != 1) return cudaErrorInvalidValue;
   GEMM_CHECK(backward_chain(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW,
                             dz, dz1, part, n, d, h, o, L, omega0, s2,
-                            first_omega0, st));
+                            first_omega0, st, reps, coords_shared));
   if (dcoords != nullptr)
     dcoords_kernel<<<ceil_div((long long)n * d, kThreads), kThreads, 0,
                      st>>>(dz1, w1, dcoords, n, d, h);

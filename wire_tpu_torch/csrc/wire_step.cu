@@ -37,6 +37,13 @@
 // Accuracy: 3xTF32 products (wire_tc.cuh: fp32's own distance from
 // float64); sincosf/expf (not the __sinf/__expf intrinsics; phases w*z lie
 // far outside [-pi, pi]).  Build without --use_fast_math.
+//
+// Replicas (wire_tpu's fit_pointwise_many, which vmaps this Pallas call):
+// one call steps `reps` models of one shape, each on its own weights, its
+// own or the shared coordinates and its own or the shared targets, through
+// the same launches with a replica grid axis (wire_gemm.cuh); nvalid and
+// denom are shared.  Replica r's results are bit-equal to an unbatched
+// call on its inputs; reps = 1 is that call.
 
 #include "wire_gemm.cuh"
 
@@ -44,9 +51,9 @@ using namespace wire_gemm;
 
 extern "C" {
 
-// Floats needed by the `part` workspace for shapes (n, d, h, o): the
-// backward chain's chunk partials or final_loss's SSE partials, whichever
-// is larger (they use it one after the other).
+// Floats needed by the `part` workspace for shapes (n, d, h, o), per
+// replica: the backward chain's chunk partials or final_loss's SSE
+// partials, whichever is larger (they use it one after the other).
 long long wire_step_part_floats(int n, int d, int h, int o) {
   const long long need = chain_part_floats(n, d, h, o);
   const long long sse = 2LL * final_loss_blocks(n);
@@ -67,6 +74,10 @@ const char* wire_step_error_string(int err) {
 //   sse (2) = (sse_target, sse_gt) when want_metrics.
 // Scratch: acts (L + 1, n, 2h), zs (L, n, 2h), z1 (n, h), g (n, o),
 //   dz (2, n, 2h), dz1 (n, h), part (wire_step_part_floats).
+// For reps replicas each of these holds reps, laid out as wire_gemm.cuh
+// says (pred, g, target and gt (reps, n, o), sse (reps, 2), part reps x
+// wire_step_part_floats); coords_shared: one (n, d) coordinate set for
+// all; targets_shared: one (n, o) target and gt for all.
 // Returns the first CUDA error of a launch (0 on success).  Launches on
 // `stream` and does not synchronise.
 int wire_step_run(const float* coords, const float* target, const float* gt,
@@ -77,19 +88,21 @@ int wire_step_run(const float* coords, const float* target, const float* gt,
                   float* z1, float* g, float* dz, float* dz1, float* part,
                   int n, int d, int h, int o, int L, int nvalid,
                   float two_inv_denom, float omega0, float sigma0,
-                  float first_omega0, int want_metrics, void* stream) {
+                  float first_omega0, int want_metrics, int reps,
+                  int coords_shared, int targets_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t act_sz = (size_t)n * 2 * h;
+  const size_t act_sz = (size_t)reps * n * 2 * h;
   const float s2 = sigma0 * sigma0;
 
   GEMM_CHECK(forward_chain(coords, w1, b1, Wh, Bh, acts, zs, z1, n, d, h, L,
-                           omega0, s2, first_omega0, st, /*pingpong=*/false));
+                           omega0, s2, first_omega0, st, /*pingpong=*/false,
+                           reps, coords_shared));
   GEMM_CHECK(final_loss(acts + L * act_sz, fW, fb, target, gt, pred, g, sse,
                         part, n, 2 * h, o, nvalid, two_inv_denom,
-                        want_metrics, st));
+                        want_metrics, st, reps, targets_shared));
   return backward_chain(coords, g, WhT, fWT, acts, zs, z1, gw1, gWh, gfW, dz,
                         dz1, part, n, d, h, o, L, omega0, s2, first_omega0,
-                        st);
+                        st, reps, coords_shared);
 }
 
 }  // extern "C"

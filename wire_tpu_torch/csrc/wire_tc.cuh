@@ -50,6 +50,19 @@
 // The mma and the cp.async ring are the only inline PTX; they and the TF32
 // split each live in one small function (tf32_split, mma_tf32,
 // cp_async_*), so a host build for rehearsal can replace them.
+//
+// Replicas (the batched multi-fit, `reps` models of one shape in one
+// launch): the paired product takes the replica in blockIdx.z, the weight
+// gradient folds it into the chunk axis (blockIdx.z = replica x chunks +
+// chunk), the narrow kernels take it in their free grid axis.  Every
+// operand of replica r lies r times its own size past its tensor's start
+// (the callers stack weights layer-major, (L, reps, ...), so that holds
+// for a layer's slice too), the coordinates optionally shared; the
+// partials of replica r follow those of r - 1.  A replica's blocks do what
+// an unbatched launch does, so its results are bit-equal to one.  The
+// replica is a template flag (kReps) of these three kernels: an unbatched
+// launch takes an instance without the replica's offsets, whose code is the
+// single model's as it was (the offsets cost the main loop registers).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -441,7 +454,9 @@ __device__ __forceinline__ void gabor(float zr, float zi, float omega,
 //              dL/dz1 (n x h)
 // kVecA, kVecB: 16-byte copies of A and B (Access); kPair: 8-byte
 // epilogue accesses (h even, the epilogue's tensors 8-byte aligned).
-template <int kMode, bool kVecA, bool kVecB, bool kPair>
+// kReps: replica blockIdx.z, A (n x K), B (K x 2h), bias (2h) and the
+// epilogue's tensors each at the replica's own offset.
+template <int kMode, bool kVecA, bool kVecB, bool kPair, bool kReps>
 __global__ void __launch_bounds__(kThreads, 2) tc_paired_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     const float* __restrict__ bias, const float* __restrict__ act,
@@ -454,9 +469,23 @@ __global__ void __launch_bounds__(kThreads, 2) tc_paired_kernel(
   const int row0 = blockIdx.y * kBM;
   const int h2 = 2 * h;
 
+  if (kReps) {
+    A += (size_t)blockIdx.z * n * K;
+    B += (size_t)blockIdx.z * K * h2;
+  }
   float acc[kMT][kNT][4];
   tile_product<kPaired, kVecA, kVecB>(smem, A, B, h2, n, K, row0, unit0, h,
                                       acc);
+  if (kReps) {
+    const size_t rep = blockIdx.z;
+    const size_t wide = (size_t)n * h2;
+    const size_t narrow = kMode == kBwdFirst ? (size_t)n * h : wide;
+    if (bias != nullptr) bias += rep * h2;
+    if (act != nullptr) act += rep * wide;
+    if (zin != nullptr) zin += rep * narrow;
+    if (out0 != nullptr) out0 += rep * (kMode == kFwd ? wide : narrow);
+    if (out1 != nullptr) out1 += rep * wide;
+  }
 
   const int g = lane / 4, t = lane % 4;
   constexpr int kHalf = kNT / 2;
@@ -523,18 +552,25 @@ __global__ void __launch_bounds__(kThreads, 2) tc_paired_kernel(
       }
 }
 
+// The instance of tc_paired_kernel<kMode, ..., kReps> that takes a's
+// accesses.
+template <int kMode, bool kReps>
+auto paired_kernel(const Access& a) {
+  return instance(a, [](auto va, auto vb, auto pr) {
+    return &tc_paired_kernel<kMode, decltype(va)::value, decltype(vb)::value,
+                             decltype(pr)::value, kReps>;
+  });
+}
+
 template <int kMode>
 cudaError_t paired(const float* A, const float* B, const float* bias,
                    const float* act, const float* zin, float* out0,
                    float* out1, int n, int K, int h, float omega, float s2,
-                   cudaStream_t st) {
-  const dim3 grid(ceil_div(h, kUnits), ceil_div(n, kBM));
-  auto kernel = instance(
-      access(A, B, K, h, {bias, act, zin, out0, out1}),
-      [](auto va, auto vb, auto pr) {
-        return &tc_paired_kernel<kMode, decltype(va)::value,
-                                 decltype(vb)::value, decltype(pr)::value>;
-      });
+                   cudaStream_t st, int reps = 1) {
+  const dim3 grid(ceil_div(h, kUnits), ceil_div(n, kBM), reps);
+  const Access a = access(A, B, K, h, {bias, act, zin, out0, out1});
+  auto kernel = reps > 1 ? paired_kernel<kMode, true>(a)
+                         : paired_kernel<kMode, false>(a);
   GEMM_CHECK(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
   kernel<<<grid, kThreads, kSmemBytes, st>>>(A, B, bias, act, zin, out0,
@@ -548,8 +584,9 @@ cudaError_t paired(const float* A, const float* B, const float* bias,
 // X (n x M), D (n x N); the partial is an (M + 1) x N block whose last row
 // (the bias gradient) the blocks of the first M tile sum in row order from
 // the staged D tiles.  kVec: 16-byte copies (M % 4 == 0, N % 4 == 0, X
-// and D 16-byte aligned).
-template <bool kVec>
+// and D 16-byte aligned).  kReps: blockIdx.z = replica x chunks + chunk,
+// X and D at the replica's offsets (its partials follow its predecessors').
+template <bool kVec, bool kReps>
 __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
     const float* __restrict__ X, const float* __restrict__ D,
     float* __restrict__ part, int n, int M, int N) {
@@ -560,7 +597,13 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int i0 = blockIdx.x * kBM, j0 = blockIdx.y * kBN;
-  const int chunk = blockIdx.z;
+  int chunk = blockIdx.z;
+  if (kReps) {
+    const int chunks = (n + kChunkRows - 1) / kChunkRows;
+    chunk = blockIdx.z % chunks;
+    X += (size_t)(blockIdx.z / chunks) * n * M;
+    D += (size_t)(blockIdx.z / chunks) * n * N;
+  }
   const int r_begin = chunk * kChunkRows;
   const int r_end = min(n, r_begin + kChunkRows);
   const int ktiles = (r_end - r_begin + kBK - 1) / kBK;
@@ -603,7 +646,8 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
     slice_product<true, kPlain>(As[s], Bs[s], wm, wn, acc);
   }
 
-  const size_t block = (size_t)chunk * (M + 1) * N;
+  // replica r's partial of chunk c: r x chunks + c = blockIdx.z
+  const size_t block = (size_t)blockIdx.z * (M + 1) * N;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -622,22 +666,26 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
 // [X^T D; colsum(D)] over all n rows into out ((M + 1) x N), through the
 // chunk partials in `part` (wgrad_part_floats) summed in chunk order.  With
 // `colscale` (N), the first M rows come out multiplied by it per column
-// (gemm_common::reduce_chunks), the bias row stays colsum(D).
+// (gemm_common::reduce_chunks), the bias row stays colsum(D).  For `reps`
+// replicas X, D, part and out hold reps of their own, colscale is shared.
 inline cudaError_t weight_grad(const float* X, const float* D, float* part,
                                float* out, int n, int M, int N,
                                cudaStream_t st,
-                               const float* colscale = nullptr) {
+                               const float* colscale = nullptr,
+                               int reps = 1) {
   const int chunks = ceil_div(n, kChunkRows);
-  const dim3 grid(ceil_div(M, kBM), ceil_div(N, kBN), chunks);
+  const dim3 grid(ceil_div(M, kBM), ceil_div(N, kBN), chunks * reps);
   const bool vec =
       M % 4 == 0 && N % 4 == 0 && aligned(X, 16) && aligned(D, 16);
-  auto kernel = vec ? tc_wgrad_kernel<true> : tc_wgrad_kernel<false>;
+  auto kernel = reps > 1
+      ? (vec ? tc_wgrad_kernel<true, true> : tc_wgrad_kernel<false, true>)
+      : (vec ? tc_wgrad_kernel<true, false> : tc_wgrad_kernel<false, false>);
   GEMM_CHECK(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
   kernel<<<grid, kThreads, kSmemBytes, st>>>(X, D, part, n, M, N);
   GEMM_CHECK(cudaGetLastError());
   return gemm_common::reduce_chunks(part, chunks, (M + 1) * N, out, st,
-                                    colscale, N, M);
+                                    colscale, N, M, reps);
 }
 
 inline long long wgrad_part_floats(int n, int M, int N) {
@@ -661,12 +709,17 @@ constexpr int kNarrowChunkRows = 512;
 // X[r][w] D[r][c] (the bias row, sum D[r][c], is narrow_colsum_kernel's);
 // else out[c][w] = sum X[r][c] D[r][w] and the bias row sum D[r][w].
 // Memory-bound (one read of the wide operand), on the CUDA cores.
-template <bool kWideX>
+// kReps: replica blockIdx.z, X shared by the replicas when x_shared.
+template <bool kWideX, bool kReps>
 __global__ void __launch_bounds__(kNarrowCols * kNarrowGroups)
     narrow_wgrad_kernel(const float* __restrict__ X,
                         const float* __restrict__ D, float* __restrict__ part,
-                        int n, int M, int N) {
+                        int n, int M, int N, int x_shared) {
   __shared__ float sums[kNarrowGroups][kNarrowMax + 1][kNarrowCols];
+  if (kReps) {
+    if (!x_shared) X += (size_t)blockIdx.z * n * M;
+    D += (size_t)blockIdx.z * n * N;
+  }
   const int lx = threadIdx.x, grp = threadIdx.y;
   const int w = blockIdx.x * kNarrowCols + lx;
   const int chunk = blockIdx.y;
@@ -705,7 +758,9 @@ __global__ void __launch_bounds__(kNarrowCols * kNarrowGroups)
   for (int c = 0; c <= kNarrowMax; ++c) sums[grp][c][lx] = acc[c];
   __syncthreads();
   if (grp != 0 || !live) return;
-  float* out = part + (size_t)chunk * (M + 1) * N;
+  // replica blockIdx.z's partials follow its predecessors'
+  float* out = part + (kReps ? (size_t)blockIdx.z * gridDim.y + chunk
+                             : (size_t)chunk) * (M + 1) * N;
 #pragma unroll
   for (int c = 0; c <= kNarrowMax; ++c) {
     if (c < narrow || c == kNarrowMax) {
@@ -725,10 +780,12 @@ __global__ void __launch_bounds__(kNarrowCols * kNarrowGroups)
 
 // The bias row of the kWideX case, colsum(D) of the narrow D (n x N): one
 // warp per narrow column, lanes striding the chunk's rows and meeting in a
-// fixed butterfly.
+// fixed butterfly; replica blockIdx.y.
 __global__ void narrow_colsum_kernel(const float* __restrict__ D,
                                      float* __restrict__ part, int n, int M,
                                      int N) {
+  D += (size_t)blockIdx.y * n * N;
+  part += (size_t)blockIdx.y * gridDim.x * (M + 1) * N;
   const int c = threadIdx.y, lane = threadIdx.x;
   const int chunk = blockIdx.x;
   const int r_begin = chunk * kNarrowChunkRows;
@@ -744,25 +801,33 @@ __global__ void narrow_colsum_kernel(const float* __restrict__ D,
 // [X^T D; colsum(D)] into out ((M + 1) x N) for a narrow X (M <=
 // kNarrowMax) or D (N <= kNarrowMax), through chunk partials in `part`
 // (narrow_part_floats) summed in chunk order; `colscale` as weight_grad's.
+// For `reps` replicas X (unless x_shared), D, part and out hold reps of
+// their own.
 inline cudaError_t narrow_weight_grad(const float* X, const float* D,
                                       float* part, float* out, int n, int M,
                                       int N, cudaStream_t st,
-                                      const float* colscale = nullptr) {
+                                      const float* colscale = nullptr,
+                                      int reps = 1, int x_shared = 0) {
   if (M > kNarrowMax && N > kNarrowMax) return cudaErrorInvalidValue;
   const int chunks = ceil_div(n, kNarrowChunkRows);
   const bool wide_x = N <= kNarrowMax && M > N;
-  const dim3 grid(ceil_div(wide_x ? M : N, kNarrowCols), chunks);
+  const dim3 grid(ceil_div(wide_x ? M : N, kNarrowCols), chunks, reps);
   const dim3 block(kNarrowCols, kNarrowGroups);
   if (wide_x) {
-    narrow_wgrad_kernel<true><<<grid, block, 0, st>>>(X, D, part, n, M, N);
+    auto kernel = reps > 1 ? narrow_wgrad_kernel<true, true>
+                           : narrow_wgrad_kernel<true, false>;
+    kernel<<<grid, block, 0, st>>>(X, D, part, n, M, N, x_shared);
     GEMM_CHECK(cudaGetLastError());
-    narrow_colsum_kernel<<<chunks, dim3(32, N), 0, st>>>(D, part, n, M, N);
+    narrow_colsum_kernel<<<dim3(chunks, reps), dim3(32, N), 0, st>>>(
+        D, part, n, M, N);
   } else {
-    narrow_wgrad_kernel<false><<<grid, block, 0, st>>>(X, D, part, n, M, N);
+    auto kernel = reps > 1 ? narrow_wgrad_kernel<false, true>
+                           : narrow_wgrad_kernel<false, false>;
+    kernel<<<grid, block, 0, st>>>(X, D, part, n, M, N, x_shared);
   }
   GEMM_CHECK(cudaGetLastError());
   return gemm_common::reduce_chunks(part, chunks, (M + 1) * N, out, st,
-                                    colscale, N, M);
+                                    colscale, N, M, reps);
 }
 
 inline long long narrow_part_floats(int n, int M, int N) {

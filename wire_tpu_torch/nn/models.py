@@ -167,6 +167,71 @@ class INR:
     def num_params(self, params):
         return sum(t.numel() for _, t in tree.leaves(params))
 
+    def _many_kernel(self, device, what):
+        """Whether the replica calls take WIRE's replica wrappers (their
+        plain versions on the CPU, one launch sequence for all M on the
+        card).  The other families run their plain step or apply once per
+        replica on the CPU and raise on the card: no per-replica loop of
+        single launches hides a missing kernel."""
+        if self.spec.nonlin == "wire" and self.spec.fused != "never":
+            return True
+        if device.type == "cpu":
+            return False
+        item = "5c" if self.spec.nonlin in _ITEM_5C else "5b"
+        raise NotImplementedError(
+            f"{what}: the batched multi-fit of {self.spec.nonlin!r} "
+            f"(fused={self.spec.fused!r}) has no replica kernels on "
+            f"{device.type} yet (ROADMAP.md §A item {item}); only WIRE's "
+            f"run batched on the card, other families on the CPU")
+
+    def apply_many(self, params_stack, coords):
+        """M forwards at once: every leaf of ``params_stack`` has a leading
+        M; coords (rows, d) shared or (M, ..., rows, d) per replica ->
+        (M, ..., rows, o).  WIRE: ``ops/wire_mlp.py:wire_mlp_many``, on the
+        card one launch sequence a direction for all M."""
+        if self._many_kernel(coords.device, "apply_many"):
+            from wire_tpu_torch.ops.wire_mlp import wire_mlp_many
+            return wire_mlp_many(params_stack, coords, self.spec)
+        M = tree.replicas(params_stack)
+        return torch.stack([
+            self.apply(tree.index(params_stack, r),
+                       tree.replica(coords, r, M)) for r in range(M)])
+
+    def step_grads_many(self, params_stack, coords, target, *, nvalid=None,
+                        denom=None, gt=None, want_metrics=False,
+                        scratch=None):
+        """``step_grads`` of M replicas at once: every leaf of
+        ``params_stack`` has a leading M; coords (n, d), target and gt
+        (n, o) shared, or each with a leading M; nvalid and denom shared.
+        Returns pred (M, n, o), the gradients stacked as the parameters and,
+        with ``want_metrics``, the SSE sums as two (M,) tensors.  WIRE:
+        ``ops/wire_step.py:wire_step_many``, on the card one launch
+        sequence for all M."""
+        if self._many_kernel(coords.device, "step_grads_many"):
+            from wire_tpu_torch.ops.wire_step import wire_step_many
+            return wire_step_many(params_stack, coords, target, self.spec,
+                                  nvalid=nvalid, denom=denom, gt=gt,
+                                  want_metrics=want_metrics, scratch=scratch)
+        M = tree.replicas(params_stack)
+
+        def rep(x, r):
+            return tree.replica(x, r, M)
+
+        outs = [self.step_grads(
+            tree.index(params_stack, r), rep(coords, r), rep(target, r),
+            nvalid=nvalid, denom=denom, gt=rep(gt, r),
+            want_metrics=want_metrics) for r in range(M)]
+        pred = torch.stack([out[0] for out in outs])
+        grads = tree.stack([out[1] for out in outs])
+        if want_metrics:
+            return pred, grads, tuple(torch.stack([out[2][i] for out in outs])
+                                      for i in range(2))
+        return pred, grads
+
+
+# families whose replica kernels are ROADMAP.md §A item 5c (the rest, 5b)
+_ITEM_5C = ("wire2d", "bspline_mscale_2")
+
 
 # ===========================================================================
 # WIRE - complex Gabor

@@ -17,10 +17,12 @@ def identity(field, *_args):
 
 
 def sisr_op(field_hwc, scale):
-    """(H, W, C) HR field -> (H/s, W/s, C) LR by an exact box average."""
-    nchw = field_hwc.permute(2, 0, 1)[None]
-    lr = avg_pool2d(nchw, scale)
-    return lr[0].permute(1, 2, 0)
+    """(H, W, C) HR field -> (H/s, W/s, C) LR by an exact box average;
+    leading axes (the batched multi-fit's replicas) pass through."""
+    lead = field_hwc.shape[:-3]
+    nchw = field_hwc.reshape(-1, *field_hwc.shape[-3:]).permute(0, 3, 1, 2)
+    lr = avg_pool2d(nchw, scale).permute(0, 2, 3, 1)
+    return lr.reshape(*lead, *lr.shape[-3:])
 
 
 class DownsampleOp:
@@ -42,6 +44,6 @@ class DownsampleOp:
 
 def multi_sr_op(frames_bhwc, scale):
     """(B, H, W, C) fields rendered at warped coordinates -> (B, H/s, W/s,
-    C) by an exact box average."""
-    lr = avg_pool2d(frames_bhwc.permute(0, 3, 1, 2), scale)
-    return lr.permute(0, 2, 3, 1)
+    C) by an exact box average; leading axes before B (the batched
+    multi-fit's replicas) pass through."""
+    return sisr_op(frames_bhwc, scale)

@@ -19,6 +19,11 @@ _radon_shear).
 - ``method='shear'``: FFT three-shear rotation, plain PyTorch (the JAX
   package has no kernel for it either).
 
+Every method takes an (H, W) image or an (M, H, W) stack (the batched
+multi-fit's M fields; wire_tpu vmaps its operator): the rotate kernels and
+the fourier sampler take the stack in one launch a direction, the FFTs and
+the shears batch over the leading axis.
+
 The FFTs are ``torch.fft``.  Every method is linear in the image, so its
 gradient there is exact.  The methods are different forward models: a
 sinogram made by one and fitted through another plateaus several dB low,
@@ -43,7 +48,8 @@ _TWO_PI = np.float32(2.0 * np.pi)
 
 def radon(img, angles_degrees, *, method="auto", reference_compat=False):
     """img (H, W), angles (A,) in degrees (a sequence, numpy array or
-    tensor) -> (A, W) sinogram: the sum over rows of each rotated image.
+    tensor) -> (A, W) sinogram: the sum over rows of each rotated image;
+    an (M, H, W) stack -> (M, A, W).
 
     method='auto': rotate on the CPU; on CUDA 'fourier' for 24 or more
     angles and 'shear' below that.  reference_compat=True routes 'auto' to
@@ -109,8 +115,8 @@ class RadonOp:
 
 
 def radon_batch(imgs, angles_degrees, **kw):
-    """(nimg, H, W) -> (nimg, A, W)."""
-    return torch.stack([radon(im, angles_degrees, **kw) for im in imgs])
+    """(nimg, H, W) -> (nimg, A, W), one call on the stack."""
+    return radon(imgs, angles_degrees, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +146,7 @@ def _expi(phase):
 
 
 def _pad_center(img, P):
-    H, W = img.shape
+    H, W = img.shape[-2:]
     py0, px0 = (P - H) // 2, (P - W) // 2
     return F.pad(img, (px0, P - W - px0, py0, P - H - py0)), py0, px0
 
@@ -194,8 +200,9 @@ def _radon_fourier(img, angles_degrees, oversample=4, sampler="auto"):
 
     sampler='auto' samples through ``sample_spectrum`` (the CUDA gather and
     scatter kernels for CUDA tensors); 'plain' through its plain version on
-    any device (the JAX package's sampler='xla')."""
-    H, W = img.shape
+    any device (the JAX package's sampler='xla').  A leading axis of
+    ``img`` is batched over."""
+    H, W = img.shape[-2:]
     S = max(H, W)
     P = _fft_size(oversample * S)
     pad, _, px0 = _pad_center(img, P)
@@ -205,9 +212,10 @@ def _radon_fourier(img, angles_degrees, oversample=4, sampler="auto"):
 
     # the slice of the full 2-D DFT, fftshift-ed and phase-centred, with the
     # x centring phase undone; then back to the spatial projection
-    slice_hat = sample(torch.fft.fftn(pad), centre, gy, gx, uncentre)
-    proj = torch.fft.irfft(slice_hat, n=P, dim=1)
-    return proj[:, px0:px0 + W]
+    slice_hat = sample(torch.fft.fftn(pad, dim=(-2, -1)), centre, gy, gx,
+                       uncentre)
+    proj = torch.fft.irfft(slice_hat, n=P, dim=-1)
+    return proj[..., px0:px0 + W]
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +223,8 @@ def _radon_fourier(img, angles_degrees, oversample=4, sampler="auto"):
 # ---------------------------------------------------------------------------
 
 def _shear_x_from_rfft(Fr, ty, P):
-    """Per-row fractional translate from the row rfft (batched over a
-    leading axis): out[..., y, x] = in[..., y, x - ty[..., y]]."""
+    """Per-row fractional translate from the row rfft (batched over
+    leading axes): out[..., a, y, x] = in[..., a, y, x - ty[a, y]]."""
     k = _rfftfreq(P, ty.device)
     phase = (k * -_TWO_PI)[None, None, :] * ty[..., None]
     return torch.fft.irfft(Fr * _expi(phase), n=P, dim=-1)
@@ -237,8 +245,9 @@ def _shear_y(im, tx):
 def _radon_shear(img, angles_degrees):
     """Each rotation is a lattice-exact 90-degree pre-rotation plus a
     residual in [-45, 45] degrees applied as three Fourier-phase shears of
-    the 2x-padded image (periodic-sinc interpolation)."""
-    H, W = img.shape
+    the 2x-padded image (periodic-sinc interpolation).  A leading axis of
+    ``img`` is batched over."""
+    H, W = img.shape[-2:]
     S = max(H, W)
     P = _fft_size(int(np.ceil(1.6 * S)) + 2)
     pad, _, px0 = _pad_center(img, P)
@@ -253,9 +262,9 @@ def _radon_shear(img, angles_degrees):
 
     # three 90-degree pre-rotations (exact); their row rffts are shared by
     # every angle with the same k
-    variants = torch.stack([pad, torch.rot90(pad, 1, dims=(0, 1)),
-                            torch.rot90(pad, 2, dims=(0, 1))])
-    F1 = torch.fft.rfft(variants, dim=2)[k]
+    variants = torch.stack([pad, torch.rot90(pad, 1, dims=(-2, -1)),
+                            torch.rot90(pad, 2, dims=(-2, -1))], dim=-3)
+    F1 = torch.fft.rfft(variants, dim=-1)[..., k, :, :]
 
     # inverse-warp shears for dst(x, y) = src(R(phi)(x, y)):
     # R(phi) = Shx(a) Shy(b) Shx(a), a = tan(phi / 2), b = -sin(phi)
@@ -264,4 +273,4 @@ def _radon_shear(img, angles_degrees):
     im1 = _shear_x_from_rfft(F1, a[:, None] * yy[None, :], P)
     im2 = _shear_y(im1, b[:, None] * xx[None, :])
     im3 = _shear_x(im2, a[:, None] * yy[None, :])
-    return torch.sum(im3, dim=1)[:, px0:px0 + W]
+    return torch.sum(im3, dim=-2)[..., px0:px0 + W]

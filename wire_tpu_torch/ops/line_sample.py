@@ -25,6 +25,11 @@ shift, the phase, the two halo lines and ``sample_lines_plain`` written
 out) for tensors on the CPU, and for CUDA tensors launches the kernels or
 raises; there is no fallback.  The scatter adds with atomics, so its last
 bits vary from run to run.
+
+A stack of M spectra (M, P, P) goes to (M, A, K) slices with the shared
+tables, one gather and one scatter launch for all M (wire_tpu vmaps the
+Pallas calls in its batched CT fits); replica r's gather is bit-equal to
+an unbatched call on its spectrum.
 """
 from __future__ import annotations
 
@@ -64,7 +69,11 @@ def sample_spectrum_plain(F, centre, gy, gx, uncentre):
     the centring phase, two periodic halo lines on the high side (a sample
     on the Nyquist line, position P, reads lines P and P + 1, which alias to
     0 and 1), the bilinear samples of the re and im planes and the
-    un-centring phase; autograd gives the adjoint."""
+    un-centring phase; autograd gives the adjoint.  A stack (M, P, P) is
+    sampled one spectrum at a time."""
+    if F.ndim == 3:
+        return torch.stack([sample_spectrum_plain(f, centre, gy, gx,
+                                                  uncentre) for f in F])
     Fs = torch.fft.fftshift(F) * centre
     Fh = torch.cat([Fs, Fs[:2]], 0)
     Fh = torch.cat([Fh, Fh[:, :2]], 1)
@@ -87,16 +96,16 @@ _INT = ctypes.c_int
 def _lib():
     lib = build.load("line_sample")
     for fn in (lib.spectrum_gather, lib.spectrum_scatter):
-        fn.argtypes = [_PTR] * 6 + [_INT] * 3 + [_PTR]
+        fn.argtypes = [_PTR] * 6 + [_INT] * 4 + [_PTR]
         fn.restype = _INT
     lib.line_sample_error_string.argtypes = [_INT]
     lib.line_sample_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _run(fn, what, ptrs, n, k, p, device):
+def _run(fn, what, ptrs, n, k, p, reps, device):
     lib = _lib()
-    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], n, k, p,
+    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], n, k, p, reps,
                           torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -109,31 +118,37 @@ class _SampleSpectrum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, F, centre, gy, gx, uncentre):
-        out = torch.empty(gy.shape, dtype=torch.complex64, device=F.device)
+        lead = tuple(F.shape[:-2])
+        reps = F.shape[0] if lead else 1
+        out = torch.empty(lead + tuple(gy.shape), dtype=torch.complex64,
+                          device=F.device)
         _run("spectrum_gather", "gather", (F, centre, gy, gx, uncentre, out),
-             gy.numel(), gy.shape[1], F.shape[0], F.device)
+             gy.numel(), gy.shape[1], F.shape[-1], reps, F.device)
         # the tables are constants of the operator: kept as they are, not
         # saved for autograd's version checks
         ctx.tables = (centre, gy, gx, uncentre)
+        ctx.lead = lead
         return out
 
     @staticmethod
     def backward(ctx, cot):
         centre, gy, gx, uncentre = ctx.tables
+        reps = ctx.lead[0] if ctx.lead else 1
         cot = cot.contiguous()  # irfft's backward hands a contiguous one
-        f_bar = torch.empty(centre.shape, dtype=torch.complex64,
-                            device=cot.device)
+        f_bar = torch.empty(ctx.lead + tuple(centre.shape),
+                            dtype=torch.complex64, device=cot.device)
         _run("spectrum_scatter", "scatter",
              (cot, centre, gy, gx, uncentre, f_bar), gy.numel(),
-             gy.shape[1], centre.shape[0], cot.device)
+             gy.shape[1], centre.shape[0], reps, cot.device)
         return f_bar, None, None, None, None
 
 
 def _check(F, centre, gy, gx, uncentre):
-    P = F.shape[0] if F.ndim == 2 else -1
+    P = F.shape[-1] if F.ndim in (2, 3) else -1
     A, K = gy.shape if gy.ndim == 2 else (-1, -1)
+    lead = tuple(F.shape[:-2]) if F.ndim == 3 else ()
     for name, t, dtype, shape in (
-            ("F", F, torch.complex64, (P, P)),
+            ("F", F, torch.complex64, lead + (P, P)),
             ("centre", centre, torch.complex64, (P, P)),
             ("gy", gy, torch.float32, (A, K)),
             ("gx", gx, torch.float32, (A, K)),
@@ -146,8 +161,8 @@ def _check(F, centre, gy, gx, uncentre):
                             f"expected {dtype}")
         if P < 1 or A < 1 or tuple(t.shape) != shape:
             raise ValueError(f"sample_spectrum: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape} (F square, "
-                             f"positions (A, K))")
+                             f"{tuple(t.shape)}, expected {shape} (F square "
+                             f"or a stack of squares, positions (A, K))")
         if not t.is_contiguous():
             raise ValueError(f"sample_spectrum: {name} is not contiguous")
         if t is not F and t.requires_grad:
@@ -157,8 +172,9 @@ def _check(F, centre, gy, gx, uncentre):
 
 
 def sample_spectrum(F, centre, gy, gx, uncentre):
-    """(P, P) unshifted complex spectrum -> (A, K) complex slice,
-    differentiable in F (see the module's contract)."""
+    """(P, P) unshifted complex spectrum -> (A, K) complex slice, or an
+    (M, P, P) stack -> (M, A, K), differentiable in F (see the module's
+    contract)."""
     if F.device.type == "cpu":
         return sample_spectrum_plain(F, centre, gy, gx, uncentre)
     if F.device.type != "cuda":

@@ -23,6 +23,12 @@ whose backward is the adjoint kernel.  The angles are constants: a tensor
 that requires grad raises, pointing to the plain method ``rotate_xla``
 (operators/radon.py), which autograd differentiates in the angles too.
 
+A stack of M images (M, H, W) goes to (M, A, W) sinograms in one forward
+and one adjoint launch, the replica in a grid axis (wire_tpu vmaps the
+Pallas calls in its batched CT fits); replica r's results are bit-equal to
+an unbatched call on its image.  The plain version of a stack is the plain
+operator per image, stacked.
+
 ``rotate_project`` runs the plain version for tensors on the CPU, and for
 CUDA tensors launches the kernels or raises; there is no fallback.
 """
@@ -44,7 +50,11 @@ launches = {"forward": 0, "adjoint": 0}
 
 def rotate_project_plain(img, angles_degrees):
     """``sum(rotate(img, a), 0)`` for every angle: (A, S) for an (H, W)
-    image; autograd differentiates it in the image and the angles."""
+    image, (M, A, S) for a stack of M, one image at a time; autograd
+    differentiates it in the image and the angles."""
+    if img.ndim == 3:
+        return torch.stack([rotate_project_plain(im, angles_degrees)
+                            for im in img])
     angles = angles_tensor(angles_degrees, img.device)
     return torch.sum(rotate(img, angles[:, None, None]), dim=-2)
 
@@ -103,7 +113,7 @@ _INT = ctypes.c_int
 def _lib():
     lib = build.load("rotsum")
     for fn in (lib.rotsum_forward, lib.rotsum_adjoint):
-        fn.argtypes = [_PTR] * 3 + [_INT] * 3 + [_PTR]
+        fn.argtypes = [_PTR] * 3 + [_INT] * 4 + [_PTR]
         fn.restype = _INT
     lib.rotsum_error_string.argtypes = [_INT]
     lib.rotsum_error_string.restype = ctypes.c_char_p
@@ -115,10 +125,10 @@ def _device_parts(key, square, device):
     return angle_parts_tensor(np.asarray(key, np.float32), square, device)
 
 
-def _run(what, a, parts, out, A, H, W):
+def _run(what, a, parts, out, A, H, W, reps=1):
     lib = _lib()
     fn = lib.rotsum_forward if what == "forward" else lib.rotsum_adjoint
-    rc = fn(a.data_ptr(), parts.data_ptr(), out.data_ptr(), A, H, W,
+    rc = fn(a.data_ptr(), parts.data_ptr(), out.data_ptr(), A, H, W, reps,
             torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rotsum {what} kernel launch failed: CUDA error "
@@ -130,29 +140,34 @@ class _RotateProject(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, img, parts):
-        H, W = img.shape
+        lead, (H, W) = tuple(img.shape[:-2]), img.shape[-2:]
+        reps = img.shape[0] if lead else 1
         A = parts.shape[1]
-        sino = torch.empty((A, W), dtype=torch.float32, device=img.device)
-        _run("forward", img, parts, sino, A, H, W)
+        sino = torch.empty(lead + (A, W), dtype=torch.float32,
+                           device=img.device)
+        _run("forward", img, parts, sino, A, H, W, reps)
         ctx.save_for_backward(parts)
-        ctx.shape = (H, W)
+        ctx.shape = tuple(img.shape)
         return sino
 
     @staticmethod
     def backward(ctx, cot):
         (parts,) = ctx.saved_tensors
-        H, W = ctx.shape
+        H, W = ctx.shape[-2:]
+        reps = ctx.shape[0] if len(ctx.shape) == 3 else 1
         A = parts.shape[1]
         cot = cot.to(torch.float32).contiguous()
-        img_bar = torch.empty((H, W), dtype=torch.float32, device=cot.device)
-        _run("adjoint", cot, parts, img_bar, A, H, W)
+        img_bar = torch.empty(ctx.shape, dtype=torch.float32,
+                              device=cot.device)
+        _run("adjoint", cot, parts, img_bar, A, H, W, reps)
         return img_bar, None
 
 
 def rotate_project(img, angles_degrees, parts=None):
     """(H, W) image, (A,) angles in degrees -> (A, W) sinogram, the
     reference operator ``sum_y rotate(img, angle)[y]``, differentiable in
-    the image.  The angles are constants (a sequence, a numpy array or a
+    the image; an (M, H, W) stack -> (M, A, W), one launch a direction on
+    CUDA.  The angles are constants (a sequence, a numpy array or a
     tensor that does not require grad).  ``parts``, the angles'
     ``angle_parts_tensor`` on the image's device for its squareness, spares
     a caller that holds them (``RadonOp``) their lookup."""
@@ -169,13 +184,15 @@ def rotate_project(img, angles_degrees, parts=None):
             img, np.asarray(angles_degrees, np.float32).ravel())
     if img.device.type != "cuda":
         raise ValueError(f"rotate_project: unsupported device {img.device}")
-    if img.ndim != 2:
+    if img.ndim not in (2, 3):
         raise ValueError(f"rotate_project: the kernel needs an (H, W) "
-                         f"image, got {tuple(img.shape)}")
+                         f"image or an (M, H, W) stack, got "
+                         f"{tuple(img.shape)}")
     if img.dtype != torch.float32:
         raise TypeError(f"rotate_project: image has dtype {img.dtype}, "
                         f"expected float32")
     if parts is None:
         key = tuple(np.asarray(angles_degrees, np.float32).ravel().tolist())
-        parts = _device_parts(key, img.shape[0] == img.shape[1], img.device)
+        parts = _device_parts(key, img.shape[-2] == img.shape[-1],
+                              img.device)
     return _RotateProject.apply(img.contiguous(), parts)

@@ -23,6 +23,17 @@ its staged tiles.  The tests use them; the main path never does.
 ``wire_mlp`` runs the plain version for tensors on the CPU, and for CUDA
 tensors launches the kernels or raises; there is no fallback.  Leading
 axes of ``coords`` are flattened and restored, as the JAX entry does.
+
+``wire_mlp_many`` applies M models of one shape at once (wire_tpu's
+fit_operator_many and fit_frames_many vmap the Pallas pair over a leading
+replica axis): every parameter leaf carries a leading M, the coordinates
+are shared (rows, d) or per replica (M, ..., rows, d), and each direction
+is one launch sequence for all M with a replica grid axis; replica r's
+outputs are bit-equal to ``wire_mlp`` on its own inputs.  The batched
+fits' coordinates are constants, so the replica pair computes no
+coordinate gradient: coordinates that require one raise.
+``wire_mlp_many_plain`` (the plain apply per replica, stacked) is its
+plain version.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import functools
 
 import torch
 
+from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import wire_apply_plain
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops.wire_step import _check, stack_params, unstack_grads
@@ -108,13 +120,13 @@ _FLT = ctypes.c_float
 def _lib():
     lib = build.load("wire_mlp")
     lib.wire_mlp_forward.argtypes = [_PTR] * 11 + [_INT] * 5 + [_FLT] * 3 \
-        + [_PTR]
+        + [_INT] * 2 + [_PTR]
     lib.wire_mlp_forward.restype = _INT
     lib.wire_mlp_forward_nograd.argtypes = [_PTR] * 9 + [_INT] * 5 \
-        + [_FLT] * 3 + [_PTR]
+        + [_FLT] * 3 + [_INT] * 2 + [_PTR]
     lib.wire_mlp_forward_nograd.restype = _INT
     lib.wire_mlp_backward.argtypes = [_PTR] * 15 + [_INT] * 5 + [_FLT] * 3 \
-        + [_PTR]
+        + [_INT] * 2 + [_PTR]
     lib.wire_mlp_backward.restype = _INT
     lib.wire_mlp_part_floats.argtypes = [_INT] * 4
     lib.wire_mlp_part_floats.restype = ctypes.c_longlong
@@ -132,71 +144,81 @@ def _raise_on(rc, what):
                            f"error {rc} ({msg})")
 
 
-def _stacked(params, coords, spec):
-    """Checks and the stacked weights for a launch: (lib, w, n, d, h, o,
-    L)."""
+def _stacked(params, coords, spec, reps=None):
+    """Checks and the stacked weights for a launch of one model (``reps``
+    None) or of ``reps`` replicas (a leading axis on every leaf; coords
+    (n, d) shared or (reps, n, d)): (lib, w, n, d, h, o, L)."""
     lib = _lib()
+    who = "wire_mlp" if reps is None else "wire_mlp_many"
+    lead = () if reps is None else (reps,)
     dev = coords.device
-    n, d = coords.shape
-    h = params["first"]["w"].shape[1]
-    o = params["final"]["br"].shape[0]
+    n, d = coords.shape[-2:]
+    h = params["first"]["w"].shape[-1]
+    o = params["final"]["br"].shape[-1]
     L = spec.hidden_layers
     if o > lib.wire_mlp_max_out():
-        raise ValueError(f"wire_mlp kernel supports out_features <= "
+        raise ValueError(f"{who} kernel supports out_features <= "
                          f"{lib.wire_mlp_max_out()}, got {o}")
-    _check("coords", coords, (n, d), dev, "wire_mlp")
+    _check("coords", coords,
+           (n, d) if coords.ndim == 2 else lead + (n, d), dev, who)
     w = stack_params(params, L)
-    for name, shape in (("w1", (d, h)), ("b1", (h,)),
-                        ("Wh", (L, 2 * h, 2 * h)), ("Bh", (L, 2 * h)),
-                        ("fW", (2 * h, o)), ("fb", (o,))):
-        _check(name, w[name], shape, dev, "wire_mlp")
+    for name, shape in (("w1", lead + (d, h)), ("b1", lead + (h,)),
+                        ("Wh", (L,) + lead + (2 * h, 2 * h)),
+                        ("Bh", (L,) + lead + (2 * h,)),
+                        ("fW", lead + (2 * h, o)), ("fb", lead + (o,))):
+        _check(name, w[name], shape, dev, who)
     return lib, w, n, d, h, o, L
 
 
-def _forward_nograd(params, coords, spec):
+def _forward_nograd(params, coords, spec, reps=None):
     """The forward alone, keeping nothing for a backward: two ping-pong
-    activation planes (2, n, 2h) instead of acts, zs and z1."""
-    lib, w, n, d, h, o, L = _stacked(params, coords, spec)
+    activation planes (2, reps, n, 2h) instead of acts, zs and z1."""
+    lib, w, n, d, h, o, L = _stacked(params, coords, spec, reps)
+    M = 1 if reps is None else reps
+    lead = () if reps is None else (M,)
     f32 = dict(dtype=torch.float32, device=coords.device)
-    pred = torch.empty((n, o), **f32)
-    planes = torch.empty((2, n, 2 * h), **f32)
+    pred = torch.empty(lead + (n, o), **f32)
+    planes = torch.empty((2,) + lead + (n, 2 * h), **f32)
     _raise_on(lib.wire_mlp_forward_nograd(
         *[t.data_ptr() for t in (coords, w["w1"], w["b1"], w["Wh"], w["Bh"],
                                  w["fW"], w["fb"], pred, planes)],
         n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
-        float(spec.first_omega0),
+        float(spec.first_omega0), M, int(coords.ndim == 2),
         torch.cuda.current_stream(coords.device).cuda_stream), "forward")
     launches["forward"] += 1
     return pred
 
 
 class _WireMLP(torch.autograd.Function):
+    """The pair for one model (``reps`` None) or ``reps`` replicas."""
 
     @staticmethod
-    def forward(ctx, coords, spec, keys, *leaves):
-        params = {k: {} for k, _ in keys}
-        for (k, kk), leaf in zip(keys, leaves):
-            params[k][kk] = leaf
-        lib, w, n, d, h, o, L = _stacked(params, coords, spec)
+    def forward(ctx, coords, spec, keys, reps, *leaves):
+        params = tree.unflatten(keys, leaves)
+        lib, w, n, d, h, o, L = _stacked(params, coords, spec, reps)
+        M = 1 if reps is None else reps
+        lead = () if reps is None else (M,)
         dev = coords.device
         h2 = 2 * h
         f32 = dict(dtype=torch.float32, device=dev)
-        pred = torch.empty((n, o), **f32)
-        acts = torch.empty((L + 1, n, h2), **f32)
-        zs = torch.empty((L, n, h2), **f32)
-        z1 = torch.empty((n, h), **f32)
+        pred = torch.empty(lead + (n, o), **f32)
+        acts = torch.empty((L + 1,) + lead + (n, h2), **f32)
+        zs = torch.empty((L,) + lead + (n, h2), **f32)
+        z1 = torch.empty(lead + (n, h), **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _raise_on(lib.wire_mlp_forward(
             *[t.data_ptr() for t in (coords, w["w1"], w["b1"], w["Wh"],
                                      w["Bh"], w["fW"], w["fb"], pred, acts,
                                      zs, z1)],
             n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
-            float(spec.first_omega0), stream), "forward")
+            float(spec.first_omega0), M, int(coords.ndim == 2), stream),
+            "forward")
         launches["forward"] += 1
         ctx.save_for_backward(coords, w["w1"], w["WhT"], w["fWT"], acts, zs,
                               z1)
         ctx.spec = spec
         ctx.keys = keys
+        ctx.reps = reps
         ctx.final_bi = params["final"]["bi"]
         return pred
 
@@ -204,37 +226,43 @@ class _WireMLP(torch.autograd.Function):
     def backward(ctx, g):
         coords, w1, WhT, fWT, acts, zs, z1 = ctx.saved_tensors
         spec = ctx.spec
+        reps = ctx.reps
+        M = 1 if reps is None else reps
+        lead = () if reps is None else (M,)
         lib = _lib()
         dev = coords.device
-        n, d = coords.shape
-        h = w1.shape[1]
-        o = fWT.shape[0]
+        n, d = coords.shape[-2:]
+        h = w1.shape[-1]
+        o = fWT.shape[-2]
         L = spec.hidden_layers
         h2 = 2 * h
         g = g.to(torch.float32).contiguous()
         f32 = dict(dtype=torch.float32, device=dev)
-        gw1 = torch.empty((d + 1, h), **f32)
-        gWh = torch.empty((L, h2 + 1, h2), **f32)
-        gfW = torch.empty((h2 + 1, o), **f32)
+        gw1 = torch.empty(lead + (d + 1, h), **f32)
+        gWh = torch.empty((L,) + lead + (h2 + 1, h2), **f32)
+        gfW = torch.empty(lead + (h2 + 1, o), **f32)
         # the coordinate gradient only where autograd asks for it (never in
-        # a fit, whose coordinates are constants)
+        # a fit, whose coordinates are constants; the replica pair refuses
+        # such coordinates before its forward)
         dcoords = torch.empty((n, d), **f32) \
             if ctx.needs_input_grad[0] else None
-        dz = torch.empty((2, n, h2), **f32)
-        dz1 = torch.empty((n, h), **f32)
-        part = torch.empty((lib.wire_mlp_part_floats(n, d, h, o),), **f32)
+        dz = torch.empty((2,) + lead + (n, h2), **f32)
+        dz1 = torch.empty(lead + (n, h), **f32)
+        part = torch.empty((M * lib.wire_mlp_part_floats(n, d, h, o),),
+                           **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _raise_on(lib.wire_mlp_backward(
             *[None if t is None else t.data_ptr()
               for t in (coords, g, w1, WhT, fWT, acts, zs, z1, gw1, gWh,
                         gfW, dcoords, dz, dz1, part)],
             n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
-            float(spec.first_omega0), stream), "backward")
+            float(spec.first_omega0), M, int(coords.ndim == 2), stream),
+            "backward")
         launches["backward"] += 1
         dparams = unstack_grads(gw1, gWh, gfW,
                                 {"final": {"bi": ctx.final_bi}}, L)
-        grads = [dparams[k][kk] for k, kk in ctx.keys]
-        return (dcoords, None, None, *grads)
+        grads = [tree.get(dparams, path) for path in ctx.keys]
+        return (dcoords, None, None, None, *grads)
 
 
 def wire_mlp(params, coords, spec):
@@ -249,11 +277,55 @@ def wire_mlp(params, coords, spec):
     lead = coords.shape[:-1]
     # a strided view survives the reshape
     c2 = coords.reshape(-1, coords.shape[-1]).contiguous()
-    keys = tuple((k, kk) for k in params for kk in params[k])
-    leaves = [params[k][kk] for k, kk in keys]
+    keys = tuple(path for path, _ in tree.leaves(params))
+    leaves = [tree.get(params, path) for path in keys]
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in [c2] + leaves):
-        out = _WireMLP.apply(c2, spec, keys, *leaves)
+        out = _WireMLP.apply(c2, spec, keys, None, *leaves)
     else:
         out = _forward_nograd(params, c2, spec)
     return out.reshape(*lead, out.shape[-1])
+
+
+def wire_mlp_many_plain(params_stack, coords, spec):
+    """The plain version of ``wire_mlp_many``: ``wire_mlp_plain`` once per
+    replica, its results stacked."""
+    M = tree.replicas(params_stack)
+    return torch.stack([
+        wire_mlp_plain(tree.index(params_stack, r),
+                       tree.replica(coords, r, M), spec) for r in range(M)])
+
+
+def wire_mlp_many(params_stack, coords, spec):
+    """M WIRE forwards at once: every leaf of ``params_stack`` has a
+    leading M; coords (rows, d) shared by the replicas or (M, ..., rows, d)
+    per replica -> (M, ..., rows, o), differentiable in the parameters.
+    On CUDA each direction is one launch sequence for all M replicas (the
+    pair when a parameter needs a gradient, else a forward that keeps
+    nothing); coordinates that require a gradient raise."""
+    if coords.device.type == "cpu":
+        return wire_mlp_many_plain(params_stack, coords, spec)
+    if coords.device.type != "cuda":
+        raise ValueError(f"wire_mlp_many: unsupported device "
+                         f"{coords.device}")
+    M = tree.replicas(params_stack)
+    if coords.requires_grad:
+        raise ValueError("wire_mlp_many computes no coordinate gradient (the "
+                         "batched fits' coordinates are constants); use "
+                         "wire_mlp per replica to differentiate in them")
+    if coords.ndim == 2:
+        c2, out_lead = coords.contiguous(), (M, coords.shape[0])
+    else:
+        if coords.shape[0] != M:
+            raise ValueError(f"wire_mlp_many: coords {tuple(coords.shape)} "
+                             f"for {M} replicas: expected (rows, d) or "
+                             f"({M}, ..., rows, d)")
+        out_lead = tuple(coords.shape[:-1])
+        c2 = coords.reshape(M, -1, coords.shape[-1]).contiguous()
+    keys = tuple(path for path, _ in tree.leaves(params_stack))
+    leaves = [tree.get(params_stack, path) for path in keys]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        out = _WireMLP.apply(c2, spec, keys, M, *leaves)
+    else:
+        out = _forward_nograd(params_stack, c2, spec, M)
+    return out.reshape(*out_lead, out.shape[-1])

@@ -30,6 +30,18 @@ loop is saved every ``every x scan_segment`` epochs or iterations and at
 the end, and a resumed fit reproduces the uninterrupted one bit for bit
 wherever its kernels are bit-equal on repeat calls.  TV regularization and
 the sharded fits are later slices.
+
+The batched multi-fit (wire_tpu's fit_pointwise_many, fit_operator_many
+and fit_frames_many, which vmap the loop body over a leading replica axis
+of the parameters, the optimizer state and the RNG key) fits M models of
+one architecture in one loop: every parameter leaf carries a leading M,
+the model's ``step_grads_many`` / ``apply_many`` take all M in one call
+(on the card WIRE's kernels with a replica axis, one launch sequence for
+all M), and Adam and the best tracking act on the stacked leaves with an
+(M,) mask.  Replica r draws its permutations from a generator of its own
+seeded ``cfg.seed + r`` and reproduces the serial fit at that seed; its
+loss is reduced on its own slice, as the serial fit reduces it.  The
+batched fits have no checkpoint and no chunked render, as in wire_tpu.
 """
 from __future__ import annotations
 
@@ -326,12 +338,17 @@ class _StepClock:
 
 def track_best(is_best, current, best):
     """Best-so-far update of nested dicts/tuples of tensors: a masked copy
-    (``torch.where`` on a device bool), so no host sync."""
+    (``torch.where`` on a device bool), so no host sync.  ``is_best`` is a
+    0-d bool, or an (M,) one over the leading replica axis of every
+    tensor."""
     if isinstance(current, dict):
         return {k: track_best(is_best, current[k], best[k]) for k in current}
     if isinstance(current, (tuple, list)):
         return type(current)(track_best(is_best, c, b)
                              for c, b in zip(current, best))
+    if is_best.ndim:
+        is_best = is_best.reshape(is_best.shape
+                                  + (1,) * (current.ndim - is_best.ndim))
     return torch.where(is_best, current, best)
 
 
@@ -453,6 +470,94 @@ def _chunking(cfg: FitConfig, npoints):
     return 1, mp, nchunks, nchunks * mp - npoints
 
 
+def _on_device(params, dev):
+    """A float32 copy of a parameter tree (replica-stacked or not) on
+    ``dev``."""
+    return tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
+                    params)
+
+
+def _sentinel_rows(perm, n, npad, nrows):
+    """A permutation of range(n) with ``npad`` sentinels n appended as its
+    tail (wire_tpu/train/trainer.py:499-509), viewed as ``nrows`` rows:
+    the epoch's chunks or frame batches."""
+    if npad:
+        perm = torch.cat([perm, perm.new_full((npad,), n)])
+    return perm.view(nrows, -1)
+
+
+def _keep_best(tracked, best_metric, current, best):
+    """(best metric, best tree) after a step whose metric is ``tracked``
+    (0-d, or (M,) over the replicas): ``current`` is kept where it
+    improved on ``best_metric``."""
+    is_best = tracked < best_metric
+    return (torch.where(is_best, tracked, best_metric),
+            track_best(is_best, current, best))
+
+
+def _chunk_rows(grid, coords, target, gt, U, mp, lead=()):
+    """rows_of(safe): a chunk's coordinate, target and gt rows at the unit
+    (point, or block of U points) indices ``safe`` of shape
+    (*lead, mp / U); ``lead`` is (M,) for the replicas' indices into shared
+    rows.  ``grid`` (a GridSpec) computes the coordinates instead."""
+    if U == 1:
+        def rows_of(safe):
+            rows = grid.rows(safe) if grid is not None else coords[safe]
+            return rows, target[safe], gt[safe]
+        return rows_of
+    c = target.shape[-1]
+    t_u, g_u = target.view(-1, U * c), gt.view(-1, U * c)
+    c_u = None if grid is not None else coords.view(t_u.shape[0], -1)
+    lane = torch.arange(U, device=target.device)
+
+    def rows_of(safe):
+        if grid is not None:
+            rows = grid.rows((safe[..., None] * U + lane).reshape(*lead, -1))
+        else:
+            rows = c_u[safe].reshape(*lead, mp, -1)
+        return (rows, t_u[safe].reshape(*lead, mp, c),
+                g_u[safe].reshape(*lead, mp, c))
+    return rows_of
+
+
+def _chunked_epoch(step, opt, params, rec, rows_of, perm, *, U, mp, npad,
+                   sort, scratch, offsets=None):
+    """One chunked epoch of a pointwise fit: ``perm`` (nchunks, [M,] mp / U)
+    unit indices, the sentinels a tail of the last chunk, sorted along the
+    last axis with ``sort``.  Per chunk one ``step`` (``step_grads``, or
+    ``step_grads_many`` for all replicas), one Adam step, and the valid
+    rows of the prediction written into ``rec``: (npoints, c), or
+    (M, npoints, c) with replica r's rows from ``offsets[r]`` on in its
+    (M * nunits, U * c) view.  Returns the epoch's SSE sums against the
+    target and against gt."""
+    if sort:
+        perm = torch.sort(perm, dim=-1).values
+    c = rec.shape[-1]
+    nunits = rec.shape[-2] // U
+    nchunks = perm.shape[0]
+    sse_t = sse_g = 0.0
+    for k in range(nchunks):
+        idx = perm[k]
+        nvalid = mp - (npad if k == nchunks - 1 else 0)
+        rows, t, g = rows_of(idx.clamp(max=nunits - 1))
+        pred, grads, (st, sg) = step(
+            params, rows, t, nvalid=nvalid,
+            denom=float(np.float32(nvalid) * np.float32(c)), gt=g,
+            want_metrics=True, scratch=scratch)
+        opt.step(params, grads)
+        nv = nvalid // U
+        idx = idx[..., :nv]
+        if offsets is not None:
+            idx = idx + offsets
+        rec.view(-1, U * c).index_copy_(
+            0, idx.reshape(-1),
+            pred.reshape(*idx.shape[:-1], -1, U * c)[..., :nv, :]
+            .reshape(-1, U * c))
+        sse_t = sse_t + st
+        sse_g = sse_g + sg
+    return sse_t, sse_g
+
+
 def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
                   gt=None, track="gt", epoch_metric: Optional[Callable] = None,
                   permutation: Optional[Callable] = None,
@@ -499,8 +604,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         def permutation(n):
             return torch.randperm(n, generator=gen, device=dev)
 
-    params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
-                      params)
+    params = _on_device(params, dev)
     opt = Adam(cfg, params, npoints=npoints, nchunks=nchunks)
     best_params = tree.map(torch.clone, params)
     best_rec = torch.zeros_like(target)
@@ -538,37 +642,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         for h, saved in zip((hist_gt, hist_noisy, hist_metric), hs):
             h[:start] = torch.from_numpy(saved).to(dev)
 
-    def chunk_step(idx, nvalid, rows_of):
-        """One step on a chunk: ``idx`` the chunk's point (or block)
-        indices, sentinels a tail, ``nvalid`` its valid points; the valid
-        rows of the prediction are written into rec."""
-        safe = idx.clamp(max=npoints // U - 1)
-        rows, t, g = rows_of(safe)
-        pred, grads, sums = model.step_grads(
-            params, rows, t, nvalid=nvalid,
-            denom=float(np.float32(nvalid) * np.float32(c)), gt=g,
-            want_metrics=True, scratch=scratch)
-        opt.step(params, grads)
-        nv = nvalid // U
-        rec.view(npoints // U, U * c).index_copy_(
-            0, idx[:nv], pred.reshape(-1, U * c)[:nv])
-        return sums
-
-    if U > 1:
-        t_u, g_u = target.view(-1, U * c), gt_arr.view(-1, U * c)
-        c_u = None if grid is not None else coords.view(npoints // U, -1)
-        lane = torch.arange(U, device=dev)
-
-        def rows_of(safe):
-            if grid is not None:
-                rows = grid.rows((safe[:, None] * U + lane).reshape(-1))
-            else:
-                rows = c_u[safe].reshape(mp, -1)
-            return rows, t_u[safe].reshape(mp, c), g_u[safe].reshape(mp, c)
-    else:
-        def rows_of(safe):
-            rows = grid.rows(safe) if grid is not None else coords[safe]
-            return rows, target[safe], gt_arr[safe]
+    rows_of = _chunk_rows(grid, coords, target, gt_arr, U, mp)
 
     clock = _StepClock(dev, cfg.niters - start)
     t0 = time.time()
@@ -582,28 +656,18 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
             rec = pred
         else:
             # sentinels (npoints / U) pad the tail; sorting keeps them there
-            perm = permutation(npoints // U).to(dev)
-            if npad:
-                perm = torch.cat([perm, perm.new_full((npad // U,),
-                                                      npoints // U)])
-            perm = perm.view(nchunks, mp // U)
-            if cfg.sort_chunks:
-                perm = torch.sort(perm, dim=1).values
-            sse_t = sse_g = 0.0
-            for k in range(nchunks):
-                nvalid = mp - (npad if k == nchunks - 1 else 0)
-                st, sg = chunk_step(perm[k], nvalid, rows_of)
-                sse_t = sse_t + st
-                sse_g = sse_g + sg
+            perm = _sentinel_rows(permutation(npoints // U).to(dev),
+                                  npoints // U, npad // U, nchunks)
+            sse_t, sse_g = _chunked_epoch(
+                model.step_grads, opt, params, rec, rows_of, perm, U=U,
+                mp=mp, npad=npad, sort=cfg.sort_chunks, scratch=scratch)
         mse_noisy = sse_t * inv_nc
         mse_gt = sse_g * inv_nc
         hist_gt[epoch] = mse_gt
         hist_noisy[epoch] = mse_noisy
         tracked = mse_gt if track == "gt" else mse_noisy
-        is_best = tracked < best_mse
-        best_mse = torch.where(is_best, tracked, best_mse)
-        best_rec, best_params = track_best(is_best, (rec, params),
-                                           (best_rec, best_params))
+        best_mse, (best_rec, best_params) = _keep_best(
+            tracked, best_mse, (rec, params), (best_rec, best_params))
         if epoch_metric is not None:
             hist_metric[epoch] = (epoch_metric(rec, target) if metric_two
                                   else epoch_metric(rec))
@@ -664,8 +728,7 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
         def permutation(n):
             return torch.randperm(n, generator=gen, device=dev)
 
-    params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
-                      params)
+    params = _on_device(params, dev)
     opt = Adam(cfg, params, nchunks=nbatches)
     best_params = tree.map(torch.clone, params)
     best_loss = torch.tensor(float("inf"), device=dev)
@@ -693,11 +756,9 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
     t0 = time.time()
     for epoch in range(start, cfg.niters):
         clock.tick(epoch - start)
-        order = permutation(nframes).to(dev)
-        if npad:
-            order = torch.cat([order, order.new_full((npad,), nframes)])
         losses = []
-        for fidx in order.view(nbatches, bs):
+        for fidx in _sentinel_rows(permutation(nframes).to(dev), nframes,
+                                   npad, nbatches):
             valid = (fidx < nframes).to(torch.float32)
             safe = fidx.clamp(max=nframes - 1)
             paths, leaves, p = grad_leaves(params)
@@ -711,9 +772,8 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
                 flat = torch.autograd.grad(loss, leaves, allow_unused=True)
             opt.step(params, grads_tree(paths, leaves, flat))
             loss = loss.detach()
-            is_best = loss < best_loss
-            best_loss = torch.where(is_best, loss, best_loss)
-            best_params = track_best(is_best, params, best_params)
+            best_loss, best_params = _keep_best(loss, best_loss, params,
+                                                best_params)
             losses.append(loss)
         hist[epoch] = torch.stack(losses).sum()
         ckpt.after(epoch + 1, state, lambda: (hist[:epoch + 1],))
@@ -781,8 +841,7 @@ def fit_operator(model, params, coords, measurement, operator_fn,
             preserve_rng_state=False) for c in chunks]
         return torch.cat(rows)[:npoints].reshape(field_shape)
 
-    params = tree.map(lambda v: v.detach().to(dev, torch.float32).clone(),
-                      params)
+    params = _on_device(params, dev)
     opt = Adam(cfg, params, nchunks=1)
     best_params = tree.map(torch.clone, params)
     best_field = torch.zeros(field_shape, dtype=torch.float32, device=dev)
@@ -820,10 +879,8 @@ def fit_operator(model, params, coords, measurement, operator_fn,
         tracked = torch.mean((field - gt_arr) ** 2) if track_gt else loss
         hist_loss[it] = loss
         hist_tracked[it] = tracked
-        is_best = tracked < best_loss
-        best_loss = torch.where(is_best, tracked, best_loss)
-        best_field, best_params = track_best(is_best, (field, params),
-                                             (best_field, best_params))
+        best_loss, (best_field, best_params) = _keep_best(
+            tracked, best_loss, (field, params), (best_field, best_params))
         ckpt.after(it + 1, state,
                    lambda: (hist_loss[:it + 1], hist_tracked[:it + 1]))
     step_ms = clock.ms()
@@ -833,3 +890,277 @@ def fit_operator(model, params, coords, measurement, operator_fn,
         best_rec=best_field.cpu().numpy(), final_rec=None,
         mse_gt=hist_tracked.cpu().numpy(), mse_noisy=hist_loss.cpu().numpy(),
         best_mse=float(best_loss), wall_time_s=wall, step_ms=step_ms)
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-fit: M replicas of one architecture in one loop
+# ---------------------------------------------------------------------------
+
+def _replica_means(x):
+    """(M,) means of each replica's slice of x, each reduced as the serial
+    fit reduces its own tensor (one reduction per replica: a reduction of
+    the whole stack may partition each replica's sum otherwise)."""
+    return torch.stack([torch.mean(x[r]) for r in range(x.shape[0])])
+
+
+def _replica_sums(x):
+    """(M,) sums of each replica's slice of x (as ``_replica_means``)."""
+    return torch.stack([torch.sum(x[r]) for r in range(x.shape[0])])
+
+
+def _replica_generators(cfg, M, dev):
+    """Replica r's permutation generator, seeded ``cfg.seed + r`` on the
+    fit's device, as the serial fit at that seed seeds its own."""
+    gens = [torch.Generator(device=dev) for _ in range(M)]
+    for r, gen in enumerate(gens):
+        gen.manual_seed(int(cfg.seed) + r)
+
+    def permutation(n, r):
+        return torch.randperm(n, generator=gens[r], device=dev)
+
+    return permutation
+
+
+def fit_pointwise_many(model, params_stack, coords, target, cfg: FitConfig,
+                       *, gt=None, track="gt",
+                       permutation: Optional[Callable] = None, device=None):
+    """Fit M replicas of one architecture pointwise to one signal in one loop
+    (wire_tpu/train/trainer.py:543).
+
+    params_stack: a parameter tree with a leading replica axis M on every
+    leaf (``tree.stack`` of M inits).  coords, target, gt as
+    ``fit_pointwise``'s (a ``GridSpec`` too), shared by the replicas.  Full
+    batch when ``maxpoints >= npoints``, else chunked epochs with tail
+    sentinels, ``block_perm`` and ``sort_chunks`` as ``fit_pointwise``'s.
+    Replica r's epochs permute with a generator of its own seeded
+    ``cfg.seed + r`` (or ``permutation(n, r)``, replica r's permutation of
+    range(n) for the epoch), so replica r reproduces
+    ``fit_pointwise(..., seed=cfg.seed + r)`` from its init.  One
+    ``step_grads_many`` a step serves all M (on the card one ``wire_step``
+    launch sequence).  Returns a FitResult whose params, best_params and
+    recs carry the leading M, histories (niters, M) and best_mse (M,).
+    ``params_stack`` is not modified.  Runs on ``device`` (default cuda;
+    raises without a card unless device='cpu')."""
+    if track not in ("gt", "noisy"):
+        raise ValueError(f"fit_pointwise_many: track={track!r}, expected "
+                         f"'gt' or 'noisy'")
+    dev = resolve(device)
+    M = tree.replicas(params_stack)
+    grid = coords if isinstance(coords, GridSpec) else None
+    if grid is None:
+        coords = _as_tensor(coords, dev)
+    target = _as_tensor(target, dev)
+    gt_arr = target if gt is None else _as_tensor(gt, dev)
+    npoints, c = target.shape
+    U, mp, nchunks, npad = _chunking(cfg, npoints)
+    full_batch = nchunks == 1 and npad == 0
+    if grid is not None and full_batch:
+        coords = grid.rows(torch.arange(npoints, device=dev))
+    if permutation is None and not full_batch:
+        permutation = _replica_generators(cfg, M, dev)
+
+    params = _on_device(params_stack, dev)
+    opt = Adam(cfg, params, npoints=npoints, nchunks=nchunks)
+    best_params = tree.map(torch.clone, params)
+    best_rec = torch.zeros((M, npoints, c), dtype=torch.float32, device=dev)
+    rec = best_rec if full_batch else torch.zeros_like(best_rec)
+    best_mse = torch.full((M,), float("inf"), device=dev)
+    hist_gt = torch.empty((cfg.niters, M), device=dev)
+    hist_noisy = torch.empty((cfg.niters, M), device=dev)
+    inv_nc = 1.0 / (npoints * c)
+    scratch = StepScratch()
+    nunits = npoints // U
+    # replica r's rows of the (M * nunits, U * c) view of rec
+    offsets = torch.arange(M, device=dev)[:, None] * nunits
+
+    rows_of = _chunk_rows(grid, coords, target, gt_arr, U, mp, (M,))
+
+    clock = _StepClock(dev, cfg.niters)
+    t0 = time.time()
+    for epoch in range(cfg.niters):
+        clock.tick(epoch)
+        if full_batch:
+            pred, grads, (sse_t, sse_g) = model.step_grads_many(
+                params, coords, target, gt=gt_arr, want_metrics=True,
+                scratch=scratch)
+            opt.step(params, grads)
+            rec = pred
+        else:
+            perm = torch.stack([  # (nchunks, M, mp / U)
+                _sentinel_rows(permutation(nunits, r).to(dev), nunits,
+                               npad // U, nchunks) for r in range(M)], dim=1)
+            sse_t, sse_g = _chunked_epoch(
+                model.step_grads_many, opt, params, rec, rows_of, perm, U=U,
+                mp=mp, npad=npad, sort=cfg.sort_chunks, scratch=scratch,
+                offsets=offsets)
+        mse_noisy = sse_t * inv_nc
+        mse_gt = sse_g * inv_nc
+        hist_gt[epoch] = mse_gt
+        hist_noisy[epoch] = mse_noisy
+        tracked = mse_gt if track == "gt" else mse_noisy
+        best_mse, (best_rec, best_params) = _keep_best(
+            tracked, best_mse, (rec, params), (best_rec, best_params))
+    step_ms = clock.ms()
+    wall = time.time() - t0
+    return FitResult(
+        params=params, best_params=best_params,
+        best_rec=best_rec.cpu().numpy(), final_rec=rec.cpu().numpy(),
+        mse_gt=hist_gt.cpu().numpy(), mse_noisy=hist_noisy.cpu().numpy(),
+        best_mse=best_mse.cpu().numpy(), wall_time_s=wall, step_ms=step_ms)
+
+
+def fit_frames_many(model, params_stack, frame_coords, frame_pixels,
+                    frame_masks, cfg: FitConfig, *, hr_shape, scale,
+                    batch_size=4, batched_frames=False,
+                    permutation: Optional[Callable] = None, device=None):
+    """M multi-frame SR fits in one loop (wire_tpu/train/trainer.py:724):
+    ``fit_frames``'s step (render a batch of frames' warped grids, box
+    downsample, masked MSE, Adam) for every replica at once, one
+    ``apply_many`` a step (on the card one ``wire_mlp`` pair for all M).
+
+    The frames (n, H*W, 2), (n, h*w, C), (n, h*w, C) are shared by the
+    replicas, or with ``batched_frames`` carry a leading M: M different
+    bursts.  Replica r's frame order comes from a generator of its own
+    seeded ``cfg.seed + r`` (or ``permutation(n, r)``), so replica r
+    reproduces ``fit_frames(..., seed=cfg.seed + r)`` on its burst.
+    Returns a FitResult whose params carry the leading M, histories
+    (niters, M) and best_mse (M,); best_rec and final_rec are None.
+    ``params_stack`` is not modified.  Runs on ``device`` (default cuda;
+    raises without a card unless device='cpu')."""
+    dev = resolve(device)
+    M = tree.replicas(params_stack)
+    fc = _as_tensor(frame_coords, dev)
+    fp = _as_tensor(frame_pixels, dev)
+    fm = _as_tensor(frame_masks, dev)
+    if batched_frames and not fc.shape[0] == fp.shape[0] == fm.shape[0] == M:
+        raise ValueError(f"fit_frames_many: batched_frames needs frames with "
+                         f"a leading axis of {M} replicas, got "
+                         f"{tuple(fc.shape)}, {tuple(fp.shape)}, "
+                         f"{tuple(fm.shape)}")
+    nframes = fc.shape[1] if batched_frames else fc.shape[0]
+    H, W, C = hr_shape
+    bs = min(batch_size, nframes)
+    nbatches = -(-nframes // bs)
+    npad = nbatches * bs - nframes
+    per_frame = float(fp.shape[-2] * fp.shape[-1])
+    if permutation is None:
+        permutation = _replica_generators(cfg, M, dev)
+
+    params = _on_device(params_stack, dev)
+    opt = Adam(cfg, params, nchunks=nbatches)
+    best_params = tree.map(torch.clone, params)
+    best_loss = torch.full((M,), float("inf"), device=dev)
+    hist = torch.empty((cfg.niters, M), device=dev)
+    replica = torch.arange(M, device=dev)[:, None]
+
+    def frames(x, safe):
+        return x[replica, safe] if batched_frames else x[safe]
+
+    clock = _StepClock(dev, cfg.niters)
+    t0 = time.time()
+    for epoch in range(cfg.niters):
+        clock.tick(epoch)
+        orders = torch.stack([  # (M, nbatches, bs)
+            _sentinel_rows(permutation(nframes, r).to(dev), nframes, npad,
+                           nbatches) for r in range(M)])
+        losses = []
+        for b in range(nbatches):
+            fidx = orders[:, b]
+            valid = (fidx < nframes).to(torch.float32)
+            safe = fidx.clamp(max=nframes - 1)
+            paths, leaves, p = grad_leaves(params)
+            with torch.enable_grad():
+                rend = model.apply_many(p, frames(fc, safe))
+                lr = multi_sr_op(rend.reshape(M, bs, H, W, C), scale)
+                m = frames(fm, safe) * valid[:, :, None, None]
+                err = (lr.reshape(M, bs, -1, C) - frames(fp, safe)) * m
+                sq = err ** 2
+                denom = per_frame * torch.clamp(valid.sum(1), min=1)
+                total = torch.sum(sq.reshape(M, -1).sum(1) / denom)
+                flat = torch.autograd.grad(total, leaves, allow_unused=True)
+            opt.step(params, grads_tree(paths, leaves, flat))
+            loss = _replica_sums(sq.detach()) / denom
+            best_loss, best_params = _keep_best(loss, best_loss, params,
+                                                best_params)
+            losses.append(loss)
+        hist[epoch] = torch.stack(losses).sum(0)
+    step_ms = clock.ms()
+    wall = time.time() - t0
+    mse_hist = hist.cpu().numpy()
+    return FitResult(
+        params=params, best_params=best_params, best_rec=None,
+        final_rec=None, mse_gt=mse_hist, mse_noisy=mse_hist,
+        best_mse=best_loss.cpu().numpy(), wall_time_s=wall, step_ms=step_ms)
+
+
+def fit_operator_many(model, params_stack, coords, measurement, operator_fn,
+                      cfg: FitConfig, *, gt_field=None, field_shape,
+                      track="gt", batched_measurement=False, device=None):
+    """M operator fits (the CT / SISR loop) in one loop
+    (wire_tpu/train/trainer.py:1267): every iteration renders the full grid
+    for all M replicas in one ``apply_many`` (on the card one ``wire_mlp``
+    pair for all M), calls ``operator_fn`` ONCE on the (M, *field_shape)
+    stack, takes each replica's MSE against the measurement, and steps Adam
+    on the stacked leaves; the learning rate decays per iteration, as
+    wire_tpu forces (``schedule_per="iter"``).
+
+    The measurement and gt_field are shared by the replicas (multi-seed
+    fits), or with ``batched_measurement`` carry a leading M: M different
+    measurements.  ``operator_fn`` must take the stack (the port's
+    operators do: ``RadonOp``, ``DownsampleOp``, ``sisr_op``); wire_tpu's
+    vmap gave a caller's operator the leading axis for free, here a
+    caller's own operator has to take it.  Replica r reproduces
+    ``fit_operator`` from its init.  Returns a FitResult whose params and
+    best_rec carry the leading M, histories (niters, M) and best_mse (M,).
+    ``params_stack`` is not modified.  Runs on ``device`` (default cuda;
+    raises without a card unless device='cpu')."""
+    if track not in ("gt", "loss"):
+        raise ValueError(f"fit_operator_many: track={track!r}, expected "
+                         f"'gt' or 'loss'")
+    dev = resolve(device)
+    M = tree.replicas(params_stack)
+    coords = _as_tensor(coords, dev)
+    measurement = _as_tensor(measurement, dev)
+    track_gt = gt_field is not None and track == "gt"
+    gt_arr = _as_tensor(gt_field, dev) if track_gt else None
+    field_shape = tuple(field_shape)
+    if batched_measurement and (measurement.shape[0] != M or (
+            track_gt and gt_arr.shape[0] != M)):
+        raise ValueError(f"fit_operator_many: batched_measurement needs a "
+                         f"measurement (and gt_field) with a leading axis "
+                         f"of {M} replicas")
+
+    params = _on_device(params_stack, dev)
+    opt = Adam(cfg, params, nchunks=1)
+    best_params = tree.map(torch.clone, params)
+    best_field = torch.zeros((M,) + field_shape, dtype=torch.float32,
+                             device=dev)
+    best_loss = torch.full((M,), float("inf"), device=dev)
+    hist_loss = torch.empty((cfg.niters, M), device=dev)
+    hist_tracked = torch.empty((cfg.niters, M), device=dev)
+
+    clock = _StepClock(dev, cfg.niters)
+    t0 = time.time()
+    for it in range(cfg.niters):
+        clock.tick(it)
+        paths, leaves, p = grad_leaves(params)
+        with torch.enable_grad():
+            field = model.apply_many(p, coords).reshape((M,) + field_shape)
+            sq = (operator_fn(field) - measurement) ** 2
+            total = torch.sum(torch.mean(sq.reshape(M, -1), dim=1))
+            flat = torch.autograd.grad(total, leaves, allow_unused=True)
+        opt.step(params, grads_tree(paths, leaves, flat))
+        field = field.detach()
+        loss = _replica_means(sq.detach())
+        tracked = _replica_means((field - gt_arr) ** 2) if track_gt else loss
+        hist_loss[it] = loss
+        hist_tracked[it] = tracked
+        best_loss, (best_field, best_params) = _keep_best(
+            tracked, best_loss, (field, params), (best_field, best_params))
+    step_ms = clock.ms()
+    wall = time.time() - t0
+    return FitResult(
+        params=params, best_params=best_params,
+        best_rec=best_field.cpu().numpy(), final_rec=None,
+        mse_gt=hist_tracked.cpu().numpy(), mse_noisy=hist_loss.cpu().numpy(),
+        best_mse=best_loss.cpu().numpy(), wall_time_s=wall, step_ms=step_ms)

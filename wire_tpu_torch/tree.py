@@ -72,3 +72,53 @@ def stage_of(path):
         if isinstance(k, int):
             return k
     return 0
+
+
+def stack(trees):
+    """One tree whose leaves stack the given trees' leaves along a new
+    leading replica axis (``jax.tree.map(lambda *x: jnp.stack(x), *trees)``);
+    the trees share one structure."""
+    import torch
+    flats = [leaves(t) for t in trees]
+    paths = [p for p, _ in flats[0]]
+    for flat in flats[1:]:
+        if [p for p, _ in flat] != paths:
+            raise ValueError("stack: the trees differ in structure")
+    return unflatten(paths, [torch.stack([flat[i][1] for flat in flats])
+                             for i in range(len(paths))])
+
+
+def index(tree, r):
+    """Replica r of a replica-stacked tree (every leaf's ``x[r]``)."""
+    return map(lambda x: x[r], tree)
+
+
+def replicas(tree):
+    """M, the leading axis shared by every leaf of a replica-stacked tree
+    (raises when the leaves disagree)."""
+    sizes = {t.shape[0] if t.ndim else None for _, t in leaves(tree)}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(f"a replica stack needs one leading axis on every "
+                         f"leaf, got leading sizes "
+                         f"{sorted(str(s) for s in sizes)}")
+    return sizes.pop()
+
+
+def replica(x, r, M):
+    """Replica r of M: a shared tensor (None, or 2-D: rows x columns) is
+    itself; any other is per replica, ``x[r]``, and must have the leading
+    axis M (raises otherwise).  A batch of rows shared by the replicas is
+    therefore passed flat (rows, d) or expanded to (M, ..., rows, d)."""
+    if x is None or x.ndim == 2:
+        return x
+    if x.shape[0] != M:
+        raise ValueError(f"a per-replica tensor of {M} replicas needs the "
+                         f"leading axis {M}, got {tuple(x.shape)}; shared "
+                         f"rows are 2-D (rows, columns)")
+    return x[r]
+
+
+def unstack(tree):
+    """The list of a replica-stacked tree's replicas."""
+    flat = leaves(tree)
+    return [index(tree, r) for r in range(len(flat[0][1]))] if flat else []
