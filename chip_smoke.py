@@ -157,6 +157,25 @@ Phases, each printing one JSON line with its wall time:
                    4 chunks of 16,384 rows against the whole grid (loss
                    within 1e-5 relative, lower peak memory, each chunk's
                    forward twice and backward once an iteration)
+  many_kernel_vs_plain  the replica axis (the batched multi-fit) of
+                   wire_step, wire_mlp, rotsum, line_sample, real_step,
+                   real_mlp, mfn_step and mfn_mlp at 3 replicas of distinct
+                   weights (MANY_SHAPES, MANY_REAL_SHAPES): one launch per
+                   call for all replicas, two calls bit-equal, each replica
+                   bit-equal to the unbatched kernel and within REL_TOL of
+                   its reference; times against the 3 unbatched calls
+  fit_many         WIRE's batched fits (denoise full and chunked, CT rotate
+                   and auto, SISR, multi-SR on one burst and a burst each),
+                   each replica bit-equal to its serial fit (CT auto within
+                   MANY_FOURIER_REL), one launch sequence a step for all;
+                   ``sweep --seeds 2`` of WIRE's three tasks
+  fit_many_real    the batched fits of the real families and the MFN
+                   (B-spline denoise, siren chunked, the repIN fold,
+                   B-spline SISR, MFN denoise and SISR, gauss multi-SR),
+                   each replica bit-equal to its serial fit; ``sweep
+                   --seeds 2`` of siren, gauss, relu, posenc and mfn; wire2d
+                   and realgabor replicas refused on the card (ROADMAP.md
+                   §A items 5c and 5d)
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -4233,36 +4252,44 @@ def once_each(torch, counter, before, what):
                              f"expected one launch for all replicas")
 
 
+def many_case(torch, counter, many_fn, one_fn, ref_fn, M, what):
+    """A batched call ``many_fn()`` ({name: (M, ...) tensor}) against the
+    unbatched call ``one_fn(r)`` and the reference ``ref_fn(r)`` of each
+    replica (replica_case): one launch for all replicas (``counter()``,
+    its kernel's counts), two calls bit-equal.  (kernel thunk, serial
+    thunk, max abs err)."""
+    before = counter()
+    got = many_fn()
+    once_each(torch, counter, before, what)
+    again = many_fn()
+    torch.cuda.synchronize()
+    same_bits(torch, again, got, what)
+    singles = [one_fn(r) for r in range(M)]
+    refs = [ref_fn(r) for r in range(M)]
+    return (many_fn, lambda: [one_fn(r) for r in range(M)],
+            replica_case(torch, got, singles, refs, what))
+
+
 def many_step_case(torch, WS, spec, ps, coords, target, gt, nvalid, denom,
                    what):
     """wire_step_many against the unbatched kernel and the plain step per
-    replica; (kernel thunk, serial thunk, max abs err)."""
+    replica; many_case's (kernel thunk, serial thunk, max abs err)."""
     from wire_tpu_torch import tree
     M = tree.replicas(ps)
     kw = dict(nvalid=nvalid, denom=denom, want_metrics=True)
 
-    def rep(x, r):
-        return tree.replica(x, r, M)
+    def args(r):
+        return (tree.index(ps, r), tree.replica(coords, r, M),
+                tree.replica(target, r, M), spec)
 
-    def kernel():
-        return tensors_of(*WS.wire_step_many(ps, coords, target, spec,
-                                             gt=gt, **kw))
-
-    def serial():
-        return [tensors_of(*WS.wire_step(
-            tree.index(ps, r), rep(coords, r), rep(target, r), spec,
-            gt=rep(gt, r), **kw)) for r in range(M)]
-
-    before = WS.wire_step.launches
-    got = kernel()
-    once_each(torch, lambda: WS.wire_step.launches, before, what)
-    again = kernel()
-    torch.cuda.synchronize()
-    same_bits(torch, again, got, what)
-    plains = [tensors_of(*WS.wire_step_plain(
-        tree.index(ps, r), rep(coords, r), rep(target, r), spec,
-        gt=rep(gt, r), **kw)) for r in range(M)]
-    return kernel, serial, replica_case(torch, got, serial(), plains, what)
+    return many_case(
+        torch, lambda: WS.wire_step.launches,
+        lambda: tensors_of(*WS.wire_step_many(ps, coords, target, spec,
+                                              gt=gt, **kw)),
+        lambda r: tensors_of(*WS.wire_step(*args(r), gt=tree.replica(
+            gt, r, M), **kw)),
+        lambda r: tensors_of(*WS.wire_step_plain(*args(r), gt=tree.replica(
+            gt, r, M), **kw)), M, what)
 
 
 def param_pair(torch, apply, params, spec, coords, cot):
@@ -4282,28 +4309,20 @@ def param_pair(torch, apply, params, spec, coords, cot):
 
 def many_pair_case(torch, WM, spec, ps, coords, cot, what):
     """wire_mlp_many's pair against the unbatched pair and the plain
-    version per replica; (kernel thunk, serial thunk, max abs err)."""
+    version per replica; many_case's (kernel thunk, serial thunk, max abs
+    err)."""
     from wire_tpu_torch import tree
     M = tree.replicas(ps)
 
-    def kernel():
-        return param_pair(torch, WM.wire_mlp_many, ps, spec, coords, cot)
+    def one(r, apply):
+        return param_pair(torch, apply, tree.index(ps, r), spec,
+                          tree.replica(coords, r, M), cot[r])
 
-    def serial():
-        return [param_pair(torch, WM.wire_mlp, tree.index(ps, r), spec,
-                           tree.replica(coords, r, M), cot[r])
-                for r in range(M)]
-
-    before = dict(WM.launches)
-    got = kernel()
-    once_each(torch, WM.launches, before, what)
-    again = kernel()
-    torch.cuda.synchronize()
-    same_bits(torch, again, got, what)
-    plains = [param_pair(torch, WM.wire_mlp_plain, tree.index(ps, r), spec,
-                         tree.replica(coords, r, M), cot[r])
-              for r in range(M)]
-    return kernel, serial, replica_case(torch, got, serial(), plains, what)
+    return many_case(
+        torch, lambda: dict(WM.launches),
+        lambda: param_pair(torch, WM.wire_mlp_many, ps, spec, coords, cot),
+        lambda r: one(r, WM.wire_mlp), lambda r: one(r, WM.wire_mlp_plain),
+        M, what)
 
 
 def many_radon_case(torch, mod, fn, plain, x, cot, names, what,
@@ -4512,38 +4531,8 @@ def fit_many(torch, np, mods, counters, device):
      tree) = mods
     out = {}
 
-    def run(name, want, many_fn, serial_fns, iters, m, compare_fn):
-        t0 = time.time()
-        reset_counts(counters)
-        ws0 = WS.wire_step.launches
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        many = many_fn()
-        peak_many = torch.cuda.max_memory_allocated()
-        launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
-        check_real_launches(launches, f"fit_many {name}", want)
-        serials, peak_one = [], 0
-        for fn in serial_fns:
-            torch.cuda.reset_peak_memory_stats()
-            serials.append(fn())
-            peak_one = max(peak_one, torch.cuda.max_memory_allocated())
-        extra = compare_fn(many, serials) or {}
-        for r in (many, *serials):
-            if not (np.isfinite(r.mse_noisy).all()
-                    and np.isfinite(r.best_mse).all()):
-                raise AssertionError(f"fit_many {name}: non-finite values")
-        out[name] = dict(
-            replicas=m, iters=iters,
-            launches={k: v for k, v in launches.items() if any(v.values())},
-            launches_per_iter={f"{k}.{kk}": v / iters
-                               for k, c in launches.items()
-                               for kk, v in c.items() if v},
-            ms_per_iter=many.step_ms,
-            serial_ms_per_iter=sum(s.step_ms for s in serials),
-            peak_mb_per_replica=peak_many / m / 2 ** 20,
-            serial_peak_mb=peak_one / 2 ** 20,
-            wall_s=time.time() - t0, **extra)
+    def run(*args):
+        many_fit_run(torch, np, WS, counters, out, *args)
 
     def exact(name):
         return lambda many, serials: many_vs_serial(np, many, serials, name)
@@ -4679,20 +4668,517 @@ def fit_many(torch, np, mods, counters, device):
                 launches={k: v for k, v in launches.items()
                           if any(v.values())},
                 wall_s=time.time() - t0)
+    return out
+
+
+def many_fit_run(torch, np, WS, counters, out, name, want, many_fn,
+                 serial_fns, iters, m, compare_fn):
+    """One batched fit ``many_fn()`` against its serial fits (counts reset
+    just before and read just after the batched fit, which must launch
+    ``want`` and nothing else; peak device memory of each; ms per epoch or
+    iteration of the batched fit and of the serial fits added up), recorded
+    in ``out[name]``."""
+    t0 = time.time()
+    reset_counts(counters)
+    ws0 = WS.wire_step.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    many = many_fn()
+    peak_many = torch.cuda.max_memory_allocated()
+    launches = read_counts(counters)
+    launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+    check_real_launches(launches, f"fit_many {name}", want)
+    serials, peak_one = [], 0
+    for fn in serial_fns:
+        torch.cuda.reset_peak_memory_stats()
+        serials.append(fn())
+        peak_one = max(peak_one, torch.cuda.max_memory_allocated())
+    extra = compare_fn(many, serials) or {}
+    for r in (many, *serials):
+        if not (np.isfinite(r.mse_noisy).all()
+                and np.isfinite(r.best_mse).all()):
+            raise AssertionError(f"fit_many {name}: non-finite values")
+    out[name] = dict(
+        replicas=m, iters=iters,
+        launches={k: v for k, v in launches.items() if any(v.values())},
+        launches_per_iter={f"{k}.{kk}": v / iters
+                           for k, c in launches.items()
+                           for kk, v in c.items() if v},
+        ms_per_iter=many.step_ms,
+        serial_ms_per_iter=sum(s.step_ms for s in serials),
+        peak_mb_per_replica=peak_many / m / 2 ** 20,
+        serial_peak_mb=peak_one / 2 ** 20,
+        wall_s=time.time() - t0, **extra)
+
+
+# ---- the batched multi-fit of the real families and the MFN -------------
+
+# replicas of the real and MFN batched kernels' checks, and of the fits:
+# B-spline denoise's replicas and epochs, the chunked siren denoise's
+# chunk (4 chunks of the 65,536 points) and epochs, the repIN fold's
+# replicas and epochs, the MFN denoise's epochs, the gauss multi-SR fits'
+# replicas (their iterations, and the operator fits', are MANY_ITERS)
+MANY_REAL_DENOISE_M = 4
+MANY_REAL_DENOISE_EPOCHS = 50
+MANY_REPIN_M = 2
+MANY_REPIN_EPOCHS = 20
+MANY_MFN_EPOCHS = 50
+MANY_GAUSS_MULTISR_M = 2
+# the real and MFN replica kernels' shapes: the B-spline denoise step's rows
+# (256^2, 2 -> 256 x 3 -> 3), a ragged step's rows per replica, the
+# B-spline SISR pair's HR side (168^2 = 28,224 rows), the sweep's SISR side
+# (posenc's step at d 26, the MFN SISR pair), the multi-SR frames' rows
+# (192^2), the MFN denoise rows (256^2, h 300)
+MANY_REAL_SHAPES = dict(rows=256 * 256, ragged_step=700, sisr_side=168,
+                        sweep_side=256, frame_rows=192 * 192)
+# the sweep --seeds runs of the other families: denoise each, CT siren and
+# posenc, SISR gauss and mfn
+MANY_SEEDS_RUNS = (("denoise", "siren"), ("denoise", "gauss"),
+                   ("denoise", "relu"), ("denoise", "posenc"),
+                   ("denoise", "mfn"), ("ct", "siren"), ("ct", "posenc"),
+                   ("sisr", "gauss"), ("sisr", "mfn"))
+
+
+def many_real_step(torch, RM, canon, coords, target, gt, kinds, what,
+                   relu=False, **kw):
+    """real_step_many on a canonical stack against the unbatched kernel and
+    each replica's reference: the plain step in fp32, or (``relu``) the
+    float64 run on the kernel's own relu pattern
+    (relu_pattern_step_reference, fault C.9).  many_case's triple."""
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    M = tree.replicas(canon)
+    kw = dict(kw, want_metrics=True)
+    scratch, ones = StepScratch(), [StepScratch() for _ in range(M)]
+
+    def rep(x, r):
+        return tree.replica(x, r, M)
+
+    def many():
+        return real_step_tensors(RM, *RM.real_step_many(
+            canon, coords, target, kinds, gt=gt, scratch=scratch, **kw))
+
+    def one(r):
+        return real_step_tensors(RM, *RM.real_step(
+            tree.index(canon, r), rep(coords, r), rep(target, r), kinds,
+            gt=rep(gt, r), scratch=ones[r], **kw))
+
+    def ref(r):
+        args = (tree.index(canon, r), rep(coords, r), rep(target, r), kinds)
+        kwr = dict(kw, gt=rep(gt, r))
+        if relu:
+            acts = [ones[r]._bufs[f"real_a{l}"] for l in range(len(kinds))]
+            return relu_pattern_step_reference(torch, RM, *args, kwr, acts,
+                                               what)[0]
+        return real_step_plain_fn(RM)(*args, **kwr)
+
+    return many_case(torch, lambda: RM.launches["step"], many, one, ref, M,
+                     f"real_step_many {what}")
+
+
+def many_real_pair(torch, RM, canon, coords, cot, kinds, what):
+    """The real_mlp_many pair (output and canonical gradients against
+    ``cot``) against the unbatched pair and the plain version in fp32 per
+    replica.  many_case's triple."""
+    from wire_tpu_torch import tree
+    M = tree.replicas(canon)
+    L = len(kinds)
+
+    def run(fn, cn, c, g):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for _, t in RM.canon_leaves(cn)]
+        y = fn(RM.canon_from_leaves(leaves, L), c)
+        grads = torch.autograd.grad(y, leaves, g)
+        out = {"out": y.detach()}
+        out.update({f"d{i}": gr for i, gr in enumerate(grads)})
+        return out
+
+    def plain(cn, c):
+        y = RM.real_mlp_plain(cn, c.reshape(-1, c.shape[-1]), kinds)
+        return y.reshape(*c.shape[:-1], y.shape[-1])
+
+    def one(r, fn):
+        return run(fn, tree.index(canon, r), tree.replica(coords, r, M),
+                   cot[r])
+
+    return many_case(
+        torch, lambda: {k: RM.launches[k] for k in ("forward", "backward")},
+        lambda: run(lambda cn, c: RM.real_mlp_many(cn, c, kinds), canon,
+                    coords, cot),
+        lambda r: one(r, lambda cn, c: RM.real_mlp(cn, c, kinds)),
+        lambda r: one(r, plain), M, f"real_mlp_many {what}")
+
+
+def many_mfn_step(torch, MF, spec, ps, coords, target, gt, what, **kw):
+    """mfn_step_many against the unbatched kernel and the plain step in
+    fp32 per replica.  many_case's triple."""
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    M = tree.replicas(ps)
+    kw = dict(kw, want_metrics=True)
+    scratch, one_scratch = StepScratch(), StepScratch()
+
+    def rep(x, r):
+        return tree.replica(x, r, M)
+
+    def args(r):
+        return (tree.index(ps, r), rep(coords, r), rep(target, r), spec)
+
+    return many_case(
+        torch, lambda: MF.launches["step"],
+        lambda: tensors_of(*MF.mfn_step_many(ps, coords, target, spec, gt=gt,
+                                             scratch=scratch, **kw)),
+        lambda r: tensors_of(*MF.mfn_step(*args(r), gt=rep(gt, r),
+                                          scratch=one_scratch, **kw)),
+        lambda r: tensors_of(*MF.mfn_step_plain(*args(r), gt=rep(gt, r),
+                                                **kw)),
+        M, f"mfn_step_many {what}")
+
+
+def many_mfn_pair(torch, MF, spec, ps, coords, cot, what):
+    """The mfn_mlp_many pair against the unbatched pair and the plain
+    version in fp32 per replica.  many_case's triple."""
+    from wire_tpu_torch import tree
+    M = tree.replicas(ps)
+
+    def one(r, apply):
+        return param_pair(torch, apply, tree.index(ps, r), spec,
+                          tree.replica(coords, r, M), cot[r])
+
+    return many_case(
+        torch, lambda: {k: MF.launches[k] for k in ("forward", "backward")},
+        lambda: param_pair(torch, MF.mfn_mlp_many, ps, spec, coords, cot),
+        lambda r: one(r, MF.mfn_mlp), lambda r: one(r, MF.mfn_mlp_plain), M,
+        f"mfn_mlp_many {what}")
+
+
+def many_real_vs_plain(torch, np, mods, device):
+    """The replica axis of rows 5, 6, 10 and 11 at MANY_M replicas of
+    distinct weights: real_step at the B-spline denoise path (65,536 rows,
+    2 -> 256 x 3 -> 3, shared coordinates and targets) and a ragged one
+    (700 rows per replica, nvalid 650, denom), at posenc (the sweep's SISR
+    posenc, d 26 on the tensor cores, held to the float64 run on the
+    kernel's relu pattern) and at the repIN fold (K 1,024); the real_mlp
+    pair at the B-spline SISR path (28,224 rows) on shared and on
+    per-replica coordinates and at the multi-SR app's gauss on the frame
+    grids ((M, 4, 36,864, 2)); mfn_step at the sweep's MFN denoise (h 300,
+    k 3) full and ragged; the mfn_mlp pair at the sweep's MFN SISR (h
+    256).  One launch per call for all replicas (a pair one a direction),
+    two calls bit-equal, each replica bit-equal to the unbatched kernel on
+    its inputs and within REL_TOL of its reference.  Then each batched
+    call's time against the M unbatched calls', with the batched call's
+    least time.  Returns ({kernel: {case: max abs err}}, {kernel:
+    times})."""
+    RM, MF, MM, SW, TC, TMS, get_inr, get_config = mods
+    from wire_tpu_torch import tree
+    sh = MANY_REAL_SHAPES
+    rng = np.random.default_rng(23)
+    seeds = range(31, 31 + MANY_M)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def targets(lead, o=3):
+        return (t(rng.uniform(0, 1, lead + (o,))),
+                t(rng.uniform(0, 1, lead + (o,))))
+
+    errs = {k: {} for k in ("real_step", "real_mlp", "mfn_step", "mfn_mlp")}
+    thunks = {}
+    n = sh["rows"]
+    side = int(round(n ** 0.5))
+    grid = t(SW.C.grid2d(side, side))
+
+    # row 6: the B-spline denoise path, full and ragged
+    model_a, _ = real_models(get_inr, TC, get_config(REAL_DENOISE_CONFIG),
+                             7.0, side)
+    canon = tree.stack([path_canon(torch, MM, model_a, s, device)[0]
+                        for s in seeds])
+    kinds = ("qspline",) * len(canon["layers"])
+    widths_a = RM._widths(tree.index(canon, 0), 2)
+    nw_a = num_weights(tree.index(canon, 0))
+    kern, ser, errs["real_step"]["many_full"] = many_real_step(
+        torch, RM, canon, grid, *targets((n,)), kinds, "full")
+    thunks["real_step"] = (kern, ser)
+    nr = sh["ragged_step"]
+    errs["real_step"]["many_ragged"] = many_real_step(
+        torch, RM, canon, t(rng.uniform(-1, 1, (MANY_M, nr, 2))),
+        *targets((MANY_M, nr)), kinds, "ragged", nvalid=nr - 50,
+        denom=(nr - 50) * 3.0 + 1.0)[2]
+    # posenc at the sweep's SISR shape: d 26 on the tensor cores
+    ss = sh["sweep_side"]
+    posenc = SW._build("posenc", "sisr", ss, ss, 1e2)
+    canon_p = tree.stack([MM._canon_relu(posenc.init(
+        torch.Generator().manual_seed(s), device), posenc.spec)
+        for s in seeds])
+    x = MM._posenc_pre(t(SW.C.grid2d(ss, ss)), posenc.spec).contiguous()
+    errs["real_step"]["many_posenc"] = many_real_step(
+        torch, RM, canon_p, x, *targets((ss * ss,)),
+        ("relu",) * len(canon_p["layers"]), "posenc", relu=True)[2]
+    # the repIN fold: the first layer's K 1,024 on the tensor cores
+    _, repin, _ = family_models(get_inr, TC, get_config,
+                                "bspline_mscale_repIN")
+    folds = [family_fold(torch, MM, repin, s, device) for s in seeds]
+    x = folds[0][2](grid).contiguous()
+    errs["real_step"]["many_repin_fold"] = many_real_step(
+        torch, RM, tree.stack([f[0] for f in folds]), x, *targets((n,)),
+        folds[0][1], "repin_fold")[2]
+
+    # row 5: the B-spline SISR path, shared and per-replica coordinates
+    sides = sh["sisr_side"]
+    model_b, _ = real_models(get_inr, TC, get_config(REAL_SISR_CONFIG), 8.0,
+                             sides)
+    canon_b = tree.stack([path_canon(torch, MM, model_b, s, device)[0]
+                          for s in seeds])
+    kinds_b = ("qspline",) * len(canon_b["layers"])
+    widths_b = RM._widths(tree.index(canon_b, 0), 2)
+    nw_b = num_weights(tree.index(canon_b, 0))
+    nb = sides * sides
+    kern, ser, errs["real_mlp"]["many_sisr"] = many_real_pair(
+        torch, RM, canon_b, t(SW.C.grid2d(sides, sides)),
+        t(rng.normal(size=(MANY_M, nb, 3))), kinds_b, "SISR")
+    thunks["real_mlp"] = (kern, ser)
+    errs["real_mlp"]["many_sisr_per_replica"] = many_real_pair(
+        torch, RM, canon_b, t(rng.uniform(-1, 1, (MANY_M, nb, 2))),
+        t(rng.normal(size=(MANY_M, nb, 3))), kinds_b, "SISR per replica")[2]
+    gauss = TMS.setup("gauss", niters=1)["model"]
+    canon_g = tree.stack([MM._canon_gauss(gauss.init(
+        torch.Generator().manual_seed(s), device), gauss.spec)
+        for s in seeds])
+    frames = (MANY_M, 4, sh["frame_rows"])
+    errs["real_mlp"]["many_multi_sr_gauss"] = many_real_pair(
+        torch, RM, canon_g, t(rng.uniform(-1, 1, frames + (2,))),
+        t(rng.normal(size=frames + (3,))),
+        ("gauss",) * len(canon_g["layers"]), "multi-SR gauss")[2]
+
+    # rows 11 and 10: the sweep's MFN denoise (h 300) and SISR (h 256)
+    mfn_d, _ = mfn_models(get_inr, SW, "denoise", side, side)
+    ps = model_stack(torch, mfn_d, seeds, device)
+    nw_md = num_weights(tree.index(ps, 0))
+    kern, ser, errs["mfn_step"]["many_full"] = many_mfn_step(
+        torch, MF, mfn_d.spec, ps, grid, *targets((n,)), "full")
+    thunks["mfn_step"] = (kern, ser)
+    gt_r = targets((MANY_M, nr))
+    errs["mfn_step"]["many_ragged"] = many_mfn_step(
+        torch, MF, mfn_d.spec, ps, t(rng.uniform(-1, 1, (MANY_M, nr, 2))),
+        *gt_r, "ragged", nvalid=nr - 50, denom=(nr - 50) * 3.0 + 1.0)[2]
+    mfn_s, _ = mfn_models(get_inr, SW, "sisr", ss, ss)
+    ps = model_stack(torch, mfn_s, seeds, device)
+    nw_ms = num_weights(tree.index(ps, 0))
+    kern, ser, errs["mfn_mlp"]["many_sisr"] = many_mfn_pair(
+        torch, MF, mfn_s.spec, ps, t(SW.C.grid2d(ss, ss)),
+        t(rng.normal(size=(MANY_M, ss * ss, 3))), "SISR")
+    thunks["mfn_mlp"] = (kern, ser)
+
+    # the least time of the batched call: M x each replica's operations and
+    # its own bytes, the inputs the replicas share (coordinates, target and
+    # gt) once
+    M, ns = MANY_M, ss * ss
+    hd, hs = mfn_d.spec.hidden_features, mfn_s.spec.hidden_features
+    work = {
+        "real_step": bound_3xtf32(
+            M * RM.step_flops(n, widths_a),
+            4 * (n * 8 + M * (n * 3 + 2 * nw_a + 2))),
+        "real_mlp": bound_3xtf32(
+            M * (RM.apply_flops(nb, widths_b)
+                 - 2 * nb * widths_b[0] * widths_b[1]),
+            4 * (nb * 2 + M * (2 * nb * 3 + 2 * nw_b))),
+        "mfn_step": bound_3xtf32(
+            M * MF.step_flops(n, 2, hd, 3, 3),
+            4 * (n * 8 + M * (n * 3 + 2 * nw_md + 2))),
+        "mfn_mlp": bound_3xtf32(
+            M * (MF.apply_flops(ns, 2, hs, 3, 3) - 3 * 2 * 2 * ns * hs * 2),
+            4 * (ns * 2 + M * (2 * ns * 3 + 2 * nw_ms))),
+    }
+    shapes = {"real_step": f"B-spline denoise, {n} rows, widths {widths_a}",
+              "real_mlp": f"B-spline SISR, {nb} rows, no dcoords",
+              "mfn_step": f"MFN denoise, {n} rows, h {hd}, k 3",
+              "mfn_mlp": f"MFN SISR, {ns} rows, h {hs}, no dcoords"}
+    times = {}
+    for name, (kernel, serial) in thunks.items():
+        bound_ms, by = work[name]
+        times[name] = dict(
+            replicas=MANY_M, ms=cuda_ms(torch, kernel, MANY_TIMING_ITERS),
+            serial_ms=cuda_ms(torch, serial, MANY_TIMING_ITERS),
+            bound_ms=bound_ms, bound_by=by, shape=shapes[name])
+    return errs, times
+
+
+def fit_many_real(torch, np, mods, counters, device):
+    """The batched fits of the real families and the MFN, each against its
+    M serial fits (many_fit_run): B-spline denoise (REAL_DENOISE_CONFIG,
+    full batch; one real_step launch an epoch), the sweep's siren denoise
+    chunked (4 chunks an epoch, each replica its own permutations; one
+    launch a chunk), the repIN fold's denoise (FAMILIES_PRESET), B-spline
+    SISR (REAL_SISR_CONFIG; one real_mlp pair an iteration), the sweep's
+    MFN denoise (one mfn_step an epoch) and MFN SISR (one mfn_mlp pair an
+    iteration), the multi-SR app's gauss on one burst and on a burst per
+    replica: every replica bit-equal to its serial fit.  Then ``sweep
+    --seeds 2`` through ``main`` for MANY_SEEDS_RUNS at SWEEP_ITERS, each
+    launching its family's kernels and nothing else; and fit_pointwise_many
+    refusing wire2d (ROADMAP.md §A item 5c) and realgabor (item 5d) on the
+    card before any launch."""
+    import dataclasses
+    import tempfile
+    (T, WS, TCT, TMS, TS, TD, TC, SW, TF, get_inr, get_config, tree) = mods
+    out = {}
+
+    def run(*args):
+        many_fit_run(torch, np, WS, counters, out, *args)
+
+    def exact(name):
+        return lambda many, serials: many_vs_serial(np, many, serials, name)
+
+    def pointwise(name, model, m, cfg, im, noisy, want):
+        ps = model_stack(torch, model, range(m), device)
+        H, W, _ = im.shape
+        grid = TD.C.grid2d(H, W)
+        run(name, want,
+            lambda: T.fit_pointwise_many(model, ps, grid,
+                                         noisy.reshape(-1, 3), cfg,
+                                         gt=im.reshape(-1, 3),
+                                         device=device),
+            [lambda r=r: T.fit_pointwise(
+                model, tree.index(ps, r), grid, noisy.reshape(-1, 3),
+                dataclasses.replace(cfg, seed=cfg.seed + r),
+                gt=im.reshape(-1, 3), device=device) for r in range(m)],
+            cfg.niters, m, exact(name))
+
+    def operator(name, model, m, cfg, im, lr, want):
+        ps = model_stack(torch, model, range(m), device)
+        H, W, _ = im.shape
+        grid, op = TS.C.grid2d(H, W), TF.DownsampleOp(im.shape[0]
+                                                      // lr.shape[0])
+        run(name, want,
+            lambda: T.fit_operator_many(model, ps, grid, lr, op, cfg,
+                                        gt_field=im, field_shape=im.shape,
+                                        device=device),
+            [lambda r=r: T.fit_operator(
+                model, tree.index(ps, r), grid, lr, op, cfg, gt_field=im,
+                field_shape=im.shape, device=device) for r in range(m)],
+            cfg.niters, m, exact(name))
+
+    # B-spline denoise, full batch
+    cfg = get_config(REAL_DENOISE_CONFIG)
+    im, noisy = TD.denoise_images(cfg)
+    model, _ = real_models(get_inr, TC, cfg, 7.0, im.shape[0])
+    pointwise("bspline_denoise", model, MANY_REAL_DENOISE_M, T.FitConfig(
+        learning_rate=cfg.learning_rate, niters=MANY_REAL_DENOISE_EPOCHS,
+        maxpoints=cfg.maxpoints, scale_lr_by_batch=True), im, noisy,
+        {("real_mlp", "step"): MANY_REAL_DENOISE_EPOCHS})
+    # the sweep's siren denoise, chunked
+    im, noisy = SW.denoise_images()
+    H, W, _ = im.shape
+    model = SW._build("siren", "denoise", H, W, 3e1)
+    chunks = H * W // MANY_CHUNK_POINTS
+    pointwise("siren_denoise_chunked", model, MANY_M, T.FitConfig(
+        learning_rate=SW._DENOISE_LR["siren"], niters=MANY_CHUNK_EPOCHS,
+        maxpoints=MANY_CHUNK_POINTS, scale_lr_by_batch=True, seed=3), im,
+        noisy, {("real_mlp", "step"): MANY_CHUNK_EPOCHS * chunks})
+    # the repIN fold's denoise
+    fcfg, model, _ = family_models(get_inr, TC, get_config,
+                                   "bspline_mscale_repIN")
+    im, noisy = TD.denoise_images(fcfg)
+    pointwise("repin_denoise", model, MANY_REPIN_M, T.FitConfig(
+        learning_rate=fcfg.learning_rate, niters=MANY_REPIN_EPOCHS,
+        maxpoints=fcfg.maxpoints, scale_lr_by_batch=True), im, noisy,
+        {("real_mlp", "step"): MANY_REPIN_EPOCHS})
+    # B-spline SISR
+    cfg = get_config(REAL_SISR_CONFIG)
+    im, lr = TS.sisr_images(None, 0, cfg.down_scale)
+    model, _ = real_models(get_inr, TC, cfg, 8.0, im.shape[0])
+    operator("bspline_sisr", model, MANY_M, T.FitConfig(
+        learning_rate=cfg.learning_rate, niters=MANY_ITERS,
+        maxpoints=cfg.maxpoints, lr_decay=0.2), im, lr,
+        {("real_mlp", "forward"): MANY_ITERS,
+         ("real_mlp", "backward"): MANY_ITERS})
+    # the sweep's MFN denoise and SISR
+    im, noisy = SW.denoise_images()
+    model, _ = mfn_models(get_inr, SW, "denoise", H, W)
+    pointwise("mfn_denoise", model, MANY_M, T.FitConfig(
+        learning_rate=SW._DENOISE_LR["mfn"], niters=MANY_MFN_EPOCHS,
+        maxpoints=H * W, scale_lr_by_batch=True), im, noisy,
+        {("mfn", "step"): MANY_MFN_EPOCHS})
+    im, lr = TS.sisr_images(None, 0, 4, size=768)
+    model, _ = mfn_models(get_inr, SW, "sisr", *im.shape[:2])
+    operator("mfn_sisr", model, MANY_M, T.FitConfig(
+        learning_rate=SW._SISR_LR["mfn"], niters=MANY_ITERS, lr_decay=0.2),
+        im, lr, {("mfn", "forward"): MANY_ITERS,
+                 ("mfn", "backward"): MANY_ITERS})
+
+    # the multi-SR app's gauss: one burst for every replica, and one each
+    m = MANY_GAUSS_MULTISR_M
+    probs = [TMS.setup("gauss", seed=s, niters=MANY_ITERS) for s in range(m)]
+    model, cfg = probs[0]["model"], probs[0]["cfg"]
+    ps = model_stack(torch, model, range(m), device)
+    fkw = dict(hr_shape=probs[0]["im"].shape, scale=4, batch_size=4,
+               device=device)
+    ds = [p["ds"] for p in probs]
+    for name, batched in (("multi_sr_gauss", False),
+                          ("multi_sr_gauss_bursts", True)):
+        frames = ((np.stack([d.coords for d in ds]),
+                   np.stack([d.pixels for d in ds]),
+                   np.stack([d.masks for d in ds])) if batched
+                  else (ds[0].coords, ds[0].pixels, ds[0].masks))
+        run(name, {("real_mlp", "forward"): MANY_ITERS,
+                   ("real_mlp", "backward"): MANY_ITERS},
+            lambda: T.fit_frames_many(model, ps, *frames, cfg,
+                                      batched_frames=batched, **fkw),
+            [lambda r=r: T.fit_frames(
+                model, tree.index(ps, r),
+                *(ds[r if batched else 0].coords,
+                  ds[r if batched else 0].pixels,
+                  ds[r if batched else 0].masks),
+                dataclasses.replace(cfg, seed=cfg.seed + r), **fkw)
+             for r in range(m)], MANY_ITERS, m, exact(name))
+
+    # sweep --seeds 2 of the other families through main
+    out["sweep_seeds"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, nonlin in MANY_SEEDS_RUNS:
+            t0 = time.time()
+            reset_counts(counters)
+            ws0 = WS.wire_step.launches
+            res = SW.main([task, "--seeds", "2", "--nonlins", nonlin,
+                           "--niters", str(SWEEP_ITERS), "--results_dir",
+                           os.path.join(tmp, f"{task}_{nonlin}")])
+            launches = read_counts(counters)
+            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            check_real_launches(launches, f"sweep --seeds {task} {nonlin}",
+                                sweep_expected(task, nonlin, SWEEP_ITERS))
+            key = "mse_db" if task == "sisr" else "psnrs"
+            if not (len(res[key]) == 2 and np.isfinite(res[key]).all()
+                    and np.isfinite(res["recs"]).all()):
+                raise AssertionError(f"sweep --seeds {task} {nonlin}: "
+                                     f"results {res[key]}")
+            out["sweep_seeds"][f"{task}_{nonlin}"] = dict(
+                metric=res[key], step_ms=res["step_ms"],
+                launches={k: v for k, v in launches.items()
+                          if any(v.values())},
+                wall_s=time.time() - t0)
+
+    # the families without replica kernels on the card raise, naming their
+    # ROADMAP item, before any launch
+    out["refused"] = {}
+    for nonlin, item in (("wire2d", "5c"), ("realgabor", "5d")):
+        model = get_inr(nonlin, in_features=2, out_features=3,
+                        hidden_features=16, hidden_layers=1)
+        ps = model_stack(torch, model, range(2), device)
         reset_counts(counters)
         ws0 = WS.wire_step.launches
         try:
-            SW.main(["denoise", "--seeds", "2", "--nonlins", "mfn",
-                     "--niters", "1", "--results_dir", tmp])
+            T.fit_pointwise_many(model, ps, TD.C.grid2d(8, 8),
+                                 np.zeros((64, 3), np.float32),
+                                 T.FitConfig(niters=1), device=device)
         except NotImplementedError as e:
-            if "§A item 5b" not in str(e):
+            if f"§A item {item}" not in str(e):
                 raise
         else:
-            raise AssertionError("sweep --seeds of mfn ran on the card")
+            raise AssertionError(f"fit_pointwise_many of {nonlin} ran on "
+                                 f"the card")
         launches = read_counts(counters)
         launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
-        check_real_launches(launches, "sweep --seeds mfn refused", {})
-        out["sweep_seeds"]["mfn_refused"] = True
+        check_real_launches(launches, f"{nonlin} replicas refused", {})
+        out["refused"][nonlin] = item
     return out
 
 
@@ -5039,15 +5525,21 @@ def main():
                         counters, dev)
     emit("fit_resume", t0, **resume)
 
-    # ---- many_kernel_vs_plain (the replica axis of rows 1-4) ---------------
+    # ---- many_kernel_vs_plain (the replica axis of rows 1-6, 10, 11) -------
     t0 = time.time()
     many_errs, many_times = many_kernel_vs_plain(
         torch, np, (WS, WM, R, LS, TR, TCT, TMS, get_inr, get_config), dev)
+    real_errs, real_times = many_real_vs_plain(
+        torch, np, (RM, MF, MM, SW, TC, TMS, get_inr, get_config), dev)
+    many_errs.update(real_errs)
+    many_times.update(real_times)
     emit("many_kernel_vs_plain", t0, replicas=MANY_M, max_abs_err=many_errs,
          rel_tol=REL_TOL, times=many_times, nvidia_smi=smi,
          why=("each replica bit-equal to the unbatched kernel on its inputs "
               "(line_sample's scatter, atomics, within rel_tol of it); "
-              "each within rel_tol x max|plain| of the plain version"))
+              "each within rel_tol x max|reference| of its reference: the "
+              "plain version in fp32, for real_step many_posenc the "
+              "float64 run on the kernel's relu pattern (fault C.9)"))
 
     # ---- fit_many (the batched fits against their serial fits) -------------
     t0 = time.time()
@@ -5055,6 +5547,24 @@ def main():
     many = fit_many(torch, np, (T, WS, TR, TCT, TMS, TS, SW, TF, M, get_inr,
                                 get_config, bench, TT), counters, dev)
     emit("fit_many", t0, fits=many, nvidia_smi=smi)
+
+    # ---- fit_many_real (the real families' and the MFN's batched fits) ----
+    t0 = time.time()
+    many_real = fit_many_real(torch, np, (T, WS, TCT, TMS, TS, TD, TC, SW,
+                                          TF, get_inr, get_config, TT),
+                              counters, dev)
+    emit("fit_many_real", t0, fits=many_real, nvidia_smi=smi)
+
+    def many_counts(lib, key):
+        """{fit_key: launches} of ``lib``'s ``key`` in fit_many_real's
+        batched fits and seeds runs, where nonzero."""
+        fits = {f"many_{k}": v for k, v in many_real.items()
+                if k not in ("sweep_seeds", "refused")}
+        fits.update({f"seeds_{k}": v
+                     for k, v in many_real["sweep_seeds"].items()})
+        return {f"{k}_{key}": v["launches"][lib][key]
+                for k, v in fits.items()
+                if v["launches"].get(lib, {}).get(key)}
 
     # launches of each kernel in the paths that run it: wire_step in the
     # WIRE denoise fit and the occupancy fits, real_step also in the
@@ -5106,20 +5616,26 @@ def main():
                            "rotsum"].items()}},
         "real_step": {"step": real["launches"]["step"],
                       **{f"{k}_step": fam[k]["launches"]
-                         for k in STEP_FAMILIES}},
+                         for k in STEP_FAMILIES},
+                      **many_counts("real_mlp", "step")},
         "real_mlp": {**{k: sisr["launches"][k]
                         for k in ("forward", "backward")},
                      **{f"multi_sr_{k}": sum(
                          msr["others"][nl]["launches"][k]
                          for nl in MULTISR_NONLINS
                          if MULTISR_PAIR[nl] == "real_mlp")
-                        for k in ("forward", "backward")}},
+                        for k in ("forward", "backward")},
+                     **many_counts("real_mlp", "forward"),
+                     **many_counts("real_mlp", "backward")},
         "mscale2_step": {"step": mscale["launches"]["step"]},
-        "mfn_step": {"step": mfn["launches"]["step"]},
+        "mfn_step": {"step": mfn["launches"]["step"],
+                     **many_counts("mfn", "step")},
         "mfn_mlp": {**{k: mfn_sisr["launches"][k]
                        for k in ("forward", "backward")},
                     **{f"multi_sr_{k}": msr["others"]["mfn"]["launches"][k]
-                       for k in ("forward", "backward")}},
+                       for k in ("forward", "backward")},
+                    **many_counts("mfn", "forward"),
+                    **many_counts("mfn", "backward")},
         "wire2d_step": {"step": w2d["launches"]["step"]},
         "wire2d_mlp": {k: w2d_ct["launches"][k]
                        for k in ("forward", "backward")}}

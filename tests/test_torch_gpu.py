@@ -1810,20 +1810,115 @@ def test_batched_fits_are_the_serial_fits(cuda):
 
 def test_seeds_of_a_family_without_replica_kernels_are_refused(cuda,
                                                                tmp_path):
-    """sweep --seeds runs WIRE's replica kernels on the card; a family
-    whose kernels have no replica axis yet raises, naming its ROADMAP item,
-    before any kernel launches."""
-    from wire_tpu_torch.apps import sweep
-    for nonlin, item in (("mfn", "5b"), ("siren", "5b")):
-        before = WS.wire_step.launches
+    """All six sweep families run batched on the card; a family whose
+    kernels have no replica axis yet (WIRE-2D, ROADMAP.md §A item 5c) or
+    that has no kernel (realgabor, item 5d) raises in fit_pointwise_many,
+    naming its ROADMAP item, before any kernel launches."""
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.signals import coords as C
+    from wire_tpu_torch.train import trainer as T
+    for nonlin, item in (("wire2d", "5c"), ("realgabor", "5d")):
+        model = get_inr(nonlin, in_features=2, out_features=3,
+                        hidden_features=16, hidden_layers=1)
+        ps = tree.stack([model.init(torch.Generator().manual_seed(s), cuda)
+                         for s in range(2)])
+        before = (WS.wire_step.launches, dict(RM.launches),
+                  dict(MF.launches), dict(W2.launches))
         with pytest.raises(NotImplementedError, match=f"§A item {item}"):
-            sweep.main(["denoise", "--seeds", "2", "--nonlins", nonlin,
-                        "--niters", "1", "--results_dir", str(tmp_path)])
-        assert WS.wire_step.launches == before
+            T.fit_pointwise_many(model, ps, C.grid2d(8, 8),
+                                 np.zeros((64, 3), np.float32),
+                                 T.FitConfig(niters=1), device=cuda)
+        assert (WS.wire_step.launches, dict(RM.launches), dict(MF.launches),
+                dict(W2.launches)) == before
     model = get_inr("wire2d", in_features=2, out_features=3,
                     hidden_features=16, hidden_layers=1)
-    from wire_tpu_torch import tree
     ps = tree.stack([model.init(torch.Generator().manual_seed(s), cuda)
                      for s in range(2)])
     with pytest.raises(NotImplementedError, match="§A item 5c"):
         model.apply_many(ps, torch.zeros(10, 2, device=cuda))
+
+
+def test_real_and_mfn_replica_kernels_are_the_unbatched_kernels(
+        cuda, monkeypatch):
+    """real_step, the real_mlp pair, mfn_step and the mfn_mlp pair with a
+    replica axis (chip_smoke.py's many_real_vs_plain at smaller shapes, 3
+    replicas): one launch per call for all replicas, two calls bit-equal,
+    each replica bit-equal to the unbatched kernel on its inputs and within
+    REL of its reference (posenc's step: the float64 run on the kernel's
+    relu pattern)."""
+    import chip_smoke as S
+    from wire_tpu_torch.apps import common as TC
+    from wire_tpu_torch.apps import multi_sr as TMS
+    from wire_tpu_torch.apps import sweep as SW
+    from wire_tpu_torch.nn import models as MM
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.train.presets import get_config
+    monkeypatch.setattr(S, "MANY_REAL_SHAPES", dict(
+        rows=96 * 96, ragged_step=300, sisr_side=48, sweep_side=64,
+        frame_rows=48 * 48))
+    errs, times = S.many_real_vs_plain(
+        torch, np, (RM, MF, MM, SW, TC, TMS, get_inr, get_config), cuda)
+    assert set(errs) == {"real_step", "real_mlp", "mfn_step", "mfn_mlp"}
+    assert all(t["ms"] > 0 and t["serial_ms"] > 0 for t in times.values())
+
+
+@pytest.mark.parametrize("nonlin", ["siren", "mfn"])
+def test_batched_real_and_mfn_fits_are_the_serial_fits(cuda, nonlin):
+    """A 3-replica siren or MFN denoise fit on the card, full batch and
+    chunked: replica r bit-equal to the serial fit at seed + r, one
+    real_step or mfn_step launch a step for all replicas."""
+    import dataclasses
+    import chip_smoke as S
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.signals import coords as C
+    from wire_tpu_torch.train import trainer as T
+    model = get_inr(nonlin, in_features=2, out_features=3,
+                    hidden_features=64, hidden_layers=2, first_omega0=7.0,
+                    hidden_omega0=7.0)
+    launches = MF.launches if nonlin == "mfn" else RM.launches
+    ps = S.model_stack(torch, model, range(3), cuda)
+    rng = np.random.default_rng(1)
+    im = rng.random((64 * 64, 3)).astype(np.float32)
+    noisy = im + 0.1 * rng.normal(size=im.shape).astype(np.float32)
+    lr = 5e-3 if nonlin == "mfn" else 1e-3
+    for maxpoints, steps in ((64 * 64, 5), (1024, 20)):
+        cfg = T.FitConfig(learning_rate=lr, niters=5, maxpoints=maxpoints,
+                          seed=2)
+        before = launches["step"]
+        many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), noisy, cfg,
+                                    gt=im, device=cuda)
+        assert launches["step"] == before + steps
+        S.many_vs_serial(np, many, [T.fit_pointwise(
+            model, tree.index(ps, r), C.grid2d(64, 64), noisy,
+            dataclasses.replace(cfg, seed=2 + r), gt=im, device=cuda)
+            for r in range(3)], f"{nonlin} maxpoints {maxpoints}")
+
+
+# the digest (tools/port_rows_turn.py) of mscale2_step's outputs at the
+# measure phase's mscale_2 denoise shape, as the tree before the replica
+# axis went into real_tc.cuh (commit a4efcde) gave them on an NVIDIA H100
+# 80GB HBM3 (PyTorch 2.11.0+cu128, CUDA 12.8); another toolkit or card
+# may round otherwise
+MSCALE2_PARENT_DIGEST = "e4e7cef711d28737"
+
+
+def test_mscale2_step_keeps_its_bits(cuda):
+    """Row 7 (mscale2_step) runs real_tc.cuh's chains, which took the
+    replica axis: its single-model instances give the same bits as before
+    (the digest of its outputs at the mscale_2 denoise shape)."""
+    import importlib.util
+    import os
+    import chip_smoke as S
+    path = os.path.join(os.path.dirname(S.__file__), "tools",
+                        "port_rows_turn.py")
+    spec = importlib.util.spec_from_file_location("port_rows_turn", path)
+    turn = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(turn)
+    fn = turn.slice_rows(torch, S, cuda)["mscale2_step"]
+    assert turn.digest(torch, fn()) == MSCALE2_PARENT_DIGEST

@@ -401,13 +401,16 @@ class _OnCuda(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("nonlin,item", [("siren", "5b"), ("mfn", "5b"),
-                                         ("relu", "5b"),
-                                         ("bspline_form", "5b"),
-                                         ("wire2d", "5c"),
-                                         ("bspline_mscale_2", "5c")])
-def test_other_families_refuse_replicas_on_the_card(nonlin, item):
-    extra = dict(scale_tensor=(1.0, 2.0)) if "mscale" in nonlin else {}
+@pytest.mark.parametrize("nonlin,item,extra", [
+    ("wire2d", "5c", {}),
+    ("bspline_mscale_2", "5c", dict(scale_tensor=(1.0, 2.0))),
+    ("realgabor", "5d", {}), ("bspline_sig", "5d", {}),
+    ("siren", "5d", dict(fused="never"))])
+def test_other_families_refuse_replicas_on_the_card(nonlin, item, extra):
+    """The families without replica kernels raise on the card: WIRE-2D's
+    and mscale_2's kernels wait on ROADMAP.md §A item 5c; the autodiff
+    families (no kernel in wire_tpu either: realgabor, bspline_sig, any
+    family at fused='never') on item 5d."""
     model = tget_inr(nonlin, in_features=2, out_features=3,
                      hidden_features=16, hidden_layers=1, **extra)
     stack = tree.stack([model.init(torch.Generator().manual_seed(s))
@@ -464,8 +467,66 @@ def test_wire_replicas_on_the_card_take_the_kernels(monkeypatch):
     never = tget_inr("wire", **dict(
         in_features=2, out_features=3, hidden_features=12, hidden_layers=2,
         fused="never"))
-    with pytest.raises(NotImplementedError, match="§A item 5b"):
+    with pytest.raises(NotImplementedError, match="§A item 5d"):
         never.apply_many(stack, c)
+
+
+@pytest.mark.parametrize("nonlin", ["siren", "mfn", "relu", "bspline_form"])
+def test_real_and_mfn_replicas_on_the_card_take_the_kernels(monkeypatch,
+                                                            nonlin):
+    """The real families' and the MFN's replica calls on a CUDA tensor go
+    to their replica kernels' launches (spied, no kernel runs) with the
+    stacked layout's shapes: ``real_step``/``mfn_step`` with reps M, the
+    pair with a parameter that needs a gradient, the forward that keeps
+    nothing without one; the stacked fold is the canonical leaves with a
+    leading M."""
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import real_mlp as RM
+    model = tget_inr(nonlin, in_features=2, out_features=3,
+                     hidden_features=16, hidden_layers=1)
+    M = 3
+    stack = tree.stack([model.init(torch.Generator().manual_seed(s))
+                        for s in range(M)])
+    mod = MF if nonlin == "mfn" else RM
+    seen = {}
+
+    def spy_step(params, coords, target, *rest, reps=None):
+        leaves = tree.leaves(params)
+        seen["step"] = (reps, tuple(coords.shape),
+                        {t.shape[0] for _, t in leaves})
+        return (torch.zeros(reps, coords.shape[-2], 3),
+                tree.map(torch.zeros_like, params))
+
+    def spy_nograd(params, coords, *rest, keep, reps=None):
+        seen["apply"] = (reps, tuple(coords.shape), keep)
+        return torch.zeros(reps, coords.shape[-2], 3), None, None
+
+    def spy_pair(coords, *rest):
+        # _RealMLP.apply(coords, kinds, row_gamma, reps, *leaves),
+        # _MfnMLP.apply(coords, paths, reps, *leaves)
+        seen["pair"] = (rest[1 if nonlin == "mfn" else 2],
+                        tuple(coords.shape))
+        return torch.zeros(M, coords.shape[-2], 3)
+
+    monkeypatch.setattr(mod, "_launch_step", spy_step)
+    monkeypatch.setattr(mod, "_forward", spy_nograd)
+    monkeypatch.setattr(mod._MfnMLP if nonlin == "mfn" else mod._RealMLP,
+                        "apply", spy_pair)
+    c = torch.zeros(M, 2, 10, 2).as_subclass(_OnCuda)
+    t = torch.zeros(10, 3).as_subclass(_OnCuda)
+    pred, grads = model.step_grads_many(stack, c[:, 0], t, nvalid=[8, 8, 8])
+    assert seen["step"] == (M, (M, 10, 2), {M})
+    assert pred.shape == (M, 10, 3)
+    _bits_tree(grads, tree.map(torch.zeros_like, stack), "grads")
+    with torch.no_grad():
+        y = model.apply_many(stack, c)
+    assert seen["apply"] == (M, (M, 20, 2), False)
+    assert y.shape == (M, 2, 10, 3)
+    grad_stack = tree.map(lambda x: x.clone().requires_grad_(True), stack)
+    y = model.apply_many(grad_stack, c[0, 0])
+    assert seen["pair"] == (M, (10, 2)) and y.shape == (M, 10, 3)
+    with pytest.raises(ValueError, match="no coordinate gradient"):
+        model.apply_many(stack, c.clone().requires_grad_(True))
 
 
 # ---------------------------------------------------------------------------

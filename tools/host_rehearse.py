@@ -706,7 +706,7 @@ def rehearse_mfn(out_dir):
                 leaves = [v.clone().requires_grad_(True) for _, v in flat_p]
                 x = cl.clone().requires_grad_(dcoords)
                 if fn == "kernel":  # as mfn_mlp flattens leading axes
-                    y = MF._MfnMLP.apply(x.reshape(-1, d), paths,
+                    y = MF._MfnMLP.apply(x.reshape(-1, d), paths, None,
                                          *leaves).reshape(*cl.shape[:-1], o)
                 else:
                     y = MF.mfn_mlp_plain(tree.unflatten(paths, leaves), x,
@@ -796,7 +796,8 @@ def rehearse_real(out_dir):
                           for _, v in RM.canon_leaves(canon)]
                 x = c.clone().requires_grad_(dcoords)
                 if fn == "kernel":
-                    y = RM._RealMLP.apply(x, kinds, row_gamma, *leaves)
+                    y = RM._RealMLP.apply(x, kinds, row_gamma, None,
+                                          *leaves)
                 else:
                     y = RM.real_mlp_plain(RM.canon_from_leaves(leaves, L), x,
                                           kinds, row_gamma)
@@ -824,13 +825,14 @@ def _bits(got, want, what):
 
 
 def rehearse_many(out_dir):
-    """The replica axis of wire_step, the wire_mlp pair, rotsum and
-    line_sample (the batched multi-fit): M replicas with distinct weights in
-    one call, each replica's outputs bit-equal to an unbatched call of the
-    same host library on its own inputs (line_sample's scatter within 1e-5
-    of it: its atomics add in any order) and within 1e-4 of the plain
-    version; coordinates and targets shared and per replica, ragged n
-    across the 512- and 1,024-row chunks, h not a multiple of 4, L 0-2."""
+    """The replica axis of wire_step, the wire_mlp pair, rotsum,
+    line_sample, real_step and the real_mlp pair, mfn_step and the mfn_mlp
+    pair (the batched multi-fit): M replicas with distinct weights in one
+    call, each replica's outputs bit-equal to an unbatched call of the same
+    host library on its own inputs (line_sample's scatter within 1e-5 of
+    it: its atomics add in any order) and within 1e-4 of the plain version;
+    coordinates and targets shared and per replica, ragged n across the
+    512-, 1,024- and 2,048-row chunks, widths not a multiple of 4, L 0-3."""
     import numpy as np
     import torch
     from wire_tpu_torch import tree
@@ -963,6 +965,178 @@ def rehearse_many(out_dir):
             print(f"line_sample M {M} P {P} A {A}: gathers bit-equal to "
                   f"single calls, scatters within {rel:.1e}", flush=True)
     LS._lib.cache_clear()
+    rehearse_many_real(out_dir)
+    rehearse_many_mfn(out_dir)
+
+
+def _canon_stack(rng, widths, M):
+    """M random canonical trees of the given widths, stacked."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch import tree
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    def one():
+        return {"layers": [{"w": t(rng.uniform(-1, 1, (a, b)) / np.sqrt(a)),
+                            "alpha": t(rng.uniform(0.5, 2.0, b)),
+                            "beta": t(rng.uniform(-1, 1, b))}
+                           for a, b in zip(widths[:-2], widths[1:-1])],
+                "final": {"w": t(rng.uniform(-1, 1, widths[-2:])),
+                          "b": t(rng.uniform(-1, 1, widths[-1]))}}
+    return tree.stack([one() for _ in range(M)])
+
+
+def rehearse_many_real(out_dir):
+    """real_step and the real_mlp pair on M replicas: real_tc.cuh's replica
+    instances (the layer kernels, the weight gradients with per-replica
+    alpha column scales, the column sums), each replica bit-equal to an
+    unbatched call: narrow first layers (d 2) and posenc's on the tensor
+    cores (d 26, its coordinates shared by the replicas), a hidden width of
+    8 on the narrow kernels, lane segments, ragged n over the 2,048-row
+    chunks."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops import real_mlp as RM
+
+    def rand(rng, shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    seg = ((("qspline", 20), ("identity", 10), ("sine", 10)), "srelu")
+    RM._lib.cache_clear()
+    with host_library("real_mlp", os.path.join(out_dir, "rm")):
+        for n, widths, kinds, M, nvalid, shared in (
+                (300, (2, 48, 40, 3), ("qspline", "qspline"), 3, 290, False),
+                (200, (26, 20, 20, 1), ("relu", "relu"), 2, 150, True),
+                (260, (2, 8, 12, 2), ("cspline", "sine"), 2, None, True),
+                (700, (2, 48, 40, 3), seg, 2, 650, False),
+                (2100, (2, 16, 3), ("gauss",), 2, 2049, True)):
+            kinds = RM.norm_kinds(kinds)
+            d, o = widths[0], widths[-1]
+            rng = np.random.default_rng(n + d)
+            cs = _canon_stack(rng, widths, M)
+            lead = () if shared else (M,)
+            c = rand(rng, lead + (n, d))
+            t, gt = rand(rng, lead + (n, o), 0, 1), rand(rng, lead + (n, o),
+                                                          0, 1)
+            got = _step_tensors(RM._launch_step(cs, c, t, kinds, nvalid,
+                                                None, gt, True, None,
+                                                reps=M))
+            for r in range(M):
+                pick = (lambda x: x) if shared else (lambda x: x[r])
+                want = _step_tensors(RM._launch_step(
+                    tree.index(cs, r), pick(c), pick(t), kinds, nvalid, None,
+                    pick(gt), True, None))
+                mine = [x.reshape(M, -1)[r] for x in got]
+                _bits(mine, [x.reshape(-1) for x in want],
+                      f"real_step replica {r}")
+                plain = _step_tensors(RM.real_step_plain(
+                    tree.index(cs, r), pick(c), pick(t), kinds,
+                    nvalid=nvalid, gt=pick(gt), want_metrics=True))
+                rel = _max_rel(mine, [x.reshape(-1) for x in plain])
+                assert rel <= 1e-4, rel
+            print(f"real_step_many n {n} widths {widths} M {M} shared "
+                  f"{shared}: replicas bit-equal to single calls, max rel "
+                  f"err to plain {rel:.2e}", flush=True)
+
+            g = rand(rng, (M, n, o))
+            L = len(kinds)
+
+            def pair(canon, coords, cot, reps):
+                leaves = [v.clone().requires_grad_(True)
+                          for _, v in RM.canon_leaves(canon)]
+                y = RM._RealMLP.apply(coords, kinds, None, reps, *leaves)
+                grads = torch.autograd.grad(y, leaves, cot)
+                with torch.no_grad():
+                    y0, _, _ = RM._forward(canon, coords, kinds, None,
+                                           keep=False, reps=reps)
+                return [y.detach(), y0] + list(grads)
+
+            got = pair(cs, c, g, M)
+            for r in range(M):
+                cr = c if shared else c[r]
+                want = pair(tree.index(cs, r), cr, g[r], None)
+                _bits([x[r] for x in got], want, f"real_mlp replica {r}")
+            print(f"real_mlp_many n {n} widths {widths} L {L} M {M} shared "
+                  f"{shared}: replicas bit-equal to single calls (forward, "
+                  f"no-grad forward, every gradient)", flush=True)
+    RM._lib.cache_clear()
+
+
+def rehearse_many_mfn(out_dir):
+    """mfn_step and the mfn_mlp pair on M replicas: the replica instances of
+    the filter, link and filter-gradient kernels, each replica bit-equal to
+    an unbatched call: h 13 and 16 (tensor-core instances), h 6 (the narrow
+    kernels), k 1-3, d 1-3, ragged n over the 512-row filter chunks."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.nn.registry import get_inr
+    from wire_tpu_torch.ops import mfn as MF
+
+    def rand(rng, shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    MF._lib.cache_clear()
+    with host_library("mfn", os.path.join(out_dir, "mf")):
+        for n, d, h, L, o, M, nvalid, shared in (
+                (300, 2, 13, 2, 3, 3, 290, False),
+                (130, 3, 16, 1, 1, 2, None, True),
+                (200, 2, 6, 2, 3, 2, 150, True),
+                (1100, 1, 13, 0, 2, 2, 1030, False)):
+            model = get_inr("mfn", in_features=d, out_features=o,
+                            hidden_features=h, hidden_layers=L)
+            spec = model.spec
+            ps = tree.stack([model.init(torch.Generator().manual_seed(n + r),
+                                        "cpu") for r in range(M)])
+            rng = np.random.default_rng(n)
+            lead = () if shared else (M,)
+            c = rand(rng, lead + (n, d))
+            t, gt = rand(rng, lead + (n, o), 0, 1), rand(rng, lead + (n, o),
+                                                          0, 1)
+            got = _step_tensors(MF._launch_step(ps, c, t, nvalid, None, gt,
+                                                True, None, reps=M))
+            for r in range(M):
+                pick = (lambda x: x) if shared else (lambda x: x[r])
+                want = _step_tensors(MF._launch_step(
+                    tree.index(ps, r), pick(c), pick(t), nvalid, None,
+                    pick(gt), True, None))
+                mine = [x.reshape(M, -1)[r] for x in got]
+                _bits(mine, [x.reshape(-1) for x in want],
+                      f"mfn_step replica {r}")
+                plain = _step_tensors(MF.mfn_step_plain(
+                    tree.index(ps, r), pick(c), pick(t), spec, nvalid=nvalid,
+                    gt=pick(gt), want_metrics=True))
+                rel = _max_rel(mine, [x.reshape(-1) for x in plain])
+                assert rel <= 1e-4, rel
+            print(f"mfn_step_many n {n} d {d} h {h} L {L} o {o} M {M} "
+                  f"shared {shared}: replicas bit-equal to single calls, max "
+                  f"rel err to plain {rel:.2e}", flush=True)
+
+            g = rand(rng, (M, n, o))
+            paths = tuple(p for p, _ in tree.leaves(ps))
+
+            def pair(params, coords, cot, reps):
+                leaves = [tree.get(params, k).clone().requires_grad_(True)
+                          for k in paths]
+                y = MF._MfnMLP.apply(coords, paths, reps, *leaves)
+                grads = torch.autograd.grad(y, leaves, cot)
+                with torch.no_grad():
+                    y0, _, _ = MF._forward(params, coords, keep=False,
+                                           reps=reps)
+                return [y.detach(), y0] + list(grads)
+
+            got = pair(ps, c, g, M)
+            for r in range(M):
+                cr = c if shared else c[r]
+                want = pair(tree.index(ps, r), cr, g[r], None)
+                _bits([x[r] for x in got], want, f"mfn_mlp replica {r}")
+            print(f"mfn_mlp_many n {n} d {d} h {h} L {L} o {o} M {M} shared "
+                  f"{shared}: replicas bit-equal to single calls (forward, "
+                  f"no-grad forward, every gradient)", flush=True)
+    MF._lib.cache_clear()
 
 
 def main():
@@ -972,7 +1146,9 @@ def main():
                   "wire_step": rehearse_wire_step,
                   "mscale2_step": rehearse_mscale2_step,
                   "wire2d": rehearse_wire2d, "mfn": rehearse_mfn,
-                  "real": rehearse_real, "many": rehearse_many}
+                  "real": rehearse_real, "many": rehearse_many,
+                  "many_real": rehearse_many_real,
+                  "many_mfn": rehearse_many_mfn}
     names = sys.argv[1:] or list(rehearsals)
     with tempfile.TemporaryDirectory() as d:
         for name in names:

@@ -30,11 +30,12 @@ through the batched fitters (``fit_pointwise_many``, ``fit_operator_many``):
 the replicas' inits are independent draws split from ``seed0`` (one
 generator seeded ``seed0`` draws N child seeds, one per init, as
 ``jax.random.split`` does in wire_tpu, so replica 0 is not the single-seed
-sweep's init) and replica r's fit seed is ``seed0 + r``.  On the card only
-WIRE has replica kernels (denoise through wire_step, SISR and CT through
-the wire_mlp pair, CT's 'auto' operator through line_sample); another
-family's ``--seeds`` raises there (ROADMAP.md §A items 5b, 5c) and runs its
-plain path with ``--device cpu``.
+sweep's init) and replica r's fit seed is ``seed0 + r``.  On the card all
+six families run batched through their kernels' replica axis, one launch
+sequence for all N: denoise through wire_step, real_step (siren, gauss,
+relu, posenc) or mfn_step; SISR and CT through the wire_mlp, real_mlp or
+mfn_mlp pair, CT's 'auto' operator through line_sample.  ``--device cpu``
+runs the plain path.
 """
 from __future__ import annotations
 

@@ -42,7 +42,7 @@ inline int ceil_div(long long a, long long b) {
 // column scale, entries e of the first `scaled_rows` rows of an (E / NB) x
 // NB block are then multiplied by colscale[e % NB].  Replica blockIdx.y
 // reads the C x E partials and writes the E sums that follow its
-// predecessors'; the column scale is shared.
+// predecessors', scaled by the NB column scales that follow theirs.
 __global__ void reduce_chunks_kernel(const float* __restrict__ part, int C,
                                      int E, float* __restrict__ out,
                                      const float* __restrict__ colscale,
@@ -51,6 +51,7 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part, int C,
   if (e >= E) return;
   part += (size_t)blockIdx.y * C * E;
   out += (size_t)blockIdx.y * E;
+  if (colscale != nullptr) colscale += (size_t)blockIdx.y * NB;
   float s = 0.f;
   for (int c = 0; c < C; ++c) s += part[(size_t)c * E + e];
   if (colscale != nullptr && e / NB < scaled_rows) s *= colscale[e % NB];
@@ -58,7 +59,7 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part, int C,
 }
 
 // Sum C partials of E floats each, in chunk order, into out; for `reps`
-// replicas, part holds reps x C x E and out reps x E.
+// replicas, part holds reps x C x E, out reps x E and colscale reps x NB.
 inline cudaError_t reduce_chunks(const float* part, int C, int E, float* out,
                                  cudaStream_t st,
                                  const float* colscale = nullptr, int NB = 1,

@@ -86,6 +86,26 @@
 // rounding step (~3e-5 at |q| ~ 300, ~5e-4 at the 8,000 of the
 // extreme-phase check) between the two.  The 3xTF32 link products lie as
 // close to float64 as fp32 SGEMMs do (csrc/wire_tc.cuh).
+//
+// Replicas (wire_tpu's fit_pointwise_many, fit_operator_many and
+// fit_frames_many, which vmap these Pallas calls): each entry point takes
+// `reps` models of one shape, each on its own weights and its own or the
+// shared coordinates (and targets), through the same launches with a
+// replica grid axis (blockIdx.z of the filter, link and filter-gradient
+// kernels, blockIdx.y of the finish kernel; wire_tc.cuh's weight gradients
+// and gemm_common.cuh's sums fold it in as they say); nvalid and denom are
+// shared.  Every tensor holds reps of its own, replica r at r times its
+// size past the start: each filter's w (reps, d, h), b (reps, h), mu
+// (reps, h, d) and gamma (reps, h), the links' W and WT (reps, h, h) and c
+// (reps, h), Wf (reps, h, o), WfT (reps, o, h), bf (reps, o); zs[j], ls[j]
+// and dg (reps, n, h), dl (2, reps, n, h), pred and g (reps, n, o), the
+// gradients likewise, part reps x mfn_part_floats; x (reps, n, d), or one
+// (n, d) shared by all when x_shared.  A replica's blocks do what an
+// unbatched launch does, so its results are bit-equal to one; reps = 1 is
+// that call, through the kernels' single-model instances (the replica is a
+// template flag, kReps, of the filter, link and filter-gradient kernels).
+// The replica backward computes no dcoords (filter_dcoords_kernel is not
+// launched): the batched fits' coordinates are constants.
 
 #include "gemm_common.cuh"
 #include "wire_tc.cuh"
@@ -109,6 +129,13 @@ struct Filter {
   const float* mu;
   const float* gamma;
 };
+
+// Replica rep's filter, each tensor rep times its size past f's.
+__device__ __forceinline__ Filter replica_filter(const Filter& f, size_t rep,
+                                                 int d, int h) {
+  return Filter{f.w + rep * d * h, f.b + rep * h, f.mu + rep * h * d,
+                f.gamma + rep * h};
+}
 
 // One column's filter: w and mu (0 past d), b, gamma, and |mu|^2 rounded
 // as the plain version rounds it (products, then sums).
@@ -189,12 +216,20 @@ __device__ __noinline__ float filter_g(Col col, Row row, int d) {
 }
 
 // z_0[r, c] = g_0(x_r)[c]: a lane per column, its filter in registers; the
-// block's kNarrowRows rows strided by warp.
+// block's kNarrowRows rows strided by warp.  kReps: replica blockIdx.z (x
+// shared when x_shared).
+template <bool kReps>
 __global__ void __launch_bounds__(kThreads) filter_forward_kernel(
     const float* __restrict__ x, Filter f, float* __restrict__ z, int n,
-    int d, int h) {
+    int d, int h, int x_shared) {
   const int c = blockIdx.x * 32 + threadIdx.x % 32;
   if (c >= h) return;
+  if (kReps) {
+    const size_t rep = blockIdx.z;
+    if (!x_shared) x += rep * n * d;
+    f = replica_filter(f, rep, d, h);
+    z += rep * n * h;
+  }
   const Col col = load_col(f, d, h, c);
   const int r_end = min(n, (int)(blockIdx.y + 1) * kNarrowRows);
   for (int r = blockIdx.y * kNarrowRows + threadIdx.x / 32; r < r_end;
@@ -205,6 +240,24 @@ __global__ void __launch_bounds__(kThreads) filter_forward_kernel(
 }
 
 enum LinkMode { kLinkFwd = 0, kLinkBwd = 1, kPlainOut = 2 };
+
+// A link epilogue's tensors of replica blockIdx.z: x (n x d) unless
+// x_shared, the filter, bias (N), lin, out0 and out1 (n x N), each where
+// the mode has it (not null).
+__device__ __forceinline__ void replica_link(
+    const float* __restrict__& x, Filter& f, const float* __restrict__& bias,
+    const float* __restrict__& lin, float* __restrict__& out0,
+    float* __restrict__& out1, int n, int N, int d, int x_shared) {
+  const size_t rep = blockIdx.z;
+  if (x != nullptr) {
+    if (!x_shared) x += rep * n * d;
+    f = replica_filter(f, rep, d, N);
+  }
+  if (bias != nullptr) bias += rep * N;
+  if (lin != nullptr) lin += rep * n * N;
+  if (out0 != nullptr) out0 += rep * n * N;
+  if (out1 != nullptr) out1 += rep * n * N;
+}
 
 // One output of acc = A @ B, g the column's filter at the row:
 //   kLinkFwd:  l = acc + bias; o0 = l, o1 = l g            (l_j, z_j)
@@ -229,13 +282,15 @@ __device__ __forceinline__ void link_out(float acc, float g, float bias,
 // kBM, blockIdx.x kBN) on the tensor cores, then link_out<kMode> on the
 // registers with filter f at the coordinates x (n x d); bias (kLinkFwd)
 // and lin (kLinkBwd) are the link's c and l_j; out0 may be null in
-// kLinkFwd.  kVecA, kVecB, kPair: wire_tc.cuh:Access.
-template <int kMode, bool kVecA, bool kVecB, bool kPair>
+// kLinkFwd.  kVecA, kVecB, kPair: wire_tc.cuh:Access.  kReps: replica
+// blockIdx.z, every operand at the replica's offsets (x shared when
+// x_shared).
+template <int kMode, bool kVecA, bool kVecB, bool kPair, bool kReps>
 __global__ void __launch_bounds__(wire_tc::kThreads, 2) mfn_tc_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     const float* __restrict__ x, Filter f, const float* __restrict__ bias,
     const float* __restrict__ lin, float* __restrict__ out0,
-    float* __restrict__ out1, int n, int K, int N, int d) {
+    float* __restrict__ out1, int n, int K, int N, int d, int x_shared) {
   constexpr int kMT = wire_tc::kMT, kNT = wire_tc::kNT;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -243,9 +298,14 @@ __global__ void __launch_bounds__(wire_tc::kThreads, 2) mfn_tc_kernel(
   const int g = lane / 4, t = lane % 4;
   const int col0 = blockIdx.x * wire_tc::kBN;
   const int row0 = blockIdx.y * wire_tc::kBM;
+  if (kReps) {
+    A += (size_t)blockIdx.z * n * K;
+    B += (size_t)blockIdx.z * K * N;
+  }
   float acc[kMT][kNT][4];
   wire_tc::tile_product<wire_tc::kPlain, kVecA, kVecB>(
       smem, A, B, N, n, K, row0, col0, N, acc);
+  if (kReps) replica_link(x, f, bias, lin, out0, out1, n, N, d, x_shared);
 
   // this thread's 8 columns: their bias (forward) and filter
   float2 cb[kNT];
@@ -313,15 +373,21 @@ __global__ void __launch_bounds__(wire_tc::kThreads, 2) mfn_tc_kernel(
 // acc = A (n x K) @ B (K x N) for a small K (<= kNarrowK), then
 // link_out<kMode>, on the CUDA cores: a warp takes 32 consecutive columns
 // of kNarrowRows rows, one column per lane, and keeps the column's B, bias
-// and filter in registers; fp32 FMAs in k order.
-template <int kMode>
+// and filter in
+// registers; fp32 FMAs in k order.  kReps: as mfn_tc_kernel's.
+template <int kMode, bool kReps>
 __global__ void __launch_bounds__(kThreads) mfn_narrow_kernel(
     const float* __restrict__ A, const float* __restrict__ B,
     const float* __restrict__ x, Filter f, const float* __restrict__ bias,
     const float* __restrict__ lin, float* __restrict__ out0,
-    float* __restrict__ out1, int n, int K, int N, int d) {
+    float* __restrict__ out1, int n, int K, int N, int d, int x_shared) {
   const int c = blockIdx.x * 32 + threadIdx.x % 32;
   if (c >= N) return;
+  if (kReps) {
+    A += (size_t)blockIdx.z * n * K;
+    B += (size_t)blockIdx.z * K * N;
+    replica_link(x, f, bias, lin, out0, out1, n, N, d, x_shared);
+  }
   float b[kNarrowK];
 #pragma unroll
   for (int k = 0; k < kNarrowK; ++k)
@@ -353,39 +419,44 @@ __global__ void __launch_bounds__(kThreads) mfn_narrow_kernel(
 
 // One link product and its epilogue (link_out<kMode>): the narrow kernel
 // for K <= kNarrowK, else the tensor-core kernel instance for the shapes'
-// and pointers' accesses.
-template <int kMode>
+// and pointers' accesses; kReps: `reps` replicas in blockIdx.z.
+template <int kMode, bool kReps>
 cudaError_t link(const float* A, const float* B, const float* x,
                  const Filter& f, const float* bias, const float* lin,
                  float* out0, float* out1, int n, int K, int N, int d,
-                 cudaStream_t st) {
+                 cudaStream_t st, int reps, int x_shared) {
   if (K <= kNarrowK) {
-    const dim3 grid(ceil_div(N, 32), ceil_div(n, kNarrowRows));
-    mfn_narrow_kernel<kMode><<<grid, kThreads, 0, st>>>(
-        A, B, x, f, bias, lin, out0, out1, n, K, N, d);
+    const dim3 grid(ceil_div(N, 32), ceil_div(n, kNarrowRows), reps);
+    mfn_narrow_kernel<kMode, kReps><<<grid, kThreads, 0, st>>>(
+        A, B, x, f, bias, lin, out0, out1, n, K, N, d, x_shared);
     return cudaGetLastError();
   }
-  const dim3 grid(ceil_div(N, wire_tc::kBN), ceil_div(n, wire_tc::kBM));
+  const dim3 grid(ceil_div(N, wire_tc::kBN), ceil_div(n, wire_tc::kBM),
+                  reps);
   auto kernel = wire_tc::instance(
       wire_tc::access(A, B, K, N, {bias, lin, out0, out1}),
       [](auto va, auto vb, auto pr) {
         return &mfn_tc_kernel<kMode, decltype(va)::value,
-                              decltype(vb)::value, decltype(pr)::value>;
+                              decltype(vb)::value, decltype(pr)::value,
+                              kReps>;
       });
   GEMM_CHECK(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       wire_tc::kSmemBytes));
   kernel<<<grid, wire_tc::kThreads, wire_tc::kSmemBytes, st>>>(
-      A, B, x, f, bias, lin, out0, out1, n, K, N, d);
+      A, B, x, f, bias, lin, out0, out1, n, K, N, d, x_shared);
   return cudaGetLastError();
 }
 
-// A link's [dW; dc] = [z_{j-1} | 1]^T dl_j ((h + 1) x h) over n rows.
+// A link's [dW; dc] = [z_{j-1} | 1]^T dl_j ((h + 1) x h) over n rows; for
+// `reps` replicas X, D, part and out hold reps of their own.
 cudaError_t link_weight_grad(const float* X, const float* D, float* part,
-                             float* out, int n, int h, cudaStream_t st) {
+                             float* out, int n, int h, cudaStream_t st,
+                             int reps) {
   if (h <= kNarrowK)
-    return wire_tc::narrow_weight_grad(X, D, part, out, n, h, h, st);
-  return wire_tc::weight_grad(X, D, part, out, n, h, h, st);
+    return wire_tc::narrow_weight_grad(X, D, part, out, n, h, h, st, nullptr,
+                                       reps);
+  return wire_tc::weight_grad(X, D, part, out, n, h, h, st, nullptr, reps);
 }
 
 constexpr int kCols = 32;                  // columns of one filter-grad block
@@ -399,11 +470,20 @@ inline int filter_chunks(int n) { return ceil_div(n, kFilterChunkRows); }
 // [dq, dq x_0, dq x_1, dq x_2, ges, ges x_0, ges x_1, ges x_2, ges nrm]
 // (slots past d stay 0).  Thread (c, g) walks rows g, g + 8, ... of the
 // chunk in order with its column's filter in registers; the 8 groups then
-// meet in order in shared memory.
+// meet in order in shared memory.  kReps: replica blockIdx.z (x shared when
+// x_shared), its chunk partials after its predecessors'.
+template <bool kReps>
 __global__ void __launch_bounds__(kThreads) filter_grad_partial_kernel(
     const float* __restrict__ x, const float* __restrict__ dg, Filter f,
-    float* __restrict__ part, int n, int d, int h) {
+    float* __restrict__ part, int n, int d, int h, int x_shared) {
   __shared__ float sums[kSums][kGroups][kCols];
+  if (kReps) {
+    const size_t rep = blockIdx.z;
+    if (!x_shared) x += rep * n * d;
+    dg += rep * n * h;
+    f = replica_filter(f, rep, d, h);
+    part += rep * gridDim.y * kSums * h;
+  }
   const int cx = threadIdx.x % kCols, g = threadIdx.x / kCols;
   const int c = blockIdx.x * kCols + cx;
   const int chunk = blockIdx.y;
@@ -449,7 +529,7 @@ __global__ void __launch_bounds__(kThreads) filter_grad_partial_kernel(
 
 // Filter f's gradients from its nine column sums (kSums x h, the chunk
 // partials added in chunk order by reduce_chunks): gw (d x h), gb (h),
-// gmu (h x d), ggamma (h).
+// gmu (h x d), ggamma (h); replica blockIdx.y, each tensor at its offset.
 __global__ void filter_grad_finish_kernel(const float* __restrict__ sums,
                                           Filter f, float* __restrict__ gw,
                                           float* __restrict__ gb,
@@ -458,6 +538,13 @@ __global__ void filter_grad_finish_kernel(const float* __restrict__ sums,
                                           int h) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= h) return;
+  const size_t rep = blockIdx.y;
+  sums += rep * kSums * h;
+  f = replica_filter(f, rep, d, h);
+  gw += rep * d * h;
+  gb += rep * h;
+  gmu += rep * h * d;
+  ggamma += rep * h;
   float s[kSums];
 #pragma unroll
   for (int q = 0; q < kSums; ++q) s[q] = sums[(size_t)q * h + c];
@@ -528,7 +615,8 @@ __global__ void __launch_bounds__(kThreads) filter_dcoords_kernel(
   }
 }
 
-// The network's shape and weights; pointer arrays live on the host.
+// The network's shape and weights; pointer arrays live on the host.  reps
+// replicas (the layouts of the header comment), x shared when x_shared.
 struct Net {
   int n, d, h, o, k;
   const float* x;                  // (n x d)
@@ -539,6 +627,7 @@ struct Net {
   const float* Wf;                 // (h x o)
   const float* WfT;                // (o x h)
   const float* bf;                 // (o)
+  int reps, x_shared;
   Filter filter(int j) const {
     return Filter{filters[4 * j], filters[4 * j + 1], filters[4 * j + 2],
                   filters[4 * j + 3]};
@@ -548,7 +637,7 @@ struct Net {
 // Floats of the `part` workspace of the backward and the step: the
 // largest of the link and final weight gradients' chunk partials, the
 // filter sums' (their chunk partials, then the sums) and the step's SSE
-// partials.
+// partials; per replica.
 long long part_floats(int n, int h, int o) {
   long long need = h <= kNarrowK ? wire_tc::narrow_part_floats(n, h, h)
                                  : wire_tc::wgrad_part_floats(n, h, h);
@@ -562,38 +651,43 @@ long long part_floats(int n, int h, int o) {
 
 // The forward chain: zs[j] (n x h) for every filter and, where ls[j] is
 // not null, ls[j] = l_j (j >= 1).  zs may alternate between two planes
-// when nothing is kept.  The final layer is the caller's.
+// when nothing is kept.  The final layer is the caller's.  kReps: net.reps
+// replicas.
+template <bool kReps>
 cudaError_t forward_chain(const Net& net, float* const* zs,
                           float* const* ls, cudaStream_t st) {
   const int n = net.n, h = net.h;
-  filter_forward_kernel<<<dim3(ceil_div(h, 32), ceil_div(n, kNarrowRows)),
-                          kThreads, 0, st>>>(net.x, net.filter(0), zs[0], n,
-                                             net.d, h);
+  filter_forward_kernel<kReps>
+      <<<dim3(ceil_div(h, 32), ceil_div(n, kNarrowRows), net.reps), kThreads,
+         0, st>>>(net.x, net.filter(0), zs[0], n, net.d, h, net.x_shared);
   GEMM_CHECK(cudaGetLastError());
   for (int j = 1; j < net.k; ++j) {
-    GEMM_CHECK(link<kLinkFwd>(zs[j - 1], net.W[j - 1], net.x, net.filter(j),
-                              net.c[j - 1], nullptr, ls[j], zs[j], n, h, h,
-                              net.d, st));
+    GEMM_CHECK((link<kLinkFwd, kReps>(
+        zs[j - 1], net.W[j - 1], net.x, net.filter(j), net.c[j - 1], nullptr,
+        ls[j], zs[j], n, h, h, net.d, st, net.reps, net.x_shared)));
   }
   return cudaSuccess;
 }
 
 // Filter j's gradients (and its dcoords term, when dcoords is not null)
 // from dg (n x h).
+template <bool kReps>
 cudaError_t filter_grads(const Net& net, int j, const float* dg,
                          float* const* gf, float* dcoords, float* part,
                          cudaStream_t st) {
   const int n = net.n, d = net.d, h = net.h;
   const Filter f = net.filter(j);
   const int chunks = filter_chunks(n);
-  float* sums = part + (size_t)chunks * kSums * h;
-  const dim3 grid(ceil_div(h, kCols), chunks);
-  filter_grad_partial_kernel<<<grid, kThreads, 0, st>>>(net.x, dg, f, part,
-                                                        n, d, h);
+  float* sums = part + (size_t)net.reps * chunks * kSums * h;
+  const dim3 grid(ceil_div(h, kCols), chunks, net.reps);
+  filter_grad_partial_kernel<kReps><<<grid, kThreads, 0, st>>>(
+      net.x, dg, f, part, n, d, h, net.x_shared);
   GEMM_CHECK(cudaGetLastError());
   // the chunks in chunk order, one thread per sum and column
-  GEMM_CHECK(reduce_chunks(part, chunks, kSums * h, sums, st));
-  filter_grad_finish_kernel<<<ceil_div(h, kThreads), kThreads, 0, st>>>(
+  GEMM_CHECK(reduce_chunks(part, chunks, kSums * h, sums, st, nullptr, 1, 0,
+                           net.reps));
+  filter_grad_finish_kernel<<<dim3(ceil_div(h, kThreads), net.reps),
+                              kThreads, 0, st>>>(
       sums, f, gf[4 * j], gf[4 * j + 1], gf[4 * j + 2], gf[4 * j + 3], d,
       h);
   GEMM_CHECK(cudaGetLastError());
@@ -610,34 +704,57 @@ cudaError_t filter_grads(const Net& net, int j, const float* dg,
 // The backward chain from g = dL/dy (n x o) through the kept zs and ls:
 // gf (per filter gw, gb, gmu, ggamma), gW[j] ((h + 1) x h) = [dW; dc] of
 // link j, gWf ((h + 1) x o) = [dW_f; db_f], and dcoords (n x d) when not
-// null.  Scratch: dl (2 planes of n x h), dg (n x h), part.
+// null.  Scratch: dl (2 planes of n x h), dg (n x h), part.  kReps:
+// net.reps replicas; dcoords must then be null.
+template <bool kReps>
 cudaError_t backward_chain(const Net& net, const float* g,
                            const float* const* zs, const float* const* ls,
                            float* const* gf, float* const* gW, float* gWf,
                            float* dcoords, float* dl, float* dg, float* part,
                            cudaStream_t st) {
   const int n = net.n, h = net.h, k = net.k;
-  const size_t plane = (size_t)n * h;
+  if (dcoords != nullptr && net.reps != 1) return cudaErrorInvalidValue;
+  const size_t plane = (size_t)net.reps * n * h;
   GEMM_CHECK(wire_tc::narrow_weight_grad(zs[k - 1], g, part, gWf, n, h,
-                                         net.o, st));
+                                         net.o, st, nullptr, net.reps));
   const float* src = g;
   const float* bt = net.WfT;
   int kdim = net.o;
   int cur = 0;
   for (int j = k - 1; j >= 1; --j) {
     float* dlj = dl + cur * plane;
-    GEMM_CHECK(link<kLinkBwd>(src, bt, net.x, net.filter(j), nullptr, ls[j],
-                              dlj, dg, n, kdim, h, net.d, st));
-    GEMM_CHECK(filter_grads(net, j, dg, gf, dcoords, part, st));
-    GEMM_CHECK(link_weight_grad(zs[j - 1], dlj, part, gW[j - 1], n, h, st));
+    GEMM_CHECK((link<kLinkBwd, kReps>(src, bt, net.x, net.filter(j), nullptr,
+                                      ls[j], dlj, dg, n, kdim, h, net.d, st,
+                                      net.reps, net.x_shared)));
+    GEMM_CHECK(filter_grads<kReps>(net, j, dg, gf, dcoords, part, st));
+    GEMM_CHECK(link_weight_grad(zs[j - 1], dlj, part, gW[j - 1], n, h, st,
+                                net.reps));
     src = dlj;
     bt = net.WT[j - 1];
     kdim = h;
     cur ^= 1;
   }
-  GEMM_CHECK(link<kPlainOut>(src, bt, nullptr, Filter{}, nullptr, nullptr,
-                             dg, nullptr, n, kdim, h, net.d, st));
-  return filter_grads(net, 0, dg, gf, dcoords, part, st);
+  GEMM_CHECK((link<kPlainOut, kReps>(src, bt, nullptr, Filter{}, nullptr,
+                                     nullptr, dg, nullptr, n, kdim, h, net.d,
+                                     st, net.reps, net.x_shared)));
+  return filter_grads<kReps>(net, 0, dg, gf, dcoords, part, st);
+}
+
+// One train step's launches: the forward chain, the final layer with the
+// loss gradient and SSE sums, the backward chain without dcoords.
+template <bool kReps>
+cudaError_t step_chain(const Net& net, const float* t, const float* gt,
+                       float* const* zs, float* const* ls, float* pred,
+                       float* g, float* sse, float* const* gf,
+                       float* const* gW, float* gWf, float* dl, float* dg,
+                       float* part, int nvalid, float two_inv_denom,
+                       int want_metrics, int t_shared, cudaStream_t st) {
+  GEMM_CHECK(forward_chain<kReps>(net, zs, ls, st));
+  GEMM_CHECK(final_loss(zs[net.k - 1], net.Wf, net.bf, t, gt, pred, g, sse,
+                        part, net.n, net.h, net.o, nvalid, two_inv_denom,
+                        want_metrics, st, net.reps, t_shared));
+  return backward_chain<kReps>(net, g, zs, ls, gf, gW, gWf, nullptr, dl, dg,
+                               part, st);
 }
 
 }  // namespace
@@ -646,8 +763,9 @@ cudaError_t backward_chain(const Net& net, const float* g,
   int n, int d, int h, int o, int k, const float *x,                       \
       const float *const *filters, const float *const *W,                  \
       const float *const *WT, const float *const *c, const float *Wf,     \
-      const float *WfT, const float *bf
-#define MFN_NET Net{n, d, h, o, k, x, filters, W, WT, c, Wf, WfT, bf}
+      const float *WfT, const float *bf, int reps, int x_shared
+#define MFN_NET \
+  Net { n, d, h, o, k, x, filters, W, WT, c, Wf, WfT, bf, reps, x_shared }
 
 extern "C" {
 
@@ -659,7 +777,8 @@ const char* mfn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Floats of the `part` workspace of the backward and the step.
+// Floats of the `part` workspace of the backward and the step, per
+// replica.
 long long mfn_part_floats(int n, int d, int h, int o) {
   (void)d;
   return part_floats(n, h, o);
@@ -671,44 +790,53 @@ long long mfn_part_floats(int n, int d, int h, int o) {
 // final layer Wf (h x o), WfT (o x h), bf (o).  zs[j] (n x h) receive z_j
 // and ls[j] l_j (j >= 1) where not null; zs may alternate between two
 // planes when nothing is kept.  Pointer arrays live on the host, tensors
-// on the card.  Returns the first CUDA error of a launch (0 on success);
+// on the card.  For reps replicas each tensor holds reps (the layouts of
+// the header comment; pred (reps, n, o)); x_shared: one (n, d) coordinate
+// set for all.  Returns the first CUDA error of a launch (0 on success);
 // launches on `stream`, does not synchronise.
 int mfn_forward(MFN_NET_ARGS, float* const* zs, float* const* ls,
                 float* pred, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Net net = MFN_NET;
-  GEMM_CHECK(forward_chain(net, zs, ls, st));
-  return final_forward(zs[k - 1], Wf, bf, pred, n, h, o, st);
+  GEMM_CHECK(reps > 1 ? forward_chain<true>(net, zs, ls, st)
+                      : forward_chain<false>(net, zs, ls, st));
+  return final_forward(zs[k - 1], Wf, bf, pred, n, h, o, st, reps);
 }
 
 // Backward of the pair from g = dL/dpred (n x o), reading the forward's
-// zs and ls; see backward_chain for the outputs and the scratch.
+// zs and ls; see backward_chain for the outputs and the scratch.  For reps
+// replicas as the forward's (part reps x mfn_part_floats); dcoords must
+// then be null.
 int mfn_backward(MFN_NET_ARGS, const float* g, const float* const* zs,
                  const float* const* ls, float* const* gf, float* const* gW,
                  float* gWf, float* dcoords, float* dl, float* dg,
                  float* part, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return backward_chain(MFN_NET, g, zs, ls, gf, gW, gWf, dcoords, dl, dg,
-                        part, st);
+  const Net net = MFN_NET;
+  if (reps > 1)
+    return backward_chain<true>(net, g, zs, ls, gf, gW, gWf, dcoords, dl,
+                                dg, part, st);
+  return backward_chain<false>(net, g, zs, ls, gf, gW, gWf, dcoords, dl, dg,
+                               part, st);
 }
 
 // One train step: the forward (zs, ls kept in the caller's scratch), the
 // final layer with g = two_inv_denom * mask (pred - t), mask = row <
 // nvalid, and the SSE sums (sse (2): against t and gt, when want_metrics),
 // then the backward without dcoords.  Arguments as for the pair; g
-// (n x o) scratch.
+// (n x o) scratch.  For reps replicas as the pair's, with t, gt, g (reps,
+// n, o) and sse (reps, 2); t_shared: one (n, o) target and gt for all.
 int mfn_step_run(MFN_NET_ARGS, const float* t, const float* gt,
                  float* const* zs, float* const* ls, float* pred, float* g,
                  float* sse, float* const* gf, float* const* gW, float* gWf,
                  float* dl, float* dg, float* part, int nvalid,
-                 float two_inv_denom, int want_metrics, void* stream) {
+                 float two_inv_denom, int want_metrics, int t_shared,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Net net = MFN_NET;
-  GEMM_CHECK(forward_chain(net, zs, ls, st));
-  GEMM_CHECK(final_loss(zs[k - 1], Wf, bf, t, gt, pred, g, sse, part, n, h,
-                        o, nvalid, two_inv_denom, want_metrics, st));
-  return backward_chain(net, g, zs, ls, gf, gW, gWf, nullptr, dl, dg, part,
-                        st);
+  auto run = reps > 1 ? step_chain<true> : step_chain<false>;
+  return run(net, t, gt, zs, ls, pred, g, sse, gf, gW, gWf, dl, dg, part,
+             nvalid, two_inv_denom, want_metrics, t_shared, st);
 }
 
 }  // extern "C"

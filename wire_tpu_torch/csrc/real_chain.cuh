@@ -99,10 +99,13 @@ constexpr int kRowGroups = kThreads / kColsPerBlock;
 // Per-chunk column sums of X (n x N): part[chunk * N + c] = sum of X[r, c]
 // over the chunk's kChunkRows rows.  Thread (c, g) sums the rows r = g,
 // g + 8, ... of the chunk in order; the 8 groups then meet in order in
-// shared memory.
+// shared memory.  Replica blockIdx.z: its X (n x N) and its chunk partials
+// follow its predecessors'.
 __global__ void __launch_bounds__(kThreads) colsum_partial_kernel(
     const float* __restrict__ X, float* __restrict__ part, int n, int N) {
   __shared__ float sums[kRowGroups][kColsPerBlock];
+  X += (size_t)blockIdx.z * n * N;
+  part += (size_t)blockIdx.z * gridDim.y * N;
   const int cx = threadIdx.x % kColsPerBlock;
   const int g = threadIdx.x / kColsPerBlock;
   const int c = blockIdx.x * kColsPerBlock + cx;
@@ -123,14 +126,16 @@ __global__ void __launch_bounds__(kThreads) colsum_partial_kernel(
   }
 }
 
-// Column sums of X (n x N) into out (N), in a fixed order.
+// Column sums of X (n x N) into out (N), in a fixed order; for `reps`
+// replicas X holds reps x n x N, part reps x the chunk partials, out reps x
+// N.
 inline cudaError_t column_sum(const float* X, float* part, float* out,
-                              int n, int N, cudaStream_t st) {
+                              int n, int N, cudaStream_t st, int reps = 1) {
   const int chunks = ceil_div(n, kChunkRows);
-  const dim3 grid(ceil_div(N, kColsPerBlock), chunks);
+  const dim3 grid(ceil_div(N, kColsPerBlock), chunks, reps);
   colsum_partial_kernel<<<grid, kThreads, 0, st>>>(X, part, n, N);
   GEMM_CHECK(cudaGetLastError());
-  return reduce_chunks(part, chunks, N, out, st);
+  return reduce_chunks(part, chunks, N, out, st, nullptr, 1, 0, reps);
 }
 
 // The network's shape: L activation layers; widths[0] = d (input features),

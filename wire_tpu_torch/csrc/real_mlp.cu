@@ -62,6 +62,16 @@
 // __sinf/__expf intrinsics: siren's phases are omega0 = 30 times z); the
 // TPU kernel's fast_sincos polynomial was a Mosaic workaround.  Build
 // without --use_fast_math.
+//
+// Replicas (wire_tpu's fit_pointwise_many, fit_operator_many and
+// fit_frames_many, which vmap these Pallas calls): each entry point takes
+// `reps` models of one shape, each on its own weights and its own or the
+// shared coordinates (and targets), through the same launches with a
+// replica grid axis (real_tc.cuh's layouts); nvalid and denom are shared.
+// A replica's results are bit-equal to an unbatched call on its inputs;
+// reps = 1 is that call, through the chains' single-model instances.  The
+// replica backward computes no dcoords (the batched fits' coordinates are
+// constants).
 
 #include "real_tc.cuh"
 
@@ -90,9 +100,9 @@ int real_mlp_basis_code(const char* name) {
 }
 
 // Floats of the `part` workspace of the backward and the step, for n rows
-// and widths (L + 2 entries: d, w_0 .. w_{L-1}, o): the backward's weight
-// gradient and column sum partials, or the step's SSE partials where they
-// are more.
+// and widths (L + 2 entries: d, w_0 .. w_{L-1}, o), per replica: the
+// backward's weight gradient and column sum partials, or the step's SSE
+// partials where they are more.
 long long real_mlp_part_floats(int n, int L, const int* widths) {
   const long long need = real_tc::part_floats(Shape{n, L, widths});
   const long long sse = 2LL * final_loss_blocks(n);  // the step's SSE
@@ -105,25 +115,35 @@ long long real_mlp_part_floats(int n, int L, const int* widths) {
 // (n x w_l) receive the activations and zs[l] the pre-activations z, or
 // nothing where zs[l] is null; acts may alternate between two planes when
 // nothing is kept (a forward without a gradient to take).  Pointer arrays
-// live on the host, the tensors on the card.  Returns the first CUDA error
-// of a launch (0 on success); launches on `stream`, does not synchronise.
+// live on the host, the tensors on the card.  For reps replicas each
+// tensor but the codes and gammas holds reps (real_tc.cuh's layouts; Wf
+// (reps, w, o), bf (reps, o), pred (reps, n, o)); x_shared: one (n, d)
+// coordinate set for all.  Returns the first CUDA error of a launch (0 on
+// success); launches on `stream`, does not synchronise.
 int real_mlp_forward(int n, int L, const int* widths, const float* x,
                      const float* const* W, const float* const* alpha,
                      const float* const* beta,
                      const unsigned char* const* codes, const float* Wf,
                      const float* bf, const float* gammas,
                      int rows_per_block, float* const* zs,
-                     float* const* acts, float* pred, void* stream) {
+                     float* const* acts, float* pred, int reps,
+                     int x_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape s{n, L, widths};
-  GEMM_CHECK(real_tc::forward(s, x, W, alpha, beta, codes, gammas,
-                              rows_per_block, zs, acts, st));
+  GEMM_CHECK(reps > 1 ? real_tc::forward<true>(s, x, W, alpha, beta, codes,
+                                               gammas, rows_per_block, zs,
+                                               acts, st, reps, x_shared)
+                      : real_tc::forward<false>(s, x, W, alpha, beta, codes,
+                                                gammas, rows_per_block, zs,
+                                                acts, st));
   return final_forward(acts[L - 1], Wf, bf, pred, n, s.out(L - 1), s.o(),
-                       st);
+                       st, reps);
 }
 
 // Backward of the pair from g = dL/dpred (n x o), reading the forward's zs
-// and acts; see real_tc::backward for the outputs and the scratch.
+// and acts; see real_tc::backward for the outputs and the scratch.  For
+// reps replicas as the forward's (part reps x real_mlp_part_floats);
+// dcoords must then be null.
 int real_mlp_backward(int n, int L, const int* widths, const float* x,
                       const float* g, const float* const* WaT,
                       const float* const* alpha, const float* const* beta,
@@ -132,18 +152,25 @@ int real_mlp_backward(int n, int L, const int* widths, const float* x,
                       const float* const* zs, const float* const* acts,
                       float* const* gW, float* const* galpha, float* gWf,
                       float* dcoords, float* dv, float* zdv, float* part,
-                      void* stream) {
+                      int reps, int x_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape s{n, L, widths};
-  return real_tc::backward(s, x, g, WaT, alpha, beta, codes, WfT, gammas,
-                           rows_per_block, zs, acts, gW, galpha, gWf,
-                           dcoords, dv, zdv, part, st);
+  if (reps > 1)
+    return real_tc::backward<true>(s, x, g, WaT, alpha, beta, codes, WfT,
+                                   gammas, rows_per_block, zs, acts, gW,
+                                   galpha, gWf, dcoords, dv, zdv, part, st,
+                                   reps, x_shared);
+  return real_tc::backward<false>(s, x, g, WaT, alpha, beta, codes, WfT,
+                                  gammas, rows_per_block, zs, acts, gW,
+                                  galpha, gWf, dcoords, dv, zdv, part, st);
 }
 
 // One train step: the forward (zs, acts kept in the caller's scratch), the
 // final layer with g = two_inv_denom * mask (pred - t), mask = row < nvalid,
 // and the SSE sums (sse (2): against t and gt, when want_metrics), then the
 // backward without dcoords.  Arguments as for the pair; g (n x o) scratch.
+// For reps replicas as the pair's, with t, gt, g (reps, n, o) and sse
+// (reps, 2); t_shared: one (n, o) target and gt for all.
 int real_step_run(int n, int L, const int* widths, const float* x,
                   const float* t, const float* gt, const float* const* W,
                   const float* const* WaT, const float* const* alpha,
@@ -153,17 +180,27 @@ int real_step_run(int n, int L, const int* widths, const float* x,
                   float* const* acts, float* pred, float* g, float* sse,
                   float* const* gW, float* const* galpha, float* gWf,
                   float* dv, float* zdv, float* part, int nvalid,
-                  float two_inv_denom, int want_metrics, void* stream) {
+                  float two_inv_denom, int want_metrics, int reps,
+                  int x_shared, int t_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape s{n, L, widths};
-  GEMM_CHECK(real_tc::forward(s, x, W, alpha, beta, codes, nullptr, 1, zs,
-                              acts, st));
+  if (reps > 1)
+    GEMM_CHECK(real_tc::forward<true>(s, x, W, alpha, beta, codes, nullptr,
+                                      1, zs, acts, st, reps, x_shared));
+  else
+    GEMM_CHECK(real_tc::forward<false>(s, x, W, alpha, beta, codes, nullptr,
+                                       1, zs, acts, st));
   GEMM_CHECK(final_loss(acts[L - 1], Wf, bf, t, gt, pred, g, sse, part, n,
                         s.out(L - 1), s.o(), nvalid, two_inv_denom,
-                        want_metrics, st));
-  return real_tc::backward(s, x, g, WaT, alpha, beta, codes, WfT, nullptr,
-                           1, zs, acts, gW, galpha, gWf, nullptr, dv, zdv,
-                           part, st);
+                        want_metrics, st, reps, t_shared));
+  if (reps > 1)
+    return real_tc::backward<true>(s, x, g, WaT, alpha, beta, codes, WfT,
+                                   nullptr, 1, zs, acts, gW, galpha, gWf,
+                                   nullptr, dv, zdv, part, st, reps,
+                                   x_shared);
+  return real_tc::backward<false>(s, x, g, WaT, alpha, beta, codes, WfT,
+                                  nullptr, 1, zs, acts, gW, galpha, gWf,
+                                  nullptr, dv, zdv, part, st);
 }
 
 }  // extern "C"

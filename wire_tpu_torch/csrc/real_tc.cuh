@@ -37,6 +37,23 @@
 //   on the B-spline paths, 26 under posenc).
 // No float atomics: two calls give the same bits.  Accurate expf/sinf/cosf
 // in the bases; build without --use_fast_math.
+//
+// Replicas (the batched multi-fit, `reps` models of one shape in one launch
+// sequence): forward<true> and backward<true> take the replica in a grid
+// axis of every launch (blockIdx.z of the layer kernels and the column
+// sums; wire_tc.cuh's weight gradients and gemm_common.cuh's sums fold it
+// in as they say).  Every per-layer tensor holds reps of its own, replica r
+// at r times its size past the start: W[l] (reps, in_l, w_l), WaT[l] (reps,
+// w_l, in_l), alpha[l] and beta[l] (reps, w_l), zs[l] and acts[l] (reps, n,
+// w_l), gW[l] (reps, in_l + 1, w_l), galpha[l] (reps, w_l), g (reps, n, o),
+// gWf (reps, w + 1, o), dv (2, reps, n, max w), zdv (reps, n, max w), part
+// reps x part_floats; the coordinates x are (reps, n, d), or one (n, d)
+// shared by all when x_shared; the codes and gammas are shared.  A replica's
+// blocks do what an unbatched launch does, so its results are bit-equal to
+// one.  The replica is a template flag (kReps) of the layer kernels: the
+// unbatched chains (forward<false>, backward<false>, mscale2_step.cu's)
+// take instances without the replica's offsets, whose code is the single
+// model's.  No dcoords on the replica path.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -190,22 +207,48 @@ __device__ __forceinline__ void tile_epilogue(
   }
 }
 
+// The layer kernels' operands of replica blockIdx.z: A (n x K) unless
+// a_shared, B (K x N).
+__device__ __forceinline__ void replica_operands(
+    const float* __restrict__& A, const float* __restrict__& B, int n, int K,
+    int N, int a_shared) {
+  const size_t rep = blockIdx.z;
+  if (!a_shared) A += rep * n * K;
+  B += rep * K * N;
+}
+
+// The epilogue's tensors of replica blockIdx.z: alpha and beta (N), zin,
+// out0 and out1 (n x N).
+__device__ __forceinline__ void replica_epilogue(
+    Layer& lay, const float* __restrict__& zin, float* __restrict__& out0,
+    float* __restrict__& out1, int n, int N) {
+  const size_t rep = blockIdx.z;
+  lay.alpha += rep * N;
+  lay.beta += rep * N;
+  if (zin != nullptr) zin += rep * n * N;
+  if (out0 != nullptr) out0 += rep * n * N;
+  out1 += rep * n * N;
+}
+
 // acc = A (n x K) @ B (K x N) over the 128 x 64 tile at (blockIdx.y kBM,
 // blockIdx.x kBN) on the tensor cores, then the epilogue on the registers.
-// kVecA, kVecB, kPair: wire_tc.cuh:Access.
-template <int kMode, bool kVecA, bool kVecB, bool kPair>
+// kVecA, kVecB, kPair: wire_tc.cuh:Access.  kReps: replica blockIdx.z,
+// every operand at the replica's offsets (A shared when a_shared).
+template <int kMode, bool kVecA, bool kVecB, bool kPair, bool kReps>
 __global__ void __launch_bounds__(wire_tc::kThreads, 2) real_tc_kernel(
     const float* __restrict__ A, const float* __restrict__ B, Layer lay,
     const float* __restrict__ zin, float* __restrict__ out0,
-    float* __restrict__ out1, int n, int K, int N) {
+    float* __restrict__ out1, int n, int K, int N, int a_shared) {
   using namespace wire_tc;
   extern __shared__ __align__(16) float smem[];
   const int wn = (threadIdx.x / 32) % kWarpsN, t = threadIdx.x % 4;
   const int col0 = blockIdx.x * kBN;
   const int row0 = blockIdx.y * kBM;
+  if (kReps) replica_operands(A, B, n, K, N, a_shared);
   float acc[kMT][kNT][4];
   tile_product<kPlain, kVecA, kVecB>(smem, A, B, N, n, K, row0, col0, N,
                                      acc);
+  if (kReps) replica_epilogue(lay, zin, out0, out1, n, N);
 
   // this thread's 8 columns: their affine and basis codes; `one` the code
   // they all share (-1: none or mixed)
@@ -235,12 +278,17 @@ __global__ void __launch_bounds__(wire_tc::kThreads, 2) real_tc_kernel(
 // beta and basis code in registers; fp32 FMAs in k order.
 constexpr int kNarrowRows = 64;
 
-template <int kMode>
+// kReps: as real_tc_kernel's.
+template <int kMode, bool kReps>
 __global__ void __launch_bounds__(gemm_common::kThreads) real_narrow_kernel(
     const float* __restrict__ A, const float* __restrict__ B, Layer lay,
     const float* __restrict__ zin, float* __restrict__ out0,
-    float* __restrict__ out1, int n, int K, int N) {
+    float* __restrict__ out1, int n, int K, int N, int a_shared) {
   constexpr int kWarps = gemm_common::kThreads / 32;
+  if (kReps) {
+    replica_operands(A, B, n, K, N, a_shared);
+    replica_epilogue(lay, zin, out0, out1, n, N);
+  }
   const int c = blockIdx.x * 32 + threadIdx.x % 32;
   if (c >= N) return;
   float b[kNarrowK];
@@ -271,29 +319,31 @@ __global__ void __launch_bounds__(gemm_common::kThreads) real_narrow_kernel(
 
 // One layer's product and epilogue: the narrow kernel for K <= kNarrowK,
 // else the tensor-core kernel instance for the shapes' and pointers'
-// accesses.
-template <int kMode>
+// accesses; kReps: `reps` replicas in blockIdx.z (A shared when a_shared).
+template <int kMode, bool kReps = false>
 cudaError_t layer(const float* A, const float* B, const Layer& lay,
                   const float* zin, float* out0, float* out1, int n, int K,
-                  int N, cudaStream_t st) {
+                  int N, cudaStream_t st, int reps = 1, int a_shared = 0) {
   if (K <= kNarrowK) {
-    const dim3 grid(ceil_div(N, 32), ceil_div(n, kNarrowRows));
-    real_narrow_kernel<kMode><<<grid, gemm_common::kThreads, 0, st>>>(
-        A, B, lay, zin, out0, out1, n, K, N);
+    const dim3 grid(ceil_div(N, 32), ceil_div(n, kNarrowRows), reps);
+    real_narrow_kernel<kMode, kReps><<<grid, gemm_common::kThreads, 0, st>>>(
+        A, B, lay, zin, out0, out1, n, K, N, a_shared);
     return cudaGetLastError();
   }
-  const dim3 grid(ceil_div(N, wire_tc::kBN), ceil_div(n, wire_tc::kBM));
+  const dim3 grid(ceil_div(N, wire_tc::kBN), ceil_div(n, wire_tc::kBM),
+                  reps);
   auto kernel = wire_tc::instance(
       wire_tc::access(A, B, K, N, {lay.alpha, lay.beta, zin, out0, out1}),
       [](auto va, auto vb, auto pr) {
         return &real_tc_kernel<kMode, decltype(va)::value,
-                               decltype(vb)::value, decltype(pr)::value>;
+                               decltype(vb)::value, decltype(pr)::value,
+                               kReps>;
       });
   GEMM_CHECK(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       wire_tc::kSmemBytes));
   kernel<<<grid, wire_tc::kThreads, wire_tc::kSmemBytes, st>>>(
-      A, B, lay, zin, out0, out1, n, K, N);
+      A, B, lay, zin, out0, out1, n, K, N, a_shared);
   return cudaGetLastError();
 }
 
@@ -302,15 +352,19 @@ inline bool narrow_wgrad(int M, int N) {
 }
 
 // [X^T D; colsum(D)] (the first M rows scaled by colscale when given) over
-// n rows into out ((M + 1) x N), on the narrow or the tensor-core kernel.
+// n rows into out ((M + 1) x N), on the narrow or the tensor-core kernel;
+// for `reps` replicas X (unless x_shared), D, part, out and colscale hold
+// reps of their own.
 inline cudaError_t weight_grad(const float* X, const float* D, float* part,
                                float* out, int n, int M, int N,
                                cudaStream_t st,
-                               const float* colscale = nullptr) {
+                               const float* colscale = nullptr,
+                               int reps = 1, int x_shared = 0) {
   if (narrow_wgrad(M, N))
     return wire_tc::narrow_weight_grad(X, D, part, out, n, M, N, st,
-                                       colscale);
-  return wire_tc::weight_grad(X, D, part, out, n, M, N, st, colscale);
+                                       colscale, reps, x_shared);
+  return wire_tc::weight_grad(X, D, part, out, n, M, N, st, colscale, reps,
+                              x_shared);
 }
 
 inline long long wgrad_part_floats(int n, int M, int N) {
@@ -350,20 +404,23 @@ __global__ void __launch_bounds__(gemm_common::kThreads) dcoords_kernel(
 }
 
 // Forward through the L activation layers: zs[l] and acts[l] (n x w_l).
-// The final layer is the caller's.
+// The final layer is the caller's.  kReps: `reps` replicas (the layouts of
+// the header comment).
+template <bool kReps = false>
 inline cudaError_t forward(const Shape& s, const float* x,
                            const float* const* W, const float* const* alpha,
                            const float* const* beta,
                            const unsigned char* const* codes,
                            const float* gammas, int rows_per_block,
                            float* const* zs, float* const* acts,
-                           cudaStream_t st) {
+                           cudaStream_t st, int reps = 1, int x_shared = 0) {
   for (int l = 0; l < s.L; ++l) {
     const float* a_prev = l == 0 ? x : acts[l - 1];
-    GEMM_CHECK(layer<kFwd>(
+    GEMM_CHECK((layer<kFwd, kReps>(
         a_prev, W[l],
         real_chain::layer_of(alpha, beta, codes, gammas, rows_per_block, l),
-        nullptr, zs[l], acts[l], s.n, s.in(l), s.out(l), st));
+        nullptr, zs[l], acts[l], s.n, s.in(l), s.out(l), st, reps,
+        l == 0 ? x_shared : 0)));
   }
   return cudaSuccess;
 }
@@ -373,7 +430,10 @@ inline cudaError_t forward(const Shape& s, const float* x,
 //   gW[l] ((in_l + 1) x w_l) = [dW; dbeta];  galpha[l] (w_l);
 //   dcoords (n x d) = dv_0 WaT[0] when not null.
 // WaT[l] = (W_l diag(alpha_l))^T (w_l x in_l), WfT = Wf^T (o x w_{L-1}).
-// Scratch: dv (2, n, max w), zdv (n, max w), part (part_floats).
+// Scratch: dv (2, n, max w), zdv (n, max w), part (part_floats).  kReps:
+// `reps` replicas (the layouts of the header comment); dcoords must then be
+// null.
+template <bool kReps = false>
 inline cudaError_t backward(const Shape& s, const float* x, const float* g,
                             const float* const* WaT,
                             const float* const* alpha,
@@ -384,25 +444,28 @@ inline cudaError_t backward(const Shape& s, const float* x, const float* g,
                             const float* const* acts, float* const* gW,
                             float* const* galpha, float* gWf,
                             float* dcoords, float* dv, float* zdv,
-                            float* part, cudaStream_t st) {
+                            float* part, cudaStream_t st, int reps = 1,
+                            int x_shared = 0) {
   const int n = s.n, L = s.L;
-  const size_t plane = (size_t)n * s.max_width();
+  if (dcoords != nullptr && reps != 1) return cudaErrorInvalidValue;
+  const size_t plane = (size_t)reps * n * s.max_width();
   GEMM_CHECK(weight_grad(acts[L - 1], g, part, gWf, n, s.out(L - 1), s.o(),
-                         st));
+                         st, nullptr, reps));
   const float* src = g;
   const float* bt = WfT;
   int kdim = s.o();
   int cur = 0;
   for (int l = L - 1; l >= 0; --l) {
     float* dvl = dv + cur * plane;
-    GEMM_CHECK(layer<kBwd>(
+    GEMM_CHECK((layer<kBwd, kReps>(
         src, bt,
         real_chain::layer_of(alpha, beta, codes, gammas, rows_per_block, l),
-        zs[l], dvl, zdv, n, kdim, s.out(l), st));
+        zs[l], dvl, zdv, n, kdim, s.out(l), st, reps)));
     const float* a_prev = l == 0 ? x : acts[l - 1];
     GEMM_CHECK(weight_grad(a_prev, dvl, part, gW[l], n, s.in(l), s.out(l),
-                           st, alpha[l]));
-    GEMM_CHECK(real_chain::column_sum(zdv, part, galpha[l], n, s.out(l), st));
+                           st, alpha[l], reps, l == 0 ? x_shared : 0));
+    GEMM_CHECK(real_chain::column_sum(zdv, part, galpha[l], n, s.out(l), st,
+                                      reps));
     src = dvl;
     bt = WaT[l];
     kdim = s.out(l);

@@ -585,11 +585,12 @@ cudaError_t paired(const float* A, const float* B, const float* bias,
 // (the bias gradient) the blocks of the first M tile sum in row order from
 // the staged D tiles.  kVec: 16-byte copies (M % 4 == 0, N % 4 == 0, X
 // and D 16-byte aligned).  kReps: blockIdx.z = replica x chunks + chunk,
-// X and D at the replica's offsets (its partials follow its predecessors').
+// X (unless x_shared) and D at the replica's offsets (its partials follow
+// its predecessors').
 template <bool kVec, bool kReps>
 __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
     const float* __restrict__ X, const float* __restrict__ D,
-    float* __restrict__ part, int n, int M, int N) {
+    float* __restrict__ part, int n, int M, int N, int x_shared) {
   extern __shared__ __align__(16) float smem[];
   float(*As)[kStageA] = reinterpret_cast<float(*)[kStageA]>(smem);
   float(*Bs)[kStageB] =
@@ -601,7 +602,7 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
   if (kReps) {
     const int chunks = (n + kChunkRows - 1) / kChunkRows;
     chunk = blockIdx.z % chunks;
-    X += (size_t)(blockIdx.z / chunks) * n * M;
+    if (!x_shared) X += (size_t)(blockIdx.z / chunks) * n * M;
     D += (size_t)(blockIdx.z / chunks) * n * N;
   }
   const int r_begin = chunk * kChunkRows;
@@ -667,12 +668,13 @@ __global__ void __launch_bounds__(kThreads, 2) tc_wgrad_kernel(
 // chunk partials in `part` (wgrad_part_floats) summed in chunk order.  With
 // `colscale` (N), the first M rows come out multiplied by it per column
 // (gemm_common::reduce_chunks), the bias row stays colsum(D).  For `reps`
-// replicas X, D, part and out hold reps of their own, colscale is shared.
+// replicas X (unless x_shared), D, part, out and colscale hold reps of
+// their own.
 inline cudaError_t weight_grad(const float* X, const float* D, float* part,
                                float* out, int n, int M, int N,
                                cudaStream_t st,
                                const float* colscale = nullptr,
-                               int reps = 1) {
+                               int reps = 1, int x_shared = 0) {
   const int chunks = ceil_div(n, kChunkRows);
   const dim3 grid(ceil_div(M, kBM), ceil_div(N, kBN), chunks * reps);
   const bool vec =
@@ -682,7 +684,8 @@ inline cudaError_t weight_grad(const float* X, const float* D, float* part,
       : (vec ? tc_wgrad_kernel<true, false> : tc_wgrad_kernel<false, false>);
   GEMM_CHECK(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
-  kernel<<<grid, kThreads, kSmemBytes, st>>>(X, D, part, n, M, N);
+  kernel<<<grid, kThreads, kSmemBytes, st>>>(X, D, part, n, M, N,
+                                             x_shared);
   GEMM_CHECK(cudaGetLastError());
   return gemm_common::reduce_chunks(part, chunks, (M + 1) * N, out, st,
                                     colscale, N, M, reps);

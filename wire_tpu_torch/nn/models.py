@@ -25,6 +25,13 @@ The real families fold their parameters to the canonical form of
 ``ops/real_mlp.py`` (per layer ``z = a @ w; v = alpha z + beta; a =
 B(v)``) and run its kernels; native-parameter gradients come back from
 the canonical ones through autograd of the fold.
+
+The batched multi-fit (``INR.step_grads_many``, ``INR.apply_many``) takes a
+family's replica hooks (``REPLICA_HOOKS`` of nn/registry.py): WIRE's, the
+MFN's and the canonical real families' run their kernels' replica axis on
+the card (a real family folds its stacked parameters with
+``torch.func.vmap`` of its fold and maps the canonical gradients back with
+``torch.func.vjp``, so the fold's launches do not grow with M).
 """
 from __future__ import annotations
 
@@ -130,15 +137,32 @@ def autodiff_step(apply_fn, params, coords, target, spec, *, nvalid=None,
     return pred, dparams, (torch.sum(err_t * err_t), torch.sum(err_g * err_g))
 
 
+@dataclasses.dataclass(frozen=True)
+class ReplicaHooks:
+    """A family's batched multi-fit: ``step(params_stack, coords, target,
+    spec, *, nvalid, denom, gt, want_metrics, scratch)`` and
+    ``apply(params_stack, coords, spec)`` over replica-stacked parameters
+    (one launch sequence for all M on the card, the plain versions on the
+    CPU), each None where the family has no kernel for it, and ``ok(params,
+    spec)``: whether the hooks serve this spec and (one replica's)
+    parameters."""
+    step: object = None
+    apply: object = None
+    ok: object = None
+
+
 class INR:
     """A model family instance: ``params = m.init(gen, device)``,
     ``y = m.apply(params, coords)``, ``m.step_grads(...)``."""
 
-    def __init__(self, spec: INRSpec, init_fn, apply_fn, step_fn=None):
+    def __init__(self, spec: INRSpec, init_fn, apply_fn, step_fn=None,
+                 replica_hooks=None):
         self.spec = spec
         self._init = init_fn
         self._apply = apply_fn
         self._step = step_fn
+        self._replica = ReplicaHooks() if replica_hooks is None \
+            else replica_hooks
 
     def init(self, gen: torch.Generator, device="cpu"):
         return self._init(gen, self.spec, device)
@@ -167,31 +191,39 @@ class INR:
     def num_params(self, params):
         return sum(t.numel() for _, t in tree.leaves(params))
 
-    def _many_kernel(self, device, what):
-        """Whether the replica calls take WIRE's replica wrappers (their
-        plain versions on the CPU, one launch sequence for all M on the
-        card).  The other families run their plain step or apply once per
-        replica on the CPU and raise on the card: no per-replica loop of
-        single launches hides a missing kernel."""
-        if self.spec.nonlin == "wire" and self.spec.fused != "never":
-            return True
+    def _replica_hook(self, hook, params_stack, device, what):
+        """The family's replica hook for this call (its plain versions on
+        the CPU, one launch sequence for all M on the card), or None: then
+        the CPU runs the plain step or apply once per replica and the card
+        raises, since no per-replica loop of single launches may hide a
+        missing kernel."""
+        ok = self._replica.ok
+        if hook is not None and (ok is None or ok(
+                tree.index(params_stack, 0), self.spec)):
+            return hook
         if device.type == "cpu":
-            return False
-        item = "5c" if self.spec.nonlin in _ITEM_5C else "5b"
+            return None
+        if self.spec.nonlin in _ITEM_5C:
+            why = "its replica kernels are ROADMAP.md §A item 5c"
+        else:
+            why = ("it trains by autodiff here, without a kernel: the "
+                   "autodiff families' batched path on the card is "
+                   "ROADMAP.md §A item 5d")
         raise NotImplementedError(
             f"{what}: the batched multi-fit of {self.spec.nonlin!r} "
             f"(fused={self.spec.fused!r}) has no replica kernels on "
-            f"{device.type} yet (ROADMAP.md §A item {item}); only WIRE's "
-            f"run batched on the card, other families on the CPU")
+            f"{device.type}: {why}; it runs batched on the CPU")
 
     def apply_many(self, params_stack, coords):
         """M forwards at once: every leaf of ``params_stack`` has a leading
         M; coords (rows, d) shared or (M, ..., rows, d) per replica ->
-        (M, ..., rows, o).  WIRE: ``ops/wire_mlp.py:wire_mlp_many``, on the
-        card one launch sequence a direction for all M."""
-        if self._many_kernel(coords.device, "apply_many"):
-            from wire_tpu_torch.ops.wire_mlp import wire_mlp_many
-            return wire_mlp_many(params_stack, coords, self.spec)
+        (M, ..., rows, o).  A family's replica hook (WIRE's ``wire_mlp``,
+        the MFN's ``mfn_mlp`` and the real families' ``real_mlp`` pairs) is
+        on the card one launch sequence a direction for all M."""
+        hook = self._replica_hook(self._replica.apply, params_stack,
+                                  coords.device, "apply_many")
+        if hook is not None:
+            return hook(params_stack, coords, self.spec)
         M = tree.replicas(params_stack)
         return torch.stack([
             self.apply(tree.index(params_stack, r),
@@ -204,14 +236,16 @@ class INR:
         ``params_stack`` has a leading M; coords (n, d), target and gt
         (n, o) shared, or each with a leading M; nvalid and denom shared.
         Returns pred (M, n, o), the gradients stacked as the parameters and,
-        with ``want_metrics``, the SSE sums as two (M,) tensors.  WIRE:
-        ``ops/wire_step.py:wire_step_many``, on the card one launch
-        sequence for all M."""
-        if self._many_kernel(coords.device, "step_grads_many"):
-            from wire_tpu_torch.ops.wire_step import wire_step_many
-            return wire_step_many(params_stack, coords, target, self.spec,
-                                  nvalid=nvalid, denom=denom, gt=gt,
-                                  want_metrics=want_metrics, scratch=scratch)
+        with ``want_metrics``, the SSE sums as two (M,) tensors.  A
+        family's replica hook (WIRE's ``wire_step``, the MFN's
+        ``mfn_step``, the real families' ``real_step``) is on the card one
+        launch sequence for all M."""
+        hook = self._replica_hook(self._replica.step, params_stack,
+                                  coords.device, "step_grads_many")
+        if hook is not None:
+            return hook(params_stack, coords, target, self.spec,
+                        nvalid=nvalid, denom=denom, gt=gt,
+                        want_metrics=want_metrics, scratch=scratch)
         M = tree.replicas(params_stack)
 
         def rep(x, r):
@@ -229,8 +263,27 @@ class INR:
         return pred, grads
 
 
-# families whose replica kernels are ROADMAP.md §A item 5c (the rest, 5b)
+# families whose replica kernels are ROADMAP.md §A item 5c; the others
+# without replica hooks train by autodiff (item 5d)
 _ITEM_5C = ("wire2d", "bspline_mscale_2")
+
+
+def _fused_on(params, spec):
+    """The replica gate of WIRE and the MFN: their kernels unless
+    ``fused == 'never'``."""
+    return spec.fused != "never"
+
+
+def wire_step_many(params_stack, coords, target, spec, **kw):
+    """WIRE's replica step hook (ops/wire_step.py:wire_step_many)."""
+    from wire_tpu_torch.ops.wire_step import wire_step_many as step
+    return step(params_stack, coords, target, spec, **kw)
+
+
+def wire_apply_many(params_stack, coords, spec):
+    """WIRE's replica apply hook (ops/wire_mlp.py:wire_mlp_many)."""
+    from wire_tpu_torch.ops.wire_mlp import wire_mlp_many
+    return wire_mlp_many(params_stack, coords, spec)
 
 
 # ===========================================================================
@@ -458,6 +511,73 @@ def fold_grads(canon_of, params, spec):
 
     return canon_from_leaves([t.detach() for t in ctens],
                              len(canon["layers"])), back
+
+
+def fold_grads_many(canon_of, params_stack, spec):
+    """``fold_grads`` of M replicas at once: (canon_stack, back), the fold
+    ``torch.func.vmap`` of ``canon_of(params, spec)`` over the leading M
+    (its PyTorch launches do not grow with M) and ``back(dcanon_stack)``,
+    the stacked native gradients through ``torch.func.vjp`` of that fold
+    (zeros for leaves the fold does not use).  Each replica's canon and
+    gradients equal ``fold_grads``' on that replica bit for bit."""
+    from wire_tpu_torch.ops.real_mlp import canon_from_leaves, canon_leaves
+    flat = tree.leaves(params_stack)
+    paths = [path for path, _ in flat]
+
+    def fold(*leaves):
+        canon = torch.func.vmap(lambda p: canon_of(p, spec))(
+            tree.unflatten(paths, list(leaves)))
+        return tuple(t for _, t in canon_leaves(canon))
+
+    ctens, vjp = torch.func.vjp(fold, *[t.detach() for _, t in flat])
+    L = (len(ctens) - 2) // 3
+
+    def back(dcanon):
+        return tree.unflatten(paths, list(vjp(tuple(
+            t for _, t in canon_leaves(dcanon)))))
+
+    return canon_from_leaves(list(ctens), L), back
+
+
+def _pre_many(pre, coords, spec):
+    """A parameter-free input transform on shared (rows, d) coordinates, or
+    on each replica's (M, ..., rows, d) through ``torch.func.vmap``."""
+    if pre is None:
+        return coords
+    if coords.ndim == 2:
+        return pre(coords, spec)
+    return torch.func.vmap(lambda c: pre(c, spec))(coords)
+
+
+def _real_replica_hooks(kinds_of, canon_of, pre=None, use_ok=None,
+                        apply=True):
+    """A canonical real family's ReplicaHooks: the step over
+    ops/real_mlp.py:real_step_many (the fold of ``fold_grads_many``), the
+    apply over real_mlp_many unless ``apply`` is False (a family whose apply
+    runs no kernel, as in the JAX package), and the gate: the family's
+    kernels serve it (``_use_fused``) and its own ``use_ok`` (read on one
+    replica's parameters: shapes alone) passes."""
+    def step(params_stack, coords, target, spec, *, nvalid=None,
+             denom=None, gt=None, want_metrics=False, scratch=None):
+        from wire_tpu_torch.ops.real_mlp import real_step_many
+        canon, back = fold_grads_many(canon_of, params_stack, spec)
+        out = real_step_many(canon, _pre_many(pre, coords, spec), target,
+                             kinds_of(spec), nvalid=nvalid, denom=denom,
+                             gt=gt, want_metrics=want_metrics,
+                             scratch=scratch)
+        return (out[0], back(out[1])) + tuple(out[2:])
+
+    def apply_many(params_stack, coords, spec):
+        from wire_tpu_torch.ops.real_mlp import real_mlp_many
+        canon = torch.func.vmap(lambda p: canon_of(p, spec))(params_stack)
+        return real_mlp_many(canon, _pre_many(pre, coords, spec),
+                             kinds_of(spec))
+
+    def ok(params, spec):
+        return _use_fused(spec) and (use_ok is None or use_ok(params, spec))
+
+    return ReplicaHooks(step=step, apply=apply_many if apply else None,
+                        ok=ok)
 
 
 def _make_real_step(apply_fn, kinds_of, canon_of, pre=None, use_ok=None):
@@ -1034,10 +1154,13 @@ def mscale_hier_init(gen, spec: INRSpec, device="cpu"):
 
 def _blocks(shape, like, parts):
     """A (rows, cols) matrix of zeros with ``parts``, (row slice, column
-    slice, block), set in place: autograd carries the blocks' gradients."""
+    slice, block), scattered in out of place (so ``torch.func.vmap`` of the
+    fold takes it): autograd carries the blocks' gradients."""
     W = torch.zeros(shape, dtype=like.dtype, device=like.device)
     for rows, cols, block in parts:
-        W[rows, cols] = block
+        band = W[rows].slice_scatter(block, dim=1, start=cols.start,
+                                     end=cols.stop)
+        W = W.slice_scatter(band, dim=0, start=rows.start, end=rows.stop)
     return W
 
 
@@ -1145,6 +1268,29 @@ mscale_hl_step = _make_real_step(mscale_hl_apply, _mscale_hl_kinds,
 mscale_hier_step = _make_real_step(mscale_hier_apply, _hier_kinds,
                                    _canon_mscale_hier)
 
+# the replica hooks of the families that fold onto real_step (ROADMAP.md
+# §A item 5b); bspline_knots and mscale_1 have no apply kernel, as in the
+# JAX package (their batched apply is item 5d on the card)
+siren_replicas = _real_replica_hooks(_uniform_kinds("sine"), _canon_siren)
+gauss_replicas = _real_replica_hooks(_uniform_kinds("gauss"), _canon_gauss)
+relu_replicas = _real_replica_hooks(_uniform_kinds("relu"), _canon_relu,
+                                    pre=_posenc_pre)
+bspline_form_replicas = _real_replica_hooks(_uniform_kinds("qspline"),
+                                            _canon_form)
+bspline_cubic_replicas = _real_replica_hooks(_uniform_kinds("cspline"),
+                                             _canon_cubic)
+bspline_srelu_replicas = _real_replica_hooks(_uniform_kinds("srelu"),
+                                             _canon_srelu)
+bspline_knots_replicas = _real_replica_hooks(_uniform_kinds("qspline"),
+                                             _canon_knots, apply=False)
+mscale1_replicas = _real_replica_hooks(_mscale1_kinds, _canon_mscale1,
+                                       apply=False)
+mscale_repin_replicas = _real_replica_hooks(_uniform_kinds("qspline"),
+                                            _canon_repin, pre=repin_expand)
+mscale_hl_replicas = _real_replica_hooks(_mscale_hl_kinds, _canon_mscale_hl,
+                                         use_ok=_mscale_hl_fusable)
+mscale_hier_replicas = _real_replica_hooks(_hier_kinds, _canon_mscale_hier)
+
 
 # ===========================================================================
 # MFN - Gabor multiplicative filter network (ops/mfn.py)
@@ -1210,3 +1356,21 @@ def mfn_step(params, coords, target, spec, *, nvalid=None, denom=None,
     from wire_tpu_torch.ops.mfn import mfn_step as step
     return step(params, coords, target, spec, nvalid=nvalid, denom=denom,
                 gt=gt, want_metrics=want_metrics, scratch=scratch)
+
+
+def mfn_step_many(params_stack, coords, target, spec, **kw):
+    """The MFN's replica step hook (ops/mfn.py:mfn_step_many)."""
+    from wire_tpu_torch.ops.mfn import mfn_step_many as step
+    return step(params_stack, coords, target, spec, **kw)
+
+
+def mfn_apply_many(params_stack, coords, spec):
+    """The MFN's replica apply hook (ops/mfn.py:mfn_mlp_many)."""
+    from wire_tpu_torch.ops.mfn import mfn_mlp_many
+    return mfn_mlp_many(params_stack, coords, spec)
+
+
+wire_replicas = ReplicaHooks(step=wire_step_many, apply=wire_apply_many,
+                             ok=_fused_on)
+mfn_replicas = ReplicaHooks(step=mfn_step_many, apply=mfn_apply_many,
+                            ok=_fused_on)

@@ -56,6 +56,28 @@ STEP_REGISTRY = {
     "bspline_mscale_hier": M.mscale_hier_step,
 }
 
+# families with replica hooks (the batched multi-fit: one launch sequence
+# for all M replicas on the card); wire2d and bspline_mscale_2 wait on
+# their replica kernels (ROADMAP.md §A item 5c), realgabor and bspline_sig
+# train by autodiff (item 5d)
+REPLICA_HOOKS = {
+    "wire": M.wire_replicas,
+    "siren": M.siren_replicas,
+    "gauss": M.gauss_replicas,
+    "relu": M.relu_replicas,
+    "posenc": M.relu_replicas,
+    "mfn": M.mfn_replicas,
+    "bspline_form": M.bspline_form_replicas,
+    "bspline_cubic": M.bspline_cubic_replicas,
+    "bspline_srelu": M.bspline_srelu_replicas,
+    "bspline_knots": M.bspline_knots_replicas,
+    "bspline_mscale_1": M.mscale1_replicas,
+    "bspline_mscale_1_new": M.mscale_repin_replicas,
+    "bspline_mscale_repIN": M.mscale_repin_replicas,
+    "bspline_mscale_HL": M.mscale_hl_replicas,
+    "bspline_mscale_hier": M.mscale_hier_replicas,
+}
+
 # default (first_omega0, hidden_omega0, scale) per family, as each
 # reference module's __init__ defaults
 _FAMILY_DEFAULTS = {
@@ -92,4 +114,5 @@ def get_inr(nonlin: str, **kwargs) -> INR:
         kw["scale_tensor"] = tuple(float(s) for s in kw["scale_tensor"])
     spec = INRSpec(nonlin=nonlin, **kw)
     init_fn, apply_fn = MODEL_REGISTRY[nonlin]
-    return INR(spec, init_fn, apply_fn, step_fn=STEP_REGISTRY.get(nonlin))
+    return INR(spec, init_fn, apply_fn, step_fn=STEP_REGISTRY.get(nonlin),
+               replica_hooks=REPLICA_HOOKS.get(nonlin))

@@ -23,6 +23,15 @@ fallback.  Leading axes of ``coords`` are flattened and restored.  The
 kernels keep z and a of every layer for the backward instead of
 recomputing them as the TPU kernels do (173 MB at the SISR shape, 403 MB
 for the denoise step); a forward with no gradient to take keeps nothing.
+
+``real_step_many`` and ``real_mlp_many`` run M models of one shape at once
+(wire_tpu's batched fits vmap the Pallas calls over a leading replica
+axis): every canonical leaf carries a leading M, the coordinates (and
+targets) are shared or per replica, and each call is one launch sequence
+for all M with a replica grid axis; replica r's outputs are bit-equal to
+the unbatched call on its own inputs.  Their plain versions
+(``real_step_many_plain``, ``real_mlp_many_plain``) run the plain version
+once per replica and stack the results.
 """
 from __future__ import annotations
 
@@ -32,16 +41,17 @@ import functools
 import numpy as np
 import torch
 
+from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import autodiff_step
 from wire_tpu_torch.ops import build
-from wire_tpu_torch.ops.wire_step import StepScratch, _check
+from wire_tpu_torch.ops.wire_step import StepScratch, _check, shared_nvalid
 
 BASIS_CODES = {"zero": 0, "qspline": 1, "cspline": 2, "sine": 3, "gauss": 4,
                "relu": 5, "srelu": 6, "identity": 7}
 
-# kernel launches of this module: one "step" per real_step on the card, one
-# "forward" and one "backward" per real_mlp pair; a run resets and reads
-# them
+# kernel launches of this module: one "step" per real_step or
+# real_step_many on the card, one "forward" and one "backward" per real_mlp
+# or real_mlp_many pair; a run resets and reads them
 launches = {"step": 0, "forward": 0, "backward": 0}
 
 
@@ -229,8 +239,8 @@ def real_step_plain(canon, coords, target, kinds, *, nvalid=None,
 # ---- work counts ------------------------------------------------------------
 
 def _widths(canon, d):
-    return [d] + [int(lay["w"].shape[1]) for lay in canon["layers"]] + [
-        int(canon["final"]["w"].shape[1])]
+    return [d] + [int(lay["w"].shape[-1]) for lay in canon["layers"]] + [
+        int(canon["final"]["w"].shape[-1])]
 
 
 def forward_flops(n, widths):
@@ -265,13 +275,14 @@ def _lib():
     lib = build.load("real_mlp")
     lib.real_mlp_forward.argtypes = ([_INT, _INT, _PTR, _PTR] + [_PTR] * 4
                                      + [_PTR, _PTR, _PTR, _INT]
-                                     + [_PTR, _PTR, _PTR, _PTR])
+                                     + [_PTR, _PTR, _PTR, _INT, _INT, _PTR])
     lib.real_mlp_backward.argtypes = ([_INT, _INT, _PTR, _PTR, _PTR]
                                       + [_PTR] * 4 + [_PTR, _PTR, _INT]
-                                      + [_PTR] * 10)
+                                      + [_PTR] * 9 + [_INT, _INT, _PTR])
     lib.real_step_run.argtypes = ([_INT, _INT, _PTR, _PTR, _PTR, _PTR]
                                   + [_PTR] * 5 + [_PTR] * 3 + [_PTR] * 5
-                                  + [_PTR] * 6 + [_INT, _FLT, _INT, _PTR])
+                                  + [_PTR] * 6 + [_INT, _FLT, _INT]
+                                  + [_INT] * 3 + [_PTR])
     for fn in (lib.real_mlp_forward, lib.real_mlp_backward,
                lib.real_step_run):
         fn.restype = _INT
@@ -312,33 +323,39 @@ def _device_codes(kinds, widths, device):
                  for k, w in zip(kinds, widths))
 
 
-def _prepare(canon, coords, kinds, who, max_out=None):
+def _prepare(canon, coords, kinds, who, max_out=None, reps=None):
     """Checks of the canonical weights against coords (n, d) on the card;
     returns (widths, flat alpha/beta per layer, codes per layer).
-    ``max_out``: the calling kernel's limit on o (default real_mlp's)."""
+    ``max_out``: the calling kernel's limit on o (default real_mlp's).
+    With ``reps``, every canonical leaf leads with reps (alpha and beta
+    come back (reps, w)) and coords are (n, d) shared or (reps, n, d)."""
     max_out = _lib().real_mlp_max_out() if max_out is None else max_out
     dev = coords.device
+    lead = () if reps is None else (reps,)
     L = len(canon["layers"])
     if L < 1 or len(kinds) != L:
         raise ValueError(f"{who}: {L} layers and {len(kinds)} kinds; need "
                          f"one kind per layer and at least one layer")
-    widths = _widths(canon, coords.shape[1])
+    widths = _widths(canon, coords.shape[-1])
     if widths[-1] > max_out:
         raise ValueError(f"{who} kernel supports out_features <= "
                          f"{max_out}, got {widths[-1]}")
-    _check("coords", coords, (coords.shape[0], widths[0]), dev, who)
+    n = coords.shape[-2]
+    _check("coords", coords,
+           ((n, widths[0]) if coords.ndim == 2 else lead + (n, widths[0])),
+           dev, who)
     alphas, betas = [], []
     for l, lay in enumerate(canon["layers"]):
-        _check(f"layers[{l}].w", lay["w"], (widths[l], widths[l + 1]), dev,
-               who)
+        _check(f"layers[{l}].w", lay["w"],
+               lead + (widths[l], widths[l + 1]), dev, who)
         for k, out in (("alpha", alphas), ("beta", betas)):
-            t = lay[k].reshape(-1)
-            _check(f"layers[{l}].{k}", t, (widths[l + 1],), dev, who)
+            t = lay[k].reshape(lead + (-1,))
+            _check(f"layers[{l}].{k}", t, lead + (widths[l + 1],), dev, who)
             out.append(t)
-    _check("final.w", canon["final"]["w"], (widths[-2], widths[-1]), dev,
-           who)
-    _check("final.b", canon["final"]["b"].reshape(-1), (widths[-1],), dev,
-           who)
+    _check("final.w", canon["final"]["w"], lead + (widths[-2], widths[-1]),
+           dev, who)
+    _check("final.b", canon["final"]["b"].reshape(lead + (-1,)),
+           lead + (widths[-1],), dev, who)
     codes = _device_codes(tuple(kinds), tuple(widths[1:-1]), dev)
     return widths, alphas, betas, codes
 
@@ -357,71 +374,82 @@ def _gamma_args(row_gamma, n, device):
 
 def _transposes(canon, alphas):
     """(W_l diag(alpha_l))^T per layer and Wf^T: the backward's data-gradient
-    operands (dz = alpha dv is never stored)."""
-    wat = [(lay["w"] * a[None, :]).t().contiguous()
+    operands (dz = alpha dv is never stored); on stacked leaves (alpha
+    (M, w)) each replica's, in one op per layer."""
+    wat = [(lay["w"] * a[..., None, :]).transpose(-1, -2).contiguous()
            for lay, a in zip(canon["layers"], alphas)]
-    return wat, canon["final"]["w"].t().contiguous()
+    return wat, canon["final"]["w"].transpose(-1, -2).contiguous()
 
 
 def _grads_to_canon(canon, widths, gW, galpha, gWf):
     layers = []
     for l, lay in enumerate(canon["layers"]):
         k = widths[l]
-        layers.append({"w": gW[l][:k],
+        layers.append({"w": gW[l][..., :k, :],
                        "alpha": galpha[l].reshape(lay["alpha"].shape),
-                       "beta": gW[l][k].reshape(lay["beta"].shape)})
+                       "beta": gW[l][..., k, :].reshape(lay["beta"].shape)})
     h = widths[-2]
     return {"layers": layers,
-            "final": {"w": gWf[:h],
-                      "b": gWf[h].reshape(canon["final"]["b"].shape)}}
+            "final": {"w": gWf[..., :h, :],
+                      "b": gWf[..., h, :].reshape(
+                          canon["final"]["b"].shape)}}
 
 
-def _forward(canon, coords, kinds, row_gamma, keep):
+def _forward(canon, coords, kinds, row_gamma, keep, reps=None):
     """Launch the pair's forward; returns (pred, zs, acts) with zs and acts
-    the saved activations when ``keep``, else None (two ping-pong planes)."""
+    the saved activations when ``keep``, else None (two ping-pong planes).
+    ``reps``: the replica layout (canonical leaves with a leading reps,
+    coords (n, d) shared or (reps, n, d), pred (reps, n, o))."""
     lib = _lib()
     dev = coords.device
-    n = coords.shape[0]
-    widths, alphas, betas, codes = _prepare(canon, coords, kinds, "real_mlp")
+    n = coords.shape[-2]
+    M = 1 if reps is None else reps
+    lead = () if reps is None else (M,)
+    widths, alphas, betas, codes = _prepare(canon, coords, kinds, "real_mlp",
+                                            reps=reps)
     L = len(kinds)
     gammas, rpb = _gamma_args(row_gamma, n, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     if keep:
-        zs = [torch.empty((n, w), **f32) for w in widths[1:-1]]
-        acts = [torch.empty((n, w), **f32) for w in widths[1:-1]]
+        zs = [torch.empty(lead + (n, w), **f32) for w in widths[1:-1]]
+        acts = [torch.empty(lead + (n, w), **f32) for w in widths[1:-1]]
         act_ptrs = acts
     else:
         zs = [None] * L
-        planes = torch.empty((2, n * max(widths[1:-1])), **f32)
+        planes = torch.empty((2, M * n * max(widths[1:-1])), **f32)
         act_ptrs = [planes[l % 2] for l in range(L)]
-    pred = torch.empty((n, widths[-1]), **f32)
+    pred = torch.empty(lead + (n, widths[-1]), **f32)
     _raise_on(lib.real_mlp_forward(
         n, L, _ints(widths), coords.data_ptr(),
         _ptrs([lay["w"] for lay in canon["layers"]]), _ptrs(alphas),
         _ptrs(betas), _ptrs(codes), canon["final"]["w"].data_ptr(),
         canon["final"]["b"].data_ptr(),
         None if gammas is None else gammas.data_ptr(), rpb, _ptrs(zs),
-        _ptrs(act_ptrs), pred.data_ptr(),
+        _ptrs(act_ptrs), pred.data_ptr(), M, int(coords.ndim == 2),
         torch.cuda.current_stream(dev).cuda_stream), "forward")
     launches["forward"] += 1
     return pred, (zs if keep else None), (acts if keep else None)
 
 
 class _RealMLP(torch.autograd.Function):
+    """The pair for one model (``reps`` None) or ``reps`` replicas."""
 
     @staticmethod
-    def forward(ctx, coords, kinds, row_gamma, *leaves):
+    def forward(ctx, coords, kinds, row_gamma, reps, *leaves):
         L = len(kinds)
         canon = canon_from_leaves(leaves, L)
-        pred, zs, acts = _forward(canon, coords, kinds, row_gamma, keep=True)
+        pred, zs, acts = _forward(canon, coords, kinds, row_gamma, keep=True,
+                                  reps=reps)
         ctx.save_for_backward(coords, *leaves, *zs, *acts)
-        ctx.kinds, ctx.row_gamma = kinds, row_gamma
+        ctx.kinds, ctx.row_gamma, ctx.reps = kinds, row_gamma, reps
         return pred
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        kinds, L = ctx.kinds, len(ctx.kinds)
+        kinds, L, reps = ctx.kinds, len(ctx.kinds), ctx.reps
+        M = 1 if reps is None else reps
+        lead = () if reps is None else (M,)
         coords = saved[0]
         nleaves = 3 * L + 2
         canon = canon_from_leaves(saved[1:1 + nleaves], L)
@@ -429,35 +457,38 @@ class _RealMLP(torch.autograd.Function):
         acts = saved[1 + nleaves + L:]
         lib = _lib()
         dev = coords.device
-        n = coords.shape[0]
+        n = coords.shape[-2]
         widths, alphas, betas, codes = _prepare(canon, coords, kinds,
-                                                "real_mlp")
+                                                "real_mlp", reps=reps)
         gammas, rpb = _gamma_args(ctx.row_gamma, n, dev)
         g = g.to(torch.float32).contiguous()
         wat, wft = _transposes(canon, alphas)
         f32 = dict(dtype=torch.float32, device=dev)
-        gW = [torch.empty((widths[l] + 1, widths[l + 1]), **f32)
+        gW = [torch.empty(lead + (widths[l] + 1, widths[l + 1]), **f32)
               for l in range(L)]
-        galpha = [torch.empty((w,), **f32) for w in widths[1:-1]]
-        gWf = torch.empty((widths[-2] + 1, widths[-1]), **f32)
+        galpha = [torch.empty(lead + (w,), **f32) for w in widths[1:-1]]
+        gWf = torch.empty(lead + (widths[-2] + 1, widths[-1]), **f32)
+        # the coordinate gradient only where autograd asks for it (never in
+        # a fit, whose coordinates are constants; the replica pair refuses
+        # such coordinates before its forward)
         dcoords = torch.empty((n, widths[0]), **f32) \
             if ctx.needs_input_grad[0] else None
         maxw = max(widths[1:-1])
-        dv = torch.empty((2, n * maxw), **f32)
-        zdv = torch.empty((n * maxw,), **f32)
+        dv = torch.empty((2, M * n * maxw), **f32)
+        zdv = torch.empty((M * n * maxw,), **f32)
         wp = _ints(widths)
-        part = torch.empty((lib.real_mlp_part_floats(n, L, wp),), **f32)
+        part = torch.empty((M * lib.real_mlp_part_floats(n, L, wp),), **f32)
         _raise_on(lib.real_mlp_backward(
             n, L, wp, coords.data_ptr(), g.data_ptr(), _ptrs(wat),
             _ptrs(alphas), _ptrs(betas), _ptrs(codes), wft.data_ptr(),
             None if gammas is None else gammas.data_ptr(), rpb, _ptrs(zs),
             _ptrs(acts), _ptrs(gW), _ptrs(galpha), gWf.data_ptr(),
             None if dcoords is None else dcoords.data_ptr(), dv.data_ptr(),
-            zdv.data_ptr(), part.data_ptr(),
+            zdv.data_ptr(), part.data_ptr(), M, int(coords.ndim == 2),
             torch.cuda.current_stream(dev).cuda_stream), "backward")
         launches["backward"] += 1
         dcanon = _grads_to_canon(canon, widths, gW, galpha, gWf)
-        return (dcoords, None, None,
+        return (dcoords, None, None, None,
                 *[t for _, t in canon_leaves(dcanon)])
 
 
@@ -480,7 +511,7 @@ def real_mlp(canon, coords, kinds, row_gamma=None):
         leaves = [t for _, t in canon_leaves(canon)]
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in [c2] + leaves):
-            out = _RealMLP.apply(c2, kinds, row_gamma, *leaves)
+            out = _RealMLP.apply(c2, kinds, row_gamma, None, *leaves)
         else:
             out, _, _ = _forward(canon, c2, kinds, row_gamma, keep=False)
     return out.reshape(*lead, out.shape[-1])
@@ -500,40 +531,49 @@ def real_mlp_scales(canon, coords, kinds, inv_scales):
 
 
 def _launch_step(canon, coords, target, kinds, nvalid, denom, gt,
-                 want_metrics, scratch):
+                 want_metrics, scratch, reps=None):
+    """One launch sequence of the step kernel: one model (``reps`` None,
+    no leading axis anywhere) or ``reps`` replicas (a leading axis on every
+    canonical leaf; coords (n, d) or (reps, n, d), target and gt (n, o) or
+    (reps, n, o), each shared when it has no leading axis)."""
     lib = _lib()
+    who = "real_step" if reps is None else "real_step_many"
     dev = coords.device
-    n = coords.shape[0]
-    widths, alphas, betas, codes = _prepare(canon, coords, kinds,
-                                            "real_step")
+    n = coords.shape[-2]
+    M = 1 if reps is None else reps
+    lead = () if reps is None else (M,)
+    widths, alphas, betas, codes = _prepare(canon, coords, kinds, who,
+                                            reps=reps)
     L = len(kinds)
     o = widths[-1]
     nv = n if nvalid is None else int(nvalid)
     if not 0 <= nv <= n:
-        raise ValueError(f"real_step: nvalid={nv} outside [0, {n}]")
-    _check("target", target, (n, o), dev, "real_step")
+        raise ValueError(f"{who}: nvalid={nv} outside [0, {n}]")
+    t_shared = target.ndim == 2
+    tshape = (n, o) if t_shared else lead + (n, o)
+    _check("target", target, tshape, dev, who)
     if gt is not None:
-        _check("gt", gt, (n, o), dev, "real_step")
+        _check("gt", gt, tshape, dev, who)
     scratch = StepScratch() if scratch is None else scratch
-    zs = [scratch.get(f"real_z{l}", (n, w), dev)
+    zs = [scratch.get(f"real_z{l}", lead + (n, w), dev)
           for l, w in enumerate(widths[1:-1])]
-    acts = [scratch.get(f"real_a{l}", (n, w), dev)
+    acts = [scratch.get(f"real_a{l}", lead + (n, w), dev)
             for l, w in enumerate(widths[1:-1])]
     maxw = max(widths[1:-1])
-    g = scratch.get("real_g", (n, o), dev)
-    dv = scratch.get("real_dv", (2, n * maxw), dev)
-    zdv = scratch.get("real_zdv", (n * maxw,), dev)
+    g = scratch.get("real_g", lead + (n, o), dev)
+    dv = scratch.get("real_dv", (2, M * n * maxw), dev)
+    zdv = scratch.get("real_zdv", (M * n * maxw,), dev)
     wp = _ints(widths)
-    part = scratch.get("real_part", (lib.real_mlp_part_floats(n, L, wp),),
-                       dev)
+    part = scratch.get("real_part",
+                       (M * lib.real_mlp_part_floats(n, L, wp),), dev)
     wat, wft = _transposes(canon, alphas)
     f32 = dict(dtype=torch.float32, device=dev)
-    pred = torch.empty((n, o), **f32)
-    gW = [torch.empty((widths[l] + 1, widths[l + 1]), **f32)
+    pred = torch.empty(lead + (n, o), **f32)
+    gW = [torch.empty(lead + (widths[l] + 1, widths[l + 1]), **f32)
           for l in range(L)]
-    galpha = [torch.empty((w,), **f32) for w in widths[1:-1]]
-    gWf = torch.empty((widths[-2] + 1, o), **f32)
-    sse = torch.zeros((2,), **f32)
+    galpha = [torch.empty(lead + (w,), **f32) for w in widths[1:-1]]
+    gWf = torch.empty(lead + (widths[-2] + 1, o), **f32)
+    sse = torch.zeros(lead + (2,), **f32)
     dn = np.float32(n * o if denom is None else denom)
     two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
     _raise_on(lib.real_step_run(
@@ -545,12 +585,13 @@ def _launch_step(canon, coords, target, kinds, nvalid, denom, gt,
         canon["final"]["b"].reshape(-1).data_ptr(), _ptrs(zs), _ptrs(acts),
         pred.data_ptr(), g.data_ptr(), sse.data_ptr(), _ptrs(gW),
         _ptrs(galpha), gWf.data_ptr(), dv.data_ptr(), zdv.data_ptr(),
-        part.data_ptr(), nv, float(two_inv_denom), int(want_metrics),
+        part.data_ptr(), nv, float(two_inv_denom), int(want_metrics), M,
+        int(coords.ndim == 2), int(t_shared),
         torch.cuda.current_stream(dev).cuda_stream), "step")
     launches["step"] += 1
     dcanon = _grads_to_canon(canon, widths, gW, galpha, gWf)
     if want_metrics:
-        return pred, dcanon, (sse[0], sse[1])
+        return pred, dcanon, (sse[..., 0], sse[..., 1])
     return pred, dcanon
 
 
@@ -572,3 +613,107 @@ def real_step(canon, coords, target, kinds, *, nvalid=None, denom=None,
         raise ValueError(f"real_step: unsupported device {coords.device}")
     return _launch_step(canon, coords, target, kinds, nvalid, denom, gt,
                         want_metrics, scratch)
+
+
+# ---- the replica axis (the batched multi-fit) -------------------------------
+
+def real_step_many_plain(canon_stack, coords, target, kinds, *, nvalid=None,
+                         denom=None, gt=None, want_metrics=False):
+    """The plain version of ``real_step_many``: ``real_step_plain`` once per
+    replica, its results stacked."""
+    kinds = norm_kinds(kinds)
+    M = tree.replicas(canon_stack)
+    nvalid = shared_nvalid(nvalid, M)
+
+    def rep(x, r):
+        return tree.replica(x, r, M)
+
+    outs = [real_step_plain(tree.index(canon_stack, r), rep(coords, r),
+                            rep(target, r), kinds, nvalid=nvalid,
+                            denom=denom, gt=rep(gt, r),
+                            want_metrics=want_metrics) for r in range(M)]
+    pred = torch.stack([out[0] for out in outs])
+    grads = tree.stack([out[1] for out in outs])
+    if want_metrics:
+        return pred, grads, tuple(torch.stack([out[2][i] for out in outs])
+                                  for i in range(2))
+    return pred, grads
+
+
+def real_step_many(canon_stack, coords, target, kinds, *, nvalid=None,
+                   denom=None, gt=None, want_metrics=False, scratch=None):
+    """M train steps over the canonical MLP at once: every leaf of
+    ``canon_stack`` has a leading M; coords (n, d) shared or (M, n, d);
+    target and gt (n, o) shared or (M, n, o).  Returns pred (M, n, o), the
+    canonical gradients stacked as ``canon_stack`` and, with
+    ``want_metrics``, the SSE sums as two (M,) tensors.  ``nvalid`` and
+    ``denom`` are shared (an int, or M equal ints).  CPU tensors take
+    ``real_step_many_plain``; on CUDA one launch sequence serves all M
+    (``launches["step"]`` advances by one) or an error is raised."""
+    kinds = norm_kinds(kinds)
+    if coords.device.type == "cpu":
+        return real_step_many_plain(canon_stack, coords, target, kinds,
+                                    nvalid=nvalid, denom=denom, gt=gt,
+                                    want_metrics=want_metrics)
+    if coords.device.type != "cuda":
+        raise ValueError(f"real_step_many: unsupported device "
+                         f"{coords.device}")
+    M = tree.replicas(canon_stack)
+    # a vmapped fold may give expanded or strided leaves
+    canon_stack = tree.map(lambda t: t.contiguous(), canon_stack)
+    return _launch_step(canon_stack, coords.contiguous(),
+                        target.contiguous(), kinds, shared_nvalid(nvalid, M),
+                        denom, None if gt is None else gt.contiguous(),
+                        want_metrics, scratch, reps=M)
+
+
+def real_mlp_many_plain(canon_stack, coords, kinds, row_gamma=None):
+    """The plain version of ``real_mlp_many``: ``real_mlp_plain`` once per
+    replica, its results stacked."""
+    kinds = norm_kinds(kinds)
+    M = tree.replicas(canon_stack)
+    outs = []
+    for r in range(M):
+        c = tree.replica(coords, r, M)
+        c2 = c.reshape(-1, c.shape[-1])
+        y = real_mlp_plain(tree.index(canon_stack, r), c2, kinds, row_gamma)
+        outs.append(y.reshape(*c.shape[:-1], y.shape[-1]))
+    return torch.stack(outs)
+
+
+def real_mlp_many(canon_stack, coords, kinds, row_gamma=None):
+    """M canonical MLPs at once: every leaf of ``canon_stack`` has a
+    leading M; coords (rows, d) shared by the replicas or (M, ..., rows, d)
+    per replica -> (M, ..., rows, o), differentiable in the canonical
+    tensors; ``row_gamma`` shared or None.  On CUDA each direction is one
+    launch sequence for all M (the pair when a leaf needs a gradient, else
+    a forward that keeps nothing); coordinates that require a gradient
+    raise."""
+    kinds = norm_kinds(kinds)
+    if coords.device.type == "cpu":
+        return real_mlp_many_plain(canon_stack, coords, kinds, row_gamma)
+    if coords.device.type != "cuda":
+        raise ValueError(f"real_mlp_many: unsupported device "
+                         f"{coords.device}")
+    M = tree.replicas(canon_stack)
+    if coords.requires_grad:
+        raise ValueError("real_mlp_many computes no coordinate gradient (the "
+                         "batched fits' coordinates are constants); use "
+                         "real_mlp per replica to differentiate in them")
+    if coords.ndim == 2:
+        c2, out_lead = coords.contiguous(), (M, coords.shape[0])
+    else:
+        if coords.shape[0] != M:
+            raise ValueError(f"real_mlp_many: coords {tuple(coords.shape)} "
+                             f"for {M} replicas: expected (rows, d) or "
+                             f"({M}, ..., rows, d)")
+        out_lead = tuple(coords.shape[:-1])
+        c2 = coords.reshape(M, -1, coords.shape[-1]).contiguous()
+    leaves = [t.contiguous() for _, t in canon_leaves(canon_stack)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        out = _RealMLP.apply(c2, kinds, row_gamma, M, *leaves)
+    else:
+        out, _, _ = _forward(canon_from_leaves(leaves,
+                                               len(canon_stack["layers"])),
+                             c2, kinds, row_gamma, keep=False, reps=M)
+    return out.reshape(*out_lead, out.shape[-1])

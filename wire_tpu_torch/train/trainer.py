@@ -36,8 +36,10 @@ and fit_frames_many, which vmap the loop body over a leading replica axis
 of the parameters, the optimizer state and the RNG key) fits M models of
 one architecture in one loop: every parameter leaf carries a leading M,
 the model's ``step_grads_many`` / ``apply_many`` take all M in one call
-(on the card WIRE's kernels with a replica axis, one launch sequence for
-all M), and Adam and the best tracking act on the stacked leaves with an
+(on the card the kernels of WIRE, the MFN and the canonical real families
+with a replica axis, one launch sequence for all M; WIRE-2D and mscale_2
+wait on theirs, ROADMAP.md §A item 5c, and the autodiff families, item 5d,
+run batched on the CPU only), and Adam and the best tracking act on the stacked leaves with an
 (M,) mask.  Replica r draws its permutations from a generator of its own
 seeded ``cfg.seed + r`` and reproduces the serial fit at that seed; its
 loss is reduced on its own slice, as the serial fit reduces it.  The
@@ -936,8 +938,8 @@ def fit_pointwise_many(model, params_stack, coords, target, cfg: FitConfig,
     ``cfg.seed + r`` (or ``permutation(n, r)``, replica r's permutation of
     range(n) for the epoch), so replica r reproduces
     ``fit_pointwise(..., seed=cfg.seed + r)`` from its init.  One
-    ``step_grads_many`` a step serves all M (on the card one ``wire_step``
-    launch sequence).  Returns a FitResult whose params, best_params and
+    ``step_grads_many`` a step serves all M (on the card one ``wire_step``,
+    ``real_step`` or ``mfn_step`` launch sequence).  Returns a FitResult whose params, best_params and
     recs carry the leading M, histories (niters, M) and best_mse (M,).
     ``params_stack`` is not modified.  Runs on ``device`` (default cuda;
     raises without a card unless device='cpu')."""
@@ -1016,7 +1018,8 @@ def fit_frames_many(model, params_stack, frame_coords, frame_pixels,
     """M multi-frame SR fits in one loop (wire_tpu/train/trainer.py:724):
     ``fit_frames``'s step (render a batch of frames' warped grids, box
     downsample, masked MSE, Adam) for every replica at once, one
-    ``apply_many`` a step (on the card one ``wire_mlp`` pair for all M).
+    ``apply_many`` a step (on the card one ``wire_mlp``, ``real_mlp`` or
+    ``mfn_mlp`` pair for all M).
 
     The frames (n, H*W, 2), (n, h*w, C), (n, h*w, C) are shared by the
     replicas, or with ``batched_frames`` carry a leading M: M different
@@ -1098,11 +1101,11 @@ def fit_operator_many(model, params_stack, coords, measurement, operator_fn,
                       track="gt", batched_measurement=False, device=None):
     """M operator fits (the CT / SISR loop) in one loop
     (wire_tpu/train/trainer.py:1267): every iteration renders the full grid
-    for all M replicas in one ``apply_many`` (on the card one ``wire_mlp``
-    pair for all M), calls ``operator_fn`` ONCE on the (M, *field_shape)
-    stack, takes each replica's MSE against the measurement, and steps Adam
-    on the stacked leaves; the learning rate decays per iteration, as
-    wire_tpu forces (``schedule_per="iter"``).
+    for all M replicas in one ``apply_many`` (on the card one ``wire_mlp``,
+    ``real_mlp`` or ``mfn_mlp`` pair for all M), calls ``operator_fn`` ONCE
+    on the (M, *field_shape) stack, takes each replica's MSE against the
+    measurement, and steps Adam on the stacked leaves; the learning rate
+    decays per iteration, as wire_tpu forces (``schedule_per="iter"``).
 
     The measurement and gt_field are shared by the replicas (multi-seed
     fits), or with ``batched_measurement`` carry a leading M: M different
