@@ -159,11 +159,15 @@ Phases, each printing one JSON line with its wall time:
                    forward twice and backward once an iteration)
   many_kernel_vs_plain  the replica axis (the batched multi-fit) of
                    wire_step, wire_mlp, rotsum, line_sample, real_step,
-                   real_mlp, mfn_step and mfn_mlp at 3 replicas of distinct
-                   weights (MANY_SHAPES, MANY_REAL_SHAPES): one launch per
-                   call for all replicas, two calls bit-equal, each replica
-                   bit-equal to the unbatched kernel and within REL_TOL of
-                   its reference; times against the 3 unbatched calls
+                   real_mlp, mfn_step, mfn_mlp, mscale2_step, wire2d_step
+                   and wire2d_mlp at 3 replicas of distinct weights
+                   (MANY_SHAPES, MANY_REAL_SHAPES, MANY_REST_SHAPES): one
+                   launch per call for all replicas, two calls bit-equal,
+                   each replica bit-equal to the unbatched kernel and
+                   within REL_TOL of its reference (the wire2d_mlp
+                   CT-width case's the float64 run, mscale2_step's the
+                   float64 run on the kernel's own combiner relu pattern,
+                   fault C.11); times against the 3 unbatched calls
   fit_many         WIRE's batched fits (denoise full and chunked, CT rotate
                    and auto, SISR, multi-SR on one burst and a burst each),
                    each replica bit-equal to its serial fit (CT auto within
@@ -173,9 +177,18 @@ Phases, each printing one JSON line with its wall time:
                    (B-spline denoise, siren chunked, the repIN fold,
                    B-spline SISR, MFN denoise and SISR, gauss multi-SR),
                    each replica bit-equal to its serial fit; ``sweep
-                   --seeds 2`` of siren, gauss, relu, posenc and mfn; wire2d
-                   and realgabor replicas refused on the card (ROADMAP.md
-                   §A items 5c and 5d)
+                   --seeds 2`` of siren, gauss, relu, posenc and mfn
+  fit_many_rest    the batched fits of WIRE-2D (denoise at 300 wide, one
+                   wire2d_step an epoch; CT 'auto', one wire2d_mlp pair an
+                   iteration) and mscale_2 denoise (one mscale2_step an
+                   epoch), each replica bit-equal to its serial fit (CT
+                   'auto' within MANY_FOURIER_REL); the autodiff families'
+                   (realgabor, bspline_sig, mscale_2 at 'both', bspline_knots
+                   SISR through apply_many) within PSNR_AGREE_DB of theirs
+                   (histories' distance reported); ``sweep --seeds 2`` of
+                   wire2d and realgabor; one
+                   autodiff step's PyTorch operations at 2 and 4 replicas
+                   equal, its device kernels reported
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -4523,8 +4536,7 @@ def fit_many(torch, np, mods, counters, device):
     PSNR_AGREE_DB; one line_sample pair an iteration), the sweep's WIRE
     SISR (bit-equal), the multi-SR app's WIRE on one burst and on a burst
     per replica (bit-equal); then ``sweep --seeds 2`` of each task through
-    ``main`` at SWEEP_ITERS, launching WIRE's kernels and nothing else,
-    and a non-WIRE family's --seeds refused on the card."""
+    ``main`` at SWEEP_ITERS, launching WIRE's kernels and nothing else."""
     import dataclasses
     import tempfile
     (T, WS, TR, TCT, TMS, TS, SW, TF, M, get_inr, get_config, bench,
@@ -4809,14 +4821,19 @@ def many_real_pair(torch, RM, canon, coords, cot, kinds, what):
         lambda r: one(r, plain), M, f"real_mlp_many {what}")
 
 
-def many_mfn_step(torch, MF, spec, ps, coords, target, gt, what, **kw):
-    """mfn_step_many against the unbatched kernel and the plain step in
+def many_tree_step(torch, mod, name, spec, ps, coords, target, gt, what,
+                   **kw):
+    """A step over a family's own parameter tree with a replica axis
+    (``mod``'s ``<name>_many``: mfn_step, wire2d_step) against the
+    unbatched kernel ``<name>`` and the plain step ``<name>_plain`` in
     fp32 per replica.  many_case's triple."""
     from wire_tpu_torch import tree
     from wire_tpu_torch.ops.wire_step import StepScratch
     M = tree.replicas(ps)
     kw = dict(kw, want_metrics=True)
     scratch, one_scratch = StepScratch(), StepScratch()
+    many, one, plain = (getattr(mod, name + suffix)
+                        for suffix in ("_many", "", "_plain"))
 
     def rep(x, r):
         return tree.replica(x, r, M)
@@ -4825,31 +4842,37 @@ def many_mfn_step(torch, MF, spec, ps, coords, target, gt, what, **kw):
         return (tree.index(ps, r), rep(coords, r), rep(target, r), spec)
 
     return many_case(
-        torch, lambda: MF.launches["step"],
-        lambda: tensors_of(*MF.mfn_step_many(ps, coords, target, spec, gt=gt,
-                                             scratch=scratch, **kw)),
-        lambda r: tensors_of(*MF.mfn_step(*args(r), gt=rep(gt, r),
-                                          scratch=one_scratch, **kw)),
-        lambda r: tensors_of(*MF.mfn_step_plain(*args(r), gt=rep(gt, r),
-                                                **kw)),
-        M, f"mfn_step_many {what}")
+        torch, lambda: mod.launches["step"],
+        lambda: tensors_of(*many(ps, coords, target, spec, gt=gt,
+                                 scratch=scratch, **kw)),
+        lambda r: tensors_of(*one(*args(r), gt=rep(gt, r),
+                                  scratch=one_scratch, **kw)),
+        lambda r: tensors_of(*plain(*args(r), gt=rep(gt, r), **kw)),
+        M, f"{name}_many {what}")
 
 
-def many_mfn_pair(torch, MF, spec, ps, coords, cot, what):
-    """The mfn_mlp_many pair against the unbatched pair and the plain
-    version in fp32 per replica.  many_case's triple."""
+def many_tree_pair(torch, mod, name, spec, ps, coords, cot, what,
+                   float64=False):
+    """A pair over a family's own parameter tree with a replica axis
+    (``mod``'s ``<name>_many``: mfn_mlp, wire2d_mlp) against the
+    unbatched pair ``<name>`` and the plain version ``<name>_plain`` per
+    replica, in fp32 or (``float64``) run in float64.  many_case's
+    triple."""
     from wire_tpu_torch import tree
     M = tree.replicas(ps)
+    many, single, plain = (getattr(mod, name + suffix)
+                           for suffix in ("_many", "", "_plain"))
 
-    def one(r, apply):
-        return param_pair(torch, apply, tree.index(ps, r), spec,
-                          tree.replica(coords, r, M), cot[r])
+    def one(r, apply, cast=lambda x: x):
+        return param_pair(torch, apply, cast(tree.index(ps, r)), spec,
+                          cast(tree.replica(coords, r, M)), cast(cot[r]))
 
     return many_case(
-        torch, lambda: {k: MF.launches[k] for k in ("forward", "backward")},
-        lambda: param_pair(torch, MF.mfn_mlp_many, ps, spec, coords, cot),
-        lambda r: one(r, MF.mfn_mlp), lambda r: one(r, MF.mfn_mlp_plain), M,
-        f"mfn_mlp_many {what}")
+        torch, lambda: {k: mod.launches[k] for k in ("forward", "backward")},
+        lambda: param_pair(torch, many, ps, spec, coords, cot),
+        lambda r: one(r, single),
+        lambda r: one(r, plain, float64_tree if float64 else (lambda x: x)),
+        M, f"{name}_many {what}")
 
 
 def many_real_vs_plain(torch, np, mods, device):
@@ -4954,18 +4977,19 @@ def many_real_vs_plain(torch, np, mods, device):
     mfn_d, _ = mfn_models(get_inr, SW, "denoise", side, side)
     ps = model_stack(torch, mfn_d, seeds, device)
     nw_md = num_weights(tree.index(ps, 0))
-    kern, ser, errs["mfn_step"]["many_full"] = many_mfn_step(
-        torch, MF, mfn_d.spec, ps, grid, *targets((n,)), "full")
+    kern, ser, errs["mfn_step"]["many_full"] = many_tree_step(
+        torch, MF, "mfn_step", mfn_d.spec, ps, grid, *targets((n,)), "full")
     thunks["mfn_step"] = (kern, ser)
     gt_r = targets((MANY_M, nr))
-    errs["mfn_step"]["many_ragged"] = many_mfn_step(
-        torch, MF, mfn_d.spec, ps, t(rng.uniform(-1, 1, (MANY_M, nr, 2))),
-        *gt_r, "ragged", nvalid=nr - 50, denom=(nr - 50) * 3.0 + 1.0)[2]
+    errs["mfn_step"]["many_ragged"] = many_tree_step(
+        torch, MF, "mfn_step", mfn_d.spec, ps,
+        t(rng.uniform(-1, 1, (MANY_M, nr, 2))), *gt_r, "ragged",
+        nvalid=nr - 50, denom=(nr - 50) * 3.0 + 1.0)[2]
     mfn_s, _ = mfn_models(get_inr, SW, "sisr", ss, ss)
     ps = model_stack(torch, mfn_s, seeds, device)
     nw_ms = num_weights(tree.index(ps, 0))
-    kern, ser, errs["mfn_mlp"]["many_sisr"] = many_mfn_pair(
-        torch, MF, mfn_s.spec, ps, t(SW.C.grid2d(ss, ss)),
+    kern, ser, errs["mfn_mlp"]["many_sisr"] = many_tree_pair(
+        torch, MF, "mfn_mlp", mfn_s.spec, ps, t(SW.C.grid2d(ss, ss)),
         t(rng.normal(size=(MANY_M, ss * ss, 3))), "SISR")
     thunks["mfn_mlp"] = (kern, ser)
 
@@ -5014,9 +5038,7 @@ def fit_many_real(torch, np, mods, counters, device):
     iteration), the multi-SR app's gauss on one burst and on a burst per
     replica: every replica bit-equal to its serial fit.  Then ``sweep
     --seeds 2`` through ``main`` for MANY_SEEDS_RUNS at SWEEP_ITERS, each
-    launching its family's kernels and nothing else; and fit_pointwise_many
-    refusing wire2d (ROADMAP.md §A item 5c) and realgabor (item 5d) on the
-    card before any launch."""
+    launching its family's kernels and nothing else."""
     import dataclasses
     import tempfile
     (T, WS, TCT, TMS, TS, TD, TC, SW, TF, get_inr, get_config, tree) = mods
@@ -5156,29 +5178,501 @@ def fit_many_real(torch, np, mods, counters, device):
                           if any(v.values())},
                 wall_s=time.time() - t0)
 
-    # the families without replica kernels on the card raise, naming their
-    # ROADMAP item, before any launch
-    out["refused"] = {}
-    for nonlin, item in (("wire2d", "5c"), ("realgabor", "5d")):
+    return out
+
+
+# ---- the batched multi-fit of WIRE-2D, mscale_2 and the autodiff families --
+
+# replicas and epochs of the WIRE-2D and mscale_2 denoise fits, replicas of
+# the WIRE-2D CT fit (its iterations MANY_ITERS), replicas and epochs of
+# the autodiff fits (realgabor, bspline_sig and mscale_2 at combine_type
+# 'both' denoise; bspline_knots SISR, MANY_ITERS iterations)
+MANY_W2D_M = 3
+MANY_W2D_EPOCHS = 50
+MANY_MSCALE2_M = 3
+MANY_MSCALE2_EPOCHS = 50
+MANY_AUTODIFF_M = 2
+MANY_AUTODIFF_EPOCHS = 20
+# the autodiff replicas against their serial fits: best PSNR within
+# PSNR_AGREE_DB, the bound of two fits that differ by fp32 summation order,
+# since the batched products of torch.func.vmap (cuBLAS's batched kernels)
+# need not round as the serial ones do: realgabor's histories part by
+# 6.6e-4 relative in 20 epochs on the card; and the histories within this
+# relative distance, a bound on gross errors only (a replica stepped with
+# another's or a wrong gradient parts from its serial fit by far more);
+# the measured distance is reported
+MANY_AUTODIFF_REL = 1e-2
+# the replica counts at which one autodiff step's launches are counted
+# (check_launches_by_replicas)
+MANY_PROFILE_M = (2, 4)
+# rows 7-9's batched kernels' shapes: the denoise and CT grids (256^2), a
+# ragged step's rows per replica, a ragged pair's
+MANY_REST_SHAPES = dict(rows=256 * 256, ragged_step=700, ragged_pair=4097)
+
+
+def combiner_relu_pattern(torch, ystack, comb, n):
+    """The combiner relu's pattern u0 > 0 (n x 128) as csrc/mscale2_step.cu's
+    combiner_kernel decides it from the trunk outputs ``ystack`` (ns n x o,
+    the step's own scratch): u0 = f0 + sum_c y_c F0[c], one fp32 fma at a
+    time in c order, each modelled in float64 (the product of two floats is
+    exact there; the sum is rounded to float32 once more)."""
+    o = ystack.shape[-1]
+    ns = ystack.shape[0] // n
+    ycat = ystack.reshape(ns, n, o).permute(1, 0, 2).reshape(n, ns * o)
+    F0 = comb["freq_0"]["w"].double()
+    u0 = comb["freq_0"]["b"].reshape(1, -1).expand(n, -1).float()
+    for c in range(ns * o):
+        u0 = (u0.double() + ycat[:, c:c + 1].double() * F0[c]).float()
+    return u0 > 0
+
+
+def mscale2_pattern_reference(torch, MS, args, kw, mask):
+    """mscale2_step_plain run in float64 (every input cast) with the
+    combiner relu taking ``mask`` (the kernel's own pattern) in place of
+    its own sign: the reference where a combiner unit lies within fp32
+    rounding of the kink (fault C.11)."""
+    from wire_tpu_torch.nn import activations as act
+    relu = act.relu
+    act.relu = lambda z: z * mask.to(z.dtype)
+    try:
+        return mscale2_plain(MS)(*float64_tree(args), **float64_tree(kw))
+    finally:
+        act.relu = relu
+
+
+def many_mscale2_step(torch, MS, canon, comb, coords, target, gt, kinds,
+                      inv, what, **kw):
+    """mscale2_step_many against the unbatched kernel and, per replica, the
+    plain step run in float64 on the unbatched kernel's own combiner relu
+    pattern (mscale2_pattern_reference: at these seeded inputs one or two
+    of the combiner's 8.4 million relu inputs lie within fp32 rounding of
+    0, fault C.11).  many_case's triple."""
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops.wire_step import StepScratch
+    M = tree.replicas(canon)
+    kw = dict(kw, want_metrics=True)
+    scratch, ones = StepScratch(), [StepScratch() for _ in range(M)]
+
+    def rep(x, r):
+        return tree.replica(x, r, M)
+
+    def args(r):
+        return (tree.index(canon, r), tree.index(comb, r), rep(coords, r),
+                rep(target, r), kinds, inv)
+
+    def ref(r):
+        n = rep(coords, r).shape[0]
+        mask = combiner_relu_pattern(torch, ones[r]._bufs["ms_y"],
+                                     tree.index(comb, r), n)
+        return mscale2_pattern_reference(torch, MS, args(r),
+                                         dict(kw, gt=rep(gt, r)), mask)
+
+    return many_case(
+        torch, lambda: MS.launches["step"],
+        lambda: mscale2_tensors(*MS.mscale2_step_many(
+            canon, comb, coords, target, kinds, inv, gt=gt, scratch=scratch,
+            **kw)),
+        lambda r: mscale2_tensors(*MS.mscale2_step(
+            *args(r), gt=rep(gt, r), scratch=ones[r], **kw)),
+        ref, M, f"mscale2_step_many {what}")
+
+
+def many_rest_vs_plain(torch, np, mods, device):
+    """The replica axis of rows 7, 8 and 9 at MANY_M replicas of distinct
+    weights: wire2d_step at the WIRE-2D denoise path (65,536 rows, 300
+    wide, shared coordinates and targets) and a ragged one (700 rows per
+    replica, nvalid 650, denom); the wire2d_mlp pair at the CT path (o 1,
+    the CT frequencies, shared coordinates), on per-replica coordinates
+    (4,097 rows) and at WIRE2D_CT_WIDTH held to its plain version run in
+    float64; mscale2_step at the mscale_2 denoise path (65,536 rows, 3
+    scales, shared) and a ragged two-scale one (700 rows per replica,
+    nvalid 650, denom), held to the float64 run on the kernel's own
+    combiner relu pattern (fault C.11).  One launch per call for
+    all replicas (a pair one a direction), two calls bit-equal, each
+    replica bit-equal to the unbatched kernel on its inputs and within
+    REL_TOL of its reference.  Then each batched call's time against the
+    M unbatched calls', with the batched call's least time (each replica's
+    work and bytes, the shared inputs once).  Returns ({kernel: {case: max
+    abs err}}, {kernel: times})."""
+    W2, MS, MM, TC, get_inr, get_config = mods
+    from wire_tpu_torch import tree
+    sh = MANY_REST_SHAPES
+    rng = np.random.default_rng(41)
+    seeds = range(41, 41 + MANY_M)
+    M = MANY_M
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def rows(lead, o=3):
+        """coordinates in [-1, 1), targets and gt in [0, 1)"""
+        return (t(rng.uniform(-1, 1, lead + (2,))),
+                t(rng.uniform(0, 1, lead + (o,))),
+                t(rng.uniform(0, 1, lead + (o,))))
+
+    errs = {k: {} for k in ("wire2d_step", "wire2d_mlp", "mscale2_step")}
+    thunks = {}
+    n, nr = sh["rows"], sh["ragged_step"]
+
+    # row 8: the WIRE-2D denoise path, full and ragged
+    model = get_inr("wire2d", **WIRE2D_DENOISE_KW)
+    ps = model_stack(torch, model, seeds, device)
+    nw_s = num_weights(tree.index(ps, 0))
+    h = int(tree.index(ps, 0)["first_lin"]["w"].shape[1])
+    kern, ser, errs["wire2d_step"]["many_full"] = many_tree_step(
+        torch, W2, "wire2d_step", model.spec, ps, *rows((n,)), "full")
+    thunks["wire2d_step"] = (kern, ser)
+    errs["wire2d_step"]["many_ragged"] = many_tree_step(
+        torch, W2, "wire2d_step", model.spec, ps, *rows((M, nr)), "ragged",
+        nvalid=nr - 50, denom=(nr - 50) * 3.0 + 1.0)[2]
+
+    # row 9: the WIRE-2D CT path, shared and per-replica coordinates, and
+    # the CT-frequency width case against float64
+    ct_kw = dict(WIRE2D_DENOISE_KW, out_features=1)
+    ct_kw.update(wire2d_ct_kw(get_config))
+    ct_model = get_inr("wire2d", **ct_kw)
+    ps = model_stack(torch, ct_model, seeds, device)
+    nw_p = num_weights(tree.index(ps, 0))
+    kern, ser, errs["wire2d_mlp"]["many_ct"] = many_tree_pair(
+        torch, W2, "wire2d_mlp", ct_model.spec, ps, rows((n,))[0],
+        t(rng.normal(size=(M, n, 1))), "CT")
+    thunks["wire2d_mlp"] = (kern, ser)
+    npr = sh["ragged_pair"]
+    errs["wire2d_mlp"]["many_ragged"] = many_tree_pair(
+        torch, W2, "wire2d_mlp", ct_model.spec, ps, rows((M, npr))[0],
+        t(rng.normal(size=(M, npr, 1))), "ragged")[2]
+    hf, _, layers, o, nw = WIRE2D_CT_WIDTH
+    narrow = get_inr("wire2d", **dict(ct_kw, hidden_features=hf,
+                                      hidden_layers=layers,
+                                      out_features=o))
+    errs["wire2d_mlp"]["many_ct_width_float64"] = many_tree_pair(
+        torch, W2, "wire2d_mlp", narrow.spec,
+        model_stack(torch, narrow, seeds, device), rows((M, nw))[0],
+        t(rng.normal(size=(M, nw, o))), "CT width", float64=True)[2]
+
+    # row 7: the mscale_2 denoise path (3 scales), full and ragged (2)
+    ms_models = mscale2_models(get_inr, TC, get_config(MSCALE2_CONFIG))
+
+    def folds(model):
+        fs = [mscale2_fold(torch, MM, model, s, device) for s in seeds]
+        return (tree.stack([f[0] for f in fs]), tree.stack([f[1] for f in fs]),
+                fs[0][2], fs[0][3])
+
+    canon, comb, kinds, inv = folds(ms_models[0])
+    widths = [2] + [lay["w"].shape[-1] for lay in canon["layers"]] + [3]
+    nw_m = num_weights(tree.index(canon, 0)) + num_weights(
+        tree.index(comb, 0))
+    kern, ser, errs["mscale2_step"]["many_full"] = many_mscale2_step(
+        torch, MS, canon, comb, *rows((n,)), kinds, inv, "full")
+    thunks["mscale2_step"] = (kern, ser)
+    canon2, comb2, kinds2, inv2 = folds(ms_models[2])
+    errs["mscale2_step"]["many_ragged"] = many_mscale2_step(
+        torch, MS, canon2, comb2, *rows((M, nr)), kinds2, inv2, "ragged",
+        nvalid=nr - 50, denom=(nr - 50) * 3.0 + 1.0)[2]
+
+    # the least time of the batched call: M x each replica's operations and
+    # its own bytes, the inputs the replicas share (coordinates, target and
+    # gt) once
+    work = {
+        "wire2d_step": bound_3xtf32(
+            M * W2.step_flops(n, 2, h, 3, 2),
+            4 * (n * 8 + M * (n * 3 + 2 * nw_s + 2))),
+        "wire2d_mlp": bound_3xtf32(
+            M * W2.apply_flops(n, 2, h, 1, 2, dcoords=False),
+            4 * (n * 2 + M * (2 * n + 2 * nw_p))),
+        "mscale2_step": bound_3xtf32(
+            M * MS.step_flops(n, len(inv), widths),
+            4 * (n * 8 + M * (n * 3 + 2 * nw_m + 2))),
+    }
+    shapes = {"wire2d_step": f"WIRE-2D denoise, {n} rows, h {h}",
+              "wire2d_mlp": f"WIRE-2D CT, {n} rows, h {h}, no dcoords",
+              "mscale2_step": f"mscale_2 denoise, {n} rows, {len(inv)} "
+                              f"scales, widths {widths}"}
+    times = {}
+    for name, (kernel, serial) in thunks.items():
+        bound_ms, by = work[name]
+        times[name] = dict(
+            replicas=M, ms=cuda_ms(torch, kernel, MANY_TIMING_ITERS),
+            serial_ms=cuda_ms(torch, serial, MANY_TIMING_ITERS),
+            bound_ms=bound_ms, bound_by=by, shape=shapes[name])
+    return errs, times
+
+
+def near_serial(np, many, serials, what, rel, metric):
+    """Replica r of a batched fit against its serial fit ``serials[r]``:
+    the loss histories within ``rel`` relative and ``metric(fit, r)`` (a
+    best PSNR in dB; r None for a serial fit) within PSNR_AGREE_DB.
+    Returns the largest distances and whether every replica is bit-equal
+    in its histories."""
+    worst, worst_db, exact = 0.0, 0.0, True
+    for r, one in enumerate(serials):
+        for h, w in ((many.mse_noisy[:, r], one.mse_noisy),
+                     (many.mse_gt[:, r], one.mse_gt)):
+            exact = exact and np.array_equal(h, w)
+            worst = max(worst, float(np.max(np.abs(h - w) / np.abs(w))))
+        worst_db = max(worst_db, abs(metric(many, r) - metric(one, None)))
+    if not (worst <= rel and worst_db <= PSNR_AGREE_DB):
+        raise AssertionError(f"{what}: replicas {worst:.2e} (histories) and "
+                             f"{worst_db:.4f} dB from their serial fits")
+    return {"max_rel_history": worst, "max_db": worst_db,
+            "bit_equal_histories": bool(exact)}
+
+
+def launch_counts(torch, fn, sessions=3):
+    """(device kernels, PyTorch operations) one call of ``fn`` launches,
+    after a warm-up call: torch.profiler's device-side events (kernels,
+    copies, memsets), the most that any of ``sessions`` sessions saw, and
+    its host-side ``aten::`` operations.  The device trace is not complete
+    in every session on the card (one session saw 0 of a step's 207
+    kernels, another 52 of 83), so the operations, which the host records,
+    decide check_launches_by_replicas and the device count is reported."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    kernels, ops = 0, set()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = max(kernels, sum(e.count for e in events
+                                   if e.device_type == DeviceType.CUDA))
+        ops.add(sum(e.count for e in events if e.key.startswith("aten::")))
+    if len(ops) != 1:
+        raise AssertionError(f"one call's PyTorch operations differ from "
+                             f"session to session: {sorted(ops)}")
+    return kernels, ops.pop()
+
+
+def check_launches_by_replicas(counts, what):
+    """``counts`` {M: (device kernels, PyTorch operations)} of one step at
+    two replica counts: the operations are as many at each M (vmap batches
+    each one; a loop of single calls per replica would multiply them).  The
+    device kernels are reported, not held: cuBLAS picks its GEMM
+    algorithms, some of them two kernels, by the batch count."""
+    (m0, (_, ops0)), (m1, (_, ops1)) = sorted(counts.items())
+    if not ops0 == ops1 > 0:
+        raise AssertionError(f"{what}: PyTorch operations a step "
+                             f"{ops0} at {m0} replicas, {ops1} at {m1}")
+
+
+def fit_many_rest(torch, np, mods, counters, device):
+    """The batched fits of WIRE-2D, mscale_2 and the autodiff families, each
+    against its M serial fits (many_fit_run): WIRE-2D denoise at the
+    headline width (300 features, 150 complex units a head, 65,536
+    coordinates, full batch; one wire2d_step launch an epoch), WIRE-2D CT
+    'auto' = fourier at the CT protocol (one wire2d_mlp pair and one
+    line_sample pair an iteration; loss within MANY_FOURIER_REL, best PSNR
+    within PSNR_AGREE_DB), mscale_2 denoise (MSCALE2_CONFIG; one
+    mscale2_step an epoch): every replica bit-equal to its serial fit but
+    CT's; realgabor and bspline_sig denoise (256 wide; no kernel),
+    mscale_2 at combine_type 'both' (autodiff through one real_mlp pair an
+    epoch) and bspline_knots SISR through apply_many (REAL_SISR_CONFIG's
+    shape; no kernel): best PSNR within PSNR_AGREE_DB of their serial
+    fits, histories within MANY_AUTODIFF_REL (their distance reported).
+    Then ``sweep --seeds 2 --lr 5e-3`` of wire2d and realgabor denoise
+    through ``main`` (the sweep's rate tables name the six paper families
+    only); and each autodiff route's launches for one step (the loss's
+    forward and backward, no metrics) at MANY_PROFILE_M replicas
+    (check_launches_by_replicas)."""
+    import dataclasses
+    import tempfile
+    (T, WS, TR, TCT, TD, TC, TS, TF, SW, M, get_inr, get_config, bench,
+     tree) = mods
+    out = {}
+
+    def run(*args):
+        many_fit_run(torch, np, WS, counters, out, *args)
+
+    def exact(name):
+        return lambda many, serials: many_vs_serial(np, many, serials, name)
+
+    def psnr_of(im):
+        shape = im.shape
+
+        def metric(res, r):
+            rec = res.best_rec if r is None else res.best_rec[r]
+            return float(M.psnr_ref(im, rec.reshape(shape)))
+        return metric
+
+    def autodiff(name, metric):
+        return lambda many, serials: near_serial(
+            np, many, serials, name, MANY_AUTODIFF_REL, metric)
+
+    def pointwise(name, model, m, cfg, im, noisy, want, compare_fn):
+        ps = model_stack(torch, model, range(m), device)
+        H, W, _ = im.shape
+        grid = TD.C.grid2d(H, W)
+        run(name, want,
+            lambda: T.fit_pointwise_many(model, ps, grid,
+                                         noisy.reshape(-1, 3), cfg,
+                                         gt=im.reshape(-1, 3),
+                                         device=device),
+            [lambda r=r: T.fit_pointwise(
+                model, tree.index(ps, r), grid, noisy.reshape(-1, 3),
+                dataclasses.replace(cfg, seed=cfg.seed + r),
+                gt=im.reshape(-1, 3), device=device) for r in range(m)],
+            cfg.niters, m, compare_fn)
+
+    # WIRE-2D denoise at the headline width, full batch
+    im, noisy, _, _ = bench.setup(256, 256)
+    H, W, _ = im.shape
+    model = get_inr("wire2d", **WIRE2D_DENOISE_KW)
+    pointwise("wire2d_denoise", model, MANY_W2D_M, T.FitConfig(
+        learning_rate=5e-3, niters=MANY_W2D_EPOCHS, maxpoints=H * W,
+        scale_lr_by_batch=True), im, noisy,
+        {("wire2d", "step"): MANY_W2D_EPOCHS}, exact("wire2d_denoise"))
+
+    # WIRE-2D CT 'auto' (fourier) at the CT protocol
+    ct_cfg = get_config(CT_CONFIG)
+    kw = dict(WIRE2D_DENOISE_KW, out_features=1)
+    kw.update(wire2d_ct_kw(get_config))
+    ct_model = get_inr("wire2d", **kw)
+    img = TCT.ct_image(None, 0)
+    Hc, Wc = img.shape
+    thetas = np.linspace(0, 180, 100, dtype=np.float32)
+    sino = TCT.make_sinogram(img, thetas, radon_method="auto", device=device)
+    op = TR.RadonOp(thetas, method="auto")
+    ps = model_stack(torch, ct_model, range(MANY_W2D_M), device)
+    cfg = T.FitConfig(learning_rate=ct_cfg.learning_rate, niters=MANY_ITERS,
+                      maxpoints=ct_cfg.maxpoints)
+    ct_psnr = psnr_of(img)
+
+    def fourier_check(many, serials):
+        many_vs_serial(np, many, serials, "WIRE-2D CT auto", exact=False)
+        psnrs = [ct_psnr(many, r) for r in range(MANY_W2D_M)]
+        serial = [ct_psnr(s, None) for s in serials]
+        if not max(abs(a - b) for a, b in zip(psnrs, serial)) \
+                <= PSNR_AGREE_DB:
+            raise AssertionError(f"fit_many_rest WIRE-2D CT auto: best "
+                                 f"PSNRs {psnrs} vs serial {serial}")
+        return {"psnr_db": psnrs, "serial_psnr_db": serial}
+
+    run("wire2d_ct_auto",
+        {("wire2d", "forward"): MANY_ITERS, ("wire2d", "backward"):
+         MANY_ITERS, ("line_sample", "gather"): MANY_ITERS,
+         ("line_sample", "scatter"): MANY_ITERS},
+        lambda: T.fit_operator_many(ct_model, ps, TCT.C.grid2d(Hc, Wc), sino,
+                                    op, cfg, gt_field=img,
+                                    field_shape=(Hc, Wc), device=device),
+        [lambda r=r: T.fit_operator(
+            ct_model, tree.index(ps, r), TCT.C.grid2d(Hc, Wc), sino, op, cfg,
+            gt_field=img, field_shape=(Hc, Wc), device=device)
+         for r in range(MANY_W2D_M)], MANY_ITERS, MANY_W2D_M, fourier_check)
+
+    # mscale_2 denoise (freq_combine: mscale2_step), and at 'both' (autodiff)
+    ms_cfg = get_config(MSCALE2_CONFIG)
+    im, noisy = TD.denoise_images(ms_cfg)
+    ms_model = mscale2_models(get_inr, TC, ms_cfg)[0]
+    pointwise("mscale2_denoise", ms_model, MANY_MSCALE2_M, T.FitConfig(
+        learning_rate=ms_cfg.learning_rate, niters=MANY_MSCALE2_EPOCHS,
+        maxpoints=ms_cfg.maxpoints, scale_lr_by_batch=True), im, noisy,
+        {("mscale2_step", "step"): MANY_MSCALE2_EPOCHS},
+        exact("mscale2_denoise"))
+    both = get_inr(ms_cfg.nonlin, **dict(
+        {f: getattr(ms_model.spec, f) for f in MSCALE_SPEC_FIELDS},
+        combine_type="both"))
+    ad_cfg = T.FitConfig(learning_rate=ms_cfg.learning_rate,
+                         niters=MANY_AUTODIFF_EPOCHS,
+                         maxpoints=ms_cfg.maxpoints, scale_lr_by_batch=True)
+    pointwise("mscale2_both_denoise", both, MANY_AUTODIFF_M, ad_cfg, im,
+              noisy, {("real_mlp", "forward"): MANY_AUTODIFF_EPOCHS,
+                      ("real_mlp", "backward"): MANY_AUTODIFF_EPOCHS},
+              autodiff("mscale2_both_denoise", psnr_of(im)))
+
+    # realgabor and bspline_sig denoise, 256 wide (no kernel)
+    autodiff_models = {"mscale2_both": both}
+    for nonlin in ("realgabor", "bspline_sig"):
         model = get_inr(nonlin, in_features=2, out_features=3,
-                        hidden_features=16, hidden_layers=1)
-        ps = model_stack(torch, model, range(2), device)
-        reset_counts(counters)
-        ws0 = WS.wire_step.launches
-        try:
-            T.fit_pointwise_many(model, ps, TD.C.grid2d(8, 8),
-                                 np.zeros((64, 3), np.float32),
-                                 T.FitConfig(niters=1), device=device)
-        except NotImplementedError as e:
-            if f"§A item {item}" not in str(e):
-                raise
-        else:
-            raise AssertionError(f"fit_pointwise_many of {nonlin} ran on "
-                                 f"the card")
-        launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
-        check_real_launches(launches, f"{nonlin} replicas refused", {})
-        out["refused"][nonlin] = item
+                        hidden_features=256, hidden_layers=2, scale=2.0)
+        autodiff_models[nonlin] = model
+        pointwise(f"{nonlin}_denoise", model, MANY_AUTODIFF_M,
+                  dataclasses.replace(ad_cfg, learning_rate=5e-3), im, noisy,
+                  {}, autodiff(f"{nonlin}_denoise", psnr_of(im)))
+
+    # bspline_knots SISR through apply_many (its apply has no kernel)
+    sisr_cfg = get_config(REAL_SISR_CONFIG)
+    im_hr, im_lr = TS.sisr_images(None, 0, sisr_cfg.down_scale)
+    Hs, Ws, _ = im_hr.shape
+    form, _ = real_models(get_inr, TC, sisr_cfg, 8.0, Hs)
+    knots = get_inr("bspline_knots", **{f: getattr(form.spec, f)
+                                        for f in REAL_SPEC_FIELDS})
+    ps = model_stack(torch, knots, range(MANY_AUTODIFF_M), device)
+    grid = TS.C.grid2d(Hs, Ws)
+    dop = TF.DownsampleOp(Hs // im_lr.shape[0])
+    cfg = T.FitConfig(learning_rate=sisr_cfg.learning_rate,
+                      niters=MANY_ITERS, maxpoints=sisr_cfg.maxpoints,
+                      lr_decay=0.2)
+
+    def mse_db(res, r):
+        best = res.best_mse if r is None else res.best_mse[r]
+        return float(-10 * np.log10(best))
+
+    run("knots_sisr", {},
+        lambda: T.fit_operator_many(knots, ps, grid, im_lr, dop, cfg,
+                                    gt_field=im_hr, field_shape=im_hr.shape,
+                                    device=device),
+        [lambda r=r: T.fit_operator(
+            knots, tree.index(ps, r), grid, im_lr, dop, cfg, gt_field=im_hr,
+            field_shape=im_hr.shape, device=device)
+         for r in range(MANY_AUTODIFF_M)], MANY_ITERS, MANY_AUTODIFF_M,
+        autodiff("knots_sisr", mse_db))
+
+    # sweep --seeds 2 of wire2d and realgabor denoise through main
+    out["sweep_seeds"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for nonlin, want in (("wire2d", {("wire2d", "step"): SWEEP_ITERS}),
+                             ("realgabor", {})):
+            t0 = time.time()
+            reset_counts(counters)
+            ws0 = WS.wire_step.launches
+            res = SW.main(["denoise", "--seeds", "2", "--nonlins", nonlin,
+                           "--lr", "5e-3", "--niters", str(SWEEP_ITERS),
+                           "--results_dir", os.path.join(tmp, nonlin)])
+            launches = read_counts(counters)
+            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            check_real_launches(launches, f"sweep --seeds denoise {nonlin}",
+                                want)
+            if not (len(res["psnrs"]) == 2
+                    and np.isfinite(res["psnrs"]).all()
+                    and np.isfinite(res["recs"]).all()):
+                raise AssertionError(f"sweep --seeds denoise {nonlin}: "
+                                     f"results {res['psnrs']}")
+            out["sweep_seeds"][f"denoise_{nonlin}"] = dict(
+                metric=res["psnrs"], step_ms=res["step_ms"],
+                launches={k: v for k, v in launches.items()
+                          if any(v.values())},
+                wall_s=time.time() - t0)
+
+    # the autodiff routes' launches a step at two replica counts
+    gtensor = torch.tensor(TD.C.grid2d(H, W), device=device)
+    target = torch.tensor(noisy.reshape(-1, 3), device=device)
+    counts = {}
+    for name, model in autodiff_models.items():
+        counts[name] = {}
+        for m in MANY_PROFILE_M:
+            ps = model_stack(torch, model, range(m), device)
+            counts[name][m] = launch_counts(
+                torch, lambda: model.step_grads_many(ps, gtensor, target))
+    sgrid = torch.tensor(grid, device=device)
+    counts["knots_apply"] = {}
+    for m in MANY_PROFILE_M:
+        ps = model_stack(torch, knots, range(m), device)
+        leaves = [t.clone().requires_grad_(True)
+                  for _, t in tree.leaves(ps)]
+        paths = [p for p, _ in tree.leaves(ps)]
+
+        def fwd_bwd():
+            y = knots.apply_many(tree.unflatten(paths, leaves), sgrid)
+            return torch.autograd.grad(y.square().sum(), leaves)
+        counts["knots_apply"][m] = launch_counts(torch, fwd_bwd)
+    for name, c in counts.items():
+        check_launches_by_replicas(c, name)
+    out["autodiff_launches"] = {
+        name: {m: {"device_kernels": k, "operations": ops}
+               for m, (k, ops) in c.items()} for name, c in counts.items()}
     return out
 
 
@@ -5525,21 +6019,26 @@ def main():
                         counters, dev)
     emit("fit_resume", t0, **resume)
 
-    # ---- many_kernel_vs_plain (the replica axis of rows 1-6, 10, 11) -------
+    # ---- many_kernel_vs_plain (the replica axis of rows 1-11) ---------------
     t0 = time.time()
     many_errs, many_times = many_kernel_vs_plain(
         torch, np, (WS, WM, R, LS, TR, TCT, TMS, get_inr, get_config), dev)
-    real_errs, real_times = many_real_vs_plain(
-        torch, np, (RM, MF, MM, SW, TC, TMS, get_inr, get_config), dev)
-    many_errs.update(real_errs)
-    many_times.update(real_times)
+    for more in (many_real_vs_plain(
+            torch, np, (RM, MF, MM, SW, TC, TMS, get_inr, get_config), dev),
+                 many_rest_vs_plain(torch, np, (W2, MS, MM, TC, get_inr,
+                                                get_config), dev)):
+        many_errs.update(more[0])
+        many_times.update(more[1])
     emit("many_kernel_vs_plain", t0, replicas=MANY_M, max_abs_err=many_errs,
          rel_tol=REL_TOL, times=many_times, nvidia_smi=smi,
          why=("each replica bit-equal to the unbatched kernel on its inputs "
               "(line_sample's scatter, atomics, within rel_tol of it); "
               "each within rel_tol x max|reference| of its reference: the "
               "plain version in fp32, for real_step many_posenc the "
-              "float64 run on the kernel's relu pattern (fault C.9)"))
+              "float64 run on the kernel's relu pattern (fault C.9), for "
+              "wire2d_mlp many_ct_width_float64 the plain version run in "
+              "float64, for mscale2_step the float64 run on the kernel's "
+              "own combiner relu pattern (fault C.11)"))
 
     # ---- fit_many (the batched fits against their serial fits) -------------
     t0 = time.time()
@@ -5555,13 +6054,23 @@ def main():
                               counters, dev)
     emit("fit_many_real", t0, fits=many_real, nvidia_smi=smi)
 
+    # ---- fit_many_rest (WIRE-2D's, mscale_2's and the autodiff families'
+    # batched fits) ----------------------------------------------------------
+    t0 = time.time()
+    many_rest = fit_many_rest(torch, np, (T, WS, TR, TCT, TD, TC, TS, TF, SW,
+                                          M, get_inr, get_config, bench, TT),
+                              counters, dev)
+    emit("fit_many_rest", t0, fits=many_rest, nvidia_smi=smi)
+
     def many_counts(lib, key):
-        """{fit_key: launches} of ``lib``'s ``key`` in fit_many_real's
-        batched fits and seeds runs, where nonzero."""
-        fits = {f"many_{k}": v for k, v in many_real.items()
-                if k not in ("sweep_seeds", "refused")}
-        fits.update({f"seeds_{k}": v
-                     for k, v in many_real["sweep_seeds"].items()})
+        """{fit_key: launches} of ``lib``'s ``key`` in fit_many_real's and
+        fit_many_rest's batched fits and seeds runs, where nonzero."""
+        fits = {}
+        for res in (many_real, many_rest):
+            fits.update({f"many_{k}": v for k, v in res.items()
+                         if k not in ("sweep_seeds", "autodiff_launches")})
+            fits.update({f"seeds_{k}": v
+                         for k, v in res["sweep_seeds"].items()})
         return {f"{k}_{key}": v["launches"][lib][key]
                 for k, v in fits.items()
                 if v["launches"].get(lib, {}).get(key)}
@@ -5605,6 +6114,9 @@ def main():
         "line_sample": {**ct["auto"]["launches"]["line_sample"],
                         **{f"many_ct_auto_{k}": v for k, v in many[
                             "ct_auto"]["launches"]["line_sample"].items()},
+                        **{f"many_wire2d_ct_auto_{k}": v for k, v in
+                           many_rest["wire2d_ct_auto"]["launches"][
+                               "line_sample"].items()},
                         **{f"seeds_ct_{k}": v for k, v in many[
                             "sweep_seeds"]["ct"]["launches"][
                                 "line_sample"].items()}},
@@ -5627,7 +6139,8 @@ def main():
                         for k in ("forward", "backward")},
                      **many_counts("real_mlp", "forward"),
                      **many_counts("real_mlp", "backward")},
-        "mscale2_step": {"step": mscale["launches"]["step"]},
+        "mscale2_step": {"step": mscale["launches"]["step"],
+                         **many_counts("mscale2_step", "step")},
         "mfn_step": {"step": mfn["launches"]["step"],
                      **many_counts("mfn", "step")},
         "mfn_mlp": {**{k: mfn_sisr["launches"][k]
@@ -5636,9 +6149,12 @@ def main():
                        for k in ("forward", "backward")},
                     **many_counts("mfn", "forward"),
                     **many_counts("mfn", "backward")},
-        "wire2d_step": {"step": w2d["launches"]["step"]},
-        "wire2d_mlp": {k: w2d_ct["launches"][k]
-                       for k in ("forward", "backward")}}
+        "wire2d_step": {"step": w2d["launches"]["step"],
+                        **many_counts("wire2d", "step")},
+        "wire2d_mlp": {**{k: w2d_ct["launches"][k]
+                          for k in ("forward", "backward")},
+                       **many_counts("wire2d", "forward"),
+                       **many_counts("wire2d", "backward")}}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

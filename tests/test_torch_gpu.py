@@ -1,6 +1,7 @@
 """The CUDA kernels (wire_step, wire_mlp, rotsum, line_sample, real_mlp's
 pair and step, mscale2_step, mfn's step and pair, wire2d's step and pair)
-against their plain PyTorch versions on the card, the sweep app's and the
+and their replica axes against their plain PyTorch versions on the card,
+the batched fits against their serial fits, the sweep app's and the
 occupancy app's fits launching their kernels, every family with a step
 hook stepping through its kernel and the two without launching none, and
 the trainers' step timing leaving the first step out (marked ``gpu``;
@@ -1624,10 +1625,10 @@ def test_wire2d_mlp_tensor_cores_match_plain_at_every_width(
         stream = W2._stream(cuda)
         assert lib.wire2d_forward(*W2._ptrs(
             [c, w["w1"], w["b1"], w["W2"], w["B2"], w["fW"], w["fb"], pred,
-             acts, zs, z1]), *net.dims, stream) == 0
+             acts, zs, z1]), *net.dims, *net.rep_args, stream) == 0
         assert lib.wire2d_backward(*W2._ptrs(
             [c, g, w["w1"], w["W2T"], w["fWT"], acts, zs, z1, gw1, gW2, gfW,
-             dc, dz, dz1, part]), *net.dims, stream) == 0
+             dc, dz, dz1, part]), *net.dims, *net.rep_args, stream) == 0
         torch.cuda.synchronize()
         for big, numel in bigs:
             assert torch.isnan(big[numel:]).all()
@@ -1810,35 +1811,170 @@ def test_batched_fits_are_the_serial_fits(cuda):
 
 def test_seeds_of_a_family_without_replica_kernels_are_refused(cuda,
                                                                tmp_path):
-    """All six sweep families run batched on the card; a family whose
-    kernels have no replica axis yet (WIRE-2D, ROADMAP.md §A item 5c) or
-    that has no kernel (realgabor, item 5d) raises in fit_pointwise_many,
-    naming its ROADMAP item, before any kernel launches."""
+    """Every family runs batched on the card (ROADMAP.md §A items 5c and
+    5d): WIRE-2D through one wire2d_step launch an epoch for both replicas, each
+    replica bit-equal to its serial fit, and its apply_many through one
+    wire2d_mlp forward; realgabor (no kernel) by autograd of its vmapped
+    apply, launching no kernel of the port, each replica's history within
+    chip_smoke.MANY_AUTODIFF_REL of its serial fit's."""
+    import dataclasses
+    import chip_smoke as S
     from wire_tpu_torch import tree
     from wire_tpu_torch.ops import mfn as MF
     from wire_tpu_torch.ops import real_mlp as RM
     from wire_tpu_torch.ops import wire2d as W2
     from wire_tpu_torch.signals import coords as C
     from wire_tpu_torch.train import trainer as T
-    for nonlin, item in (("wire2d", "5c"), ("realgabor", "5d")):
+    rng = np.random.default_rng(3)
+    im = rng.random((64, 3)).astype(np.float32)
+    cfg = T.FitConfig(learning_rate=1e-3, niters=3)
+    for nonlin in ("wire2d", "realgabor"):
         model = get_inr(nonlin, in_features=2, out_features=3,
                         hidden_features=16, hidden_layers=1)
         ps = tree.stack([model.init(torch.Generator().manual_seed(s), cuda)
                          for s in range(2)])
         before = (WS.wire_step.launches, dict(RM.launches),
                   dict(MF.launches), dict(W2.launches))
-        with pytest.raises(NotImplementedError, match=f"§A item {item}"):
-            T.fit_pointwise_many(model, ps, C.grid2d(8, 8),
-                                 np.zeros((64, 3), np.float32),
-                                 T.FitConfig(niters=1), device=cuda)
-        assert (WS.wire_step.launches, dict(RM.launches), dict(MF.launches),
-                dict(W2.launches)) == before
+        many = T.fit_pointwise_many(model, ps, C.grid2d(8, 8), im, cfg,
+                                    device=cuda)
+        after = (WS.wire_step.launches, dict(RM.launches),
+                 dict(MF.launches), dict(W2.launches))
+        if nonlin == "wire2d":
+            assert after[3]["step"] == before[3]["step"] + 3
+            after[3]["step"] = before[3]["step"]
+        assert after == before
+        serials = [T.fit_pointwise(model, tree.index(ps, r),
+                                   C.grid2d(8, 8), im,
+                                   dataclasses.replace(cfg, seed=r),
+                                   device=cuda) for r in range(2)]
+        if nonlin == "wire2d":
+            S.many_vs_serial(np, many, serials, nonlin)
+        else:
+            S.near_serial(np, many, serials, nonlin, S.MANY_AUTODIFF_REL,
+                          lambda res, r: 0.0)
     model = get_inr("wire2d", in_features=2, out_features=3,
                     hidden_features=16, hidden_layers=1)
     ps = tree.stack([model.init(torch.Generator().manual_seed(s), cuda)
                      for s in range(2)])
-    with pytest.raises(NotImplementedError, match="§A item 5c"):
-        model.apply_many(ps, torch.zeros(10, 2, device=cuda))
+    before = W2.launches["forward"]
+    with torch.no_grad():
+        y = model.apply_many(ps, torch.zeros(10, 2, device=cuda))
+    assert y.shape == (2, 10, 3) and W2.launches["forward"] == before + 1
+
+
+def test_wire2d_and_mscale2_replica_kernels_are_the_unbatched_kernels(
+        cuda, monkeypatch):
+    """wire2d_step, the wire2d_mlp pair and mscale2_step with a replica axis
+    (chip_smoke.py's many_rest_vs_plain at a smaller row count, 3
+    replicas): one launch per call for all replicas, two calls bit-equal,
+    each replica bit-equal to the unbatched kernel on its inputs and within
+    REL of its reference (mscale2_step's and the CT-width pair's the
+    float64 run)."""
+    import chip_smoke as S
+    from wire_tpu_torch.apps import common as TC
+    from wire_tpu_torch.nn import models as MM
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.train.presets import get_config
+    monkeypatch.setattr(S, "MANY_REST_SHAPES", dict(
+        rows=96 * 96, ragged_step=300, ragged_pair=1100))
+    errs, times = S.many_rest_vs_plain(
+        torch, np, (W2, MS, MM, TC, get_inr, get_config), cuda)
+    assert set(errs) == {"wire2d_step", "wire2d_mlp", "mscale2_step"}
+    assert all(t["ms"] > 0 for t in times.values())
+
+
+@pytest.mark.parametrize("nonlin", ["wire2d", "bspline_mscale_2"])
+def test_batched_wire2d_and_mscale2_fits_are_the_serial_fits(cuda, nonlin):
+    """A 3-replica WIRE-2D or mscale_2 denoise fit on the card, full batch
+    and chunked: replica r bit-equal to the serial fit at seed + r, one
+    wire2d_step or mscale2_step launch a step for all replicas."""
+    import dataclasses
+    import chip_smoke as S
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.signals import coords as C
+    from wire_tpu_torch.train import trainer as T
+    extra = dict(scale_tensor=(9.0, 0.25)) if nonlin != "wire2d" else {}
+    model = get_inr(nonlin, in_features=2, out_features=3,
+                    hidden_features=64, hidden_layers=2, first_omega0=7.0,
+                    hidden_omega0=7.0, scale=8.0, **extra)
+    launches = W2.launches if nonlin == "wire2d" else MS.launches
+    ps = S.model_stack(torch, model, range(3), cuda)
+    rng = np.random.default_rng(1)
+    im = rng.random((64 * 64, 3)).astype(np.float32)
+    noisy = im + 0.1 * rng.normal(size=im.shape).astype(np.float32)
+    for maxpoints, steps in ((64 * 64, 5), (1024, 20)):
+        cfg = T.FitConfig(learning_rate=1e-3, niters=5, maxpoints=maxpoints,
+                          seed=2)
+        before = launches["step"]
+        many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), noisy, cfg,
+                                    gt=im, device=cuda)
+        assert launches["step"] == before + steps
+        S.many_vs_serial(np, many, [T.fit_pointwise(
+            model, tree.index(ps, r), C.grid2d(64, 64), noisy,
+            dataclasses.replace(cfg, seed=2 + r), gt=im, device=cuda)
+            for r in range(3)], f"{nonlin} maxpoints {maxpoints}")
+
+
+@pytest.mark.parametrize("nonlin,extra", [
+    ("realgabor", {}), ("bspline_sig", {}),
+    ("bspline_mscale_2", dict(scale_tensor=(9.0, 0.25),
+                              combine_type="both")),
+    ("siren", dict(fused="never"))])
+def test_autodiff_replicas_match_their_serial_fits(cuda, nonlin, extra):
+    """An autodiff family's 2-replica denoise fit on the card (autograd of
+    its batched apply): each replica's best PSNR within
+    chip_smoke.PSNR_AGREE_DB and its loss histories within
+    chip_smoke.MANY_AUTODIFF_REL of its serial fit's (the batched products
+    need not round as the serial ones do), no kernel of the port launched
+    but mscale_2's real_mlp pair (one forward and one backward an epoch),
+    and one step's PyTorch operations as many at 4 replicas as at 2
+    (chip_smoke.check_launches_by_replicas)."""
+    import dataclasses
+    import chip_smoke as S
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.ops import mfn as MF
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire2d as W2
+    from wire_tpu_torch.signals import coords as C
+    from wire_tpu_torch.train import trainer as T
+    model = get_inr(nonlin, in_features=2, out_features=3,
+                    hidden_features=64, hidden_layers=2, scale=2.0, **extra)
+    ps = S.model_stack(torch, model, range(2), cuda)
+    rng = np.random.default_rng(5)
+    im = rng.random((64 * 64, 3)).astype(np.float32)
+    cfg = T.FitConfig(learning_rate=1e-3, niters=5)
+    counts = (RM.launches, MS.launches, MF.launches, W2.launches)
+    before = [dict(c) for c in counts] + [WS.wire_step.launches]
+    many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), im, cfg,
+                                device=cuda)
+    after = [dict(c) for c in counts] + [WS.wire_step.launches]
+    if nonlin == "bspline_mscale_2":
+        for k in ("forward", "backward"):
+            assert after[0][k] == before[0][k] + 5
+            after[0][k] = before[0][k]
+    assert after == before
+    from wire_tpu_torch.train import metrics as TMET
+
+    def psnr(res, r):
+        rec = res.best_rec if r is None else res.best_rec[r]
+        return float(TMET.psnr_ref(im.reshape(64, 64, 3),
+                                   rec.reshape(64, 64, 3)))
+
+    S.near_serial(np, many, [T.fit_pointwise(
+        model, tree.index(ps, r), C.grid2d(64, 64), im,
+        dataclasses.replace(cfg, seed=r), device=cuda) for r in range(2)],
+        nonlin, S.MANY_AUTODIFF_REL, psnr)
+    grid = torch.tensor(C.grid2d(64, 64), device=cuda)
+    target = torch.tensor(im, device=cuda)
+    stacks = {m: S.model_stack(torch, model, range(m), cuda)
+              for m in (2, 4)}
+    S.check_launches_by_replicas(
+        {m: S.launch_counts(torch, lambda: model.step_grads_many(
+            stack, grid, target)) for m, stack in stacks.items()}, nonlin)
 
 
 def test_real_and_mfn_replica_kernels_are_the_unbatched_kernels(
@@ -1922,3 +2058,29 @@ def test_mscale2_step_keeps_its_bits(cuda):
     spec.loader.exec_module(turn)
     fn = turn.slice_rows(torch, S, cuda)["mscale2_step"]
     assert turn.digest(torch, fn()) == MSCALE2_PARENT_DIGEST
+
+
+# the digests (tools/port_rows_turn.py) of rows 8 and 9's outputs at the
+# measure phase's WIRE-2D shapes, as the tree before the replica axis went
+# into csrc/wire2d.cu (commit 51a2ede) gave them on an NVIDIA H100 80GB
+# HBM3 (PyTorch 2.11.0+cu128, CUDA 12.8); another toolkit or card may round
+# otherwise
+WIRE2D_PARENT_DIGESTS = {"wire2d_step": "7110579ec85ac7b4",
+                         "wire2d_mlp": "d9fcdb31f2bdc823"}
+
+
+@pytest.mark.parametrize("row", sorted(WIRE2D_PARENT_DIGESTS))
+def test_wire2d_rows_keep_their_bits(cuda, row):
+    """Rows 8 and 9 (wire2d_step, the wire2d_mlp pair) took the replica
+    axis as a template flag: their single-model instances give the same
+    bits as before (the digest of their outputs at the measure shapes)."""
+    import importlib.util
+    import os
+    import chip_smoke as S
+    path = os.path.join(os.path.dirname(S.__file__), "tools",
+                        "port_rows_turn.py")
+    spec = importlib.util.spec_from_file_location("port_rows_turn", path)
+    turn = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(turn)
+    fn = turn.slice_rows(torch, S, cuda)[row]
+    assert turn.digest(torch, fn()) == WIRE2D_PARENT_DIGESTS[row]

@@ -406,28 +406,88 @@ class _OnCuda(torch.Tensor):
     ("bspline_mscale_2", "5c", dict(scale_tensor=(1.0, 2.0))),
     ("realgabor", "5d", {}), ("bspline_sig", "5d", {}),
     ("siren", "5d", dict(fused="never"))])
-def test_other_families_refuse_replicas_on_the_card(nonlin, item, extra):
-    """The families without replica kernels raise on the card: WIRE-2D's
-    and mscale_2's kernels wait on ROADMAP.md §A item 5c; the autodiff
-    families (no kernel in wire_tpu either: realgabor, bspline_sig, any
-    family at fused='never') on item 5d."""
+def test_other_families_refuse_replicas_on_the_card(monkeypatch, nonlin,
+                                                    item, extra):
+    """Every family reaches a batched route on the card (ROADMAP.md §A
+    items 5c and 5d): WIRE-2D's and mscale_2's calls (5c) go
+    to their replica kernels' launches with reps M (spied, no kernel runs;
+    mscale_2's apply to the real_mlp pair's replica forward), the autodiff
+    families' (5d: realgabor, bspline_sig, any family at fused='never') to
+    autodiff_step_many of vmap_apply of the family's own apply, and no
+    kernel library is loaded."""
+    from wire_tpu_torch.nn import models as MM
+    from wire_tpu_torch.ops import build
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire2d as W2
+    M = 2
     model = tget_inr(nonlin, in_features=2, out_features=3,
                      hidden_features=16, hidden_layers=1, **extra)
     stack = tree.stack([model.init(torch.Generator().manual_seed(s))
-                        for s in range(2)])
+                        for s in range(M)])
     c = torch.zeros(10, 2).as_subclass(_OnCuda)
     t = torch.zeros(10, 3).as_subclass(_OnCuda)
-    with pytest.raises(NotImplementedError, match=f"§A item {item}"):
-        model.apply_many(stack, c)
-    with pytest.raises(NotImplementedError, match=f"§A item {item}"):
-        model.step_grads_many(stack, c, t)
+    seen = {}
+
+    def no_library(name):
+        raise AssertionError(f"the {name} library was loaded")
+
+    monkeypatch.setattr(build, "load", no_library)
+    if item == "5d":
+        def spy_autodiff(apply_many, ps, coords, target, spec, **kw):
+            seen["step"] = (tree.replicas(ps), tuple(coords.shape))
+            return "step"
+
+        def spy_vmap(apply_fn):
+            seen["vmap"] = apply_fn
+            return lambda ps, coords, spec: "apply"
+
+        monkeypatch.setattr(MM, "autodiff_step_many", spy_autodiff)
+        monkeypatch.setattr(MM, "vmap_apply", spy_vmap)
+        assert model.apply_many(stack, c) == "apply"
+        assert seen["vmap"] is model._apply
+        assert model.step_grads_many(stack, c, t) == "step"
+        assert seen["step"] == (M, (10, 2))
+        return
+
+    def spy_step(*args, reps=None):
+        # wire2d: (params, coords, ...); mscale_2: (canon, combiner,
+        # coords, ...)
+        trees = args[:1 if nonlin == "wire2d" else 2]
+        coords = args[len(trees)]
+        seen["step"] = (reps, tuple(coords.shape),
+                        {x.shape[0] for tr in trees
+                         for _, x in tree.leaves(tr)})
+        return (torch.zeros(reps, coords.shape[-2], 3),
+                *[tree.map(torch.zeros_like, tr) for tr in trees])
+
+    def spy_nograd(params, coords, *rest, keep, reps=None):
+        seen["apply"] = (reps, tuple(coords.shape), keep)
+        out = torch.zeros(reps, coords.shape[-2], 3)
+        return (out, None, None)
+
+    if nonlin == "wire2d":
+        monkeypatch.setattr(W2, "_launch_step", spy_step)
+        monkeypatch.setattr(W2, "_forward", spy_nograd)
+        rows = 10
+    else:
+        monkeypatch.setattr(MS, "_launch", spy_step)
+        monkeypatch.setattr(RM, "_forward", spy_nograd)
+        rows = 10 * len(extra["scale_tensor"])  # the trunk at every scale
+    pred, grads = model.step_grads_many(stack, c, t, nvalid=[8, 8])
+    assert seen["step"] == (M, (10, 2), {M}) and pred.shape == (M, 10, 3)
+    _bits_tree(grads, tree.map(torch.zeros_like, stack), "grads")
+    with torch.no_grad():
+        y = model.apply_many(stack, c)
+    assert seen["apply"] == (M, (rows, 2), False) and y.shape == (M, 10, 3)
 
 
 def test_wire_replicas_on_the_card_take_the_kernels(monkeypatch):
     """WIRE's replica calls on a CUDA tensor go to the replica kernels'
     launches (spied, no kernel runs) with the stacked layout's shapes; the
-    pair refuses coordinates that require a gradient; fused='never' raises
-    (no plain loop on the card)."""
+    pair refuses coordinates that require a gradient; fused='never' takes
+    vmap_apply of the plain apply (spied), not a kernel and not a loop of
+    single calls."""
     _, tmodel = _wire(8, 2, 3)
     stack = tree.stack([tmodel.init(torch.Generator().manual_seed(s))
                         for s in range(3)])
@@ -467,8 +527,11 @@ def test_wire_replicas_on_the_card_take_the_kernels(monkeypatch):
     never = tget_inr("wire", **dict(
         in_features=2, out_features=3, hidden_features=12, hidden_layers=2,
         fused="never"))
-    with pytest.raises(NotImplementedError, match="§A item 5d"):
-        never.apply_many(stack, c)
+    from wire_tpu_torch.nn import models as MM
+    monkeypatch.setattr(MM, "vmap_apply", lambda fn: (
+        lambda ps, coords, spec: seen.setdefault("vmap", (fn, spec))))
+    never.apply_many(stack, c)
+    assert seen["vmap"] == (never._apply, never.spec)
 
 
 @pytest.mark.parametrize("nonlin", ["siren", "mfn", "relu", "bspline_form"])

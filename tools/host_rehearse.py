@@ -630,9 +630,9 @@ def rehearse_wire2d(out_dir):
                 leaves = [v.clone().requires_grad_(True) for _, v in flat_p]
                 x = cl.clone().requires_grad_(dcoords)
                 if fn == "kernel":  # as wire2d_mlp flattens leading axes
-                    y = W2._Wire2dMLP.apply(x.reshape(-1, 2), spec, paths,
-                                            *leaves).reshape(*cl.shape[:-1],
-                                                             o)
+                    y = W2._Wire2dMLP.apply(
+                        x.reshape(-1, 2), spec, paths, None,
+                        *leaves).reshape(*cl.shape[:-1], o)
                 else:
                     y = W2.wire2d_mlp_plain(tree.unflatten(paths, leaves),
                                             x, spec)
@@ -967,6 +967,7 @@ def rehearse_many(out_dir):
     LS._lib.cache_clear()
     rehearse_many_real(out_dir)
     rehearse_many_mfn(out_dir)
+    rehearse_many_2d(out_dir)
 
 
 def _canon_stack(rng, widths, M):
@@ -1139,6 +1140,130 @@ def rehearse_many_mfn(out_dir):
     MF._lib.cache_clear()
 
 
+def rehearse_many_2d(out_dir):
+    """wire2d_step, the wire2d_mlp pair and mscale2_step on M replicas: the
+    replica instances of WIRE-2D's first, quad-forward and paired-backward
+    kernels (csrc/wire2d.cu) and of mscale2_step.cu's combiner and real
+    trunk, each replica's outputs bit-equal to an unbatched call of the same
+    host library on its own inputs and within 1e-4 of the plain version:
+    coordinates and targets shared and per replica, h odd, even and a
+    multiple of 4, L 0-3, ragged n across the weight gradients' chunks,
+    128-row tiles straddling two scales."""
+    import numpy as np
+    import torch
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.nn.registry import get_inr
+    from wire_tpu_torch.ops import mscale2_step as MS
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire2d as W2
+
+    def rand(rng, shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    W2._lib.cache_clear()
+    with host_library("wire2d", os.path.join(out_dir, "w2")):
+        for n, h, L, o, M, nvalid, shared in (
+                (300, 5, 2, 3, 3, 290, False), (130, 13, 1, 1, 2, None, True),
+                (150, 16, 0, 2, 2, 140, True),
+                (1100, 6, 3, 1, 2, 1030, False)):
+            model = get_inr("wire2d", in_features=2, out_features=o,
+                            hidden_features=2 * h, hidden_layers=L,
+                            first_omega0=7.0, hidden_omega0=7.0, scale=8.0)
+            spec = model.spec
+            ps = tree.stack([model.init(torch.Generator().manual_seed(n + r),
+                                        "cpu") for r in range(M)])
+            rng = np.random.default_rng(n)
+            lead = () if shared else (M,)
+            c = rand(rng, lead + (n, 2))
+            t, gt = rand(rng, lead + (n, o), 0, 1), rand(rng, lead + (n, o),
+                                                          0, 1)
+            got = _step_tensors(W2._launch_step(ps, c, t, spec, nvalid, None,
+                                                gt, True, None, reps=M))
+            for r in range(M):
+                pick = (lambda x: x) if shared else (lambda x: x[r])
+                want = _step_tensors(W2._launch_step(
+                    tree.index(ps, r), pick(c), pick(t), spec, nvalid, None,
+                    pick(gt), True, None))
+                mine = [x.reshape(M, -1)[r] for x in got]
+                _bits(mine, [x.reshape(-1) for x in want],
+                      f"wire2d_step replica {r}")
+                plain = _step_tensors(W2.wire2d_step_plain(
+                    tree.index(ps, r), pick(c), pick(t), spec, nvalid=nvalid,
+                    gt=pick(gt), want_metrics=True))
+                rel = _max_rel(mine, [x.reshape(-1) for x in plain])
+                assert rel <= 1e-4, rel
+            print(f"wire2d_step_many n {n} h {h} L {L} o {o} M {M} shared "
+                  f"{shared}: replicas bit-equal to single calls, max rel "
+                  f"err to plain {rel:.2e}", flush=True)
+
+            g = rand(rng, (M, n, o))
+            paths = tuple(p for p, _ in tree.leaves(ps))
+
+            def pair(params, coords, cot, reps):
+                leaves = [tree.get(params, k).clone().requires_grad_(True)
+                          for k in paths]
+                y = W2._Wire2dMLP.apply(coords, spec, paths, reps, *leaves)
+                grads = torch.autograd.grad(y, leaves, cot)
+                with torch.no_grad():
+                    y0, _, _ = W2._forward(params, coords, spec, keep=False,
+                                           reps=reps)
+                return [y.detach(), y0] + list(grads)
+
+            got = pair(ps, c, g, M)
+            for r in range(M):
+                cr = c if shared else c[r]
+                want = pair(tree.index(ps, r), cr, g[r], None)
+                _bits([x[r] for x in got], want, f"wire2d_mlp replica {r}")
+            print(f"wire2d_mlp_many n {n} h {h} L {L} o {o} M {M} shared "
+                  f"{shared}: replicas bit-equal to single calls (forward, "
+                  f"no-grad forward, every gradient)", flush=True)
+    W2._lib.cache_clear()
+
+    MS._lib.cache_clear()
+    with host_library("mscale2_step", os.path.join(out_dir, "ms")):
+        for n, widths, kinds, inv, M, nvalid, shared in (
+                (130, (2, 40, 40, 3), ("qspline",) * 2, (9.0, 0.25, 0.125),
+                 3, None, False),
+                (150, (2, 24, 37, 33, 3), ("srelu", "qspline", "srelu"),
+                 (9.0, 0.125), 2, 140, True),
+                (700, (2, 16, 12, 1), ("qspline", "cspline"), (9.0, 4.0), 2,
+                 650, False)):
+            rng = np.random.default_rng(n)
+            o, ns = widths[-1], len(inv)
+            canon = _canon_stack(rng, widths, M)
+            comb = tree.stack([
+                {"freq_0": {"w": rand(rng, (ns * o, 128), -0.5, 0.5),
+                            "b": rand(rng, (128,), -0.5, 0.5)},
+                 "freq_1": {"w": rand(rng, (128, o), -0.3, 0.3),
+                            "b": rand(rng, (o,), -0.5, 0.5)}}
+                for _ in range(M)])
+            lead = () if shared else (M,)
+            c = rand(rng, lead + (n, 2))
+            t, gt = rand(rng, lead + (n, o), 0, 1), rand(rng, lead + (n, o),
+                                                          0, 1)
+            kinds = RM.norm_kinds(kinds)
+            got = _step_tensors(MS._launch(canon, comb, c, t, kinds, inv,
+                                           nvalid, None, gt, True, None,
+                                           reps=M))
+            for r in range(M):
+                pick = (lambda x: x) if shared else (lambda x: x[r])
+                args = (tree.index(canon, r), tree.index(comb, r), pick(c),
+                        pick(t), kinds, inv)
+                want = _step_tensors(MS._launch(*args, nvalid, None,
+                                                pick(gt), True, None))
+                mine = [x.reshape(M, -1)[r] for x in got]
+                _bits(mine, [x.reshape(-1) for x in want],
+                      f"mscale2_step replica {r}")
+                plain = _step_tensors(MS.mscale2_step_plain(
+                    *args, nvalid=nvalid, gt=pick(gt), want_metrics=True))
+                rel = _max_rel(mine, [x.reshape(-1) for x in plain])
+                assert rel <= 1e-4, rel
+            print(f"mscale2_step_many n {n} widths {widths} ns {ns} M {M} "
+                  f"shared {shared}: replicas bit-equal to single calls, max "
+                  f"rel err to plain {rel:.2e}", flush=True)
+    MS._lib.cache_clear()
+
+
 def main():
     sys.path.insert(0, ROOT)
     rehearsals = {"wire_mlp": rehearse_wire_mlp, "rotsum": rehearse_rotsum,
@@ -1148,7 +1273,8 @@ def main():
                   "wire2d": rehearse_wire2d, "mfn": rehearse_mfn,
                   "real": rehearse_real, "many": rehearse_many,
                   "many_real": rehearse_many_real,
-                  "many_mfn": rehearse_many_mfn}
+                  "many_mfn": rehearse_many_mfn,
+                  "many_2d": rehearse_many_2d}
     names = sys.argv[1:] or list(rehearsals)
     with tempfile.TemporaryDirectory() as d:
         for name in names:

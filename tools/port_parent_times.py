@@ -22,9 +22,11 @@ two warm-up calls) and its kernels' device time (torch.profiler, the
 kernels of that tree's library alone), then one JSON line with the mean
 of each tree's two turns, for each kernel whether its outputs of the two trees' first turns
 are identical bit for bit (else their largest distance over max |earlier|
-per output tensor), and the card's name and power limit.  Both trees'
-libraries keep mscale2_step_run's C interface, so this tree's wrapper
-drives either.  ``--mscale2-fit EPOCHS`` adds the Mscale2 denoise fit
+per output tensor), and the card's name and power limit.  This tree's
+wrapper drives both trees' libraries, so their C interfaces must match:
+mscale2_step_run and the wire2d entry points took replica arguments in
+the slice that gave them a replica axis, so compare across that change
+with tools/port_rows_turn.py, which imports each tree's own wrappers.  ``--mscale2-fit EPOCHS`` adds the Mscale2 denoise fit
 (chip_smoke.py's fit_mscale2 through the kernel: the preset's image, the
 seed-0 init, full batch) for EPOCHS epochs per turn, its ms per step
 (fit_pointwise's step_ms, the first step left out) and best PSNR;

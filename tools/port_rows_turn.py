@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Host-call times of rows 1-7, 10 and 11 (wire_step, the wire_mlp pair,
-rotsum, line_sample, the real_mlp pair, real_step, mscale2_step, the
-mfn_mlp pair, mfn_step) at chip_smoke.py's measure inputs, of this tree
+"""Host-call times of rows 1-11 (wire_step, the wire_mlp pair, rotsum,
+line_sample, the real_mlp pair, real_step, mscale2_step, wire2d_step, the
+wire2d_mlp pair, the mfn_mlp pair, mfn_step) at chip_smoke.py's measure
+inputs, of this tree
 against an earlier one, on one GPU, one process a turn, with a digest of
 each row's outputs (its bits are the same in both trees when the digests
 are).
@@ -23,7 +24,9 @@ B-spline denoise path (65,536 rows, 2 -> 256 x 3 -> 3), the real_mlp pair
 at the B-spline SISR path (28,224 rows, dcoords), mscale2_step at the
 mscale_2 denoise path (65,536 rows, 3 scales), mfn_step at the MFN
 denoise shape (65,536 rows, h 300, k 3) and the mfn_mlp pair at the MFN
-SISR one (h 256, parameter gradients).  With --parent the turns run
+SISR one (h 256, parameter gradients); wire2d_step at the WIRE-2D denoise
+shape (65,536 rows, 300 wide) and the wire2d_mlp pair at the WIRE-2D CT
+one (o 1, the CT frequencies, parameter gradients).  With --parent the turns run
 earlier, this, this, earlier, ...; each turn's JSON line is printed, then
 one line with each tree's median of each row, whether each row's digests
 agree across the trees, and the card's name and power limit.
@@ -38,13 +41,14 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS = ("wire_step", "wire_mlp", "rotsum", "line_sample", "real_step",
-        "real_mlp", "mscale2_step", "mfn_step", "mfn_mlp")
+        "real_mlp", "mscale2_step", "wire2d_step", "wire2d_mlp", "mfn_step",
+        "mfn_mlp")
 # each row's library (its kernels' device time: --kernel-ms)
 LIBRARY = {"wire_step": "wire_step", "wire_mlp": "wire_mlp",
            "rotsum": "rotsum", "line_sample": "line_sample",
            "real_step": "real_mlp", "real_mlp": "real_mlp",
-           "mscale2_step": "mscale2_step", "mfn_step": "mfn",
-           "mfn_mlp": "mfn"}
+           "mscale2_step": "mscale2_step", "wire2d_step": "wire2d",
+           "wire2d_mlp": "wire2d", "mfn_step": "mfn", "mfn_mlp": "mfn"}
 
 
 def digest(torch, out):
@@ -67,7 +71,7 @@ def digest(torch, out):
 
 
 def slice_rows(torch, S, dev):
-    """{row: thunk} of rows 5-7, 10 and 11 at the measure phase's shapes
+    """{row: thunk} of rows 5-11 at the measure phase's shapes
     (chip_smoke.py's helpers, which both trees have)."""
     from wire_tpu_torch.apps import common as TC
     from wire_tpu_torch.apps import sweep as SW
@@ -76,6 +80,7 @@ def slice_rows(torch, S, dev):
     from wire_tpu_torch.ops import mfn as MF
     from wire_tpu_torch.ops import mscale2_step as MS
     from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire2d as W2
     from wire_tpu_torch.ops.wire_step import StepScratch
     from wire_tpu_torch.train.presets import get_config
     fns = {}
@@ -113,6 +118,14 @@ def slice_rows(torch, S, dev):
     sc, _, _, sg = S.real_inputs(torch, n, 2, 3, 26, dev)
     fns["mfn_mlp"] = lambda: S.param_pair(torch, MF.mfn_mlp, ps, mfn_s.spec,
                                           sc, sg)
+    w2d, wp, wc, wt, wgt, _ = S.wire2d_case(torch, get_inr, n, 2, 3, 34, dev)
+    w2d_scratch = StepScratch()
+    fns["wire2d_step"] = lambda: W2.wire2d_step(
+        wp, wc, wt, w2d.spec, gt=wgt, want_metrics=True, scratch=w2d_scratch)
+    w2c, cp, cc, _, _, cg = S.wire2d_case(torch, get_inr, n, 2, 1, 35, dev,
+                                          S.wire2d_ct_kw(get_config))
+    fns["wire2d_mlp"] = lambda: S.param_pair(torch, W2.wire2d_mlp, cp,
+                                             w2c.spec, cc, cg)
     return fns
 
 

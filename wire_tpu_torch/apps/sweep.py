@@ -34,8 +34,12 @@ sweep's init) and replica r's fit seed is ``seed0 + r``.  On the card all
 six families run batched through their kernels' replica axis, one launch
 sequence for all N: denoise through wire_step, real_step (siren, gauss,
 relu, posenc) or mfn_step; SISR and CT through the wire_mlp, real_mlp or
-mfn_mlp pair, CT's 'auto' operator through line_sample.  ``--device cpu``
-runs the plain path.
+mfn_mlp pair, CT's 'auto' operator through line_sample.  Any other family
+that ``_build`` takes runs batched as well: wire2d through wire2d_step and
+the wire2d_mlp pair, a family without a kernel (realgabor, bspline_sig) by
+autograd of its batched apply.  The learning-rate tables are the reference
+scripts', which name the six families only (as wire_tpu's do), so any other
+family takes ``--lr``.  ``--device cpu`` runs the plain path.
 """
 from __future__ import annotations
 
@@ -245,6 +249,18 @@ def seed_inits(model, n_seeds, seed0, device):
                        for s in seeds])
 
 
+def _seeds_lr(table, nonlin, lr):
+    """The seeds sweep's learning rate: ``lr`` where given, else the
+    reference scripts' rate of the family (the six of NONLINS have one)."""
+    if lr is not None:
+        return lr
+    if nonlin not in table:
+        raise ValueError(f"the sweep has no learning rate for {nonlin!r} "
+                         f"(the reference scripts give one for "
+                         f"{sorted(table)}); pass lr (--lr)")
+    return table[nonlin]
+
+
 def _log_seeds(task, nonlin, n_seeds, values, res):
     A.log(f"{task} {nonlin} x{n_seeds} seeds: "
           + " ".join(f"{v:.2f}" for v in values)
@@ -253,20 +269,21 @@ def _log_seeds(task, nonlin, n_seeds, values, res):
 
 def sweep_denoise_seeds(nonlin, n_seeds, image=None, results_dir="results",
                         seed0=0, niters=2000, tau=3e1, noise_snr=2, size=512,
-                        downscale=0.5, device=None):
+                        downscale=0.5, lr=None, device=None):
     """Multi-seed denoise fits of ONE family at once
     (``fit_pointwise_many``; wire_tpu/apps/sweep.py:88-117): N independent
     split inits (``seed_inits``) fitted to the same noisy image, replica r
-    with fit seed ``seed0 + r``.  Returns the per-seed PSNRs (reference
-    formula), the wall time, the fit's ms per epoch and the best
-    reconstructions (N, H*W, 3)."""
+    with fit seed ``seed0 + r``; ``lr`` overrides the family's rate.
+    Returns the per-seed PSNRs (reference formula), the wall time, the
+    fit's ms per epoch and the best reconstructions (N, H*W, 3)."""
     dev = resolve(device)
     im, im_noisy = denoise_images(image, seed0, tau, noise_snr, size,
                                   downscale)
     H, W, _ = im.shape
     model = _build(nonlin, "denoise", H, W, tau)
-    cfg = FitConfig(learning_rate=_DENOISE_LR[nonlin], niters=niters,
-                    maxpoints=256 * 256, scale_lr_by_batch=True, seed=seed0)
+    cfg = FitConfig(learning_rate=_seeds_lr(_DENOISE_LR, nonlin, lr),
+                    niters=niters, maxpoints=256 * 256,
+                    scale_lr_by_batch=True, seed=seed0)
     res = fit_pointwise_many(model, seed_inits(model, n_seeds, seed0, dev),
                              C.grid2d(H, W), im_noisy.reshape(-1, 3), cfg,
                              gt=im.reshape(-1, 3), track="gt", device=dev)
@@ -278,13 +295,15 @@ def sweep_denoise_seeds(nonlin, n_seeds, image=None, results_dir="results",
 
 
 def sweep_ct_seeds(nonlin, n_seeds, image=None, results_dir="results",
-                   seed0=0, niters=5000, nmeas=100, size=512, device=None):
+                   seed0=0, niters=5000, nmeas=100, size=512, lr=None,
+                   device=None):
     """Multi-seed CT fits of ONE family at once (``fit_operator_many``;
     wire_tpu/apps/sweep.py:120-149): N independent split inits fitted to the
     same sinogram through one ``RadonOp`` call on the N fields an iteration
     (measured and fitted through one operator, 'auto': fourier on the card,
-    rotate on the CPU).  Returns the per-seed PSNRs, the wall time, the
-    fit's ms per iteration and the best reconstructions (N, H, W)."""
+    rotate on the CPU); ``lr`` overrides the family's rate.  Returns the
+    per-seed PSNRs, the wall time, the fit's ms per iteration and the best
+    reconstructions (N, H, W)."""
     dev = resolve(device)
     img = common.load_image(image, size=size, channels=1, seed=seed0)
     if img.ndim == 3:
@@ -295,7 +314,8 @@ def sweep_ct_seeds(nonlin, n_seeds, image=None, results_dir="results",
     sinogram = TCT.make_sinogram(img, thetas, device=dev)
     model = _build(nonlin, "ct", H, W, tau=1e2, out_features=1,
                    posenc_sidelength=nmeas)
-    cfg = FitConfig(learning_rate=_CT_LR[nonlin], niters=niters, seed=seed0)
+    cfg = FitConfig(learning_rate=_seeds_lr(_CT_LR, nonlin, lr),
+                    niters=niters, seed=seed0)
     res = fit_operator_many(model, seed_inits(model, n_seeds, seed0, dev),
                             C.grid2d(H, W), sinogram, RadonOp(thetas), cfg,
                             gt_field=img, field_shape=(H, W), track="gt",
@@ -307,19 +327,20 @@ def sweep_ct_seeds(nonlin, n_seeds, image=None, results_dir="results",
 
 
 def sweep_sisr_seeds(nonlin, n_seeds, image=None, results_dir="results",
-                     seed0=0, niters=2000, scale=4, size=768, device=None):
+                     seed0=0, niters=2000, scale=4, size=768, lr=None,
+                     device=None):
     """Multi-seed SISR fits of ONE family at once (``fit_operator_many``;
     wire_tpu/apps/sweep.py:152-174): N independent split inits fitted to
     the same LR image through one ``DownsampleOp`` call on the N fields an
-    iteration.  Returns the per-seed best MSE in dB (vs the clean HR
-    image), the wall time, the fit's ms per iteration and the best
-    reconstructions (N, H, W, 3)."""
+    iteration; ``lr`` overrides the family's rate.  Returns the per-seed
+    best MSE in dB (vs the clean HR image), the wall time, the fit's ms per
+    iteration and the best reconstructions (N, H, W, 3)."""
     dev = resolve(device)
     im, im_lr = TS.sisr_images(image, seed0, scale, size=size)
     H, W, _ = im.shape
     model = _build(nonlin, "sisr", H, W, tau=1e2)
-    cfg = FitConfig(learning_rate=_SISR_LR[nonlin], niters=niters,
-                    lr_decay=0.2, seed=seed0)
+    cfg = FitConfig(learning_rate=_seeds_lr(_SISR_LR, nonlin, lr),
+                    niters=niters, lr_decay=0.2, seed=seed0)
     res = fit_operator_many(model, seed_inits(model, n_seeds, seed0, dev),
                             C.grid2d(H, W), im_lr, DownsampleOp(scale), cfg,
                             gt_field=im, field_shape=(H, W, 3), track="gt",
@@ -360,12 +381,17 @@ def main(argv=None):
     p.add_argument("--seeds", type=int, default=0,
                    help="run this many seeds of ONE family (the first of "
                         "--nonlins) batched in one fit")
+    p.add_argument("--lr", type=float, default=None,
+                   help="--seeds' learning rate (default: the reference "
+                        "scripts' rate of the family; needed for a family "
+                        "outside the six)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
     a = p.parse_args(argv)
     if a.seeds:
-        kw = dict(image=a.image, results_dir=a.results_dir, device=a.device)
+        kw = dict(image=a.image, results_dir=a.results_dir, lr=a.lr,
+                  device=a.device)
         if a.niters:
             kw["niters"] = a.niters
         if a.task == "denoise" and a.downscale is not None:

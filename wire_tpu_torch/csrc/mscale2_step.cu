@@ -45,6 +45,19 @@
 //     weight gradients as fixed-order chunk partials over all ns n rows.
 // Keeping the scales' trunks on chip instead of round-tripping z and a
 // through device memory is later work.
+//
+// Replicas (the batched multi-fit, `reps` models of one shape in one launch
+// sequence): the trunk runs real_tc.cuh's replica chains (forward<true>,
+// backward<true>: every per-layer tensor (reps, ...), each replica's ns n
+// rows with the shared per-row gamma), the final layer gemm_common.cuh's
+// with reps, and combiner_kernel takes the replica in blockIdx.z: F0, f0,
+// F1, f1, ystack, dystack, pred and its partials at the replica's offsets,
+// t and gt shared when t_shared; its partials reduce per replica through
+// reduce_chunks(..., reps).  gcomb is (reps, E), sse (reps, 2).  x is
+// (reps, ns n, d), or one (ns n, d) shared by all when x_shared.  The
+// replica is a template flag (kReps) of the combiner and of the trunk's
+// chains: an unbatched step takes the instances without the replica's
+// offsets, whose code is the single model's.
 
 #include "real_tc.cuh"
 
@@ -77,7 +90,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Stage (b) over n coordinate rows: y_stack and dy_stack are (ns n x o);
 // part receives this block's (cat + 1) x 128 + 129 x o gradient partial at
-// blockIdx.x * comb_grad_floats, sse_part its two SSE sums.
+// blockIdx.x * comb_grad_floats, sse_part its two SSE sums.  kReps:
+// replica blockIdx.z, every tensor at the replica's offsets (t and gt
+// shared when t_shared), its partials after its predecessors'.
+template <bool kReps>
 __global__ void __launch_bounds__(kThreads) combiner_kernel(
     const float* __restrict__ ystack, const float* __restrict__ F0,
     const float* __restrict__ f0, const float* __restrict__ F1,
@@ -85,7 +101,7 @@ __global__ void __launch_bounds__(kThreads) combiner_kernel(
     const float* __restrict__ gt, float* __restrict__ pred,
     float* __restrict__ dystack, float* __restrict__ part,
     float* __restrict__ sse_part, int n, int ns, int o, int nvalid,
-    float two_inv_denom) {
+    float two_inv_denom, int t_shared) {
   __shared__ float F0s[kMaxCat][kHidden];
   __shared__ float F1s[kHidden][kCombMaxOut];
   __shared__ float f0s[kHidden];
@@ -96,6 +112,22 @@ __global__ void __launch_bounds__(kThreads) combiner_kernel(
   const int E0 = (cat + 1) * kHidden;
   const int E = E0 + (kHidden + 1) * o;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (kReps) {
+    const size_t rep = blockIdx.z;
+    ystack += rep * ns * n * o;
+    dystack += rep * ns * n * o;
+    F0 += rep * cat * kHidden;
+    f0 += rep * kHidden;
+    F1 += rep * kHidden * o;
+    f1 += rep * o;
+    if (!t_shared) {
+      t += rep * n * o;
+      gt += rep * n * o;
+    }
+    pred += rep * n * o;
+    part += rep * gridDim.x * E;
+    sse_part += rep * 2 * gridDim.x;
+  }
   for (int i = threadIdx.x; i < cat * kHidden; i += kThreads)
     F0s[i / kHidden][i % kHidden] = F0[i];
   for (int i = threadIdx.x; i < kHidden * o; i += kThreads)
@@ -262,9 +294,13 @@ long long mscale2_comb_part_floats(int n, int ns, int o) {
 // real_step_run's, gcomb = [dF0 (ns o x 128); df0 (128); dF1 (128 x o);
 // df1 (o)].  Scratch: zs, acts (ns n x w_l each), ystack, dystack
 // (ns n x o), dv (2, ns n, max w), zdv (ns n, max w), part
-// (mscale2_trunk_part_floats), cpart (mscale2_comb_part_floats).  Pointer
-// arrays on the host, tensors on the card.  Returns the first CUDA error of
-// a launch (0 on success); launches on `stream`, does not synchronise.
+// (mscale2_trunk_part_floats), cpart (mscale2_comb_part_floats).  For reps
+// replicas every tensor holds reps of its own (the layouts of the header
+// comment; part and cpart reps times their floats), x shared when
+// x_shared, t and gt when t_shared; the codes and gammas are shared.
+// Pointer arrays on the host, tensors on the card.  Returns the first CUDA
+// error of a launch (0 on success); launches on `stream`, does not
+// synchronise.
 int mscale2_step_run(int n, int ns, int L, const int* widths, const float* x,
                      const float* t, const float* gt, const float* const* W,
                      const float* const* WaT, const float* const* alpha,
@@ -277,36 +313,47 @@ int mscale2_step_run(int n, int ns, int L, const int* widths, const float* x,
                      float* const* gW, float* const* galpha, float* gWf,
                      float* gcomb, float* cpart, float* dv, float* zdv,
                      float* part, int nvalid, float two_inv_denom,
-                     int want_metrics, void* stream) {
+                     int want_metrics, int reps, int x_shared, int t_shared,
+                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = ns * n;
   real_tc::Shape s{rows, L, widths};
   const int o = s.o();
-  if (n < 1 || ns < 1 || ns * o > kMaxCat || o > kCombMaxOut)
+  if (n < 1 || ns < 1 || reps < 1 || ns * o > kMaxCat || o > kCombMaxOut)
     return cudaErrorInvalidValue;
+  const bool many = reps > 1;
   // (a) every scale's trunk forward, then y_stack
-  GEMM_CHECK(real_tc::forward(s, x, W, alpha, beta, codes, gammas, n, zs,
-                              acts, st));
+  GEMM_CHECK(many ? real_tc::forward<true>(s, x, W, alpha, beta, codes,
+                                           gammas, n, zs, acts, st, reps,
+                                           x_shared)
+                  : real_tc::forward<false>(s, x, W, alpha, beta, codes,
+                                            gammas, n, zs, acts, st));
   GEMM_CHECK(final_forward(acts[L - 1], Wf, bf, ystack, rows, s.out(L - 1),
-                           o, st));
+                           o, st, reps));
   // (b) the combiner, the loss and the combiner's backward
   const int blocks = comb_blocks(n);
   const int E = comb_grad_floats(ns * o, o);
-  float* sse_part = cpart + (size_t)blocks * E;
-  combiner_kernel<<<blocks, kThreads, 0, st>>>(
+  float* sse_part = cpart + (size_t)reps * blocks * E;
+  auto combiner = many ? combiner_kernel<true> : combiner_kernel<false>;
+  combiner<<<dim3(blocks, 1, reps), kThreads, 0, st>>>(
       ystack, F0, f0, F1, f1, t, gt ? gt : t, pred, dystack, cpart, sse_part,
-      n, ns, o, nvalid, two_inv_denom);
+      n, ns, o, nvalid, two_inv_denom, t_shared);
   GEMM_CHECK(cudaGetLastError());
-  GEMM_CHECK(reduce_chunks(cpart, blocks, E, gcomb, st));
+  GEMM_CHECK(reduce_chunks(cpart, blocks, E, gcomb, st, nullptr, 1, 0, reps));
   if (want_metrics) {
-    reduce_chunks_kernel<<<1, 32, 0, st>>>(sse_part, blocks, 2, sse, nullptr,
-                                           1, 0);
+    reduce_chunks_kernel<<<dim3(1, reps), 32, 0, st>>>(sse_part, blocks, 2,
+                                                       sse, nullptr, 1, 0);
     GEMM_CHECK(cudaGetLastError());
   }
   // (c) every scale's trunk backward, its gradients summed over all rows
-  return real_tc::backward(s, x, dystack, WaT, alpha, beta, codes, WfT,
-                           gammas, n, zs, acts, gW, galpha, gWf, nullptr,
-                           dv, zdv, part, st);
+  if (many)
+    return real_tc::backward<true>(s, x, dystack, WaT, alpha, beta, codes,
+                                   WfT, gammas, n, zs, acts, gW, galpha, gWf,
+                                   nullptr, dv, zdv, part, st, reps,
+                                   x_shared);
+  return real_tc::backward<false>(s, x, dystack, WaT, alpha, beta, codes,
+                                  WfT, gammas, n, zs, acts, gW, galpha, gWf,
+                                  nullptr, dv, zdv, part, st);
 }
 
 }  // extern "C"

@@ -62,6 +62,25 @@
 //   operations against ~1.3 GB of reads); a forward with no gradient to
 //   take runs through two ping-pong planes and keeps nothing.
 //
+// Replicas (the batched multi-fit, `reps` models of one shape in one launch
+// sequence): every launch takes the replica in a grid axis of its own
+// (blockIdx.y of the first layer, blockIdx.z of the quad and paired
+// products; wire_tc.cuh's weight gradients and gemm_common.cuh's final layer
+// and sums fold it in as they say).  Every tensor holds reps of its own,
+// laid out layer-major, replica r of a layer's slice at r times its size past
+// the slice: w1 (reps, d, 2h), b1 (reps, 2h), W2 (L, reps, 2h, 4h), W2T (L,
+// reps, 4h, 2h), B2 (L, reps, 4h), fW (reps, 2h, o), fWT (reps, o, 2h), fb
+// (reps, o); acts (L + 1, reps, n, 2h), zs (L, reps, n, 4h), z1 (reps, n,
+// 2h), dz (2, reps, n, 4h), dz1 (reps, n, 2h); gw1 (reps, d + 1, 2h), gW2
+// (L, reps, 2h + 1, 4h), gfW (reps, 2h + 1, o); pred and g (reps, n, o), sse
+// (reps, 2); the coordinates (reps, n, d), or one (n, d) shared by all when
+// coords_shared, the target and gt likewise when t_shared; part reps x
+// wire2d_part_floats.  A replica's blocks do what an unbatched launch does,
+// so its results are bit-equal to one.  The replica is a template flag
+// (kReps) of the three layer kernels: an unbatched launch takes the
+// instances without the replica's offsets, whose code is the single
+// model's.  No dcoords on the replica path.
+//
 // Accuracy: 3xTF32 products (wire_tc.cuh: fp32's own distance from
 // float64); sincosf/expf, never the __sinf/__expf intrinsics (the phases
 // w lr lie far outside [-pi, pi]); build without --use_fast_math.  The
@@ -95,13 +114,24 @@ __device__ __forceinline__ void gabor2d(float lr, float li, float orr,
 
 // First layer: z1 = c @ w1 + b1 = [lr | or] (n x 2h), kept unless z1 is
 // null; a0 = Gabor-2D(lr, 0, or, 0) with omega = first_omega0 (n x 2h).
-// One thread per (row, unit).
+// One thread per (row, unit).  kReps: replica blockIdx.y (c shared by the
+// replicas when c_shared).
+template <bool kReps>
 __global__ void __launch_bounds__(kThreads) gabor2d_first_kernel(
     const float* __restrict__ c, const float* __restrict__ w1,
     const float* __restrict__ b1, float* __restrict__ z1,
-    float* __restrict__ a0, int n, int d, int h, float omega, float s2) {
+    float* __restrict__ a0, int n, int d, int h, float omega, float s2,
+    int c_shared) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)n * h) return;
+  if (kReps) {
+    const size_t rep = blockIdx.y;
+    if (!c_shared) c += rep * n * d;
+    w1 += rep * d * 2 * h;
+    b1 += rep * 2 * h;
+    if (z1 != nullptr) z1 += rep * n * 2 * h;
+    a0 += rep * n * 2 * h;
+  }
   const size_t r = idx / h;
   const int j = (int)(idx % h);
   const int h2 = 2 * h;
@@ -123,8 +153,9 @@ __global__ void __launch_bounds__(kThreads) gabor2d_first_kernel(
 // Hidden forward: z4 = a @ W2 + B2 (a n x 2h, W2 2h x 4h) over the quad
 // tile of units unit0 .. unit0 + 15; z4 kept in zs (n x 4h) unless zs is
 // null; a_out = Gabor-2D(z4) (n x 2h).  kVecA, kVecB, kPair:
-// wire_tc.cuh:Access.
-template <bool kVecA, bool kVecB, bool kPair>
+// wire_tc.cuh:Access.  kReps: replica blockIdx.z, every operand at the
+// replica's offsets.
+template <bool kVecA, bool kVecB, bool kPair, bool kReps>
 __global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_fwd_kernel(
     const float* __restrict__ a, const float* __restrict__ W2,
     const float* __restrict__ B2, float* __restrict__ zs,
@@ -135,9 +166,19 @@ __global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_fwd_kernel(
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int unit0 = blockIdx.x * kQuadUnits;
   const int row0 = blockIdx.y * kBM;
+  if (kReps) {
+    a += (size_t)blockIdx.z * n * 2 * h;
+    W2 += (size_t)blockIdx.z * 2 * h * 4 * h;
+  }
   float acc[kMT][kNT][4];
   tile_product<kQuad, kVecA, kVecB>(smem, a, W2, 4 * h, n, 2 * h, row0,
                                     unit0, h, acc);
+  if (kReps) {
+    const size_t rep = blockIdx.z;
+    B2 += rep * 4 * h;
+    if (zs != nullptr) zs += rep * n * 4 * h;
+    a_out += rep * n * 2 * h;
+  }
 
   // n8 tile c holds channel c; accumulators 2 hr, 2 hr + 1: row g + 8 hr,
   // units j, j + 1
@@ -178,7 +219,8 @@ __global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_fwd_kernel(
 // backward with the layer's output act (n x 2h):
 //   kBwdHidden: zin = the layer's z4 (n x 4h); out = dz4 (n x 4h)
 //   kBwdFirst:  zin = z1 (n x 2h); out = dz1 = [dlr1 | dor1] (n x 2h)
-template <int kEpi, bool kVecA, bool kVecB, bool kPair>
+// kReps: replica blockIdx.z, every operand at the replica's offsets.
+template <int kEpi, bool kVecA, bool kVecB, bool kPair, bool kReps>
 __global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_bwd_kernel(
     const float* __restrict__ D, const float* __restrict__ Bt,
     const float* __restrict__ act, const float* __restrict__ zin,
@@ -189,9 +231,20 @@ __global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_bwd_kernel(
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int unit0 = blockIdx.x * kUnits;
   const int row0 = blockIdx.y * kBM;
+  if (kReps) {
+    D += (size_t)blockIdx.z * n * K;
+    Bt += (size_t)blockIdx.z * K * 2 * h;
+  }
   float acc[kMT][kNT][4];
   tile_product<kPaired, kVecA, kVecB>(smem, D, Bt, 2 * h, n, K, row0, unit0,
                                       h, acc);
+  if (kReps) {
+    const size_t rep = blockIdx.z;
+    const size_t wide = (size_t)n * (kEpi == kBwdHidden ? 4 : 2) * h;
+    act += rep * n * 2 * h;
+    zin += rep * wide;
+    out += rep * wide;
+  }
 
   const int g = lane / 4, t = lane % 4;
   constexpr int kHalf = kNT / 2;
@@ -257,18 +310,23 @@ __global__ void __launch_bounds__(wire_tc::kThreads, 2) gabor2d_tc_bwd_kernel(
 }
 
 // The launches of the two: the kernel instance for the shapes' and
-// pointers' accesses, with the loop's dynamic shared memory.
+// pointers' accesses, with the loop's dynamic shared memory; kReps: `reps`
+// replicas in blockIdx.z.
+template <bool kReps>
+auto fwd_instance(const wire_tc::Access& a) {
+  return wire_tc::instance(a, [](auto va, auto vb, auto pr) {
+    return &gabor2d_tc_fwd_kernel<decltype(va)::value, decltype(vb)::value,
+                                  decltype(pr)::value, kReps>;
+  });
+}
+
 cudaError_t tc_forward(const float* a, const float* W2, const float* B2,
                        float* zs, float* a_out, int n, int h, float omega,
-                       float s2, cudaStream_t st) {
-  const dim3 grid(ceil_div(h, wire_tc::kQuadUnits), ceil_div(n, wire_tc::kBM));
-  auto kernel = wire_tc::instance(
-      wire_tc::access(a, W2, 2 * h, h, {B2, zs, a_out}),
-      [](auto va, auto vb, auto pr) {
-        return &gabor2d_tc_fwd_kernel<decltype(va)::value,
-                                      decltype(vb)::value,
-                                      decltype(pr)::value>;
-      });
+                       float s2, cudaStream_t st, int reps) {
+  const dim3 grid(ceil_div(h, wire_tc::kQuadUnits), ceil_div(n, wire_tc::kBM),
+                  reps);
+  const wire_tc::Access ac = wire_tc::access(a, W2, 2 * h, h, {B2, zs, a_out});
+  auto kernel = reps > 1 ? fwd_instance<true>(ac) : fwd_instance<false>(ac);
   GEMM_CHECK(cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   wire_tc::kSmemBytes));
@@ -277,18 +335,24 @@ cudaError_t tc_forward(const float* a, const float* W2, const float* B2,
   return cudaGetLastError();
 }
 
+template <int kEpi, bool kReps>
+auto bwd_instance(const wire_tc::Access& a) {
+  return wire_tc::instance(a, [](auto va, auto vb, auto pr) {
+    return &gabor2d_tc_bwd_kernel<kEpi, decltype(va)::value,
+                                  decltype(vb)::value, decltype(pr)::value,
+                                  kReps>;
+  });
+}
+
 template <int kEpi>
 cudaError_t tc_backward(const float* D, const float* Bt, const float* act,
                         const float* zin, float* out, int n, int K, int h,
-                        float omega, float s2, cudaStream_t st) {
-  const dim3 grid(ceil_div(h, wire_tc::kUnits), ceil_div(n, wire_tc::kBM));
-  auto kernel = wire_tc::instance(
-      wire_tc::access(D, Bt, K, h, {act, zin, out}),
-      [](auto va, auto vb, auto pr) {
-        return &gabor2d_tc_bwd_kernel<kEpi, decltype(va)::value,
-                                      decltype(vb)::value,
-                                      decltype(pr)::value>;
-      });
+                        float omega, float s2, cudaStream_t st, int reps) {
+  const dim3 grid(ceil_div(h, wire_tc::kUnits), ceil_div(n, wire_tc::kBM),
+                  reps);
+  const wire_tc::Access ac = wire_tc::access(D, Bt, K, h, {act, zin, out});
+  auto kernel = reps > 1 ? bwd_instance<kEpi, true>(ac)
+                         : bwd_instance<kEpi, false>(ac);
   GEMM_CHECK(cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   wire_tc::kSmemBytes));
@@ -335,29 +399,33 @@ __global__ void __launch_bounds__(kThreads) gabor2d_dcoords_kernel(
 }
 
 // First layer and the L hidden layers: z1 (n x 2h), acts (L + 1, n, 2h),
-// zs (L, n, 4h).  With `pingpong` (z1 and zs null, acts two (n x 2h)
-// planes) nothing is kept for a backward: layer l writes plane (l + 1) % 2,
-// so the last activation is plane L % 2.
+// zs (L, n, 4h) (for reps replicas, the layouts of the header comment).
+// With `pingpong` (z1 and zs null, acts two (reps, n, 2h) planes) nothing
+// is kept for a backward: layer l writes plane (l + 1) % 2, so the last
+// activation is plane L % 2.
 cudaError_t forward_hidden(const float* coords, const float* w1,
                            const float* b1, const float* W2,
                            const float* B2, float* acts, float* zs,
                            float* z1, int n, int d, int h, int L,
                            float omega0, float s2, float first_omega0,
-                           cudaStream_t st, bool pingpong) {
-  const size_t act_sz = (size_t)n * 2 * h;
-  const size_t z_sz = (size_t)n * 4 * h;
-  const size_t w_sz = (size_t)2 * h * 4 * h;
-  gabor2d_first_kernel<<<ceil_div((long long)n * h, kThreads), kThreads, 0,
-                         st>>>(coords, w1, b1, z1, acts, n, d, h,
-                               first_omega0, s2);
+                           cudaStream_t st, bool pingpong, int reps,
+                           int coords_shared) {
+  const size_t act_sz = (size_t)reps * n * 2 * h;
+  const size_t z_sz = (size_t)reps * n * 4 * h;
+  const size_t w_sz = (size_t)reps * 2 * h * 4 * h;
+  auto first = reps > 1 ? gabor2d_first_kernel<true>
+                        : gabor2d_first_kernel<false>;
+  first<<<dim3(ceil_div((long long)n * h, kThreads), reps), kThreads, 0,
+          st>>>(coords, w1, b1, z1, acts, n, d, h, first_omega0, s2,
+                coords_shared);
   GEMM_CHECK(cudaGetLastError());
   for (int l = 0; l < L; ++l) {
     const size_t in = pingpong ? l % 2 : l;
     const size_t out = pingpong ? (l + 1) % 2 : l + 1;
     GEMM_CHECK(tc_forward(acts + in * act_sz, W2 + l * w_sz,
-                          B2 + (size_t)l * 4 * h,
+                          B2 + (size_t)l * reps * 4 * h,
                           pingpong ? nullptr : zs + l * z_sz,
-                          acts + out * act_sz, n, h, omega0, s2, st));
+                          acts + out * act_sz, n, h, omega0, s2, st, reps));
   }
   return cudaSuccess;
 }
@@ -365,19 +433,21 @@ cudaError_t forward_hidden(const float* coords, const float* w1,
 // The backward from the output cotangent g (n x o) to every weight
 // gradient: gfW (2h + 1, o) = [dfW; dfb], gW2 (L, 2h + 1, 4h) = [dW2; dB2],
 // gw1 (d + 1, 2h) = [dw1; db1]; dz1 (n x 2h) is left holding dL/dz1.
-// Scratch: dz (min(L, 2) planes of n x 4h), part (wire2d_part_floats).
+// Scratch: dz (min(L, 2) planes of n x 4h), part (wire2d_part_floats).  For
+// reps replicas, the layouts of the header comment.
 cudaError_t backward(const float* coords, const float* g, const float* W2T,
                      const float* fWT, const float* acts, const float* zs,
                      const float* z1, float* gw1, float* gW2, float* gfW,
                      float* dz, float* dz1, float* part, int n, int d, int h,
                      int o, int L, float omega0, float s2,
-                     float first_omega0, cudaStream_t st) {
+                     float first_omega0, cudaStream_t st, int reps,
+                     int coords_shared) {
   const int h2 = 2 * h, h4 = 4 * h;
-  const size_t act_sz = (size_t)n * h2;
-  const size_t z_sz = (size_t)n * h4;
-  const size_t w_sz = (size_t)h4 * h2;
+  const size_t act_sz = (size_t)reps * n * h2;
+  const size_t z_sz = (size_t)reps * n * h4;
+  const size_t w_sz = (size_t)reps * h4 * h2;
   GEMM_CHECK(wire_tc::narrow_weight_grad(acts + L * act_sz, g, part, gfW, n,
-                                         h2, o, st));
+                                         h2, o, st, nullptr, reps));
   const float* dsrc = g;
   const float* bt = fWT;
   int kdim = o;
@@ -386,18 +456,20 @@ cudaError_t backward(const float* coords, const float* g, const float* W2T,
     float* dzl = dz + cur * z_sz;
     GEMM_CHECK(tc_backward<kBwdHidden>(dsrc, bt, acts + (l + 1) * act_sz,
                                        zs + l * z_sz, dzl, n, kdim, h, omega0,
-                                       s2, st));
-    GEMM_CHECK(wire_tc::weight_grad(acts + l * act_sz, dzl, part,
-                                    gW2 + (size_t)l * (h2 + 1) * h4, n, h2,
-                                    h4, st));
+                                       s2, st, reps));
+    GEMM_CHECK(wire_tc::weight_grad(
+        acts + l * act_sz, dzl, part,
+        gW2 + (size_t)l * reps * (h2 + 1) * h4, n, h2, h4, st, nullptr,
+        reps));
     dsrc = dzl;
     bt = W2T + l * w_sz;
     kdim = h4;
     cur ^= 1;
   }
   GEMM_CHECK(tc_backward<kBwdFirst>(dsrc, bt, acts, z1, dz1, n, kdim, h,
-                                    first_omega0, s2, st));
-  return wire_tc::narrow_weight_grad(coords, dz1, part, gw1, n, d, h2, st);
+                                    first_omega0, s2, st, reps));
+  return wire_tc::narrow_weight_grad(coords, dz1, part, gw1, n, d, h2, st,
+                                     nullptr, reps, coords_shared);
 }
 
 }  // namespace
@@ -431,6 +503,9 @@ const char* wire2d_error_string(int err) {
 //   gfW (2h + 1, o); sse (2) = (sse_target, sse_gt) when want_metrics.
 // Scratch: acts (L + 1, n, 2h), zs (L, n, 4h), z1 (n, 2h), g (n, o),
 //   dz (min(L, 2), n, 4h), dz1 (n, 2h), part (wire2d_part_floats).
+// For reps replicas every tensor holds reps (the layouts of the header
+// comment; part reps x wire2d_part_floats); coords_shared: one (n, d)
+// coordinate tensor for all, t_shared: one (n, o) target and gt for all.
 // Returns the first CUDA error of a launch (0 on success).  Launches on
 // `stream` and does not synchronise.
 int wire2d_step_run(const float* coords, const float* target,
@@ -442,67 +517,75 @@ int wire2d_step_run(const float* coords, const float* target,
                     float* dz, float* dz1, float* part, int n, int d, int h,
                     int o, int L, float omega0, float sigma0,
                     float first_omega0, int nvalid, float two_inv_denom,
-                    int want_metrics, void* stream) {
+                    int want_metrics, int reps, int coords_shared,
+                    int t_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
   GEMM_CHECK(forward_hidden(coords, w1, b1, W2, B2, acts, zs, z1, n, d, h, L,
-                            omega0, s2, first_omega0, st, false));
-  GEMM_CHECK(final_loss(acts + (size_t)L * n * 2 * h, fW, fb, target, gt,
-                        pred, g, sse, part, n, 2 * h, o, nvalid,
-                        two_inv_denom, want_metrics, st));
+                            omega0, s2, first_omega0, st, false, reps,
+                            coords_shared));
+  GEMM_CHECK(final_loss(acts + (size_t)L * reps * n * 2 * h, fW, fb, target,
+                        gt, pred, g, sse, part, n, 2 * h, o, nvalid,
+                        two_inv_denom, want_metrics, st, reps, t_shared));
   return backward(coords, g, W2T, fWT, acts, zs, z1, gw1, gW2, gfW, dz, dz1,
-                  part, n, d, h, o, L, omega0, s2, first_omega0, st);
+                  part, n, d, h, o, L, omega0, s2, first_omega0, st, reps,
+                  coords_shared);
 }
 
 // The pair's forward, keeping what the backward reads: pred (n, o);
-// acts (L + 1, n, 2h), zs (L, n, 4h), z1 (n, 2h).
+// acts (L + 1, n, 2h), zs (L, n, 4h), z1 (n, 2h).  For reps replicas as
+// the step's.
 int wire2d_forward(const float* coords, const float* w1, const float* b1,
                    const float* W2, const float* B2, const float* fW,
                    const float* fb, float* pred, float* acts, float* zs,
                    float* z1, int n, int d, int h, int o, int L, float omega0,
-                   float sigma0, float first_omega0, void* stream) {
+                   float sigma0, float first_omega0, int reps,
+                   int coords_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
   GEMM_CHECK(forward_hidden(coords, w1, b1, W2, B2, acts, zs, z1, n, d, h, L,
-                            omega0, s2, first_omega0, st, false));
-  return final_forward(acts + (size_t)L * n * 2 * h, fW, fb, pred, n, 2 * h,
-                       o, st);
+                            omega0, s2, first_omega0, st, false, reps,
+                            coords_shared));
+  return final_forward(acts + (size_t)L * reps * n * 2 * h, fW, fb, pred, n,
+                       2 * h, o, st, reps);
 }
 
 // The forward alone, keeping nothing (no input needs a gradient): the chain
-// runs through pingpong (2, n, 2h).
+// runs through pingpong (2, n, 2h) ((2, reps, n, 2h) for reps replicas).
 int wire2d_forward_nograd(const float* coords, const float* w1,
                           const float* b1, const float* W2, const float* B2,
                           const float* fW, const float* fb, float* pred,
                           float* pingpong, int n, int d, int h, int o, int L,
                           float omega0, float sigma0, float first_omega0,
-                          void* stream) {
+                          int reps, int coords_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
   GEMM_CHECK(forward_hidden(coords, w1, b1, W2, B2, pingpong, nullptr,
                             nullptr, n, d, h, L, omega0, s2, first_omega0, st,
-                            true));
-  return final_forward(pingpong + (size_t)(L % 2) * n * 2 * h, fW, fb, pred,
-                       n, 2 * h, o, st);
+                            true, reps, coords_shared));
+  return final_forward(pingpong + (size_t)(L % 2) * reps * n * 2 * h, fW, fb,
+                       pred, n, 2 * h, o, st, reps);
 }
 
 // The pair's backward from g = dL/dpred (n, o), reading the forward's
 // activations.  w1 (d, 2h) for dcoords; W2T (L, 4h, 2h); fWT (o, 2h).
 // Outputs: gw1 (d + 1, 2h), gW2 (L, 2h + 1, 4h), gfW (2h + 1, o); dcoords
 // (n, d), or null when no coordinate gradient is wanted (its kernel is then
-// not launched).  Scratch: dz (min(L, 2), n, 4h), dz1 (n, 2h), part.
+// not launched).  Scratch: dz (min(L, 2), n, 4h), dz1 (n, 2h), part.  For
+// reps replicas as the step's; dcoords must then be null.
 int wire2d_backward(const float* coords, const float* g, const float* w1,
                     const float* W2T, const float* fWT, const float* acts,
                     const float* zs, const float* z1, float* gw1, float* gW2,
                     float* gfW, float* dcoords, float* dz, float* dz1,
                     float* part, int n, int d, int h, int o, int L,
-                    float omega0, float sigma0, float first_omega0,
-                    void* stream) {
+                    float omega0, float sigma0, float first_omega0, int reps,
+                    int coords_shared, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float s2 = sigma0 * sigma0;
+  if (dcoords != nullptr && reps != 1) return cudaErrorInvalidValue;
   GEMM_CHECK(backward(coords, g, W2T, fWT, acts, zs, z1, gw1, gW2, gfW, dz,
                       dz1, part, n, d, h, o, L, omega0, s2, first_omega0,
-                      st));
+                      st, reps, coords_shared));
   if (dcoords != nullptr) {
     gabor2d_dcoords_kernel<<<ceil_div(n, kFinalRowsPerBlock), kThreads, 0,
                              st>>>(dz1, w1, dcoords, n, d, 2 * h);

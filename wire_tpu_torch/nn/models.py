@@ -26,12 +26,17 @@ The real families fold their parameters to the canonical form of
 B(v)``) and run its kernels; native-parameter gradients come back from
 the canonical ones through autograd of the fold.
 
-The batched multi-fit (``INR.step_grads_many``, ``INR.apply_many``) takes a
-family's replica hooks (``REPLICA_HOOKS`` of nn/registry.py): WIRE's, the
-MFN's and the canonical real families' run their kernels' replica axis on
-the card (a real family folds its stacked parameters with
-``torch.func.vmap`` of its fold and maps the canonical gradients back with
-``torch.func.vjp``, so the fold's launches do not grow with M).
+The batched multi-fit (``INR.step_grads_many``, ``INR.apply_many``) follows
+the serial route.  Where the serial step or apply runs a kernel, a family's
+replica hooks (``REPLICA_HOOKS`` of nn/registry.py) run that kernel's
+replica axis on the card: WIRE's, WIRE-2D's, the MFN's, the canonical real
+families' and mscale_2's (a folding family folds its stacked parameters
+with ``torch.func.vmap`` of its fold and maps the canonical gradients back
+with ``torch.func.vjp``, so the fold's launches do not grow with M).
+Where the serial step is autodiff of the apply, the batched step is
+autodiff of the batched apply (``autodiff_step_many``): the family's
+replica apply hook, or ``torch.func.vmap`` of its plain apply
+(``vmap_apply``), one launch sequence for all M.
 """
 from __future__ import annotations
 
@@ -137,18 +142,80 @@ def autodiff_step(apply_fn, params, coords, target, spec, *, nvalid=None,
     return pred, dparams, (torch.sum(err_t * err_t), torch.sum(err_g * err_g))
 
 
+def autodiff_step_many(apply_many, params_stack, coords, target, spec, *,
+                       nvalid=None, denom=None, gt=None, want_metrics=False):
+    """``autodiff_step`` of M replicas at once: (pred (M, n, o), dparams
+    stacked as the parameters[, (sse_target, sse_gt) as two (M,)
+    tensors]).  ``apply_many(params_stack, coords, spec)`` is the batched
+    apply (a family's replica hook, or ``vmap_apply`` of its plain apply);
+    the loss is the sum of the replicas' losses, each masked to the shared
+    ``nvalid`` tail and divided by the same ``denom`` as ``autodiff_step``,
+    so one ``torch.autograd.grad`` gives each replica the gradient of its
+    own loss.  coords (n, d), target and gt (n, o) shared or each with a
+    leading M.  The SSE sums are one reduction a replica, each over its own
+    slice as the serial step reduces it."""
+    from wire_tpu_torch.ops.wire_step import shared_nvalid
+    M = tree.replicas(params_stack)
+    nvalid = shared_nvalid(nvalid, M)
+    for x in (target, gt):
+        tree.replica_axis(x, M)
+    n, c = target.shape[-2:]
+    dn = float(n * c) if denom is None else denom
+    paths, leaves, p = grad_leaves(params_stack)
+    mask = None
+    if nvalid is not None:
+        rows = torch.arange(n, device=coords.device)[:, None]
+        mask = (rows < nvalid).to(target.dtype)
+    with torch.enable_grad(), _fp32_matmuls():
+        pred = apply_many(p, coords, spec)
+        err = pred - target
+        if mask is not None:
+            err = err * mask
+        loss = torch.sum(err * err) / dn
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    dparams = grads_tree(paths, leaves, grads)
+    pred = pred.detach()
+    if not want_metrics:
+        return pred, dparams
+    err_t = pred - target
+    err_g = err_t if gt is None else pred - gt
+    if mask is not None:
+        err_t = err_t * mask
+        err_g = err_g * mask
+    return pred, dparams, tuple(
+        torch.stack([torch.sum(e[r] * e[r]) for r in range(M)])
+        for e in (err_t, err_g))
+
+
+def vmap_apply(apply_fn):
+    """The batched apply ``(params_stack, coords, spec) -> (M, ..., o)`` of
+    a plain ``apply_fn(params, coords, spec)``: ``torch.func.vmap`` over the
+    parameters' leading M and, per replica, the coordinates' (shared
+    (rows, d) coordinates are not mapped), so its PyTorch launches do not
+    grow with M.  Differentiable in the parameters by autograd."""
+    def apply_many(params_stack, coords, spec):
+        M = tree.replicas(params_stack)
+        return torch.func.vmap(
+            lambda p, c: apply_fn(p, c, spec),
+            in_dims=(0, tree.replica_axis(coords, M)))(params_stack, coords)
+    return apply_many
+
+
 @dataclasses.dataclass(frozen=True)
 class ReplicaHooks:
     """A family's batched multi-fit: ``step(params_stack, coords, target,
     spec, *, nvalid, denom, gt, want_metrics, scratch)`` and
     ``apply(params_stack, coords, spec)`` over replica-stacked parameters
     (one launch sequence for all M on the card, the plain versions on the
-    CPU), each None where the family has no kernel for it, and ``ok(params,
-    spec)``: whether the hooks serve this spec and (one replica's)
-    parameters."""
+    CPU), each None where the family has no kernel for it (the step is
+    then ``autodiff_step_many`` of the batched apply, the apply
+    ``vmap_apply`` of the family's own), and ``ok(params, spec)``: whether
+    the hooks serve this spec and (one replica's) parameters;
+    ``step_ok`` the step's own gate where it differs from ``ok``."""
     step: object = None
     apply: object = None
     ok: object = None
+    step_ok: object = None
 
 
 class INR:
@@ -191,43 +258,29 @@ class INR:
     def num_params(self, params):
         return sum(t.numel() for _, t in tree.leaves(params))
 
-    def _replica_hook(self, hook, params_stack, device, what):
-        """The family's replica hook for this call (its plain versions on
-        the CPU, one launch sequence for all M on the card), or None: then
-        the CPU runs the plain step or apply once per replica and the card
-        raises, since no per-replica loop of single launches may hide a
-        missing kernel."""
-        ok = self._replica.ok
+    def _replica_hook(self, hook, ok, params_stack):
+        """The family's replica hook for this call, or None where it has
+        none or its gate ``ok`` refuses this spec (the batched route is then
+        that of the serial call: autodiff, or the plain apply vmapped)."""
         if hook is not None and (ok is None or ok(
                 tree.index(params_stack, 0), self.spec)):
             return hook
-        if device.type == "cpu":
-            return None
-        if self.spec.nonlin in _ITEM_5C:
-            why = "its replica kernels are ROADMAP.md §A item 5c"
-        else:
-            why = ("it trains by autodiff here, without a kernel: the "
-                   "autodiff families' batched path on the card is "
-                   "ROADMAP.md §A item 5d")
-        raise NotImplementedError(
-            f"{what}: the batched multi-fit of {self.spec.nonlin!r} "
-            f"(fused={self.spec.fused!r}) has no replica kernels on "
-            f"{device.type}: {why}; it runs batched on the CPU")
+        return None
 
     def apply_many(self, params_stack, coords):
         """M forwards at once: every leaf of ``params_stack`` has a leading
         M; coords (rows, d) shared or (M, ..., rows, d) per replica ->
-        (M, ..., rows, o).  A family's replica hook (WIRE's ``wire_mlp``,
-        the MFN's ``mfn_mlp`` and the real families' ``real_mlp`` pairs) is
-        on the card one launch sequence a direction for all M."""
-        hook = self._replica_hook(self._replica.apply, params_stack,
-                                  coords.device, "apply_many")
-        if hook is not None:
-            return hook(params_stack, coords, self.spec)
-        M = tree.replicas(params_stack)
-        return torch.stack([
-            self.apply(tree.index(params_stack, r),
-                       tree.replica(coords, r, M)) for r in range(M)])
+        (M, ..., rows, o).  Where the serial apply runs a kernel pair
+        (WIRE's ``wire_mlp``, WIRE-2D's ``wire2d_mlp``, the MFN's
+        ``mfn_mlp``, the real families' and mscale_2's ``real_mlp``), the
+        family's replica hook runs it on the card, one launch sequence a
+        direction for all M; otherwise ``vmap_apply`` of the plain
+        apply."""
+        hook = self._replica_hook(self._replica.apply, self._replica.ok,
+                                  params_stack)
+        if hook is None:
+            hook = vmap_apply(self._apply)
+        return hook(params_stack, coords, self.spec)
 
     def step_grads_many(self, params_stack, coords, target, *, nvalid=None,
                         denom=None, gt=None, want_metrics=False,
@@ -236,36 +289,25 @@ class INR:
         ``params_stack`` has a leading M; coords (n, d), target and gt
         (n, o) shared, or each with a leading M; nvalid and denom shared.
         Returns pred (M, n, o), the gradients stacked as the parameters and,
-        with ``want_metrics``, the SSE sums as two (M,) tensors.  A
-        family's replica hook (WIRE's ``wire_step``, the MFN's
-        ``mfn_step``, the real families' ``real_step``) is on the card one
-        launch sequence for all M."""
-        hook = self._replica_hook(self._replica.step, params_stack,
-                                  coords.device, "step_grads_many")
+        with ``want_metrics``, the SSE sums as two (M,) tensors.  Where the
+        serial step runs a kernel (WIRE's ``wire_step``, WIRE-2D's
+        ``wire2d_step``, the MFN's ``mfn_step``, the real families'
+        ``real_step``, mscale_2's ``mscale2_step``), the family's replica
+        hook runs it on the card, one launch sequence for all M; where the
+        serial step is autodiff, ``autodiff_step_many`` of
+        ``apply_many``."""
+        rep = self._replica
+        hook = self._replica_hook(
+            rep.step, rep.ok if rep.step_ok is None else rep.step_ok,
+            params_stack)
         if hook is not None:
             return hook(params_stack, coords, target, self.spec,
                         nvalid=nvalid, denom=denom, gt=gt,
                         want_metrics=want_metrics, scratch=scratch)
-        M = tree.replicas(params_stack)
-
-        def rep(x, r):
-            return tree.replica(x, r, M)
-
-        outs = [self.step_grads(
-            tree.index(params_stack, r), rep(coords, r), rep(target, r),
-            nvalid=nvalid, denom=denom, gt=rep(gt, r),
-            want_metrics=want_metrics) for r in range(M)]
-        pred = torch.stack([out[0] for out in outs])
-        grads = tree.stack([out[1] for out in outs])
-        if want_metrics:
-            return pred, grads, tuple(torch.stack([out[2][i] for out in outs])
-                                      for i in range(2))
-        return pred, grads
-
-
-# families whose replica kernels are ROADMAP.md §A item 5c; the others
-# without replica hooks train by autodiff (item 5d)
-_ITEM_5C = ("wire2d", "bspline_mscale_2")
+        return autodiff_step_many(
+            lambda p, c, _spec: self.apply_many(p, c), params_stack, coords,
+            target, self.spec, nvalid=nvalid, denom=denom, gt=gt,
+            want_metrics=want_metrics)
 
 
 def _fused_on(params, spec):
@@ -395,6 +437,18 @@ def wire2d_step(params, coords, target, spec, *, nvalid=None, denom=None,
     from wire_tpu_torch.ops.wire2d import wire2d_step as step
     return step(params, coords, target, spec, nvalid=nvalid, denom=denom,
                 gt=gt, want_metrics=want_metrics, scratch=scratch)
+
+
+def wire2d_step_many(params_stack, coords, target, spec, **kw):
+    """WIRE-2D's replica step hook (ops/wire2d.py:wire2d_step_many)."""
+    from wire_tpu_torch.ops.wire2d import wire2d_step_many as step
+    return step(params_stack, coords, target, spec, **kw)
+
+
+def wire2d_apply_many(params_stack, coords, spec):
+    """WIRE-2D's replica apply hook (ops/wire2d.py:wire2d_mlp_many)."""
+    from wire_tpu_torch.ops.wire2d import wire2d_mlp_many
+    return wire2d_mlp_many(params_stack, coords, spec)
 
 
 # ===========================================================================
@@ -1134,6 +1188,58 @@ def mscale2_step(params, coords, target, spec, *, nvalid=None, denom=None,
     return (out[0], grads) + tuple(out[3:])
 
 
+def mscale2_apply_many(params_stack, coords, spec):
+    """mscale_2's replica apply hook: every replica's trunk at every scale
+    through ops/real_mlp.py:real_mlp_many with ``row_gamma`` (the batched
+    form of what ``real_mlp_scales`` passes: one real_mlp pair for all M
+    and all scales on the card), then the combiner, ``torch.func.vmap``ped
+    over the replicas.  coords (rows, d) shared or (M, ..., rows, d)."""
+    from wire_tpu_torch.ops.real_mlp import real_mlp_many
+    M = tree.replicas(params_stack)
+    trunk = {k: v for k, v in params_stack.items() if k != "combiner"}
+    canon = torch.func.vmap(lambda p: _canon_mscale2(p, spec))(trunk)
+    ns, d = len(spec.scale_tensor), coords.shape[-1]
+    if tree.replica_axis(coords, M) is None:
+        lead = coords.shape[:-1]
+        X = coords.repeat(ns, 1)
+    else:
+        lead = coords.shape[1:-1]
+        X = coords.reshape(M, -1, d).repeat(1, ns, 1)
+    n = X.shape[-2] // ns
+    ys = real_mlp_many(canon, X, _mscale2_kinds(spec),
+                       row_gamma=(_inv_scales(spec), n))
+    outs = ys.reshape((M, ns) + tuple(lead) + (ys.shape[-1],))
+    return torch.func.vmap(
+        lambda c, y: mscale2_combine(c, y, spec.combine_type))(
+            params_stack["combiner"], outs)
+
+
+def mscale2_step_many(params_stack, coords, target, spec, *, nvalid=None,
+                      denom=None, gt=None, want_metrics=False, scratch=None):
+    """mscale_2's replica step hook under 'freq_combine' (the serial step's
+    kernel route): the stacked trunk folded by ``fold_grads_many``, then
+    ops/mscale2_step.py:mscale2_step_many, one launch sequence for all M;
+    the combiner's unused heads get structural zeros, as in
+    ``mscale2_step``."""
+    from wire_tpu_torch.ops.mscale2_step import mscale2_step_many as step
+    trunk = {k: v for k, v in params_stack.items() if k != "combiner"}
+    canon, back = fold_grads_many(_canon_mscale2, trunk, spec)
+    c = params_stack["combiner"]
+    combiner = {k: {kk: v.detach() for kk, v in c[k].items()}
+                for k in ("freq_0", "freq_1")}
+    out = step(canon, combiner, coords, target, _mscale2_kinds(spec),
+               _inv_scales(spec), nvalid=nvalid, denom=denom, gt=gt,
+               want_metrics=want_metrics, scratch=scratch)
+    grads = back(out[1])
+    dcomb = out[2]
+    grads["combiner"] = {
+        "scale_weights": torch.zeros_like(c["scale_weights"]),
+        "freq_0": dcomb["freq_0"], "freq_1": dcomb["freq_1"],
+        "refine_0": tree.map(torch.zeros_like, c["refine_0"]),
+        "refine_1": tree.map(torch.zeros_like, c["refine_1"])}
+    return (out[0], grads) + tuple(out[3:])
+
+
 # ---- mscale_hier: stages, each fed the raw coordinates and the last -------
 
 def mscale_hier_init(gen, spec: INRSpec, device="cpu"):
@@ -1268,9 +1374,9 @@ mscale_hl_step = _make_real_step(mscale_hl_apply, _mscale_hl_kinds,
 mscale_hier_step = _make_real_step(mscale_hier_apply, _hier_kinds,
                                    _canon_mscale_hier)
 
-# the replica hooks of the families that fold onto real_step (ROADMAP.md
-# §A item 5b); bspline_knots and mscale_1 have no apply kernel, as in the
-# JAX package (their batched apply is item 5d on the card)
+# the replica hooks of the families that fold onto real_step; bspline_knots
+# and mscale_1 have no apply kernel, as in the JAX package, so their
+# batched apply is vmap_apply of their plain apply
 siren_replicas = _real_replica_hooks(_uniform_kinds("sine"), _canon_siren)
 gauss_replicas = _real_replica_hooks(_uniform_kinds("gauss"), _canon_gauss)
 relu_replicas = _real_replica_hooks(_uniform_kinds("relu"), _canon_relu,
@@ -1372,5 +1478,15 @@ def mfn_apply_many(params_stack, coords, spec):
 
 wire_replicas = ReplicaHooks(step=wire_step_many, apply=wire_apply_many,
                              ok=_fused_on)
+wire2d_replicas = ReplicaHooks(step=wire2d_step_many,
+                               apply=wire2d_apply_many, ok=_fused_on)
+# the kernels serve mscale_2's apply unless fused is off, its step only
+# under 'freq_combine' (nn/models.py:mscale2_step's own condition); the other
+# combine modes train by autodiff of the batched apply
+mscale2_replicas = ReplicaHooks(
+    step=mscale2_step_many, apply=mscale2_apply_many,
+    ok=lambda params, spec: _use_fused(spec),
+    step_ok=lambda params, spec: (_use_fused(spec)
+                                  and spec.combine_type == "freq_combine"))
 mfn_replicas = ReplicaHooks(step=mfn_step_many, apply=mfn_apply_many,
                             ok=_fused_on)

@@ -57,11 +57,12 @@ STEP_REGISTRY = {
 }
 
 # families with replica hooks (the batched multi-fit: one launch sequence
-# for all M replicas on the card); wire2d and bspline_mscale_2 wait on
-# their replica kernels (ROADMAP.md §A item 5c), realgabor and bspline_sig
-# train by autodiff (item 5d)
+# for all M replicas on the card); realgabor and bspline_sig, which have no
+# kernel, train by autodiff of vmap_apply of their apply (nn/models.py:
+# autodiff_step_many), as does any family where its hooks' gate refuses
 REPLICA_HOOKS = {
     "wire": M.wire_replicas,
+    "wire2d": M.wire2d_replicas,
     "siren": M.siren_replicas,
     "gauss": M.gauss_replicas,
     "relu": M.relu_replicas,
@@ -74,6 +75,7 @@ REPLICA_HOOKS = {
     "bspline_mscale_1": M.mscale1_replicas,
     "bspline_mscale_1_new": M.mscale_repin_replicas,
     "bspline_mscale_repIN": M.mscale_repin_replicas,
+    "bspline_mscale_2": M.mscale2_replicas,
     "bspline_mscale_HL": M.mscale_hl_replicas,
     "bspline_mscale_hier": M.mscale_hier_replicas,
 }

@@ -19,6 +19,14 @@ products on the 3xTF32 tensor-core loop of csrc/wire_tc.cuh with the real
 epilogue in registers; ``epilogue_map`` models which output each register
 of a tile holds and which scale's gamma it takes.  The kernel is held to
 ``mscale2_step_plain`` run in float64 (every input cast).
+
+``mscale2_step_many`` steps M models of one shape at once (wire_tpu's
+many-fitters ``jax.vmap`` the Pallas step over a leading replica axis):
+every canonical and combiner leaf carries a leading M, the coordinates and
+targets are shared or per replica, and on the card one call is one launch
+sequence for all M, replica r's outputs bit-equal to ``mscale2_step`` on
+its own inputs; ``mscale2_step_many_plain`` (the plain step per replica)
+is its plain version.
 """
 from __future__ import annotations
 
@@ -28,10 +36,11 @@ import functools
 import numpy as np
 import torch
 
+from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import autodiff_step, mscale2_combine
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops import real_mlp as RM
-from wire_tpu_torch.ops.wire_step import StepScratch, _check
+from wire_tpu_torch.ops.wire_step import StepScratch, _check, shared_nvalid
 
 # kernel launches of this module, one per mscale2_step on the card; a run
 # resets and reads it
@@ -112,7 +121,8 @@ def _lib():
                                       _PTR] + [_PTR] * 5 + [_PTR] * 3
                                      + [_PTR] * 5 + [_PTR] * 2 + [_PTR] * 4
                                      + [_PTR] * 3 + [_PTR] * 5
-                                     + [_INT, _FLT, _INT, _PTR])
+                                     + [_INT, _FLT, _INT] + [_INT] * 3
+                                     + [_PTR])
     lib.mscale2_step_run.restype = _INT
     lib.mscale2_trunk_part_floats.argtypes = [_INT, _INT, _PTR]
     lib.mscale2_trunk_part_floats.restype = ctypes.c_longlong
@@ -132,14 +142,21 @@ def _device_gammas(inv_scales, device):
 
 
 def _launch(canon, combiner, coords, target, kinds, inv_scales, nvalid,
-            denom, gt, want_metrics, scratch):
+            denom, gt, want_metrics, scratch, reps=None):
+    """One launch sequence of the step kernel: one model (``reps`` None,
+    no leading axis anywhere) or ``reps`` replicas (a leading axis on every
+    canonical and combiner leaf; coords (n, d) or (reps, n, d), target and
+    gt (n, o) or (reps, n, o), each shared when it has no leading axis)."""
     lib = _lib()
-    who = "mscale2_step"
+    who = "mscale2_step" if reps is None else "mscale2_step_many"
     dev = coords.device
-    n, d = coords.shape
+    n, d = coords.shape[-2:]
     ns = len(inv_scales)
+    M = 1 if reps is None else reps
+    lead = () if reps is None else (M,)
     widths, alphas, betas, codes = RM._prepare(canon, coords, kinds, who,
-                                               max_out=lib.mscale2_max_out())
+                                               max_out=lib.mscale2_max_out(),
+                                               reps=reps)
     L, o, hc = len(kinds), widths[-1], lib.mscale2_hidden()
     if ns < 1 or ns * o > lib.mscale2_max_cat():
         raise ValueError(f"{who} kernel supports ns * out_features <= "
@@ -147,43 +164,51 @@ def _launch(canon, combiner, coords, target, kinds, inv_scales, nvalid,
     nv = n if nvalid is None else int(nvalid)
     if not 0 <= nv <= n:
         raise ValueError(f"{who}: nvalid={nv} outside [0, {n}]")
-    _check("target", target, (n, o), dev, who)
+    t_shared = target.ndim == 2
+    tshape = (n, o) if t_shared else lead + (n, o)
+    _check("target", target, tshape, dev, who)
     if gt is not None:
-        _check("gt", gt, (n, o), dev, who)
-    F0, f0 = combiner["freq_0"]["w"], combiner["freq_0"]["b"].reshape(-1)
-    F1, f1 = combiner["freq_1"]["w"], combiner["freq_1"]["b"].reshape(-1)
+        _check("gt", gt, tshape, dev, who)
+    F0, F1 = combiner["freq_0"]["w"], combiner["freq_1"]["w"]
+    f0 = combiner["freq_0"]["b"].reshape(lead + (-1,))
+    f1 = combiner["freq_1"]["b"].reshape(lead + (-1,))
     for name, t, shape in (("freq_0.w", F0, (ns * o, hc)),
                            ("freq_0.b", f0, (hc,)),
                            ("freq_1.w", F1, (hc, o)), ("freq_1.b", f1, (o,))):
-        _check(f"combiner.{name}", t, shape, dev, who)
+        _check(f"combiner.{name}", t, lead + shape, dev, who)
     scratch = StepScratch() if scratch is None else scratch
     rows = ns * n
-    x = scratch.get("ms_x", (rows, d), dev)
-    x.view(ns, n, d).copy_(coords)
-    zs = [scratch.get(f"ms_z{l}", (rows, w), dev)
+    x_shared = coords.ndim == 2
+    xlead = () if x_shared else lead
+    x = scratch.get("ms_x", xlead + (rows, d), dev)
+    if x_shared:
+        x.view(ns, n, d).copy_(coords)
+    else:
+        x.view(M, ns, n, d).copy_(coords[:, None])
+    zs = [scratch.get(f"ms_z{l}", lead + (rows, w), dev)
           for l, w in enumerate(widths[1:-1])]
-    acts = [scratch.get(f"ms_a{l}", (rows, w), dev)
+    acts = [scratch.get(f"ms_a{l}", lead + (rows, w), dev)
             for l, w in enumerate(widths[1:-1])]
     maxw = max(widths[1:-1])
-    ystack = scratch.get("ms_y", (rows, o), dev)
-    dystack = scratch.get("ms_dy", (rows, o), dev)
-    dv = scratch.get("ms_dv", (2, rows * maxw), dev)
-    zdv = scratch.get("ms_zdv", (rows * maxw,), dev)
+    ystack = scratch.get("ms_y", lead + (rows, o), dev)
+    dystack = scratch.get("ms_dy", lead + (rows, o), dev)
+    dv = scratch.get("ms_dv", (2, M * rows * maxw), dev)
+    zdv = scratch.get("ms_zdv", (M * rows * maxw,), dev)
     wp = RM._ints(widths)
-    part = scratch.get("ms_part", (lib.mscale2_trunk_part_floats(
+    part = scratch.get("ms_part", (M * lib.mscale2_trunk_part_floats(
         rows, L, wp),), dev)
-    cpart = scratch.get("ms_cpart", (lib.mscale2_comb_part_floats(
+    cpart = scratch.get("ms_cpart", (M * lib.mscale2_comb_part_floats(
         n, ns, o),), dev)
     wat, wft = RM._transposes(canon, alphas)
     f32 = dict(dtype=torch.float32, device=dev)
-    pred = torch.empty((n, o), **f32)
-    gW = [torch.empty((widths[l] + 1, widths[l + 1]), **f32)
+    pred = torch.empty(lead + (n, o), **f32)
+    gW = [torch.empty(lead + (widths[l] + 1, widths[l + 1]), **f32)
           for l in range(L)]
-    galpha = [torch.empty((w,), **f32) for w in widths[1:-1]]
-    gWf = torch.empty((widths[-2] + 1, o), **f32)
+    galpha = [torch.empty(lead + (w,), **f32) for w in widths[1:-1]]
+    gWf = torch.empty(lead + (widths[-2] + 1, o), **f32)
     e0 = (ns * o + 1) * hc
-    gcomb = torch.empty((e0 + (hc + 1) * o,), **f32)
-    sse = torch.zeros((2,), **f32)
+    gcomb = torch.empty(lead + (e0 + (hc + 1) * o,), **f32)
+    sse = torch.zeros(lead + (2,), **f32)
     dn = np.float32(n * o if denom is None else denom)
     two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
     rc = lib.mscale2_step_run(
@@ -199,7 +224,8 @@ def _launch(canon, combiner, coords, target, kinds, inv_scales, nvalid,
         pred.data_ptr(), sse.data_ptr(), RM._ptrs(gW), RM._ptrs(galpha),
         gWf.data_ptr(), gcomb.data_ptr(), cpart.data_ptr(), dv.data_ptr(),
         zdv.data_ptr(), part.data_ptr(), nv, float(two_inv_denom),
-        int(want_metrics), torch.cuda.current_stream(dev).cuda_stream)
+        int(want_metrics), M, int(x_shared), int(t_shared),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: CUDA error {rc} "
                            f"({lib.mscale2_error_string(rc).decode()})")
@@ -207,13 +233,14 @@ def _launch(canon, combiner, coords, target, kinds, inv_scales, nvalid,
     dcanon = RM._grads_to_canon(canon, widths, gW, galpha, gWf)
     c0 = ns * o * hc
     dcombiner = {
-        "freq_0": {"w": gcomb[:c0].view(ns * o, hc),
-                   "b": gcomb[c0:e0].view(combiner["freq_0"]["b"].shape)},
-        "freq_1": {"w": gcomb[e0:e0 + hc * o].view(hc, o),
-                   "b": gcomb[e0 + hc * o:].view(
+        "freq_0": {"w": gcomb[..., :c0].reshape(lead + (ns * o, hc)),
+                   "b": gcomb[..., c0:e0].reshape(
+                       combiner["freq_0"]["b"].shape)},
+        "freq_1": {"w": gcomb[..., e0:e0 + hc * o].reshape(lead + (hc, o)),
+                   "b": gcomb[..., e0 + hc * o:].reshape(
                        combiner["freq_1"]["b"].shape)}}
     if want_metrics:
-        return pred, dcanon, dcombiner, (sse[0], sse[1])
+        return pred, dcanon, dcombiner, (sse[..., 0], sse[..., 1])
     return pred, dcanon, dcombiner
 
 
@@ -239,3 +266,62 @@ def mscale2_step(canon, combiner, coords, target, kinds, inv_scales, *,
         raise ValueError(f"mscale2_step: unsupported device {coords.device}")
     return _launch(canon, combiner, coords, target, kinds, inv_scales,
                    nvalid, denom, gt, want_metrics, scratch)
+
+
+# ---- the replica axis (the batched multi-fit) -------------------------------
+
+def mscale2_step_many_plain(canon_stack, combiner_stack, coords, target,
+                            kinds, inv_scales, *, nvalid=None, denom=None,
+                            gt=None, want_metrics=False):
+    """The plain version of ``mscale2_step_many``: ``mscale2_step_plain``
+    once per replica, its results stacked."""
+    kinds = RM.norm_kinds(kinds)
+    M = tree.replicas(canon_stack)
+    nvalid = shared_nvalid(nvalid, M)
+
+    def rep(x, r):
+        return tree.replica(x, r, M)
+
+    outs = [mscale2_step_plain(
+        tree.index(canon_stack, r), tree.index(combiner_stack, r),
+        rep(coords, r), rep(target, r), kinds, inv_scales, nvalid=nvalid,
+        denom=denom, gt=rep(gt, r), want_metrics=want_metrics)
+        for r in range(M)]
+    stacked = (torch.stack([out[0] for out in outs]),
+               tree.stack([out[1] for out in outs]),
+               tree.stack([out[2] for out in outs]))
+    if want_metrics:
+        return stacked + (tuple(torch.stack([out[3][i] for out in outs])
+                                for i in range(2)),)
+    return stacked
+
+
+def mscale2_step_many(canon_stack, combiner_stack, coords, target, kinds,
+                      inv_scales, *, nvalid=None, denom=None, gt=None,
+                      want_metrics=False, scratch=None):
+    """M mscale_2 train steps at once: every leaf of ``canon_stack`` and
+    ``combiner_stack`` has a leading M; coords (n, d) shared or (M, n, d);
+    target and gt (n, o) shared or (M, n, o).  Returns pred (M, n, o), the
+    canonical and combiner gradients stacked as their trees and, with
+    ``want_metrics``, the SSE sums as two (M,) tensors.  ``nvalid`` and
+    ``denom`` are shared (an int, or M equal ints).  CPU tensors take
+    ``mscale2_step_many_plain``; on CUDA one launch sequence serves all M
+    (``launches["step"]`` advances by one) or an error is raised."""
+    kinds = RM.norm_kinds(kinds)
+    if coords.device.type == "cpu":
+        return mscale2_step_many_plain(canon_stack, combiner_stack, coords,
+                                       target, kinds, inv_scales,
+                                       nvalid=nvalid, denom=denom, gt=gt,
+                                       want_metrics=want_metrics)
+    if coords.device.type != "cuda":
+        raise ValueError(f"mscale2_step_many: unsupported device "
+                         f"{coords.device}")
+    M = tree.replicas(canon_stack)
+    # a vmapped fold may give expanded or strided leaves
+    canon_stack = tree.map(lambda t: t.contiguous(), canon_stack)
+    combiner_stack = tree.map(lambda t: t.contiguous(), combiner_stack)
+    return _launch(canon_stack, combiner_stack, coords.contiguous(),
+                   target.contiguous(), kinds, inv_scales,
+                   shared_nvalid(nvalid, M), denom,
+                   None if gt is None else gt.contiguous(), want_metrics,
+                   scratch, reps=M)

@@ -26,6 +26,14 @@ fallback.  Leading axes of the pair's ``coords`` are flattened and
 restored.  The pair keeps its activations for the backward only when an
 input needs a gradient; otherwise its forward runs through two ping-pong
 planes and keeps nothing.
+
+``wire2d_step_many`` and ``wire2d_mlp_many`` run M models of one shape at
+once (wire_tpu's many-fitters ``jax.vmap`` the Pallas calls over a leading
+replica axis): every parameter leaf carries a leading M, the coordinates
+and targets are shared or per replica, and on the card one call is one
+launch sequence for all M with a replica grid axis, replica r's outputs
+bit-equal to the unbatched call on its own inputs.  Their plain versions
+(``*_many_plain``) run the plain step or apply per replica.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ import torch
 from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import autodiff_step, wire2d_apply_plain
 from wire_tpu_torch.ops import build
-from wire_tpu_torch.ops.wire_step import StepScratch, _check
+from wire_tpu_torch.ops.wire_step import StepScratch, _check, shared_nvalid
 
 # kernel launches of this module: one "step" per wire2d_step on the card,
 # one "forward" and one "backward" per wire2d_mlp pair; a run resets and
@@ -53,28 +61,36 @@ def stack_params(params, L):
     padding): w1 = [Wl | Wo] (d, 2h), b1 (2h); per hidden layer
     W2 = [[wr_l, wi_l, wr_o, wi_o], [-wi_l, wr_l, -wi_o, wr_o]] (2h, 4h),
     its transpose W2T, B2 = [br_l | bi_l | br_o | bi_o] (4h), stacked over
-    the L layers; fW = [fwr; -fwi] (2h, o), its transpose fWT, fb (o)."""
+    the L layers; fW = [fwr; -fwi] (2h, o), its transpose fWT, fb (o).
+    Leaves with a leading replica axis M give the replica layout of the
+    kernels (csrc/wire2d.cu): w1 (M, d, 2h), ..., W2 and W2T (L, M, ...),
+    B2 (L, M, 4h), layer-major."""
     fl, fo = params["first_lin"], params["first_orth"]
-    w1 = torch.cat([fl["w"], fo["w"]], 1)
-    h = fl["w"].shape[1]
+    w1 = torch.cat([fl["w"], fo["w"]], -1)
+    h = fl["w"].shape[-1]
+    lead = tuple(w1.shape[:-2])
     blocks, biases = [], []
     for i in range(L):
         pl, po = params[f"hidden_{i}_lin"], params[f"hidden_{i}_orth"]
         blocks.append(torch.cat([
-            torch.cat([pl["wr"], pl["wi"], po["wr"], po["wi"]], 1),
-            torch.cat([-pl["wi"], pl["wr"], -po["wi"], po["wr"]], 1)], 0))
-        biases.append(torch.cat([pl["br"], pl["bi"], po["br"], po["bi"]]))
+            torch.cat([pl["wr"], pl["wi"], po["wr"], po["wi"]], -1),
+            torch.cat([-pl["wi"], pl["wr"], -po["wi"], po["wr"]], -1)], -2))
+        biases.append(torch.cat([pl["br"], pl["bi"], po["br"], po["bi"]],
+                                -1))
     if L:
         W2, B2 = torch.stack(blocks), torch.stack(biases)
     else:
-        W2 = w1.new_empty((0, 2 * h, 4 * h))
-        B2 = w1.new_empty((0, 4 * h))
+        W2 = w1.new_empty((0, *lead, 2 * h, 4 * h))
+        B2 = w1.new_empty((0, *lead, 4 * h))
     f = params["final"]
-    fW = torch.cat([f["wr"], -f["wi"]], 0)
-    return {"w1": w1.contiguous(), "b1": torch.cat([fl["b"], fo["b"]]),
-            "W2": W2.contiguous(), "W2T": W2.transpose(1, 2).contiguous(),
+    fW = torch.cat([f["wr"], -f["wi"]], -2)
+    return {"w1": w1.contiguous(),
+            "b1": torch.cat([fl["b"], fo["b"]], -1).contiguous(),
+            "W2": W2.contiguous(),
+            "W2T": W2.transpose(-1, -2).contiguous(),
             "B2": B2.contiguous(), "fW": fW.contiguous(),
-            "fWT": fW.t().contiguous(), "fb": f["br"].contiguous()}
+            "fWT": fW.transpose(-1, -2).contiguous(),
+            "fb": f["br"].contiguous()}
 
 
 def unstack_grads(gw1, gW2, gfW, final_bi, L):
@@ -84,25 +100,28 @@ def unstack_grads(gw1, gW2, gfW, final_bi, L):
     complex weight twice (+wr twice, +-wi once each): with G_rc its h x h
     blocks, dwr = G00 + G11 and dwi = G01 - G10 for ``lin``, the same on
     block columns 2 and 3 for ``orth``.  The final layer's bi gets zero
-    (the model keeps only the real output); ``final_bi`` gives its
-    shape."""
-    d = gw1.shape[0] - 1
-    h = gw1.shape[1] // 2
-    dparams = {"first_lin": {"w": gw1[:d, :h], "b": gw1[d, :h]},
-               "first_orth": {"w": gw1[:d, h:], "b": gw1[d, h:]}}
+    (the model keeps only the real output); ``final_bi`` gives its shape.
+    In the replica layout gw1 is (M, d + 1, 2h), gW2 (L, M, 2h + 1, 4h)
+    and gfW (M, 2h + 1, o), and every gradient comes back with the leading
+    M."""
+    d = gw1.shape[-2] - 1
+    h = gw1.shape[-1] // 2
+    dparams = {"first_lin": {"w": gw1[..., :d, :h], "b": gw1[..., d, :h]},
+               "first_orth": {"w": gw1[..., :d, h:], "b": gw1[..., d, h:]}}
     for i in range(L):
-        G, B = gW2[i, :2 * h], gW2[i, 2 * h]
+        G, B = gW2[i, ..., :2 * h, :], gW2[i, ..., 2 * h, :]
 
         def s(r, c):
-            return G[r * h:(r + 1) * h, c * h:(c + 1) * h]
+            return G[..., r * h:(r + 1) * h, c * h:(c + 1) * h]
         dparams[f"hidden_{i}_lin"] = {
             "wr": s(0, 0) + s(1, 1), "wi": s(0, 1) - s(1, 0),
-            "br": B[:h], "bi": B[h:2 * h]}
+            "br": B[..., :h], "bi": B[..., h:2 * h]}
         dparams[f"hidden_{i}_orth"] = {
             "wr": s(0, 2) + s(1, 3), "wi": s(0, 3) - s(1, 2),
-            "br": B[2 * h:3 * h], "bi": B[3 * h:]}
-    dparams["final"] = {"wr": gfW[:h], "wi": -gfW[h:2 * h],
-                        "br": gfW[2 * h], "bi": torch.zeros_like(final_bi)}
+            "br": B[..., 2 * h:3 * h], "bi": B[..., 3 * h:]}
+    dparams["final"] = {"wr": gfW[..., :h, :], "wi": -gfW[..., h:2 * h, :],
+                        "br": gfW[..., 2 * h, :],
+                        "bi": torch.zeros_like(final_bi)}
     return dparams
 
 
@@ -175,16 +194,18 @@ _INT = ctypes.c_int
 _FLT = ctypes.c_float
 # (n, d, h, o, L, omega0, sigma0, first_omega0)
 _DIMS = [_INT] * 5 + [_FLT] * 3
+# (reps, coords_shared)
+_REPS = [_INT] * 2
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("wire2d")
-    lib.wire2d_step_run.argtypes = [_PTR] * 23 + _DIMS + [_INT, _FLT, _INT,
-                                                          _PTR]
-    lib.wire2d_forward.argtypes = [_PTR] * 11 + _DIMS + [_PTR]
-    lib.wire2d_forward_nograd.argtypes = [_PTR] * 9 + _DIMS + [_PTR]
-    lib.wire2d_backward.argtypes = [_PTR] * 15 + _DIMS + [_PTR]
+    lib.wire2d_step_run.argtypes = ([_PTR] * 23 + _DIMS + [_INT, _FLT, _INT]
+                                    + _REPS + [_INT, _PTR])
+    lib.wire2d_forward.argtypes = [_PTR] * 11 + _DIMS + _REPS + [_PTR]
+    lib.wire2d_forward_nograd.argtypes = [_PTR] * 9 + _DIMS + _REPS + [_PTR]
+    lib.wire2d_backward.argtypes = [_PTR] * 15 + _DIMS + _REPS + [_PTR]
     for fn in (lib.wire2d_step_run, lib.wire2d_forward,
                lib.wire2d_forward_nograd, lib.wire2d_backward):
         fn.restype = _INT
@@ -209,15 +230,18 @@ def _stream(dev):
 
 
 class _Net:
-    """The checked, stacked weights of one WIRE-2D on the card; ``dims``
-    the C entry points' shape and frequency arguments."""
+    """The checked, stacked weights of one WIRE-2D (``reps`` None) or of
+    ``reps`` replicas (a leading axis on every leaf; coords (n, d) shared
+    or (reps, n, d)) on the card; ``dims`` the C entry points' shape and
+    frequency arguments, ``rep_args`` their replica arguments."""
 
-    def __init__(self, params, coords, spec, who):
+    def __init__(self, params, coords, spec, who, reps=None):
         lib = _lib()
         dev = coords.device
-        n, d = coords.shape
-        h = int(params["first_lin"]["w"].shape[1])
-        o = int(params["final"]["br"].shape[0])
+        lead = () if reps is None else (reps,)
+        n, d = coords.shape[-2:]
+        h = int(params["first_lin"]["w"].shape[-1])
+        o = int(params["final"]["br"].shape[-1])
         L = spec.hidden_layers
         if o > lib.wire2d_max_out():
             raise ValueError(f"{who} kernel supports out_features <= "
@@ -225,16 +249,21 @@ class _Net:
         if d > MAX_IN:
             raise ValueError(f"{who} kernel supports in_features <= "
                              f"{MAX_IN}, got {d}")
-        _check("coords", coords, (n, d), dev, who)
+        shared = coords.ndim == 2
+        _check("coords", coords, (n, d) if shared else lead + (n, d), dev,
+               who)
         w = stack_params(params, L)
-        for name, shape in (("w1", (d, 2 * h)), ("b1", (2 * h,)),
-                            ("W2", (L, 2 * h, 4 * h)), ("B2", (L, 4 * h)),
-                            ("fW", (2 * h, o)), ("fb", (o,))):
+        for name, shape in (("w1", lead + (d, 2 * h)), ("b1", lead + (2 * h,)),
+                            ("W2", (L,) + lead + (2 * h, 4 * h)),
+                            ("B2", (L,) + lead + (4 * h,)),
+                            ("fW", lead + (2 * h, o)), ("fb", lead + (o,))):
             _check(name, w[name], shape, dev, who)
         self.w = w
         self.n, self.d, self.h, self.o, self.L = n, d, h, o, L
+        self.M, self.lead = 1 if reps is None else reps, lead
         self.final_bi = params["final"]["bi"]
         self.dims = _dims(n, d, h, o, L, spec)
+        self.rep_args = [self.M, int(shared)]
 
 
 def _dims(n, d, h, o, L, spec):
@@ -242,41 +271,45 @@ def _dims(n, d, h, o, L, spec):
             float(spec.first_omega0)]
 
 
-def _grad_buffers(d, h, o, L, dev):
+def _grad_buffers(d, h, o, L, dev, lead=()):
     """Empty gradient buffers in the kernels' layout: gw1 (d + 1, 2h),
-    gW2 (L, 2h + 1, 4h), gfW (2h + 1, o)."""
+    gW2 (L, 2h + 1, 4h), gfW (2h + 1, o), each replica's with ``lead``."""
     f32 = dict(dtype=torch.float32, device=dev)
-    return (torch.empty((d + 1, 2 * h), **f32),
-            torch.empty((L, 2 * h + 1, 4 * h), **f32),
-            torch.empty((2 * h + 1, o), **f32))
+    return (torch.empty(lead + (d + 1, 2 * h), **f32),
+            torch.empty((L,) + lead + (2 * h + 1, 4 * h), **f32),
+            torch.empty(lead + (2 * h + 1, o), **f32))
 
 
 def _ptrs(tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
-def _forward(params, coords, spec, keep):
+def _forward(params, coords, spec, keep, reps=None):
     """Launch the pair's forward; returns (pred, net, saved): the
     activations the backward reads (acts (L + 1, n, 2h), zs (L, n, 4h),
     z1 (n, 2h)) when ``keep``, else None (the chain runs through two
-    ping-pong planes (2, n, 2h))."""
+    ping-pong planes (2, n, 2h)).  ``reps``: the replica layout (every
+    leaf and activation with a leading reps after its layer axis, pred
+    (reps, n, o))."""
     lib = _lib()
-    net = _Net(params, coords, spec, "wire2d_mlp")
-    n, h, L, w = net.n, net.h, net.L, net.w
+    net = _Net(params, coords, spec,
+               "wire2d_mlp" if reps is None else "wire2d_mlp_many", reps)
+    n, h, L, w, lead = net.n, net.h, net.L, net.w, net.lead
     f32 = dict(dtype=torch.float32, device=coords.device)
-    pred = torch.empty((n, net.o), **f32)
+    pred = torch.empty(lead + (n, net.o), **f32)
     weights = [coords, w["w1"], w["b1"], w["W2"], w["B2"], w["fW"], w["fb"]]
     if keep:
-        saved = (torch.empty((L + 1, n, 2 * h), **f32),
-                 torch.empty((L, n, 4 * h), **f32),
-                 torch.empty((n, 2 * h), **f32))
+        saved = (torch.empty((L + 1,) + lead + (n, 2 * h), **f32),
+                 torch.empty((L,) + lead + (n, 4 * h), **f32),
+                 torch.empty(lead + (n, 2 * h), **f32))
         rc = lib.wire2d_forward(*_ptrs(weights + [pred, *saved]),
-                                *net.dims, _stream(coords.device))
+                                *net.dims, *net.rep_args,
+                                _stream(coords.device))
     else:
         saved = None
-        planes = torch.empty((2, n, 2 * h), **f32)
+        planes = torch.empty((2,) + lead + (n, 2 * h), **f32)
         rc = lib.wire2d_forward_nograd(*_ptrs(weights + [pred, planes]),
-                                       *net.dims,
+                                       *net.dims, *net.rep_args,
                                        _stream(coords.device))
     _raise_on(rc, "forward")
     launches["forward"] += 1
@@ -284,46 +317,53 @@ def _forward(params, coords, spec, keep):
 
 
 class _Wire2dMLP(torch.autograd.Function):
+    """The pair for one model (``reps`` None) or ``reps`` replicas."""
 
     @staticmethod
-    def forward(ctx, coords, spec, paths, *leaves):
+    def forward(ctx, coords, spec, paths, reps, *leaves):
         pred, net, (acts, zs, z1) = _forward(tree.unflatten(paths, leaves),
-                                             coords, spec, keep=True)
+                                             coords, spec, keep=True,
+                                             reps=reps)
         w = net.w
         ctx.save_for_backward(coords, w["w1"], w["W2T"], w["fWT"],
                               net.final_bi, acts, zs, z1)
-        ctx.spec, ctx.paths = spec, paths
+        ctx.spec, ctx.paths, ctx.reps = spec, paths, reps
         return pred
 
     @staticmethod
     def backward(ctx, g):
         coords, w1, W2T, fWT, final_bi, acts, zs, z1 = ctx.saved_tensors
         spec = ctx.spec
+        reps = ctx.reps
+        M = 1 if reps is None else reps
+        lead = () if reps is None else (M,)
         lib = _lib()
         dev = coords.device
-        n, d = coords.shape
-        h = w1.shape[1] // 2
-        o = fWT.shape[0]
+        n, d = coords.shape[-2:]
+        h = w1.shape[-1] // 2
+        o = fWT.shape[-2]
         L = spec.hidden_layers
         g = g.to(torch.float32).contiguous()
-        _check("cotangent", g, (n, o), dev, "wire2d_mlp")
+        _check("cotangent", g, lead + (n, o), dev, "wire2d_mlp")
         f32 = dict(dtype=torch.float32, device=dev)
-        gw1, gW2, gfW = _grad_buffers(d, h, o, L, dev)
+        gw1, gW2, gfW = _grad_buffers(d, h, o, L, dev, lead)
         # the coordinate gradient only where autograd asks for it (never in
-        # a fit, whose coordinates are constants)
+        # a fit, whose coordinates are constants; the replica pair refuses
+        # such coordinates before its forward)
         dcoords = torch.empty((n, d), **f32) \
             if ctx.needs_input_grad[0] else None
-        dz = torch.empty((min(L, 2), n, 4 * h), **f32)
-        dz1 = torch.empty((n, 2 * h), **f32)
-        part = torch.empty((lib.wire2d_part_floats(n, d, h, o),), **f32)
+        dz = torch.empty((min(L, 2),) + lead + (n, 4 * h), **f32)
+        dz1 = torch.empty(lead + (n, 2 * h), **f32)
+        part = torch.empty((M * lib.wire2d_part_floats(n, d, h, o),), **f32)
         _raise_on(lib.wire2d_backward(
             *_ptrs([coords, g, w1, W2T, fWT, acts, zs, z1, gw1, gW2, gfW,
                     dcoords, dz, dz1, part]),
-            *_dims(n, d, h, o, L, spec), _stream(dev)), "backward")
+            *_dims(n, d, h, o, L, spec), M, int(coords.ndim == 2),
+            _stream(dev)), "backward")
         launches["backward"] += 1
         by_path = dict(tree.leaves(unstack_grads(gw1, gW2, gfW, final_bi,
                                                  L)))
-        return (dcoords, None, None, *[by_path[p] for p in ctx.paths])
+        return (dcoords, None, None, None, *[by_path[p] for p in ctx.paths])
 
 
 def wire2d_mlp(params, coords, spec):
@@ -345,40 +385,48 @@ def wire2d_mlp(params, coords, spec):
         leaves = [t for _, t in flat]
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in [c2] + leaves):
-            out = _Wire2dMLP.apply(c2, spec, paths, *leaves)
+            out = _Wire2dMLP.apply(c2, spec, paths, None, *leaves)
         else:
             out, _, _ = _forward(params, c2, spec, keep=False)
     return out.reshape(*lead, out.shape[-1])
 
 
 def _launch_step(params, coords, target, spec, nvalid, denom, gt,
-                 want_metrics, scratch):
+                 want_metrics, scratch, reps=None):
+    """One launch sequence of the step kernel: one model (``reps`` None,
+    no leading axis anywhere) or ``reps`` replicas (a leading axis on every
+    leaf; coords (n, d) or (reps, n, d), target and gt (n, o) or (reps,
+    n, o), each shared when it has no leading axis)."""
     lib = _lib()
-    net = _Net(params, coords, spec, "wire2d_step")
+    who = "wire2d_step" if reps is None else "wire2d_step_many"
+    net = _Net(params, coords, spec, who, reps)
     dev = coords.device
     n, d, h, o, L, w = net.n, net.d, net.h, net.o, net.L, net.w
+    M, lead = net.M, net.lead
     nv = n if nvalid is None else int(nvalid)
     if not 0 <= nv <= n:
-        raise ValueError(f"wire2d_step: nvalid={nv} outside [0, {n}]")
-    _check("target", target, (n, o), dev, "wire2d_step")
+        raise ValueError(f"{who}: nvalid={nv} outside [0, {n}]")
+    t_shared = target.ndim == 2
+    tshape = (n, o) if t_shared else lead + (n, o)
+    _check("target", target, tshape, dev, who)
     if gt is not None:
-        _check("gt", gt, (n, o), dev, "wire2d_step")
+        _check("gt", gt, tshape, dev, who)
     scratch = StepScratch() if scratch is None else scratch
 
     def get(name, shape):
         return scratch.get(name, shape, dev)
 
-    acts = get("wire2d_acts", (L + 1, n, 2 * h))
-    zs = get("wire2d_zs", (max(L, 1), n, 4 * h))
-    z1 = get("wire2d_z1", (n, 2 * h))
-    g = get("wire2d_g", (n, o))
-    dz = get("wire2d_dz", (max(min(L, 2), 1), n, 4 * h))
-    dz1 = get("wire2d_dz1", (n, 2 * h))
-    part = get("wire2d_part", (lib.wire2d_part_floats(n, d, h, o),))
+    acts = get("wire2d_acts", (L + 1,) + lead + (n, 2 * h))
+    zs = get("wire2d_zs", (max(L, 1),) + lead + (n, 4 * h))
+    z1 = get("wire2d_z1", lead + (n, 2 * h))
+    g = get("wire2d_g", lead + (n, o))
+    dz = get("wire2d_dz", (max(min(L, 2), 1),) + lead + (n, 4 * h))
+    dz1 = get("wire2d_dz1", lead + (n, 2 * h))
+    part = get("wire2d_part", (M * lib.wire2d_part_floats(n, d, h, o),))
     f32 = dict(dtype=torch.float32, device=dev)
-    pred = torch.empty((n, o), **f32)
-    gw1, gW2, gfW = _grad_buffers(d, h, o, L, dev)
-    sse = torch.zeros((2,), **f32)
+    pred = torch.empty(lead + (n, o), **f32)
+    gw1, gW2, gfW = _grad_buffers(d, h, o, L, dev, lead)
+    sse = torch.zeros(lead + (2,), **f32)
     dn = np.float32(n * o if denom is None else denom)
     two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
     _raise_on(lib.wire2d_step_run(
@@ -386,11 +434,11 @@ def _launch_step(params, coords, target, spec, nvalid, denom, gt,
                 w["B2"], w["fW"], w["fWT"], w["fb"], pred, gw1, gW2, gfW, sse,
                 acts, zs, z1, g, dz, dz1, part]),
         *net.dims, nv, float(two_inv_denom), int(want_metrics),
-        _stream(dev)), "step")
+        *net.rep_args, int(t_shared), _stream(dev)), "step")
     launches["step"] += 1
     dparams = unstack_grads(gw1, gW2, gfW, net.final_bi, L)
     if want_metrics:
-        return pred, dparams, (sse[0], sse[1])
+        return pred, dparams, (sse[..., 0], sse[..., 1])
     return pred, dparams
 
 
@@ -412,3 +460,97 @@ def wire2d_step(params, coords, target, spec, *, nvalid=None, denom=None,
         raise ValueError(f"wire2d_step: unsupported device {coords.device}")
     return _launch_step(params, coords, target, spec, nvalid, denom, gt,
                         want_metrics, scratch)
+
+
+# ---- the replica axis (the batched multi-fit) -------------------------------
+
+def wire2d_step_many_plain(params_stack, coords, target, spec, *,
+                           nvalid=None, denom=None, gt=None,
+                           want_metrics=False):
+    """The plain version of ``wire2d_step_many``: ``wire2d_step_plain``
+    once per replica, its results stacked."""
+    M = tree.replicas(params_stack)
+    nvalid = shared_nvalid(nvalid, M)
+
+    def rep(x, r):
+        return tree.replica(x, r, M)
+
+    outs = [wire2d_step_plain(tree.index(params_stack, r), rep(coords, r),
+                              rep(target, r), spec, nvalid=nvalid,
+                              denom=denom, gt=rep(gt, r),
+                              want_metrics=want_metrics) for r in range(M)]
+    pred = torch.stack([out[0] for out in outs])
+    grads = tree.stack([out[1] for out in outs])
+    if want_metrics:
+        return pred, grads, tuple(torch.stack([out[2][i] for out in outs])
+                                  for i in range(2))
+    return pred, grads
+
+
+def wire2d_step_many(params_stack, coords, target, spec, *, nvalid=None,
+                     denom=None, gt=None, want_metrics=False, scratch=None):
+    """M WIRE-2D train steps at once: every leaf of ``params_stack`` has a
+    leading M; coords (n, d) shared or (M, n, d); target and gt (n, o)
+    shared or (M, n, o).  Returns pred (M, n, o), the gradients stacked as
+    the parameters and, with ``want_metrics``, the SSE sums as two (M,)
+    tensors.  ``nvalid`` and ``denom`` are shared (an int, or M equal
+    ints).  CPU tensors take ``wire2d_step_many_plain``; on CUDA one launch
+    sequence serves all M (``launches["step"]`` advances by one) or an
+    error is raised."""
+    if coords.device.type == "cpu":
+        return wire2d_step_many_plain(params_stack, coords, target, spec,
+                                      nvalid=nvalid, denom=denom, gt=gt,
+                                      want_metrics=want_metrics)
+    if coords.device.type != "cuda":
+        raise ValueError(f"wire2d_step_many: unsupported device "
+                         f"{coords.device}")
+    M = tree.replicas(params_stack)
+    return _launch_step(params_stack, coords.contiguous(),
+                        target.contiguous(), spec, shared_nvalid(nvalid, M),
+                        denom, None if gt is None else gt.contiguous(),
+                        want_metrics, scratch, reps=M)
+
+
+def wire2d_mlp_many_plain(params_stack, coords, spec):
+    """The plain version of ``wire2d_mlp_many``: ``wire2d_mlp_plain`` once
+    per replica, its results stacked."""
+    M = tree.replicas(params_stack)
+    return torch.stack([
+        wire2d_mlp_plain(tree.index(params_stack, r),
+                         tree.replica(coords, r, M), spec) for r in range(M)])
+
+
+def wire2d_mlp_many(params_stack, coords, spec):
+    """M WIRE-2D forwards at once: every leaf of ``params_stack`` has a
+    leading M; coords (rows, d) shared by the replicas or (M, ..., rows, d)
+    per replica -> (M, ..., rows, o), differentiable in the parameters.
+    On CUDA each direction is one launch sequence for all M replicas (the
+    pair when a parameter needs a gradient, else a forward that keeps
+    nothing); coordinates that require a gradient raise."""
+    if coords.device.type == "cpu":
+        return wire2d_mlp_many_plain(params_stack, coords, spec)
+    if coords.device.type != "cuda":
+        raise ValueError(f"wire2d_mlp_many: unsupported device "
+                         f"{coords.device}")
+    M = tree.replicas(params_stack)
+    if coords.requires_grad:
+        raise ValueError("wire2d_mlp_many computes no coordinate gradient "
+                         "(the batched fits' coordinates are constants); use "
+                         "wire2d_mlp per replica to differentiate in them")
+    if coords.ndim == 2:
+        c2, out_lead = coords.contiguous(), (M, coords.shape[0])
+    else:
+        if coords.shape[0] != M:
+            raise ValueError(f"wire2d_mlp_many: coords "
+                             f"{tuple(coords.shape)} for {M} replicas: "
+                             f"expected (rows, d) or ({M}, ..., rows, d)")
+        out_lead = tuple(coords.shape[:-1])
+        c2 = coords.reshape(M, -1, coords.shape[-1]).contiguous()
+    flat = tree.leaves(params_stack)
+    paths = tuple(p for p, _ in flat)
+    leaves = [t for _, t in flat]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        out = _Wire2dMLP.apply(c2, spec, paths, M, *leaves)
+    else:
+        out, _, _ = _forward(params_stack, c2, spec, keep=False, reps=M)
+    return out.reshape(*out_lead, out.shape[-1])

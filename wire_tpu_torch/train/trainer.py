@@ -36,14 +36,15 @@ and fit_frames_many, which vmap the loop body over a leading replica axis
 of the parameters, the optimizer state and the RNG key) fits M models of
 one architecture in one loop: every parameter leaf carries a leading M,
 the model's ``step_grads_many`` / ``apply_many`` take all M in one call
-(on the card the kernels of WIRE, the MFN and the canonical real families
-with a replica axis, one launch sequence for all M; WIRE-2D and mscale_2
-wait on theirs, ROADMAP.md §A item 5c, and the autodiff families, item 5d,
-run batched on the CPU only), and Adam and the best tracking act on the stacked leaves with an
-(M,) mask.  Replica r draws its permutations from a generator of its own
-seeded ``cfg.seed + r`` and reproduces the serial fit at that seed; its
-loss is reduced on its own slice, as the serial fit reduces it.  The
-batched fits have no checkpoint and no chunked render, as in wire_tpu.
+(on the card the kernels of WIRE, WIRE-2D, the MFN, mscale_2 and the
+canonical real families with a replica axis, one launch sequence for all
+M; the autodiff families by autograd of the batched apply, whose PyTorch
+launches do not grow with M), and Adam and the best tracking act on the
+stacked leaves with an (M,) mask.  Replica r draws its permutations from a
+generator of its own seeded ``cfg.seed + r`` and reproduces the serial fit
+at that seed; its loss is reduced on its own slice, as the serial fit
+reduces it.  The batched fits have no checkpoint and no chunked render, as
+in wire_tpu.
 """
 from __future__ import annotations
 
@@ -939,7 +940,9 @@ def fit_pointwise_many(model, params_stack, coords, target, cfg: FitConfig,
     range(n) for the epoch), so replica r reproduces
     ``fit_pointwise(..., seed=cfg.seed + r)`` from its init.  One
     ``step_grads_many`` a step serves all M (on the card one ``wire_step``,
-    ``real_step`` or ``mfn_step`` launch sequence).  Returns a FitResult whose params, best_params and
+    ``wire2d_step``, ``real_step``, ``mscale2_step`` or ``mfn_step`` launch
+    sequence; an autodiff family's forward and backward through its
+    batched apply).  Returns a FitResult whose params, best_params and
     recs carry the leading M, histories (niters, M) and best_mse (M,).
     ``params_stack`` is not modified.  Runs on ``device`` (default cuda;
     raises without a card unless device='cpu')."""
@@ -1018,8 +1021,9 @@ def fit_frames_many(model, params_stack, frame_coords, frame_pixels,
     """M multi-frame SR fits in one loop (wire_tpu/train/trainer.py:724):
     ``fit_frames``'s step (render a batch of frames' warped grids, box
     downsample, masked MSE, Adam) for every replica at once, one
-    ``apply_many`` a step (on the card one ``wire_mlp``, ``real_mlp`` or
-    ``mfn_mlp`` pair for all M).
+    ``apply_many`` a step (on the card one ``wire_mlp``, ``wire2d_mlp``,
+    ``real_mlp`` or ``mfn_mlp`` pair for all M; an autodiff family's
+    ``torch.func.vmap`` of its plain apply).
 
     The frames (n, H*W, 2), (n, h*w, C), (n, h*w, C) are shared by the
     replicas, or with ``batched_frames`` carry a leading M: M different
@@ -1102,8 +1106,9 @@ def fit_operator_many(model, params_stack, coords, measurement, operator_fn,
     """M operator fits (the CT / SISR loop) in one loop
     (wire_tpu/train/trainer.py:1267): every iteration renders the full grid
     for all M replicas in one ``apply_many`` (on the card one ``wire_mlp``,
-    ``real_mlp`` or ``mfn_mlp`` pair for all M), calls ``operator_fn`` ONCE
-    on the (M, *field_shape) stack, takes each replica's MSE against the
+    ``wire2d_mlp``, ``real_mlp`` or ``mfn_mlp`` pair for all M; an autodiff
+    family's ``torch.func.vmap`` of its plain apply), calls ``operator_fn``
+    ONCE on the (M, *field_shape) stack, takes each replica's MSE against the
     measurement, and steps Adam on the stacked leaves; the learning rate
     decays per iteration, as wire_tpu forces (``schedule_per="iter"``).
 

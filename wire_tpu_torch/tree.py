@@ -118,6 +118,16 @@ def replica(x, r, M):
     return x[r]
 
 
+def replica_axis(x, M):
+    """The axis of ``x`` that ``torch.func.vmap`` maps over M replicas:
+    None for a shared tensor (None, or 2-D), else 0, after the check of
+    ``replica`` (a per-replica tensor leads with M; raises otherwise)."""
+    if x is None or x.ndim == 2:
+        return None
+    replica(x, 0, M)
+    return 0
+
+
 def unstack(tree):
     """The list of a replica-stacked tree's replicas."""
     flat = leaves(tree)
