@@ -27,7 +27,9 @@ kernel); then the multi-frame SR app (wire_tpu_torch.apps.multi_sr: a
 192^2 image, x4, 4 frames, WIRE 256 wide = 181 complex units through
 fit_frames on (4, 36,864, 2) frame grids; kernel: wire_mlp's pair; five
 more families through their pairs) and the fit state (three fits
-stopped after their second checkpoint and resumed, the chunked render).
+stopped after their second checkpoint and resumed, the chunked render);
+last the coordinate-parallel fits of wire_tpu_torch.dist (a world of one
+over NCCL, and two ranks sharing the card over Gloo).
 Phases, each printing one JSON line with its wall time:
   device           card name and count, nvidia-smi's name and power limit;
                    TF32 off for matmuls and cuDNN
@@ -189,6 +191,26 @@ Phases, each printing one JSON line with its wall time:
                    wire2d and realgabor; one
                    autodiff step's PyTorch operations at 2 and 4 replicas
                    equal, its device kernels reported
+  fit_sharded      wire_tpu_torch.dist: (a) a world of one over NCCL in
+                   this process: WIRE-300 denoise for 50 epochs through
+                   fit_pointwise_sharded, full batch and exact mode
+                   (global_perm) in 4 chunks of 16,384, CT 'auto' through
+                   fit_operator(mesh=...) and the multi-SR app's fit
+                   through fit_frames_sharded for 20 iterations, each bit-
+                   equal to the unsharded fit from the same init (CT within
+                   MANY_FOURIER_REL), one wire_step a chunk or one wire_mlp
+                   pair (CT: and one line_sample pair) an iteration and
+                   nothing else; the occupancy app at --mesh 1 (10 epochs,
+                   fed rows, IoU from summed counts) equal to the unsharded
+                   app; ms per step beside the unsharded fits'; the
+                   all-reduce's share of a step (torch.profiler).  (b) two
+                   ranks on this card over Gloo (two spawned processes):
+                   the four fits (SHARDED_B_ITERS: 20 epochs or iterations,
+                   the multi-SR fit 4), histories within SHARDED_REL of the
+                   unsharded fits' and best PSNR within PSNR_AGREE_DB, the
+                   ranks' histories equal, each rank's launches counted;
+                   the flat all-reduce of
+                   WIRE-300's gradients timed alone
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -5676,6 +5698,439 @@ def fit_many_rest(torch, np, mods, counters, device):
     return out
 
 
+SHARDED_EPOCHS = 50
+SHARDED_ITERS = 20
+SHARDED_CHUNK_POINTS = 16384
+SHARDED_OCC_EPOCHS = 10
+SHARDED_PROFILE_EPOCHS = 10
+# the histories of two ranks against one device: wire_tpu's own bound
+# across processes (tests/test_multiprocess.py)
+SHARDED_REL = 2e-4
+SHARDED_FITS = ("denoise", "denoise_global_perm", "ct_auto", "multi_sr")
+# the two ranks' epochs or iterations: the multi-SR fit amplifies a change
+# of reduction order fast (a 1e-7 perturbation of its init moved its
+# 20-iteration history by 2-3e-2 on the card), so it is held to
+# SHARDED_REL over its first 4 iterations, where the history still tells a
+# frame batch split wrongly (a rank rendering another's frames) from
+# rounding
+SHARDED_B_ITERS = {"denoise": 20, "denoise_global_perm": 20, "ct_auto": 20,
+                   "multi_sr": 4}
+
+
+def sharded_modules():
+    """The port's modules the fit_sharded phase and its ranks use."""
+    from wire_tpu_torch import bench
+    from wire_tpu_torch.apps import ct as TCT, multi_sr as TMS
+    from wire_tpu_torch.apps import occupancy as TO
+    from wire_tpu_torch.dist import fitter as SF, make_mesh
+    from wire_tpu_torch.dist import multihost as MH
+    from wire_tpu_torch.nn.registry import get_inr
+    from wire_tpu_torch.operators import radon as TR
+    from wire_tpu_torch.ops import (line_sample as LS, mfn as MF,
+                                    mscale2_step as MS, real_mlp as RM,
+                                    rotsum as R, wire2d as W2,
+                                    wire_mlp as WM, wire_step as WS)
+    from wire_tpu_torch.train import metrics as M, trainer as T
+    from wire_tpu_torch.train.presets import get_config
+    counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
+                "line_sample": LS.launches, "real_mlp": RM.launches,
+                "mscale2_step": MS.launches, "mfn": MF.launches,
+                "wire2d": W2.launches}
+    return dict(bench=bench, TCT=TCT, TMS=TMS, TO=TO, SF=SF, MH=MH, T=T,
+                make_mesh=make_mesh, get_inr=get_inr, TR=TR, WS=WS, M=M,
+                get_config=get_config, counters=counters)
+
+
+def seed0_init(torch, model, device):
+    return model.init(torch.Generator().manual_seed(0), device)
+
+
+def sharded_fit(torch, np, m, name, iters, device, mesh=None):
+    """(FitResult, best PSNR) of one of SHARDED_FITS for ``iters``
+    epochs or iterations from the seed-0 init: the unsharded fit, or with
+    ``mesh`` its sharded counterpart.  denoise: the WIRE-300 bench protocol
+    (65,536 coordinates, full batch); denoise_global_perm: the same in
+    SHARDED_CHUNK_POINTS-row chunks (4 an epoch), exact mode; ct_auto: the
+    CT protocol, 'auto' = fourier; multi_sr: the multi-SR app's defaults,
+    one batch of 4 frames a step (the PSNR of the best parameters' render
+    of the full grid)."""
+    T, SF = m["T"], m["SF"]
+    if name.startswith("denoise"):
+        im, noisy, coords, model = m["bench"].setup(256, 256)
+        params = seed0_init(torch, model, device)
+        mp = 256 * 256 if name == "denoise" else SHARDED_CHUNK_POINTS
+        cfg = T.FitConfig(learning_rate=5e-3, niters=iters, maxpoints=mp,
+                          scale_lr_by_batch=True)
+        args = (model, params, coords, noisy.reshape(-1, 3), cfg)
+        if mesh is None:
+            res = T.fit_pointwise(*args, gt=im.reshape(-1, 3), device=device)
+        else:
+            res = SF.fit_pointwise_sharded(
+                *args, mesh, gt=im.reshape(-1, 3),
+                global_perm=name == "denoise_global_perm")
+        return res, float(m["M"].psnr_ref(im, res.best_rec.reshape(im.shape)))
+    if name == "ct_auto":
+        TCT = m["TCT"]
+        cfg = m["get_config"](CT_CONFIG)
+        model, _ = ct_models(m["get_inr"], TCT, cfg)
+        img = TCT.ct_image(None, 0)
+        H, W = img.shape
+        thetas = np.linspace(0, 180, 100, dtype=np.float32)
+        sino = TCT.make_sinogram(img, thetas, radon_method="auto",
+                                 device=device)
+        params = seed0_init(torch, model, device)
+        res = T.fit_operator(
+            model, params, TCT.C.grid2d(H, W), sino,
+            m["TR"].RadonOp(thetas, method="auto"),
+            T.FitConfig(learning_rate=cfg.learning_rate, niters=iters,
+                        maxpoints=cfg.maxpoints),
+            gt_field=img, field_shape=(H, W), device=device, mesh=mesh)
+        return res, float(m["M"].psnr_ref(img, res.best_rec))
+    if name == "multi_sr":
+        prob = m["TMS"].setup(niters=iters)
+        ds, model, im = prob["ds"], prob["model"], prob["im"]
+        params = seed0_init(torch, model, device)
+        args = (model, params, ds.coords, ds.pixels, ds.masks, prob["cfg"])
+        kw = dict(hr_shape=im.shape, scale=4, batch_size=4)
+        res = (T.fit_frames(*args, device=device, **kw) if mesh is None
+               else SF.fit_frames_sharded(*args, mesh, **kw))
+        grid = torch.from_numpy(m["TMS"].C.grid2d(*im.shape[:2])).to(device)
+        with torch.no_grad():
+            rend = model.apply(res.best_params, grid).reshape(
+                im.shape).cpu().numpy()
+        return res, float(m["M"].psnr_ref(im, rend))
+    raise ValueError(name)
+
+
+def sharded_launches(m, counters, ws0):
+    out = read_counts(counters)
+    out["wire_step"] = {"step": m["WS"].wire_step.launches - ws0}
+    return out
+
+
+def sharded_want(name, iters):
+    """Each rank's launches in sharded_fit's ``iters`` epochs or iterations
+    of a fit of SHARDED_FITS: one wire_step a chunk, one wire_mlp pair (and
+    on CT one line_sample pair) an iteration, and nothing else but the
+    measurement's projection (CT: one line_sample gather) and the best
+    parameters' render (multi-SR: one wire_mlp forward)."""
+    if name == "denoise":
+        return {("wire_step", "step"): iters}
+    if name == "denoise_global_perm":
+        return {("wire_step", "step"): iters * (256 * 256
+                                                // SHARDED_CHUNK_POINTS)}
+    if name == "ct_auto":
+        return {("wire_mlp", "forward"): iters,
+                ("wire_mlp", "backward"): iters,
+                ("line_sample", "gather"): iters + 1,
+                ("line_sample", "scatter"): iters}
+    return {("wire_mlp", "forward"): iters + 1,
+            ("wire_mlp", "backward"): iters}
+
+
+def history_rel(np, got, want):
+    """The largest relative distance of the loss and tracked histories."""
+    return max(float(np.max(np.abs(np.asarray(g, np.float64) - w)
+                            / np.abs(w)))
+               for g, w in ((got.mse_gt, want.mse_gt),
+                            (got.mse_noisy, want.mse_noisy)))
+
+
+def same_result(torch, np, a, b):
+    """Whether two FitResults are equal bit for bit: histories, best MSE,
+    best and final reconstruction, parameters."""
+    from wire_tpu_torch import tree
+    for k in ("mse_gt", "mse_noisy", "best_rec", "final_rec"):
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(x, y)):
+            return False
+    return a.best_mse == b.best_mse and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(
+            tree.leaves(a.params), tree.leaves(b.params)))
+
+
+def collective_share(torch, run, steps, device):
+    """torch.profiler over ``run()``, a fit of ``steps`` steps returning
+    (FitResult, PSNR): the all-reduce entries' host ms a step
+    (``c10d::allreduce_`` and the backend's ``nccl:all_reduce`` /
+    ``gloo:all_reduce``), the step's wall ms (the fit loop's own host
+    time), the largest entry's share of it, and NCCL's device kernels' ms
+    a step against the device's busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if cuda else [])) as prof:
+        res = run()[0]
+        if cuda:
+            torch.cuda.synchronize()
+    wall = res.wall_time_s * 1e3 / steps
+    ka = prof.key_averages()
+    host = {e.key: e.cpu_time_total / 1e3 / steps for e in ka
+            if "allreduce" in e.key.lower().replace("_", "")}
+    dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev) / 1e3 / steps
+    nccl = sum(e.device_time_total for e in dev
+               if "nccl" in e.key.lower()) / 1e3 / steps
+    top = max(host.values()) if host else None
+    return dict(allreduce_host_ms=host, step_wall_ms=wall,
+                allreduce_share=None if top is None else top / wall,
+                nccl_device_ms=nccl if busy else "not measured",
+                device_busy_ms=busy if busy else "not measured")
+
+
+def allreduce_call_ms(torch, m, mesh, device, calls=20):
+    """Host ms of one flat all-reduce of WIRE-300's gradient tree
+    (``Mesh.sum_tree``) on ``mesh``, synchronised, over ``calls`` calls
+    after two."""
+    model = m["bench"].setup(8, 8)[3]
+    grads = model.init(torch.Generator().manual_seed(0), device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    for _ in range(2):
+        mesh.sum_tree(grads, mean=True)
+    sync()
+    t0 = time.time()
+    for _ in range(calls):
+        mesh.sum_tree(grads, mean=True)
+    sync()
+    return (time.time() - t0) * 1e3 / calls
+
+
+def sharded_rank(rank, port, queue, device):
+    """One of phase fit_sharded's two ranks, both on ``device``, over Gloo
+    (multihost.initialize chooses it: two ranks share one card): every fit
+    of SHARDED_FITS for SHARDED_B_ITERS epochs or iterations through the
+    sharded fitters, each rank's launches counted, and a profiled
+    SHARDED_PROFILE_EPOCHS-epoch denoise fit; puts (rank, results) or
+    (rank, traceback) on ``queue``."""
+    import traceback
+    try:
+        sys.path.insert(0, ROOT)
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        m = sharded_modules()
+        dev = device
+        m["MH"].initialize(coordinator_address=f"localhost:{port}",
+                           num_processes=2, process_id=rank, device=dev)
+        mesh = m["make_mesh"](2, dev)
+        counters = m["counters"]
+        out = {"backend": mesh.backend, "fits": {}}
+        for name in SHARDED_FITS:
+            reset_counts(counters)
+            ws0 = m["WS"].wire_step.launches
+            iters = SHARDED_B_ITERS[name]
+            res, psnr = sharded_fit(torch, np, m, name, iters, dev, mesh)
+            launches = sharded_launches(m, counters, ws0)
+            check_real_launches(launches, f"fit_sharded rank {rank} {name}",
+                                sharded_want(name, iters))
+            out["fits"][name] = dict(
+                mse_gt=res.mse_gt.tolist(), mse_noisy=res.mse_noisy.tolist(),
+                best_mse=res.best_mse, psnr_db=psnr, ms_per_step=res.step_ms,
+                launches={k: v for k, v in launches.items() if any(
+                    v.values())})
+        out["profile_denoise"] = collective_share(torch, lambda: sharded_fit(
+            torch, np, m, "denoise", SHARDED_PROFILE_EPOCHS, dev, mesh),
+            SHARDED_PROFILE_EPOCHS, dev)
+        out["allreduce_call_ms"] = allreduce_call_ms(torch, m, mesh, dev)
+        dist.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def two_ranks(device, timeout=300):
+    """Run sharded_rank on two spawned processes, both on ``device``; their
+    results by rank.  Raises if a rank fails, dies or takes more than
+    ``timeout`` seconds; stops both in every case."""
+    import multiprocessing
+    import queue as Q
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(r, port, queue, device))
+             for r in range(2)]
+    deadline = time.time() + timeout
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < len(procs):
+            try:
+                rank, res = queue.get(timeout=5)
+                got[rank] = res
+                continue
+            except Q.Empty:
+                pass
+            # a failing rank puts its traceback before it exits non-zero
+            dead = [r for r, p in enumerate(procs)
+                    if r not in got and p.exitcode not in (None, 0)]
+            if dead and queue.empty():
+                raise AssertionError(f"fit_sharded: rank(s) {dead} exited "
+                                     f"without a result")
+            if time.time() > deadline:
+                raise AssertionError(f"fit_sharded: no result in {timeout} "
+                                     f"s")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in range(2):
+        if isinstance(got[r], str):
+            raise AssertionError(f"fit_sharded rank {r} failed:\n{got[r]}")
+        if procs[r].exitcode != 0:
+            raise AssertionError(f"fit_sharded rank {r} exited "
+                                 f"{procs[r].exitcode}")
+    return [got[0], got[1]]
+
+
+def world_of_one_fits(torch, np, m, mesh, device):
+    """fit_sharded's part (a) on ``mesh``, a world of one."""
+    import tempfile
+    counters = m["counters"]
+    a = {"backend": mesh.backend}
+    for name, iters in (("denoise", SHARDED_EPOCHS),
+                        ("denoise_global_perm", SHARDED_EPOCHS),
+                        ("ct_auto", SHARDED_ITERS),
+                        ("multi_sr", SHARDED_ITERS)):
+        one, psnr_one = sharded_fit(torch, np, m, name, iters, device)
+        reset_counts(counters)
+        ws0 = m["WS"].wire_step.launches
+        got, psnr = sharded_fit(torch, np, m, name, iters, device, mesh)
+        launches = sharded_launches(m, counters, ws0)
+        check_real_launches(launches, f"fit_sharded world of one {name}",
+                            sharded_want(name, iters))
+        bits = same_result(torch, np, got, one)
+        rel = history_rel(np, got, one)
+        if not bits and (name != "ct_auto" or rel > MANY_FOURIER_REL
+                         or abs(psnr - psnr_one) > PSNR_AGREE_DB):
+            raise AssertionError(
+                f"fit_sharded world of one {name}: not the unsharded fit "
+                f"(history rel {rel:.3g}, {psnr:.4f} vs {psnr_one:.4f} dB)")
+        a[name] = dict(iters=iters, bit_equal=bits, history_rel=rel,
+                       psnr_db=psnr, psnr_unsharded_db=psnr_one,
+                       ms_per_step=got.step_ms,
+                       unsharded_ms_per_step=one.step_ms,
+                       launches={k: v for k, v in launches.items()
+                                 if any(v.values())})
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(niters=SHARDED_OCC_EPOCHS)
+        one = m["TO"].run(results_dir=os.path.join(tmp, "one"),
+                          device=device, **kw)
+        reset_counts(counters)
+        ws0 = m["WS"].wire_step.launches
+        got = m["TO"].run(results_dir=os.path.join(tmp, "mesh"), mesh=mesh,
+                          **kw)
+        launches = sharded_launches(m, counters, ws0)
+        check_real_launches(launches, "fit_sharded occupancy --mesh 1",
+                            {("wire_step", "step"): 2 * SHARDED_OCC_EPOCHS})
+        iou_equal = bool(np.array_equal(np.float32(got["iou_array"]),
+                                        one["iou_array"]))
+        if not (same_result(torch, np, got["result"], one["result"])
+                and iou_equal and got["iou"] == one["iou"]
+                and os.path.isfile(os.path.join(tmp, "mesh", "occupancy",
+                                                "wire.dae"))):
+            raise AssertionError("fit_sharded occupancy --mesh 1: not the "
+                                 "unsharded app's fit, IoU or artifacts")
+        a["occupancy"] = dict(
+            epochs=SHARDED_OCC_EPOCHS, bit_equal=True, iou_equal=iou_equal,
+            best_iou=got["iou"], psnr_db=got["psnr"],
+            ms_per_epoch=got["result"].step_ms,
+            unsharded_ms_per_epoch=one["result"].step_ms,
+            launches=launches["wire_step"])
+    a["profile_denoise_global_perm"] = collective_share(
+        torch, lambda: sharded_fit(torch, np, m, "denoise_global_perm",
+                                   SHARDED_PROFILE_EPOCHS, device, mesh),
+        SHARDED_PROFILE_EPOCHS * 4, device)
+    a["allreduce_call_ms"] = allreduce_call_ms(torch, m, mesh, device)
+    return a
+
+
+def fit_sharded(torch, np, device):
+    """Phase fit_sharded: coordinate-parallel fits (wire_tpu_torch.dist).
+    (a) A world of one over NCCL in this process: the WIRE-300 denoise fit
+    (SHARDED_EPOCHS, full batch and exact mode in 4 chunks), CT 'auto' and
+    the multi-SR app's fit (SHARDED_ITERS) against the unsharded fits from
+    the same init, bit for bit (CT within MANY_FOURIER_REL: line_sample's
+    scatter adds with atomics); the occupancy app at --mesh 1
+    (SHARDED_OCC_EPOCHS, fed rows, IoU from summed counts) against the
+    unsharded app; each through its kernels alone (counts reset just before
+    and read just after), with ms per step beside the unsharded fit's, and
+    the all-reduce's share of a step from torch.profiler.  (b) Two ranks on
+    this one card over Gloo (two spawned processes): every fit of
+    SHARDED_FITS for SHARDED_B_ITERS against the unsharded fit here,
+    histories within SHARDED_REL relative and best PSNR within
+    PSNR_AGREE_DB; the two ranks'
+    histories equal, each rank's launches counted."""
+    import torch.distributed as dist
+    m = sharded_modules()
+    made = m["MH"].world_of_one(device=device)
+    try:
+        mesh = m["make_mesh"](1, device)
+        want = "nccl" if device.type == "cuda" else "gloo"
+        if mesh.backend != want:
+            raise AssertionError(f"fit_sharded: a world of one on {device} "
+                                 f"took {mesh.backend}, expected {want}")
+        a = world_of_one_fits(torch, np, m, mesh, device)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+    # (b): the single-device references here, then the two ranks
+    b = {}
+    refs = {name: sharded_fit(torch, np, m, name, SHARDED_B_ITERS[name],
+                              device) for name in SHARDED_FITS}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = two_ranks(device)
+    b["wall_s"] = time.time() - t0
+    b["backend"] = ranks[0]["backend"]
+    if b["backend"] != "gloo":
+        raise AssertionError(f"fit_sharded: two ranks on one device took "
+                             f"{b['backend']}, expected gloo")
+    for name in SHARDED_FITS:
+        r0, r1 = (r["fits"][name] for r in ranks)
+        if r0["mse_gt"] != r1["mse_gt"] or r0["mse_noisy"] != r1[
+                "mse_noisy"]:
+            raise AssertionError(f"fit_sharded two ranks {name}: the ranks' "
+                                 f"histories differ")
+        one, psnr_one = refs[name]
+        rel = history_rel(np, argparse.Namespace(**r0), one)
+        if not (rel <= SHARDED_REL
+                and abs(r0["psnr_db"] - psnr_one) <= PSNR_AGREE_DB
+                and np.isfinite(r0["mse_gt"]).all()):
+            raise AssertionError(
+                f"fit_sharded two ranks {name}: history rel {rel:.3g} "
+                f"(bound {SHARDED_REL:.3g}), {r0['psnr_db']:.4f} vs "
+                f"{psnr_one:.4f} dB (bound {PSNR_AGREE_DB:.3g})")
+        b[name] = dict(iters=SHARDED_B_ITERS[name], history_rel=rel,
+                       bound_rel=SHARDED_REL, bound_db=PSNR_AGREE_DB,
+                       psnr_db=r0["psnr_db"], psnr_unsharded_db=psnr_one,
+                       ms_per_step=[r0["ms_per_step"], r1["ms_per_step"]],
+                       unsharded_ms_per_step=one.step_ms,
+                       launches=[r0["launches"], r1["launches"]])
+    b["profile_denoise"] = [r["profile_denoise"] for r in ranks]
+    b["allreduce_call_ms"] = [r["allreduce_call_ms"] for r in ranks]
+    return {"a_world_of_one": a, "b_two_ranks": b}
+
+
 def cuda_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -6062,6 +6517,12 @@ def main():
                               counters, dev)
     emit("fit_many_rest", t0, fits=many_rest, nvidia_smi=smi)
 
+    # ---- fit_sharded (coordinate-parallel fits over a process group) -----
+    t0 = time.time()
+    sharded = fit_sharded(torch, np, dev)
+    emit("fit_sharded", t0, **sharded, nvidia_smi=smi)
+    world_one = sharded["a_world_of_one"]
+
     def many_counts(lib, key):
         """{fit_key: launches} of ``lib``'s ``key`` in fit_many_real's and
         fit_many_rest's batched fits and seeds runs, where nonzero."""
@@ -6094,7 +6555,12 @@ def main():
                           "launches"]["wire_step"]["step"],
                       **{f"occupancy_{k}_step": v["launches"]
                          for k, v in occ[f"epochs_{OCC_BLOCK_EPOCHS}"]
-                         .items()}},
+                         .items()},
+                      **{f"sharded_{fit}_step": world_one[fit]["launches"][
+                          "wire_step"]["step"] for fit in (
+                              "denoise", "denoise_global_perm")},
+                      "sharded_occupancy_step": world_one["occupancy"][
+                          "launches"]["step"]},
         "wire_mlp": {**{k: ct["auto"]["launches"]["wire_mlp"][k]
                         + ct["rotate"]["launches"]["wire_mlp"][k]
                         for k in WM.launches},
@@ -6110,6 +6576,10 @@ def main():
                             "wire_mlp"].items()},
                      **{f"seeds_{task}_{k}": v for task in ("sisr", "ct")
                         for k, v in many["sweep_seeds"][task]["launches"][
+                            "wire_mlp"].items()},
+                     **{f"sharded_{fit}_{k}": v
+                        for fit in ("ct_auto", "multi_sr")
+                        for k, v in world_one[fit]["launches"][
                             "wire_mlp"].items()}},
         "line_sample": {**ct["auto"]["launches"]["line_sample"],
                         **{f"many_ct_auto_{k}": v for k, v in many[
@@ -6119,7 +6589,9 @@ def main():
                                "line_sample"].items()},
                         **{f"seeds_ct_{k}": v for k, v in many[
                             "sweep_seeds"]["ct"]["launches"][
-                                "line_sample"].items()}},
+                                "line_sample"].items()},
+                        **{f"sharded_ct_auto_{k}": v for k, v in world_one[
+                            "ct_auto"]["launches"]["line_sample"].items()}},
         "rotsum": {**ct["rotate"]["launches"]["rotsum"],
                    **{f"many_ct_rotate_{k}": v for k, v in many[
                        "ct_rotate"]["launches"]["rotsum"].items()},

@@ -24,6 +24,7 @@ from wire_tpu.train import trainer as JT
 from wire_tpu_torch import bridge
 from wire_tpu_torch.apps import common as TC
 from wire_tpu_torch.apps import ct as TCT
+from wire_tpu_torch.dist.mesh import Mesh
 from wire_tpu_torch.nn.registry import get_inr as tget_inr
 from wire_tpu_torch.operators import radon as TR
 from wire_tpu_torch.signals import coords as C
@@ -88,12 +89,17 @@ def test_fit_operator_matches_wire_tpu(method, track):
         torch.Generator().manual_seed(0))["first"]["w"])
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=2)])
+@pytest.mark.parametrize("kw", [dict(
+    mesh=Mesh(group=None, rank=0, size=2, device=torch.device("cuda", 0),
+              backend="nccl"), render_chunked=True)])
 def test_fit_operator_refuses_what_is_not_ported(kw):
+    """A sharded fit (mesh) runs on the mesh's device: another device
+    beside it is refused before anything runs."""
     img, thetas = _problem()
     tmodel = tget_inr("wire", **KW)
     params = tmodel.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="device cpu is not the mesh's "
+                                         "cuda:0"):
         T.fit_operator(tmodel, params, C.grid2d(*img.shape), np.zeros(
             (12, img.shape[1]), np.float32), TR.RadonOp(thetas),
             T.FitConfig(niters=1), field_shape=img.shape, device="cpu", **kw)

@@ -36,6 +36,7 @@ from wire_tpu.train import trainer as JT
 
 from wire_tpu_torch import bridge
 from wire_tpu_torch.apps import multi_sr as TMS
+from wire_tpu_torch.dist.mesh import Mesh
 from wire_tpu_torch.nn.registry import get_inr as tget_inr
 from wire_tpu_torch.signals import motion as Mo
 from wire_tpu_torch.train import trainer as T
@@ -205,10 +206,13 @@ def test_multi_sr_app_estimated_registration_on_the_cpu(tmp_path):
 
 
 def test_multi_sr_app_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.7"):
-        TMS.run(results_dir=str(tmp_path), size=16, niters=1, mesh=2,
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
+    mesh = Mesh(group=None, rank=0, size=2, device=torch.device("cpu"),
+                backend="gloo")
+    with pytest.raises(ValueError, match="batch_size=1 not divisible by "
+                                         "mesh size 2"):
+        TMS.run(results_dir=str(tmp_path), size=16, scale_sr=2, niters=1,
+                mesh=mesh)
+    with pytest.raises(RuntimeError, match="--mesh 2"):
         TMS.main(["--mesh", "2", "--results_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -2084,3 +2084,60 @@ def test_wire2d_rows_keep_their_bits(cuda, row):
     spec.loader.exec_module(turn)
     fn = turn.slice_rows(torch, S, cuda)[row]
     assert turn.digest(torch, fn()) == WIRE2D_PARENT_DIGESTS[row]
+
+
+@pytest.mark.parametrize("fit", ["pointwise", "pointwise_global_perm",
+                                 "operator"])
+def test_world_of_one_is_the_unsharded_fit(cuda, fit):
+    """A process group of this process alone over NCCL
+    (wire_tpu_torch.dist): fit_pointwise_sharded (one wire_step an epoch,
+    local and exact mode) and fit_operator_sharded (one wire_mlp pair an
+    iteration) equal the unsharded fits bit for bit."""
+    import torch.distributed as dist
+    from wire_tpu_torch import tree
+    from wire_tpu_torch.dist import (fit_operator_sharded,
+                                     fit_pointwise_sharded, make_mesh,
+                                     multihost)
+    from wire_tpu_torch.ops import wire_mlp as WM
+    from wire_tpu_torch.signals import coords as C
+    from wire_tpu_torch.train import trainer as T
+
+    made = multihost.world_of_one(device=cuda)
+    try:
+        mesh = make_mesh(1, cuda)
+        assert mesh.backend == "nccl"
+        model, params, _, t, gt = _case(64 * 64, 300, 2, 3, cuda, seed=5)
+        coords = C.grid2d(64, 64)
+        if fit == "operator":
+            cfg = T.FitConfig(learning_rate=5e-3, niters=5)
+
+            def op(f):
+                return f[::2, ::2]
+
+            meas = op(t.reshape(64, 64, 3))
+            kw = dict(gt_field=gt.reshape(64, 64, 3), field_shape=(64, 64, 3))
+            want = T.fit_operator(model, params, coords, meas, op, cfg,
+                                  device=cuda, **kw)
+            before = dict(WM.launches)
+            got = fit_operator_sharded(model, params, coords, meas, op, cfg,
+                                       mesh, **kw)
+            assert {k: WM.launches[k] - before[k] for k in before} == {
+                "forward": 5, "backward": 5}
+        else:
+            cfg = T.FitConfig(learning_rate=5e-3, niters=5, maxpoints=1024)
+            want = T.fit_pointwise(model, params, coords, t, cfg, gt=gt,
+                                   device=cuda)
+            before = WS.wire_step.launches
+            got = fit_pointwise_sharded(
+                model, params, coords, t, cfg, mesh, gt=gt,
+                global_perm=fit == "pointwise_global_perm")
+            assert WS.wire_step.launches - before == 5 * 4
+        for k in ("mse_gt", "mse_noisy", "best_rec", "final_rec"):
+            if getattr(want, k) is not None:
+                assert np.array_equal(getattr(got, k), getattr(want, k)), k
+        for (p, a), (_, b) in zip(tree.leaves(got.params),
+                                  tree.leaves(want.params)):
+            assert torch.equal(a, b), p
+    finally:
+        if made:
+            dist.destroy_process_group()

@@ -1,7 +1,8 @@
 """The port stands alone: every module of wire_tpu_torch and chip_smoke.py
 imports with jax, optax, wire_tpu, pandas, matplotlib and cv2 blocked (the
 B-spline, multiscale, MFN and WIRE-2D slices' modules, the sweep app, the
-occupancy slice's and the multi-frame SR slice's modules among them), and
+occupancy slice's, the multi-frame SR slice's and the sharded fitters'
+(wire_tpu_torch.dist) modules among them), and
 chip_smoke.py refuses to run without a CUDA device."""
 import os
 import subprocess
@@ -45,7 +46,11 @@ SLICE_MODULES = ("wire_tpu_torch.ops.real_mlp", "wire_tpu_torch.apps.sisr",
                  "wire_tpu_torch.apps.multi_sr",
                  "wire_tpu_torch.train.seeding",
                  "wire_tpu_torch.train.profiling",
-                 "wire_tpu_torch.train.artifacts")
+                 "wire_tpu_torch.train.artifacts",
+                 "wire_tpu_torch.dist", "wire_tpu_torch.dist.mesh",
+                 "wire_tpu_torch.dist.multihost",
+                 "wire_tpu_torch.dist.fitter",
+                 "wire_tpu_torch.dist.scaling")
 
 
 def test_every_module_imports_without_jax_or_wire_tpu():

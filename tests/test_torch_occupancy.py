@@ -5,7 +5,8 @@ marching_cubes.cpp, built by g++ into wire_tpu_torch/_build) and the
 smoothened march_and_save, equal to wire_tpu's bit for bit; the .obj and
 .dae writers; the occupancy app on the CPU at size 16 for 3 epochs (full
 batch, and chunked with and without block_perm) writing wire.mat and
-wire.dae; its refusals (mesh, checkpoint_path, no card).  And the
+wire.dae; its refusals (block_perm with a mesh, --mesh 2 without a
+process group, no card).  And the
 reference the card holds wire_step's occupancy cases to
 (chip_smoke.wire_state_reference, fault C.10): the plain WIRE step run in
 float64 on given pre-activations equals the float64 step on its own,
@@ -24,6 +25,7 @@ from wire_tpu.train import metrics as JM
 
 from wire_tpu_torch import native as TN
 from wire_tpu_torch.apps import occupancy as TO
+from wire_tpu_torch.dist.mesh import Mesh
 from wire_tpu_torch.signals import image as TI, volume as TV
 from wire_tpu_torch.train import metrics as TM
 
@@ -127,10 +129,12 @@ def test_app_setup_is_the_app_s_configuration():
 
 
 def test_app_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.7"):
-        TO.run(results_dir=str(tmp_path), size=8, niters=1, mesh=2,
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
+    mesh = Mesh(group=None, rank=0, size=1, device=torch.device("cpu"),
+                backend="gloo")
+    with pytest.raises(NotImplementedError, match="block_perm"):
+        TO.run(results_dir=str(tmp_path), size=8, niters=1, mesh=mesh,
+               block_perm=8)
+    with pytest.raises(RuntimeError, match="--mesh 2"):
         TO.main(["--mesh", "2", "--results_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

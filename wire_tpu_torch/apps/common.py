@@ -1,6 +1,7 @@
 """Shared plumbing for the task drivers (port of wire_tpu/apps/common.py):
 input loading (a .npy file or the procedural stand-in), model construction
-from a preset, artifact writing."""
+from a preset, artifact writing, and ``--mesh``: a sharded fit over a
+process group (``wire_tpu_torch.dist``)."""
 from __future__ import annotations
 
 import argparse
@@ -29,7 +30,41 @@ def base_parser(description):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard the fit over the N ranks of a process group "
+                        "(0 = single device; N > 1 under python -m "
+                        "torch.distributed.run --nproc-per-node N; 1 alone "
+                        "is a world of one)")
     return p
+
+
+def mesh_from_arg(n, device=None):
+    """0/None -> None, a single-device fit; N -> this rank's Mesh of a
+    process group of N ranks: the one ``torch.distributed.run``'s
+    environment describes (``multihost.initialize``), or for N = 1 without
+    one a world of this process alone.  A group of another size raises:
+    a sharded run is never quietly run unsharded."""
+    if not n:
+        return None
+    import torch.distributed as dist
+    from wire_tpu_torch.dist import make_mesh, multihost
+    multihost.initialize(device=device)
+    if not dist.is_initialized():
+        if n != 1:
+            raise RuntimeError(
+                f"--mesh {n}: no process group; launch with python -m "
+                f"torch.distributed.run --nproc-per-node {n} ... --mesh {n}")
+        multihost.world_of_one(device=device)
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"--mesh {n}: the process group has "
+                           f"{dist.get_world_size()} ranks")
+    return make_mesh(n, device)
+
+
+def writes_artifacts(mesh):
+    """Whether this process writes the run's files: every single-device
+    run, and rank 0 of a sharded one."""
+    return mesh is None or mesh.rank == 0
 
 
 def load_image(path, size=512, channels=3, seed=0):

@@ -10,6 +10,10 @@ Adam with a per-iteration decay; the best image by MSE vs the clean image;
 PSNR and SSIM reported.
 
     python -m wire_tpu_torch.apps.ct --config_name WIRE_s12_o8_LR5e3_E2000
+
+``--mesh N`` renders the field in N ranks' shards
+(``dist.fit_operator_sharded``; the Radon operator runs replicated); rank
+0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ def build_ct_model(cfg, omega0):
 def run(config_name, *, image=None, results_dir="results", seed=0,
         nmeas=100, reference_compat=False, mesh=None, radon_method="auto",
         sinogram_path=None, device=None):
-    dev = resolve(device)
+    dev = mesh.device if mesh is not None else resolve(device)
     cfg = get_config(config_name)
     A.log(f"Starting CT experiment ({config_name}) on {dev}")
 
@@ -125,8 +129,10 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
         "Best PSNR": psnr,
         "Best SSIM": ssim,
     }
-    path = common.write_run_artifacts(results_dir, "ct", cfg.name, mdict,
-                                      metrics)
+    path = None
+    if common.writes_artifacts(mesh):
+        path = common.write_run_artifacts(results_dir, "ct", cfg.name, mdict,
+                                          metrics)
     A.log(f"CT experiment completed -> {path}")
     return {"psnr": psnr, "ssim": ssim, "path": path, "result": res}
 
@@ -158,7 +164,7 @@ def main(argv=None):
     run(a.config_name, image=a.image, results_dir=a.results_dir,
         seed=a.seed, reference_compat=a.reference_compat,
         radon_method=a.radon_method, sinogram_path=a.sinogram,
-        device=a.device)
+        device=a.device, mesh=common.mesh_from_arg(a.mesh, a.device))
 
 
 if __name__ == "__main__":

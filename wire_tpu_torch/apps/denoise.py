@@ -8,6 +8,12 @@ epoch, best image by MSE vs the clean image.
     python -m wire_tpu_torch.apps.denoise --config_name WIRE_s8_o7_LR5e3_E2000
     python -m wire_tpu_torch.apps.denoise --config_name Bspline_s9_5_LR8e3_E4000
     python -m wire_tpu_torch.apps.denoise --config_name Mscale2_ST8_3_LR8e3_E4000
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m wire_tpu_torch.apps.denoise --config_name WIRE_s8_o7_LR5e3_E2000 \
+        --mesh 2
+
+``--mesh N`` shards the coordinates over N ranks (``fit_pointwise`` with
+a mesh, ``dist.fit_pointwise_sharded``); rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ def denoise_images(cfg, image=None, seed=0):
 
 
 def run(config_name, *, image=None, results_dir="results", seed=0,
-        device=None, reference_compat=False):
-    dev = resolve(device)
+        device=None, reference_compat=False, mesh=None):
+    dev = mesh.device if mesh is not None else resolve(device)
     cfg = get_config(config_name)
     if cfg.tvl:
         raise NotImplementedError("TV regularization is not ported yet")
@@ -61,7 +67,7 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
     fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=cfg.niters,
                         maxpoints=cfg.maxpoints, scale_lr_by_batch=True)
     res = fit_pointwise(model, params, coords, gt_noisy, fit_cfg, gt=gt,
-                        device=dev)
+                        device=dev, mesh=mesh)
 
     best_img = res.best_rec.reshape(H, W, 3)
     psnr = M.psnr_ref(im, best_img)
@@ -87,8 +93,10 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
         "Number of parameters": nparams,
         "Best PSNR": psnr,
     }
-    path = common.write_run_artifacts(results_dir, task_dir, cfg.name,
-                                      mdict, metrics)
+    path = None
+    if common.writes_artifacts(mesh):
+        path = common.write_run_artifacts(results_dir, task_dir, cfg.name,
+                                          mdict, metrics)
     A.log(f"Image denoise experiment completed -> {path}")
     return {"psnr": psnr, "path": path, "result": res}
 
@@ -96,7 +104,8 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
 def main(argv=None):
     a = common.base_parser(__doc__).parse_args(argv)
     run(a.config_name, image=a.image, results_dir=a.results_dir, seed=a.seed,
-        device=a.device, reference_compat=a.reference_compat)
+        device=a.device, reference_compat=a.reference_compat,
+        mesh=common.mesh_from_arg(a.mesh, a.device))
 
 
 if __name__ == "__main__":

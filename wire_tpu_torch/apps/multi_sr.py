@@ -15,8 +15,10 @@ interpolation as the baseline.  Writes
     python -m wire_tpu_torch.apps.multi_sr --estim_reg
     python -m wire_tpu_torch.apps.multi_sr --device cpu --niters 5
 
-Runs on the card unless given ``device="cpu"``; ``--mesh`` (a sharded fit)
-is not ported yet and raises.
+Runs on the card unless given ``device="cpu"``.  ``--mesh N`` splits each
+batch's frames over N ranks (``fit_frames`` with a mesh,
+``dist.fit_frames_sharded``; the batch size divisible by N); rank 0 writes
+the .mat.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from wire_tpu_torch.apps import common
 from wire_tpu_torch.apps.common import load_image
 from wire_tpu_torch.device import resolve
 from wire_tpu_torch.nn.registry import get_inr
@@ -88,11 +91,7 @@ def run(nonlin="wire", *, image=None, results_dir="results", seed=0,
     (the tests move wire_tpu's across); returns psnr, ssim, psnr_interp,
     the .mat path, the FitResult and, with estimated registration, the
     warps' errors against the known motion (``registration_errors``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi_sr: the sharded fit (mesh) is not ported yet "
-            "(ROADMAP §A.7)")
-    dev = resolve(device)
+    dev = mesh.device if mesh is not None else resolve(device)
     A.log(f"Starting multi-SR with {nonlin} on {dev}")
     prob = setup(nonlin, image=image, seed=seed, scale_sr=scale_sr,
                  niters=niters, use_gt_registration=use_gt_registration,
@@ -116,7 +115,7 @@ def run(nonlin="wire", *, image=None, results_dir="results", seed=0,
 
     res = fit_frames(model, params, ds.coords, ds.pixels, ds.masks,
                      prob["cfg"], hr_shape=(H, W, 3), scale=scale_sr,
-                     batch_size=batch_size, device=dev)
+                     batch_size=batch_size, device=dev, mesh=mesh)
 
     coords_full = torch.from_numpy(C.grid2d(H, W)).to(dev)
     with torch.no_grad():
@@ -128,12 +127,13 @@ def run(nonlin="wire", *, image=None, results_dir="results", seed=0,
           f"SSIM {ssimval:.3f}")
 
     outdir = os.path.join(results_dir, "multi_SR")
-    os.makedirs(outdir, exist_ok=True)
     tag = "oracle_reg" if use_gt_registration else "estim_reg"
     mat = os.path.join(outdir, f"{scale_sr}x_{nimg}images_{nonlin}_{tag}.mat")
-    A.save_mat(mat, {"rec": img_full, "psnr_rec": snrval,
-                     "ssim_rec": ssimval, "psnr_interp": snr_interp,
-                     "rec_interp": im_interp})
+    if common.writes_artifacts(mesh):
+        os.makedirs(outdir, exist_ok=True)
+        A.save_mat(mat, {"rec": img_full, "psnr_rec": snrval,
+                         "ssim_rec": ssimval, "psnr_interp": snr_interp,
+                         "rec_interp": im_interp})
     out = {"psnr": snrval, "ssim": ssimval, "psnr_interp": snr_interp,
            "mat": mat, "result": res}
     if not use_gt_registration:
@@ -187,9 +187,9 @@ def main(argv=None):
                    help="estimate the frames' motion (register_burst) "
                         "instead of taking the known one")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mesh", type=int, default=0,
-                   help="devices of a sharded fit (not ported yet: any "
-                        "value but 0 raises)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard the fit over the N ranks of a process group "
+                        "(0 = single device; see apps/common.py)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
@@ -197,7 +197,7 @@ def main(argv=None):
     run(a.nonlin, image=a.image, results_dir=a.results_dir,
         scale_sr=a.scale_sr, niters=a.niters,
         use_gt_registration=not a.estim_reg, seed=a.seed,
-        mesh=a.mesh if a.mesh else None, device=a.device)
+        mesh=common.mesh_from_arg(a.mesh, a.device), device=a.device)
 
 
 if __name__ == "__main__":

@@ -12,10 +12,17 @@ voxels make two chunks an epoch, the second with 62,144 valid rows.
 
     python -m wire_tpu_torch.apps.occupancy                 # WIRE, 64^3
     python -m wire_tpu_torch.apps.occupancy --block_perm 512
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m wire_tpu_torch.apps.occupancy --mesh 2
 
 ``checkpoint_path`` saves the fit's state every ``checkpoint_every``
-segments of ``scan_segment`` epochs (250 by default) and resumes from it;
-``mesh`` (a sharded fit) is not ported yet and raises.
+segments of ``scan_segment`` epochs (250 by default) and resumes from it
+(with a mesh, a file per rank).  With a ``mesh`` (``--mesh N``) the fit is
+sharded (``fit_pointwise``'s local mode): each rank is fed only its own rows of the grid and the target
+(``multihost.feed_rows``; the grid's rows are ``GridSpec``'s, computed on
+the rank's device, so a world of one fits what the unsharded app fits),
+and the per-epoch IoU comes from the ranks' intersection and union counts,
+summed (``iou_sums``); rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from wire_tpu_torch.apps import common
 from wire_tpu_torch.device import resolve
 from wire_tpu_torch.nn.registry import get_inr
 from wire_tpu_torch.signals import coords as C, image as I, volume as V
@@ -45,6 +53,18 @@ def iou_metric(thres):
         return M.iou(rec, tgt, thres)
 
     return metric
+
+
+def iou_sums(thres):
+    """The sharded fit's per-epoch sums: this rank's counts of the voxels
+    in the intersection and in the union of ``rec >= thres`` and the
+    target's nonzero voxels (wire_tpu/apps/occupancy.py:33-49)."""
+
+    def sums(rec, tgt):
+        p, g = rec >= thres, tgt != 0
+        return torch.logical_and(p, g).sum(), torch.logical_or(p, g).sum()
+
+    return sums
 
 
 def best_metrics(im, best, thres=0.5):
@@ -98,11 +118,7 @@ def run(nonlin="wire", *, volume_mat=None, results_dir="results", seed=0,
         hidden_features=300, mcubes_thres=0.5, mesh=None,
         scan_segment=None, checkpoint_path=None, checkpoint_every=1,
         lr_decay=0.2, block_perm=0, device=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "occupancy: the sharded fit (mesh) is not ported yet "
-            "(ROADMAP §A.7)")
-    dev = resolve(device)
+    dev = mesh.device if mesh is not None else resolve(device)
     A.log(f"Running {nonlin} occupancy on {dev}")
     im, grid, target, model, fit_cfg = setup(
         nonlin, volume_mat=volume_mat, seed=seed, niters=niters, size=size,
@@ -118,9 +134,23 @@ def run(nonlin="wire", *, volume_mat=None, results_dir="results", seed=0,
     ckpt = (CheckpointSpec(path=checkpoint_path, every=checkpoint_every)
             if checkpoint_path else None)
 
-    res = fit_pointwise(model, params, grid, target, fit_cfg, track="noisy",
-                        epoch_metric=iou_metric(mcubes_thres),
-                        checkpoint=ckpt, device=dev)
+    if mesh is not None:
+        from wire_tpu_torch.dist import multihost
+        n = grid.npoints
+        coords = multihost.feed_rows(mesh, lambda lo, hi: grid.rows(
+            torch.arange(lo, hi, device=dev)), n)
+        fed = multihost.feed_rows(mesh, lambda lo, hi: target[lo:hi], n)
+        res = fit_pointwise(model, params, coords, fed, fit_cfg,
+                            track="noisy", epoch_sums=iou_sums(mcubes_thres),
+                            checkpoint=ckpt, mesh=mesh)
+        inter, union = res.time_array
+        iou_hist = inter / np.maximum(union, 1.0)
+    else:
+        res = fit_pointwise(model, params, grid, target, fit_cfg,
+                            track="noisy",
+                            epoch_metric=iou_metric(mcubes_thres),
+                            checkpoint=ckpt, device=dev)
+        iou_hist = res.time_array
     best = res.best_rec.reshape(H, W, T)
     best_iou, psnr = best_metrics(im, best, mcubes_thres)
     A.log(f"IoU: {best_iou}")
@@ -128,20 +158,24 @@ def run(nonlin="wire", *, volume_mat=None, results_dir="results", seed=0,
     A.log(f"Total parameters: {nparams / 1e6} million")
 
     outdir = os.path.join(results_dir, "occupancy")
+    mesh_path = os.path.join(outdir, f"{nonlin}.dae")
+    out = {"iou": best_iou, "psnr": psnr, "mesh": mesh_path,
+           "iou_array": np.asarray(iou_hist), "result": res}
+    if not common.writes_artifacts(mesh):
+        return out
     os.makedirs(outdir, exist_ok=True)
     A.save_mat(os.path.join(outdir, f"{nonlin}.mat"), {
         "mse_array": res.mse_noisy,
-        "iou_array": np.asarray(res.time_array),
+        "iou_array": np.asarray(iou_hist),
         "nparams": nparams,
         "Best PSNR": psnr,
         "Best IoU": best_iou,
         "Total time": res.wall_time_s / 60,
     })
-    mesh_path = os.path.join(outdir, f"{nonlin}.dae")
     verts, faces = V.march_and_save(best, mcubes_thres, mesh_path,
                                     smoothen=True)
-    return {"iou": best_iou, "psnr": psnr, "mesh": mesh_path,
-            "nverts": len(verts), "nfaces": len(faces), "result": res}
+    out.update(nverts=len(verts), nfaces=len(faces))
+    return out
 
 
 def main(argv=None):
@@ -152,9 +186,9 @@ def main(argv=None):
     p.add_argument("--niters", type=int, default=200)
     p.add_argument("--size", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mesh", type=int, default=0,
-                   help="devices of a sharded fit (not ported yet: any "
-                        "value but 0 raises)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard the fit over the N ranks of a process group "
+                        "(0 = single device; see apps/common.py)")
     p.add_argument("--lr_decay", type=float, default=0.2,
                    help="LR decay factor over niters (reference: 0.2)")
     p.add_argument("--block_perm", type=int, default=0,
@@ -166,7 +200,7 @@ def main(argv=None):
     a = p.parse_args(argv)
     run(a.nonlin, volume_mat=a.volume_mat, results_dir=a.results_dir,
         niters=a.niters, size=a.size, seed=a.seed,
-        mesh=a.mesh if a.mesh else None, lr_decay=a.lr_decay,
+        mesh=common.mesh_from_arg(a.mesh, a.device), lr_decay=a.lr_decay,
         block_perm=a.block_perm, device=a.device)
 
 

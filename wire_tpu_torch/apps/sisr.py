@@ -11,6 +11,9 @@ images of 176 pixels or more a side, MS-SSIM reported.  INTER_LINEAR
 upsampling of the LR image (``rec_bi``) is the bilinear baseline.
 
     python -m wire_tpu_torch.apps.sisr --config_name Bspline_s9_LR1e3_E2000
+
+``--mesh N`` renders the HR grid in N ranks' shards
+(``dist.fit_operator_sharded``); rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -37,8 +40,8 @@ def sisr_images(image=None, seed=0, scale=4, size=512):
 
 
 def run(config_name, *, image=None, results_dir="results", seed=0,
-        device=None, reference_compat=False):
-    dev = resolve(device)
+        device=None, reference_compat=False, mesh=None):
+    dev = mesh.device if mesh is not None else resolve(device)
     cfg = get_config(config_name)
     A.log(f"Starting SISR experiment ({config_name}) on {dev}")
     scale = cfg.down_scale or 4
@@ -62,7 +65,7 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
                         maxpoints=cfg.maxpoints, lr_decay=0.2)
     res = fit_operator(model, params, coords, im_lr, DownsampleOp(scale),
                        fit_cfg, gt_field=im, field_shape=(H, W, 3),
-                       track="gt", device=dev)
+                       track="gt", device=dev, mesh=mesh)
 
     best = res.best_rec
     mse_db = M.mse_db(res.best_mse)
@@ -87,8 +90,10 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
         "Best MSE": mse_db,
         "Best SSIM": ssim,
     }
-    path = common.write_run_artifacts(results_dir, f"sisr/DS_{scale}",
-                                      cfg.name, mdict, metrics)
+    path = None
+    if common.writes_artifacts(mesh):
+        path = common.write_run_artifacts(results_dir, f"sisr/DS_{scale}",
+                                          cfg.name, mdict, metrics)
     A.log(f"Finished SISR experiment -> {path}")
     return {"mse_db": mse_db, "ssim": ssim, "ms_ssim": msssim, "path": path,
             "result": res}
@@ -97,7 +102,8 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
 def main(argv=None):
     a = common.base_parser(__doc__).parse_args(argv)
     run(a.config_name, image=a.image, results_dir=a.results_dir, seed=a.seed,
-        device=a.device, reference_compat=a.reference_compat)
+        device=a.device, reference_compat=a.reference_compat,
+        mesh=common.mesh_from_arg(a.mesh, a.device))
 
 
 if __name__ == "__main__":

@@ -28,8 +28,12 @@ fit_operator renders the whole grid every iteration, in one piece or
 backward.  The three take a ``CheckpointSpec``: the whole state of the
 loop is saved every ``every x scan_segment`` epochs or iterations and at
 the end, and a resumed fit reproduces the uninterrupted one bit for bit
-wherever its kernels are bit-equal on repeat calls.  TV regularization and
-the sharded fits are later slices.
+wherever its kernels are bit-equal on repeat calls.  TV regularization is a
+later slice.  The three take a ``mesh`` (``wire_tpu_torch.dist``) and
+then run sharded over its ranks through its hooks: the rows a rank owns,
+one flat all-reduce of the gradients a step, the all-gathers of a render
+or a reconstruction; without one the hooks are ``_Solo``'s, each the
+identity.
 
 The batched multi-fit (wire_tpu's fit_pointwise_many, fit_operator_many
 and fit_frames_many, which vmap the loop body over a leading replica axis
@@ -268,7 +272,12 @@ class _Checkpointer:
     the start and at the last; every ``every``-th segment of this call and
     the last are saved (wire_tpu/train/trainer.py:416-431)."""
 
-    def __init__(self, spec, cfg, fingerprint):
+    def __init__(self, spec, cfg, fingerprint, part):
+        if spec is not None and part.size > 1:
+            # the ranks of a mesh hold rows and permutation streams of
+            # their own: a file each
+            spec = dataclasses.replace(
+                spec, path=f"{spec.path}.rank{part.rank}of{part.size}")
         self.spec = spec
         self.cfg = cfg
         self.fp = fingerprint
@@ -455,10 +464,92 @@ def _two_arg_metric(epoch_metric):
     return len(required) >= 2
 
 
-def _chunking(cfg: FitConfig, npoints):
+class _Solo:
+    """The mesh hooks of a single-device fit: rank 0 of 1, owning every
+    row, each collective the identity.  ``dist.mesh.Mesh`` has the same
+    methods over a process group."""
+    rank, size = 0, 1
+
+    def __init__(self, device):
+        self.device = device
+
+    def span(self, n):
+        return 0, n
+
+    def local(self, x, n):
+        return x
+
+    def whole(self, x):
+        return x
+
+    def sum_(self, t):
+        return t
+
+    def sum_tree(self, grads, mean=False):
+        return grads
+
+    def gather(self, local):
+        return local
+
+    def splice(self, local):
+        return local
+
+
+def _part(mesh, device, who):
+    """A fit's mesh hooks, whose ``device`` it runs on: ``mesh`` (a
+    ``device`` given beside it must name the mesh's), or a ``_Solo`` on
+    ``device``."""
+    if mesh is None:
+        return _Solo(resolve(device))
+    if device is not None:
+        d = torch.device(device)
+        if d.type != mesh.device.type or d.index not in (
+                None, mesh.device.index):
+            raise ValueError(f"{who}: device {d} is not the mesh's "
+                             f"{mesh.device}")
+    return mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class _GridShard:
+    """The rows of ``grid`` from global index ``lo`` on: a rank's shard of
+    an implicit grid, computed on the device (no coordinate shard
+    stored)."""
+    grid: GridSpec
+    lo: int
+
+    def rows(self, idx):
+        return self.grid.rows(idx + self.lo)
+
+
+def _sum_rows(x, dev):
+    """An ``epoch_sums`` value (a tensor, a number or a tuple of them) as a
+    float64 (k,) tensor: counts past 2^24 (a 512^3 volume's union) stay
+    exact."""
+    x = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    return torch.stack([torch.as_tensor(s, device=dev).to(torch.float64)
+                        for s in x])
+
+
+def _mesh_sums(mesh, sse_t, sse_g, extra):
+    """The epoch's SSE sums and this rank's ``epoch_sums`` row (or None)
+    summed over the mesh in one float64 all-reduce: (sse_t, sse_g) float32
+    and the summed row."""
+    parts = [torch.as_tensor(s, device=mesh.device).to(torch.float64)
+             for s in (sse_t, sse_g)]
+    if extra is not None:
+        parts += list(extra)
+    sums = mesh.sum_(torch.stack(parts))
+    return (sums[0].to(torch.float32), sums[1].to(torch.float32),
+            None if extra is None else sums[2:])
+
+
+def _chunking(cfg: FitConfig, npoints, size=1):
     """(U, mp, nchunks, npad): block size (1 per point), rows per chunk,
     chunks per epoch and sentinel rows in the last chunk
-    (wire_tpu/train/trainer.py:371-388)."""
+    (wire_tpu/train/trainer.py:371-388); a rank of a mesh of ``size``
+    takes ``maxpoints // size`` of its ``npoints`` rows a chunk
+    (wire_tpu/dist/fitter.py:78)."""
     U = int(cfg.block_perm or 0)
     if U > 1:
         if npoints % U:
@@ -468,7 +559,7 @@ def _chunking(cfg: FitConfig, npoints):
         mpu = max(min(cfg.maxpoints // U, nunits), 1)
         nchunks = -(-nunits // mpu)
         return U, mpu * U, nchunks, (nchunks * mpu - nunits) * U
-    mp = min(cfg.maxpoints, npoints)
+    mp = min(max(cfg.maxpoints // size, 1), npoints)
     nchunks = -(-npoints // mp)
     return 1, mp, nchunks, nchunks * mp - npoints
 
@@ -524,29 +615,42 @@ def _chunk_rows(grid, coords, target, gt, U, mp, lead=()):
 
 
 def _chunked_epoch(step, opt, params, rec, rows_of, perm, *, U, mp, npad,
-                   sort, scratch, offsets=None):
+                   sort, scratch, offsets=None, part=None):
     """One chunked epoch of a pointwise fit: ``perm`` (nchunks, [M,] mp / U)
     unit indices, the sentinels a tail of the last chunk, sorted along the
     last axis with ``sort``.  Per chunk one ``step`` (``step_grads``, or
     ``step_grads_many`` for all replicas), one Adam step, and the valid
     rows of the prediction written into ``rec``: (npoints, c), or
     (M, npoints, c) with replica r's rows from ``offsets[r]`` on in its
-    (M * nunits, U * c) view.  Returns the epoch's SSE sums against the
-    target and against gt."""
+    (M * nunits, U * c) view.  With ``part``, a mesh's rank in exact mode
+    (points, not blocks), the rank steps on its slice of each chunk,
+    normalized by the chunk's valid count, and the ranks' predictions are
+    all-gathered into the chunk's.  Returns the epoch's SSE sums against
+    the target and against gt (over this rank's slices with ``part``)."""
     if sort:
         perm = torch.sort(perm, dim=-1).values
     c = rec.shape[-1]
     nunits = rec.shape[-2] // U
     nchunks = perm.shape[0]
+    if part is not None:
+        m = mp // part.size
+        a = part.rank * m
     sse_t = sse_g = 0.0
     for k in range(nchunks):
         idx = perm[k]
         nvalid = mp - (npad if k == nchunks - 1 else 0)
-        rows, t, g = rows_of(idx.clamp(max=nunits - 1))
+        mine, nv_mine = idx, nvalid
+        if part is not None:
+            # the sentinels stay the tail of each slice (step_grads' mask
+            # contract), so the slice's valid count is known here
+            mine, nv_mine = idx[a:a + m], min(max(nvalid - a, 0), m)
+        rows, t, g = rows_of(mine.clamp(max=nunits - 1))
         pred, grads, (st, sg) = step(
-            params, rows, t, nvalid=nvalid,
+            params, rows, t, nvalid=nv_mine,
             denom=float(np.float32(nvalid) * np.float32(c)), gt=g,
             want_metrics=True, scratch=scratch)
+        if part is not None:
+            pred = part.gather(pred)
         opt.step(params, grads)
         nv = nvalid // U
         idx = idx[..., :nv]
@@ -563,8 +667,10 @@ def _chunked_epoch(step, opt, params, rec, rows_of, perm, *, U, mp, npad,
 
 def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
                   gt=None, track="gt", epoch_metric: Optional[Callable] = None,
+                  epoch_sums: Optional[Callable] = None,
                   permutation: Optional[Callable] = None,
-                  checkpoint: Optional[CheckpointSpec] = None, device=None):
+                  checkpoint: Optional[CheckpointSpec] = None, device=None,
+                  mesh=None, global_perm=False):
     """Fit an INR pointwise to ``target`` sampled at ``coords``.
 
     coords (N, d) (numpy array or tensor) or a ``GridSpec``, whose rows
@@ -573,39 +679,93 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
     vs the target when gt is None) or vs the target (``track="noisy"``).
     ``epoch_metric(rec)``, or ``epoch_metric(rec, target)`` when it takes
     two required positional parameters, is evaluated on the device after
-    every epoch; its history comes back in ``time_array``.
+    every epoch; its history comes back in ``time_array``.  Or
+    ``epoch_sums(rec, target)`` returns a tensor or a tuple of sums over
+    the rows ``rec`` holds, summed over the mesh; their histories come
+    back as ``time_array`` (float64, one array a sum).
     ``permutation(n)`` gives each chunked epoch's permutation of range(n)
     (n = npoints, or npoints / block_perm blocks); by default a fresh
     ``torch.randperm`` from a generator seeded with ``cfg.seed`` on the
     fit's device.  ``checkpoint`` saves and resumes the fit's state (the
     generator's too; a caller's ``permutation`` keeps its own).  ``params``
     is not modified.  Runs on ``device`` (default cuda; raises without a
-    card unless device='cpu')."""
+    card unless device='cpu').
+
+    With a ``mesh`` (``wire_tpu_torch.dist``, wire_tpu/dist/fitter.py:33)
+    the fit is sharded over its ranks, on the mesh's device; the inputs may
+    be ``multihost.feed_rows``' ``LocalRows``.  Local mode (default): rank
+    r owns rows [r N/size, (r+1) N/size) (N divisible by the size), permutes
+    them with a generator seeded ``cfg.seed + r`` (``permutation(n)``:
+    its n rows), steps on chunks of ``maxpoints // size`` of them and
+    all-reduces each step's gradients to their mean (wire_tpu's
+    ``pmean``); ``rec`` and ``epoch_sums`` see its rows.  ``global_perm``
+    (exact mode): every rank holds all rows, draws the single-device
+    permutation stream and steps on slice r of each chunk (the chunk
+    divisible by the size) over the chunk's valid count; the gradients
+    are summed and the predictions all-gathered, so the trajectory is the
+    single-device one to reduction order.  The epoch's SSE sums and
+    ``epoch_sums`` are summed over the mesh in one collective, so every
+    rank keeps the same best epoch; ``best_rec`` and ``final_rec`` come
+    back whole on every rank; a checkpoint is a file per rank.  A world of
+    one is the single-device fit bit for bit.  ``block_perm`` is refused
+    with a mesh."""
     if track not in ("gt", "noisy"):
         raise ValueError(f"fit_pointwise: track={track!r}, expected 'gt' or "
                          f"'noisy'")
+    if epoch_metric is not None and epoch_sums is not None:
+        raise ValueError("fit_pointwise: an epoch_metric or epoch_sums, not "
+                         "both")
+    if mesh is not None and cfg.block_perm:
+        # the block permutation is the single-device trainer's; refusing
+        # beats running another composition than the one asked for
+        raise NotImplementedError(
+            "block_perm is not supported by the sharded fitter yet: use the "
+            "single-device trainer, or unset block_perm (the per-rank "
+            "permutation already keeps gathers local)")
+    part = _part(mesh, device, "fit_pointwise")
+    exact = bool(global_perm) and part.size > 1
     ckpt = _Checkpointer(checkpoint, cfg, None if checkpoint is None else
                          _fit_fingerprint(cfg, model, coords, target, gt,
-                                          epoch_metric))
-    dev = resolve(device)
+                                          epoch_sums or epoch_metric,
+                                          *(("global_perm",) if exact
+                                            else ())), part)
+    dev = part.device
     grid = coords if isinstance(coords, GridSpec) else None
+    npoints = target.shape[0]
+    if exact:
+        take = part.whole
+        lo = 0
+    else:
+        def take(x):
+            return part.local(x, npoints)
+        lo = part.span(npoints)[0]
     if grid is None:
-        coords = _as_tensor(coords, dev)
-    target = _as_tensor(target, dev)
-    gt_arr = target if gt is None else _as_tensor(gt, dev)
-    npoints, c = target.shape
-    U, mp, nchunks, npad = _chunking(cfg, npoints)
-    full_batch = nchunks == 1 and npad == 0
+        coords = _as_tensor(take(coords), dev)
+    elif lo:
+        grid = _GridShard(grid, lo)
+    target = _as_tensor(take(target), dev)
+    gt_arr = target if gt is None else _as_tensor(take(gt), dev)
+    n, c = target.shape  # this rank's rows
+    U, mp, nchunks, npad = _chunking(cfg, n, 1 if exact else part.size)
+    if exact and mp % part.size:
+        raise ValueError(f"chunk size {mp} not divisible by mesh size "
+                         f"{part.size}; adjust maxpoints")
+    whole = nchunks == 1 and npad == 0
+    full_batch = whole and not exact
     if grid is not None and full_batch:
-        coords = grid.rows(torch.arange(npoints, device=dev))
+        coords = grid.rows(torch.arange(n, device=dev))
     metric_two = epoch_metric is not None and _two_arg_metric(epoch_metric)
     gen = None
-    if permutation is None and not full_batch:
+    if permutation is None and not whole:
         gen = torch.Generator(device=dev)
-        gen.manual_seed(int(cfg.seed))
+        gen.manual_seed(int(cfg.seed) + (0 if exact else part.rank))
 
         def permutation(n):
             return torch.randperm(n, generator=gen, device=dev)
+
+    def step(*args, **kw):
+        pred, grads, sums = model.step_grads(*args, **kw)
+        return pred, part.sum_tree(grads, mean=not exact), sums
 
     params = _on_device(params, dev)
     opt = Adam(cfg, params, npoints=npoints, nchunks=nchunks)
@@ -617,6 +777,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
     hist_noisy = torch.empty(cfg.niters, device=dev)
     hist_metric = (torch.empty(cfg.niters, device=dev)
                    if epoch_metric is not None else None)
+    hist_sums = None  # (niters, k) float64, made at the first epoch's sums
     inv_nc = 1.0 / (npoints * c)
     scratch = StepScratch()
 
@@ -630,8 +791,8 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
 
     def hists(done):
         out = (hist_gt[:done], hist_noisy[:done])
-        return out + ((hist_metric[:done],) if hist_metric is not None
-                      else ())
+        extra = hist_metric if hist_metric is not None else hist_sums
+        return out + ((extra[:done],) if extra is not None else ())
 
     start = 0
     resumed = ckpt.resume(state())
@@ -642,7 +803,11 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         opt.load_state(st["opt"])
         if gen is not None:
             gen.set_state(st["gen"])
-        for h, saved in zip((hist_gt, hist_noisy, hist_metric), hs):
+        if epoch_sums is not None and len(hs) > 2:
+            hist_sums = torch.empty((cfg.niters,) + hs[2].shape[1:],
+                                    dtype=torch.float64, device=dev)
+        for h, saved in zip((hist_gt, hist_noisy, hist_metric
+                             if hist_metric is not None else hist_sums), hs):
             h[:start] = torch.from_numpy(saved).to(dev)
 
     rows_of = _chunk_rows(grid, coords, target, gt_arr, U, mp)
@@ -652,18 +817,30 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
     for epoch in range(start, cfg.niters):
         clock.tick(epoch - start)
         if full_batch:
-            pred, grads, (sse_t, sse_g) = model.step_grads(
+            pred, grads, (sse_t, sse_g) = step(
                 params, coords, target, gt=gt_arr, want_metrics=True,
                 scratch=scratch)
             opt.step(params, grads)
             rec = pred
         else:
-            # sentinels (npoints / U) pad the tail; sorting keeps them there
-            perm = _sentinel_rows(permutation(npoints // U).to(dev),
-                                  npoints // U, npad // U, nchunks)
+            # sentinels (n / U) pad the tail; sorting keeps them there.  A
+            # chunk of all rows is no permutation, as the full batch draws
+            # none
+            perm = (torch.arange(n, device=dev).view(1, -1) if whole else
+                    _sentinel_rows(permutation(n // U).to(dev), n // U,
+                                   npad // U, nchunks))
             sse_t, sse_g = _chunked_epoch(
-                model.step_grads, opt, params, rec, rows_of, perm, U=U,
-                mp=mp, npad=npad, sort=cfg.sort_chunks, scratch=scratch)
+                step, opt, params, rec, rows_of, perm, U=U, mp=mp,
+                npad=npad, sort=cfg.sort_chunks, scratch=scratch,
+                part=part if exact else None)
+        sums = None if epoch_sums is None else _sum_rows(
+            epoch_sums(rec, target), dev)
+        if mesh is not None:
+            # in exact mode every rank's rec is whole: its sums are summed
+            # already
+            sse_t, sse_g, summed = _mesh_sums(part, sse_t, sse_g,
+                                              None if exact else sums)
+            sums = sums if exact else summed
         mse_noisy = sse_t * inv_nc
         mse_gt = sse_g * inv_nc
         hist_gt[epoch] = mse_gt
@@ -674,22 +851,37 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         if epoch_metric is not None:
             hist_metric[epoch] = (epoch_metric(rec, target) if metric_two
                                   else epoch_metric(rec))
+        if sums is not None:
+            if hist_sums is None:
+                hist_sums = torch.empty((cfg.niters,) + sums.shape,
+                                        dtype=torch.float64, device=dev)
+            hist_sums[epoch] = sums
         ckpt.after(epoch + 1, state, lambda: hists(epoch + 1))
     step_ms = clock.ms()
+    if not exact:
+        rec, best_rec = part.gather(rec), part.gather(best_rec)
     wall = time.time() - t0
+    time_array = None
+    if hist_metric is not None:
+        time_array = hist_metric.cpu().numpy()
+    elif hist_sums is not None:
+        cols = hist_sums.cpu().numpy()
+        time_array = tuple(cols[:, j] for j in range(cols.shape[1]))
+        if len(time_array) == 1:
+            time_array = time_array[0]
     return FitResult(
         params=params, best_params=best_params,
         best_rec=best_rec.cpu().numpy(), final_rec=rec.cpu().numpy(),
         mse_gt=hist_gt.cpu().numpy(), mse_noisy=hist_noisy.cpu().numpy(),
         best_mse=float(best_mse), wall_time_s=wall, step_ms=step_ms,
-        time_array=(None if hist_metric is None
-                    else hist_metric.cpu().numpy()))
+        time_array=time_array)
 
 
 def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
                cfg: FitConfig, *, hr_shape, scale, batch_size=4,
                gt_image=None, permutation: Optional[Callable] = None,
-               checkpoint: Optional[CheckpointSpec] = None, device=None):
+               checkpoint: Optional[CheckpointSpec] = None, device=None,
+               mesh=None):
     """Multi-frame SR fitting (wire_tpu/train/trainer.py:605-721): each step
     renders the INR at a batch of frames' warped HR grids, box-downsamples
     the renders by ``scale`` and takes the masked MSE against the LR
@@ -707,18 +899,32 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
     hold each epoch's sum of its batches' losses; ``best_rec`` and
     ``final_rec`` are None.  ``gt_image`` only enters the checkpoint's
     fingerprint.  ``params`` is not modified.  Runs on ``device`` (default
-    cuda; raises without a card unless device='cpu')."""
+    cuda; raises without a card unless device='cpu').
+
+    With a ``mesh`` (``wire_tpu_torch.dist``, wire_tpu/dist/fitter.py:444)
+    the frames are replicated and rank r renders frames
+    [r bs/size, (r+1) bs/size) of each batch of ``bs = min(batch_size, n)``
+    (divisible by the size); its loss keeps the batch's valid count, and
+    the losses and gradients are summed in one all-reduce, so the
+    trajectory is the single-device one to reduction order; a checkpoint
+    is a file per rank."""
+    part = _part(mesh, device, "fit_frames")
     ckpt = _Checkpointer(checkpoint, cfg, None if checkpoint is None else
                          _fit_fingerprint(cfg, model, frame_coords,
                                           frame_pixels, frame_masks,
-                                          gt_image))
-    dev = resolve(device)
+                                          gt_image), part)
+    dev = part.device
     fc = _as_tensor(frame_coords, dev)
     fp = _as_tensor(frame_pixels, dev)
     fm = _as_tensor(frame_masks, dev)
     nframes = fc.shape[0]
     H, W, C = hr_shape
     bs = min(batch_size, nframes)
+    if bs % part.size:
+        raise ValueError(f"batch_size={bs} not divisible by mesh size "
+                         f"{part.size}")
+    m = bs // part.size  # this rank's frames of a batch, from a on
+    a = part.rank * m
     nbatches = -(-nframes // bs)
     npad = nbatches * bs - nframes
     # err.size / bs of the JAX loss: the elements of one LR frame
@@ -763,18 +969,19 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
         for fidx in _sentinel_rows(permutation(nframes).to(dev), nframes,
                                    npad, nbatches):
             valid = (fidx < nframes).to(torch.float32)
-            safe = fidx.clamp(max=nframes - 1)
+            safe = fidx[a:a + m].clamp(max=nframes - 1)
             paths, leaves, p = grad_leaves(params)
             with torch.enable_grad():
                 rend = model.apply(p, fc[safe])
-                lr = multi_sr_op(rend.reshape(bs, H, W, C), scale)
-                m = fm[safe] * valid[:, None, None]
-                err = (lr.reshape(bs, -1, C) - fp[safe]) * m
+                lr = multi_sr_op(rend.reshape(m, H, W, C), scale)
+                mask = fm[safe] * valid[a:a + m, None, None]
+                err = (lr.reshape(m, -1, C) - fp[safe]) * mask
                 loss = torch.sum(err ** 2) / (
                     per_frame * torch.clamp(valid.sum(), min=1))
                 flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-            opt.step(params, grads_tree(paths, leaves, flat))
-            loss = loss.detach()
+            grads, loss = part.sum_tree(
+                [grads_tree(paths, leaves, flat), loss.detach()])
+            opt.step(params, grads)
             best_loss, best_params = _keep_best(loss, best_loss, params,
                                                 best_params)
             losses.append(loss)
@@ -812,37 +1019,45 @@ def fit_operator(model, params, coords, measurement, operator_fn,
     only one chunk's activations are live.  ``checkpoint`` saves and
     resumes the fit's state.  ``params`` is not modified.  Runs on
     ``device`` (default cuda; raises without a card unless
-    device='cpu')."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_operator: the mesh variant is not ported yet (ROADMAP "
-            "§A.7)")
+    device='cpu').
+
+    With a ``mesh`` (``wire_tpu_torch.dist``, wire_tpu/dist/fitter.py:337)
+    each rank renders its rows [r N/size, (r+1) N/size) of the grid (coords
+    may be ``LocalRows``), the field is the ranks' renders all-gathered
+    with this rank's the live one, so that autograd reaches its own rows
+    only; the operator and the loss run replicated, and the gradients are
+    summed in one all-reduce (wire_tpu's ``pmean`` after its all-gather's
+    transpose, without the x size / size), so the trajectory is the
+    single-device one to reduction order; a checkpoint is a file per
+    rank."""
     if track not in ("gt", "loss"):
         raise ValueError(f"fit_operator: track={track!r}, expected 'gt' or "
                          f"'loss'")
+    part = _part(mesh, device, "fit_operator")
     ckpt = _Checkpointer(checkpoint, cfg, None if checkpoint is None else
                          _fit_fingerprint(cfg, model, coords, measurement,
-                                          gt_field, operator_fn))
-    dev = resolve(device)
-    coords = _as_tensor(coords, dev)
+                                          gt_field, operator_fn), part)
+    dev = part.device
+    coords = _as_tensor(part.local(coords, coords.shape[0]), dev)
     measurement = _as_tensor(measurement, dev)
     track_gt = gt_field is not None and track == "gt"
     gt_arr = _as_tensor(gt_field, dev) if track_gt else None
     field_shape = tuple(field_shape)
-    npoints = coords.shape[0]
-    mp = min(cfg.maxpoints, npoints)
-    n_render = -(-npoints // mp) if render_chunked else 1
+    n = coords.shape[0]  # this rank's rows
+    mp = min(cfg.maxpoints, n)
+    n_render = -(-n // mp) if render_chunked else 1
     if n_render > 1:
         chunks = torch.nn.functional.pad(
-            coords, (0, 0, 0, n_render * mp - npoints)).split(mp)
+            coords, (0, 0, 0, n_render * mp - n)).split(mp)
 
     def render(p):
         if n_render == 1:
-            return model.apply(p, coords).reshape(field_shape)
-        rows = [torch.utils.checkpoint.checkpoint(
-            lambda c: model.apply(p, c), c, use_reentrant=False,
-            preserve_rng_state=False) for c in chunks]
-        return torch.cat(rows)[:npoints].reshape(field_shape)
+            rows = model.apply(p, coords)
+        else:
+            rows = torch.cat([torch.utils.checkpoint.checkpoint(
+                lambda c: model.apply(p, c), c, use_reentrant=False,
+                preserve_rng_state=False) for c in chunks])[:n]
+        return part.splice(rows).reshape(field_shape)
 
     params = _on_device(params, dev)
     opt = Adam(cfg, params, nchunks=1)
@@ -876,7 +1091,7 @@ def fit_operator(model, params, coords, measurement, operator_fn,
             est = operator_fn(field)
             loss = torch.mean((est - measurement) ** 2)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-        opt.step(params, grads_tree(paths, leaves, flat))
+        opt.step(params, part.sum_tree(grads_tree(paths, leaves, flat)))
         field = field.detach()
         loss = loss.detach()
         tracked = torch.mean((field - gt_arr) ** 2) if track_gt else loss
