@@ -28,8 +28,11 @@ kernel); then the multi-frame SR app (wire_tpu_torch.apps.multi_sr: a
 fit_frames on (4, 36,864, 2) frame grids; kernel: wire_mlp's pair; five
 more families through their pairs) and the fit state (three fits
 stopped after their second checkpoint and resumed, the chunked render);
-last the coordinate-parallel fits of wire_tpu_torch.dist (a world of one
-over NCCL, and two ranks sharing the card over Gloo).
+then the coordinate-parallel fits of wire_tpu_torch.dist (a world of one
+over NCCL, and two ranks sharing the card over Gloo); last the
+total-variation fits (the denoise app on a PNG input with a TV preset,
+B-spline with TV, a chunked TV fit; kernels: wire_mlp's and real_mlp's
+pairs) and sinogram_op.
 Phases, each printing one JSON line with its wall time:
   device           card name and count, nvidia-smi's name and power limit;
                    TF32 off for matmuls and cuDNN
@@ -211,6 +214,22 @@ Phases, each printing one JSON line with its wall time:
                    ranks' histories equal, each rank's launches counted;
                    the flat all-reduce of
                    WIRE-300's gradients timed alone
+  fit_tv           total-variation fits through the apply/VJP pairs (no
+                   step kernel takes the TV term): (a) the denoise app on
+                   a TV preset (WIRE-300, 300 epochs, full batch, lambda_tv
+                   TV_LAMBDA) reading the procedural image as a PNG the
+                   port wrote, one wire_mlp forward and backward an epoch
+                   and no wire_step, best PSNR at or above wire_tpu's CPU
+                   fit less 0.2 dB (tools/port_tv_floor.py) and within
+                   0.05 dB of the plain fit, its Output_img.png read back
+                   equal to the best reconstruction in 8 bits; (b)
+                   B-spline denoise with TV for 50 epochs through the
+                   real_mlp pair alone; (c) WIRE-300 with TV in two chunks
+                   of 32,768 for 20 epochs, per chunk the chunk's forward,
+                   the full render's forward and their two backwards; (d)
+                   sinogram_op at the CT protocol's shape bit-equal to
+                   radon, one line_sample gather ('auto') or rotsum
+                   forward ('rotate') a call
 Then the nvidia-smi line, a ``kernels`` JSON line, and last, on success only,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit);
 without a CUDA device it exits non-zero before any phase.  It imports
@@ -330,6 +349,36 @@ FAMILIES_ITERS = 300
 AUTODIFF_ITERS = 20
 # iterations of each family's fit in the sweep phase
 SWEEP_ITERS = 20
+
+# The fit_tv phase: the denoise app on a preset registered for it
+# (TV_CONFIG: TV_BASE_CONFIG's WIRE-300 at TV_ITERS epochs with tvl on and
+# lambda_tv = TV_LAMBDA), its input the procedural 512^2 natural image
+# written as a PNG by the port (write_tv_png).  TV_LAMBDA is the best of
+# wire_tpu's CPU fits of tools/port_tv_floor.py at lambda_tv 0, 1e-7,
+# 1e-6 and 1e-5 (best PSNR 27.9844, 28.6257, 30.0665 and 24.1036 dB);
+# WIRE_TPU_300_TV_DB is that tool's best PSNR at it (fused="never",
+# float32, the port's seed-0 init moved across with
+# wire_tpu_torch.bridge); the kernel fit must reach it less 0.2 dB and
+# agree with the plain fit within PSNR_AGREE_DB.
+TV_BASE_CONFIG = "WIRE_s8_o7_LR5e3_E2000"
+TV_CONFIG = "WIRE_s8_o7_TV_E300"
+TV_LAMBDA = 1e-6
+TV_ITERS = 300
+WIRE_TPU_300_TV_DB = 30.06650733947754
+# (b) the B-spline denoise preset with TV, (c) WIRE-300 in two chunks
+TV_REAL_ITERS = 50
+TV_CHUNK_POINTS = 32768
+TV_CHUNK_ITERS = 20
+
+
+def write_tv_png(np, path):
+    """The fit_tv phase's input: the 512^2 procedural natural image (the
+    denoise app's stand-in) as an 8-bit RGBA PNG, written by the port
+    (signals/image.py:imsave, as plt.imsave writes it); returns ``path``."""
+    from wire_tpu_torch.signals import image as I
+    I.imsave(path, I.natural_image(512, 512, 3, seed=0))
+    return path
+
 
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W power limit.
 H100_FP32_TFLOPS = 67.0
@@ -6131,6 +6180,197 @@ def fit_sharded(torch, np, device):
     return {"a_world_of_one": a, "b_two_ranks": b}
 
 
+def tv_check_fit(np, res, rows, what):
+    if not (np.isfinite(res.best_rec).all() and np.isfinite(res.mse_gt).all()
+            and res.best_rec.shape == (rows, 3)):
+        raise AssertionError(f"{what}: non-finite values or a wrong shape")
+
+
+def tv_agree(what, psnr, psnr_plain):
+    if not abs(psnr - psnr_plain) <= PSNR_AGREE_DB:
+        raise AssertionError(f"{what}: kernel fit {psnr:.3f} dB vs plain fit "
+                             f"{psnr_plain:.3f} dB differ by more than "
+                             f"{PSNR_AGREE_DB} dB")
+
+
+def tv_counts(counters, WS):
+    """The kernels' counts with wire_step's beside them."""
+    out = read_counts(counters)
+    out["wire_step"] = {"step": WS.wire_step.launches}
+    return out
+
+
+def tv_reset(counters, WS):
+    reset_counts(counters)
+    WS.wire_step.launches = 0
+
+
+def fit_tv(torch, np, mods, counters, device, step_fit_ms):
+    """Total-variation fits, each by autograd of the family's apply/VJP
+    kernel pair (no step kernel takes the TV term):
+    (a) the denoise app on TV_CONFIG (WIRE-300, 300 epochs, full batch of
+    65,536 coordinates, lambda_tv TV_LAMBDA) with the procedural image
+    written as a PNG by the port and read back through --image: one
+    wire_mlp forward and backward an epoch and nothing else; best PSNR at
+    or above wire_tpu's CPU fit less 0.2 dB and within PSNR_AGREE_DB of
+    the plain fit (fused="never") from one init; Output_img.png read back
+    by the port equal to the best reconstruction quantized to 8 bits;
+    (b) B-spline denoise (REAL_DENOISE_CONFIG's shape) with TV for
+    TV_REAL_ITERS epochs: one real_mlp forward and backward an epoch, no
+    real_step; (c) WIRE-300 with TV in two chunks of TV_CHUNK_POINTS for
+    TV_CHUNK_ITERS epochs: per chunk the chunk's forward, the full
+    render's forward and their two backwards (four wire_mlp launches of
+    each direction an epoch); (d) sinogram_op at the CT protocol's shape
+    (256^2, 100 angles) bit-equal to radon, 'auto' (fourier: one
+    line_sample gather) and 'rotate' (one rotsum forward).  Counts are
+    reset just before each fit and read just after."""
+    (TD, TC, TI, TF, TR, TCT, M, WS, get_inr, get_config, presets,
+     FitConfig, fit_pointwise) = mods
+    import tempfile
+    out = {}
+    presets.ENTRIES[TV_CONFIG] = dict(presets.ENTRIES[TV_BASE_CONFIG],
+                                      niters=TV_ITERS, tvl=True,
+                                      lambda_tv=TV_LAMBDA)
+    cfg = get_config(TV_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = write_tv_png(np, os.path.join(tmp, "tv.png"))
+        # (a) the denoise app
+        tv_reset(counters, WS)
+        app = TD.run(TV_CONFIG, image=png, results_dir=os.path.join(
+            tmp, "results"), device=device)
+        launches = tv_counts(counters, WS)
+        check_real_launches(launches, "TV denoise app", {
+            ("wire_mlp", "forward"): TV_ITERS,
+            ("wire_mlp", "backward"): TV_ITERS})
+        res = app["result"]
+        im, im_noisy = TD.denoise_images(cfg, png)
+        H, W, _ = im.shape
+        model = TC.build_model(cfg, in_features=2, out_features=3,
+                               omega0=cfg.omega0, sidelength=H)
+        plain = get_inr(cfg.nonlin, fused="never", **{
+            f: getattr(model.spec, f) for f in REAL_SPEC_FIELDS})
+        params = model.init(torch.Generator().manual_seed(0), device)
+        fit_cfg = FitConfig(learning_rate=cfg.learning_rate,
+                            niters=cfg.niters, maxpoints=cfg.maxpoints,
+                            scale_lr_by_batch=True, seed=0)
+        grid = TD.C.grid2d(H, W)
+        tv = dict(tv_weight=cfg.lambda_tv, image_shape=(H, W, 3))
+        res_plain = fit_pointwise(plain, params, grid,
+                                  im_noisy.reshape(-1, 3), fit_cfg,
+                                  gt=im.reshape(-1, 3), device=device, **tv)
+        if tv_counts(counters, WS) != launches:
+            raise AssertionError("TV denoise: the plain fit launched a "
+                                 "kernel")
+        for r in (res, res_plain):
+            tv_check_fit(np, r, H * W, "TV denoise")
+        psnr = app["psnr"]
+        psnr_plain = M.psnr_ref(im, res_plain.best_rec.reshape(H, W, 3))
+        tv_agree("TV denoise", psnr, psnr_plain)
+        floor = WIRE_TPU_300_TV_DB - 0.2
+        if not psnr >= floor:
+            raise AssertionError(f"TV denoise: kernel fit best PSNR "
+                                 f"{psnr:.3f} dB below the floor {floor} dB")
+        rec = res.best_rec.reshape(H, W, 3)
+        back = TI.imread(os.path.join(app["path"], "Output_img.png"),
+                         normalize_full=False)
+        want = (np.clip(np.abs(rec), 0, 1) * 255).astype(np.uint8) / \
+            np.float32(255)
+        if not np.array_equal(back, want):
+            raise AssertionError("TV denoise: Output_img.png read back is "
+                                 "not the best reconstruction in 8 bits")
+        out["app"] = dict(
+            config=TV_CONFIG, base=TV_BASE_CONFIG, lambda_tv=TV_LAMBDA,
+            epochs=TV_ITERS, launches=launches, psnr_db=psnr,
+            psnr_plain_db=psnr_plain, floor_db=floor,
+            ms_per_step=res.step_ms, plain_ms_per_step=res_plain.step_ms,
+            step_kernel_fit_ms_per_step=step_fit_ms,
+            output_img=sorted(os.listdir(app["path"])))
+
+        # (c) the same problem in two chunks
+        chunk_cfg = FitConfig(learning_rate=cfg.learning_rate,
+                              niters=TV_CHUNK_ITERS,
+                              maxpoints=TV_CHUNK_POINTS,
+                              scale_lr_by_batch=True, seed=0)
+        nchunks = H * W // TV_CHUNK_POINTS
+        tv_reset(counters, WS)
+        res_c = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
+                              chunk_cfg, gt=im.reshape(-1, 3),
+                              device=device, **tv)
+        launches_c = tv_counts(counters, WS)
+        per = 2 * nchunks * TV_CHUNK_ITERS
+        check_real_launches(launches_c, "TV chunked", {
+            ("wire_mlp", "forward"): per, ("wire_mlp", "backward"): per})
+        res_cp = fit_pointwise(plain, params, grid, im_noisy.reshape(-1, 3),
+                               chunk_cfg, gt=im.reshape(-1, 3),
+                               device=device, **tv)
+        for r in (res_c, res_cp):
+            tv_check_fit(np, r, H * W, "TV chunked")
+        psnr_c, psnr_cp = (M.psnr_ref(im, r.best_rec.reshape(H, W, 3))
+                           for r in (res_c, res_cp))
+        tv_agree("TV chunked", psnr_c, psnr_cp)
+        out["chunked"] = dict(
+            epochs=TV_CHUNK_ITERS, chunks=nchunks, chunk_rows=TV_CHUNK_POINTS,
+            launches=launches_c,
+            launches_stated=("per chunk: the chunk's forward, the full "
+                             "render's forward, and the backward of each"),
+            psnr_db=psnr_c, psnr_plain_db=psnr_cp,
+            history_rel=float(np.max(np.abs(res_c.mse_gt / res_cp.mse_gt
+                                            - 1))),
+            ms_per_epoch=res_c.step_ms, plain_ms_per_epoch=res_cp.step_ms)
+
+    # (b) B-spline denoise with TV through the real_mlp pair
+    cfg_b = get_config(REAL_DENOISE_CONFIG)
+    im_b, noisy_b = TD.denoise_images(cfg_b)
+    Hb, Wb, _ = im_b.shape
+    model_b, plain_b = real_models(get_inr, TC, cfg_b, 7.0, Hb)
+    params_b = model_b.init(torch.Generator().manual_seed(0), device)
+    cfg_bfit = FitConfig(learning_rate=cfg_b.learning_rate,
+                         niters=TV_REAL_ITERS, maxpoints=cfg_b.maxpoints,
+                         scale_lr_by_batch=True)
+    tv_b = dict(tv_weight=TV_LAMBDA, image_shape=(Hb, Wb, 3))
+    tv_reset(counters, WS)
+    res_b = fit_pointwise(model_b, params_b, TD.C.grid2d(Hb, Wb),
+                          noisy_b.reshape(-1, 3), cfg_bfit,
+                          gt=im_b.reshape(-1, 3), device=device, **tv_b)
+    launches_b = tv_counts(counters, WS)
+    check_real_launches(launches_b, "TV B-spline", {
+        ("real_mlp", "forward"): TV_REAL_ITERS,
+        ("real_mlp", "backward"): TV_REAL_ITERS})
+    res_bp = fit_pointwise(plain_b, params_b, TD.C.grid2d(Hb, Wb),
+                           noisy_b.reshape(-1, 3), cfg_bfit,
+                           gt=im_b.reshape(-1, 3), device=device, **tv_b)
+    for r in (res_b, res_bp):
+        tv_check_fit(np, r, Hb * Wb, "TV B-spline")
+    psnr_b, psnr_bp = (M.psnr_ref(im_b, r.best_rec.reshape(Hb, Wb, 3))
+                       for r in (res_b, res_bp))
+    tv_agree("TV B-spline", psnr_b, psnr_bp)
+    out["bspline"] = dict(config=REAL_DENOISE_CONFIG, lambda_tv=TV_LAMBDA,
+                          epochs=TV_REAL_ITERS, launches=launches_b,
+                          psnr_db=psnr_b, psnr_plain_db=psnr_bp,
+                          ms_per_step=res_b.step_ms,
+                          plain_ms_per_step=res_bp.step_ms)
+
+    # (d) sinogram_op at the CT protocol's shape
+    img = torch.tensor(TCT.ct_image(None, 0), device=device)
+    thetas = np.linspace(0, 180, 100, dtype=np.float32)
+    sino = {}
+    for method, (name, key) in (("auto", ("line_sample", "gather")),
+                                ("rotate", ("rotsum", "forward"))):
+        want = TR.radon(img, thetas, method=method)
+        tv_reset(counters, WS)
+        got = TF.sinogram_op(img, thetas, method=method)
+        torch.cuda.synchronize()
+        counts = tv_counts(counters, WS)
+        check_real_launches(counts, f"sinogram_op {method}",
+                            {(name, key): 1})
+        if not torch.equal(got, want):
+            raise AssertionError(f"sinogram_op {method} is not radon's")
+        sino[method] = dict(shape=list(got.shape), launches=counts,
+                            bit_equal_to_radon=True)
+    out["sinogram_op"] = sino
+    return out
+
+
 def cuda_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -6523,6 +6763,16 @@ def main():
     emit("fit_sharded", t0, **sharded, nvidia_smi=smi)
     world_one = sharded["a_world_of_one"]
 
+    # ---- fit_tv (total-variation fits through the apply/VJP pairs, the
+    # denoise app on a PNG, sinogram_op) ------------------------------------
+    t0 = time.time()
+    from wire_tpu_torch.signals import image as TI
+    from wire_tpu_torch.train import presets as TP
+    tvf = fit_tv(torch, np, (TD, TC, TI, TF, TR, TCT, M, WS, get_inr,
+                             get_config, TP, FitConfig, fit_pointwise),
+                 counters, dev, res.step_ms)
+    emit("fit_tv", t0, **tvf, nvidia_smi=smi)
+
     def many_counts(lib, key):
         """{fit_key: launches} of ``lib``'s ``key`` in fit_many_real's and
         fit_many_rest's batched fits and seeds runs, where nonzero."""
@@ -6543,7 +6793,9 @@ def main():
     # real_mlp in the B-spline SISR fit, mscale2_step in the mscale_2
     # denoise fit, mfn_step in the MFN denoise fit, mfn_mlp in the MFN SISR
     # fit, wire2d_step in the WIRE-2D denoise fit, wire2d_mlp in the
-    # WIRE-2D CT fit; a pair counts both directions
+    # WIRE-2D CT fit; wire_mlp and real_mlp also in fit_tv's TV fits,
+    # line_sample and rotsum in its sinogram_op calls; a pair counts both
+    # directions
     path_launches = {
         "wire_step": {"step": launches,
                       "occupancy_step": occ["launches"]["step"],
@@ -6580,6 +6832,9 @@ def main():
                      **{f"sharded_{fit}_{k}": v
                         for fit in ("ct_auto", "multi_sr")
                         for k, v in world_one[fit]["launches"][
+                            "wire_mlp"].items()},
+                     **{f"tv_{fit}_{k}": v for fit in ("app", "chunked")
+                        for k, v in tvf[fit]["launches"][
                             "wire_mlp"].items()}},
         "line_sample": {**ct["auto"]["launches"]["line_sample"],
                         **{f"many_ct_auto_{k}": v for k, v in many[
@@ -6591,13 +6846,18 @@ def main():
                             "sweep_seeds"]["ct"]["launches"][
                                 "line_sample"].items()},
                         **{f"sharded_ct_auto_{k}": v for k, v in world_one[
-                            "ct_auto"]["launches"]["line_sample"].items()}},
+                            "ct_auto"]["launches"]["line_sample"].items()},
+                        **{f"sinogram_op_{k}": v for k, v in tvf[
+                            "sinogram_op"]["auto"]["launches"][
+                                "line_sample"].items()}},
         "rotsum": {**ct["rotate"]["launches"]["rotsum"],
                    **{f"many_ct_rotate_{k}": v for k, v in many[
                        "ct_rotate"]["launches"]["rotsum"].items()},
                    **{f"render_chunked_{k}": v for k, v in resume[
                        "render_chunked"]["chunked"]["launches"][
-                           "rotsum"].items()}},
+                           "rotsum"].items()},
+                   **{f"sinogram_op_{k}": v for k, v in tvf["sinogram_op"][
+                       "rotate"]["launches"]["rotsum"].items()}},
         "real_step": {"step": real["launches"]["step"],
                       **{f"{k}_step": fam[k]["launches"]
                          for k in STEP_FAMILIES},
@@ -6610,7 +6870,9 @@ def main():
                          if MULTISR_PAIR[nl] == "real_mlp")
                         for k in ("forward", "backward")},
                      **many_counts("real_mlp", "forward"),
-                     **many_counts("real_mlp", "backward")},
+                     **many_counts("real_mlp", "backward"),
+                     **{f"tv_bspline_{k}": tvf["bspline"]["launches"][
+                         "real_mlp"][k] for k in ("forward", "backward")}},
         "mscale2_step": {"step": mscale["launches"]["step"],
                          **many_counts("mscale2_step", "step")},
         "mfn_step": {"step": mfn["launches"]["step"],

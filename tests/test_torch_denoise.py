@@ -1,6 +1,7 @@
 """The port's denoise app (wire_tpu_torch/apps/denoise.py) on the CPU with
-a tiny WIRE preset: it fits, and writes info.mat, metrics.mat and
-metrics_table.md."""
+a tiny WIRE preset: it fits, and writes info.mat, metrics.mat,
+metrics_table.md and Output_img.png; an input that is neither a .npy array
+nor a PNG is refused."""
 import os
 
 import numpy as np
@@ -33,7 +34,8 @@ def test_denoise_app_writes_artifacts(tiny_wire_preset, tmp_path):
     assert res.mse_gt.shape == (40,) and res.best_mse <= res.mse_gt[0]
     p = out["path"]
     assert p.startswith(str(tmp_path / "res" / "denoise" / "T30.0_SNR2"))
-    for f in ("info.mat", "metrics.mat", "metrics_table.md"):
+    for f in ("info.mat", "metrics.mat", "metrics_table.md",
+              "Output_img.png"):
         assert os.path.exists(os.path.join(p, f)), f
     folder = os.path.basename(p)
     info = io.loadmat(os.path.join(p, "info.mat"))[folder][0, 0]
@@ -45,7 +47,12 @@ def test_denoise_app_writes_artifacts(tiny_wire_preset, tmp_path):
 
 
 def test_denoise_cli_rejects_non_npy_image(tiny_wire_preset, tmp_path):
+    """A file that is neither a .npy array nor a PNG (here a JPEG header
+    under a .png name) is refused, naming what the port reads."""
     from wire_tpu_torch.apps import denoise
-    with pytest.raises(ValueError, match=".npy"):
-        denoise.main(["--config_name", tiny_wire_preset, "--image",
-                      str(tmp_path / "x.png"), "--device", "cpu"])
+    bad = str(tmp_path / "x.png")
+    with open(bad, "wb") as f:
+        f.write(b"\xff\xd8\xff\xe0\x00\x10JFIF")
+    with pytest.raises(ValueError, match="PNG images and .npy arrays"):
+        denoise.main(["--config_name", tiny_wire_preset, "--image", bad,
+                      "--device", "cpu"])

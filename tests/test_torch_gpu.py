@@ -2141,3 +2141,43 @@ def test_world_of_one_is_the_unsharded_fit(cuda, fit):
     finally:
         if made:
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("nonlin,maxpoints", [
+    ("wire", 4096), ("wire", 2048), ("bspline_form", 4096)],
+    ids=["wire_full_batch", "wire_two_chunks", "bspline_full_batch"])
+def test_tv_fit_launches_the_apply_pair(cuda, nonlin, maxpoints):
+    """A TV fit (fit_pointwise(tv_weight=...)) steps by autograd of the
+    family's apply/VJP kernel pair and launches no step kernel: per full
+    batch epoch one forward and one backward; per chunk the chunk's forward,
+    the full render's forward and their two backwards.  Its histories lie
+    within 1e-3 relative of the plain fit's (fused="never") from one
+    init."""
+    from wire_tpu_torch.ops import real_mlp as RM
+    from wire_tpu_torch.ops import wire_mlp as WM
+    from wire_tpu_torch.signals import coords as C
+    from wire_tpu_torch.train import trainer as T
+    H = W = 64
+    kw = dict(in_features=2, out_features=3, hidden_features=64,
+              hidden_layers=2, first_omega0=7.0, hidden_omega0=7.0,
+              scale=8.0 if nonlin == "wire" else 1 / 3)
+    model = get_inr(nonlin, **kw)
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    rng = np.random.default_rng(0)
+    t = rng.uniform(0, 1, (H * W, 3)).astype(np.float32)
+    cfg = T.FitConfig(learning_rate=1e-3, niters=5, maxpoints=maxpoints)
+    pair = WM.launches if nonlin == "wire" else RM.launches
+    before = dict(pair), WS.wire_step.launches, RM.launches["step"]
+    res = T.fit_pointwise(model, params, C.grid2d(H, W), t, cfg,
+                          tv_weight=1e-4, image_shape=(H, W, 3),
+                          device=cuda)
+    per_epoch = 1 if maxpoints == H * W else 2 * (H * W // maxpoints)
+    assert {k: pair[k] - before[0][k] for k in ("forward", "backward")} == {
+        "forward": 5 * per_epoch, "backward": 5 * per_epoch}
+    assert WS.wire_step.launches == before[1]
+    assert RM.launches["step"] == before[2]
+    plain = T.fit_pointwise(get_inr(nonlin, fused="never", **kw), params,
+                            C.grid2d(H, W), t, cfg, tv_weight=1e-4,
+                            image_shape=(H, W, 3), device=cuda)
+    assert np.isfinite(res.best_rec).all()
+    np.testing.assert_allclose(res.mse_gt, plain.mse_gt, rtol=1e-3)

@@ -1,8 +1,9 @@
 """The port stands alone: every module of wire_tpu_torch and chip_smoke.py
 imports with jax, optax, wire_tpu, pandas, matplotlib and cv2 blocked (the
 B-spline, multiscale, MFN and WIRE-2D slices' modules, the sweep app, the
-occupancy slice's, the multi-frame SR slice's and the sharded fitters'
-(wire_tpu_torch.dist) modules among them), and
+occupancy slice's, the multi-frame SR slice's, the sharded fitters'
+(wire_tpu_torch.dist) and the image-file and analysis slice's (the PNG
+codec, the colour maps, wire_tpu_torch.analysis) modules among them), and
 chip_smoke.py refuses to run without a CUDA device."""
 import os
 import subprocess
@@ -50,7 +51,17 @@ SLICE_MODULES = ("wire_tpu_torch.ops.real_mlp", "wire_tpu_torch.apps.sisr",
                  "wire_tpu_torch.dist", "wire_tpu_torch.dist.mesh",
                  "wire_tpu_torch.dist.multihost",
                  "wire_tpu_torch.dist.fitter",
-                 "wire_tpu_torch.dist.scaling")
+                 "wire_tpu_torch.dist.scaling",
+                 "wire_tpu_torch.signals.png",
+                 "wire_tpu_torch.signals.colormaps",
+                 "wire_tpu_torch.signals.noise",
+                 "wire_tpu_torch.nn.layers",
+                 "wire_tpu_torch.operators.video_cs",
+                 "wire_tpu_torch.ops.resample",
+                 "wire_tpu_torch.apps.denoise",
+                 "wire_tpu_torch.analysis",
+                 "wire_tpu_torch.analysis.aggregate",
+                 "wire_tpu_torch.analysis.inspect")
 
 
 def test_every_module_imports_without_jax_or_wire_tpu():

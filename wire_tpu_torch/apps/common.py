@@ -1,5 +1,5 @@
 """Shared plumbing for the task drivers (port of wire_tpu/apps/common.py):
-input loading (a .npy file or the procedural stand-in), model construction
+input loading (a PNG file, a .npy array or the procedural stand-in), model construction
 from a preset, artifact writing, and ``--mesh``: a sharded fit over a
 process group (``wire_tpu_torch.dist``)."""
 from __future__ import annotations
@@ -19,8 +19,9 @@ def base_parser(description):
     p.add_argument("--config_name", type=str, required=True,
                    help="preset name from wire_tpu_torch.train.presets")
     p.add_argument("--image", type=str, default=None,
-                   help="input image as a .npy array (default: procedural "
-                        "test image)")
+                   help="input image: a PNG file (read as wire_tpu reads "
+                        "it: min-max normalized, alpha dropped) or a .npy "
+                        "array (default: procedural test image)")
     p.add_argument("--results_dir", type=str, default="results")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reference_compat", action="store_true",
@@ -69,13 +70,13 @@ def writes_artifacts(mesh):
 
 def load_image(path, size=512, channels=3, seed=0):
     """An (H, W, 3) image, or (H, W) when ``channels == 1`` (the green
-    channel of a colour file): the .npy array at ``path``, or the
-    procedural natural-statistics stand-in (wire_tpu/apps/common.py:42-51)."""
+    channel of a colour file): the file at ``path``, a .npy array as it is
+    or a PNG through ``signals/image.py:imread`` (min-max normalized, as
+    wire_tpu reads it), or the procedural natural-statistics stand-in
+    (wire_tpu/apps/common.py:42-51)."""
     if path:
-        if not path.endswith(".npy"):
-            raise ValueError(f"image {path!r}: only .npy arrays are read "
-                             f"(no image library in the port)")
-        im = np.load(path).astype(np.float32)
+        im = np.load(path) if path.endswith(".npy") else I.imread(path)
+        im = im.astype(np.float32)
         if channels == 1 and im.ndim == 3:
             im = im[..., 1]
         return im
@@ -119,8 +120,11 @@ def build_model(cfg, *, in_features, out_features, omega0, hidden_layers=2,
 
 def write_run_artifacts(results_dir, task_dir, run_name, mdict_entry,
                         metrics_entry):
-    """info.mat / metrics.mat / metrics_table.md under
-    results_dir/task_dir/<unique run folder>."""
+    """info.mat / metrics.mat / metrics_table.md, and Output_img.png when
+    the entry has a reconstruction ``rec``, under
+    results_dir/task_dir/<unique run folder>
+    (wire_tpu/apps/common.py:84-99).  A sharded run calls it on rank 0
+    alone (``writes_artifacts``)."""
     parent = os.path.join(results_dir, task_dir)
     os.makedirs(parent, exist_ok=True)
     folder = A.make_unique(run_name, parent)
@@ -129,4 +133,6 @@ def write_run_artifacts(results_dir, task_dir, run_name, mdict_entry,
     A.save_mat(os.path.join(path, "info.mat"), {folder: mdict_entry})
     A.save_mat(os.path.join(path, "metrics.mat"), {folder: metrics_entry})
     A.tabulate_results(os.path.join(path, "metrics.mat"), path)
+    if "rec" in mdict_entry:
+        A.display_image(os.path.join(path, "info.mat"))
     return path

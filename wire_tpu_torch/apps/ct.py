@@ -102,7 +102,7 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
 
     fit_cfg = FitConfig(learning_rate=cfg.learning_rate,
                         niters=cfg.niters,
-                        maxpoints=cfg.maxpoints)
+                        maxpoints=cfg.maxpoints, seed=seed)
     op = RadonOp(thetas, method=radon_method,
                  reference_compat=reference_compat)
     res = fit_operator(model, params, coords, sinogram, op, fit_cfg,

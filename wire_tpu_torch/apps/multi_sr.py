@@ -178,8 +178,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nonlin", default="wire")
     p.add_argument("--image", default=None,
-                   help="HR image as a .npy array (default: the synthetic "
-                        "192^2 image)")
+                   help="HR image: a PNG file or a .npy array (default: "
+                        "the synthetic 192^2 image)")
     p.add_argument("--results_dir", default="results")
     p.add_argument("--scale_sr", type=int, default=4)
     p.add_argument("--niters", type=int, default=2000)

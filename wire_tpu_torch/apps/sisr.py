@@ -62,7 +62,7 @@ def run(config_name, *, image=None, results_dir="results", seed=0,
     params = model.init(torch.Generator().manual_seed(seed), dev)
 
     fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=cfg.niters,
-                        maxpoints=cfg.maxpoints, lr_decay=0.2)
+                        maxpoints=cfg.maxpoints, lr_decay=0.2, seed=seed)
     res = fit_operator(model, params, coords, im_lr, DownsampleOp(scale),
                        fit_cfg, gt_field=im, field_shape=(H, W, 3),
                        track="gt", device=dev, mesh=mesh)

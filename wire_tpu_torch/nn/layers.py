@@ -13,6 +13,16 @@ def linear(p, x):
     return y
 
 
+def complex_linear_from_real(p, x):
+    """Real input -> complex output: (x@Wr + br, x@Wi + bi)."""
+    yr = x @ p["wr"]
+    yi = x @ p["wi"]
+    if "br" in p:
+        yr = yr + p["br"]
+        yi = yi + p["bi"]
+    return yr, yi
+
+
 def complex_linear(p, xr, xi):
     """Complex input -> complex output: (x@W) with W = Wr + i Wi."""
     yr = xr @ p["wr"] - xi @ p["wi"]

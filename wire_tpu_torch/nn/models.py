@@ -111,11 +111,14 @@ def grads_tree(paths, leaves, grads):
 
 
 def autodiff_step(apply_fn, params, coords, target, spec, *, nvalid=None,
-                  denom=None, gt=None, want_metrics=False):
+                  denom=None, gt=None, want_metrics=False, penalty=None):
     """(pred, dparams[, (sse_target, sse_gt)]) of
     ``loss = sum_{rows < nvalid} (pred - target)^2 / denom`` by autodiff of
-    ``apply_fn`` (wire_tpu/nn/models.py:151-173).  Parameters that the
-    output does not use (WIRE's final ``bi``) get zero gradients."""
+    ``apply_fn`` (wire_tpu/nn/models.py:151-173), plus ``penalty(p,
+    pred)`` where given: a term of the parameter tree being differentiated
+    and of this step's prediction (the trainer's total variation).
+    Parameters that the output does not use (WIRE's final ``bi``) get zero
+    gradients."""
     n, c = target.shape
     dn = float(n * c) if denom is None else denom
     paths, leaves, p = grad_leaves(params)
@@ -129,6 +132,8 @@ def autodiff_step(apply_fn, params, coords, target, spec, *, nvalid=None,
         if mask is not None:
             err = err * mask
         loss = torch.sum(err * err) / dn
+        if penalty is not None:
+            loss = loss + penalty(p, pred)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     dparams = grads_tree(paths, leaves, grads)
     pred = pred.detach()
@@ -238,15 +243,22 @@ class INR:
         return self._apply(params, coords, self.spec)
 
     def step_grads(self, params, coords, target, *, nvalid=None, denom=None,
-                   gt=None, want_metrics=False, scratch=None):
+                   gt=None, want_metrics=False, scratch=None, penalty=None):
         """(pred, dparams) of ``loss = sum_{rows<nvalid}(pred-t)^2 / denom``,
         plus the masked squared-error sums ``(sse_target, sse_gt)`` when
         ``want_metrics`` (gt defaults to target).  Families with a step
         kernel (WIRE, WIRE-2D, the MFN, the canonical real families) run it
         unless ``spec.fused == 'never'``; the rest use autodiff of
-        ``apply``.
+        ``apply``.  A ``penalty(p, pred)`` (``autodiff_step``) is added to
+        the loss by autodiff of ``apply`` for every family: no step kernel
+        takes an extra term, so the step is the family's apply/VJP pair on
+        the card (wire_tpu/train/trainer.py:995-998).
         Invalid rows must be a tail; nvalid defaults to n and denom to
         n*c."""
+        if penalty is not None:
+            return autodiff_step(self._apply, params, coords, target,
+                                 self.spec, nvalid=nvalid, denom=denom, gt=gt,
+                                 want_metrics=want_metrics, penalty=penalty)
         if self._step is not None and self.spec.fused != "never":
             return self._step(params, coords, target, self.spec,
                               nvalid=nvalid, denom=denom, gt=gt,

@@ -2,18 +2,27 @@
 measurement domain (port of wire_tpu/operators/forward.py:20-59):
 
 - identity     denoise / representation
+- sinogram_op  CT: a field -> its Radon sinogram (``operators/radon.py``)
 - sisr_op      SISR: HR render -> AvgPool2d(scale)
 - multi_sr_op  multi-frame SR: a batch of renders -> AvgPool2d(scale)
 
-The CT sinogram operator is ``operators/radon.py:RadonOp``.
+The CT apps' operator is ``operators/radon.py:RadonOp``.
 """
 from __future__ import annotations
 
+from wire_tpu_torch.operators.radon import radon
 from wire_tpu_torch.ops.resample import avg_pool2d
 
 
 def identity(field, *_args):
     return field
+
+
+def sinogram_op(field_hw, angles, **radon_kw):
+    """field (H, W) -> (nangles, W): ``radon`` (method 'auto' unless
+    ``radon_kw`` names one), so on the card the ``line_sample`` pair
+    (fourier) or the ``rotsum`` pair (rotate)."""
+    return radon(field_hw, angles, **radon_kw)
 
 
 def sisr_op(field_hwc, scale):

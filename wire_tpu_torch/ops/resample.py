@@ -68,6 +68,13 @@ def rotate(img, angle_degrees):
     return bilinear_sample(img, sx, sy)
 
 
+def rotate_stack(img, angles_degrees):
+    """``rotate`` at each angle: (H, W[, C]) -> (nangles, H, W[, C])
+    (wire_tpu/ops/resample.py:68)."""
+    return torch.stack([rotate(img, a) for a in angles_tensor(
+        angles_degrees, img.device)])
+
+
 def grid_sample(img, grid, align_corners=True):
     """``torch.nn.functional.grid_sample`` of one image, written out as
     wire_tpu's: img (H, W[, C]), grid (..., 2) normalized (x, y) in

@@ -1,6 +1,7 @@
-"""Coordinate grids in [-1, 1] (port of wire_tpu/signals/coords.py:19-131):
-the 2-D and 3-D grids, rows of the 3-D grid by flat index, and the
-implicit grid ``GridSpec`` whose rows are computed on the device."""
+"""Coordinate grids in [-1, 1] (port of wire_tpu/signals/coords.py:19-138):
+the 2-D and 3-D grids, rows of the 3-D grid by flat index, the implicit
+grid ``GridSpec`` whose rows are computed on the device, and ``jgrid2d``,
+the 2-D grid made on a device."""
 from __future__ import annotations
 
 import dataclasses
@@ -101,3 +102,13 @@ class GridSpec:
     def materialize(self):
         """The full host array (= get_coords(H, W, T))."""
         return get_coords(self.H, self.W, self.T)
+
+
+def jgrid2d(H, W, device="cpu", dtype=torch.float32):
+    """The (H*W, 2) grid of ``grid2d`` made on ``device`` by torch
+    (wire_tpu/signals/coords.py:133): torch.linspace rounds an interior
+    value to within an ulp or two of numpy's."""
+    x = torch.linspace(-1, 1, W, dtype=dtype, device=device)
+    y = torch.linspace(-1, 1, H, dtype=dtype, device=device)
+    Y, X = torch.meshgrid(y, x, indexing="ij")
+    return torch.stack([X.reshape(-1), Y.reshape(-1)], dim=-1)

@@ -1,9 +1,9 @@
 """Run artifacts (port of wire_tpu/train/artifacts.py): timestamped
 logging, unique run folders, .mat export, the markdown metrics table,
-written by hand (no pandas/tabulate), and .npz parameter files.  The
-reconstruction PNG is not written yet (no image library on the GPU
-machine), nor is the orbax checkpoint pair, which wraps a JAX library
-(ROADMAP section A, item 8)."""
+written by hand (no pandas/tabulate), the reconstruction's
+``Output_img.png`` through the port's PNG writer (no matplotlib), and
+.npz parameter files.  The orbax checkpoint pair is not ported: it wraps
+a JAX library."""
 from __future__ import annotations
 
 import os
@@ -51,22 +51,50 @@ def _cell(v):
     return str(x)
 
 
+def markdown_table(rows, keys):
+    """A markdown table of ``rows`` ({label: {key: value}}): one row per
+    label, one column per key, floats to 3 decimals, lists as lists (the
+    layout of pandas' ``to_markdown(floatfmt=".3f")``)."""
+    lines = ["| | " + " | ".join(keys) + " |",
+             "|:--|" + "--:|" * len(keys)]
+    for label, row in rows.items():
+        lines.append(f"| {label} | "
+                     + " | ".join(_cell(row.get(k, [])) for k in keys)
+                     + " |")
+    return "\n".join(lines) + "\n"
+
+
 def tabulate_results(mat_file, path):
     """metrics.mat -> metrics_table.md: one row per run, one column per
-    metric, floats to 3 decimals (the layout of the JAX package's
-    pandas ``to_markdown`` table)."""
+    metric (``markdown_table``)."""
     from scipy import io
     mat = io.loadmat(mat_file)
     names = [k for k in mat if not k.startswith("__")]
     keys = list(mat[names[0]][0, 0].dtype.names)
-    lines = ["| | " + " | ".join(keys) + " |",
-             "|:--|" + "--:|" * len(keys)]
-    for n in names:
-        values = mat[n][0, 0]
-        lines.append(f"| {n} | "
-                     + " | ".join(_cell(values[k]) for k in keys) + " |")
+    rows = {n: {k: mat[n][0, 0][k] for k in keys} for n in names}
     with open(os.path.join(path, "metrics_table.md"), "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write(markdown_table(rows, keys))
+
+
+def display_image(info_mat_path):
+    """Save the reconstruction ``rec`` stored in info.mat as
+    Output_img.png beside it (wire_tpu/train/artifacts.py:67): |rec|
+    clipped to [0, 1], an RGB image as it is and a 2-D one through the
+    gray colour map, with vmin 0 and vmax 1, the pixels ``plt.imsave``
+    writes (``signals/image.py:imsave``)."""
+    from scipy import io
+    from wire_tpu_torch.signals.image import imsave
+    mat = io.loadmat(info_mat_path)
+    for key in mat:
+        if key.startswith("__"):
+            continue
+        img = mat[key][0, 0]["rec"]
+        out = os.path.join(os.path.dirname(info_mat_path), "Output_img.png")
+        arr = np.clip(np.abs(img), 0, 1)
+        if arr.ndim == 2:
+            imsave(out, arr, vmin=0.0, vmax=1.0, cmap="gray")
+        else:
+            imsave(out, arr, vmin=0.0, vmax=1.0)
 
 
 def _key(path):

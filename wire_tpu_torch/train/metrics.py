@@ -1,14 +1,17 @@
 """Quality metrics (port of wire_tpu/train/metrics.py), on the host.
 
 PSNR reproduces the reference's nonstandard formula ``10*log10(max(x)/MSE)``
-(psnr_ref); ``mse_db`` is -10 log10(MSE).  SSIM follows skimage's
+(psnr_ref); ``psnr_standard`` is the textbook one, ``mse_db`` -10
+log10(MSE) and ``rsnr`` 20 log10(||x|| / ||x - xhat||).  SSIM follows skimage's
 structural_similarity defaults (7x7 uniform window, K1=0.01, K2=0.03,
 unbiased covariance, win//2 border crop, channel mean), computed in float64
 because E[x^2]-mu^2 cancels in float32 on smooth images.  MS-SSIM follows
 pytorch_msssim's defaults (11-tap Gaussian, sigma 1.5, valid filtering, 5
 scales with the standard weights, 2x2 average pooling between them).
-IoU (``iou``) takes tensors on their device, so a fit's per-epoch metric
-costs no host sync, or numpy arrays.
+``ssim_gaussian`` is its single-scale SSIM.  IoU (``iou``) takes tensors
+on their device, so a fit's per-epoch metric costs no host sync, or numpy
+arrays; ``total_variation`` takes a tensor (differentiable, the trainer's
+TV term) or a numpy array.
 """
 from __future__ import annotations
 
@@ -22,6 +25,20 @@ def psnr_ref(x, xhat):
     xhat = np.asarray(xhat)
     mse = np.mean((x - xhat) ** 2)
     return float(10.0 * np.log10(np.max(x) / mse))
+
+
+def psnr_standard(x, xhat, data_range=1.0):
+    """20 log10(data_range) - 10 log10(MSE)."""
+    mse = np.mean((np.asarray(x) - np.asarray(xhat)) ** 2)
+    return float(20.0 * np.log10(data_range) - 10.0 * np.log10(mse))
+
+
+def rsnr(x, xhat):
+    """20 log10(||x|| / ||x - xhat||) over every entry."""
+    x = np.asarray(x)
+    xn = np.linalg.norm(x.reshape(-1))
+    en = np.linalg.norm((x - np.asarray(xhat)).reshape(-1))
+    return float(20.0 * np.log10(xn / en))
 
 
 def mse_db(mse):
@@ -122,6 +139,15 @@ def _pool2(x):
     return x.reshape(C, (H + 1) // 2, 2, (W + 1) // 2, 2).sum((2, 4)) / 4.0
 
 
+def ssim_gaussian(x, y, data_range=1.0, win_size=11, sigma=1.5):
+    """Gaussian-window SSIM of (H, W) or (H, W, C) images, pytorch_msssim's
+    ``ssim(..., size_average=True)`` (wire_tpu/train/metrics.py:174), in
+    float64."""
+    k = _gaussian_kernel1d(win_size, sigma)
+    s, _ = _ssim_gauss(_to_chw(x), _to_chw(y), data_range, k)
+    return float(s)
+
+
 def ms_ssim(x, y, data_range=1.0, win_size=11, sigma=1.5,
             weights=_MSSSIM_WEIGHTS):
     """Multi-scale SSIM of (H, W) or (H, W, C) images (pytorch_msssim
@@ -154,3 +180,22 @@ def iou(preds, gt, thres=None):
     g = gt != 0
     return float(np.float32(np.count_nonzero(p & g))
                  / np.float32(np.count_nonzero(p | g)))
+
+
+def total_variation(image_nchw):
+    """Anisotropic TV of an (N, C, H, W) image: sum |dx| + sum |dy| over
+    its two last axes (wire_tpu/train/metrics.py:233); a tensor gives a
+    0-d tensor (differentiable), a numpy array a numpy scalar.  A tensor's
+    |d| is where(d >= 0, d, -d), whose gradient at d = 0 (equal
+    neighbours) is 1 as JAX's abs has it, where torch's abs gives 0."""
+    dx = image_nchw[:, :, 1:, :] - image_nchw[:, :, :-1, :]
+    dy = image_nchw[:, :, :, 1:] - image_nchw[:, :, :, :-1]
+    if isinstance(image_nchw, torch.Tensor):
+        return sum(torch.where(d >= 0, d, -d).sum() for d in (dx, dy))
+    return np.sum(np.abs(dx)) + np.sum(np.abs(dy))
+
+
+def count_parameters(params):
+    """The number of entries over the leaves of a parameter tree."""
+    from wire_tpu_torch import tree
+    return sum(int(np.prod(tuple(v.shape))) for _, v in tree.leaves(params))

@@ -70,6 +70,7 @@ from wire_tpu_torch.nn.models import grad_leaves, grads_tree
 from wire_tpu_torch.operators.forward import multi_sr_op
 from wire_tpu_torch.ops.wire_step import StepScratch
 from wire_tpu_torch.signals.coords import GridSpec
+from wire_tpu_torch.train.metrics import total_variation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -665,8 +666,46 @@ def _chunked_epoch(step, opt, params, rec, rows_of, perm, *, U, mp, npad,
     return sse_t, sse_g
 
 
+def _tv_weight(tv_weight, image_shape, cfg, mesh):
+    """fit_pointwise's TV weight as a float after its refusals: with
+    ``block_perm`` (wire_tpu/train/trainer.py:377), without an
+    ``image_shape``, with a ``mesh``, or below 0."""
+    tv = float(tv_weight or 0.0)
+    if tv == 0.0:
+        return 0.0
+    if tv < 0.0:
+        raise ValueError(f"fit_pointwise: tv_weight {tv} < 0")
+    if image_shape is None:
+        raise ValueError("fit_pointwise: tv_weight needs image_shape=(H, W, "
+                         "C), the shape of the render it regularizes")
+    if cfg.block_perm and int(cfg.block_perm) > 1:
+        raise ValueError("block_perm is incompatible with tv_weight (TV "
+                         "renders the full grid)")
+    if mesh is not None:
+        raise ValueError("fit_pointwise: tv_weight with a mesh: the sharded "
+                         "fit has no TV term (wire_tpu's neither); fit on "
+                         "one device")
+    return tv
+
+
+def _tv_penalty(model, weight, image_shape, full_coords):
+    """``penalty(p, pred)`` for ``INR.step_grads``: ``weight`` x the total
+    variation of the render as an (1, C, H, W) image.  The render is
+    ``pred`` itself for a full batch (``full_coords`` None), else
+    ``model.apply(p, full_coords)``: the whole grid rendered beside the
+    chunk, every step."""
+    H, W, C = image_shape
+
+    def penalty(p, pred):
+        full = pred if full_coords is None else model.apply(p, full_coords)
+        return weight * total_variation(
+            full.reshape(1, H, W, C).permute(0, 3, 1, 2))
+    return penalty
+
+
 def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
-                  gt=None, track="gt", epoch_metric: Optional[Callable] = None,
+                  gt=None, track="gt", tv_weight=0.0, image_shape=None,
+                  epoch_metric: Optional[Callable] = None,
                   epoch_sums: Optional[Callable] = None,
                   permutation: Optional[Callable] = None,
                   checkpoint: Optional[CheckpointSpec] = None, device=None,
@@ -683,6 +722,15 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
     ``epoch_sums(rec, target)`` returns a tensor or a tuple of sums over
     the rows ``rec`` holds, summed over the mesh; their histories come
     back as ``time_array`` (float64, one array a sum).
+    ``tv_weight`` > 0 adds ``tv_weight`` x the anisotropic total variation
+    of the full render, reshaped to ``image_shape`` (H, W, C), to every
+    step's loss (wire_tpu/train/trainer.py:341-352, 975-991): the full
+    batch's prediction is that render; a chunked step renders the whole
+    grid beside its chunk.  Such a step is autodiff of ``model.apply``
+    (``INR.step_grads``' ``penalty``), the family's apply/VJP pair on the
+    card, not its step kernel.  TV is refused with ``block_perm``, as
+    wire_tpu refuses it, without ``image_shape``, and with a ``mesh``
+    (wire_tpu's sharded fitter has no TV).
     ``permutation(n)`` gives each chunked epoch's permutation of range(n)
     (n = npoints, or npoints / block_perm blocks); by default a fresh
     ``torch.randperm`` from a generator seeded with ``cfg.seed`` on the
@@ -722,13 +770,16 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
             "block_perm is not supported by the sharded fitter yet: use the "
             "single-device trainer, or unset block_perm (the per-rank "
             "permutation already keeps gathers local)")
+    tv = _tv_weight(tv_weight, image_shape, cfg, mesh)
     part = _part(mesh, device, "fit_pointwise")
     exact = bool(global_perm) and part.size > 1
     ckpt = _Checkpointer(checkpoint, cfg, None if checkpoint is None else
                          _fit_fingerprint(cfg, model, coords, target, gt,
                                           epoch_sums or epoch_metric,
                                           *(("global_perm",) if exact
-                                            else ())), part)
+                                            else ()),
+                                          *(("tv", tv, tuple(image_shape))
+                                            if tv else ())), part)
     dev = part.device
     grid = coords if isinstance(coords, GridSpec) else None
     npoints = target.shape[0]
@@ -763,8 +814,16 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         def permutation(n):
             return torch.randperm(n, generator=gen, device=dev)
 
+    if tv:
+        kw_tv = {"penalty": _tv_penalty(
+            model, tv, image_shape, None if full_batch else (
+                coords if grid is None
+                else grid.rows(torch.arange(n, device=dev))))}
+    else:
+        kw_tv = {}
+
     def step(*args, **kw):
-        pred, grads, sums = model.step_grads(*args, **kw)
+        pred, grads, sums = model.step_grads(*args, **kw, **kw_tv)
         return pred, part.sum_tree(grads, mean=not exact), sums
 
     params = _on_device(params, dev)
