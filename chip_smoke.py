@@ -21,6 +21,9 @@ through fit_pointwise (kernel: wire2d_step) and CT through fit_operator
 then the occupancy app (wire_tpu_torch.apps.occupancy: a 64^3 volume,
 WIRE 300 wide at d = 3 with 3 hidden layers, two 200,000-row chunks an
 epoch through fit_pointwise's permuted epochs; kernel: wire_step) and
+the volume probe (export_mesh_from_model through wire_mlp's forward,
+blockwise probing, refill) and the motion functions that wire_tpu runs
+through cv2 (prune_stack on the card, ECC and Farneback on the host);
 denoise fits of the registry's newest families (bspline_mscale_1, _1_new
 and _repIN through real_step; realgabor and bspline_sig by autodiff, no
 kernel); then the multi-frame SR app (wire_tpu_torch.apps.multi_sr: a
@@ -138,6 +141,19 @@ Phases, each printing one JSON line with its wall time:
                    mesh of the volume; then 20 epochs with block_perm 512
                    and per point; a profiled 10-epoch fit's device idle
                    share
+  volume_motion    (a) export_mesh_from_model of the occupancy app's WIRE
+                   at fit_occupancy's best parameters over 256^3 points in
+                   batches of 262,144: exactly 64 wire_mlp forwards and
+                   nothing else, within REL_TOL of the plain apply, a
+                   non-empty .dae; wall time, the kernel's device ms per
+                   million points and the idle share (profiled); (b)
+                   block_query_coords at 128^3, depth 2, through one
+                   forward and BlockPointCloud.unfold, within REL_TOL of
+                   the grid3d probe; (c) BlockPointCloud.refill with a CUDA
+                   generator; (d) prune_stack of the multi-SR burst on the
+                   card equal to the CPU call; (e) ecc_flow (euclidean,
+                   homography) and optical_flow on the host, held to cv2's
+                   results (tools/port_motion_reference.json), host ms
   fit_families     256^2 denoise for 300 epochs of bspline_mscale_1,
                    _1_new and _repIN at MscaleHL_s1_ST2_SHF256's shape,
                    each through real_step (once an epoch) and the plain
@@ -336,6 +352,37 @@ OCC_AGREE_EPOCH = 100
 OCC_MSE_AGREE = 0.02
 OCC_BLOCK_EPOCHS = 20
 OCC_BLOCK_MARGIN_DB = 0.1
+# volume_motion: export_mesh_from_model over a VM_CUBE_RES^3 grid in
+# batches of VM_BATCH points (64 forwards), meshed at VM_MESH_LEVEL of the
+# best 64^3 reconstruction's max (the app's 0.5 lies above a fit whose best
+# IoU is 0; half the max meshes the fit's noise, 6.6 million faces),
+# blockwise probing at
+# VM_BLOCK_RES^3 in 2^VM_BLOCK_DEPTH cells an axis, refill of a ragged
+# cloud at depth VM_REFILL_DEPTH; ECC and Farneback on MOTION_SIDE^2
+# frames of motion_scene moved by MOTION_EUCLIDEAN (angle, tx, ty) and
+# MOTION_HOMOGRAPHY, held to cv2's results on the same frames
+# (tools/port_motion_reference.py wrote MOTION_REFERENCE) within the CPU
+# tests' tolerances (tests/test_torch_motion_cv2.py): ECC_LINEAR_TOL on
+# the warp's linear part and perspective row, ECC_SHIFT_TOL_PX on its
+# translation, Farneback's endpoint error FLOW_MEAN_EPE_PX mean and
+# FLOW_MAX_EPE_PX max over the reference's lattice
+VM_CUBE_RES = 256
+VM_BATCH = 262144
+VM_MESH_LEVEL = 0.9
+VM_BLOCK_RES = 128
+VM_BLOCK_DEPTH = 2
+VM_REFILL_DEPTH = 3
+VM_REFILL_POINTS = 20000
+MOTION_SIDE = 96
+MOTION_ECC_ITERS = 200
+MOTION_EUCLIDEAN = (0.02, 2.5, -1.5)
+MOTION_HOMOGRAPHY = ((1.01, 0.015, 2.0), (-0.012, 0.995, -1.2),
+                     (5e-5, -3e-5, 1.0))
+MOTION_REFERENCE = os.path.join("tools", "port_motion_reference.json")
+ECC_LINEAR_TOL = 1e-4
+ECC_SHIFT_TOL_PX = 1e-3
+FLOW_MEAN_EPE_PX = 0.01
+FLOW_MAX_EPE_PX = 0.1
 # Best PSNR of the 300-epoch denoise fits of the multiscale step families
 # at FAMILIES_PRESET's shape from wire_tpu on the CPU (fused="never",
 # float32, this script's seed-0 init moved across), as printed by
@@ -3660,6 +3707,311 @@ def fit_occupancy(torch, np, mods, counters, device):
         epoch_metric=O.iou_metric(0.5), device=device), 10)
     out.update(profiled_busy_ms_per_epoch=busy,
                profiled_wall_ms_per_epoch=wall, device_idle_share=idle)
+    return out, app
+
+
+def motion_scene(np, side, warp):
+    """(frame1, frame2), float32 side x side: a smooth scene f (two
+    sinusoids and a Gaussian blob) on the pixel grid, and f moved by
+    ``warp`` (2 x 3 or 3 x 3), frame2(q) = f(warp^-1 q), so that the warp
+    that aligns frame2 to frame1 (frame2(W p) = frame1(p)) is ``warp``
+    itself and the flow from frame1 to frame2 is W p - p."""
+    def f(x, y):
+        return (0.5 + 0.2 * np.sin(0.21 * x + 0.1 * y)
+                + 0.15 * np.cos(0.13 * y - 0.05 * x)
+                + 0.3 * np.exp(-((x - 0.45 * side) ** 2
+                                 + (y - 0.55 * side) ** 2)
+                               / (2 * (0.12 * side) ** 2)))
+    Y, X = np.mgrid[:side, :side].astype(np.float64)
+    A = np.asarray(warp, np.float64)
+    if A.shape[0] == 2:
+        A = np.vstack([A, [0.0, 0.0, 1.0]])
+    Ai = np.linalg.inv(A)
+    d = Ai[2, 0] * X + Ai[2, 1] * Y + Ai[2, 2]
+    xs = (Ai[0, 0] * X + Ai[0, 1] * Y + Ai[0, 2]) / d
+    ys = (Ai[1, 0] * X + Ai[1, 1] * Y + Ai[1, 2]) / d
+    return f(X, Y).astype(np.float32), f(xs, ys).astype(np.float32)
+
+
+def motion_warps(np):
+    """{"euclidean": (2, 3), "homography": (3, 3)} of the smoke's motion
+    pairs."""
+    a, tx, ty = MOTION_EUCLIDEAN
+    return {"euclidean": np.array([[np.cos(a), -np.sin(a), tx],
+                                   [np.sin(a), np.cos(a), ty]]),
+            "homography": np.array(MOTION_HOMOGRAPHY)}
+
+
+def warp_displacement(np, warp, side):
+    """Per pixel (side^2, 2) the displacement W p - p of ``warp``."""
+    Y, X = np.mgrid[:side, :side]
+    P = np.stack([X.ravel(), Y.ravel(), np.ones(side * side)])
+    W = np.asarray(warp, np.float64)
+    if W.shape[0] == 2:
+        W = np.vstack([W, [0.0, 0.0, 1.0]])
+    q = W @ P
+    return (q[:2] / q[2] - P[:2]).T
+
+
+def flow_lattice(side, step=8):
+    """The pixels (rows, cols) where the Farneback flow is recorded."""
+    return slice(step // 2, side, step), slice(step // 2, side, step)
+
+
+def motion_checks(np, Mo, reference):
+    """ecc_flow (euclidean and homography, MOTION_ECC_ITERS iterations) and
+    optical_flow on the smoke's motion pairs, on the host: the warps held
+    to cv2's in ``reference`` within ECC_LINEAR_TOL (linear part and
+    perspective row) and ECC_SHIFT_TOL_PX (translation), each warp's
+    largest displacement error from the true motion at most cv2's plus
+    ECC_SHIFT_TOL_PX; the flow held to cv2's on the reference's lattice
+    (mean endpoint error FLOW_MEAN_EPE_PX, max FLOW_MAX_EPE_PX), the
+    remapped frame finite.  Returns the distances and host ms."""
+    out = {}
+    warps = motion_warps(np)
+    for motion, warp in warps.items():
+        im1, im2 = motion_scene(np, MOTION_SIDE, warp)
+        t0 = time.time()
+        got, aligned, flow = Mo.ecc_flow(im1, im2, motion,
+                                         niters=MOTION_ECC_ITERS)
+        host_ms = (time.time() - t0) * 1e3
+        want = np.asarray(reference["ecc"][motion], np.float64)
+        lin = [(0, 0), (0, 1), (1, 0), (1, 1)] + (
+            [(2, 0), (2, 1)] if motion == "homography" else [])
+        lin_err = max(abs(float(got[i]) - want[i]) for i in lin)
+        shift_err = max(abs(float(got[r, 2]) - want[r, 2]) for r in (0, 1))
+        true = warp_displacement(np, warp, MOTION_SIDE)
+        err_true = float(np.abs(warp_displacement(np, got, MOTION_SIDE)
+                                - true).max())
+        cv2_true = float(np.abs(warp_displacement(np, want, MOTION_SIDE)
+                                - true).max())
+        if not (lin_err <= ECC_LINEAR_TOL and shift_err <= ECC_SHIFT_TOL_PX
+                and err_true <= cv2_true + ECC_SHIFT_TOL_PX
+                and np.isfinite(aligned).all() and np.isfinite(flow).all()):
+            raise AssertionError(
+                f"ecc_flow {motion}: linear {lin_err:.3e} (tol "
+                f"{ECC_LINEAR_TOL}), translation {shift_err:.3e} px (tol "
+                f"{ECC_SHIFT_TOL_PX}) from cv2's warp; from the true motion "
+                f"{err_true:.4f} px against cv2's {cv2_true:.4f}")
+        out[f"ecc_{motion}"] = dict(
+            linear_err=lin_err, translation_err_px=shift_err,
+            true_motion_err_px=err_true, cv2_true_motion_err_px=cv2_true,
+            host_ms=host_ms, iters=MOTION_ECC_ITERS)
+    im1, im2 = motion_scene(np, MOTION_SIDE, warps["euclidean"])
+    t0 = time.time()
+    flow, warped = Mo.optical_flow(im1, im2)
+    host_ms = (time.time() - t0) * 1e3
+    rows, cols = flow_lattice(MOTION_SIDE)
+    want = np.asarray(reference["farneback_lattice"], np.float32)
+    epe = np.sqrt(((flow[rows, cols] - want) ** 2).sum(-1))
+    true = warp_displacement(np, warps["euclidean"], MOTION_SIDE).reshape(
+        MOTION_SIDE, MOTION_SIDE, 2)
+    if not (float(epe.mean()) <= FLOW_MEAN_EPE_PX
+            and float(epe.max()) <= FLOW_MAX_EPE_PX
+            and np.isfinite(warped).all()):
+        raise AssertionError(
+            f"optical_flow: endpoint error from cv2's flow mean "
+            f"{float(epe.mean()):.3e} / max {float(epe.max()):.3e} px, past "
+            f"{FLOW_MEAN_EPE_PX} / {FLOW_MAX_EPE_PX}")
+    out["optical_flow"] = dict(
+        epe_mean_px=float(epe.mean()), epe_max_px=float(epe.max()),
+        true_motion_epe_mean_px=float(np.sqrt(
+            ((flow - true) ** 2).sum(-1)).mean()), host_ms=host_ms)
+    return out
+
+
+def volume_motion(torch, np, mods, counters, occ_app, device):
+    """The volume leftovers and the motion functions.  (a)
+    ``export_mesh_from_model`` of the occupancy app's WIRE at
+    fit_occupancy's best parameters over VM_CUBE_RES^3 points in batches
+    of VM_BATCH, without the sigmoid, meshed at VM_MESH_LEVEL of the best
+    reconstruction's max (smoothing off): launch counts reset just before
+    and read just after, exactly VM_CUBE_RES^3 / VM_BATCH wire_mlp
+    forwards and no other launch of the port; the outputs within REL_TOL x
+    max of the plain apply (fused='never') on the same points; the .dae
+    written and its mesh non-empty; wall time, and from a profiled run of
+    the probe alone (no meshing) the kernel's device ms (in all and per
+    million points) beside its 3xTF32 and fp32 bounds (the forward's
+    operations; the points' and outputs' bytes), and the device idle
+    share.  (b)
+    ``block_query_coords`` at VM_BLOCK_RES, depth VM_BLOCK_DEPTH, applied
+    through the kernel (one forward) and reassembled by
+    ``BlockPointCloud.unfold``, within REL_TOL x max of the grid3d probe at
+    VM_BLOCK_RES.  (c) ``refill`` on the card with a CUDA generator: the
+    sdf-1 rows bit-unchanged, the redrawn rows inside their cells (to a
+    float32 ulp of the limits), two calls from one generator state
+    bit-equal.  (d) ``prune_stack`` of the multi-SR app's grey burst at its
+    inverted known motion on the card, mask and kept frames equal to the
+    CPU call's, imdiff within 1e-6.  (e) ``motion_checks`` (host)."""
+    import tempfile
+    O, MSR, V, Mo, WS = mods
+    res = occ_app["result"]
+    _, _, _, model, _ = O.setup()
+    _, _, _, plain, _ = O.setup(fused="never")
+    params = res.best_params
+    thres = VM_MESH_LEVEL * float(np.max(res.best_rec))
+    out = {"mesh_level": thres}
+    n_fwd = VM_CUBE_RES ** 3 // VM_BATCH
+
+    def counted(run, want, what):
+        reset_counts(counters)
+        ws0 = WS.wire_step.launches
+        got = run()
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        check_real_launches(launches, what, {("wire_mlp", "forward"): want})
+        return got, launches["wire_mlp"]["forward"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "probe.dae")
+        t0 = time.time()
+        cube, fwd = counted(lambda: V.export_mesh_from_model(
+            model, params, VM_CUBE_RES, VM_BATCH, path, thres=thres,
+            sigmoid=False, device=device), n_fwd, "export_mesh_from_model")
+        wall_s = time.time() - t0
+        from wire_tpu_torch import native
+        verts, faces = native.marching_cubes(cube, thres)
+        if not (os.path.isfile(path) and len(faces) > 0):
+            raise AssertionError("export_mesh_from_model: no .dae or an "
+                                 "empty mesh")
+        dae_bytes = os.path.getsize(path)
+        flat = cube.reshape(-1)
+        err, scale = 0.0, 0.0
+        with torch.no_grad():
+            for b in range(0, flat.size, VM_BATCH):
+                want = plain.apply(params, V._grid3d_rows(
+                    b, b + VM_BATCH, VM_CUBE_RES, device)).reshape(-1)
+                got = torch.as_tensor(flat[b:b + VM_BATCH], device=device)
+                err = max(err, float((got - want).abs().max()))
+                scale = max(scale, float(want.abs().max()))
+        if not (np.isfinite(cube).all() and err <= REL_TOL * scale):
+            raise AssertionError(
+                f"export_mesh_from_model: outputs {err:.3e} from the plain "
+                f"apply, past {REL_TOL} x {scale:.4f}")
+        out.update(probe=dict(
+            cube_res=VM_CUBE_RES, batch=VM_BATCH, wire_mlp_forward=fwd,
+            max_abs_err=err, plain_max=scale, wall_s=wall_s,
+            mesh_vertices=len(verts), mesh_faces=len(faces),
+            dae_bytes=dae_bytes))
+        # the probe alone (no meshing) under the profiler
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        names = kernel_names("wire_mlp")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            V._probe_cube(model, params, VM_CUBE_RES, VM_BATCH, False,
+                          device)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.time() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in events) / 1e3
+        kern = sum(e.device_time_total for e in events
+                   if any(n in e.key for n in names)) / 1e3
+        mpts = VM_CUBE_RES ** 3 / 1e6
+        spec = model.spec
+        h2 = 2 * params["first"]["w"].shape[-1]
+        flops = VM_CUBE_RES ** 3 * 2 * (
+            spec.in_features * h2 // 2 + spec.hidden_layers * h2 * h2
+            + h2 * spec.out_features)
+        nbytes = VM_CUBE_RES ** 3 * 4 * (spec.in_features
+                                         + spec.out_features)
+        out["probe"].update(
+            kernel_ms=kern if kern else "not measured",
+            bound_ms=bound_3xtf32(flops, nbytes)[0],
+            bound_fp32_ms=bound(flops, nbytes)[0], gflop=flops / 1e9,
+            kernel_ms_per_mpoint=kern / mpts if kern else "not measured",
+            device_busy_ms=busy if busy else "not measured",
+            profiled_probe_wall_ms=prof_wall_ms,
+            device_idle_share=(1.0 - busy / prof_wall_ms) if busy
+            else "not measured")
+
+        # (b) blockwise probing against the grid3d probe at VM_BLOCK_RES
+        grid_cube, fwd_grid = counted(lambda: V.export_mesh_from_model(
+            model, params, VM_BLOCK_RES, VM_BATCH,
+            os.path.join(tmp, "small.dae"), thres=thres, sigmoid=False,
+            device=device), -(-VM_BLOCK_RES ** 3 // VM_BATCH),
+            "export_mesh_from_model small")
+    chunks, ds = V.block_query_coords((-1, -1, -1), (1, 1, 1), VM_BLOCK_RES,
+                                      VM_BLOCK_DEPTH)
+
+    def blockwise():
+        with torch.no_grad():
+            vals = model.apply(params, torch.as_tensor(chunks, device=device))
+        return ds.unfold(vals[..., 0].cpu().numpy(), VM_BLOCK_RES)
+
+    block_cube, fwd_block = counted(blockwise, 1, "blockwise probe")
+    berr = float(np.abs(block_cube - grid_cube).max())
+    bscale = float(np.abs(grid_cube).max())
+    if not berr <= REL_TOL * bscale:
+        raise AssertionError(f"blockwise probe: {berr:.3e} from the grid3d "
+                             f"probe, past {REL_TOL} x {bscale:.4f}")
+    out["blockwise"] = dict(cube_res=VM_BLOCK_RES, depth=VM_BLOCK_DEPTH,
+                            cells=int(chunks.shape[0]),
+                            points_per_cell=int(chunks.shape[1]),
+                            max_abs_err=berr, wire_mlp_forward=fwd_block,
+                            grid_wire_mlp_forward=fwd_grid)
+
+    # (c) refill on the card
+    rs = np.random.RandomState(0)
+    cloud = np.concatenate([rs.randn(VM_REFILL_POINTS // 2, 3) * 0.3,
+                            rs.rand(VM_REFILL_POINTS // 2, 3)]).astype(
+                                np.float32)
+    bpc = V.BlockPointCloud(cloud, depth=VM_REFILL_DEPTH)
+    xyz, sdf = bpc.fill(rng=np.random.RandomState(1))
+    x = torch.as_tensor(xyz, device=device)
+    s = torch.as_tensor(sdf, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = gen.get_state()
+    r1 = bpc.refill(x, s, gen)
+    gen.set_state(state)
+    r2 = bpc.refill(x, s, gen)
+    torch.cuda.synchronize()
+    same_bits(torch, {"xyz": r1}, {"xyz": r2},
+              "refill twice from one generator state")
+    keep = s[..., 0] == 1
+    if not torch.equal(r1[keep], x[keep]):
+        raise AssertionError("refill moved a point of sdf 1")
+    lo = torch.as_tensor(bpc.minlim, device=device)[:, None, :]
+    hi = torch.as_tensor(bpc.maxlim, device=device)[:, None, :]
+    ulp_lo = torch.as_tensor(np.spacing(np.abs(bpc.minlim)),
+                             device=device)[:, None, :]
+    ulp_hi = torch.as_tensor(np.spacing(np.abs(bpc.maxlim)),
+                             device=device)[:, None, :]
+    inside = ((r1 >= lo - ulp_lo) & (r1 <= hi + ulp_hi)).all(-1)
+    if not bool(inside[~keep].all()):
+        raise AssertionError("refill drew a point outside its cell")
+    out["refill"] = dict(cells=int(xyz.shape[0]), slots=int(xyz.shape[1]),
+                         redrawn=int((~keep).sum()),
+                         strictly_inside=bool(((r1 >= lo) & (r1 <= hi))
+                                              .all(-1)[~keep].all()))
+
+    # (d) prune_stack on the card against the CPU
+    prob = MSR.setup()
+    gray = prob["imstack"].mean(-1).astype(np.float32)
+    regs = Mo.invert_regstack(prob["mats"]).astype(np.float32)
+    H, W = prob["im"].shape[:2]
+    on_card = Mo.prune_stack(gray, regs, (H, W), device=device)
+    on_cpu = Mo.prune_stack(gray, regs, (H, W), device="cpu")
+    perr = float(np.abs(on_card[3] - on_cpu[3]).max())
+    if not (all(np.array_equal(a, b) for a, b in zip(on_card[:3],
+                                                     on_cpu[:3]))
+            and perr <= 1e-6):
+        raise AssertionError(f"prune_stack on the card: mask or kept "
+                             f"frames differ from the CPU's, or imdiff "
+                             f"{perr:.3e} past 1e-6")
+    out["prune_stack"] = dict(frames=int(gray.shape[0]),
+                              kept=int(on_card[2].sum()),
+                              imdiff_err=perr)
+
+    # (e) ECC and Farneback on the host, without cv2
+    with open(os.path.join(ROOT, MOTION_REFERENCE)) as f:
+        reference = json.load(f)
+    out["motion"] = motion_checks(np, Mo, reference)
+    out["launches"] = {"forward": fwd + fwd_grid + fwd_block}
     return out
 
 
@@ -6692,8 +7044,16 @@ def main():
 
     # ---- fit_occupancy (the occupancy app: wire_step at d = 3, chunks) -----
     t0 = time.time()
-    occ = fit_occupancy(torch, np, (TO, WS, fit_pointwise), counters, dev)
+    occ, occ_app = fit_occupancy(torch, np, (TO, WS, fit_pointwise),
+                                 counters, dev)
     emit("fit_occupancy", t0, **occ)
+
+    # ---- volume_motion (the volume probe on the card, the motion slice) ---
+    t0 = time.time()
+    from wire_tpu_torch.signals import motion as TMo, volume as TV
+    vm = volume_motion(torch, np, (TO, TMS, TV, TMo, WS), counters, occ_app,
+                       dev)
+    emit("volume_motion", t0, **vm)
 
     # ---- fit_families (the registry's new families) -------------------------
     t0 = time.time()
@@ -6835,7 +7195,8 @@ def main():
                             "wire_mlp"].items()},
                      **{f"tv_{fit}_{k}": v for fit in ("app", "chunked")
                         for k, v in tvf[fit]["launches"][
-                            "wire_mlp"].items()}},
+                            "wire_mlp"].items()},
+                     "volume_motion_forward": vm["launches"]["forward"]},
         "line_sample": {**ct["auto"]["launches"]["line_sample"],
                         **{f"many_ct_auto_{k}": v for k, v in many[
                             "ct_auto"]["launches"]["line_sample"].items()},

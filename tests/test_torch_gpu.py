@@ -10,6 +10,8 @@ generator):
 
     python -m pytest tests/test_torch_gpu.py -m gpu -p no:randomly
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2181,3 +2183,67 @@ def test_tv_fit_launches_the_apply_pair(cuda, nonlin, maxpoints):
                             image_shape=(H, W, 3), device=cuda)
     assert np.isfinite(res.best_rec).all()
     np.testing.assert_allclose(res.mse_gt, plain.mse_gt, rtol=1e-3)
+
+
+def test_export_mesh_from_model_probes_through_the_forward_kernel(
+        cuda, tmp_path):
+    """export_mesh_from_model on the card: one wire_mlp forward a batch (a
+    ragged last one included), no backward and no step kernel, the
+    occupancies within REL x max of the plain apply (fused="never") on the
+    same points, and a mesh written."""
+    from wire_tpu_torch.ops import wire_mlp as WM
+    from wire_tpu_torch.signals import volume as V
+    kw = dict(in_features=3, out_features=1, hidden_features=64,
+              hidden_layers=3, first_omega0=20.0, hidden_omega0=20.0,
+              scale=10.0)
+    model = get_inr("wire", **kw)
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    before = dict(WM.launches), WS.wire_step.launches
+    cube = V.export_mesh_from_model(model, params, 40, 6000,
+                                    str(tmp_path / "m.dae"), thres=0.0,
+                                    sigmoid=False, device=cuda)
+    assert {k: WM.launches[k] - before[0][k] for k in WM.launches} == {
+        "forward": 11, "backward": 0}
+    assert WS.wire_step.launches == before[1]
+    plain = get_inr("wire", fused="never", **kw)
+    with torch.no_grad():
+        want = plain.apply(params, V._grid3d_rows(0, 40 ** 3, 40, cuda))
+    want = want.cpu().numpy().reshape(cube.shape)
+    assert float(np.abs(cube - want).max()) <= REL * float(
+        np.abs(want).max())
+    assert os.path.getsize(tmp_path / "m.dae") > 0
+
+
+def test_refill_and_prune_stack_on_the_card(cuda):
+    """BlockPointCloud.refill with a CUDA generator: rows of sdf 1
+    unchanged, the redrawn rows inside their cells, two calls from one
+    state equal; prune_stack on the card equal to the CPU call (mask and
+    kept frames; imdiff within 1e-6)."""
+    from wire_tpu_torch.signals import image as I
+    from wire_tpu_torch.signals import motion as Mo
+    from wire_tpu_torch.signals import volume as V
+    rs = np.random.RandomState(0)
+    bpc = V.BlockPointCloud((rs.randn(3000, 3) * 0.4).astype(np.float32),
+                            depth=3)
+    xyz, sdf = (torch.as_tensor(a, device=cuda)
+                for a in bpc.fill(np.random.RandomState(1)))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    state = gen.get_state()
+    a = bpc.refill(xyz, sdf, gen)
+    gen.set_state(state)
+    assert torch.equal(a, bpc.refill(xyz, sdf, gen))
+    keep = sdf[..., 0] == 1
+    assert torch.equal(a[keep], xyz[keep])
+    lo = torch.as_tensor(bpc.minlim, device=cuda)[:, None, :].expand_as(a)
+    hi = torch.as_tensor(bpc.maxlim, device=cuda)[:, None, :].expand_as(a)
+    assert bool(((a >= lo) & (a <= hi)).all(-1)[~keep].all())
+    im = I.synthetic_image(96, 96, 3, seed=0).mean(-1)
+    stack = np.stack([im[::2, ::2]] * 4).astype(np.float32)
+    stack[2] += 0.3
+    mats = np.stack([np.eye(2, 3)] * 4).astype(np.float32)
+    mats[1, 0, 2] = 0.5
+    got = Mo.prune_stack(stack, mats, (96, 96), thres=0.25, device=cuda)
+    want = Mo.prune_stack(stack, mats, (96, 96), thres=0.25, device="cpu")
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, w)
+    assert float(np.abs(got[3] - want[3]).max()) <= 1e-6

@@ -3,7 +3,8 @@ imports with jax, optax, wire_tpu, pandas, matplotlib and cv2 blocked (the
 B-spline, multiscale, MFN and WIRE-2D slices' modules, the sweep app, the
 occupancy slice's, the multi-frame SR slice's, the sharded fitters'
 (wire_tpu_torch.dist) and the image-file and analysis slice's (the PNG
-codec, the colour maps, wire_tpu_torch.analysis) modules among them), and
+codec, the colour maps, wire_tpu_torch.analysis) and the last slice's
+(signals/align.py, the cv2-free ECC and Farneback) modules among them), and
 chip_smoke.py refuses to run without a CUDA device."""
 import os
 import subprocess
@@ -61,7 +62,8 @@ SLICE_MODULES = ("wire_tpu_torch.ops.real_mlp", "wire_tpu_torch.apps.sisr",
                  "wire_tpu_torch.apps.denoise",
                  "wire_tpu_torch.analysis",
                  "wire_tpu_torch.analysis.aggregate",
-                 "wire_tpu_torch.analysis.inspect")
+                 "wire_tpu_torch.analysis.inspect",
+                 "wire_tpu_torch.signals.align")
 
 
 def test_every_module_imports_without_jax_or_wire_tpu():

@@ -208,19 +208,3 @@ def test_multi_sr_op_matches_wire_tpu():
     want = np.asarray(JF.multi_sr_op(jnp.asarray(x), 4))
     assert got.shape == (3, 2, 3, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
-
-
-@pytest.mark.parametrize("call", [
-    lambda: Mo.shifted_downsampled_burst(np.zeros((8, 8)), 2),
-    lambda: Mo.optical_flow(np.zeros((8, 8)), np.zeros((8, 8))),
-    lambda: Mo.ecc_flow(np.zeros((8, 8)), np.zeros((8, 8))),
-    lambda: Mo.flow2rgb(np.zeros((8, 8, 2))),
-    lambda: Mo.prune_stack(np.zeros((2, 8, 8, 3)), np.zeros((2, 2, 3)),
-                           (16, 16)),
-    lambda: Mo.make_burst(np.zeros((8, 8, 3)), nframes=2, scale=2),
-    lambda: Mo.mat2coords(np.zeros((1, 2, 3)), (8, 8), (4, 4)),
-], ids=["shifted_downsampled_burst", "optical_flow", "ecc_flow", "flow2rgb",
-        "prune_stack", "make_burst_scale", "mat2coords_low_res"])
-def test_cv2_only_functions_raise(call):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        call()

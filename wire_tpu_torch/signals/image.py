@@ -111,11 +111,70 @@ def _dsize(ssize, f):
     return int(np.rint(ssize * f))
 
 
-def _area_matrix(ssize, dsize, scale):
-    """(dsize, ssize) weights of cv2's INTER_AREA downscale along one axis
-    (computeResizeAreaTab): the overlap of [d s, (d + 1) s) with each source
-    pixel, over the cell's width inside the image."""
-    m = np.zeros((dsize, ssize))
+def _fma32(a, b, c):
+    """a b + c of float32 arrays rounded once to float32 (the product of
+    two float32 is exact in float64)."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _along(x, axis, idx):
+    return np.take(x, idx, axis=axis)
+
+
+def _bcast(t, x, axis):
+    """The per-index weights ``t`` shaped to broadcast along ``axis``."""
+    shape = [1] * x.ndim
+    shape[axis] = len(t)
+    return t.reshape(shape)
+
+
+def _clamped(ssize, sx, t):
+    """cv2's edge rule: a source index past the last pixel takes it with
+    weight 0, a negative one the first."""
+    t = np.where(sx < 0, 0, t)
+    sx = np.maximum(sx, 0)
+    t = np.where(sx >= ssize - 1, 0, t)
+    sx = np.minimum(sx, ssize - 1)
+    return sx, t.astype(np.float32)
+
+
+def _linear_axis(x, axis, dsize, inv_scale):
+    """One axis of cv2's INTER_LINEAR: at destination d the source
+    position (d + 0.5) / inv_scale - 0.5 in float64, its floor and the
+    float32 fraction t, and the lerp x0 + (x1 - x0) t fused into one
+    rounding."""
+    ssize = x.shape[axis]
+    f = (np.arange(dsize) + 0.5) * (1.0 / inv_scale) - 0.5
+    sx = np.floor(f).astype(np.int64)
+    sx, t = _clamped(ssize, sx, (f - sx).astype(np.float32))
+    x0 = _along(x, axis, sx)
+    x1 = _along(x, axis, np.minimum(sx + 1, ssize - 1))
+    return _fma32((x1 - x0).astype(np.float32), _bcast(t, x, axis), x0)
+
+
+def _area_up_axis(x, axis, dsize, inv_scale):
+    """One axis of cv2's INTER_AREA upscale: sx = floor(d scale), the
+    weight of sx + 1 the fractional part of (d + 1) - (sx + 1) / scale
+    where that is positive (so integer factors replicate pixels), and the
+    float32 blend x0 (1 - t) + x1 t."""
+    ssize = x.shape[axis]
+    d = np.arange(dsize)
+    sx = np.floor(d * (1.0 / inv_scale)).astype(np.int64)
+    t = ((d + 1) - (sx + 1) * inv_scale).astype(np.float32)
+    t = np.where(t <= 0, np.float32(0), t - np.floor(t)).astype(np.float32)
+    sx, t = _clamped(ssize, sx, t)
+    x0 = _along(x, axis, sx)
+    x1 = _along(x, axis, np.minimum(sx + 1, ssize - 1))
+    tb = _bcast(t, x, axis)
+    return (x0 * (np.float32(1) - tb) + x1 * tb).astype(np.float32)
+
+
+def _area_tab(ssize, dsize, scale):
+    """cv2's INTER_AREA downscale table along one axis
+    (computeResizeAreaTab): (destination, source, float32 weight), the
+    overlap of [d s, (d + 1) s) with each source pixel over the cell's
+    width inside the image."""
+    tab = []
     for dx in range(dsize):
         f1 = dx * scale
         f2 = f1 + scale
@@ -123,68 +182,95 @@ def _area_matrix(ssize, dsize, scale):
         s2 = min(math.floor(f2), ssize - 1)
         s1 = min(math.ceil(f1), s2)
         if s1 - f1 > 1e-3:
-            m[dx, s1 - 1] += (s1 - f1) / cell
+            tab.append((dx, s1 - 1, np.float32((s1 - f1) / cell)))
         for sx in range(s1, s2):
-            m[dx, sx] += 1.0 / cell
+            tab.append((dx, sx, np.float32(1.0 / cell)))
         if f2 - s2 > 1e-3:
-            m[dx, s2] += min(min(f2 - s2, 1.0), cell) / cell
-    return m
+            tab.append((dx, s2, np.float32(min(min(f2 - s2, 1.0), cell)
+                                           / cell)))
+    return tab
 
 
-def _linear_matrix(ssize, dsize, scale):
-    """(dsize, ssize) weights of cv2's INTER_LINEAR along one axis:
-    half-pixel centres, source index and weight in float32 as cv2 computes
-    them, edges clamped."""
-    m = np.zeros((dsize, ssize))
-    for dx in range(dsize):
-        f = np.float32((dx + 0.5) * scale - 0.5)
-        sx = int(np.floor(f))
-        f = float(f - np.float32(sx))
-        if sx < 0:
-            f, sx = 0.0, 0
-        if sx >= ssize - 1:
-            f, sx = 0.0, ssize - 1
-        m[dx, sx] += 1.0 - f
-        if f > 0:
-            m[dx, sx + 1] += f
-    return m
+def _area_general(im, Hd, Wd, sy, sx):
+    """cv2's INTER_AREA downscale at a fractional ratio, in its float32
+    order: each source row spread over the destination columns table
+    entry by table entry, then the rows summed into the destination rows
+    the same way."""
+    im = np.asarray(im, np.float32)
+    rows = np.zeros((im.shape[0], Wd) + im.shape[2:], np.float32)
+    for d, s, a in _area_tab(im.shape[1], Wd, sx):
+        rows[:, d] = rows[:, d] + im[:, s] * a
+    out = np.zeros((Hd, Wd) + im.shape[2:], np.float32)
+    for d, s, a in _area_tab(im.shape[0], Hd, sy):
+        out[d] = out[d] + a * rows[s]
+    return out
 
 
-def _separable(im, my, mx):
-    """my @ im @ mx^T over the first two axes, in float64."""
-    x = np.asarray(im, np.float64)
-    H, W = x.shape[:2]
-    rows = (my @ x.reshape(H, -1)).reshape(my.shape[0], W, -1)
-    out = np.matmul(mx, rows)
-    return out.reshape(my.shape[0], mx.shape[0],
-                       *x.shape[2:]).astype(np.float32)
-
-
-def resize_area(im, fx, fy=None):
-    """cv2.resize(im, None, fx=fx, fy=fy, interpolation=INTER_AREA) for a
-    downscale (fx, fy <= 1), at any ratio: the output is round(H fy) x
-    round(W fx)."""
-    fy = fx if fy is None else fy
-    if fx > 1 or fy > 1:
-        raise NotImplementedError("resize_area: INTER_AREA upscaling is not "
-                                  "ported (the apps only downscale)")
+def _area_fast(im, sy, sx):
+    """cv2's INTER_AREA downscale by integer factors that divide the image,
+    in its float32 order: a 2 x 2 cell of one or four channels as
+    (a + b) + (c + d), any other cell summed row by row, four taps at a
+    time, then scaled by 1 / (sx sy)."""
+    im = np.asarray(im, np.float32)
     H, W = im.shape[:2]
+    taps = [im[i::sy, j::sx][:H // sy, :W // sx]
+            for i in range(sy) for j in range(sx)]
+    channels = im.shape[2] if im.ndim == 3 else 1
+    if sy == sx == 2 and channels in (1, 4):
+        acc = (taps[0] + taps[1]) + (taps[2] + taps[3])
+    else:
+        acc = np.zeros_like(taps[0])
+        k = 0
+        while k + 4 <= len(taps):
+            acc = acc + (((taps[k] + taps[k + 1]) + taps[k + 2])
+                         + taps[k + 3])
+            k += 4
+        for tap in taps[k:]:
+            acc = acc + tap
+    return (acc * np.float32(1.0 / (sx * sy))).astype(np.float32)
+
+
+def _factors(im, fx, fy, dsize):
+    """cv2.resize's output size (H, W) and its inverse scales (fy, fx):
+    ``dsize`` = (W, H) sets the size and the scales are its ratios to the
+    input's; otherwise the scales set the size, rounded to the nearest."""
+    H, W = im.shape[:2]
+    if dsize is not None:
+        Wd, Hd = dsize
+        return (Hd, Wd), (Hd / H, Wd / W)
+    fy = fx if fy is None else fy
+    return (_dsize(H, fy), _dsize(W, fx)), (fy, fx)
+
+
+def resize_area(im, fx=None, fy=None, dsize=None):
+    """cv2.resize(im, dsize, fx=fx, fy=fy, interpolation=INTER_AREA) in
+    cv2's float32 arithmetic: the output is ``dsize`` = (W, H) when given,
+    else round(H fy) x round(W fx), and a copy where that is the input's
+    size.  A downscale on both axes averages over each destination cell;
+    any upscale takes INTER_AREA's upscale weights on both axes."""
+    (Hd, Wd), (fy, fx) = _factors(im, fx, fy, dsize)
+    H, W = im.shape[:2]
+    if (Hd, Wd) == (H, W):
+        return np.array(im, np.float32)   # cv2 copies a same-size resize
     sy, sx = 1.0 / fy, 1.0 / fx
+    if sy < 1 or sx < 1:
+        return _area_up_axis(_area_up_axis(np.asarray(im, np.float32), 1,
+                                           Wd, fx), 0, Hd, fy)
     if sy == int(sy) and sx == int(sx) and H % int(sy) == W % int(sx) == 0:
-        # whole cells: the box average, as wire_tpu's fallback computes it
-        sy, sx = int(sy), int(sx)
-        return im.reshape(H // sy, sy, W // sx, sx, *im.shape[2:]).mean(
-            (1, 3))
-    return _separable(im, _area_matrix(H, _dsize(H, fy), sy),
-                      _area_matrix(W, _dsize(W, fx), sx))
+        return _area_fast(im, int(sy), int(sx))
+    return _area_general(im, Hd, Wd, sy, sx)
 
 
-def resize_linear(im, fx, fy=None):
-    """cv2.resize(im, None, fx=fx, fy=fy, interpolation=INTER_LINEAR)."""
-    fy = fx if fy is None else fy
+def resize_linear(im, fx=None, fy=None, dsize=None):
+    """cv2.resize(im, dsize, fx=fx, fy=fy, interpolation=INTER_LINEAR),
+    sized as ``resize_area``, in cv2's float32 arithmetic: columns first,
+    then rows."""
+    (Hd, Wd), (fy, fx) = _factors(im, fx, fy, dsize)
     H, W = im.shape[:2]
-    return _separable(im, _linear_matrix(H, _dsize(H, fy), 1.0 / fy),
-                      _linear_matrix(W, _dsize(W, fx), 1.0 / fx))
+    if (Hd, Wd) == (H, W):
+        return np.array(im, np.float32)
+    cols = _linear_axis(np.asarray(im, np.float32), 1, Wd, fx)
+    return _linear_axis(cols, 0, Hd, fy)
 
 
 def build_montage(images):

@@ -1,29 +1,36 @@
 """Multi-frame super-resolution data: synthetic shifted/rotated bursts,
-Euclidean transforms, registration and frame datasets (port of
+Euclidean transforms, registration, flow and frame datasets (port of
 wire_tpu/signals/motion.py).
 
-The port has no cv2, so each function takes the branch wire_tpu takes
-without it:
+The port has no cv2.  Where wire_tpu calls it, the port has its own
+version of what cv2 computes: the resizes (``signals/image.py``:
+``resize_area`` and ``resize_linear``, INTER_AREA and INTER_LINEAR),
+the ECC alignment and Farnebäck flow (``signals/align.py``), and the
+HSV colouring of ``flow2rgb``.  Where wire_tpu has a branch without cv2,
+the port takes that branch:
 
 - ``make_burst``         random Euclidean warps of an HR image (numpy
                          bilinear remap, zero border) and the per-frame
-                         warped coordinate grids in [-1, 1]
+                         warped coordinate grids in [-1, 1], resized
+                         linearly at ``scale != 1``
 - ``downsample_burst``   per-frame box mean
+- ``shifted_downsampled_burst``  shift, then rotate about the centre;
+                         area-resized grids, bilinear frames
 - ``pyramid_register``   coarse-to-fine rigid registration: an FFT phase
                          correlation over trial rotations at the coarsest
                          level, then Gauss-Newton refinement
                          (``native.rigid_register``) at each level
 - ``register_burst``     every frame against frame 0, and the warped HR
                          coordinate grids of the inverted warps
+- ``optical_flow``, ``ecc_flow``, ``flow2rgb``  dense Farnebäck flow, ECC
+                         alignment of a pair, the HSV picture of a flow
+- ``prune_stack``        frames whose warped difference to frame 0 is
+                         large, dropped (the warp on the device)
 - ``FrameDataset``       per-frame (coords, pixels, mask) arrays
 
 plus the affine toolbox (``xy_mgrid``, ``invert_regstack``, ``mat2coords``,
 ``param2theta``, ``affine2rigid``, ``get_transformed_coords``) and the
-differentiable ``interp_lr`` on torch tensors.  What wire_tpu does only
-through cv2 (``shifted_downsampled_burst``, ``optical_flow``, ``ecc_flow``,
-``flow2rgb``, ``prune_stack``, and the resizes of ``make_burst`` at
-``scale != 1`` and of ``mat2coords`` at ``low_res != full_res``) raises
-NotImplementedError (ROADMAP section A, item 8).
+differentiable ``interp_lr`` on torch tensors.
 """
 from __future__ import annotations
 
@@ -31,11 +38,9 @@ import dataclasses
 
 import numpy as np
 
-
-def _needs_cv2(what):
-    return NotImplementedError(
-        f"motion.{what} needs cv2, which the port does not use; not ported "
-        f"yet (ROADMAP §A.8)")
+# the frames' bilinear sampler, zero outside: wire_tpu's numpy remap
+from wire_tpu_torch.signals.align import remap as _remap
+from wire_tpu_torch.signals.image import _fma32
 
 
 def euclidean_matrix(theta, shift):
@@ -47,12 +52,13 @@ def euclidean_matrix(theta, shift):
 def make_burst(im, shift_max=10, theta_max=np.pi / 12, nframes=5, rng=None,
                scale=1):
     """``nframes`` randomly shifted and rotated copies of ``im`` (H, W, 3)
-    and their warped coordinate grids: (imstack (n, H, W, 3), Xstack
-    (n, H, W), Ystack, mats (n, 2, 3)), X and Y normalized to [-1, 1];
-    frame 0 is the identity.  ``rng`` is a np.random.RandomState (the
-    global one by default)."""
-    if scale != 1:
-        raise _needs_cv2("make_burst at scale != 1")
+    and their warped coordinate grids: (imstack (n, h, w, 3), Xstack
+    (n, h, w), Ystack, mats (n, 2, 3)), X and Y normalized to [-1, 1];
+    frame 0 is the identity.  (h, w) = (int(H / scale), int(W / scale)):
+    at ``scale != 1`` the grids are resized linearly to it before the
+    frames are sampled at them.  ``rng`` is a np.random.RandomState (the global one by
+    default)."""
+    from wire_tpu_torch.signals.image import resize_linear
     rng = np.random if rng is None else rng
     H, W, _ = im.shape
     shifts = rng.randint(-shift_max, shift_max, size=[nframes, 2])
@@ -64,8 +70,9 @@ def make_burst(im, shift_max=10, theta_max=np.pi / 12, nframes=5, rng=None,
     ones = np.ones((H * W, 1))
     coords = np.hstack((X.reshape(-1, 1), Y.reshape(-1, 1), ones))
 
-    imstack = np.zeros((nframes, H, W, 3), np.float32)
-    Xstack = np.zeros((nframes, H, W), np.float32)
+    Hl, Wl = int(H / scale), int(W / scale)
+    imstack = np.zeros((nframes, Hl, Wl, 3), np.float32)
+    Xstack = np.zeros((nframes, Hl, Wl), np.float32)
     Ystack = np.zeros_like(Xstack)
     mats = np.zeros((nframes, 2, 3))
     for idx in range(nframes):
@@ -74,29 +81,13 @@ def make_burst(im, shift_max=10, theta_max=np.pi / 12, nframes=5, rng=None,
         cn = coords @ mat.T
         Xn = cn[:, 0].reshape(H, W).astype(np.float32)
         Yn = cn[:, 1].reshape(H, W).astype(np.float32)
+        if scale != 1:
+            Xn = resize_linear(Xn, dsize=(Wl, Hl))
+            Yn = resize_linear(Yn, dsize=(Wl, Hl))
         imstack[idx] = _remap(im, Xn, Yn)
         Xstack[idx] = 2 * Xn / W - 1
         Ystack[idx] = 2 * Yn / H - 1
     return imstack, Xstack, Ystack, mats
-
-
-def _remap(im, Xn, Yn):
-    """``im`` sampled at pixel coordinates (Xn, Yn), bilinear, zero
-    outside."""
-    H, W = im.shape[:2]
-    x0 = np.floor(Xn).astype(int)
-    y0 = np.floor(Yn).astype(int)
-    wx = (Xn - x0)[..., None]
-    wy = (Yn - y0)[..., None]
-
-    def tap(yy, xx):
-        inb = ((xx >= 0) & (xx < W) & (yy >= 0) & (yy < H))[..., None]
-        v = im[np.clip(yy, 0, H - 1), np.clip(xx, 0, W - 1)]
-        return np.where(inb, v, 0.0)
-
-    top = tap(y0, x0) * (1 - wx) + tap(y0, x0 + 1) * wx
-    bot = tap(y0 + 1, x0) * (1 - wx) + tap(y0 + 1, x0 + 1) * wx
-    return (top * (1 - wy) + bot * wy).astype(im.dtype)
 
 
 def downsample_burst(imstack_hr, scale):
@@ -283,8 +274,43 @@ def get_sr_data(im, scale, nimg=10, simulation=True, get_gt=False,
     return imstack, ecc
 
 
-def shifted_downsampled_burst(*_args, **_kwargs):
-    raise _needs_cv2("shifted_downsampled_burst")
+def shifted_downsampled_burst(im, scale, shift_max=10,
+                              theta_max=np.pi / 12, nshifts=5,
+                              perturb_coords=False, rng=None):
+    """A burst of ``nshifts`` frames of the grey image ``im`` (H, W), each
+    shifted by a random integer (frame 0 by none) and then rotated about
+    the image centre by a random angle: the warped pixel grids are
+    area-resized to (int(H / scale), int(W / scale)) and the frames
+    sampled at them (bilinear, zero outside).  ``perturb_coords`` adds unit
+    normal noise to the grids after sampling.  Returns (imstack (n, h, w),
+    Xstack, Ystack in [-1, 1])."""
+    from wire_tpu_torch.signals.image import resize_area
+    rng = np.random if rng is None else rng
+    H, W = im.shape
+    shifts = rng.randint(-shift_max, shift_max, size=[nshifts, 2])
+    thetas = (2 * rng.rand(nshifts) - 1) * theta_max
+    shifts[0, :] = 0
+    thetas[0] = 0
+    Y, X = np.mgrid[:H, :W]
+    Hl, Wl = int(H / scale), int(W / scale)
+    imstack = np.zeros((nshifts, Hl, Wl), np.float32)
+    Xstack = np.zeros_like(imstack)
+    Ystack = np.zeros_like(imstack)
+    for i in range(nshifts):
+        Xs = X - shifts[i, 1]
+        Ys = Y - shifts[i, 0]
+        c, s = np.cos(thetas[i]), np.sin(thetas[i])
+        Xr = (Xs - W / 2) * c - (Ys - H / 2) * s + W / 2
+        Yr = (Xs - W / 2) * s + (Ys - H / 2) * c + H / 2
+        Xn = resize_area(Xr.astype(np.float32), dsize=(Wl, Hl))
+        Yn = resize_area(Yr.astype(np.float32), dsize=(Wl, Hl))
+        imstack[i] = _remap(im.astype(np.float32), Xn, Yn)
+        if perturb_coords:
+            Xn = Xn + rng.randn(Hl, Wl).astype(np.float32)
+            Yn = Yn + rng.randn(Hl, Wl).astype(np.float32)
+        Xstack[i] = 2 * Xn / W - 1
+        Ystack[i] = 2 * Yn / H - 1
+    return imstack, Xstack, Ystack
 
 
 def xy_mgrid(H, W):
@@ -306,22 +332,27 @@ def invert_regstack(regstack):
 
 def mat2coords(reg_stack, full_res, low_res):
     """Warped [-1, 1] coordinate grids (Xs, Ys), each (n, H, W), of the
-    inverses of ``reg_stack``; ``low_res`` must equal ``full_res``."""
+    inverses of ``reg_stack`` over the ``full_res`` (H, W) pixel grid,
+    area-resized to ``low_res`` (h, w): each (n, h, w)."""
+    from wire_tpu_torch.signals.image import resize_area
     nimg = reg_stack.shape[0]
     H, W = full_res
-    if tuple(low_res) != (H, W):
-        raise _needs_cv2("mat2coords at low_res != full_res")
+    Hl, Wl = low_res
     Y, X = np.mgrid[:H, :W]
     coords = np.hstack((X.reshape(-1, 1), Y.reshape(-1, 1),
                         np.ones((H * W, 1))))
-    Xs = np.zeros((nimg, H, W), np.float32)
+    Xs = np.zeros((nimg, Hl, Wl), np.float32)
     Ys = np.zeros_like(Xs)
     last = np.array([[0.0, 0.0, 1.0]])
     for i in range(nimg):
         mat = np.linalg.inv(np.vstack([reg_stack[i], last]))
         cn = coords @ mat.T
-        Xs[i] = (2 * cn[:, 0].reshape(H, W) / W - 1).astype(np.float32)
-        Ys[i] = (2 * cn[:, 1].reshape(H, W) / H - 1).astype(np.float32)
+        Xn = (2 * cn[:, 0].reshape(H, W) / W - 1).astype(np.float32)
+        Yn = (2 * cn[:, 1].reshape(H, W) / H - 1).astype(np.float32)
+        if (Hl, Wl) != (H, W):
+            Xn = resize_area(Xn, dsize=(Wl, Hl))
+            Yn = resize_area(Yn, dsize=(Wl, Hl))
+        Xs[i], Ys[i] = Xn, Yn
     return Xs, Ys
 
 
@@ -384,20 +415,162 @@ def interp_lr(imref, coords, downsample_scale):
                         for h in hrs])
 
 
-def optical_flow(*_args, **_kwargs):
-    raise _needs_cv2("optical_flow")
+def optical_flow(frame1, frame2):
+    """Dense Farnebäck flow from ``frame1`` to ``frame2`` (pyramid scale
+    0.5, 3 levels, a 15-pixel box window, 3 iterations, poly_n 5, sigma
+    1.2; ``signals/align.py:farneback_flow``) and ``frame2`` sampled along
+    it, bilinear.  Float frames are first scaled by their joint max to
+    bytes, as 8-bit frames are what the flow takes.  Returns (flow (H, W, 2)
+    float32, warped float32)."""
+    from wire_tpu_torch.signals.align import farneback_flow
+    H, W = frame1.shape
+    Y, X = np.mgrid[:H, :W]
+    f1, f2 = frame1, frame2
+    if f1.dtype != np.uint8:
+        scale = max(f1.max(), f2.max(), 1e-8)
+        f1 = np.clip(f1 / scale * 255, 0, 255).astype(np.uint8)
+        f2 = np.clip(f2 / scale * 255, 0, 255).astype(np.uint8)
+    flow = farneback_flow(f1, f2, 0.5, 3, 15, 3, 5, 1.2)
+    warped = _remap(frame2.astype(np.float32),
+                   (X + flow[..., 0]).astype(np.float32),
+                   (Y + flow[..., 1]).astype(np.float32))
+    return flow, warped
 
 
-def ecc_flow(*_args, **_kwargs):
-    raise _needs_cv2("ecc_flow")
+def ecc_flow(im1, im2, motion="homography", niters=1000, eps=-1):
+    """ECC alignment of ``im2`` to ``im1`` (``signals/align.py:
+    find_transform_ecc`` from the identity, a 5-tap Gaussian pre-filter;
+    ``motion`` one of translation, euclidean, affine, homography): returns
+    (warp float32 (2, 3) or (3, 3), im2 warped onto im1's grid by it,
+    flow (H, W, 2) float32), the flow being the warp's displacement of each
+    pixel normalised to [-1, 1] units (dx 2/W, dy 2/H)."""
+    from wire_tpu_torch.signals.align import find_transform_ecc, warp
+    H, W = im1.shape[:2]
+    init = (np.eye(3, dtype=np.float32) if motion == "homography"
+            else np.eye(2, 3, dtype=np.float32))
+    _, mat = find_transform_ecc(im1.astype(np.float32),
+                                im2.astype(np.float32), init, motion,
+                                niters, eps, gauss_size=5)
+    aligned = warp(im2, mat, (H, W))
+    Y, X = np.mgrid[:H, :W]
+    coords = np.stack([X.ravel(), Y.ravel(), np.ones(H * W)], axis=0)
+    cn = mat @ coords
+    if motion == "homography":
+        cn = cn[:2] / cn[2]
+    flow = np.zeros((H, W, 2), np.float32)
+    flow[..., 0] = (cn[0] - coords[0]).reshape(H, W) * (2 / W)
+    flow[..., 1] = (cn[1] - coords[1]).reshape(H, W) * (2 / H)
+    return mat, aligned, flow
 
 
-def flow2rgb(*_args, **_kwargs):
-    raise _needs_cv2("flow2rgb")
+# OpenCV's polynomial arctangent (degrees) and its sector table of HSV -> RGB
+_ATAN_P = tuple(np.float32(p * np.float32(180 / np.pi)) for p in (
+    0.9997878412794807, -0.3258083974640975, 0.1555786518463281,
+    -0.04432655554792128))
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1],
+                         [0, 1, 3], [2, 1, 0]])
 
 
-def prune_stack(*_args, **_kwargs):
-    raise _needs_cv2("prune_stack")
+def _cart_to_polar(x, y):
+    """``cv2.cartToPolar(x, y)`` of float32 arrays: (magnitude, angle in
+    radians in [0, 2 pi)), the angle by OpenCV's polynomial arctangent."""
+    f32 = np.float32
+    mag = np.sqrt(_fma32(x, x, (y * y).astype(f32)))
+    ax, ay = np.abs(x), np.abs(y)
+    c = (np.minimum(ax, ay)
+         / (np.maximum(ax, ay) + f32(np.finfo(np.float64).eps))).astype(f32)
+    cc = (c * c).astype(f32)
+    p1, p3, p5, p7 = _ATAN_P
+    a = (_fma32(_fma32(_fma32(cc, p7, p5), cc, p3), cc, p1) * c).astype(f32)
+    a = np.where(ax >= ay, a, f32(90) - a)
+    a = np.where(x < 0, f32(180) - a, a)
+    a = np.where(y < 0, f32(360) - a, a)
+    return mag, (a * f32(np.pi / 180)).astype(f32)
+
+
+def _minmax_255(v):
+    """``cv2.normalize(v, None, 0, 255, NORM_MINMAX)`` of a float32 array:
+    v scale + shift with the scale and shift rounded to float32."""
+    lo, hi = float(v.min()), float(v.max())
+    scale = 255.0 * (1.0 / (hi - lo) if hi - lo > np.finfo(float).eps
+                     else 0.0)
+    scale = float(np.float32(scale))
+    shift = -float(np.float32(lo * scale))
+    return _fma32(v, np.float32(scale), np.float32(shift))
+
+
+def _hsv_to_rgb(hsv):
+    """``cv2.cvtColor(hsv, COLOR_HSV2RGB)`` of a uint8 (H, W, 3) image, hue
+    in [0, 180), by OpenCV's vector rule: float32 h = 6 H / 180, s = S /
+    255, v = V / 255, the sector floor(h) and its fraction f, the ramps
+    v (1 - s f) and v (1 - s (1 - f)) with s f fused into one rounding,
+    and each channel 255 x truncated to a byte.  (OpenCV converts the last
+    W mod 32 pixels of a row on its scalar path, which rounds instead; a
+    byte there can be one higher.)"""
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * f32(6 / 180.0)
+    s = hsv[..., 1].astype(f32) * f32(1 / 255.0)
+    v = hsv[..., 2].astype(f32) * f32(1 / 255.0)
+    h = np.fmod(h, f32(6))
+    sector = np.floor(h).astype(np.int64)
+    f = (h - sector).astype(f32)
+    one = f32(1)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, f, one),
+                    v * _fma32(-s, (one - f).astype(f32), one)],
+                   -1).astype(f32)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector % 6], -1)
+    rgb = (bgr[..., ::-1] * f32(255)).astype(f32)
+    return np.clip(np.trunc(rgb), 0, 255).astype(np.uint8)
+
+
+def flow2rgb(flow):
+    """The HSV picture of a flow (H, W, 2) as uint8 RGB: hue the angle
+    (degrees / 2, truncated to a byte), full saturation, value the
+    magnitude min-max normalised to [0, 255] and truncated; converted to
+    RGB by ``_hsv_to_rgb``."""
+    H, W, _ = flow.shape
+    hsv = np.zeros((H, W, 3), dtype=np.uint8)
+    hsv[..., 1] = 255
+    mag, ang = _cart_to_polar(np.asarray(flow[..., 0], np.float32),
+                              np.asarray(flow[..., 1], np.float32))
+    f32 = np.float32
+    hsv[..., 0] = ang * f32(180) / f32(np.pi) / f32(2)
+    hsv[..., 2] = _minmax_255(mag)
+    return _hsv_to_rgb(hsv)
+
+
+def prune_stack(imstack, ecc_mats, full_res, thres=1.0, device=None):
+    """Drop the frames registered badly: frame 0 is area-resized to
+    ``full_res`` (H, W), warped by each frame's matrix over the frames' own
+    pixel grid (``ops/resample.py:bilinear_sample`` on ``device``, the card
+    unless a CPU device is given) and compared with the frame; a frame is
+    kept where its mean relative difference |warped - frame| / (frame +
+    0.01 max) is under ``thres``.  Returns numpy (kept frames, their
+    matrices, the keep mask (n,), the absolute differences (n, h, w))."""
+    import torch
+    from wire_tpu_torch.ops.resample import bilinear_sample
+    from wire_tpu_torch.device import resolve
+    from wire_tpu_torch.signals.image import resize_area
+    dev = resolve(device)
+    nimg, Hl, Wl = imstack.shape[:3]
+    H, W = full_res
+    imref = torch.as_tensor(resize_area(imstack[0], dsize=(W, H)),
+                            device=dev)
+    Y, X = np.mgrid[:Hl, :Wl]
+    diffs = []
+    for i in range(nimg):
+        m = ecc_mats[i]
+        xs = m[0, 0] * X + m[0, 1] * Y + m[0, 2]
+        ys = m[1, 0] * X + m[1, 1] * Y + m[1, 2]
+        warped = bilinear_sample(
+            imref, torch.as_tensor(xs, dtype=torch.float32, device=dev),
+            torch.as_tensor(ys, dtype=torch.float32, device=dev))
+        diffs.append(np.abs(warped.cpu().numpy() - imstack[i]))
+    imdiff = np.stack(diffs)
+    denom = imstack + 1e-2 * imstack.max()
+    diff_array = (imdiff / denom).mean((-1, -2))
+    mask = diff_array < thres
+    return (np.copy(imstack[mask]), np.copy(ecc_mats[mask]), mask, imdiff)
 
 
 @dataclasses.dataclass
