@@ -1291,8 +1291,7 @@ def fit_ct(torch, np, mods, device):
     fit_cfg = FitConfig(learning_rate=cfg.learning_rate, niters=CT_ITERS,
                         maxpoints=cfg.maxpoints)
     angles_t = torch.tensor(thetas, device=device)
-    counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
-                "line_sample": LS.launches}
+    counters = Counts("wire_mlp", "rotsum", "line_sample")
     out = {}
     for method in ("auto", "rotate"):
         resolved = TR._resolve_auto(method, len(thetas), "cuda", False)
@@ -1307,17 +1306,15 @@ def fit_ct(torch, np, mods, device):
         else:
             plain_op = TR.RadonOp(thetas, method="rotate_xla")
         t0 = time.time()
-        for c in counters.values():
-            for k in c:
-                c[k] = 0
+        counters.reset()
         res = fit_operator(model, params, grid, sino, op, fit_cfg,
                            gt_field=img, field_shape=(H, W), device=device)
-        launches = {k: dict(c) for k, c in counters.items()}
+        launches = counters.read()
         check_ct_launches(launches, method, radon_kernel, CT_ITERS)
         res_plain = fit_operator(plain_model, params, grid, sino, plain_op,
                                  fit_cfg, gt_field=img, field_shape=(H, W),
                                  device=device)
-        if {k: dict(c) for k, c in counters.items()} != launches:
+        if counters.read() != launches:
             raise AssertionError(f"CT {method}: the plain fit launched a "
                                  f"kernel")
         for r in (res, res_plain):
@@ -1876,14 +1873,46 @@ def siren_step_measure(torch, SW, RM, MM, device):
             else None}
 
 
+def ops_launches(module):
+    """{direction: launches} of an ``ops`` module's kernels in this process
+    (``profiling.launches``); ``module`` the module or its name."""
+    from wire_tpu_torch.train import profiling
+    if not isinstance(module, str):
+        module = module.__name__.rsplit(".", 1)[-1]
+    return profiling.launches(module)
+
+
+def wire_step_launches():
+    return ops_launches("wire_step")["step"]
+
+
+class Counts:
+    """The launch counters of some ``ops`` modules and of ``wire_step``,
+    read as the launches since the last ``reset``."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+        self.reset()
+
+    def reset(self):
+        self.base = {m: ops_launches(m)
+                     for m in self.modules + ("wire_step",)}
+
+    def since(self, module):
+        return {k: v - self.base[module][k]
+                for k, v in ops_launches(module).items()}
+
+    def read(self):
+        """{module: {direction: launches since the reset}}."""
+        return {m: self.since(m) for m in self.modules}
+
+
 def reset_counts(counters):
-    for c in counters.values():
-        for k in c:
-            c[k] = 0
+    counters.reset()
 
 
 def read_counts(counters):
-    return {k: dict(c) for k, c in counters.items()}
+    return counters.read()
 
 
 def check_real_launches(launches, what, want):
@@ -3087,18 +3116,18 @@ def fit_wire2d(torch, np, mods, counters, device):
     fit_cfg = FitConfig(learning_rate=5e-3, niters=WIRE2D_ITERS,
                         maxpoints=H * W, scale_lr_by_batch=True)
     reset_counts(counters)
-    ws0 = WS.wire_step.launches
+    ws0 = wire_step_launches()
     res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
                         fit_cfg, gt=im.reshape(-1, 3), device=device)
     launches = read_counts(counters)
-    launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+    launches["wire_step"] = {"step": wire_step_launches() - ws0}
     check_real_launches(launches, "WIRE-2D denoise",
                         {("wire2d", "step"): WIRE2D_ITERS})
     res_plain = fit_pointwise(plain, params, grid, im_noisy.reshape(-1, 3),
                               fit_cfg, gt=im.reshape(-1, 3), device=device)
     if read_counts(counters) != {k: v for k, v in launches.items()
                                  if k != "wire_step"} \
-            or WS.wire_step.launches != ws0:
+            or wire_step_launches() != ws0:
         raise AssertionError("WIRE-2D denoise: the plain fit launched a "
                              "kernel")
     for r in (res, res_plain):
@@ -3149,12 +3178,12 @@ def fit_wire2d_ct(torch, np, mods, counters, device):
     sino = TCT.make_sinogram(img, thetas, radon_method="auto", device=device)
     angles_t = torch.tensor(thetas, device=device)
     reset_counts(counters)
-    ws0 = WS.wire_step.launches
+    ws0 = wire_step_launches()
     res = fit_operator(model, params, grid, sino,
                        TR.RadonOp(thetas, method="auto"), fit_cfg,
                        gt_field=img, field_shape=(H, W), device=device)
     launches = read_counts(counters)
-    launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+    launches["wire_step"] = {"step": wire_step_launches() - ws0}
     check_real_launches(launches, "WIRE-2D CT",
                         {("wire2d", "forward"): WIRE2D_ITERS,
                          ("wire2d", "backward"): WIRE2D_ITERS,
@@ -3172,7 +3201,7 @@ def fit_wire2d_ct(torch, np, mods, counters, device):
         plain, params, grid, sino,
         lambda f: TR._radon_fourier(f, angles_t, sampler="plain"), fit_cfg,
         gt_field=img, field_shape=(H, W), device=device)
-    if read_counts(counters) != rendered or WS.wire_step.launches != ws0:
+    if read_counts(counters) != rendered or wire_step_launches() != ws0:
         raise AssertionError("WIRE-2D CT: the plain fit launched a kernel")
     render = render.cpu().numpy()
     for r in (res, res_plain):
@@ -3610,10 +3639,10 @@ def fit_occupancy(torch, np, mods, counters, device):
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts(counters)
-        ws0 = WS.wire_step.launches
+        ws0 = wire_step_launches()
         app = O.run(results_dir=tmp, niters=OCC_EPOCHS, device=device)
         launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        launches["wire_step"] = {"step": wire_step_launches() - ws0}
         check_real_launches(launches, "occupancy",
                             {("wire_step", "step"): 2 * OCC_EPOCHS})
         mesh_path = os.path.join(tmp, "occupancy", "wire.dae")
@@ -3638,11 +3667,11 @@ def fit_occupancy(torch, np, mods, counters, device):
                                            fused="never")
     check_fit(np, res, grid.npoints, 1, "occupancy")
     params = plain.init(torch.Generator().manual_seed(0), device)
-    ws0 = WS.wire_step.launches
+    ws0 = wire_step_launches()
     res_plain = fit_pointwise(plain, params, grid, target, cfg,
                               track="noisy", epoch_metric=O.iou_metric(0.5),
                               device=device)
-    if WS.wire_step.launches != ws0:
+    if wire_step_launches() != ws0:
         raise AssertionError("occupancy: the plain fit launched wire_step")
     check_fit(np, res_plain, grid.npoints, 1, "occupancy plain")
     iou_plain, psnr_plain = O.best_metrics(im, res_plain.best_rec.reshape(im.shape))
@@ -3680,12 +3709,12 @@ def fit_occupancy(torch, np, mods, counters, device):
     short = {}
     for name, block in (("block_perm_512", 512), ("per_point", 0)):
         _, _, _, _, bcfg = O.setup(niters=OCC_BLOCK_EPOCHS, block_perm=block)
-        ws0 = WS.wire_step.launches
+        ws0 = wire_step_launches()
         reset_counts(counters)
         r = fit_pointwise(model, params, grid, target, bcfg, track="noisy",
                           epoch_metric=O.iou_metric(0.5), device=device)
         launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        launches["wire_step"] = {"step": wire_step_launches() - ws0}
         check_real_launches(launches, f"occupancy {name}",
                             {("wire_step", "step"): 2 * OCC_BLOCK_EPOCHS})
         check_fit(np, r, grid.npoints, 1, f"occupancy {name}")
@@ -3855,11 +3884,11 @@ def volume_motion(torch, np, mods, counters, occ_app, device):
 
     def counted(run, want, what):
         reset_counts(counters)
-        ws0 = WS.wire_step.launches
+        ws0 = wire_step_launches()
         got = run()
         torch.cuda.synchronize()
         launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        launches["wire_step"] = {"step": wire_step_launches() - ws0}
         check_real_launches(launches, what, {("wire_mlp", "forward"): want})
         return got, launches["wire_mlp"]["forward"]
 
@@ -4036,19 +4065,19 @@ def fit_families(torch, np, mods, counters, device):
         fit_cfg = FitConfig(learning_rate=cfg.learning_rate,
                             niters=FAMILIES_ITERS, maxpoints=cfg.maxpoints,
                             scale_lr_by_batch=True)
-        ws0 = WS.wire_step.launches
+        ws0 = wire_step_launches()
         reset_counts(counters)
         res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
                             fit_cfg, gt=im.reshape(-1, 3), device=device)
         launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        launches["wire_step"] = {"step": wire_step_launches() - ws0}
         check_real_launches(launches, nonlin,
                             {("real_mlp", "step"): FAMILIES_ITERS})
         res_plain = fit_pointwise(plain, params, grid,
                                   im_noisy.reshape(-1, 3), fit_cfg,
                                   gt=im.reshape(-1, 3), device=device)
         after = read_counts(counters)
-        after["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        after["wire_step"] = {"step": wire_step_launches() - ws0}
         if after != launches:
             raise AssertionError(f"{nonlin}: the plain fit launched a "
                                  f"kernel")
@@ -4078,12 +4107,12 @@ def fit_families(torch, np, mods, counters, device):
         params = model.init(torch.Generator().manual_seed(0), device)
         fit_cfg = FitConfig(learning_rate=5e-3, niters=AUTODIFF_ITERS,
                             maxpoints=H * W, scale_lr_by_batch=True)
-        ws0 = WS.wire_step.launches
+        ws0 = wire_step_launches()
         reset_counts(counters)
         res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3),
                             fit_cfg, gt=im.reshape(-1, 3), device=device)
         launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        launches["wire_step"] = {"step": wire_step_launches() - ws0}
         check_real_launches(launches, nonlin, {})
         check_fit(np, res, H * W, 3, nonlin)
         out[nonlin] = dict(
@@ -4125,12 +4154,12 @@ def sweep_phase(torch, np, SW, WS, counters, device):
                 t0 = time.time()
                 rdir = os.path.join(tmp, task, nonlin)
                 reset_counts(counters)
-                ws0 = WS.wire_step.launches
+                ws0 = wire_step_launches()
                 res = run(results_dir=rdir, niters=SWEEP_ITERS,
                           nonlins=[nonlin], device=device)[nonlin]
                 launches = read_counts(counters)
                 launches["wire_step"] = {
-                    "step": WS.wire_step.launches - ws0}
+                    "step": wire_step_launches() - ws0}
                 check_real_launches(launches, f"sweep {task} {nonlin}",
                                     sweep_expected(task, nonlin,
                                                    SWEEP_ITERS))
@@ -4388,11 +4417,11 @@ def fit_multi_sr(torch, np, mods, counters, device):
 
     def app_run(tmp, nonlin, iters, **kw):
         reset_counts(counters)
-        ws0 = WS.wire_step.launches
+        ws0 = wire_step_launches()
         app = TMS.run(nonlin, results_dir=tmp, niters=iters, device=device,
                       **kw)
         launches = read_counts(counters)
-        launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+        launches["wire_step"] = {"step": wire_step_launches() - ws0}
         res = app["result"]
         if not (np.isfinite(res.mse_gt).all()
                 and res.mse_gt.shape == (iters,)
@@ -4591,10 +4620,10 @@ def fit_resume(torch, np, mods, counters, device):
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             reset_counts(counters)
-            ws0 = WS.wire_step.launches
+            ws0 = wire_step_launches()
             r = ct_fit(None, cfg=rcfg, render_chunked=chunked)
             launches = read_counts(counters)
-            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            launches["wire_step"] = {"step": wire_step_launches() - ws0}
             nchunks = -(-H * W // RENDER_CHUNK_ROWS) if chunked else 1
             want = {("wire_mlp", "forward"): RENDER_ITERS * nchunks * (
                         2 if chunked else 1),
@@ -4719,7 +4748,7 @@ def many_step_case(torch, WS, spec, ps, coords, target, gt, nvalid, denom,
                 tree.replica(target, r, M), spec)
 
     return many_case(
-        torch, lambda: WS.wire_step.launches,
+        torch, wire_step_launches,
         lambda: tensors_of(*WS.wire_step_many(ps, coords, target, spec,
                                               gt=gt, **kw)),
         lambda r: tensors_of(*WS.wire_step(*args(r), gt=tree.replica(
@@ -4755,7 +4784,7 @@ def many_pair_case(torch, WM, spec, ps, coords, cot, what):
                           tree.replica(coords, r, M), cot[r])
 
     return many_case(
-        torch, lambda: dict(WM.launches),
+        torch, lambda: ops_launches("wire_mlp"),
         lambda: param_pair(torch, WM.wire_mlp_many, ps, spec, coords, cot),
         lambda r: one(r, WM.wire_mlp), lambda r: one(r, WM.wire_mlp_plain),
         M, what)
@@ -4782,9 +4811,9 @@ def many_radon_case(torch, mod, fn, plain, x, cot, names, what,
     def serial():
         return [run(fn, x[r], cot[r]) for r in range(x.shape[0])]
 
-    before = dict(mod.launches)
+    before = ops_launches(mod)
     got = kernel()
-    once_each(torch, mod.launches, before, what)
+    once_each(torch, lambda: ops_launches(mod), before, what)
     again = kernel()
     torch.cuda.synchronize()
     same_bits(torch, again, {k: v for k, v in got.items()
@@ -5085,12 +5114,12 @@ def fit_many(torch, np, mods, counters, device):
         for task in ("denoise", "sisr", "ct"):
             t0 = time.time()
             reset_counts(counters)
-            ws0 = WS.wire_step.launches
+            ws0 = wire_step_launches()
             res = SW.main([task, "--seeds", "2", "--nonlins", "wire",
                            "--niters", str(SWEEP_ITERS), "--results_dir",
                            os.path.join(tmp, task)])
             launches = read_counts(counters)
-            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            launches["wire_step"] = {"step": wire_step_launches() - ws0}
             check_real_launches(launches, f"sweep --seeds {task}",
                                 sweep_expected(task, "wire", SWEEP_ITERS))
             key = "mse_db" if task == "sisr" else "psnrs"
@@ -5115,13 +5144,13 @@ def many_fit_run(torch, np, WS, counters, out, name, want, many_fn,
     in ``out[name]``."""
     t0 = time.time()
     reset_counts(counters)
-    ws0 = WS.wire_step.launches
+    ws0 = wire_step_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     many = many_fn()
     peak_many = torch.cuda.max_memory_allocated()
     launches = read_counts(counters)
-    launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+    launches["wire_step"] = {"step": wire_step_launches() - ws0}
     check_real_launches(launches, f"fit_many {name}", want)
     serials, peak_one = [], 0
     for fn in serial_fns:
@@ -5207,8 +5236,8 @@ def many_real_step(torch, RM, canon, coords, target, gt, kinds, what,
                                                what)[0]
         return real_step_plain_fn(RM)(*args, **kwr)
 
-    return many_case(torch, lambda: RM.launches["step"], many, one, ref, M,
-                     f"real_step_many {what}")
+    return many_case(torch, lambda: ops_launches("real_mlp")["step"], many,
+                     one, ref, M, f"real_step_many {what}")
 
 
 def many_real_pair(torch, RM, canon, coords, cot, kinds, what):
@@ -5237,7 +5266,8 @@ def many_real_pair(torch, RM, canon, coords, cot, kinds, what):
                    cot[r])
 
     return many_case(
-        torch, lambda: {k: RM.launches[k] for k in ("forward", "backward")},
+        torch, lambda: {k: ops_launches("real_mlp")[k]
+                        for k in ("forward", "backward")},
         lambda: run(lambda cn, c: RM.real_mlp_many(cn, c, kinds), canon,
                     coords, cot),
         lambda r: one(r, lambda cn, c: RM.real_mlp(cn, c, kinds)),
@@ -5265,7 +5295,7 @@ def many_tree_step(torch, mod, name, spec, ps, coords, target, gt, what,
         return (tree.index(ps, r), rep(coords, r), rep(target, r), spec)
 
     return many_case(
-        torch, lambda: mod.launches["step"],
+        torch, lambda: ops_launches(mod)["step"],
         lambda: tensors_of(*many(ps, coords, target, spec, gt=gt,
                                  scratch=scratch, **kw)),
         lambda r: tensors_of(*one(*args(r), gt=rep(gt, r),
@@ -5291,7 +5321,8 @@ def many_tree_pair(torch, mod, name, spec, ps, coords, cot, what,
                           cast(tree.replica(coords, r, M)), cast(cot[r]))
 
     return many_case(
-        torch, lambda: {k: mod.launches[k] for k in ("forward", "backward")},
+        torch, lambda: {k: ops_launches(mod)[k]
+                        for k in ("forward", "backward")},
         lambda: param_pair(torch, many, ps, spec, coords, cot),
         lambda r: one(r, single),
         lambda r: one(r, plain, float64_tree if float64 else (lambda x: x)),
@@ -5582,12 +5613,12 @@ def fit_many_real(torch, np, mods, counters, device):
         for task, nonlin in MANY_SEEDS_RUNS:
             t0 = time.time()
             reset_counts(counters)
-            ws0 = WS.wire_step.launches
+            ws0 = wire_step_launches()
             res = SW.main([task, "--seeds", "2", "--nonlins", nonlin,
                            "--niters", str(SWEEP_ITERS), "--results_dir",
                            os.path.join(tmp, f"{task}_{nonlin}")])
             launches = read_counts(counters)
-            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            launches["wire_step"] = {"step": wire_step_launches() - ws0}
             check_real_launches(launches, f"sweep --seeds {task} {nonlin}",
                                 sweep_expected(task, nonlin, SWEEP_ITERS))
             key = "mse_db" if task == "sisr" else "psnrs"
@@ -5691,7 +5722,7 @@ def many_mscale2_step(torch, MS, canon, comb, coords, target, gt, kinds,
                                          dict(kw, gt=rep(gt, r)), mask)
 
     return many_case(
-        torch, lambda: MS.launches["step"],
+        torch, lambda: ops_launches("mscale2_step")["step"],
         lambda: mscale2_tensors(*MS.mscale2_step_many(
             canon, comb, coords, target, kinds, inv, gt=gt, scratch=scratch,
             **kw)),
@@ -6050,12 +6081,12 @@ def fit_many_rest(torch, np, mods, counters, device):
                              ("realgabor", {})):
             t0 = time.time()
             reset_counts(counters)
-            ws0 = WS.wire_step.launches
+            ws0 = wire_step_launches()
             res = SW.main(["denoise", "--seeds", "2", "--nonlins", nonlin,
                            "--lr", "5e-3", "--niters", str(SWEEP_ITERS),
                            "--results_dir", os.path.join(tmp, nonlin)])
             launches = read_counts(counters)
-            launches["wire_step"] = {"step": WS.wire_step.launches - ws0}
+            launches["wire_step"] = {"step": wire_step_launches() - ws0}
             check_real_launches(launches, f"sweep --seeds denoise {nonlin}",
                                 want)
             if not (len(res["psnrs"]) == 2
@@ -6133,10 +6164,8 @@ def sharded_modules():
                                     wire_mlp as WM, wire_step as WS)
     from wire_tpu_torch.train import metrics as M, trainer as T
     from wire_tpu_torch.train.presets import get_config
-    counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
-                "line_sample": LS.launches, "real_mlp": RM.launches,
-                "mscale2_step": MS.launches, "mfn": MF.launches,
-                "wire2d": W2.launches}
+    counters = Counts("wire_mlp", "rotsum", "line_sample", "real_mlp",
+                      "mscale2_step", "mfn", "wire2d")
     return dict(bench=bench, TCT=TCT, TMS=TMS, TO=TO, SF=SF, MH=MH, T=T,
                 make_mesh=make_mesh, get_inr=get_inr, TR=TR, WS=WS, M=M,
                 get_config=get_config, counters=counters)
@@ -6205,7 +6234,7 @@ def sharded_fit(torch, np, m, name, iters, device, mesh=None):
 
 def sharded_launches(m, counters, ws0):
     out = read_counts(counters)
-    out["wire_step"] = {"step": m["WS"].wire_step.launches - ws0}
+    out["wire_step"] = {"step": wire_step_launches() - ws0}
     return out
 
 
@@ -6328,7 +6357,7 @@ def sharded_rank(rank, port, queue, device):
         out = {"backend": mesh.backend, "fits": {}}
         for name in SHARDED_FITS:
             reset_counts(counters)
-            ws0 = m["WS"].wire_step.launches
+            ws0 = wire_step_launches()
             iters = SHARDED_B_ITERS[name]
             res, psnr = sharded_fit(torch, np, m, name, iters, dev, mesh)
             launches = sharded_launches(m, counters, ws0)
@@ -6412,7 +6441,7 @@ def world_of_one_fits(torch, np, m, mesh, device):
                         ("multi_sr", SHARDED_ITERS)):
         one, psnr_one = sharded_fit(torch, np, m, name, iters, device)
         reset_counts(counters)
-        ws0 = m["WS"].wire_step.launches
+        ws0 = wire_step_launches()
         got, psnr = sharded_fit(torch, np, m, name, iters, device, mesh)
         launches = sharded_launches(m, counters, ws0)
         check_real_launches(launches, f"fit_sharded world of one {name}",
@@ -6435,7 +6464,7 @@ def world_of_one_fits(torch, np, m, mesh, device):
         one = m["TO"].run(results_dir=os.path.join(tmp, "one"),
                           device=device, **kw)
         reset_counts(counters)
-        ws0 = m["WS"].wire_step.launches
+        ws0 = wire_step_launches()
         got = m["TO"].run(results_dir=os.path.join(tmp, "mesh"), mesh=mesh,
                           **kw)
         launches = sharded_launches(m, counters, ws0)
@@ -6548,13 +6577,12 @@ def tv_agree(what, psnr, psnr_plain):
 def tv_counts(counters, WS):
     """The kernels' counts with wire_step's beside them."""
     out = read_counts(counters)
-    out["wire_step"] = {"step": WS.wire_step.launches}
+    out["wire_step"] = counters.since("wire_step")
     return out
 
 
 def tv_reset(counters, WS):
     reset_counts(counters)
-    WS.wire_step.launches = 0
 
 
 def fit_tv(torch, np, mods, counters, device, step_fit_ms):
@@ -6946,10 +6974,10 @@ def main():
     params = model.init(torch.Generator().manual_seed(0), dev)
     cfg = FitConfig(learning_rate=5e-3, niters=args.epochs,
                     maxpoints=n_full, scale_lr_by_batch=True)
-    WS.wire_step.launches = 0
+    ws0 = wire_step_launches()
     res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3), cfg,
                         gt=im.reshape(-1, 3), device=dev)
-    launches = WS.wire_step.launches
+    launches = wire_step_launches() - ws0
     if launches != args.epochs:
         raise AssertionError(f"wire_step launched {launches} times in a "
                              f"{args.epochs}-epoch fit, expected one per "
@@ -6958,7 +6986,7 @@ def main():
     res_plain = fit_pointwise(plain_model, params, grid,
                               im_noisy.reshape(-1, 3), cfg,
                               gt=im.reshape(-1, 3), device=dev)
-    if WS.wire_step.launches != launches:
+    if wire_step_launches() - ws0 != launches:
         raise AssertionError("the plain fit launched the kernel")
     psnr = M.psnr_ref(im, res.best_rec.reshape(256, 256, 3))
     psnr_plain = M.psnr_ref(im, res_plain.best_rec.reshape(256, 256, 3))
@@ -6989,11 +7017,9 @@ def main():
 
     # ---- fit_real (B-spline denoise, path A) -------------------------------
     t0 = time.time()
-    counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
-                "line_sample": LS.launches, "real_mlp": RM.launches,
-                "mscale2_step": MS.launches, "mfn": MF.launches,
-                "wire2d": W2.launches}
-    ws_before = WS.wire_step.launches
+    counters = Counts("wire_mlp", "rotsum", "line_sample", "real_mlp",
+                      "mscale2_step", "mfn", "wire2d")
+    ws_before = wire_step_launches()
     real = fit_real(torch, np, (TD, TC, M, RM, get_inr, get_config,
                                 FitConfig, fit_pointwise), counters, dev)
     emit("fit_real", t0, **real)
@@ -7020,7 +7046,7 @@ def main():
     t0 = time.time()
     mfn_sisr = fit_mfn_sisr(torch, np, (SW, TS, TF, M, get_inr, FitConfig,
                                         fit_operator), counters, dev)
-    if WS.wire_step.launches != ws_before:
+    if wire_step_launches() != ws_before:
         raise AssertionError("the B-spline or MFN fits launched wire_step")
     emit("fit_mfn_sisr", t0, **mfn_sisr)
 
@@ -7175,9 +7201,10 @@ def main():
                           "launches"]["step"]},
         "wire_mlp": {**{k: ct["auto"]["launches"]["wire_mlp"][k]
                         + ct["rotate"]["launches"]["wire_mlp"][k]
-                        for k in WM.launches},
+                        for k in ops_launches("wire_mlp")},
                      **{f"multi_sr_{k}": msr["launches"][k]
-                        + msr["estim_launches"][k] for k in WM.launches},
+                        + msr["estim_launches"][k]
+                        for k in ops_launches("wire_mlp")},
                      **{f"render_chunked_{k}": v for k, v in resume[
                          "render_chunked"]["chunked"]["launches"][
                              "wire_mlp"].items()},

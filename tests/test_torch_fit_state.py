@@ -14,6 +14,7 @@ loss histories rel 1e-5 and best fields atol 1e-5, as wire_tpu's own test
 otherwise).  Parameter files: a wire_tpu file loads in the port and the
 port's in wire_tpu, equal bit for bit."""
 import dataclasses
+import json
 import os
 from functools import partial
 
@@ -348,21 +349,29 @@ def test_seed_everything_seeds_every_stream():
 
 
 def test_profile_fit_traces_and_counts(tmp_path):
+    """A fit under ``trace``: the TensorBoard trace and ``spans.json``
+    beside it, with the fit's spans (each epoch's hot ones too, as the
+    profiler records) and the counters."""
     im = I.synthetic_image(8, 8, 3, seed=0)
     model = tget_inr("wire", out_features=3, **WIRE)
     params = model.init(torch.Generator().manual_seed(0))
-    res, cps = P.profile_fit(T.fit_pointwise, model, params, C.grid2d(8, 8),
-                             im.reshape(-1, 3), T.FitConfig(niters=2),
-                             device="cpu", log_dir=str(tmp_path / "tr"))
-    assert res.mse_gt.shape == (2,) and cps > 0
-    assert any(f.endswith(".json") or ".pt.trace" in f
-               for f in os.listdir(str(tmp_path / "tr")))
-    th = P.Throughput()
-    th.add(100)
-    assert th.points == 100 and th.coords_per_s > 0
-    with P.trace(str(tmp_path / "t2")) as prof:
-        torch.ones(4).sum()
+    P.clear()
+    with P.trace(str(tmp_path / "tr")) as prof:
+        res = T.fit_pointwise(model, params, C.grid2d(8, 8),
+                              im.reshape(-1, 3), T.FitConfig(niters=2),
+                              device="cpu")
+    assert res.mse_gt.shape == (2,)
     assert prof.key_averages() is not None
+    files = os.listdir(str(tmp_path / "tr"))
+    assert any(".pt.trace" in f for f in files) and "spans.json" in files
+    with open(tmp_path / "tr" / "spans.json") as f:
+        out = json.load(f)
+    names = [s["name"] for s in out["spans"]]
+    for name in ("trainer.epoch", "trainer.adam", "trainer.tracking"):
+        assert names.count(name) == 2, (name, names)
+    assert names[-1] == "trainer.fit" and "trainer.setup" in names
+    assert out["counters"]["launches.wire_step.step"] >= 0
+    P.clear()
 
 
 def test_occupancy_app_resumes_its_checkpoint(monkeypatch, tmp_path):

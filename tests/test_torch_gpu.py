@@ -18,6 +18,7 @@ import torch
 
 from wire_tpu_torch.nn.registry import get_inr
 from wire_tpu_torch.ops import wire_step as WS
+from wire_tpu_torch.train.profiling import launches
 
 pytestmark = pytest.mark.gpu
 
@@ -64,11 +65,11 @@ def _flat(pred, grads, sums):
     (300, 29, 0, 2, None, None)])
 def test_kernel_matches_plain(cuda, n, hf, layers, out, nvalid, denom):
     model, params, c, t, gt = _case(n, hf, layers, out, cuda)
-    before = WS.wire_step.launches
+    before = launches("wire_step")["step"]
     got = _flat(*WS.wire_step(params, c, t, model.spec, nvalid=nvalid,
                               denom=denom, gt=gt, want_metrics=True))
     torch.cuda.synchronize()
-    assert WS.wire_step.launches == before + 1
+    assert launches("wire_step")["step"] == before + 1
     want = _flat(*WS.wire_step_plain(params, c, t, model.spec, nvalid=nvalid,
                                      denom=denom, gt=gt, want_metrics=True))
     for name, w in want.items():
@@ -111,9 +112,9 @@ def test_wire_step_at_the_occupancy_chunks_matches_plain(cuda):
     from wire_tpu_torch.apps import occupancy as O
     cases = S.occupancy_cases(torch, WS, O, cuda)
     for what, case in cases.items():
-        before = WS.wire_step.launches
+        before = launches("wire_step")["step"]
         S.occupancy_check(torch, case, what)
-        assert WS.wire_step.launches == before + 1
+        assert launches("wire_step")["step"] == before + 1
     params, c, t, spec = cases["wire_step occ_chunk1"][2]
     kw = cases["wire_step occ_chunk1"][3]
     nv = kw["nvalid"]
@@ -138,13 +139,12 @@ def test_occupancy_app_launches_wire_step_twice_an_epoch(cuda, tmp_path):
     from wire_tpu_torch.ops import real_mlp as RM
     from wire_tpu_torch.ops import wire2d as W2
     from wire_tpu_torch.ops import wire_mlp as WM
-    others = (WM.launches, RM.launches, MS.launches, MF.launches,
-              W2.launches)
-    before = [dict(c) for c in others]
-    ws0 = WS.wire_step.launches
+    others = ("wire_mlp", "real_mlp", "mscale2_step", "mfn", "wire2d")
+    before = [launches(c) for c in others]
+    ws0 = launches("wire_step")["step"]
     out = O.run(results_dir=str(tmp_path), niters=2)
-    assert WS.wire_step.launches == ws0 + 4
-    assert [dict(c) for c in others] == before
+    assert launches("wire_step")["step"] == ws0 + 4
+    assert [launches(c) for c in others] == before
     assert sorted(os.listdir(tmp_path / "occupancy")) == ["wire.dae",
                                                            "wire.mat"]
     assert out["result"].time_array.shape == (2,)
@@ -186,11 +186,12 @@ def _vjp(fn, params, coords, g):
 def test_wire_mlp_kernel_matches_plain(cuda, n, hf, layers, out):
     from wire_tpu_torch.ops import wire_mlp as WM
     model, params, c, g = _wire_mlp_case(n, hf, layers, out, cuda)
-    before = dict(WM.launches)
+    before = launches("wire_mlp")
     got = _vjp(lambda p, x: WM.wire_mlp(p, x, model.spec), params, c, g)
     torch.cuda.synchronize()
-    assert WM.launches == {"forward": before["forward"] + 1,
-                           "backward": before["backward"] + 1}
+    assert launches("wire_mlp") == {
+        "forward": before["forward"] + 1,
+        "backward": before["backward"] + 1}
     want = _vjp(lambda p, x: WM.wire_mlp_plain(p, x, model.spec), params, c,
                 g)
     for name, w in want.items():
@@ -251,15 +252,16 @@ def test_wire_mlp_without_grad_keeps_nothing(cuda):
                   sub.items()} for k, sub in params.items()}
     with_grad = WM.wire_mlp(leaves, c, model.spec).detach()
     torch.cuda.synchronize()
-    before = dict(WM.launches)
+    before = launches("wire_mlp")
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with torch.no_grad():
         y = WM.wire_mlp(leaves, c, model.spec)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    assert WM.launches == {"forward": before["forward"] + 1,
-                           "backward": before["backward"]}
+    assert launches("wire_mlp") == {
+        "forward": before["forward"] + 1,
+        "backward": before["backward"]}
     assert torch.equal(y, with_grad)
     pingpong = 2 * 65536 * 2 * h * 4
     slack = 16 * 2 ** 20   # stacked weights (~3 MB), pred, allocator rounding
@@ -387,10 +389,11 @@ def test_rotsum_call_is_one_forward_and_one_adjoint_kernel(cuda, H, W):
     def call():
         torch.autograd.grad(op(x), x, cot)
 
-    before = dict(R.launches)
+    before = launches("rotsum")
     kernels = _device_kernels(call)
-    assert R.launches == {"forward": before["forward"] + 4,
-                          "adjoint": before["adjoint"] + 4}
+    assert launches("rotsum") == {
+        "forward": before["forward"] + 4,
+        "adjoint": before["adjoint"] + 4}
     assert len(kernels) == 2, kernels
     assert all(v == 1 for v in kernels.values()), kernels
     assert any("rotsum_forward_kernel" in k for k in kernels), kernels
@@ -429,9 +432,9 @@ def test_radon_rotate_runs_the_kernel_on_a_non_square_cuda_image(cuda):
     from wire_tpu_torch.ops import rotsum as R
     img = _rand((64, 48), 21, cuda)
     angles = np.linspace(0, 180, 5, dtype=np.float32)
-    before = dict(R.launches)
+    before = launches("rotsum")
     got = TR.radon(img, angles, method="rotate")
-    assert R.launches["forward"] == before["forward"] + 1
+    assert launches("rotsum")["forward"] == before["forward"] + 1
     want = TR.radon(img, angles, method="rotate_xla")
     assert got.shape == (5, 48)
     err = float((got - want).abs().max())
@@ -470,12 +473,13 @@ def test_rotsum_kernel_matches_plain(cuda, S):
     cot = torch.tensor(rng.normal(size=(len(angles), S)).astype(np.float32),
                        device=cuda)
     x = img.clone().requires_grad_(True)
-    before = dict(R.launches)
+    before = launches("rotsum")
     y = R.rotate_project(x, angles)
     (gx,) = torch.autograd.grad(y, x, cot)
     torch.cuda.synchronize()
-    assert R.launches == {"forward": before["forward"] + 1,
-                          "adjoint": before["adjoint"] + 1}
+    assert launches("rotsum") == {
+        "forward": before["forward"] + 1,
+        "adjoint": before["adjoint"] + 1}
     x2 = img.clone().requires_grad_(True)
     y2 = R.rotate_project_plain(x2, angles)
     (gx2,) = torch.autograd.grad(y2, x2, cot)
@@ -511,14 +515,16 @@ def test_line_sample_kernel_matches_plain(cuda, P, A, K):
         return {"slice": torch.view_as_real(y.detach()),
                 "F_bar": torch.view_as_real(g)}
 
-    before = dict(LS.launches)
+    before = launches("line_sample")
     got = run(LS.sample_spectrum)
     torch.cuda.synchronize()
-    assert LS.launches == {"gather": before["gather"] + 1,
-                           "scatter": before["scatter"] + 1}
+    assert launches("line_sample") == {
+        "gather": before["gather"] + 1,
+        "scatter": before["scatter"] + 1}
     want = run(LS.sample_spectrum_plain)
-    assert LS.launches == {"gather": before["gather"] + 1,
-                           "scatter": before["scatter"] + 1}
+    assert launches("line_sample") == {
+        "gather": before["gather"] + 1,
+        "scatter": before["scatter"] + 1}
     for name, w in want.items():
         err = float((got[name] - w).abs().max())
         assert err <= REL * float(w.abs().max()), (name, err)
@@ -598,11 +604,11 @@ def test_real_mlp_kernel_matches_plain(cuda, kind):
                      device=cuda)
     g = torch.tensor(rng.normal(size=(700, 3)).astype(np.float32),
                      device=cuda)
-    before = dict(RM.launches)
+    before = launches("real_mlp")
     got = _real_vjp(lambda p, x: RM.real_mlp(p, x, kinds), canon, c, g)
     torch.cuda.synchronize()
-    assert RM.launches["forward"] == before["forward"] + 1
-    assert RM.launches["backward"] == before["backward"] + 1
+    assert launches("real_mlp")["forward"] == before["forward"] + 1
+    assert launches("real_mlp")["backward"] == before["backward"] + 1
     want = _real_vjp(lambda p, x: RM.real_mlp_plain(p, x, kinds), canon, c,
                      g)
     _assert_rel(got, want)
@@ -682,11 +688,11 @@ def test_real_step_kernel_matches_plain(cuda, n, widths, kinds, nvalid,
     c, t, gt = (torch.tensor(a.astype(np.float32), device=cuda) for a in (
         rng.uniform(-1, 1, (n, widths[0])), rng.uniform(0, 1, (n, 3)),
         rng.uniform(0, 1, (n, 3))))
-    before = RM.launches["step"]
+    before = launches("real_mlp")["step"]
     got = _step_flat(*RM.real_step(canon, c, t, kinds, nvalid=nvalid,
                                    denom=denom, gt=gt, want_metrics=True))
     torch.cuda.synchronize()
-    assert RM.launches["step"] == before + 1
+    assert launches("real_mlp")["step"] == before + 1
     want = _step_flat(*RM.real_step_plain(canon, c, t, kinds, nvalid=nvalid,
                                           denom=denom, gt=gt,
                                           want_metrics=True))
@@ -729,19 +735,19 @@ def test_real_tensor_cores_match_plain_at_every_width(cuda, which, n, widths,
     within 1.1e-6 x max of its float64 run: tools/port_real_reference.py)."""
     from wire_tpu_torch.ops import real_mlp as RM
     canon, c, t, gt, g = _real_width_case(n, widths, cuda)
-    before = dict(RM.launches)
+    before = launches("real_mlp")
     if which == "step":
         kw = dict(nvalid=nvalid, denom=denom, gt=gt, want_metrics=True)
         got = _step_flat(*RM.real_step(canon, c, t, kinds, **kw))
         torch.cuda.synchronize()
-        assert RM.launches["step"] == before["step"] + 1
+        assert launches("real_mlp")["step"] == before["step"] + 1
         _assert_rel(got, _step_flat(*RM.real_step_plain(canon, c, t, kinds,
                                                         **kw)))
         return
     got = _real_vjp(lambda p, x: RM.real_mlp(p, x, kinds), canon, c, g)
     torch.cuda.synchronize()
-    assert RM.launches["forward"] == before["forward"] + 1
-    assert RM.launches["backward"] == before["backward"] + 1
+    assert launches("real_mlp")["forward"] == before["forward"] + 1
+    assert launches("real_mlp")["backward"] == before["backward"] + 1
     _assert_rel(got, _real_vjp(lambda p, x: RM.real_mlp_plain(p, x, kinds),
                                canon, c, g))
 
@@ -801,9 +807,9 @@ def test_real_family_fits_launch_the_kernels(cuda, nonlin):
     model = get_inr(nonlin, **kw)
     plain = get_inr(nonlin, fused="never", **kw)
     params = model.init(torch.Generator().manual_seed(0), cuda)
-    before = RM.launches["step"]
+    before = launches("real_mlp")["step"]
     got = model.step_grads(params, c, t, want_metrics=True)
-    assert RM.launches["step"] == before + 1, nonlin
+    assert launches("real_mlp")["step"] == before + 1, nonlin
     if nonlin not in ("relu", "posenc"):
         want = plain.step_grads(params, c, t, want_metrics=True)
         _assert_rel(_tree_flat(*got), _tree_flat(*want))
@@ -837,11 +843,11 @@ def test_autodiff_families_launch_no_kernel(cuda, nonlin):
     t = _rand((600, 3), 32, cuda)
     model = get_inr(nonlin, hidden_features=64, out_features=3, scale=2.0)
     params = model.init(torch.Generator().manual_seed(0), cuda)
-    before = (dict(RM.launches), WS.wire_step.launches)
+    before = (launches("real_mlp"), launches("wire_step")["step"])
     pred, grads, sums = model.step_grads(params, c, t, want_metrics=True)
     model.apply(params, c)
     torch.cuda.synchronize()
-    assert (dict(RM.launches), WS.wire_step.launches) == before
+    assert (launches("real_mlp"), launches("wire_step")["step"]) == before
     assert torch.isfinite(pred).all() and all(
         torch.isfinite(g).all() for _, g in _leaves(grads))
 
@@ -885,12 +891,12 @@ def test_mscale2_step_kernel_matches_plain(cuda, n, ns, widths, nvalid,
     c, t, gt = (torch.tensor(a.astype(np.float32), device=cuda) for a in (
         rng.uniform(-1, 1, (n, 2)), rng.uniform(0, 1, (n, o)),
         rng.uniform(0, 1, (n, o))))
-    before = MS.launches["step"]
+    before = launches("mscale2_step")["step"]
     got = _tree_flat(*MS.mscale2_step(canon, comb, c, t, kinds, inv,
                                       nvalid=nvalid, denom=denom, gt=gt,
                                       want_metrics=True))
     torch.cuda.synchronize()
-    assert MS.launches["step"] == before + 1
+    assert launches("mscale2_step")["step"] == before + 1
     _assert_rel_to_float64(got, _mscale2_plain, canon, comb, c, t, kinds,
                            inv, nvalid=nvalid, denom=denom, gt=gt,
                            want_metrics=True)
@@ -927,19 +933,19 @@ def test_multiscale_families_launch_the_kernels(cuda):
     t = _rand((600, 3), 30, cuda)
     cases = {
         "bspline_mscale_2": (dict(scale_tensor=(0.5, 2.0, 4.0)),
-                             MS.launches),
+                             "mscale2_step"),
         "bspline_mscale_HL": (dict(scale=1.0, scale_tensor=(1.0, 2.0),
-                                   scaled_hidden_features=300), RM.launches),
+                                   scaled_hidden_features=300), "real_mlp"),
         "bspline_mscale_hier": (dict(scale_tensor=(0.5, 2.0, 1.0)),
-                                RM.launches)}
+                                "real_mlp")}
     for nonlin, (kw, counter) in cases.items():
         kw = dict(hidden_features=64, out_features=3, **kw)
         model = get_inr(nonlin, **kw)
         plain = get_inr(nonlin, fused="never", **kw)
         params = model.init(torch.Generator().manual_seed(0), cuda)
-        before = counter["step"]
+        before = launches(counter)["step"]
         got = model.step_grads(params, c, t, want_metrics=True)
-        assert counter["step"] == before + 1, nonlin
+        assert launches(counter)["step"] == before + 1, nonlin
         want = plain.step_grads(params, c, t, want_metrics=True)
         _assert_rel(_tree_flat(*got), _tree_flat(*want))
 
@@ -978,11 +984,11 @@ def test_mfn_step_kernel_matches_plain(cuda, n, d, hf, layers, out, nvalid,
                                        denom):
     from wire_tpu_torch.ops import mfn as MF
     model, params, c, t, gt, _ = _mfn_case(n, d, hf, layers, out, cuda)
-    before = MF.launches["step"]
+    before = launches("mfn")["step"]
     got = _tree_flat(*MF.mfn_step(params, c, t, model.spec, nvalid=nvalid,
                                   denom=denom, gt=gt, want_metrics=True))
     torch.cuda.synchronize()
-    assert MF.launches["step"] == before + 1
+    assert launches("mfn")["step"] == before + 1
     want = _tree_flat(*MF.mfn_step_plain(params, c, t, model.spec,
                                          nvalid=nvalid, denom=denom, gt=gt,
                                          want_metrics=True))
@@ -995,11 +1001,11 @@ def test_mfn_step_kernel_matches_plain(cuda, n, d, hf, layers, out, nvalid,
 def test_mfn_mlp_kernel_matches_plain(cuda, n, d, hf, layers, out):
     from wire_tpu_torch.ops import mfn as MF
     model, params, c, _, _, g = _mfn_case(n, d, hf, layers, out, cuda)
-    before = dict(MF.launches)
+    before = launches("mfn")
     got = _mfn_vjp(lambda p, x: MF.mfn_mlp(p, x, model.spec), params, c, g)
     torch.cuda.synchronize()
-    assert MF.launches["forward"] == before["forward"] + 1
-    assert MF.launches["backward"] == before["backward"] + 1
+    assert launches("mfn")["forward"] == before["forward"] + 1
+    assert launches("mfn")["backward"] == before["backward"] + 1
     want = _mfn_vjp(lambda p, x: MF.mfn_mlp_plain(p, x, model.spec), params,
                     c, g)
     _assert_rel(got, want)
@@ -1049,10 +1055,10 @@ def test_mfn_mlp_leading_axes_and_no_grad(cuda):
                     c.reshape(4, 50, 2), g.reshape(4, 50, 3))
     assert got["y"].shape == (4, 50, 3)
     _assert_rel(got, want)
-    before = dict(MF.launches)
+    before = launches("mfn")
     with torch.no_grad():
         y = MF.mfn_mlp(params, c.reshape(4, 50, 2), model.spec)
-    assert MF.launches["backward"] == before["backward"]
+    assert launches("mfn")["backward"] == before["backward"]
     assert torch.equal(y, got["y"])
 
 
@@ -1104,12 +1110,12 @@ def test_mfn_step_tensor_cores_match_plain_at_every_width(
     for name, shape in shapes.items():
         scratch._bufs[name], big = _nan_tailed(shape, cuda)
         bigs.append((name, big, int(np.prod(shape))))
-    before = MF.launches["step"]
+    before = launches("mfn")["step"]
     runs = [_tree_flat(*MF.mfn_step(params, c, t, model.spec, nvalid=nvalid,
                                     denom=denom, gt=gt, want_metrics=True,
                                     scratch=scratch)) for _ in range(2)]
     torch.cuda.synchronize()
-    assert MF.launches["step"] == before + 2
+    assert launches("mfn")["step"] == before + 2
     for name, big, numel in bigs:
         assert scratch._bufs[name].data_ptr() == big.data_ptr(), name
         assert torch.isnan(big[numel:]).all(), name
@@ -1160,11 +1166,11 @@ def test_wire2d_step_kernel_matches_plain(cuda, n, hf, layers, out, nvalid,
                                           denom):
     from wire_tpu_torch.ops import wire2d as W2
     model, params, c, t, gt, _ = _wire2d_case(n, hf, layers, out, cuda)
-    before = W2.launches["step"]
+    before = launches("wire2d")["step"]
     got = _tree_flat(*W2.wire2d_step(params, c, t, model.spec, nvalid=nvalid,
                                      denom=denom, gt=gt, want_metrics=True))
     torch.cuda.synchronize()
-    assert W2.launches["step"] == before + 1
+    assert launches("wire2d")["step"] == before + 1
     want = _tree_flat(*W2.wire2d_step_plain(params, c, t, model.spec,
                                             nvalid=nvalid, denom=denom,
                                             gt=gt, want_metrics=True))
@@ -1178,12 +1184,12 @@ def test_wire2d_step_kernel_matches_plain(cuda, n, hf, layers, out, nvalid,
 def test_wire2d_mlp_kernel_matches_plain(cuda, n, hf, layers, out, dcoords):
     from wire_tpu_torch.ops import wire2d as W2
     model, params, c, _, _, g = _wire2d_case(n, hf, layers, out, cuda)
-    before = dict(W2.launches)
+    before = launches("wire2d")
     got = _wire2d_vjp(lambda p, x: W2.wire2d_mlp(p, x, model.spec), params,
                       c, g, dcoords)
     torch.cuda.synchronize()
-    assert W2.launches["forward"] == before["forward"] + 1
-    assert W2.launches["backward"] == before["backward"] + 1
+    assert launches("wire2d")["forward"] == before["forward"] + 1
+    assert launches("wire2d")["backward"] == before["backward"] + 1
     want = _wire2d_vjp(lambda p, x: W2.wire2d_mlp_plain(p, x, model.spec),
                        params, c, g, dcoords)
     _assert_rel(got, want)
@@ -1222,7 +1228,7 @@ def test_wire2d_mlp_leading_axes_and_no_grad(cuda):
     model, params, c, _, _, g = _wire2d_case(65536, 300, 2, 1, cuda)
     with_grad = _wire2d_vjp(lambda p, x: W2.wire2d_mlp(p, x, model.spec),
                             params, c, g, dcoords=False)["y"]
-    before = dict(W2.launches)
+    before = launches("wire2d")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1230,8 +1236,8 @@ def test_wire2d_mlp_leading_axes_and_no_grad(cuda):
         y = W2.wire2d_mlp(params, c, model.spec)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    assert W2.launches["forward"] == before["forward"] + 1
-    assert W2.launches["backward"] == before["backward"]
+    assert launches("wire2d")["forward"] == before["forward"] + 1
+    assert launches("wire2d")["backward"] == before["backward"]
     assert torch.equal(y, with_grad)
     assert peak <= 2 * 65536 * 300 * 4 + 16 * 2 ** 20, peak
 
@@ -1245,7 +1251,7 @@ def test_wire2d_fits_launch_the_kernels(cuda, fit):
     from wire_tpu_torch.train.trainer import (FitConfig, fit_operator,
                                               fit_pointwise)
     model, params, c, t, _, _ = _wire2d_case(1024, 64, 2, 1, cuda)
-    before, ws = dict(W2.launches), WS.wire_step.launches
+    before, ws = launches("wire2d"), launches("wire_step")["step"]
     cfg = FitConfig(niters=4, maxpoints=1024)
     if fit == "pointwise":
         res = fit_pointwise(model, params, c, t, cfg, device=cuda)
@@ -1256,8 +1262,8 @@ def test_wire2d_fits_launch_the_kernels(cuda, fit):
                            track="loss", device=cuda)
         want = dict(before, forward=before["forward"] + 4,
                     backward=before["backward"] + 4)
-    assert W2.launches == want
-    assert WS.wire_step.launches == ws
+    assert launches("wire2d") == want
+    assert launches("wire_step")["step"] == ws
     assert np.isfinite(res.best_mse)
 
 
@@ -1268,15 +1274,52 @@ def test_sweep_denoise_launches_each_familys_kernel(cuda, tmp_path):
     from wire_tpu_torch.apps import sweep
     from wire_tpu_torch.ops import mfn as MF
     from wire_tpu_torch.ops import real_mlp as RM
-    counters = {"wire": lambda: WS.wire_step.launches,
-                "mfn": lambda: MF.launches["step"]}
+    counters = {"wire": lambda: launches("wire_step")["step"],
+                "mfn": lambda: launches("mfn")["step"]}
     for nonlin in sweep.NONLINS:
-        count = counters.get(nonlin, lambda: RM.launches["step"])
+        count = counters.get(nonlin, lambda: launches("real_mlp")["step"])
         before = count()
         out = sweep.sweep_denoise(results_dir=str(tmp_path / nonlin),
                                   niters=3, size=64, nonlins=[nonlin])
         assert count() == before + 3, nonlin
         assert np.isfinite(out[nonlin]["Best PSNR"]), nonlin
+
+
+def test_hot_spans_carry_device_ms(cuda):
+    """A WIRE fit under torch.profiler: every hot span of
+    ``train/profiling.py`` carries device ms (a wrapper's at least its
+    kernel's, an epoch's at least its parts'), and no device record of the
+    profile bears a span's name (the spans are host ranges only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wire_tpu_torch.train import profiling, trainer as T
+    model, params, c, t, _ = _case(4096, 91, 2, 3, cuda)
+    cfg = T.FitConfig(niters=5, maxpoints=4096)
+    T.fit_pointwise(model, params, c, t, cfg, device=cuda)  # builds
+    profiling.clear()
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    prof.start()
+    T.fit_pointwise(model, params, c, t, cfg, device=cuda)
+    torch.cuda.synchronize()
+    prof.stop()
+    spans = profiling.spans()
+    profiling.clear()
+    by_id = {s["id"]: s for s in spans}
+    hot = [s for s in spans if s["name"].startswith(profiling.HOT)]
+    names = sorted(s["name"] for s in hot)
+    assert names == sorted(["trainer.epoch", "trainer.adam",
+                            "trainer.tracking", "wrappers.wire_step.step",
+                            "kernels.wire_step.step"] * 5), names
+    for s in hot:
+        assert s["device_ms"] is not None and s["device_ms"] >= 0, s
+        if s["name"] != "trainer.epoch":
+            around = by_id[s["parent"]]
+            assert around["device_ms"] >= s["device_ms"], (s, around)
+    device = {e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA}
+    assert device and not device & {s["name"] for s in spans}, device
 
 
 @pytest.mark.parametrize("fit", ["pointwise", "operator"])
@@ -1405,12 +1448,12 @@ def test_wire_step_tensor_cores_match_plain_at_every_width(
     big = torch.full((need + tail,), float("nan"), device=cuda)
     scratch = WS.StepScratch()
     scratch._bufs["part"] = big[:need]
-    before = WS.wire_step.launches
+    before = launches("wire_step")["step"]
     runs = [_flat(*WS.wire_step(params, c, t, model.spec, nvalid=nvalid,
                                 denom=denom, gt=gt, want_metrics=True,
                                 scratch=scratch)) for _ in range(2)]
     torch.cuda.synchronize()
-    assert WS.wire_step.launches == before + 2
+    assert launches("wire_step")["step"] == before + 2
     assert scratch._bufs["part"].data_ptr() == big.data_ptr()
     assert torch.isnan(big[need:]).all()
     for name in runs[0]:
@@ -1554,13 +1597,13 @@ def test_wire2d_step_tensor_cores_match_plain_at_every_width(
             ("wire2d_dz1", (n, 2 * h)), ("wire2d_part", (need,))):
         scratch._bufs[name], big = _nan_tailed(shape, cuda)
         bigs.append((name, big, int(np.prod(shape))))
-    before = W2.launches["step"]
+    before = launches("wire2d")["step"]
     runs = [_tree_flat(*W2.wire2d_step(params, c, t, model.spec,
                                        nvalid=nvalid, denom=denom, gt=gt,
                                        want_metrics=True, scratch=scratch))
             for _ in range(2)]
     torch.cuda.synchronize()
-    assert W2.launches["step"] == before + 2
+    assert launches("wire2d")["step"] == before + 2
     for name, big, numel in bigs:
         assert scratch._bufs[name].data_ptr() == big.data_ptr(), name
         assert torch.isnan(big[numel:]).all(), name
@@ -1699,11 +1742,12 @@ def test_wire_mlp_at_the_multi_sr_batch_matches_plain(cuda):
     assert params["first"]["w"].shape == (2, 181)
     kernel, plain, args, kw = S.wire_pair_case(torch, WM, params, spec, c, g,
                                                dcoords=False)
-    before = dict(WM.launches)
+    before = launches("wire_mlp")
     got = kernel()
     torch.cuda.synchronize()
-    assert WM.launches == {"forward": before["forward"] + 1,
-                           "backward": before["backward"] + 1}
+    assert launches("wire_mlp") == {
+        "forward": before["forward"] + 1,
+        "backward": before["backward"] + 1}
     assert got["out"].shape == (4, 36864, 3)
     S.same_bits(torch, kernel(), got, "wire_mlp multi-SR")
     if "test wire_mlp multisr" in S.MULTISR_FLOAT64_CASES:
@@ -1787,10 +1831,10 @@ def test_batched_fits_are_the_serial_fits(cuda):
     for maxpoints, steps in ((64 * 64, 5), (1024, 20)):
         cfg = T.FitConfig(learning_rate=5e-3, niters=5, maxpoints=maxpoints,
                           seed=2)
-        before = WS.wire_step.launches
+        before = launches("wire_step")["step"]
         many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), noisy, cfg,
                                     gt=im, device=cuda)
-        assert WS.wire_step.launches == before + steps
+        assert launches("wire_step")["step"] == before + steps
         S.many_vs_serial(np, many, [T.fit_pointwise(
             model, tree.index(ps, r), C.grid2d(64, 64), noisy,
             dataclasses.replace(cfg, seed=2 + r), gt=im, device=cuda)
@@ -1799,12 +1843,12 @@ def test_batched_fits_are_the_serial_fits(cuda):
         torch.tensor(im.reshape(64, 64, 3)).permute(2, 0, 1), 4).permute(
             1, 2, 0).numpy()
     cfg = T.FitConfig(learning_rate=5e-3, niters=5)
-    before = dict(WM.launches)
+    before = launches("wire_mlp")
     many = T.fit_operator_many(model, ps, C.grid2d(64, 64), lr,
                                DownsampleOp(4), cfg,
                                gt_field=im.reshape(64, 64, 3),
                                field_shape=(64, 64, 3), device=cuda)
-    assert WM.launches == {k: v + 5 for k, v in before.items()}
+    assert launches("wire_mlp") == {k: v + 5 for k, v in before.items()}
     S.many_vs_serial(np, many, [T.fit_operator(
         model, tree.index(ps, r), C.grid2d(64, 64), lr, DownsampleOp(4),
         cfg, gt_field=im.reshape(64, 64, 3), field_shape=(64, 64, 3),
@@ -1835,12 +1879,12 @@ def test_seeds_of_a_family_without_replica_kernels_are_refused(cuda,
                         hidden_features=16, hidden_layers=1)
         ps = tree.stack([model.init(torch.Generator().manual_seed(s), cuda)
                          for s in range(2)])
-        before = (WS.wire_step.launches, dict(RM.launches),
-                  dict(MF.launches), dict(W2.launches))
+        before = (launches("wire_step")["step"], launches("real_mlp"),
+                  launches("mfn"), launches("wire2d"))
         many = T.fit_pointwise_many(model, ps, C.grid2d(8, 8), im, cfg,
                                     device=cuda)
-        after = (WS.wire_step.launches, dict(RM.launches),
-                 dict(MF.launches), dict(W2.launches))
+        after = (launches("wire_step")["step"], launches("real_mlp"),
+                 launches("mfn"), launches("wire2d"))
         if nonlin == "wire2d":
             assert after[3]["step"] == before[3]["step"] + 3
             after[3]["step"] = before[3]["step"]
@@ -1858,10 +1902,11 @@ def test_seeds_of_a_family_without_replica_kernels_are_refused(cuda,
                     hidden_features=16, hidden_layers=1)
     ps = tree.stack([model.init(torch.Generator().manual_seed(s), cuda)
                      for s in range(2)])
-    before = W2.launches["forward"]
+    before = launches("wire2d")["forward"]
     with torch.no_grad():
         y = model.apply_many(ps, torch.zeros(10, 2, device=cuda))
-    assert y.shape == (2, 10, 3) and W2.launches["forward"] == before + 1
+    assert y.shape == (2, 10, 3)
+    assert launches("wire2d")["forward"] == before + 1
 
 
 def test_wire2d_and_mscale2_replica_kernels_are_the_unbatched_kernels(
@@ -1902,7 +1947,7 @@ def test_batched_wire2d_and_mscale2_fits_are_the_serial_fits(cuda, nonlin):
     model = get_inr(nonlin, in_features=2, out_features=3,
                     hidden_features=64, hidden_layers=2, first_omega0=7.0,
                     hidden_omega0=7.0, scale=8.0, **extra)
-    launches = W2.launches if nonlin == "wire2d" else MS.launches
+    module = "wire2d" if nonlin == "wire2d" else "mscale2_step"
     ps = S.model_stack(torch, model, range(3), cuda)
     rng = np.random.default_rng(1)
     im = rng.random((64 * 64, 3)).astype(np.float32)
@@ -1910,10 +1955,10 @@ def test_batched_wire2d_and_mscale2_fits_are_the_serial_fits(cuda, nonlin):
     for maxpoints, steps in ((64 * 64, 5), (1024, 20)):
         cfg = T.FitConfig(learning_rate=1e-3, niters=5, maxpoints=maxpoints,
                           seed=2)
-        before = launches["step"]
+        before = launches(module)["step"]
         many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), noisy, cfg,
                                     gt=im, device=cuda)
-        assert launches["step"] == before + steps
+        assert launches(module)["step"] == before + steps
         S.many_vs_serial(np, many, [T.fit_pointwise(
             model, tree.index(ps, r), C.grid2d(64, 64), noisy,
             dataclasses.replace(cfg, seed=2 + r), gt=im, device=cuda)
@@ -1949,11 +1994,11 @@ def test_autodiff_replicas_match_their_serial_fits(cuda, nonlin, extra):
     rng = np.random.default_rng(5)
     im = rng.random((64 * 64, 3)).astype(np.float32)
     cfg = T.FitConfig(learning_rate=1e-3, niters=5)
-    counts = (RM.launches, MS.launches, MF.launches, W2.launches)
-    before = [dict(c) for c in counts] + [WS.wire_step.launches]
+    counts = ("real_mlp", "mscale2_step", "mfn", "wire2d", "wire_step")
+    before = [launches(c) for c in counts]
     many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), im, cfg,
                                 device=cuda)
-    after = [dict(c) for c in counts] + [WS.wire_step.launches]
+    after = [launches(c) for c in counts]
     if nonlin == "bspline_mscale_2":
         for k in ("forward", "backward"):
             assert after[0][k] == before[0][k] + 5
@@ -2019,7 +2064,7 @@ def test_batched_real_and_mfn_fits_are_the_serial_fits(cuda, nonlin):
     model = get_inr(nonlin, in_features=2, out_features=3,
                     hidden_features=64, hidden_layers=2, first_omega0=7.0,
                     hidden_omega0=7.0)
-    launches = MF.launches if nonlin == "mfn" else RM.launches
+    module = "mfn" if nonlin == "mfn" else "real_mlp"
     ps = S.model_stack(torch, model, range(3), cuda)
     rng = np.random.default_rng(1)
     im = rng.random((64 * 64, 3)).astype(np.float32)
@@ -2028,10 +2073,10 @@ def test_batched_real_and_mfn_fits_are_the_serial_fits(cuda, nonlin):
     for maxpoints, steps in ((64 * 64, 5), (1024, 20)):
         cfg = T.FitConfig(learning_rate=lr, niters=5, maxpoints=maxpoints,
                           seed=2)
-        before = launches["step"]
+        before = launches(module)["step"]
         many = T.fit_pointwise_many(model, ps, C.grid2d(64, 64), noisy, cfg,
                                     gt=im, device=cuda)
-        assert launches["step"] == before + steps
+        assert launches(module)["step"] == before + steps
         S.many_vs_serial(np, many, [T.fit_pointwise(
             model, tree.index(ps, r), C.grid2d(64, 64), noisy,
             dataclasses.replace(cfg, seed=2 + r), gt=im, device=cuda)
@@ -2120,20 +2165,21 @@ def test_world_of_one_is_the_unsharded_fit(cuda, fit):
             kw = dict(gt_field=gt.reshape(64, 64, 3), field_shape=(64, 64, 3))
             want = T.fit_operator(model, params, coords, meas, op, cfg,
                                   device=cuda, **kw)
-            before = dict(WM.launches)
+            before = launches("wire_mlp")
             got = fit_operator_sharded(model, params, coords, meas, op, cfg,
                                        mesh, **kw)
-            assert {k: WM.launches[k] - before[k] for k in before} == {
+            after = launches("wire_mlp")
+            assert {k: after[k] - before[k] for k in before} == {
                 "forward": 5, "backward": 5}
         else:
             cfg = T.FitConfig(learning_rate=5e-3, niters=5, maxpoints=1024)
             want = T.fit_pointwise(model, params, coords, t, cfg, gt=gt,
                                    device=cuda)
-            before = WS.wire_step.launches
+            before = launches("wire_step")["step"]
             got = fit_pointwise_sharded(
                 model, params, coords, t, cfg, mesh, gt=gt,
                 global_perm=fit == "pointwise_global_perm")
-            assert WS.wire_step.launches - before == 5 * 4
+            assert launches("wire_step")["step"] - before == 5 * 4
         for k in ("mse_gt", "mse_noisy", "best_rec", "final_rec"):
             if getattr(want, k) is not None:
                 assert np.array_equal(getattr(got, k), getattr(want, k)), k
@@ -2168,16 +2214,18 @@ def test_tv_fit_launches_the_apply_pair(cuda, nonlin, maxpoints):
     rng = np.random.default_rng(0)
     t = rng.uniform(0, 1, (H * W, 3)).astype(np.float32)
     cfg = T.FitConfig(learning_rate=1e-3, niters=5, maxpoints=maxpoints)
-    pair = WM.launches if nonlin == "wire" else RM.launches
-    before = dict(pair), WS.wire_step.launches, RM.launches["step"]
+    pair = "wire_mlp" if nonlin == "wire" else "real_mlp"
+    before = (launches(pair), launches("wire_step")["step"],
+              launches("real_mlp")["step"])
     res = T.fit_pointwise(model, params, C.grid2d(H, W), t, cfg,
                           tv_weight=1e-4, image_shape=(H, W, 3),
                           device=cuda)
     per_epoch = 1 if maxpoints == H * W else 2 * (H * W // maxpoints)
-    assert {k: pair[k] - before[0][k] for k in ("forward", "backward")} == {
+    after = launches(pair)
+    assert {k: after[k] - before[0][k] for k in ("forward", "backward")} == {
         "forward": 5 * per_epoch, "backward": 5 * per_epoch}
-    assert WS.wire_step.launches == before[1]
-    assert RM.launches["step"] == before[2]
+    assert launches("wire_step")["step"] == before[1]
+    assert launches("real_mlp")["step"] == before[2]
     plain = T.fit_pointwise(get_inr(nonlin, fused="never", **kw), params,
                             C.grid2d(H, W), t, cfg, tv_weight=1e-4,
                             image_shape=(H, W, 3), device=cuda)
@@ -2198,13 +2246,14 @@ def test_export_mesh_from_model_probes_through_the_forward_kernel(
               scale=10.0)
     model = get_inr("wire", **kw)
     params = model.init(torch.Generator().manual_seed(0), cuda)
-    before = dict(WM.launches), WS.wire_step.launches
+    before = launches("wire_mlp"), launches("wire_step")["step"]
     cube = V.export_mesh_from_model(model, params, 40, 6000,
                                     str(tmp_path / "m.dae"), thres=0.0,
                                     sigmoid=False, device=cuda)
-    assert {k: WM.launches[k] - before[0][k] for k in WM.launches} == {
+    after = launches("wire_mlp")
+    assert {k: after[k] - before[0][k] for k in after} == {
         "forward": 11, "backward": 0}
-    assert WS.wire_step.launches == before[1]
+    assert launches("wire_step")["step"] == before[1]
     plain = get_inr("wire", fused="never", **kw)
     with torch.no_grad():
         want = plain.apply(params, V._grid3d_rows(0, 40 ** 3, 40, cuda))

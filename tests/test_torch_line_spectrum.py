@@ -35,6 +35,7 @@ from wire_tpu.ops.pallas import line_sample as JLS
 
 from wire_tpu_torch.operators import radon as TR
 from wire_tpu_torch.ops import line_sample as LS
+from wire_tpu_torch.train.profiling import launches
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-5
@@ -146,9 +147,9 @@ def host_line_sample(tmp_path_factory):
 
 @pytest.mark.parametrize("P,A", H.LINE_SAMPLE_CASES)
 def test_cuda_source_on_the_host_matches_plain(host_line_sample, P, A):
-    before = dict(LS.launches)
+    before = launches("line_sample")
     rel = H.line_sample_vs_plain(P, A, P)
-    assert {k: LS.launches[k] - before[k] for k in before} == {
+    assert {k: launches("line_sample")[k] - before[k] for k in before} == {
         "gather": 1, "scatter": 1}
     assert rel <= REL, rel
 

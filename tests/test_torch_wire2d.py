@@ -42,6 +42,7 @@ from wire_tpu_torch.nn.registry import get_inr as tget_inr
 from wire_tpu_torch.operators import radon as TR
 from wire_tpu_torch.ops import wire2d as W2
 from wire_tpu_torch.signals import coords as C
+from wire_tpu_torch.train.profiling import launches
 from wire_tpu_torch.train import trainer as T
 
 PRED = dict(rtol=2e-4, atol=1e-5)
@@ -414,11 +415,11 @@ def test_wire2d_wrappers_refuse_other_devices():
         W2.wire2d_mlp(p, x, tm.spec)
     with pytest.raises(ValueError, match="unsupported device"):
         W2.wire2d_step(p, x, torch.zeros((8, 3), device="meta"), tm.spec)
-    before = dict(W2.launches)
+    before = launches("wire2d")
     coords, target, _, _ = (torch.tensor(a) for a in _inputs(8, 3, 0))
     W2.wire2d_step(p, coords, target, tm.spec)
     W2.wire2d_mlp(p, coords, tm.spec)
-    assert W2.launches == before
+    assert launches("wire2d") == before
 
 
 def test_wire2d_flop_counts():

@@ -20,6 +20,7 @@ import chip_smoke
 from wire_tpu_torch import bridge
 from wire_tpu_torch.nn.registry import get_inr as tget_inr
 from wire_tpu_torch.ops import wire_step as WS
+from wire_tpu_torch.train.profiling import launches
 
 RTOL, ATOL = 2e-4, 1e-6   # tests/test_pallas_step.py's tolerances
 
@@ -156,12 +157,12 @@ def test_step_flops_counts_the_three_products():
 def test_wrapper_uses_plain_only_for_cpu_tensors():
     _, tmodel, params, coords, target, _ = _setup(64, 16, 1, 3)
     tp = bridge.params_from_jax(jax.tree.map(np.asarray, params))
-    before = WS.wire_step.launches
+    before = launches("wire_step")["step"]
     got = WS.wire_step(tp, torch.from_numpy(coords), torch.from_numpy(target),
                        tmodel.spec)
     want = WS.wire_step_plain(tp, torch.from_numpy(coords),
                               torch.from_numpy(target), tmodel.spec)
-    assert WS.wire_step.launches == before
+    assert launches("wire_step")["step"] == before
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     meta = torch.empty((64, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -441,14 +441,16 @@ def line_sample_vs_plain(P, A, seed):
 
 def rehearse_line_sample(out_dir):
     from wire_tpu_torch.ops import line_sample as LS
+    from wire_tpu_torch.train.profiling import launches
 
     LS._lib.cache_clear()
     try:
         with host_library("line_sample", out_dir):
             for P, A in LINE_SAMPLE_CASES:
-                before = dict(LS.launches)
+                before = launches("line_sample")
                 rel = line_sample_vs_plain(P, A, P)
-                ran = {k: LS.launches[k] - before[k] for k in before}
+                after = launches("line_sample")
+                ran = {k: after[k] - before[k] for k in before}
                 print(f"line_sample P {P} A {A}: max rel err {rel:.2e}, "
                       f"launches {ran}", flush=True)
                 assert rel <= 1e-5 and ran == {"gather": 1, "scatter": 1}, (

@@ -28,10 +28,6 @@ from wire_tpu_torch.nn.registry import get_inr  # noqa: E402
 from wire_tpu_torch.operators import forward as TF  # noqa: E402
 from wire_tpu_torch.operators import radon as TR  # noqa: E402
 from wire_tpu_torch.ops import build  # noqa: E402
-from wire_tpu_torch.ops import line_sample as LS, mfn as MF  # noqa: E402
-from wire_tpu_torch.ops import mscale2_step as MS  # noqa: E402
-from wire_tpu_torch.ops import real_mlp as RM, rotsum as R  # noqa: E402
-from wire_tpu_torch.ops import wire2d as W2, wire_mlp as WM  # noqa: E402
 from wire_tpu_torch.ops import wire_step as WS  # noqa: E402
 from wire_tpu_torch.signals import image as TI  # noqa: E402
 from wire_tpu_torch.train import metrics as M, presets as TP  # noqa: E402
@@ -61,10 +57,8 @@ def main():
                     scale_lr_by_batch=True)
     res = fit_pointwise(model, params, grid, im_noisy.reshape(-1, 3), cfg,
                         gt=im.reshape(-1, 3), device=dev)
-    counters = {"wire_mlp": WM.launches, "rotsum": R.launches,
-                "line_sample": LS.launches, "real_mlp": RM.launches,
-                "mscale2_step": MS.launches, "mfn": MF.launches,
-                "wire2d": W2.launches}
+    counters = S.Counts("wire_mlp", "rotsum", "line_sample", "real_mlp",
+                        "mscale2_step", "mfn", "wire2d")
     t0 = time.time()
     out = S.fit_tv(torch, np, (TD, TC, TI, TF, TR, TCT, M, WS, get_inr,
                                TP.get_config, TP, FitConfig, fit_pointwise),

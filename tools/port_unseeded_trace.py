@@ -44,7 +44,7 @@ import torch  # noqa: E402
 from wire_tpu_torch import tree  # noqa: E402
 from wire_tpu_torch.nn import models as MM  # noqa: E402
 from wire_tpu_torch.nn.registry import get_inr  # noqa: E402
-from wire_tpu_torch.ops import real_mlp as RM  # noqa: E402
+from wire_tpu_torch.train.profiling import launches  # noqa: E402
 
 REL = 1e-4
 FAMILIES = ("siren", "gauss", "relu", "posenc", "bspline_form",
@@ -103,10 +103,10 @@ def case(nonlin, c, t, dev):
     model = get_inr(nonlin, **kw)
     plain = get_inr(nonlin, fused="never", **kw)
     params = model.init(torch.Generator().manual_seed(0), dev)
-    before = RM.launches["step"]
+    before = launches("real_mlp")["step"]
     got = flat(*model.step_grads(params, c, t, want_metrics=True))
     torch.cuda.synchronize()
-    launched = RM.launches["step"] - before
+    launched = launches("real_mlp")["step"] - before
     want = flat(*plain.step_grads(params, c, t, want_metrics=True))
     want64 = flat(*plain.step_grads(tree.map(lambda v: v.double(), params),
                                     c.double(), t.double(),

@@ -31,7 +31,7 @@ import chip_smoke as S  # noqa: E402
 
 def main():
     from wire_tpu_torch.apps import multi_sr as TMS, occupancy as TO
-    from wire_tpu_torch.ops import build, wire_mlp as WM, wire_step as WS
+    from wire_tpu_torch.ops import build, wire_step as WS
     from wire_tpu_torch.signals import motion as TMo, volume as TV
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -46,7 +46,7 @@ def main():
               flush=True)
     t0 = time.time()
     out = S.volume_motion(torch, np, (TO, TMS, TV, TMo, WS),
-                          {"wire_mlp": WM.launches}, app, dev)
+                          S.Counts("wire_mlp"), app, dev)
     print(json.dumps({"phase": "volume_motion", "wall_s": time.time() - t0,
                       **out}, default=str), flush=True)
     params = app["result"].best_params

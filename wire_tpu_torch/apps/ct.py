@@ -24,13 +24,14 @@ from wire_tpu_torch.apps import common
 from wire_tpu_torch.device import resolve
 from wire_tpu_torch.operators.radon import RadonOp, radon
 from wire_tpu_torch.signals import coords as C, image as I, noise as N
-from wire_tpu_torch.train import artifacts as A, metrics as M
+from wire_tpu_torch.train import artifacts as A, metrics as M, profiling
 from wire_tpu_torch.train.presets import get_config
 from wire_tpu_torch.train.trainer import FitConfig, fit_operator
 
 RADON_METHODS = ("auto", "rotate", "rotate_xla", "fourier", "shear")
 
 
+@profiling.spanned("apps.inputs")
 def ct_image(image=None, seed=0, size=512):
     """The CT protocol's field: one channel, min-max normalized, area-halved
     (size // 2 square for the procedural stand-in), float32."""
@@ -39,6 +40,7 @@ def ct_image(image=None, seed=0, size=512):
     return I.resize_area(img, 0.5).astype(np.float32)
 
 
+@profiling.spanned("apps.inputs")
 def make_sinogram(img, thetas, *, radon_method="auto",
                   reference_compat=False, device=None):
     """The self-consistent measurement: radon of the clean image through

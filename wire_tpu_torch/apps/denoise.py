@@ -35,11 +35,12 @@ import torch
 from wire_tpu_torch.apps import common
 from wire_tpu_torch.device import resolve
 from wire_tpu_torch.signals import coords as C, image as I, noise as N
-from wire_tpu_torch.train import artifacts as A, metrics as M
+from wire_tpu_torch.train import artifacts as A, metrics as M, profiling
 from wire_tpu_torch.train.presets import get_config
 from wire_tpu_torch.train.trainer import FitConfig, fit_pointwise
 
 
+@profiling.spanned("apps.inputs")
 def denoise_images(cfg, image=None, seed=0):
     """(im, im_noisy): the clean image (the input halved by area
     averaging) and its photon + readout noised copy, float32."""

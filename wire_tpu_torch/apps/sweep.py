@@ -58,7 +58,7 @@ from wire_tpu_torch.nn.registry import get_inr
 from wire_tpu_torch.operators.forward import DownsampleOp
 from wire_tpu_torch.operators.radon import RadonOp
 from wire_tpu_torch.signals import coords as C, image as I, noise as N
-from wire_tpu_torch.train import artifacts as A, metrics as M
+from wire_tpu_torch.train import artifacts as A, metrics as M, profiling
 from wire_tpu_torch.train.trainer import (FitConfig, fit_operator,
                                           fit_operator_many, fit_pointwise,
                                           fit_pointwise_many)
@@ -120,6 +120,7 @@ def _step_ms(res):
     return {} if res.step_ms is None else {"Step (ms)": res.step_ms}
 
 
+@profiling.spanned("apps.inputs")
 def denoise_images(image=None, seed=0, tau=3e1, noise_snr=2, size=512,
                    downscale=0.5):
     """(im, im_noisy) of the denoise sweep: the input (or the size^2

@@ -10,6 +10,9 @@ place, so no lock file is needed and a build cut off half-way leaves
 nothing that a later build would trust.
 
 Nothing here runs at import time: a kernel is built at its first launch.
+A build is a ``build.compile`` span (nvcc's time, the library's name) and
+advances the counter ``build.compiled.<name>``; a load is a ``build.load``
+span (``wire_tpu_torch.train.profiling``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+from wire_tpu_torch.train import profiling
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -67,10 +72,11 @@ def build(name: str) -> tuple[str, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC_DIR, f"{name}.cu")],
-            capture_output=True, text=True, timeout=600)
+        with profiling.span("build.compile", library=name):
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(CSRC_DIR, f"{name}.cu")],
+                capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
@@ -78,6 +84,7 @@ def build(name: str) -> tuple[str, str]:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    profiling.count(f"build.compiled.{name}")
     return out, proc.stdout + proc.stderr
 
 
@@ -95,5 +102,6 @@ def build_all(names) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
     process."""
-    path, _ = build(name)
-    return ctypes.CDLL(path)
+    with profiling.span("build.load", library=name):
+        path, _ = build(name)
+        return ctypes.CDLL(path)

@@ -39,9 +39,11 @@ import functools
 import torch
 
 from wire_tpu_torch.ops import build
+from wire_tpu_torch.train import profiling
 
-# kernel launches of this module, by direction: a run resets and reads them
-launches = {"gather": 0, "scatter": 0}
+# kernel launches of this module, by direction
+for _direction in ("gather", "scatter"):
+    profiling.count(f"launches.line_sample.{_direction}", 0)
 
 
 def sample_lines_plain(fre, fim, gy, gx):
@@ -105,18 +107,20 @@ def _lib():
 
 def _run(fn, what, ptrs, n, k, p, reps, device):
     lib = _lib()
-    rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], n, k, p, reps,
-                          torch.cuda.current_stream(device).cuda_stream)
+    with profiling.span(f"kernels.line_sample.{what}"):
+        rc = getattr(lib, fn)(*[t.data_ptr() for t in ptrs], n, k, p, reps,
+                              torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"line_sample {what} kernel launch failed: CUDA error {rc} "
             f"({lib.line_sample_error_string(rc).decode()})")
-    launches[what] += 1
+    profiling.count(f"launches.line_sample.{what}")
 
 
 class _SampleSpectrum(torch.autograd.Function):
 
     @staticmethod
+    @profiling.spanned("wrappers.line_sample.gather")
     def forward(ctx, F, centre, gy, gx, uncentre):
         lead = tuple(F.shape[:-2])
         reps = F.shape[0] if lead else 1
@@ -131,6 +135,7 @@ class _SampleSpectrum(torch.autograd.Function):
         return out
 
     @staticmethod
+    @profiling.spanned("wrappers.line_sample.scatter")
     def backward(ctx, cot):
         centre, gy, gx, uncentre = ctx.tables
         reps = ctx.lead[0] if ctx.lead else 1

@@ -42,11 +42,13 @@ from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import autodiff_step, mfn_apply_plain
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops.wire_step import StepScratch, _check, shared_nvalid
+from wire_tpu_torch.train import profiling
 
 # kernel launches of this module: one "step" per mfn_step or mfn_step_many
 # on the card, one "forward" and one "backward" per mfn_mlp or mfn_mlp_many
-# pair; a run resets and reads them
-launches = {"step": 0, "forward": 0, "backward": 0}
+# pair
+for _direction in ("step", "forward", "backward"):
+    profiling.count(f"launches.mfn.{_direction}", 0)
 
 FILTER_KEYS = ("w", "b", "mu", "gamma")
 
@@ -236,6 +238,7 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@profiling.spanned("wrappers.mfn.forward")
 def _forward(params, coords, keep, reps=None):
     """Launch the pair's forward; returns (pred, zs, ls): the k planes z_j
     and the k - 1 planes l_j (j >= 1) when ``keep``, else None (the chain
@@ -254,10 +257,11 @@ def _forward(params, coords, keep, reps=None):
         planes = torch.empty((min(k, 2),) + lead + (n, h), **f32)
         zp = [planes[j % 2] for j in range(k)]
     pred = torch.empty(lead + (n, net.o), **f32)
-    _raise_on(lib.mfn_forward(
-        *net.args(coords), _ptrs(zp), _ptrs(ls if keep else [None] * k),
-        pred.data_ptr(), _stream(coords.device)), "forward")
-    launches["forward"] += 1
+    with profiling.span("kernels.mfn.forward"):
+        _raise_on(lib.mfn_forward(
+            *net.args(coords), _ptrs(zp), _ptrs(ls if keep else [None] * k),
+            pred.data_ptr(), _stream(coords.device)), "forward")
+    profiling.count("launches.mfn.forward")
     return pred, zs, ls
 
 
@@ -274,6 +278,7 @@ class _MfnMLP(torch.autograd.Function):
         return pred
 
     @staticmethod
+    @profiling.spanned("wrappers.mfn.backward")
     def backward(ctx, g):
         saved = ctx.saved_tensors
         coords = saved[0]
@@ -296,13 +301,14 @@ class _MfnMLP(torch.autograd.Function):
         dl = torch.empty((2,) + lead + (n, h), **f32)
         dg = torch.empty(lead + (n, h), **f32)
         part = net.part(lambda name, shape: torch.empty(shape, **f32))
-        _raise_on(lib.mfn_backward(
-            *net.args(coords), g.data_ptr(), _ptrs(zs), _ptrs(ls),
-            _ptrs(gf), _ptrs(gW), gWf.data_ptr(),
-            None if dcoords is None else dcoords.data_ptr(), dl.data_ptr(),
-            dg.data_ptr(), part.data_ptr(), _stream(coords.device)),
-            "backward")
-        launches["backward"] += 1
+        with profiling.span("kernels.mfn.backward"):
+            _raise_on(lib.mfn_backward(
+                *net.args(coords), g.data_ptr(), _ptrs(zs), _ptrs(ls),
+                _ptrs(gf), _ptrs(gW), gWf.data_ptr(),
+                None if dcoords is None else dcoords.data_ptr(), dl.data_ptr(),
+                dg.data_ptr(), part.data_ptr(), _stream(coords.device)),
+                "backward")
+        profiling.count("launches.mfn.backward")
         grads = tree.leaves(net.grads_tree(gf, gW, gWf))
         by_path = {path: t for path, t in grads}
         return (dcoords, None, None, *[by_path[p] for p in ctx.paths])
@@ -333,6 +339,7 @@ def mfn_mlp(params, coords, spec):
     return out.reshape(*lead, out.shape[-1])
 
 
+@profiling.spanned("wrappers.mfn.step")
 def _launch_step(params, coords, target, nvalid, denom, gt, want_metrics,
                  scratch, reps=None):
     """One launch sequence of the step kernel: one model (``reps`` None,
@@ -369,16 +376,17 @@ def _launch_step(params, coords, target, nvalid, denom, gt, want_metrics,
     sse = torch.zeros(lead + (2,), **f32)
     dn = np.float32(n * o if denom is None else denom)
     two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
-    _raise_on(lib.mfn_step_run(
-        *net.args(coords), target.data_ptr(),
-        None if gt is None else gt.data_ptr(),
-        _ptrs([zs[j] for j in range(k)]),
-        _ptrs([None] + [ls[j - 1] for j in range(1, k)]), pred.data_ptr(),
-        g.data_ptr(), sse.data_ptr(), _ptrs(gf), _ptrs(gW), gWf.data_ptr(),
-        dl.data_ptr(), dg.data_ptr(), part.data_ptr(), nv,
-        float(two_inv_denom), int(want_metrics), int(t_shared),
-        _stream(dev)), "step")
-    launches["step"] += 1
+    with profiling.span("kernels.mfn.step"):
+        _raise_on(lib.mfn_step_run(
+            *net.args(coords), target.data_ptr(),
+            None if gt is None else gt.data_ptr(),
+            _ptrs([zs[j] for j in range(k)]),
+            _ptrs([None] + [ls[j - 1] for j in range(1, k)]), pred.data_ptr(),
+            g.data_ptr(), sse.data_ptr(), _ptrs(gf), _ptrs(gW), gWf.data_ptr(),
+            dl.data_ptr(), dg.data_ptr(), part.data_ptr(), nv,
+            float(two_inv_denom), int(want_metrics), int(t_shared),
+            _stream(dev)), "step")
+    profiling.count("launches.mfn.step")
     dparams = net.grads_tree(gf, gW, gWf)
     if want_metrics:
         return pred, dparams, (sse[..., 0], sse[..., 1])
@@ -392,8 +400,8 @@ def mfn_step(params, coords, target, spec, *, nvalid=None, denom=None,
     ``(sse_target, sse_gt)`` when ``want_metrics`` (gt defaults to target).
     coords (n, d), target (n, o) float32; nvalid (a Python int) defaults to
     n and denom to n*o; invalid rows must be a tail.  CPU tensors take
-    ``mfn_step_plain``; CUDA tensors launch the kernel
-    (``launches["step"]``) or raise.  ``scratch`` (a StepScratch) keeps the
+    ``mfn_step_plain``; CUDA tensors launch the kernel (counter
+    ``launches.mfn.step``) or raise.  ``scratch`` (a StepScratch) keeps the
     kernel's device buffers across steps."""
     if coords.device.type == "cpu":
         return mfn_step_plain(params, coords, target, spec, nvalid=nvalid,
@@ -436,7 +444,7 @@ def mfn_step_many(params_stack, coords, target, spec, *, nvalid=None,
     the parameters and, with ``want_metrics``, the SSE sums as two (M,)
     tensors.  ``nvalid`` and ``denom`` are shared (an int, or M equal
     ints).  CPU tensors take ``mfn_step_many_plain``; on CUDA one launch
-    sequence serves all M (``launches["step"]`` advances by one) or an
+    sequence serves all M (``launches.mfn.step`` advances by one) or an
     error is raised."""
     if coords.device.type == "cpu":
         return mfn_step_many_plain(params_stack, coords, target, spec,

@@ -13,11 +13,12 @@ them per coordinate,
 and the loss is ``sum_{rows < nvalid} (pred - target)^2 / denom``.
 
 ``mscale2_step`` runs the plain version for CPU tensors and for CUDA
-tensors launches the kernel (``launches["step"]``) or raises; there is no
-fallback.  The kernel's trunk runs on csrc/real_tc.cuh's chain, its hidden
-products on the 3xTF32 tensor-core loop of csrc/wire_tc.cuh with the real
-epilogue in registers; ``epilogue_map`` models which output each register
-of a tile holds and which scale's gamma it takes.  The kernel is held to
+tensors launches the kernel (counter ``launches.mscale2_step.step``) or
+raises; there is no fallback.  The kernel's trunk runs on
+csrc/real_tc.cuh's chain, its hidden products on the 3xTF32 tensor-core
+loop of csrc/wire_tc.cuh with the real epilogue in registers;
+``epilogue_map`` models which output each register of a tile holds and
+which scale's gamma it takes.  The kernel is held to
 ``mscale2_step_plain`` run in float64 (every input cast).
 
 ``mscale2_step_many`` steps M models of one shape at once (wire_tpu's
@@ -41,10 +42,10 @@ from wire_tpu_torch.nn.models import autodiff_step, mscale2_combine
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops import real_mlp as RM
 from wire_tpu_torch.ops.wire_step import StepScratch, _check, shared_nvalid
+from wire_tpu_torch.train import profiling
 
-# kernel launches of this module, one per mscale2_step on the card; a run
-# resets and reads it
-launches = {"step": 0}
+# kernel launches of this module, one per mscale2_step on the card
+profiling.count("launches.mscale2_step.step", 0)
 
 
 def mscale2_step_plain(canon, combiner, coords, target, kinds, inv_scales,
@@ -141,6 +142,7 @@ def _device_gammas(inv_scales, device):
     return torch.tensor(inv_scales, dtype=torch.float32, device=device)
 
 
+@profiling.spanned("wrappers.mscale2_step.step")
 def _launch(canon, combiner, coords, target, kinds, inv_scales, nvalid,
             denom, gt, want_metrics, scratch, reps=None):
     """One launch sequence of the step kernel: one model (``reps`` None,
@@ -211,25 +213,28 @@ def _launch(canon, combiner, coords, target, kinds, inv_scales, nvalid,
     sse = torch.zeros(lead + (2,), **f32)
     dn = np.float32(n * o if denom is None else denom)
     two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
-    rc = lib.mscale2_step_run(
-        n, ns, L, wp, x.data_ptr(), target.data_ptr(),
-        None if gt is None else gt.data_ptr(),
-        RM._ptrs([lay["w"] for lay in canon["layers"]]), RM._ptrs(wat),
-        RM._ptrs(alphas), RM._ptrs(betas), RM._ptrs(codes),
-        canon["final"]["w"].data_ptr(), wft.data_ptr(),
-        canon["final"]["b"].reshape(-1).data_ptr(),
-        _device_gammas(tuple(float(g) for g in inv_scales), dev).data_ptr(),
-        F0.data_ptr(), f0.data_ptr(), F1.data_ptr(), f1.data_ptr(),
-        RM._ptrs(zs), RM._ptrs(acts), ystack.data_ptr(), dystack.data_ptr(),
-        pred.data_ptr(), sse.data_ptr(), RM._ptrs(gW), RM._ptrs(galpha),
-        gWf.data_ptr(), gcomb.data_ptr(), cpart.data_ptr(), dv.data_ptr(),
-        zdv.data_ptr(), part.data_ptr(), nv, float(two_inv_denom),
-        int(want_metrics), M, int(x_shared), int(t_shared),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with profiling.span("kernels.mscale2_step.step"):
+        rc = lib.mscale2_step_run(
+            n, ns, L, wp, x.data_ptr(), target.data_ptr(),
+            None if gt is None else gt.data_ptr(),
+            RM._ptrs([lay["w"] for lay in canon["layers"]]), RM._ptrs(wat),
+            RM._ptrs(alphas), RM._ptrs(betas), RM._ptrs(codes),
+            canon["final"]["w"].data_ptr(), wft.data_ptr(),
+            canon["final"]["b"].reshape(-1).data_ptr(),
+            _device_gammas(tuple(float(g) for g in inv_scales),
+                           dev).data_ptr(),
+            F0.data_ptr(), f0.data_ptr(), F1.data_ptr(), f1.data_ptr(),
+            RM._ptrs(zs), RM._ptrs(acts), ystack.data_ptr(),
+            dystack.data_ptr(),
+            pred.data_ptr(), sse.data_ptr(), RM._ptrs(gW), RM._ptrs(galpha),
+            gWf.data_ptr(), gcomb.data_ptr(), cpart.data_ptr(), dv.data_ptr(),
+            zdv.data_ptr(), part.data_ptr(), nv, float(two_inv_denom),
+            int(want_metrics), M, int(x_shared), int(t_shared),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: CUDA error {rc} "
                            f"({lib.mscale2_error_string(rc).decode()})")
-    launches["step"] += 1
+    profiling.count("launches.mscale2_step.step")
     dcanon = RM._grads_to_canon(canon, widths, gW, galpha, gWf)
     c0 = ns * o * hc
     dcombiner = {
@@ -306,7 +311,8 @@ def mscale2_step_many(canon_stack, combiner_stack, coords, target, kinds,
     ``want_metrics``, the SSE sums as two (M,) tensors.  ``nvalid`` and
     ``denom`` are shared (an int, or M equal ints).  CPU tensors take
     ``mscale2_step_many_plain``; on CUDA one launch sequence serves all M
-    (``launches["step"]`` advances by one) or an error is raised."""
+    (``launches.mscale2_step.step`` advances by one) or an error is
+    raised."""
     kinds = RM.norm_kinds(kinds)
     if coords.device.type == "cpu":
         return mscale2_step_many_plain(canon_stack, combiner_stack, coords,

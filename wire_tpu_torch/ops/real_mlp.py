@@ -45,14 +45,16 @@ from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import autodiff_step
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops.wire_step import StepScratch, _check, shared_nvalid
+from wire_tpu_torch.train import profiling
 
 BASIS_CODES = {"zero": 0, "qspline": 1, "cspline": 2, "sine": 3, "gauss": 4,
                "relu": 5, "srelu": 6, "identity": 7}
 
 # kernel launches of this module: one "step" per real_step or
 # real_step_many on the card, one "forward" and one "backward" per real_mlp
-# or real_mlp_many pair; a run resets and reads them
-launches = {"step": 0, "forward": 0, "backward": 0}
+# or real_mlp_many pair
+for _direction in ("step", "forward", "backward"):
+    profiling.count(f"launches.real_mlp.{_direction}", 0)
 
 
 # ---- the bases ------------------------------------------------------------
@@ -395,6 +397,7 @@ def _grads_to_canon(canon, widths, gW, galpha, gWf):
                           canon["final"]["b"].shape)}}
 
 
+@profiling.spanned("wrappers.real_mlp.forward")
 def _forward(canon, coords, kinds, row_gamma, keep, reps=None):
     """Launch the pair's forward; returns (pred, zs, acts) with zs and acts
     the saved activations when ``keep``, else None (two ping-pong planes).
@@ -419,15 +422,16 @@ def _forward(canon, coords, kinds, row_gamma, keep, reps=None):
         planes = torch.empty((2, M * n * max(widths[1:-1])), **f32)
         act_ptrs = [planes[l % 2] for l in range(L)]
     pred = torch.empty(lead + (n, widths[-1]), **f32)
-    _raise_on(lib.real_mlp_forward(
-        n, L, _ints(widths), coords.data_ptr(),
-        _ptrs([lay["w"] for lay in canon["layers"]]), _ptrs(alphas),
-        _ptrs(betas), _ptrs(codes), canon["final"]["w"].data_ptr(),
-        canon["final"]["b"].data_ptr(),
-        None if gammas is None else gammas.data_ptr(), rpb, _ptrs(zs),
-        _ptrs(act_ptrs), pred.data_ptr(), M, int(coords.ndim == 2),
-        torch.cuda.current_stream(dev).cuda_stream), "forward")
-    launches["forward"] += 1
+    with profiling.span("kernels.real_mlp.forward"):
+        _raise_on(lib.real_mlp_forward(
+            n, L, _ints(widths), coords.data_ptr(),
+            _ptrs([lay["w"] for lay in canon["layers"]]), _ptrs(alphas),
+            _ptrs(betas), _ptrs(codes), canon["final"]["w"].data_ptr(),
+            canon["final"]["b"].data_ptr(),
+            None if gammas is None else gammas.data_ptr(), rpb, _ptrs(zs),
+            _ptrs(act_ptrs), pred.data_ptr(), M, int(coords.ndim == 2),
+            torch.cuda.current_stream(dev).cuda_stream), "forward")
+    profiling.count("launches.real_mlp.forward")
     return pred, (zs if keep else None), (acts if keep else None)
 
 
@@ -445,6 +449,7 @@ class _RealMLP(torch.autograd.Function):
         return pred
 
     @staticmethod
+    @profiling.spanned("wrappers.real_mlp.backward")
     def backward(ctx, g):
         saved = ctx.saved_tensors
         kinds, L, reps = ctx.kinds, len(ctx.kinds), ctx.reps
@@ -478,15 +483,16 @@ class _RealMLP(torch.autograd.Function):
         zdv = torch.empty((M * n * maxw,), **f32)
         wp = _ints(widths)
         part = torch.empty((M * lib.real_mlp_part_floats(n, L, wp),), **f32)
-        _raise_on(lib.real_mlp_backward(
-            n, L, wp, coords.data_ptr(), g.data_ptr(), _ptrs(wat),
-            _ptrs(alphas), _ptrs(betas), _ptrs(codes), wft.data_ptr(),
-            None if gammas is None else gammas.data_ptr(), rpb, _ptrs(zs),
-            _ptrs(acts), _ptrs(gW), _ptrs(galpha), gWf.data_ptr(),
-            None if dcoords is None else dcoords.data_ptr(), dv.data_ptr(),
-            zdv.data_ptr(), part.data_ptr(), M, int(coords.ndim == 2),
-            torch.cuda.current_stream(dev).cuda_stream), "backward")
-        launches["backward"] += 1
+        with profiling.span("kernels.real_mlp.backward"):
+            _raise_on(lib.real_mlp_backward(
+                n, L, wp, coords.data_ptr(), g.data_ptr(), _ptrs(wat),
+                _ptrs(alphas), _ptrs(betas), _ptrs(codes), wft.data_ptr(),
+                None if gammas is None else gammas.data_ptr(), rpb, _ptrs(zs),
+                _ptrs(acts), _ptrs(gW), _ptrs(galpha), gWf.data_ptr(),
+                None if dcoords is None else dcoords.data_ptr(), dv.data_ptr(),
+                zdv.data_ptr(), part.data_ptr(), M, int(coords.ndim == 2),
+                torch.cuda.current_stream(dev).cuda_stream), "backward")
+        profiling.count("launches.real_mlp.backward")
         dcanon = _grads_to_canon(canon, widths, gW, galpha, gWf)
         return (dcoords, None, None, None,
                 *[t for _, t in canon_leaves(dcanon)])
@@ -530,6 +536,7 @@ def real_mlp_scales(canon, coords, kinds, inv_scales):
     return out.reshape(S, n, out.shape[-1])
 
 
+@profiling.spanned("wrappers.real_mlp.step")
 def _launch_step(canon, coords, target, kinds, nvalid, denom, gt,
                  want_metrics, scratch, reps=None):
     """One launch sequence of the step kernel: one model (``reps`` None,
@@ -576,19 +583,20 @@ def _launch_step(canon, coords, target, kinds, nvalid, denom, gt,
     sse = torch.zeros(lead + (2,), **f32)
     dn = np.float32(n * o if denom is None else denom)
     two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
-    _raise_on(lib.real_step_run(
-        n, L, wp, coords.data_ptr(), target.data_ptr(),
-        None if gt is None else gt.data_ptr(),
-        _ptrs([lay["w"] for lay in canon["layers"]]), _ptrs(wat),
-        _ptrs(alphas), _ptrs(betas), _ptrs(codes),
-        canon["final"]["w"].data_ptr(), wft.data_ptr(),
-        canon["final"]["b"].reshape(-1).data_ptr(), _ptrs(zs), _ptrs(acts),
-        pred.data_ptr(), g.data_ptr(), sse.data_ptr(), _ptrs(gW),
-        _ptrs(galpha), gWf.data_ptr(), dv.data_ptr(), zdv.data_ptr(),
-        part.data_ptr(), nv, float(two_inv_denom), int(want_metrics), M,
-        int(coords.ndim == 2), int(t_shared),
-        torch.cuda.current_stream(dev).cuda_stream), "step")
-    launches["step"] += 1
+    with profiling.span("kernels.real_mlp.step"):
+        _raise_on(lib.real_step_run(
+            n, L, wp, coords.data_ptr(), target.data_ptr(),
+            None if gt is None else gt.data_ptr(),
+            _ptrs([lay["w"] for lay in canon["layers"]]), _ptrs(wat),
+            _ptrs(alphas), _ptrs(betas), _ptrs(codes),
+            canon["final"]["w"].data_ptr(), wft.data_ptr(),
+            canon["final"]["b"].reshape(-1).data_ptr(), _ptrs(zs), _ptrs(acts),
+            pred.data_ptr(), g.data_ptr(), sse.data_ptr(), _ptrs(gW),
+            _ptrs(galpha), gWf.data_ptr(), dv.data_ptr(), zdv.data_ptr(),
+            part.data_ptr(), nv, float(two_inv_denom), int(want_metrics), M,
+            int(coords.ndim == 2), int(t_shared),
+            torch.cuda.current_stream(dev).cuda_stream), "step")
+    profiling.count("launches.real_mlp.step")
     dcanon = _grads_to_canon(canon, widths, gW, galpha, gWf)
     if want_metrics:
         return pred, dcanon, (sse[..., 0], sse[..., 1])
@@ -603,8 +611,8 @@ def real_step(canon, coords, target, kinds, *, nvalid=None, denom=None,
     defaults to target).  coords (n, d), target (n, o) float32; nvalid (a
     Python int) defaults to n and denom to n*o; invalid rows must be a
     tail.  CPU tensors take ``real_step_plain``; CUDA tensors launch the
-    kernel (``launches["step"]``) or raise.  ``scratch`` (a StepScratch)
-    keeps the kernel's device buffers across steps."""
+    kernel (counter ``launches.real_mlp.step``) or raise.  ``scratch`` (a
+    StepScratch) keeps the kernel's device buffers across steps."""
     kinds = norm_kinds(kinds)
     if coords.device.type == "cpu":
         return real_step_plain(canon, coords, target, kinds, nvalid=nvalid,
@@ -649,7 +657,8 @@ def real_step_many(canon_stack, coords, target, kinds, *, nvalid=None,
     ``want_metrics``, the SSE sums as two (M,) tensors.  ``nvalid`` and
     ``denom`` are shared (an int, or M equal ints).  CPU tensors take
     ``real_step_many_plain``; on CUDA one launch sequence serves all M
-    (``launches["step"]`` advances by one) or an error is raised."""
+    (``launches.real_mlp.step`` advances by one) or an error is
+    raised."""
     kinds = norm_kinds(kinds)
     if coords.device.type == "cpu":
         return real_step_many_plain(canon_stack, coords, target, kinds,

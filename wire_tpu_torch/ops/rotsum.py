@@ -43,9 +43,11 @@ import torch
 
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops.resample import angles_tensor, rotate
+from wire_tpu_torch.train import profiling
 
-# kernel launches of this module, by direction: a run resets and reads them
-launches = {"forward": 0, "adjoint": 0}
+# kernel launches of this module, by direction
+for _direction in ("forward", "adjoint"):
+    profiling.count(f"launches.rotsum.{_direction}", 0)
 
 
 def rotate_project_plain(img, angles_degrees):
@@ -128,17 +130,19 @@ def _device_parts(key, square, device):
 def _run(what, a, parts, out, A, H, W, reps=1):
     lib = _lib()
     fn = lib.rotsum_forward if what == "forward" else lib.rotsum_adjoint
-    rc = fn(a.data_ptr(), parts.data_ptr(), out.data_ptr(), A, H, W, reps,
-            torch.cuda.current_stream(out.device).cuda_stream)
+    with profiling.span(f"kernels.rotsum.{what}"):
+        rc = fn(a.data_ptr(), parts.data_ptr(), out.data_ptr(), A, H, W,
+                reps, torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rotsum {what} kernel launch failed: CUDA error "
                            f"{rc} ({lib.rotsum_error_string(rc).decode()})")
-    launches[what] += 1
+    profiling.count(f"launches.rotsum.{what}")
 
 
 class _RotateProject(torch.autograd.Function):
 
     @staticmethod
+    @profiling.spanned("wrappers.rotsum.forward")
     def forward(ctx, img, parts):
         lead, (H, W) = tuple(img.shape[:-2]), img.shape[-2:]
         reps = img.shape[0] if lead else 1
@@ -151,6 +155,7 @@ class _RotateProject(torch.autograd.Function):
         return sino
 
     @staticmethod
+    @profiling.spanned("wrappers.rotsum.adjoint")
     def backward(ctx, cot):
         (parts,) = ctx.saved_tensors
         H, W = ctx.shape[-2:]

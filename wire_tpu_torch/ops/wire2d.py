@@ -47,11 +47,12 @@ from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import autodiff_step, wire2d_apply_plain
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops.wire_step import StepScratch, _check, shared_nvalid
+from wire_tpu_torch.train import profiling
 
 # kernel launches of this module: one "step" per wire2d_step on the card,
-# one "forward" and one "backward" per wire2d_mlp pair; a run resets and
-# reads them
-launches = {"step": 0, "forward": 0, "backward": 0}
+# one "forward" and one "backward" per wire2d_mlp pair
+for _direction in ("step", "forward", "backward"):
+    profiling.count(f"launches.wire2d.{_direction}", 0)
 
 
 # ---- the stacked layout -----------------------------------------------------
@@ -284,6 +285,7 @@ def _ptrs(tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
+@profiling.spanned("wrappers.wire2d.forward")
 def _forward(params, coords, spec, keep, reps=None):
     """Launch the pair's forward; returns (pred, net, saved): the
     activations the backward reads (acts (L + 1, n, 2h), zs (L, n, 4h),
@@ -302,17 +304,19 @@ def _forward(params, coords, spec, keep, reps=None):
         saved = (torch.empty((L + 1,) + lead + (n, 2 * h), **f32),
                  torch.empty((L,) + lead + (n, 4 * h), **f32),
                  torch.empty(lead + (n, 2 * h), **f32))
-        rc = lib.wire2d_forward(*_ptrs(weights + [pred, *saved]),
-                                *net.dims, *net.rep_args,
-                                _stream(coords.device))
+        with profiling.span("kernels.wire2d.forward"):
+            rc = lib.wire2d_forward(*_ptrs(weights + [pred, *saved]),
+                                    *net.dims, *net.rep_args,
+                                    _stream(coords.device))
     else:
         saved = None
         planes = torch.empty((2,) + lead + (n, 2 * h), **f32)
-        rc = lib.wire2d_forward_nograd(*_ptrs(weights + [pred, planes]),
-                                       *net.dims, *net.rep_args,
-                                       _stream(coords.device))
+        with profiling.span("kernels.wire2d.forward"):
+            rc = lib.wire2d_forward_nograd(*_ptrs(weights + [pred, planes]),
+                                           *net.dims, *net.rep_args,
+                                           _stream(coords.device))
     _raise_on(rc, "forward")
-    launches["forward"] += 1
+    profiling.count("launches.wire2d.forward")
     return pred, net, saved
 
 
@@ -331,6 +335,7 @@ class _Wire2dMLP(torch.autograd.Function):
         return pred
 
     @staticmethod
+    @profiling.spanned("wrappers.wire2d.backward")
     def backward(ctx, g):
         coords, w1, W2T, fWT, final_bi, acts, zs, z1 = ctx.saved_tensors
         spec = ctx.spec
@@ -355,12 +360,13 @@ class _Wire2dMLP(torch.autograd.Function):
         dz = torch.empty((min(L, 2),) + lead + (n, 4 * h), **f32)
         dz1 = torch.empty(lead + (n, 2 * h), **f32)
         part = torch.empty((M * lib.wire2d_part_floats(n, d, h, o),), **f32)
-        _raise_on(lib.wire2d_backward(
-            *_ptrs([coords, g, w1, W2T, fWT, acts, zs, z1, gw1, gW2, gfW,
-                    dcoords, dz, dz1, part]),
-            *_dims(n, d, h, o, L, spec), M, int(coords.ndim == 2),
-            _stream(dev)), "backward")
-        launches["backward"] += 1
+        with profiling.span("kernels.wire2d.backward"):
+            _raise_on(lib.wire2d_backward(
+                *_ptrs([coords, g, w1, W2T, fWT, acts, zs, z1, gw1, gW2, gfW,
+                        dcoords, dz, dz1, part]),
+                *_dims(n, d, h, o, L, spec), M, int(coords.ndim == 2),
+                _stream(dev)), "backward")
+        profiling.count("launches.wire2d.backward")
         by_path = dict(tree.leaves(unstack_grads(gw1, gW2, gfW, final_bi,
                                                  L)))
         return (dcoords, None, None, None, *[by_path[p] for p in ctx.paths])
@@ -391,6 +397,7 @@ def wire2d_mlp(params, coords, spec):
     return out.reshape(*lead, out.shape[-1])
 
 
+@profiling.spanned("wrappers.wire2d.step")
 def _launch_step(params, coords, target, spec, nvalid, denom, gt,
                  want_metrics, scratch, reps=None):
     """One launch sequence of the step kernel: one model (``reps`` None,
@@ -429,13 +436,14 @@ def _launch_step(params, coords, target, spec, nvalid, denom, gt,
     sse = torch.zeros(lead + (2,), **f32)
     dn = np.float32(n * o if denom is None else denom)
     two_inv_denom = np.float32(2.0) * (np.float32(1.0) / dn)
-    _raise_on(lib.wire2d_step_run(
-        *_ptrs([coords, target, gt, w["w1"], w["b1"], w["W2"], w["W2T"],
-                w["B2"], w["fW"], w["fWT"], w["fb"], pred, gw1, gW2, gfW, sse,
-                acts, zs, z1, g, dz, dz1, part]),
-        *net.dims, nv, float(two_inv_denom), int(want_metrics),
-        *net.rep_args, int(t_shared), _stream(dev)), "step")
-    launches["step"] += 1
+    with profiling.span("kernels.wire2d.step"):
+        _raise_on(lib.wire2d_step_run(
+            *_ptrs([coords, target, gt, w["w1"], w["b1"], w["W2"],
+                    w["W2T"], w["B2"], w["fW"], w["fWT"], w["fb"], pred, gw1,
+                    gW2, gfW, sse, acts, zs, z1, g, dz, dz1, part]),
+            *net.dims, nv, float(two_inv_denom), int(want_metrics),
+            *net.rep_args, int(t_shared), _stream(dev)), "step")
+    profiling.count("launches.wire2d.step")
     dparams = unstack_grads(gw1, gW2, gfW, net.final_bi, L)
     if want_metrics:
         return pred, dparams, (sse[..., 0], sse[..., 1])
@@ -450,8 +458,8 @@ def wire2d_step(params, coords, target, spec, *, nvalid=None, denom=None,
     target).  coords (n, d), target (n, o) float32; nvalid (a Python int)
     defaults to n and denom to n*o; invalid rows must be a tail.  CPU
     tensors take ``wire2d_step_plain``; CUDA tensors launch the kernel
-    (``launches["step"]``) or raise.  ``scratch`` (a StepScratch) keeps the
-    kernel's device buffers across steps."""
+    (counter ``launches.wire2d.step``) or raise.  ``scratch`` (a
+    StepScratch) keeps the kernel's device buffers across steps."""
     if coords.device.type == "cpu":
         return wire2d_step_plain(params, coords, target, spec, nvalid=nvalid,
                                  denom=denom, gt=gt,
@@ -495,8 +503,8 @@ def wire2d_step_many(params_stack, coords, target, spec, *, nvalid=None,
     the parameters and, with ``want_metrics``, the SSE sums as two (M,)
     tensors.  ``nvalid`` and ``denom`` are shared (an int, or M equal
     ints).  CPU tensors take ``wire2d_step_many_plain``; on CUDA one launch
-    sequence serves all M (``launches["step"]`` advances by one) or an
-    error is raised."""
+    sequence serves all M (``launches.wire2d.step`` advances by one) or
+    an error is raised."""
     if coords.device.type == "cpu":
         return wire2d_step_many_plain(params_stack, coords, target, spec,
                                       nvalid=nvalid, denom=denom, gt=gt,
@@ -506,8 +514,9 @@ def wire2d_step_many(params_stack, coords, target, spec, *, nvalid=None,
                          f"{coords.device}")
     M = tree.replicas(params_stack)
     return _launch_step(params_stack, coords.contiguous(),
-                        target.contiguous(), spec, shared_nvalid(nvalid, M),
-                        denom, None if gt is None else gt.contiguous(),
+                        target.contiguous(), spec,
+                        shared_nvalid(nvalid, M), denom,
+                        None if gt is None else gt.contiguous(),
                         want_metrics, scratch, reps=M)
 
 

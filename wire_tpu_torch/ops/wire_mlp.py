@@ -46,9 +46,11 @@ from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import wire_apply_plain
 from wire_tpu_torch.ops import build
 from wire_tpu_torch.ops.wire_step import _check, stack_params, unstack_grads
+from wire_tpu_torch.train import profiling
 
-# kernel launches of this module, by direction: a run resets and reads them
-launches = {"forward": 0, "backward": 0}
+# kernel launches of this module, by direction
+for _direction in ("forward", "backward"):
+    profiling.count(f"launches.wire_mlp.{_direction}", 0)
 
 wire_mlp_plain = wire_apply_plain
 
@@ -170,6 +172,7 @@ def _stacked(params, coords, spec, reps=None):
     return lib, w, n, d, h, o, L
 
 
+@profiling.spanned("wrappers.wire_mlp.forward")
 def _forward_nograd(params, coords, spec, reps=None):
     """The forward alone, keeping nothing for a backward: two ping-pong
     activation planes (2, reps, n, 2h) instead of acts, zs and z1."""
@@ -179,13 +182,15 @@ def _forward_nograd(params, coords, spec, reps=None):
     f32 = dict(dtype=torch.float32, device=coords.device)
     pred = torch.empty(lead + (n, o), **f32)
     planes = torch.empty((2,) + lead + (n, 2 * h), **f32)
-    _raise_on(lib.wire_mlp_forward_nograd(
-        *[t.data_ptr() for t in (coords, w["w1"], w["b1"], w["Wh"], w["Bh"],
-                                 w["fW"], w["fb"], pred, planes)],
-        n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
-        float(spec.first_omega0), M, int(coords.ndim == 2),
-        torch.cuda.current_stream(coords.device).cuda_stream), "forward")
-    launches["forward"] += 1
+    with profiling.span("kernels.wire_mlp.forward"):
+        _raise_on(lib.wire_mlp_forward_nograd(
+            *[t.data_ptr() for t in (coords, w["w1"], w["b1"], w["Wh"],
+                                     w["Bh"], w["fW"], w["fb"], pred,
+                                     planes)],
+            n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
+            float(spec.first_omega0), M, int(coords.ndim == 2),
+            torch.cuda.current_stream(coords.device).cuda_stream), "forward")
+    profiling.count("launches.wire_mlp.forward")
     return pred
 
 
@@ -193,6 +198,7 @@ class _WireMLP(torch.autograd.Function):
     """The pair for one model (``reps`` None) or ``reps`` replicas."""
 
     @staticmethod
+    @profiling.spanned("wrappers.wire_mlp.forward")
     def forward(ctx, coords, spec, keys, reps, *leaves):
         params = tree.unflatten(keys, leaves)
         lib, w, n, d, h, o, L = _stacked(params, coords, spec, reps)
@@ -206,14 +212,15 @@ class _WireMLP(torch.autograd.Function):
         zs = torch.empty((L,) + lead + (n, h2), **f32)
         z1 = torch.empty(lead + (n, h), **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.wire_mlp_forward(
-            *[t.data_ptr() for t in (coords, w["w1"], w["b1"], w["Wh"],
-                                     w["Bh"], w["fW"], w["fb"], pred, acts,
-                                     zs, z1)],
-            n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
-            float(spec.first_omega0), M, int(coords.ndim == 2), stream),
-            "forward")
-        launches["forward"] += 1
+        with profiling.span("kernels.wire_mlp.forward"):
+            _raise_on(lib.wire_mlp_forward(
+                *[t.data_ptr() for t in (coords, w["w1"], w["b1"], w["Wh"],
+                                         w["Bh"], w["fW"], w["fb"], pred, acts,
+                                         zs, z1)],
+                n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
+                float(spec.first_omega0), M, int(coords.ndim == 2), stream),
+                "forward")
+        profiling.count("launches.wire_mlp.forward")
         ctx.save_for_backward(coords, w["w1"], w["WhT"], w["fWT"], acts, zs,
                               z1)
         ctx.spec = spec
@@ -223,6 +230,7 @@ class _WireMLP(torch.autograd.Function):
         return pred
 
     @staticmethod
+    @profiling.spanned("wrappers.wire_mlp.backward")
     def backward(ctx, g):
         coords, w1, WhT, fWT, acts, zs, z1 = ctx.saved_tensors
         spec = ctx.spec
@@ -251,14 +259,15 @@ class _WireMLP(torch.autograd.Function):
         part = torch.empty((M * lib.wire_mlp_part_floats(n, d, h, o),),
                            **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.wire_mlp_backward(
-            *[None if t is None else t.data_ptr()
-              for t in (coords, g, w1, WhT, fWT, acts, zs, z1, gw1, gWh,
-                        gfW, dcoords, dz, dz1, part)],
-            n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
-            float(spec.first_omega0), M, int(coords.ndim == 2), stream),
-            "backward")
-        launches["backward"] += 1
+        with profiling.span("kernels.wire_mlp.backward"):
+            _raise_on(lib.wire_mlp_backward(
+                *[None if t is None else t.data_ptr()
+                  for t in (coords, g, w1, WhT, fWT, acts, zs, z1, gw1, gWh,
+                            gfW, dcoords, dz, dz1, part)],
+                n, d, h, o, L, float(spec.hidden_omega0), float(spec.scale),
+                float(spec.first_omega0), M, int(coords.ndim == 2), stream),
+                "backward")
+        profiling.count("launches.wire_mlp.backward")
         dparams = unstack_grads(gw1, gWh, gfW,
                                 {"final": {"bi": ctx.final_bi}}, L)
         grads = [tree.get(dparams, path) for path in ctx.keys]

@@ -38,6 +38,11 @@ import torch
 from wire_tpu_torch import tree
 from wire_tpu_torch.nn.models import autodiff_step, wire_apply_plain
 from wire_tpu_torch.ops import build
+from wire_tpu_torch.train import profiling
+
+# kernel launches of this module, one per wire_step or wire_step_many on
+# the card
+profiling.count("launches.wire_step.step", 0)
 
 
 class StepScratch:
@@ -164,6 +169,7 @@ def _check(name, t, shape, device, who="wire_step"):
         raise ValueError(f"{who}: {name} is not contiguous")
 
 
+@profiling.spanned("wrappers.wire_step.step")
 def _launch(params, coords, target, spec, nvalid, denom, gt, want_metrics,
             scratch, reps=None):
     """One launch sequence of the step kernel: one model (``reps`` None,
@@ -223,16 +229,18 @@ def _launch(params, coords, target, spec, nvalid, denom, gt, want_metrics,
     ptrs = [coords, target, gt, w["w1"], w["b1"], w["Wh"], w["WhT"], w["Bh"],
             w["fW"], w["fWT"], w["fb"], pred, gw1, gWh, gfW, sse, acts, zs,
             z1, g, dz, dz1, part]
-    rc = lib.wire_step_run(
-        *[None if t is None else t.data_ptr() for t in ptrs],
-        n, d, h, o, L, nv, float(two_inv_denom), float(spec.hidden_omega0),
-        float(spec.scale), float(spec.first_omega0), int(want_metrics), M,
-        int(coords_shared), int(targets_shared),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with profiling.span("kernels.wire_step.step"):
+        rc = lib.wire_step_run(
+            *[None if t is None else t.data_ptr() for t in ptrs],
+            n, d, h, o, L, nv, float(two_inv_denom),
+            float(spec.hidden_omega0), float(spec.scale),
+            float(spec.first_omega0), int(want_metrics), M,
+            int(coords_shared), int(targets_shared),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: CUDA error {rc} "
                            f"({lib.wire_step_error_string(rc).decode()})")
-    wire_step.launches += 1
+    profiling.count("launches.wire_step.step")
     dparams = unstack_grads(gw1, gWh, gfW, params, L)
     if want_metrics:
         return pred, dparams, (sse[..., 0], sse[..., 1])
@@ -248,8 +256,9 @@ def wire_step(params, coords, target, spec, *, nvalid=None, denom=None,
     coords (n, d), target (n, o), float32.  nvalid (a Python int) defaults
     to n, denom to n*o; invalid rows must be a tail.  For CPU tensors this
     is ``wire_step_plain``; for CUDA tensors the kernel is launched (and
-    ``wire_step.launches`` advanced) or an error is raised.  ``scratch``
-    (a StepScratch) keeps the kernel's device buffers across steps."""
+    the counter ``launches.wire_step.step`` advanced) or an error is
+    raised.  ``scratch`` (a StepScratch) keeps the kernel's device buffers
+    across steps."""
     if coords.device.type == "cpu":
         return wire_step_plain(params, coords, target, spec, nvalid=nvalid,
                                denom=denom, gt=gt, want_metrics=want_metrics)
@@ -257,9 +266,6 @@ def wire_step(params, coords, target, spec, *, nvalid=None, denom=None,
         raise ValueError(f"wire_step: unsupported device {coords.device}")
     return _launch(params, coords, target, spec, nvalid, denom, gt,
                    want_metrics, scratch)
-
-
-wire_step.launches = 0
 
 
 def shared_nvalid(nvalid, M):
@@ -306,7 +312,8 @@ def wire_step_many(params_stack, coords, target, spec, *, nvalid=None,
     tensors.  ``nvalid`` and ``denom`` are shared by the replicas (an int,
     or M equal ints).  For CPU tensors this is ``wire_step_many_plain``;
     for CUDA tensors one launch sequence serves all M replicas
-    (``wire_step.launches`` advances by one) or an error is raised."""
+    (``launches.wire_step.step`` advances by one) or an error is
+    raised."""
     if coords.device.type == "cpu":
         return wire_step_many_plain(params_stack, coords, target, spec,
                                     nvalid=nvalid, denom=denom, gt=gt,

@@ -49,10 +49,17 @@ generator of its own seeded ``cfg.seed + r`` and reproduces the serial fit
 at that seed; its loss is reduced on its own slice, as the serial fit
 reduces it.  The batched fits have no checkpoint and no chunked render, as
 in wire_tpu.
+
+Spans (``train/profiling.py``): each fitter's body is a ``trainer.fit``
+span, its set-up up to the first epoch ``trainer.setup``, and under a
+profiler each epoch ``trainer.epoch``, with ``trainer.adam`` around
+``Adam.step`` and ``trainer.tracking`` around the epoch's MSE arithmetic,
+history writes and best tracking.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import inspect
 import os
@@ -70,6 +77,7 @@ from wire_tpu_torch.nn.models import grad_leaves, grads_tree
 from wire_tpu_torch.operators.forward import multi_sr_op
 from wire_tpu_torch.ops.wire_step import StepScratch
 from wire_tpu_torch.signals.coords import GridSpec
+from wire_tpu_torch.train import profiling
 from wire_tpu_torch.train.metrics import total_variation
 
 
@@ -415,6 +423,7 @@ class Adam:
         self.nu = [torch.zeros_like(t) for _, t in flat]
         self.count = 0
 
+    @profiling.spanned("trainer.adam")
     def step(self, params, grads):
         cfg = self.cfg
         p = [tree.get(params, path) for path in self.paths]
@@ -581,6 +590,27 @@ def _sentinel_rows(perm, n, npad, nrows):
     return perm.view(nrows, -1)
 
 
+def _fitter(fn):
+    """A fitter's whole body in a ``trainer.fit`` span, the root of the
+    fit's spans, and ``trainer.setup`` from its entry to its first epoch
+    (``_epochs`` ends it)."""
+    @functools.wraps(fn)
+    def fit(*args, **kwargs):
+        with profiling.span("trainer.fit"), profiling.span("trainer.setup"):
+            return fn(*args, **kwargs)
+    return fit
+
+
+def _epochs(start, stop):
+    """The epochs (or iterations) of a fitter's loop: ends the fit's
+    ``trainer.setup`` at the first and holds each one's body in a
+    ``trainer.epoch`` span."""
+    profiling.close("trainer.setup")
+    for epoch in range(start, stop):
+        with profiling.span("trainer.epoch"):
+            yield epoch
+
+
 def _keep_best(tracked, best_metric, current, best):
     """(best metric, best tree) after a step whose metric is ``tracked``
     (0-d, or (M,) over the replicas): ``current`` is kept where it
@@ -703,6 +733,7 @@ def _tv_penalty(model, weight, image_shape, full_coords):
     return penalty
 
 
+@_fitter
 def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
                   gt=None, track="gt", tv_weight=0.0, image_shape=None,
                   epoch_metric: Optional[Callable] = None,
@@ -873,7 +904,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
 
     clock = _StepClock(dev, cfg.niters - start)
     t0 = time.time()
-    for epoch in range(start, cfg.niters):
+    for epoch in _epochs(start, cfg.niters):
         clock.tick(epoch - start)
         if full_batch:
             pred, grads, (sse_t, sse_g) = step(
@@ -892,29 +923,30 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
                 step, opt, params, rec, rows_of, perm, U=U, mp=mp,
                 npad=npad, sort=cfg.sort_chunks, scratch=scratch,
                 part=part if exact else None)
-        sums = None if epoch_sums is None else _sum_rows(
-            epoch_sums(rec, target), dev)
-        if mesh is not None:
-            # in exact mode every rank's rec is whole: its sums are summed
-            # already
-            sse_t, sse_g, summed = _mesh_sums(part, sse_t, sse_g,
-                                              None if exact else sums)
-            sums = sums if exact else summed
-        mse_noisy = sse_t * inv_nc
-        mse_gt = sse_g * inv_nc
-        hist_gt[epoch] = mse_gt
-        hist_noisy[epoch] = mse_noisy
-        tracked = mse_gt if track == "gt" else mse_noisy
-        best_mse, (best_rec, best_params) = _keep_best(
-            tracked, best_mse, (rec, params), (best_rec, best_params))
-        if epoch_metric is not None:
-            hist_metric[epoch] = (epoch_metric(rec, target) if metric_two
-                                  else epoch_metric(rec))
-        if sums is not None:
-            if hist_sums is None:
-                hist_sums = torch.empty((cfg.niters,) + sums.shape,
-                                        dtype=torch.float64, device=dev)
-            hist_sums[epoch] = sums
+        with profiling.span("trainer.tracking"):
+            sums = None if epoch_sums is None else _sum_rows(
+                epoch_sums(rec, target), dev)
+            if mesh is not None:
+                # in exact mode every rank's rec is whole: its sums are
+                # summed already
+                sse_t, sse_g, summed = _mesh_sums(part, sse_t, sse_g,
+                                                  None if exact else sums)
+                sums = sums if exact else summed
+            mse_noisy = sse_t * inv_nc
+            mse_gt = sse_g * inv_nc
+            hist_gt[epoch] = mse_gt
+            hist_noisy[epoch] = mse_noisy
+            tracked = mse_gt if track == "gt" else mse_noisy
+            best_mse, (best_rec, best_params) = _keep_best(
+                tracked, best_mse, (rec, params), (best_rec, best_params))
+            if epoch_metric is not None:
+                hist_metric[epoch] = (epoch_metric(rec, target) if metric_two
+                                      else epoch_metric(rec))
+            if sums is not None:
+                if hist_sums is None:
+                    hist_sums = torch.empty((cfg.niters,) + sums.shape,
+                                            dtype=torch.float64, device=dev)
+                hist_sums[epoch] = sums
         ckpt.after(epoch + 1, state, lambda: hists(epoch + 1))
     step_ms = clock.ms()
     if not exact:
@@ -936,6 +968,7 @@ def fit_pointwise(model, params, coords, target, cfg: FitConfig, *,
         time_array=time_array)
 
 
+@_fitter
 def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
                cfg: FitConfig, *, hr_shape, scale, batch_size=4,
                gt_image=None, permutation: Optional[Callable] = None,
@@ -1022,7 +1055,7 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
 
     clock = _StepClock(dev, cfg.niters - start)
     t0 = time.time()
-    for epoch in range(start, cfg.niters):
+    for epoch in _epochs(start, cfg.niters):
         clock.tick(epoch - start)
         losses = []
         for fidx in _sentinel_rows(permutation(nframes).to(dev), nframes,
@@ -1041,10 +1074,12 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
             grads, loss = part.sum_tree(
                 [grads_tree(paths, leaves, flat), loss.detach()])
             opt.step(params, grads)
-            best_loss, best_params = _keep_best(loss, best_loss, params,
-                                                best_params)
+            with profiling.span("trainer.tracking"):
+                best_loss, best_params = _keep_best(loss, best_loss, params,
+                                                    best_params)
             losses.append(loss)
-        hist[epoch] = torch.stack(losses).sum()
+        with profiling.span("trainer.tracking"):
+            hist[epoch] = torch.stack(losses).sum()
         ckpt.after(epoch + 1, state, lambda: (hist[:epoch + 1],))
     step_ms = clock.ms()
     wall = time.time() - t0
@@ -1055,6 +1090,7 @@ def fit_frames(model, params, frame_coords, frame_pixels, frame_masks,
         best_mse=float(best_loss), wall_time_s=wall, step_ms=step_ms)
 
 
+@_fitter
 def fit_operator(model, params, coords, measurement, operator_fn,
                  cfg: FitConfig, *, gt_field=None, field_shape, track="gt",
                  device=None, checkpoint: Optional[CheckpointSpec] = None,
@@ -1142,7 +1178,7 @@ def fit_operator(model, params, coords, measurement, operator_fn,
 
     clock = _StepClock(dev, cfg.niters - start)
     t0 = time.time()
-    for it in range(start, cfg.niters):
+    for it in _epochs(start, cfg.niters):
         clock.tick(it - start)
         paths, leaves, p = grad_leaves(params)
         with torch.enable_grad():
@@ -1151,13 +1187,15 @@ def fit_operator(model, params, coords, measurement, operator_fn,
             loss = torch.mean((est - measurement) ** 2)
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         opt.step(params, part.sum_tree(grads_tree(paths, leaves, flat)))
-        field = field.detach()
-        loss = loss.detach()
-        tracked = torch.mean((field - gt_arr) ** 2) if track_gt else loss
-        hist_loss[it] = loss
-        hist_tracked[it] = tracked
-        best_loss, (best_field, best_params) = _keep_best(
-            tracked, best_loss, (field, params), (best_field, best_params))
+        with profiling.span("trainer.tracking"):
+            field = field.detach()
+            loss = loss.detach()
+            tracked = torch.mean((field - gt_arr) ** 2) if track_gt else loss
+            hist_loss[it] = loss
+            hist_tracked[it] = tracked
+            best_loss, (best_field, best_params) = _keep_best(
+                tracked, best_loss, (field, params), (best_field,
+                                                      best_params))
         ckpt.after(it + 1, state,
                    lambda: (hist_loss[:it + 1], hist_tracked[:it + 1]))
     step_ms = clock.ms()
@@ -1198,6 +1236,7 @@ def _replica_generators(cfg, M, dev):
     return permutation
 
 
+@_fitter
 def fit_pointwise_many(model, params_stack, coords, target, cfg: FitConfig,
                        *, gt=None, track="gt",
                        permutation: Optional[Callable] = None, device=None):
@@ -1256,7 +1295,7 @@ def fit_pointwise_many(model, params_stack, coords, target, cfg: FitConfig,
 
     clock = _StepClock(dev, cfg.niters)
     t0 = time.time()
-    for epoch in range(cfg.niters):
+    for epoch in _epochs(0, cfg.niters):
         clock.tick(epoch)
         if full_batch:
             pred, grads, (sse_t, sse_g) = model.step_grads_many(
@@ -1272,13 +1311,14 @@ def fit_pointwise_many(model, params_stack, coords, target, cfg: FitConfig,
                 model.step_grads_many, opt, params, rec, rows_of, perm, U=U,
                 mp=mp, npad=npad, sort=cfg.sort_chunks, scratch=scratch,
                 offsets=offsets)
-        mse_noisy = sse_t * inv_nc
-        mse_gt = sse_g * inv_nc
-        hist_gt[epoch] = mse_gt
-        hist_noisy[epoch] = mse_noisy
-        tracked = mse_gt if track == "gt" else mse_noisy
-        best_mse, (best_rec, best_params) = _keep_best(
-            tracked, best_mse, (rec, params), (best_rec, best_params))
+        with profiling.span("trainer.tracking"):
+            mse_noisy = sse_t * inv_nc
+            mse_gt = sse_g * inv_nc
+            hist_gt[epoch] = mse_gt
+            hist_noisy[epoch] = mse_noisy
+            tracked = mse_gt if track == "gt" else mse_noisy
+            best_mse, (best_rec, best_params) = _keep_best(
+                tracked, best_mse, (rec, params), (best_rec, best_params))
     step_ms = clock.ms()
     wall = time.time() - t0
     return FitResult(
@@ -1288,6 +1328,7 @@ def fit_pointwise_many(model, params_stack, coords, target, cfg: FitConfig,
         best_mse=best_mse.cpu().numpy(), wall_time_s=wall, step_ms=step_ms)
 
 
+@_fitter
 def fit_frames_many(model, params_stack, frame_coords, frame_pixels,
                     frame_masks, cfg: FitConfig, *, hr_shape, scale,
                     batch_size=4, batched_frames=False,
@@ -1339,7 +1380,7 @@ def fit_frames_many(model, params_stack, frame_coords, frame_pixels,
 
     clock = _StepClock(dev, cfg.niters)
     t0 = time.time()
-    for epoch in range(cfg.niters):
+    for epoch in _epochs(0, cfg.niters):
         clock.tick(epoch)
         orders = torch.stack([  # (M, nbatches, bs)
             _sentinel_rows(permutation(nframes, r).to(dev), nframes, npad,
@@ -1360,11 +1401,13 @@ def fit_frames_many(model, params_stack, frame_coords, frame_pixels,
                 total = torch.sum(sq.reshape(M, -1).sum(1) / denom)
                 flat = torch.autograd.grad(total, leaves, allow_unused=True)
             opt.step(params, grads_tree(paths, leaves, flat))
-            loss = _replica_sums(sq.detach()) / denom
-            best_loss, best_params = _keep_best(loss, best_loss, params,
-                                                best_params)
+            with profiling.span("trainer.tracking"):
+                loss = _replica_sums(sq.detach()) / denom
+                best_loss, best_params = _keep_best(loss, best_loss, params,
+                                                    best_params)
             losses.append(loss)
-        hist[epoch] = torch.stack(losses).sum(0)
+        with profiling.span("trainer.tracking"):
+            hist[epoch] = torch.stack(losses).sum(0)
     step_ms = clock.ms()
     wall = time.time() - t0
     mse_hist = hist.cpu().numpy()
@@ -1374,6 +1417,7 @@ def fit_frames_many(model, params_stack, frame_coords, frame_pixels,
         best_mse=best_loss.cpu().numpy(), wall_time_s=wall, step_ms=step_ms)
 
 
+@_fitter
 def fit_operator_many(model, params_stack, coords, measurement, operator_fn,
                       cfg: FitConfig, *, gt_field=None, field_shape,
                       track="gt", batched_measurement=False, device=None):
@@ -1423,7 +1467,7 @@ def fit_operator_many(model, params_stack, coords, measurement, operator_fn,
 
     clock = _StepClock(dev, cfg.niters)
     t0 = time.time()
-    for it in range(cfg.niters):
+    for it in _epochs(0, cfg.niters):
         clock.tick(it)
         paths, leaves, p = grad_leaves(params)
         with torch.enable_grad():
@@ -1432,13 +1476,16 @@ def fit_operator_many(model, params_stack, coords, measurement, operator_fn,
             total = torch.sum(torch.mean(sq.reshape(M, -1), dim=1))
             flat = torch.autograd.grad(total, leaves, allow_unused=True)
         opt.step(params, grads_tree(paths, leaves, flat))
-        field = field.detach()
-        loss = _replica_means(sq.detach())
-        tracked = _replica_means((field - gt_arr) ** 2) if track_gt else loss
-        hist_loss[it] = loss
-        hist_tracked[it] = tracked
-        best_loss, (best_field, best_params) = _keep_best(
-            tracked, best_loss, (field, params), (best_field, best_params))
+        with profiling.span("trainer.tracking"):
+            field = field.detach()
+            loss = _replica_means(sq.detach())
+            tracked = (_replica_means((field - gt_arr) ** 2) if track_gt
+                       else loss)
+            hist_loss[it] = loss
+            hist_tracked[it] = tracked
+            best_loss, (best_field, best_params) = _keep_best(
+                tracked, best_loss, (field, params), (best_field,
+                                                      best_params))
     step_ms = clock.ms()
     wall = time.time() - t0
     return FitResult(
